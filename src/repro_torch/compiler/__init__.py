@@ -1,0 +1,201 @@
+"""Pattern-to-plan compiler: DwarvesGraph's compilation tier.
+
+The paper's headline design is *compilation-based* graph pattern mining:
+generate candidate algorithms for every decomposition choice, cost them
+with an accurate model, and ship the best one as an executable.  This
+package is that tier, as a pipeline of stages:
+
+    pattern set ──frontend──► candidate plan IR fragments
+                 (decomposition.candidates × homomorphism orders,
+                  CutJoin/Shrinkage decomposition joins)
+    fragments  ──costing───► winning joint plan
+                 (APCT cost model, cross-pattern CSE: shared quotient
+                  contractions scheduled once across the application)
+    plan IR    ──lowering──► executables on one device
+                 (CountingEngine einsum contractions, clique ordered
+                  enumeration, the CUDA join kernels)
+    plan IR    ──cache─────► keyed by (canonical pattern set, graph
+                  signature): compile once, execute many
+
+Vertex labels are first-class through every stage: labelled patterns
+generate the same candidate space (decomposition joins included — the
+label mask lives inside each CutJoin factor, so the |cut| <= 3 kernel
+tiers run unchanged), costing scales count bounds by label selectivity,
+and lowering binds the pattern's label indices to the bound graph's
+one-hot indicator rows at plan-bind time — one plan serves any graph
+with a compatible label alphabet (out-of-alphabet labels bind to the
+zero vector).
+
+``compile(patterns, graph)`` is the single entry point; it returns a
+``CompiledPlan`` whose ``.plan`` is the serializable IR (``to_json``,
+byte-compatible with the reference package's) and whose ``.count(p)`` /
+``.counts()`` execute it on the CUDA device (``device="cpu"`` to ask
+for the CPU).
+"""
+from __future__ import annotations
+
+import math
+from typing import Iterable, Optional, Union
+
+import numpy as np
+
+from repro_torch import device as _device
+from repro_torch.core.pattern import Pattern
+from repro_torch.graph.storage import Graph
+from repro_torch.compiler import costing, frontend
+from repro_torch.compiler.cache import PlanCache, config_compatible, plan_key
+from repro_torch.compiler.ir import Plan, local_key, pattern_key
+from repro_torch.compiler.lowering import CompiledPlan, lower, not_ported
+
+__all__ = ["compile", "Plan", "PlanCache", "CompiledPlan", "pattern_key",
+           "plan_key", "local_key", "default_cache", "config_compatible"]
+
+_DEFAULT_CACHE = PlanCache()
+
+
+def default_cache() -> PlanCache:
+    """The process-wide plan cache used when ``compile(cache=None)``."""
+    return _DEFAULT_CACHE
+
+
+def _label_fracs(patterns, graph):
+    """label -> vertex fraction of the bound graph, for selectivity
+    pricing; None unless a labelled pattern meets a labelled graph."""
+    if graph.labels is None or all(p.labels is None for p in patterns):
+        return None
+    counts = np.bincount(graph.labels, minlength=graph.num_labels)
+    return {l: counts[l] / max(graph.n, 1) for l in range(graph.num_labels)}
+
+
+def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
+            apct=None, counter=None, cache: Optional[PlanCache] = None,
+            budget: int = 1 << 27, max_cutjoin_cut: int = 3,
+            use_pallas: bool = False, cutjoin_kernel: bool = True,
+            domains: bool = False, local: bool = False,
+            verify: bool = True, mesh=None, morph=False,
+            device=None) -> CompiledPlan:
+    """Compile a pattern (or application pattern set) for one graph.
+
+    Cache hit: deserialise the stored plan and lower it (no search).
+    Cache miss: build candidates per pattern, pick the joint winner under
+    the shared-pool cost model, store the plan, lower it.
+
+    ``device=None`` binds the plan to the CUDA device and raises when
+    there is none; pass ``device="cpu"`` to run on the CPU.
+
+    ``max_cutjoin_cut=3`` (the default) emits decomposition-join
+    candidates up to the tri-join kernel tier: |cut| = 3 joins use the
+    axis-subset form (each factor spans only the cut vertices its
+    subpattern touches) and the cost model's factor-tensor budget
+    decides — per graph — whether a 3-D-factor formulation fits or the
+    selection falls back to pair-only / |cut| <= 2 / dense candidates.
+
+    ``cache=False`` disables caching; ``cache=None`` uses the process
+    cache.  ``apct``/``counter`` let callers share their profiling table
+    and hom memo with the compiled plan — the counter's materialised
+    hom/free-hom memos also feed costing, so re-compiles against a warm
+    engine prefer decompositions whose cut tensors already exist.
+    ``cutjoin_kernel=False`` keeps CutJoin on the dense f64
+    ``_join_reduce`` route.
+
+    ``verify=True`` (the default) statically verifies every freshly
+    assembled plan *before* it is cached or lowered
+    (``repro_torch.analysis.verify``): a frontend/costing bug that emits
+    malformed IR raises ``PlanVerifyError`` at compile time instead of
+    poisoning the cache, joins the degree bound precertifies skip the
+    runtime ``exact_block`` guard scan (``plan.meta["precert"]``), and
+    joins that could never take the kernel route are flagged to the
+    metrics registry (``analysis.always_refused``).
+
+    ``mesh=``, ``morph=``, ``use_pallas=True``, ``local=True`` and
+    ``domains=True`` are features of the reference package that are not
+    ported yet: each raises ``NotImplementedError`` naming its ROADMAP.md
+    queue item.  ``plan.meta`` still records ``mesh_devices: 1``,
+    ``domains: False`` and ``local: False``, so a plan serialised by
+    either package loads in the other.
+    """
+    if mesh is not None:
+        raise not_ported("mesh")
+    if morph is not False and morph is not None:
+        raise not_ported("morph")
+    if use_pallas:
+        raise not_ported("use_pallas")
+    if local or domains:
+        raise not_ported("local")
+    if isinstance(patterns, Pattern):
+        patterns = (patterns,)
+    patterns = tuple(patterns)
+    if not patterns:
+        raise ValueError("compile() needs at least one pattern")
+
+    if counter is not None:
+        budget = counter.budget              # cost exactly what will execute
+        device = counter.device
+    device = _device.resolve(device)
+    use_cache = cache is not False
+    if cache is None:
+        cache = _DEFAULT_CACHE
+    mesh_devices = 1
+    key = plan_key(patterns, graph)
+    if use_cache:
+        plan = cache.get(key)
+        # a stored plan is only valid under the compile configuration
+        # that selected it — budget, max_cutjoin_cut, and the execution
+        # mesh's device count (see cache.config_compatible); a
+        # cross-config hit recompiles instead of serving a plan the
+        # executor must refuse
+        if plan is not None and config_compatible(
+                plan, budget=budget, max_cutjoin_cut=max_cutjoin_cut,
+                mesh_devices=mesh_devices):
+            return lower(plan, graph, counter=counter, from_cache=True,
+                         budget=budget, cutjoin_kernel=cutjoin_kernel,
+                         device=device)
+
+    if apct is None:
+        from repro_torch.core.apct import APCT
+        apct = APCT(graph)
+    per_pattern = [(p, frontend.pattern_candidates(
+        p, graph_n=graph.n, budget=budget,
+        max_cutjoin_cut=max_cutjoin_cut)) for p in patterns]
+    label_fracs = _label_fracs(patterns, graph)
+    node_costs: dict = {}
+    selections, total_cost = costing.select_candidates(
+        per_pattern, apct, graph.n, budget, counter=counter,
+        label_fracs=label_fracs, node_costs=node_costs,
+        devices=mesh_devices, held=None)
+    plan = frontend.assemble(selections)
+    plan.meta.update({
+        "key": key,
+        "budget": budget,
+        "max_cutjoin_cut": max_cutjoin_cut,
+        "mesh_devices": mesh_devices,
+        "domains": False,
+        "local": False,
+        "estimated_cost": total_cost,
+        # per-node APCT predictions for committed nodes; uncommitted
+        # fallback nodes and inf-priced entries carry no prediction
+        "node_costs": {k: v for k, v in node_costs.items()
+                       if k in plan.nodes and math.isfinite(v)},
+        "styles": {pattern_key(p): cand.style for p, cand in selections},
+        "cuts": {pattern_key(p): sorted(cand.cut) if cand.cut else None
+                 for p, cand in selections},
+    })
+    if verify:
+        from repro_torch import analysis, obs
+        ginfo = analysis.GraphInfo.from_graph(graph)
+        # graph statistics ride in meta so cached plans re-verify their
+        # budget pass without the graph; the precert copy is advisory —
+        # lowering recomputes the certificate from the graph it actually
+        # binds, never trusting cached meta
+        plan.meta["graph_info"] = ginfo.to_dict()
+        result = analysis.verify(plan, graph_info=ginfo, budget=budget)
+        result.raise_if_failed()
+        plan.meta["precert"] = dict(result.precert)
+        for diag in result.warnings:
+            if diag.code == "always-refused":
+                obs.counter("analysis.always_refused")
+    if use_cache:
+        cache.put(key, plan)
+    return lower(plan, graph, counter=counter, from_cache=False,
+                 budget=budget, cutjoin_kernel=cutjoin_kernel,
+                 device=device)

@@ -1,0 +1,339 @@
+"""Lowering: plan IR -> executable closures over PyTorch/CUDA primitives.
+
+``CompiledPlan`` binds a serializable ``Plan`` to one input graph on one
+device and evaluates nodes on demand with per-node memoisation:
+
+* ``Contract``   -> ``CountingEngine.hom`` / ``hom_free_tensor`` (bucket
+                    elimination ``torch.einsum``s, f64, budget-chunked).
+                    Free cut tensors stay on the device: the join tier
+                    reads them where they lie;
+* ``Intersect``  -> degeneracy-ordered clique enumeration (host);
+* ``CutJoin``    -> the fused CUDA kernel tier for |cut| <= 3: the
+                    k-factor masked product-reduce (``kernels.ops.
+                    cutjoin_reduce``) for |cut| <= 2, the tri-join
+                    (``cutjoin_reduce3``) for |cut| = 3 — axis-subset
+                    factors read through stride-0 axes, pairwise-distinct
+                    mask from an index compare, so no O(n^|cut|) mask is
+                    ever materialised — with f32 partials over at most
+                    ``block`` cells folded into f64 inside the kernel.
+                    The chunk size comes from an exactness guard
+                    (``cutjoin_exact_block``) fed by per-factor max
+                    magnitudes cached on the plan: integer counts are
+                    only routed to f32 chunks the bound proves exact.
+                    The dense f64 ``_join_reduce`` (dense factor stack x
+                    explicit mask, axis-subset factors broadcast dense)
+                    remains the counted route for wider cuts /
+                    over-bound magnitudes / ``cutjoin_kernel=False``;
+* the combine ops run on host scalars.
+
+Node values memoise per plan *and* feed the engine's hom memo, so
+repeated queries against a compiled application never re-contract.
+
+Not ported yet (each raises ``NotImplementedError`` and names its
+ROADMAP.md queue item): the execution mesh, the morph count store, the
+fused triangle route of ``Intersect`` and the partial-embedding reads
+(``LocalCount`` nodes, ``local_counts`` / ``exists`` / ``domains`` /
+``mini_support``).  The reference's span-tracer hooks wait for the
+port of ``obs.trace``; every ``obs.counter`` is kept.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch import obs
+from repro_torch.core.counting import CountingEngine
+from repro_torch.core.pattern import Pattern, clique
+from repro_torch.graph.storage import Graph
+from repro_torch.compiler.ir import (Contract, CutJoin, Intersect, LocalCount,
+                                     MobiusCombine, Plan, ShrinkageCorrect,
+                                     free_skeleton, is_local_output)
+
+_NOT_PORTED = {
+    "mesh": "mesh= (sharded tier) is not ported yet — ROADMAP.md queue 1, "
+            "\"Sharded tier\"",
+    "morph": "morph= / count_store= (the morph count store) is not ported "
+             "yet — ROADMAP.md queue 1, \"compiler/morph.py\"",
+    "use_pallas": "use_pallas=True (the fused triangle route of Intersect) "
+                  "is not ported yet — ROADMAP.md queue 2, K6",
+    "local": "local=True / domains=True and the partial-embedding reads "
+             "(LocalCount, local_counts, exists, domains, mini_support) "
+             "are not ported yet — ROADMAP.md queue 1, \"LocalCount reads\"",
+}
+
+
+def not_ported(what: str):
+    return NotImplementedError(_NOT_PORTED[what])
+
+
+def _join_reduce(stack):
+    """Π of the stacked factor tensors (leading axis), then full sum."""
+    return torch.sum(torch.prod(stack, dim=0))
+
+
+class CompiledPlan:
+    """An executable application: one plan, one graph, one device."""
+
+    def __init__(self, plan: Plan, graph: Graph,
+                 counter: Optional[CountingEngine] = None,
+                 use_pallas: bool = False, from_cache: bool = False,
+                 budget: int = 1 << 27, cutjoin_kernel: bool = True,
+                 mesh=None, count_store=None, device=None):
+        if mesh is not None:
+            raise not_ported("mesh")
+        if count_store is not None:
+            raise not_ported("morph")
+        if use_pallas:
+            raise not_ported("use_pallas")
+        self.plan = plan
+        self.graph = graph
+        # a caller-supplied counter keeps its own device binding
+        self.counter = counter or CountingEngine(graph, budget=budget,
+                                                 device=device)
+        self.device = self.counter.device
+        self.cutjoin_kernel = cutjoin_kernel
+        self.from_cache = from_cache
+        self._values: Dict[str, object] = {}
+        self._masks: Dict[int, torch.Tensor] = {}
+        self._factors: Dict[tuple, torch.Tensor] = {}
+        self._factor_maxes: Dict[tuple, float] = {}
+        self._precert: Optional[Dict[str, int]] = None
+        # one record per evaluated join node: cut size, route, granted
+        # chunk, and whether the guard was precertified or scanned
+        self.join_log: list = []
+        self.stats = obs.StatsView(
+            "plan", keys=("node_evals", "node_hits", "exists_early_exits"))
+
+    # -- public API --------------------------------------------------------------
+    def count(self, p: Pattern) -> float:
+        """Edge-induced embedding count of one compiled pattern."""
+        return float(self.value(self.plan.output_for(p)))
+
+    def counts(self) -> dict:
+        """All compiled count outputs: canonical pattern key -> count."""
+        return {pk: float(self.value(nk))
+                for pk, nk in self.plan.outputs.items()
+                if not is_local_output(pk)}
+
+    def executable(self, p: Pattern):
+        """Zero-arg closure for one pattern (plan handle for callers that
+        dispatch queries later)."""
+        key = self.plan.output_for(p)
+        return lambda: float(self.value(key))
+
+    def has_local(self, p: Pattern, anchor: Optional[int] = None) -> bool:
+        raise not_ported("local")
+
+    def local_counts(self, p: Pattern, anchor: Optional[int] = None):
+        raise not_ported("local")
+
+    def exists(self, p: Pattern) -> bool:
+        raise not_ported("local")
+
+    def domains(self, p: Pattern) -> dict:
+        raise not_ported("local")
+
+    def mini_support(self, p: Pattern) -> int:
+        raise not_ported("local")
+
+    # -- evaluation --------------------------------------------------------------
+    def value(self, key: str):
+        if key in self._values:
+            self.stats["node_hits"] += 1
+            return self._values[key]
+        node = self.plan.nodes[key]
+        self.stats["node_evals"] += 1
+        val = self._eval(node)
+        self._values[key] = val
+        return val
+
+    def _eval(self, node):
+        if isinstance(node, Contract):
+            if node.free:
+                # decode the marker-encoded pattern: strips cut-rank
+                # markers, restores real vertex labels (label-masked
+                # contraction on labelled patterns)
+                skel = free_skeleton(node.pattern)
+                return self.counter.hom_free_tensor(skel, node.free,
+                                                    order=node.order)
+            return self.counter.hom(node.pattern, order=node.order or None)
+        if isinstance(node, Intersect):
+            return self.counter.hom(clique(node.k))
+        if isinstance(node, MobiusCombine):
+            acc = 0.0
+            for coeff, ref in node.terms:
+                acc += coeff * self.value(ref)
+            return acc / node.divisor
+        if isinstance(node, CutJoin):
+            return self._eval_cutjoin(node)
+        if isinstance(node, LocalCount):
+            return self._eval_local(node)
+        if isinstance(node, ShrinkageCorrect):
+            acc = self.value(node.base)
+            for mult, ref in node.corrections:
+                acc -= mult * self.value(ref)
+            return acc / node.divisor
+        raise TypeError(type(node))
+
+    def _eval_local(self, node: LocalCount):
+        raise not_ported("local")
+
+    def _combine(self, terms, ndim: int) -> torch.Tensor:
+        """One Möbius factor tensor Σ coeff · tensor(ref), f64, on the
+        device — treat the result as READ-ONLY.  Genuine combinations
+        memoise by term tuple (CutJoin nodes over the same cut share
+        them); a single identity term returns the node value itself —
+        duplicating every Contract tensor into a second (n,)*ndim tensor
+        would roughly double a long-lived plan's steady-state memory."""
+        if len(terms) == 1 and terms[0][0] == 1.0:
+            return self.value(terms[0][1])
+        key = (terms, ndim)
+        M = self._factors.get(key)
+        if M is None:
+            M = torch.zeros((self.graph.n,) * ndim, dtype=torch.float64,
+                            device=self.device)
+            for coeff, ref in terms:
+                M = M + coeff * self.value(ref)
+            self._factors[key] = M
+        return M
+
+    def _factor_max(self, terms, ndim: int, M) -> torch.Tensor:
+        """max|M| for the factor combined from ``terms``, as a 0-d device
+        tensor, memoised under the same key as ``_combine``: the
+        ``exact_block`` guard needs every factor's max magnitude on every
+        scanned kernel execution.  The reduction runs on the device;
+        ``_guard_block`` moves all of a join's maxima in one transfer."""
+        key = (terms, ndim)
+        v = self._factor_maxes.get(key)
+        if v is None:
+            v = (M.abs().max() if M.numel()
+                 else torch.zeros((), dtype=M.dtype, device=M.device))
+            self._factor_maxes[key] = v
+        return v
+
+    def _join_factors(self, node):
+        """(factors, axes) of a CutJoin node: each factor combined over
+        its *own* axis subset (axis-subset factors stay at their own
+        size).  Max magnitudes are *not* scanned here — the exactness
+        guard (``_guard_block``) only pays for them when no static
+        certificate covers the node, and the dense route never needs
+        them at all."""
+        axes = node.factor_axes()
+        Ms = [self._combine(terms, len(ax))
+              for terms, ax in zip(node.factors, axes)]
+        return Ms, axes
+
+    def _precertified(self) -> Dict[str, int]:
+        """Statically certified ``exact_block`` chunks, computed once
+        per compiled plan from the *bound graph* — never trusted from
+        ``plan.meta`` (a corrupted cached certificate would silently
+        break kernel exactness; recomputing from the graph the plan is
+        actually bound to costs microseconds and is always sound)."""
+        if self._precert is None:
+            from repro_torch import analysis
+            self._precert = analysis.precertify(
+                self.plan, analysis.GraphInfo.from_graph(self.graph))
+        return self._precert
+
+    def _guard_block(self, node, Ms, axes):
+        """The ``exact_block`` guard for one join: (block, how).
+        Precertified nodes trust the static certificate — no factor
+        scan and no device→host transfer; everything else reduces each
+        factor's max magnitude on the device and moves them together."""
+        from repro_torch.kernels import ops
+        static = self._precertified().get(node.key)
+        if static is not None:
+            block = ops.runtime_block(static)
+            obs.counter("kernel.exact_block", outcome="precertified")
+            return block, "precertified"
+        maxes = torch.stack([self._factor_max(terms, len(ax), M)
+                             for terms, M, ax in zip(node.factors, Ms, axes)]
+                            ).tolist()
+        return ops.cutjoin_exact_block(Ms, maxes=maxes), "scanned"
+
+    def _dense_expand(self, Ms, axes, k: int):
+        """Broadcast axis-subset factors to the full (n,)*k cut grid —
+        the dense route only; the kernel tier never calls this.
+        Costing admits |cut| >= 3 joins by their *factor* sizes
+        (pair-only formulations stay eligible where n^k doesn't fit),
+        so the dense route must refuse rather than materialise the
+        n^k stack + mask the budget never approved — ``PlanTooWide``
+        sends callers down their legacy fallback path."""
+        from repro_torch.core.homomorphism import PlanTooWide
+        n = self.graph.n
+        if k >= 3 and n ** k > 4 * self.counter.budget:
+            raise PlanTooWide(
+                f"dense |cut| = {k} fallback would materialise "
+                f"{n ** k:.2e}-element factors/mask beyond the cap "
+                f"(kernel guard refused or cutjoin_kernel=False)")
+        out = []
+        for M, ax in zip(Ms, axes):
+            if len(ax) == k:
+                out.append(M)
+                continue
+            shape = tuple(n if a in ax else 1 for a in range(k))
+            out.append(M.reshape(shape).expand((n,) * k))
+        return out
+
+    def _eval_cutjoin(self, node: CutJoin) -> float:
+        Ms, axes = self._join_factors(node)
+        rec = {"node": node.key, "cut": node.cut_size,
+               "factor_shapes": [list(M.shape) for M in Ms],
+               "route": "dense-f64", "block": None, "guard": None}
+        self.join_log.append(rec)
+        if self.cutjoin_kernel and node.cut_size <= 3:
+            from repro_torch.kernels import ops
+            block, how = self._guard_block(node, Ms, axes)
+            rec.update(block=block, guard=how)
+            if block is not None:            # f32 chunks provably exact
+                rec["route"] = "kernel"
+                if node.cut_size <= 2:
+                    return ops.cutjoin_reduce(Ms,
+                                              distinct=node.cut_size >= 2,
+                                              block=block)
+                return ops.cutjoin_reduce3(Ms, axes, n=self.graph.n,
+                                           block=block)
+            # factor magnitudes exceed what chunked f32 can represent
+            # exactly: fall through to the f64 dense join
+            obs.counter("cutjoin.kernel_fallbacks", cut=node.cut_size)
+        Ms = self._dense_expand(Ms, axes, node.cut_size)
+        if node.cut_size >= 2:               # injectivity of the cut tuple
+            Ms.append(self._mask(node.cut_size))
+        return _join_reduce(torch.stack(Ms)).item()
+
+    def _mask(self, k: int) -> torch.Tensor:
+        """Π_{a<b} [x_a != x_b] over a (n,)*k grid, f64 on the device."""
+        if k not in self._masks:
+            n = self.graph.n
+            mask = torch.ones((n,) * k, dtype=torch.float64,
+                              device=self.device)
+            off = 1.0 - torch.eye(n, dtype=torch.float64,
+                                  device=self.device)
+            for a in range(k):
+                for b in range(a + 1, k):
+                    shape = [1] * k
+                    shape[a] = shape[b] = n
+                    mask = mask * off.reshape(shape)
+            self._masks[k] = mask
+        return self._masks[k]
+
+
+def lower(plan: Plan, graph: Graph, *, counter=None, use_pallas=False,
+          from_cache=False, budget: int = 1 << 27,
+          cutjoin_kernel: bool = True, verify: bool = False,
+          mesh=None, count_store=None, device=None) -> CompiledPlan:
+    """Bind a plan to a graph on ``device`` (None: the CUDA device).
+    ``verify=True`` runs the static verifier against this graph first and
+    raises ``PlanVerifyError`` instead of binding a malformed plan — for
+    plans that arrived from outside ``compiler.compile`` (hand-built,
+    deserialized, mutated), which already verifies what it commits."""
+    if verify:
+        from repro_torch import analysis
+        analysis.verify(
+            plan, graph_info=analysis.GraphInfo.from_graph(graph),
+            budget=budget).raise_if_failed()
+    return CompiledPlan(plan, graph, counter=counter, use_pallas=use_pallas,
+                        from_cache=from_cache, budget=budget,
+                        cutjoin_kernel=cutjoin_kernel, mesh=mesh,
+                        count_store=count_store, device=device)

@@ -1,0 +1,379 @@
+"""Fused masked product-reduce kernels behind the compiler's ``CutJoin``.
+
+``prod_reduce``  Σ_x Π_i F_i[x] over (n,) factors (|cut| = 1, no mask —
+                 a single cut vertex is always injective), or
+                 Σ_{x,y} [gx≠gy] · Π_i F_i[x,y] over (m, n) factors
+                 (|cut| = 2; rectangular slices allowed).
+``tri_reduce``   Σ_{x,y,z pairwise distinct} Π_i F_i, where factor i spans
+                 a sorted subset ``axes[i]`` of the three cut axes —
+                 (n,) vectors, (n, n) pair tensors or full (n, n, n)
+                 tensors — and broadcasts over the rest.  Nothing is
+                 expanded in memory and no O(n^|cut|) mask is built: the
+                 mask is an index compare inside the kernel.
+
+These replace the reference package's ``_vecjoin_tiles``,
+``_pairjoin_tiles`` and ``_trijoin_tiles``
+(``src/repro/kernels/matreduce.py``).  On a CUDA tensor they launch the
+hand-written kernels of ``csrc/cutjoin.cu`` (compiled at first use, see
+``kernels.build``); the source says what bounds each on the card and
+what its design does about it.  On a CPU tensor — and only because the
+tensor lies on the CPU — they take the plain PyTorch versions
+``prod_reduce_plain`` / ``tri_reduce_plain`` in this module.  A CUDA
+tensor never reaches a plain version through a wrapper.
+
+**Arithmetic contract.**  Factors are integer-valued f64 (read directly,
+converted to f32 in registers).  Products are f32; an f32 partial sum
+accumulates at most ``block`` cells before it is folded into f64.  For
+factors that ``exact_block`` admits with that ``block`` every f32 value
+is an integer below 2^24, so the result is integer-equal to the f64
+dense join.  ``block`` is a loop bound, not a tile shape.
+
+**Global index offsets.**  ``offsets`` (one int per cut axis, default
+zeros) is added to the local indices before the injectivity compare, so
+a caller holding only a *slice* of the factors passes its global start
+and the mask still compares global cut vertices.
+
+**Tile-level entries.**  ``prod_reduce_tiles`` / ``tri_reduce_tiles``
+return the f64 partials tensor on the factors' device without the final
+sum — a sharded caller sums partials of per-rank slices itself.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build as _build
+
+EXACT_LIMIT = float(1 << 24)                 # f32 exact-integer range
+
+# kernel launches per tier, counted where the kernel is launched and
+# nowhere else (plain-version calls do not count)
+launches = {"vecjoin": 0, "pairjoin": 0, "trijoin": 0}
+
+_SOURCES = ("cutjoin.cu",)
+_ENTRY = {"vecjoin": "cutjoin_vec", "pairjoin": "cutjoin_pair",
+          "trijoin": "cutjoin_tri"}
+_TARGET_BLOCKS = 2048        # thread blocks wanted before axis 1 stops splitting
+_MIN_SPAN = 32               # fewest axis-1 cells one thread block walks
+_PLAIN_SLAB = 1 << 27        # cells per slab of the plain tri version
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+# -- the exactness guard ---------------------------------------------------------
+
+def exact_block(factors, max_block: int = 1024, min_block: int = 8,
+                maxes=None):
+    """Largest power-of-two chunk size whose f32 partial sums stay exact
+    for integer-valued ``factors``.  A chunk accumulates ``b`` cells, so
+    every partial is an integer bounded by (Π_i max|F_i|) · b, and
+    integers up to 2^24 are exactly representable in f32.  ``maxes``
+    supplies precomputed per-factor max magnitudes (plans cache them)
+    so repeated executions skip the scan; without it the maxima reduce
+    on the factors' device and come back in one transfer.  Returns None
+    when even a ``min_block`` chunk cannot guarantee exactness — callers
+    should take an f64 path instead."""
+    maxprod = 1.0
+    if maxes is None:
+        maxes = torch.stack([torch.as_tensor(F).abs().max().double()
+                             for F in factors]).tolist() if factors else []
+    for m in maxes:
+        maxprod *= float(m)
+    b = max_block
+    while b >= min_block:
+        if maxprod * b <= EXACT_LIMIT:
+            return b
+        b //= 2
+    return None
+
+
+# -- launch plumbing --------------------------------------------------------------
+
+_LIB = None
+
+
+def _lib():
+    """The compiled kernel library, built and bound at first use."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("cutjoin", _SOURCES)
+        P, I = ctypes.c_void_p, ctypes.c_int
+        for entry in _ENTRY.values():
+            fn = getattr(lib, entry)
+            fn.argtypes = [P, P, I, I, I, I, I, I, I, I, I, I, I, I, P,
+                           I, I, I, P]
+            fn.restype = I
+        for q in ("cutjoin_tx_tri", "cutjoin_max_factors",
+                  "cutjoin_threads"):
+            getattr(lib, q).argtypes = []
+            getattr(lib, q).restype = I
+        _LIB = lib
+    return _LIB
+
+
+def _offsets(offsets, naxes: int):
+    if offsets is None:
+        return (0,) * naxes
+    if isinstance(offsets, torch.Tensor):
+        offsets = offsets.tolist()
+    off = tuple(int(o) for o in offsets)
+    if len(off) != naxes:
+        raise ValueError(f"offsets {off} for {naxes} cut axes")
+    return off
+
+
+def _as_factors(factors):
+    out = [torch.as_tensor(F) for F in factors]
+    if not out:
+        raise ValueError("a join needs at least one factor")
+    if any(F.device != out[0].device for F in out):
+        raise ValueError("factors lie on different devices")
+    return out
+
+
+def _fold_surplus(entries, cap: int):
+    """More factors than the kernel's table holds: multiply two that span
+    the same axes, elementwise in f64 — exact, the product of integer
+    factors the guard admits is an integer far below 2^53.  Among more
+    than seven factors two always share one of the seven axis subsets."""
+    entries = list(entries)
+    while len(entries) > cap:
+        seen = {}
+        for i, (F, ax) in enumerate(entries):
+            if ax in seen:
+                j = seen[ax]
+                entries[j] = (entries[j][0] * F, ax)
+                del entries[i]
+                break
+            seen[ax] = i
+        else:
+            raise ValueError("no two factors share an axis subset")
+    return entries
+
+
+def _launch(kind: str, entries, sizes, masked: bool, off3, block: int):
+    """Launch one tier on CUDA factors.  ``entries``: (tensor, axes) with
+    ``axes`` the sorted kernel axes (0, 1, 2) the tensor's dims map to;
+    ``sizes``: (n0, n1, n2).  Returns the (blocks,) f64 partials."""
+    lib = _lib()
+    threads, tx = lib.cutjoin_threads(), lib.cutjoin_tx_tri()
+    entries = [(F if F.dtype == torch.float64 else F.double(), ax)
+               for F, ax in entries]
+    entries = _fold_surplus(entries, lib.cutjoin_max_factors())
+    # group order the kernel expects: [A: no axis 0 | B: axes 0 and 1 |
+    # C: axis 0 without axis 1]
+    group = lambda ax: 0 if 0 not in ax else (1 if 1 in ax else 2)
+    entries.sort(key=lambda e: group(e[1]))
+    na = sum(group(ax) == 0 for _, ax in entries)
+    nb = sum(group(ax) == 1 for _, ax in entries)
+    nf = len(entries)
+    strides = []
+    for F, ax in entries:
+        if not F.is_cuda or F.ndim != len(ax) or \
+                any(F.shape[d] != sizes[a] for d, a in enumerate(ax)):
+            raise ValueError(f"factor {tuple(F.shape)} on {F.device} does "
+                             f"not span axes {ax} of {sizes} on the card")
+        st = [0, 0, 0]
+        for d, a in enumerate(ax):
+            st[a] = F.stride(d)
+        strides.extend(st)
+    n0, n1, n2 = (int(s) for s in sizes)
+    if not (1 <= min(n0, n1, n2) and max(n0, n1, n2) < (1 << 30)) \
+            or int(block) < 1:
+        raise ValueError(f"sizes {sizes} / block {block} out of range")
+    gx = -(-n2 // threads)
+    gy = -(-n0 // (tx if kind == "trijoin" else 1))
+    want_z = max(1, -(-_TARGET_BLOCKS // (gx * gy)))
+    span1 = max(-(-n1 // want_z), min(_MIN_SPAN, n1))
+    gz = -(-n1 // span1)
+    if gy > 65535 or gz > 65535:
+        raise ValueError(f"grid ({gx}, {gy}, {gz}) exceeds the launch limits")
+    dev = entries[0][0].device
+    partials = torch.empty((gx * gy * gz,), dtype=torch.float64, device=dev)
+    ptrs = (ctypes.c_void_p * nf)(*[F.data_ptr() for F, _ in entries])
+    strd = (ctypes.c_longlong * (3 * nf))(*strides)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, _ENTRY[kind])(
+            ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.cast(strd, ctypes.c_void_p), nf, na, nb, n0, n1, n2,
+            span1, int(block), int(bool(masked)), off3[0], off3[1], off3[2],
+            partials.data_ptr(), gx, gy, gz, stream)
+    if err != 0:
+        raise RuntimeError(f"{_ENTRY[kind]} launch failed: CUDA error {err}")
+    launches[kind] += 1
+    return partials
+
+
+# -- plain PyTorch versions --------------------------------------------------------
+
+def _chunk_sums(prod, dim: int, block: int):
+    """f32 sums of ``prod`` along ``dim`` in chunks of at most ``block``
+    cells, returned flattened in f64."""
+    n = prod.shape[dim]
+    full = (n // block) * block
+    parts = []
+    if full:
+        head = prod.narrow(dim, 0, full)
+        shape = list(head.shape)
+        shape[dim:dim + 1] = [full // block, block]
+        parts.append(head.reshape(shape).sum(dim + 1).double().reshape(-1))
+    if full < n:
+        parts.append(prod.narrow(dim, full, n - full).sum(dim).double()
+                     .reshape(-1))
+    return torch.cat(parts)
+
+
+def _prod_partials_plain(factors, distinct, block, offsets):
+    factors = _as_factors(factors)
+    prod = factors[0].to(torch.float32)
+    for F in factors[1:]:
+        prod = prod * F.to(torch.float32)
+    if prod.ndim == 1:
+        return prod.double()                 # one cell per partial
+    assert prod.ndim == 2
+    if distinct:
+        off = _offsets(offsets, 2)
+        gx = torch.arange(prod.shape[0], device=prod.device) + off[0]
+        gy = torch.arange(prod.shape[1], device=prod.device) + off[1]
+        prod = prod.masked_fill(gx[:, None] == gy[None, :], 0.0)
+    return _chunk_sums(prod, 0, block)
+
+
+def prod_reduce_plain(factors, *, distinct: bool = True, block: int = 128,
+                      offsets=None) -> float:
+    """Plain PyTorch version of ``prod_reduce``: f32 product, f32 sums
+    over at most ``block`` cells, mask from ``arange`` + offsets, f64
+    finish."""
+    return _prod_partials_plain(factors, distinct, block,
+                                offsets).sum().item()
+
+
+def _tri_sizes(n):
+    return (n, n, n) if isinstance(n, int) else tuple(int(s) for s in n)
+
+
+def _tri_check(factors, axes, sizes):
+    factors = _as_factors(factors)
+    axes = [tuple(ax) for ax in axes]
+    if len(axes) != len(factors):
+        raise ValueError(f"{len(factors)} factors but {len(axes)} axis sets")
+    for F, ax in zip(factors, axes):
+        if ax != tuple(sorted(set(ax))) or not set(ax) <= {0, 1, 2}:
+            raise ValueError(f"axes {ax}: want a sorted subset of (0, 1, 2)")
+        if F.ndim != len(ax) or \
+                any(F.shape[d] != sizes[a] for d, a in enumerate(ax)):
+            raise ValueError(f"factor {tuple(F.shape)} does not span axes "
+                             f"{ax} of {sizes}")
+    return factors, axes
+
+
+def _tri_partials_plain(factors, axes, n, distinct, block, offsets):
+    sizes = _tri_sizes(n)
+    factors, axes = _tri_check(factors, axes, sizes)
+    n0, n1, n2 = sizes
+    dev = factors[0].device
+    off = _offsets(offsets, 3)
+    views = [F.to(torch.float32).reshape(
+        tuple(sizes[a] if a in ax else 1 for a in range(3)))
+        for F, ax in zip(factors, axes)]
+    gy = (torch.arange(n1, device=dev) + off[1]).view(1, n1, 1)
+    gz = (torch.arange(n2, device=dev) + off[2]).view(1, 1, n2)
+    bx = max(1, min(n0, _PLAIN_SLAB // max(n1 * n2, 1)))
+    parts = []
+    for x0 in range(0, n0, bx):
+        bw = min(bx, n0 - x0)
+        prod = torch.ones((1, 1, 1), dtype=torch.float32, device=dev)
+        for V, ax in zip(views, axes):
+            prod = prod * (V.narrow(0, x0, bw) if 0 in ax else V)
+        prod = prod.expand(bw, n1, n2)
+        if distinct:
+            gx = (torch.arange(x0, x0 + bw, device=dev) + off[0]) \
+                .view(bw, 1, 1)
+            prod = prod.masked_fill((gx == gy) | (gx == gz) | (gy == gz),
+                                    0.0)
+        parts.append(_chunk_sums(prod, 1, block).sum())
+    return torch.stack(parts)
+
+
+def tri_reduce_plain(factors, axes, *, n, distinct: bool = True,
+                     block: int = 128, offsets=None) -> float:
+    """Plain PyTorch version of ``tri_reduce``: slabs of axis 0, f32
+    broadcast product, f32 sums over at most ``block`` cells of axis 1,
+    mask from ``arange`` + offsets, f64 finish."""
+    return _tri_partials_plain(factors, axes, n, distinct, block,
+                               offsets).sum().item()
+
+
+# -- the wrappers -------------------------------------------------------------------
+
+def prod_reduce_tiles(factors, *, distinct: bool = True, block: int = 128,
+                      offsets=None) -> torch.Tensor:
+    """f64 partials of ``prod_reduce`` on the factors' device; their sum
+    is the join.  Factors all (n,) or all (m, n)."""
+    factors = _as_factors(factors)
+    ndim = factors[0].ndim
+    if ndim not in (1, 2) or any(F.shape != factors[0].shape
+                                 for F in factors):
+        raise ValueError("factors must all be (n,) or all be (m, n): "
+                         f"{[tuple(F.shape) for F in factors]}")
+    if not factors[0].is_cuda:
+        return _prod_partials_plain(factors, distinct, block, offsets)
+    if factors[0].numel() == 0:
+        return torch.zeros((1,), dtype=torch.float64,
+                           device=factors[0].device)
+    if ndim == 1:                            # |cut| = 1: no mask, no offsets
+        n = factors[0].shape[0]
+        return _launch("vecjoin", [(F, (2,)) for F in factors], (1, 1, n),
+                       False, (0, 0, 0), block)
+    m, n = factors[0].shape
+    off = _offsets(offsets, 2)
+    return _launch("pairjoin", [(F, (1, 2)) for F in factors], (1, m, n),
+                   distinct, (0, off[0], off[1]), block)
+
+
+def prod_reduce(factors, *, distinct: bool = True, block: int = 128,
+                offsets=None) -> float:
+    """Σ over index tuples of Π_i F_i, factors all (n,) or all (m, n).
+
+    ``distinct`` (2-D only) restricts the sum to cells whose global row
+    and column differ — the |cut| = 2 injectivity constraint.  Exact for
+    integer-valued factors that ``exact_block`` admits with ``block``.
+    ``offsets`` gives the factors' global start index per cut axis
+    (sliced callers only; the 1-D path has no mask and ignores them).
+    One device→host transfer: the final scalar."""
+    return prod_reduce_tiles(factors, distinct=distinct, block=block,
+                             offsets=offsets).sum().item()
+
+
+def tri_reduce_tiles(factors, axes, *, n, distinct: bool = True,
+                     block: int = 128, offsets=None) -> torch.Tensor:
+    """f64 partials of ``tri_reduce`` on the factors' device.  ``n`` is the
+    cut-axis length, or a (n0, n1, n2) triple for a sliced caller."""
+    sizes = _tri_sizes(n)
+    factors, axes = _tri_check(factors, axes, sizes)
+    if not factors[0].is_cuda:
+        return _tri_partials_plain(factors, axes, sizes, distinct, block,
+                                   offsets)
+    if min(sizes) == 0:
+        return torch.zeros((1,), dtype=torch.float64,
+                           device=factors[0].device)
+    return _launch("trijoin", list(zip(factors, axes)), sizes, distinct,
+                   _offsets(offsets, 3), block)
+
+
+def tri_reduce(factors, axes, *, n, distinct: bool = True, block: int = 128,
+               offsets=None) -> float:
+    """Σ over (pairwise-distinct) index triples of Π_i F_i, where factor
+    i spans only the cut axes ``axes[i]`` (a sorted subset of (0, 1, 2))
+    and broadcasts along the rest — the |cut| = 3 decomposition join.
+    Axes no factor covers still count: every cell of the n^3 grid that
+    passes the mask contributes the product.  Each f32 partial
+    accumulates at most ``block`` cells, so ``exact_block`` certifies the
+    same bound as for the pair tier."""
+    return tri_reduce_tiles(factors, axes, n=n, distinct=distinct,
+                            block=block, offsets=offsets).sum().item()

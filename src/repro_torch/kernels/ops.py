@@ -1,0 +1,73 @@
+"""Public wrappers for the join kernels: defaults, route counters, guard.
+
+Counter names and labels (``kernel.calls``, ``kernel.exact_block``) are
+the reference package's, so route counters compare one-to-one.
+"""
+from __future__ import annotations
+
+from repro_torch import obs
+from repro_torch.kernels import matreduce as _mr
+
+# The largest chunk the guard grants.  ``block`` is only a loop bound in
+# the kernels, so one cap serves the card and the CPU alike, and it is
+# the cap ``analysis.verify.precertify`` certifies against.
+MAX_BLOCK = 1024
+
+
+def cutjoin_reduce(factors, *, distinct=True, block=None,
+                   offsets=None) -> float:
+    """The decomposition join Σ_{e_c} Π_i M_i(e_c) as a fused kernel.
+
+    ``factors`` is a sequence of equal-shape cut tensors: (n,) vectors for
+    |cut| = 1 (``distinct`` is moot — one vertex is always injective) or
+    (m, n) matrices for |cut| = 2, where ``distinct`` applies the
+    off-diagonal injectivity mask in-kernel from the cell's indices.
+    ``block`` bounds the cells one f32 partial accumulates; take it from
+    ``cutjoin_exact_block`` so integer counts stay exact.  ``offsets``
+    gives the factors' global start index per cut axis when the caller
+    holds only a slice.
+    """
+    if block is None:
+        block = MAX_BLOCK
+    obs.counter("kernel.calls", op="cutjoin_reduce",
+                cut=2 if getattr(factors[0], "ndim", 2) == 2 else 1)
+    return _mr.prod_reduce(factors, distinct=distinct, block=block,
+                           offsets=offsets)
+
+
+def cutjoin_reduce3(factors, axes, *, n, distinct=True, block=None,
+                    offsets=None) -> float:
+    """The |cut| = 3 decomposition join Σ_{e_c pairwise distinct} Π_i
+    M_i(e_c) as a fused kernel.
+
+    ``factors[i]`` spans only the cut axes ``axes[i]`` (a sorted subset
+    of (0, 1, 2)): (n,) vectors, (n, n) pair tensors, or full (n, n, n)
+    tensors.  Axis-subset factors are read through stride-0 axes inside
+    the kernel — they are never expanded to 3-D — and the pairwise-
+    distinct mask is an index compare, so nothing O(n³) is materialised
+    beyond whatever genuinely 3-D factors the caller already holds.
+    """
+    if block is None:
+        block = MAX_BLOCK
+    obs.counter("kernel.calls", op="cutjoin_reduce3", cut=3)
+    return _mr.tri_reduce(factors, axes, n=n, distinct=distinct,
+                          block=block, offsets=offsets)
+
+
+def runtime_block(block: int) -> int:
+    """Clamp a statically certified ``exact_block`` chunk to the cap
+    ``cutjoin_exact_block`` applies.  A smaller chunk is always at least
+    as exact, so clamping preserves the guarantee."""
+    return min(int(block), MAX_BLOCK)
+
+
+def cutjoin_exact_block(factors, *, maxes=None):
+    """Chunk size for which ``cutjoin_reduce`` / ``cutjoin_reduce3`` is
+    exact on the given integer-valued factors, or None when no f32
+    chunking can guarantee it (callers should use an f64 path).
+    ``maxes`` passes cached per-factor max magnitudes so plans skip the
+    factor scan (see ``matreduce.exact_block``)."""
+    block = _mr.exact_block(factors, max_block=MAX_BLOCK, maxes=maxes)
+    obs.counter("kernel.exact_block",
+                outcome="granted" if block is not None else "refused")
+    return block

@@ -1,0 +1,136 @@
+"""The port stands alone: no import of ``jax`` or of the reference package
+``repro`` anywhere in ``src/repro_torch`` or ``chip_smoke.py``, the device
+policy raises rather than picking the CPU, and the smoke script fails
+where there is no card.  Nothing numeric is compared here (the files
+beside this one compare with tolerance 0: exact equality of integers
+held in f64).
+"""
+import ast
+import functools
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module.split(".")[0], node.lineno
+
+
+def test_port_has_the_expected_modules():
+    names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    for want in ("device.py", "interop.py", "obs/metrics.py",
+                 "graph/storage.py", "graph/generators.py",
+                 "core/pattern.py", "core/quotient.py",
+                 "core/decomposition.py", "core/motifs.py",
+                 "core/homomorphism.py", "core/cliques.py",
+                 "core/counting.py", "core/apct.py", "core/cost_model.py",
+                 "kernels/matreduce.py", "kernels/ops.py", "kernels/build.py",
+                 "compiler/ir.py", "compiler/frontend.py",
+                 "compiler/costing.py", "compiler/cache.py",
+                 "compiler/lowering.py", "compiler/__init__.py",
+                 "analysis/verify.py", "analysis/__init__.py"):
+        assert want in names, want
+    assert (PORT / "kernels" / "csrc" / "cutjoin.cu").is_file()
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_of_jax_or_the_reference_package(path):
+    bad = [(name, line) for name, line in _imported_roots(path)
+           if name in FORBIDDEN]
+    assert not bad, f"{path}: forbidden imports {bad}"
+
+
+def _run(code: str, **env):
+    full_env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **env)
+    return subprocess.run([sys.executable, "-c", code], env=full_env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_importing_the_compiler_pulls_in_neither_jax_nor_repro():
+    proc = _run(
+        "import sys\n"
+        "import repro_torch.compiler, repro_torch.kernels.ops, "
+        "repro_torch.analysis, repro_torch.interop\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "assert 'torch' in sys.modules\n"
+        "sys.exit(1 if bad else 0)\n")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_device_none_raises_without_cuda(monkeypatch):
+    from repro_torch import compiler, device
+    from repro_torch.core.counting import CountingEngine
+    from repro_torch.core.pattern import cycle
+    from repro_torch.graph.generators import erdos_renyi
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = erdos_renyi(12, 3.0, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device.resolve(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compiler.compile(cycle(4), g, cache=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CountingEngine(g)
+    assert device.resolve("cpu").type == "cpu"
+    assert CountingEngine(g, device="cpu").device.type == "cpu"
+
+
+def test_device_policy_has_no_quiet_cpu_branch():
+    """``is_available`` may only decide whether to raise, never a device:
+    the one place that reads it is ``device.resolve``."""
+    readers = [p for p in PORT.rglob("*.py")
+               if "is_available" in p.read_text()]
+    assert [p.name for p in readers] == ["device.py"]
+
+
+def test_kernel_modules_import_without_a_compiler_and_build_nothing():
+    proc = _run(
+        "import repro_torch.kernels.matreduce as m, "
+        "repro_torch.kernels.build as b\n"
+        "assert m._LIB is None and not b._LIBS\n"
+        "assert m.launches == {'vecjoin': 0, 'pairjoin': 0, 'trijoin': 0}\n",
+        PATH="/nonexistent")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_fails_where_there_is_no_card():
+    try:
+        has_card = torch.cuda.is_available()
+    except Exception:                                  # pragma: no cover
+        has_card = False
+    if has_card:
+        pytest.skip("a CUDA card is present: chip_smoke.py would succeed")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=str(ROOT))
+    assert proc.returncode != 0
+    lines = proc.stdout.strip().splitlines()
+    assert not lines or '"ok"' not in lines[-1]
+
+
+def test_reference_shim_did_not_outlive_its_fixture():
+    """Whatever jax offers on its own is what other test files see: the
+    shared fixture's stand-in for ``jax.experimental.enable_x64`` is
+    removed at module teardown."""
+    import jax
+    attr = getattr(jax.experimental, "enable_x64", None)
+    assert not isinstance(attr, functools.partial)

@@ -1,0 +1,287 @@
+"""Join kernels of the port vs the reference's interpret-mode kernels.
+
+On the CPU the port's wrappers take the kernels' plain PyTorch versions
+(the CUDA kernels themselves are held against those on the card by
+``chip_smoke.py``).  Here the plain versions and the ``ops`` wrappers are
+held against ``repro.kernels.ops.cutjoin_reduce`` / ``cutjoin_reduce3``
+run with ``interpret=True``, and against a dense f64 numpy oracle, on
+the same seeded integer-valued factors.  Tolerance is **0**: exact
+equality, since every quantity is an integer held in f64 and every case
+stays within the ``exact_block`` guard.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import obs as tobs
+from repro_torch.kernels import matreduce as tmr
+from repro_torch.kernels import ops as tops
+
+from test_torch_reference import reference  # noqa: F401  (shared fixture)
+
+BLOCKS = (8, 128, 1024)
+SIZES = (24, 130, 200)
+
+
+def _hi(nf: int, block: int) -> int:
+    """Largest factor magnitude the guard admits: hi^nf * block <= 2^24."""
+    hi = int((tmr.EXACT_LIMIT / block) ** (1.0 / nf))
+    while (hi + 1) ** nf * block <= tmr.EXACT_LIMIT:
+        hi += 1
+    while hi ** nf * block > tmr.EXACT_LIMIT:
+        hi -= 1
+    return hi
+
+
+def _factors(seed, shapes, hi):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(-hi, hi + 1, size=s).astype(np.float64)
+            for s in shapes]
+
+
+def _t(fs):
+    return [torch.from_numpy(F) for F in fs]
+
+
+def _pair_oracle(fs, distinct, offsets=(0, 0)):
+    prod = np.prod(np.stack(fs), axis=0)
+    if distinct and prod.ndim == 2:
+        gx = np.arange(prod.shape[0]) + offsets[0]
+        gy = np.arange(prod.shape[1]) + offsets[1]
+        prod = np.where(gx[:, None] == gy[None, :], 0.0, prod)
+    return float(prod.sum())
+
+
+def _tri_oracle(fs, axes, sizes, distinct, offsets=(0, 0, 0)):
+    prod = np.ones(sizes)
+    for F, ax in zip(fs, axes):
+        prod = prod * F.reshape(tuple(sizes[a] if a in ax else 1
+                                      for a in range(3)))
+    if distinct:
+        x = (np.arange(sizes[0]) + offsets[0])[:, None, None]
+        y = (np.arange(sizes[1]) + offsets[1])[None, :, None]
+        z = (np.arange(sizes[2]) + offsets[2])[None, None, :]
+        prod = np.where((x == y) | (x == z) | (y == z), 0.0, prod)
+    return float(prod.sum())
+
+
+# -- |cut| = 1 and 2 against the dense oracle (no reference needed) ----------------
+
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("k", (1, 2, 3))
+@pytest.mark.parametrize("n", SIZES)
+def test_vec_plain_and_wrapper_equal_dense(n, k, block):
+    fs = _factors(n + k, [(n,)] * k, _hi(k, block))
+    want = _pair_oracle(fs, False)
+    assert tmr.prod_reduce_plain(_t(fs), block=block) == want
+    assert tmr.prod_reduce(_t(fs), block=block) == want
+    assert tops.cutjoin_reduce(_t(fs), block=block) == want
+
+
+@pytest.mark.parametrize("distinct", (True, False))
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("k", (1, 2, 3))
+@pytest.mark.parametrize("n", SIZES)
+def test_pair_plain_and_wrapper_equal_dense(n, k, block, distinct):
+    fs = _factors(7 * n + k, [(n, n)] * k, _hi(k, block))
+    want = _pair_oracle(fs, distinct)
+    assert tmr.prod_reduce_plain(_t(fs), distinct=distinct,
+                                 block=block) == want
+    assert tops.cutjoin_reduce(_t(fs), distinct=distinct,
+                               block=block) == want
+    assert tmr.prod_reduce_tiles(_t(fs), distinct=distinct,
+                                 block=block).sum().item() == want
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("rows,start,col0", [(17, 5, 0), (40, 90, 3),
+                                             (1, 129, 0)])
+def test_pair_rectangular_slice_with_offsets_equals_dense(rows, start, col0,
+                                                          block):
+    n = 130
+    full = _factors(rows + start, [(n, n)] * 2, _hi(2, block))
+    sl = [F[start:start + rows, col0:] for F in full]
+    want = _pair_oracle(sl, True, (start, col0))
+    got = tmr.prod_reduce(_t(sl), block=block, offsets=(start, col0))
+    assert got == want
+    assert tmr.prod_reduce_plain(_t(sl), block=block,
+                                 offsets=(start, col0)) == want
+
+
+def test_row_slices_with_offsets_sum_to_the_whole():
+    n, block = 130, 128
+    fs = _factors(3, [(n, n)] * 2, _hi(2, block))
+    whole = tmr.prod_reduce(_t(fs), block=block)
+    parts = sum(tmr.prod_reduce(_t([F[s:s + 50] for F in fs]), block=block,
+                                offsets=(s, 0)) for s in range(0, n, 50))
+    assert parts == whole == _pair_oracle(fs, True)
+
+
+# -- |cut| = 3 against the dense oracle ---------------------------------------------
+
+AXIS_MIXES = [
+    [(0, 1), (1, 2)],
+    [(0, 1), (1, 2), (0, 2)],
+    [(0, 1), (1, 2), (2,)],
+    [(0, 1, 2)],
+    [(0, 1, 2), (0, 2)],
+    [(0,), (1,), (2,)],
+    [(0, 2)],                            # axis 1 uncovered
+    [(1,)],                              # axes 0 and 2 uncovered
+]
+
+
+@pytest.mark.parametrize("distinct", (True, False))
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("mix", range(len(AXIS_MIXES)))
+def test_tri_plain_and_wrapper_equal_dense(mix, block, distinct):
+    axes = AXIS_MIXES[mix]
+    n = 24 if mix % 2 else 37
+    fs = _factors(mix, [(n,) * len(ax) for ax in axes],
+                  _hi(len(axes), block))
+    want = _tri_oracle(fs, axes, (n, n, n), distinct)
+    assert tmr.tri_reduce_plain(_t(fs), axes, n=n, distinct=distinct,
+                                block=block) == want
+    assert tops.cutjoin_reduce3(_t(fs), axes, n=n, distinct=distinct,
+                                block=block) == want
+
+
+@pytest.mark.parametrize("block", (8, 128))
+def test_tri_axis0_slice_with_offsets_equals_dense(block):
+    n = 40
+    axes = [(0, 1, 2), (0, 2), (1, 2)]
+    fs = _factors(11, [(n,) * len(ax) for ax in axes], _hi(3, block))
+    total = 0.0
+    for s in range(0, n, 16):
+        w = min(16, n - s)
+        sl = [fs[0][s:s + w], fs[1][s:s + w], fs[2]]
+        got = tmr.tri_reduce(_t(sl), axes, n=(w, n, n), block=block,
+                             offsets=(s, 0, 0))
+        assert got == _tri_oracle(sl, axes, (w, n, n), True, (s, 0, 0))
+        total += got
+    assert total == _tri_oracle(fs, axes, (n, n, n), True)
+
+
+def test_surplus_factors_are_folded_exactly():
+    fs = [(torch.from_numpy(F), (2,))
+          for F in _factors(5, [(50,)] * 11, 2)]
+    folded = tmr._fold_surplus(fs, 8)
+    assert len(folded) == 8
+    want = np.prod(np.stack([F.numpy() for F, _ in fs]), axis=0)
+    got = np.prod(np.stack([F.numpy() for F, _ in folded]), axis=0)
+    assert np.array_equal(got, want)
+
+
+def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
+    """The wrapper picks the plain version only for CPU tensors: with a
+    tensor that claims to lie on the card it goes to the launcher."""
+    called = {}
+
+    def fake_launch(kind, entries, sizes, masked, off3, block):
+        called["kind"] = kind
+        return torch.zeros((1,), dtype=torch.float64)
+
+    class OnCard(torch.Tensor):
+        is_cuda = True
+
+    monkeypatch.setattr(tmr, "_launch", fake_launch)
+    monkeypatch.setattr(tmr, "_prod_partials_plain",
+                        lambda *a, **k: pytest.fail("plain version taken"))
+    F = torch.ones((4, 4), dtype=torch.float64).as_subclass(OnCard)
+    monkeypatch.setattr(tmr, "_as_factors", lambda fs: list(fs))
+    tmr.prod_reduce_tiles([F, F], block=8)
+    assert called["kind"] == "pairjoin"
+
+
+# -- against the reference's interpret-mode kernels ----------------------------------
+
+@pytest.mark.parametrize("n,k,block,distinct", [
+    (24, 1, 8, True), (24, 3, 1024, False), (130, 2, 128, True),
+    (130, 3, 8, True), (200, 2, 1024, True), (200, 1, 128, False),
+])
+def test_pair_equals_reference_interpret_kernel(reference, n, k, block,
+                                                distinct):
+    fs = _factors(n * k + block, [(n, n)] * k, _hi(k, block))
+    want = reference.ops.cutjoin_reduce(fs, distinct=distinct, bm=block,
+                                        bn=block, interpret=True)
+    assert tops.cutjoin_reduce(_t(fs), distinct=distinct,
+                               block=block) == want
+    assert tmr.prod_reduce_plain(_t(fs), distinct=distinct,
+                                 block=block) == want
+
+
+@pytest.mark.parametrize("n,k,block", [(24, 2, 8), (130, 3, 128),
+                                       (200, 1, 1024)])
+def test_vec_equals_reference_interpret_kernel(reference, n, k, block):
+    fs = _factors(n + k + block, [(n,)] * k, _hi(k, block))
+    want = reference.ops.cutjoin_reduce(fs, bm=block, bn=block,
+                                        interpret=True)
+    assert tops.cutjoin_reduce(_t(fs), block=block) == want
+
+
+def test_pair_slice_offsets_equal_reference_interpret_kernel(reference):
+    n, rows, start, block = 130, 40, 64, 128
+    full = _factors(99, [(n, n)] * 2, _hi(2, block))
+    sl = [F[start:start + rows] for F in full]
+    want = reference.ops.cutjoin_reduce(sl, bm=block, bn=block,
+                                        interpret=True, offsets=(start, 0))
+    assert tops.cutjoin_reduce(_t(sl), block=block,
+                               offsets=(start, 0)) == want
+
+
+@pytest.mark.parametrize("n,mix,block", [
+    (24, 0, 8), (24, 1, 8), (24, 4, 1024), (130, 0, 128), (130, 2, 128),
+    (200, 1, 1024), (24, 6, 128),
+])
+def test_tri_equals_reference_interpret_kernel(reference, n, mix, block):
+    axes = AXIS_MIXES[mix]
+    fs = _factors(n + mix, [(n,) * len(ax) for ax in axes],
+                  _hi(len(axes), block))
+    want = reference.ops.cutjoin_reduce3(fs, axes, n=n, block=block,
+                                         interpret=True)
+    assert tops.cutjoin_reduce3(_t(fs), axes, n=n, block=block) == want
+    assert tmr.tri_reduce_plain(_t(fs), axes, n=n, block=block) == want
+
+
+def test_tri_offsets_equal_reference_interpret_kernel(reference):
+    n, block = 24, 8
+    axes = [(0, 1), (1, 2)]
+    fs = _factors(5, [(n, n)] * 2, _hi(2, block))
+    off = (3, 0, 7)
+    want = reference.ops.cutjoin_reduce3(fs, axes, n=n, block=block,
+                                         interpret=True, offsets=off)
+    assert tops.cutjoin_reduce3(_t(fs), axes, n=n, block=block,
+                                offsets=off) == want
+
+
+# -- the guard ------------------------------------------------------------------------
+
+@pytest.mark.parametrize("maxes", [(1.0,), (3.0, 5.0), (127.0, 129.0),
+                                   (4096.0, 4096.0), (1449.0, 1449.0),
+                                   (2.0 ** 12, 2.0 ** 9), (2.0 ** 22,),
+                                   (5000.0, 5000.0), (0.0, 1e9)])
+def test_exact_block_parity(reference, maxes):
+    fs = [np.full((4,), m) for m in maxes]
+    want = reference.matreduce.exact_block(fs, max_block=1024)
+    assert tmr.exact_block(_t(fs), max_block=1024) == want
+    assert tmr.exact_block((), max_block=1024, maxes=maxes) == want
+    # interpret mode is where the reference uses the port's cap of 1024
+    reference.obs.reset()
+    tobs.reset()
+    want = reference.ops.cutjoin_exact_block(fs, interpret=True)
+    assert tops.cutjoin_exact_block(_t(fs)) == want
+    assert tobs.snapshot().get("kernel.exact_block") == \
+        reference.obs.snapshot().get("kernel.exact_block")
+
+
+def test_exact_block_refusal_case(reference):
+    fs = [np.full((3, 3), 2.0 ** 13), np.full((3, 3), 2.0 ** 9)]
+    assert reference.matreduce.exact_block(fs) is None
+    assert tmr.exact_block(_t(fs)) is None
+    assert tops.cutjoin_exact_block(_t(fs)) is None
+
+
+@pytest.mark.parametrize("block", (8, 64, 1024, 4096))
+def test_runtime_block_parity(reference, block):
+    assert tops.runtime_block(block) == \
+        reference.ops.runtime_block(block, interpret=True)
