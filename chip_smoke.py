@@ -7,12 +7,17 @@ It imports only ``repro_torch`` (from ``src/`` beside this file) and
 exits non-zero on any failure.  Phases, each printing one JSON line:
 
 1. ``device``     the card's name and power limit; fails without CUDA.
-2. ``kernel_cases``  builds ``csrc/cutjoin.cu`` with nvcc and holds each
-   join kernel (vector, pair, tri) against its plain PyTorch version on
-   the card, at n = 8192, over factor counts, rectangular slices with
-   offsets, axis-subset mixes and chunk sizes 8 / 128 / 1024.  Tolerance:
-   none — the difference must be 0 (integer-valued factors within the
-   exactness guard).
+2. ``kernel_cases``  builds ``csrc/cutjoin.cu`` and ``csrc/matreduce.cu``
+   (one nvcc each, started together) and holds each kernel against its
+   plain PyTorch version on the card: the join kernels (vector, pair,
+   tri, and the keep forms of pair and tri) at n = 8192 (the tri keep
+   form at n = 512 and 256), over factor counts, kept axes, rectangular
+   slices with offsets, axis-subset mixes and chunk sizes 8 / 128 / 1024;
+   the masked matrix-product reduce on 0/1 inputs, ragged shapes
+   included.  Tolerance: none — the difference must be 0 (integer-valued
+   inputs within the exactness guard).  On random f32 input the masked
+   matrix-product reduce is held against an f64 product with the
+   reference package's tolerance, |got - want| < 3e-2 · |want| + 1.
 3. ``main_path``  ``compile(patterns, graph)`` on ``rmat(13, 24.0, seed=0)``
    (8192 vertices, about 10^5 edges, skewed degrees: the user's graph),
    then the same call on a *coverage graph*, ``erdos_renyi(8192, 24.0,
@@ -26,11 +31,36 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    of ``CountingEngine.edge_induced``), and ``cycle(4)`` against the closed
    form (tr(A^4) - 2 Σd² + Σd) / 8.  Launches are reported per graph;
    which joins the R-MAT graph leaves to the dense route is said plainly.
-4. ``kernels``    per kernel: launches over phase 3 (and on each graph
-   apart), error against the plain version, time, the plain version's
-   time, the card's bound for the timed function and a PyTorch yardstick
-   for it, at the shapes phase 3 gave the kernel.
-5. last line: ``{"ok": true, "device": {...}}``.
+4. ``local_path``  the partial-embedding API on the same two graphs, each
+   reusing its APCT and its plan cache from phase 3:
+   ``compile(patterns, g, local=True, use_pallas=True)`` (a cache miss
+   that recompiles with the union of flags), then per pattern every
+   anchored vector (``local_counts(p, rep)`` per orbit), the API reads
+   ``vertex_counts(p, g, top_k=10)`` and ``exists(p, g)``, and one
+   unanchored |cut| = 2 tensor; then ``compile(..., domains=True)`` (a
+   second union recompile) for ``mini_support`` and the domain vectors.
+   Domains come in a compile of their own because with domain nodes in
+   the plan the cost model serves every anchored vector as the flat
+   Möbius combination those nodes hold, and no anchored join is chosen.
+   Checks: Σ of each anchored vector = count · |Aut|, Σ vertex_counts =
+   n_p · count, each anchored vector equal to the same plan's dense f64
+   route (``cutjoin_kernel=False``) and to the domain vector of its
+   orbit, and the triangle count through the fused kernel equal to
+   phase 3's clique enumeration.  An anchored vector whose flat Möbius
+   route needs an n^3 free-hom intermediate (the 4-clique's at n = 8192)
+   raises ``PlanTooWide``; that refusal is accepted, and reported, only
+   where ``CountingEngine.inj_free`` refuses the same vectors.  Then a
+   *coverage case* for the keep form of the tri join,
+   ``erdos_renyi(512, 8.0, seed=0)`` with anchored reads of chain(6),
+   cycle(6) and the house (anchored |cut| = 3 candidates need n^3 within
+   the budget, so n <= 512), checked against ``CountingEngine.inj_free``
+   and the dense f64 route.
+5. ``kernels``    per kernel: launches over its path (phase 3 for the
+   scalar joins, phase 4 for the keep forms and the triangle kernel; on
+   each graph apart), error against the plain version, time, the plain
+   version's time, the card's bound for the timed function and a
+   PyTorch yardstick for it, at the shapes its path gave the kernel.
+6. last line: ``{"ok": true, "device": {...}}``.
 
 No phase catches a failure and carries on.
 """
@@ -52,13 +82,15 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
              "is False")
 
-from repro_torch import compiler, obs                       # noqa: E402
+from repro_torch import api, compiler, obs                  # noqa: E402
+from repro_torch.compiler import lowering                   # noqa: E402
+from repro_torch.compiler.ir import Intersect               # noqa: E402
 from repro_torch.core.apct import APCT                      # noqa: E402
 from repro_torch.core.counting import CountingEngine        # noqa: E402
 from repro_torch.core.homomorphism import PlanTooWide       # noqa: E402
 from repro_torch.core.motifs import motif_patterns          # noqa: E402
-from repro_torch.core.pattern import (chain, cycle,         # noqa: E402
-                                      tailed_triangle)
+from repro_torch.core.pattern import (Pattern, chain,       # noqa: E402
+                                      cycle, tailed_triangle)
 from repro_torch.graph.generators import erdos_renyi, rmat  # noqa: E402
 from repro_torch.kernels import build as kbuild             # noqa: E402
 from repro_torch.kernels import matreduce as mr             # noqa: E402
@@ -69,7 +101,12 @@ N = 8192
 # f32 rate outside the tensor cores, which is what the join kernels use
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/cutjoin.cu"
+CUTJOIN_SOURCE = "src/repro_torch/kernels/csrc/cutjoin.cu"
+MATREDUCE_SOURCE = "src/repro_torch/kernels/csrc/matreduce.cu"
+HOUSE = Pattern(5, [(0, 1), (1, 2), (2, 3), (3, 0), (0, 4), (1, 4)])
+# counts are exact: no TF32 in the plain versions' and yardsticks' products
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 
 def emit(phase: str, **fields):
@@ -95,6 +132,19 @@ def int_factor(rng, shape, hi: int) -> torch.Tensor:
     """Seeded integer-valued f64 factor with entries in [0, hi]."""
     return torch.from_numpy(
         rng.integers(0, hi + 1, size=shape).astype(np.float64)).to(DEV)
+
+
+def dev_factor(gen, shape, hi: int) -> torch.Tensor:
+    """Seeded integer-valued f64 factor with entries in [0, hi], made on
+    the card."""
+    return torch.randint(0, hi + 1, shape, generator=gen, device=DEV,
+                         dtype=torch.float64)
+
+
+def max_abs_diff(got, want) -> float:
+    if isinstance(got, torch.Tensor):
+        return (got - want).abs().max().item()
+    return abs(got - want)
 
 
 def max_value(nf: int, block: int, cells: int = 1) -> int:
@@ -135,17 +185,20 @@ def check_case(kernel: str, name: str, run_kernel, run_plain, cases: list):
     want = run_plain()
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    diff = abs(got - want)
-    cases.append({"kernel": kernel, "case": name, "value": got,
+    diff = max_abs_diff(got, want)
+    value = got.sum().item() if isinstance(got, torch.Tensor) else got
+    cases.append({"kernel": kernel, "case": name, "value": value,
                   "max_abs_err": diff, "plain_s": round(plain_s, 4)})
     if diff != 0:
-        raise AssertionError(f"{name}: kernel {got!r} != plain {want!r}")
+        raise AssertionError(f"{name}: kernel and plain version differ by "
+                             f"{diff!r}")
 
 
 def phase_kernel_cases():
     rng = np.random.default_rng(0)
+    gen = torch.Generator(device=DEV).manual_seed(0)
     t0 = time.perf_counter()
-    mr._lib()                                # builds csrc/cutjoin.cu
+    mr._lib()                                # builds both csrc/*.cu
     build_s = time.perf_counter() - t0
     cases: list = []
     blocks = (8, 128, 1024)
@@ -180,6 +233,28 @@ def phase_kernel_cases():
                 lambda: mr.prod_reduce(sl, block=block, offsets=(start, 0)),
                 lambda: mr.prod_reduce_plain(sl, block=block,
                                              offsets=(start, 0)), cases)
+            # K3 on the same factors: each kept axis, masked and not, and
+            # the slice with offsets
+            for keep in (0, 1):
+                for distinct in (True, False):
+                    check_case(
+                        "pairjoin_keep",
+                        f"pair keep={keep} k={k} block={block} "
+                        f"distinct={distinct}",
+                        lambda: mr.prod_reduce_keep(
+                            fs, keep=keep, distinct=distinct, block=block),
+                        lambda: mr.prod_reduce_keep_plain(
+                            fs, keep=keep, distinct=distinct, block=block),
+                        cases)
+                check_case(
+                    "pairjoin_keep", f"pair keep={keep} slice {rows}x{N} "
+                                     f"offsets=({start},0) k={k} "
+                                     f"block={block}",
+                    lambda: mr.prod_reduce_keep(sl, keep=keep, block=block,
+                                                offsets=(start, 0)),
+                    lambda: mr.prod_reduce_keep_plain(
+                        sl, keep=keep, block=block, offsets=(start, 0)),
+                    cases)
             del fs, sl
 
     # K4: axis-subset mixes at n = 8192
@@ -228,16 +303,79 @@ def phase_kernel_cases():
                 lambda: mr.tri_reduce_plain(sl, axes, n=(50, n3, n3),
                                             block=block, offsets=(100, 0, 0)),
                 cases)
+            # K4's keep form on the same mixes, each kept axis
+            for keep in (0, 1, 2):
+                check_case(
+                    "trijoin_keep", f"tri keep={keep} {label} n={n3} "
+                                    f"block={block}",
+                    lambda: mr.tri_reduce_keep(fs, axes, keep=keep, n=n3,
+                                               block=block),
+                    lambda: mr.tri_reduce_keep_plain(fs, axes, keep=keep,
+                                                     n=n3, block=block),
+                    cases)
+                check_case(
+                    "trijoin_keep", f"tri keep={keep} {label} slice "
+                                    f"(50,{n3},{n3}) offsets=(100,0,0) "
+                                    f"block={block}",
+                    lambda: mr.tri_reduce_keep(sl, axes, keep=keep,
+                                               n=(50, n3, n3), block=block,
+                                               offsets=(100, 0, 0)),
+                    lambda: mr.tri_reduce_keep_plain(
+                        sl, axes, keep=keep, n=(50, n3, n3), block=block,
+                        offsets=(100, 0, 0)), cases)
+    # K4's keep form on the pair-factor mixes at the coverage case's size
+    n5 = 512
+    for label, axes in mixes.items():
+        for block in blocks:
+            hi = max_value(len(axes), block, n5 ** 3)
+            fs = [dev_factor(gen, (n5,) * len(ax), hi) for ax in axes]
+            for keep in (0, 1, 2):
+                check_case(
+                    "trijoin_keep", f"{label} keep={keep} n={n5} "
+                                    f"block={block}",
+                    lambda: mr.tri_reduce_keep(fs, axes, keep=keep, n=n5,
+                                               block=block),
+                    lambda: mr.tri_reduce_keep_plain(fs, axes, keep=keep,
+                                                     n=n5, block=block),
+                    cases)
     # surplus factors beyond the kernel's table are folded exactly
     fs = [int_factor(rng, (N,), 2) for _ in range(11)]
     check_case("vecjoin", "vec k=11 (surplus factors folded) block=8",
                lambda: mr.prod_reduce(fs, block=8),
                lambda: mr.prod_reduce_plain(fs, block=8), cases)
 
+    # K6 on 0/1 inputs: square at n = 8192 with an adjacency's density,
+    # ragged shapes (no multiple of the 128 tile), a single row
+    shapes = [(N, N, N, 0.003), (1000, 777, 333, 0.05),
+              (129, 257, 130, 0.3), (1, 5, 3, 0.5), (8191, 129, 8193, 0.01)]
+    for M_, N_, K_, p in shapes:
+        ops01 = [(torch.rand(s, generator=gen, device=DEV) < p).float()
+                 for s in ((M_, K_), (N_, K_), (M_, N_))]
+        check_case("matreduce", f"matreduce 0/1 ({M_},{N_},{K_}) p={p}",
+                   lambda: mr.matreduce(*ops01),
+                   lambda: mr.matreduce_plain(*ops01), cases)
+    # and on random f32 input, against an f64 product
+    float_cases = []
+    for M_, N_, K_ in [(N, N, N), (1000, 777, 333), (129, 257, 130)]:
+        lhs = torch.randn((M_, K_), generator=gen, device=DEV)
+        rhs = torch.randn((N_, K_), generator=gen, device=DEV)
+        mask = (torch.rand((M_, N_), generator=gen, device=DEV)
+                < 0.5).float()
+        got = mr.matreduce(lhs, rhs, mask)
+        want = ((lhs.double() @ rhs.double().T) * mask.double()).sum().item()
+        err = abs(got - want)
+        float_cases.append({"shape": [M_, N_, K_], "value": got,
+                            "f64_value": want, "abs_err": err,
+                            "tolerance": 3e-2 * abs(want) + 1.0})
+        if not err < 3e-2 * abs(want) + 1.0:
+            raise AssertionError(f"matreduce random f32 {(M_, N_, K_)}: "
+                                 f"{got!r} vs f64 {want!r}")
+        del lhs, rhs, mask
+
     emit("kernel_cases", build_s=round(build_s, 3),
-         nvcc_s=round(kbuild.build_seconds.get("cutjoin", 0.0), 3),
+         nvcc_s={k: round(v, 3) for k, v in kbuild.build_seconds.items()},
          n_cases=len(cases), max_abs_err=max(c["max_abs_err"] for c in cases),
-         cases=cases)
+         cases=cases, matreduce_random_f32=float_cases)
     torch.cuda.empty_cache()
 
 
@@ -323,6 +461,7 @@ def drive(label: str, make_graph, patterns) -> dict:
     assert cp_hit.from_cache and (cache.hits, cache.misses) == (1, 1), \
         "second compile did not hit the plan cache"
     return {"label": label, "g": g, "cp": cp, "counts": counts,
+            "apct": apct, "cache": cache,
             "launches": launches, "obs": snapshot,
             "peak_device_bytes": peak_bytes,
             "seconds": {"make_graph": round(graph_s, 3),
@@ -379,6 +518,7 @@ def verify_run(run: dict, patterns) -> dict:
 
 
 MAIN_GRAPH = "rmat(13, 24.0, seed=0)"
+MAIN_PATH_KERNELS = ("vecjoin", "pairjoin", "trijoin")
 COVERAGE_GRAPH = "erdos_renyi(8192, 24.0, seed=0)"
 
 
@@ -402,57 +542,315 @@ def phase_main_path() -> dict:
     by_role = {run["role"]: run["launches"] for run in runs}
     assert sum(by_role["main"].values()) >= 1, \
         f"{MAIN_GRAPH} launched no kernel"
-    for kernel, count in launches.items():
-        assert count >= 1, f"neither graph launched {kernel}"
+    for kernel in MAIN_PATH_KERNELS:
+        assert launches[kernel] >= 1, f"neither graph launched {kernel}"
     reports = [dict(verify_run(run, patterns), role=run["role"])
                for run in runs]
     emit("main_path", patterns=len(patterns), launches=launches,
          launches_main_graph=by_role["main"],
          launches_coverage_graph=by_role["coverage"],
          kernels_not_reached_on_main_graph=[
-             k for k, c in by_role["main"].items() if c == 0],
+             k for k in MAIN_PATH_KERNELS if by_role["main"][k] == 0],
          graphs=reports)
     joins = [j for run in runs for j in run["cp"].join_log]
+    # what the partial-embedding path reuses: graph, APCT, plan cache,
+    # counts, and the triangle count that clique enumeration gave
+    graphs = []
+    for run in runs:
+        cp = run["cp"]
+        tri = [k for k, node in cp.plan.nodes.items()
+               if isinstance(node, Intersect) and node.k == 3]
+        graphs.append({key: run[key] for key in
+                       ("label", "role", "g", "apct", "cache", "counts")})
+        graphs[-1]["intersect3"] = {k: cp.value(k) for k in tri}
     del runs
     torch.cuda.empty_cache()
-    return {"launches": launches, "by_role": by_role, "joins": joins}
+    return {"launches": launches, "by_role": by_role, "joins": joins,
+            "graphs": graphs}
 
 
 # -- phase 4 ------------------------------------------------------------------------
 
-def phase_kernels(main: dict):
-    """The three kernels at the shapes phase 3 gave them (two factors
-    each, as its joins carry; chunk = what the guard granted there, 128
-    where neither graph reached the tier).  ``bound_ms`` is for the
-    function that is timed, computed the cheapest way known, not for the
-    way the kernel computes it."""
+def anchored_or_refused(cp, p) -> dict:
+    """Every anchored vector of ``p`` — or None where the plan raises
+    ``PlanTooWide`` (a flat Möbius vector whose free-hom contraction needs
+    an n^3 intermediate, as a clique's does at n = 8192).  A refusal is
+    accepted only where ``CountingEngine.inj_free``, the engine's own
+    route to the same vectors, refuses as well."""
+    try:
+        return {o[0]: cp.local_counts(p, o[0]) for o in p.vertex_orbits()}
+    except PlanTooWide:
+        try:
+            cp.counter.inj_free(p, 0)
+        except PlanTooWide:
+            return None
+        raise
+
+
+def read_local(cp, g, patterns, counts, cache, apct) -> dict:
+    """Every partial-embedding read of one local plan, each held to the
+    Σ identities: Σ anchored = count · |Aut|, Σ vertex_counts = n_p ·
+    count.  Returns the anchored vectors for the route checks."""
+    anchored, reads, refused = {}, {}, {}
+    unanchored = None
+    for i, p in enumerate(patterns):
+        key = compiler.pattern_key(p)
+        count = counts[key]
+        inj = count * p.aut_order()
+        vecs = anchored_or_refused(cp, p)
+        if vecs is None:
+            refused[i] = key
+        for rep, vec in (vecs or {}).items():
+            total = vec.sum().item()
+            if total != inj:
+                raise AssertionError(f"{key} anchor {rep}: Σ {total!r} "
+                                     f"!= count·|Aut| {inj!r}")
+            anchored[i, rep] = vec
+        top = None
+        if vecs is not None:
+            full = api.plan_vertex_counts(cp, p)
+            if full.sum().item() != p.n * count:
+                raise AssertionError(f"{key}: Σ vertex_counts "
+                                     f"{full.sum().item()!r} != n_p·count")
+            top = api.vertex_counts(p, g, counter=cp.counter, cache=cache,
+                                    apct=apct, top_k=10)
+            if top != api.top_vertices(full, 10):
+                raise AssertionError(f"{key}: vertex_counts top_k differs "
+                                     f"from the plan's vector")
+        present = api.exists(p, g, counter=cp.counter, cache=cache,
+                             apct=apct)
+        if present != (count > 0):
+            raise AssertionError(f"{key}: exists {present} but count "
+                                 f"{count!r}")
+        cut = cp.plan.meta["local_cuts"].get(compiler.local_key(
+            p.canonical()))
+        if unanchored is None and cut is not None and len(cut) == 2:
+            tensor = cp.local_counts(p)
+            if tensor.sum().item() != inj:
+                raise AssertionError(f"{key}: Σ unanchored local tensor "
+                                     f"!= count·|Aut|")
+            unanchored = {"pattern": key, "cut": cut,
+                          "shape": list(tensor.shape)}
+            del tensor
+        reads[f"{i}:{key}"] = {"count": count, "exists": present,
+                               "top_vertices": top and top[:3]}
+    return {"anchored": anchored, "reads": reads, "unanchored": unanchored,
+            "refused": refused}
+
+
+def check_dense_route(cp, g, patterns, anchored) -> dict:
+    """Each anchored vector against the same plan's dense f64 route
+    (``cutjoin_kernel=False``, sharing the plan's engine so contractions
+    are not redone).  Where that route refuses a |cut| = 3 join as too
+    wide, against ``CountingEngine.inj_free`` instead."""
+    dense = lowering.lower(cp.plan, g, counter=cp.counter,
+                           cutjoin_kernel=False)
+    against = {}
+    for (i, rep), vec in anchored.items():
+        p = patterns[i]
+        key = compiler.pattern_key(p)
+        try:
+            want, how = dense.local_counts(p, rep), "dense-f64 route"
+        except PlanTooWide:
+            want = torch.from_numpy(
+                cp.counter.inj_free(p, rep).copy()).to(DEV)
+            how = "CountingEngine.inj_free (dense route: PlanTooWide)"
+        if not torch.equal(vec, want):
+            raise AssertionError(f"{key} anchor {rep}: kernel route differs "
+                                 f"from {how} by {max_abs_diff(vec, want)}")
+        against[f"{i}:{key}@{rep}"] = how
+    return against
+
+
+def local_joins(cp) -> list:
+    return [j for j in cp.join_log if j["keep"] is not None]
+
+
+def drive_local(info: dict, patterns) -> dict:
+    """The partial-embedding path on one graph of phase 3."""
+    g, cache, apct = info["g"], info["cache"], info["apct"]
+    before = dict(mr.launches)
+    free_before = torch.cuda.mem_get_info()[0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cp = compiler.compile(patterns, g, cache=cache, apct=apct, local=True,
+                          use_pallas=True)
+    compile_s = time.perf_counter() - t0
+    if cp.from_cache or not cp.plan.meta["local"]:
+        raise AssertionError("local=True did not recompile the cached plan")
+    t0 = time.perf_counter()
+    counts = cp.counts()           # the triangle count takes the fused kernel
+    torch.cuda.synchronize()
+    counts_s = time.perf_counter() - t0
+    if counts != info["counts"]:
+        raise AssertionError(f"counts of the local plan {counts} != phase 3 "
+                             f"{info['counts']}")
+    t0 = time.perf_counter()
+    got = read_local(cp, g, patterns, counts, cache, apct)
+    torch.cuda.synchronize()
+    reads_s = time.perf_counter() - t0
+    launches = {k: mr.launches[k] - before[k] for k in mr.launches}
+    # the triangle count through the fused kernel vs clique enumeration
+    triangles = {}
+    for key, want in info["intersect3"].items():
+        value = cp.value(key)
+        if value != want:
+            raise AssertionError(f"{key}: fused triangle kernel {value!r} "
+                                 f"!= clique enumeration {want!r}")
+        triangles[key] = value
+    if not triangles:
+        raise AssertionError("the pattern set has no Intersect k=3 node")
+    t0 = time.perf_counter()
+    against = check_dense_route(cp, g, patterns, got["anchored"])
+    dense_s = time.perf_counter() - t0
+    # MINI domains: a second union recompile, same engine
+    t0 = time.perf_counter()
+    cpd = compiler.compile(patterns, g, cache=cache, apct=apct,
+                           counter=cp.counter, domains=True)
+    if cpd.from_cache or not (cpd.plan.meta["domains"]
+                              and cpd.plan.meta["local"]):
+        raise AssertionError("domains=True did not recompile with the union")
+    mini = {}
+    for i, p in enumerate(patterns):
+        if i in got["refused"]:      # its domain nodes are the same vectors
+            continue
+        key = compiler.pattern_key(p)
+        # domain vectors are keyed by orbit representatives of the
+        # canonical form; so are the anchored reads of p.canonical()
+        for rep, dom in cpd.domains(p).items():
+            if not torch.equal(dom, cp.local_counts(p.canonical(), rep)):
+                raise AssertionError(f"{key} rep {rep}: domain vector != "
+                                     f"anchored vector")
+        mini[key] = cpd.mini_support(p)
+    domains_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    joins = local_joins(cp)
+    report = {
+        "graph": info["label"], "role": info["role"],
+        "launches": launches,
+        "local_cuts": cp.plan.meta["local_cuts"],
+        "keep_joins": [{k: j[k] for k in ("node", "cut", "keep", "route",
+                                          "block", "guard")}
+                       for j in joins if len(j["keep"]) < j["cut"]],
+        "keep_joins_left_to_dense_route": [
+            j["node"] for j in joins if j["route"] == "dense-f64-keep"],
+        "triangles_via_fused_kernel": triangles,
+        "anchored_checked_against": against,
+        "unanchored_cut2_tensor": got["unanchored"],
+        "anchored_refused_plan_too_wide": sorted(set(
+            got["refused"].values())),
+        "reads": got["reads"], "mini_support": mini,
+        "peak_device_bytes": peak,
+        "seconds": {"compile_local": round(compile_s, 3),
+                    "counts_use_pallas": round(counts_s, 3),
+                    "reads": round(reads_s, 3),
+                    "dense_route_check": round(dense_s, 3),
+                    "compile_domains_and_reads": round(domains_s, 3)}}
+    del cp, cpd, got
+    torch.cuda.empty_cache()
+    report["free_bytes_before"] = free_before
+    report["free_bytes_after"] = torch.cuda.mem_get_info()[0]
+    return report
+
+
+COVERAGE_KEEP3_GRAPH = "erdos_renyi(512, 8.0, seed=0)"
+
+
+def drive_keep3_coverage() -> dict:
+    """Anchored |cut| = 3 joins are chosen only on a small graph: there
+    the keep form of the tri join runs, and each anchored vector is held
+    against ``CountingEngine.inj_free`` and the dense f64 route."""
+    g = erdos_renyi(512, 8.0, seed=0)
+    patterns = [chain(6), cycle(6), HOUSE]
+    before = dict(mr.launches)
+    cp = compiler.compile(patterns, g, cache=False, local=True)
+    dense = lowering.lower(cp.plan, g, counter=cp.counter,
+                           cutjoin_kernel=False)
+    checked = 0
+    for p in patterns:
+        for orbit in p.vertex_orbits():
+            vec = cp.local_counts(p, orbit[0])
+            want = torch.from_numpy(
+                cp.counter.inj_free(p, orbit[0]).copy()).to(DEV)
+            if not (torch.equal(vec, want)
+                    and torch.equal(vec, dense.local_counts(p, orbit[0]))):
+                raise AssertionError(f"{compiler.pattern_key(p)} anchor "
+                                     f"{orbit[0]}: kernel route differs")
+            checked += 1
+    joins = [j for j in local_joins(cp) if j["cut"] == 3]
+    launches = {k: mr.launches[k] - before[k] for k in mr.launches}
+    if launches["trijoin_keep"] < 1:
+        raise AssertionError(f"{COVERAGE_KEEP3_GRAPH}: no keep tri join "
+                             f"launched: {cp.plan.meta['local_cuts']}")
+    return {"graph": COVERAGE_KEEP3_GRAPH, "role": "coverage-keep3",
+            "patterns": [compiler.pattern_key(p) for p in patterns],
+            "anchored_vectors_checked": checked,
+            "keep3_joins": [{k: j[k] for k in ("node", "keep", "route",
+                                               "block", "guard")}
+                            for j in joins],
+            "local_cuts": cp.plan.meta["local_cuts"], "launches": launches}
+
+
+def phase_local_path(main: dict) -> dict:
+    patterns = [tailed_triangle(), cycle(4), chain(5)] + \
+        list(motif_patterns(4))
+    mr.reset_launches()                      # counts start at 0 here ...
+    reports = [drive_local(info, patterns) for info in main["graphs"]]
+    coverage = drive_keep3_coverage()
+    launches = dict(mr.launches)             # ... and are read here
+    for kernel in ("pairjoin_keep", "trijoin_keep", "matreduce"):
+        if launches[kernel] < 1:
+            raise AssertionError(f"the local path launched no {kernel}")
+    by_role = {r["role"]: r["launches"] for r in reports}
+    by_role["coverage-keep3"] = coverage["launches"]
+    emit("local_path", patterns=len(patterns), launches=launches,
+         graphs=reports, keep3_coverage=coverage)
+    joins = [j for r in reports for j in r["keep_joins"]] + \
+        [dict(j, cut=3) for j in coverage["keep3_joins"]]
+    main["graphs"].clear()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "by_role": by_role, "joins": joins}
+
+
+# -- phase 5 ------------------------------------------------------------------------
+
+def phase_kernels(main: dict, local: dict):
+    """Every kernel at the shapes its path gave it (two factors each, as
+    the joins carry; chunk = what the guard granted there, 128 where no
+    graph reached the tier).  ``bound_ms`` is for the function that is
+    timed, computed the cheapest way known for this run's data, not for
+    the way the kernel computes it."""
     rng = np.random.default_rng(1)
     granted = {j["cut"]: j["block"] for j in main["joins"]
                if j["route"] == "kernel"}
+    granted_keep = {j["cut"]: j["block"] for j in local["joins"]
+                    if j["route"] == "kernel-keep"}
     out = []
 
     def entry(name, kernel, replaces, block, run, plain, library, reps,
-              nbytes, nops, **more):
+              nbytes, nops, path=main, source=CUTJOIN_SOURCE, **more):
         got = run()
         want = plain()
-        err = abs(got - want)
+        err = max_abs_diff(got, want)
         if err != 0:
-            raise AssertionError(f"{name}: kernel {got!r} != plain {want!r}")
+            raise AssertionError(f"{name}: kernel and plain version differ "
+                                 f"by {err!r}")
         ms = timed_ms(run, reps)
         plain_ms = timed_ms(plain, 1)
         library_ms = None
         if library is not None:
-            lib_val = library().item()
-            assert lib_val == got, (name, lib_val, got)
+            if max_abs_diff(library(), got) != 0:
+                raise AssertionError(f"{name}: yardstick differs from the "
+                                     f"kernel")
             library_ms = timed_ms(library, reps)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = nops / PEAK_F32_OPS_PER_S * 1e3
-        out.append({"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        by_graph = {f"launches_{role.replace('-', '_')}_graph": n[kernel]
+                    for role, n in path["by_role"].items()}
+        out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces,
-                    "launches": main["launches"][kernel],
-                    "launches_main_graph": main["by_role"]["main"][kernel],
-                    "launches_coverage_graph":
-                        main["by_role"]["coverage"][kernel],
+                    "launches": path["launches"][kernel], **by_graph,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -532,6 +930,61 @@ def phase_kernels(main: dict):
         "bound_by": "operations", "library_ms": timed_ms(triangle_matmul, 3),
         "yardstick": "((F1' @ F2') * F3).masked_fill(eye, 0).sum() in f64",
         "bytes": nbytes3, "operations": nops3}
+    del fs3, fs4
+
+    # K3 as the anchored |cut| = 2 reads call it, keep=0 (most of them):
+    # out[x] = Σ_{y≠x} F1[x,y] F2[x,y]; one read of both factors
+    b = granted_keep.get(2, 128)
+    fsk = [int_factor(rng, (N, N), max_value(2, b)) for _ in range(2)]
+    entry("cutjoin_pair_keep", "pairjoin_keep",
+          "src/repro/kernels/matreduce.py:231", b,
+          lambda: mr.prod_reduce_keep(fsk, keep=0, block=b),
+          lambda: mr.prod_reduce_keep_plain(fsk, keep=0, block=b),
+          lambda: (fsk[0] * fsk[1]).masked_fill(eye, 0).sum(1), 20,
+          2 * N * N * 8 + N * 8, 2 * N * N, path=local, keep=0,
+          ms_keep1=timed_ms(
+              lambda: mr.prod_reduce_keep(fsk, keep=1, block=b), 20),
+          yardstick="(F1*F2).masked_fill(eye, 0).sum(1), f64")
+    del fsk
+    # K4's keep form on chain(5)'s mix, keep=0, for comparison with K4:
+    # out[x] = Σ_{y≠x} F1[x,y] (b[y] - F2[y,x]), b[y] = Σ_{z≠y} F2[y,z] —
+    # an O(n^2) function, computed so in f64 torch as the yardstick
+    b = granted_keep.get(3, 128)
+    hi = max_value(2, b, N ** 3)
+    fs5 = [int_factor(rng, (N, N), hi) for _ in range(2)]
+
+    def chain_keep_closed_form():
+        F1, F2 = fs5
+        G = F1.masked_fill(eye, 0)
+        return G @ (F2.sum(1) - F2.diagonal()) - (G * F2.T).sum(1)
+
+    entry("cutjoin_tri_keep", "trijoin_keep",
+          "src/repro/kernels/matreduce.py:346", b,
+          lambda: mr.tri_reduce_keep(fs5, axes, keep=0, n=N, block=b),
+          lambda: mr.tri_reduce_keep_plain(fs5, axes, keep=0, n=N, block=b),
+          chain_keep_closed_form, 3, 2 * N * N * 8 + N * 8, 4 * N * N,
+          path=local, factors="(0,1)+(1,2)", keep=0,
+          yardstick="G @ (F2.sum(1) - diag F2) - (G * F2.T).sum(1), "
+                    "G = F1 off-diagonal, f64 torch calls")
+    del fs5
+    # K6 as the use_pallas Intersect route calls it, on the R-MAT
+    # adjacency.  For 0/1 data the products it needs are the 6T nonzero
+    # ones, so the bound is the bytes of its three dense inputs; the dense
+    # algorithm's bound, 2 n^3 operations, is given beside it.
+    A = torch.from_numpy(rmat(13, 24.0, seed=0).dense_adjacency(
+        np.float32, pad=False)).to(DEV)
+    six_t = mr.matreduce(A, A, A)
+    tiles = (-(-N // 128)) ** 2
+    entry("matreduce", "matreduce", "src/repro/kernels/matreduce.py:128",
+          None, lambda: mr.matreduce(A, A, A),
+          lambda: mr.matreduce_plain(A, A, A),
+          lambda: torch.sum((A @ A) * A, dtype=torch.float64), 5,
+          3 * N * N * 4 + tiles * 8, 2 * six_t, path=local,
+          source=MATREDUCE_SOURCE, value=six_t,
+          dense_operations=2 * N ** 3,
+          dense_operations_bound_ms=2 * N ** 3 / PEAK_F32_OPS_PER_S * 1e3,
+          yardstick="torch.sum((A @ A) * A, dtype=float64), f32 product, "
+                    "TF32 off")
     print(json.dumps({"kernels": out}), flush=True)
 
 
@@ -539,7 +992,8 @@ def main():
     smi = phase_device()
     phase_kernel_cases()
     main_path = phase_main_path()
-    phase_kernels(main_path)
+    local_path = phase_local_path(main_path)
+    phase_kernels(main_path, local_path)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

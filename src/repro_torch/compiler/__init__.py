@@ -13,7 +13,7 @@ package is that tier, as a pipeline of stages:
                   contractions scheduled once across the application)
     plan IR    ──lowering──► executables on one device
                  (CountingEngine einsum contractions, clique ordered
-                  enumeration, the CUDA join kernels)
+                  enumeration, the CUDA join and triangle kernels)
     plan IR    ──cache─────► keyed by (canonical pattern set, graph
                   signature): compile once, execute many
 
@@ -30,7 +30,11 @@ zero vector).
 ``CompiledPlan`` whose ``.plan`` is the serializable IR (``to_json``,
 byte-compatible with the reference package's) and whose ``.count(p)`` /
 ``.counts()`` execute it on the CUDA device (``device="cpu"`` to ask
-for the CPU).
+for the CPU).  With ``domains=True`` the plan additionally carries FSM
+MINI-domain nodes served by ``.domains(p)`` / ``.mini_support(p)``; with
+``local=True`` it carries the partial-embedding outputs (paper §5)
+served by ``.local_counts(p, anchor)`` / ``.exists(p)`` — see
+``repro_torch.api``.
 """
 from __future__ import annotations
 
@@ -67,6 +71,75 @@ def _label_fracs(patterns, graph):
     return {l: counts[l] / max(graph.n, 1) for l in range(graph.num_labels)}
 
 
+def _add_local_outputs(plan, patterns, graph, apct, budget, counter,
+                       label_fracs, max_cutjoin_cut, node_costs=None):
+    """Partial-embedding outputs for every pattern: the unanchored local
+    tensor (cheapest eligible cutting set, absent for cliques) plus one
+    anchored vector per automorphism orbit (decomposed when a cut
+    contains the orbit, flat Möbius otherwise).  Candidates are priced
+    against the committed count plan's node pool, so local plans
+    preferentially ride the cut tensors the counts already materialise
+    — partial embeddings off the decomposition join, not a second
+    pipeline."""
+    shared = {k: 0.0 for k in plan.nodes}
+    local_cuts = {}
+
+    def pick(cands):
+        best, bc = None, math.inf
+        for cand in cands:
+            c = costing.candidate_cost(cand, apct, graph.n, shared, budget,
+                                       counter, label_fracs)
+            if c < bc:
+                best, bc = cand, c
+        if best is None and cands:
+            # every candidate prices infinite (genuinely too wide for the
+            # budget): keep the last candidate (anchored: the flat Möbius
+            # fallback) so the output exists, but do NOT commit its nodes
+            # to the shared pool — mirroring select_candidates, execution
+            # chunks or raises PlanTooWide and callers fall back.
+            best = cands[-1]
+            for node in best.nodes:
+                plan.add(node)
+            return best
+        if best is not None:
+            costing.commit(best, apct, graph.n, shared, budget, counter,
+                           label_fracs)
+            for node in best.nodes:
+                plan.add(node)
+            if node_costs is not None:
+                # setdefault: the seeded 0.0 of already-committed count
+                # nodes must not overwrite their real selection cost
+                for node in best.nodes:
+                    node_costs.setdefault(node.key, shared[node.key])
+        return best
+
+    for p in patterns:
+        # every local candidate — unanchored AND anchored — is built on
+        # the CANONICAL form: the unanchored key collapses isomorphic
+        # renumberings, so its axes must name canonical vertices; anchored
+        # node keys embed local vertex ids under the canonical
+        # ``pattern_key`` namespace, so one numbering per plan makes equal
+        # keys mean equal content.  Anchored *values* are numbering-
+        # invariant, so serving the canonical rep's vector for the
+        # instance anchor is exact.
+        pc = p.canonical()
+        perm = p.canonical_perm()            # old (instance) -> canonical
+        cand = pick(frontend.local_candidates(pc, graph_n=graph.n,
+                                              budget=budget,
+                                              max_cut=max_cutjoin_cut))
+        if cand is not None:
+            plan.set_local_output(pc, cand.out_key)
+            local_cuts[local_key(pc)] = sorted(cand.cut)
+        for orbit in p.vertex_orbits():
+            cand = pick(frontend.local_candidates(
+                pc, graph_n=graph.n, anchor=perm[orbit[0]], budget=budget,
+                max_cut=max_cutjoin_cut))
+            plan.set_local_output(p, cand.out_key, anchor=orbit[0])
+            local_cuts[local_key(p, orbit[0])] = (sorted(cand.cut)
+                                                  if cand.cut else None)
+    plan.meta["local_cuts"] = local_cuts
+
+
 def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
             apct=None, counter=None, cache: Optional[PlanCache] = None,
             budget: int = 1 << 27, max_cutjoin_cut: int = 3,
@@ -95,8 +168,23 @@ def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
     and hom memo with the compiled plan — the counter's materialised
     hom/free-hom memos also feed costing, so re-compiles against a warm
     engine prefer decompositions whose cut tensors already exist.
-    ``cutjoin_kernel=False`` keeps CutJoin on the dense f64
-    ``_join_reduce`` route.
+    ``cutjoin_kernel=False`` keeps CutJoin and LocalCount on the dense
+    f64 routes (``_join_reduce`` / ``_join_keep``).  ``use_pallas=True``
+    counts triangles (``Intersect`` k = 3) with the fused CUDA kernel
+    Σ A ⊙ (A @ A) instead of host clique enumeration (the name is the
+    reference package's).
+
+    ``domains=True`` additionally emits FSM MINI-domain nodes per
+    pattern (one free-hom Möbius combination per automorphism orbit),
+    served by ``CompiledPlan.domains`` / ``.mini_support``.
+    ``local=True`` additionally emits partial-embedding outputs (the
+    paper's §5 API): per pattern, the unanchored local-count tensor over
+    its cheapest eligible cutting set plus one anchored vector per
+    automorphism orbit, served by ``CompiledPlan.local_counts`` /
+    ``.exists``; ``plan.meta["local_cuts"]`` records each output's cut.
+    A cached plan lacking a requested flavour misses and recompiles with
+    the union of the requested and the stored flags; the converse hit is
+    fine — such nodes are lazy.
 
     ``verify=True`` (the default) statically verifies every freshly
     assembled plan *before* it is cached or lowered
@@ -107,21 +195,16 @@ def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
     joins that could never take the kernel route are flagged to the
     metrics registry (``analysis.always_refused``).
 
-    ``mesh=``, ``morph=``, ``use_pallas=True``, ``local=True`` and
-    ``domains=True`` are features of the reference package that are not
-    ported yet: each raises ``NotImplementedError`` naming its ROADMAP.md
-    queue item.  ``plan.meta`` still records ``mesh_devices: 1``,
-    ``domains: False`` and ``local: False``, so a plan serialised by
-    either package loads in the other.
+    ``mesh=`` and ``morph=`` are features of the reference package that
+    are not ported yet: each raises ``NotImplementedError`` naming its
+    ROADMAP.md queue item.  ``plan.meta`` still records
+    ``mesh_devices: 1``, so a plan serialised by either package loads in
+    the other.
     """
     if mesh is not None:
         raise not_ported("mesh")
     if morph is not False and morph is not None:
         raise not_ported("morph")
-    if use_pallas:
-        raise not_ported("use_pallas")
-    if local or domains:
-        raise not_ported("local")
     if isinstance(patterns, Pattern):
         patterns = (patterns,)
     patterns = tuple(patterns)
@@ -143,13 +226,25 @@ def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
         # that selected it — budget, max_cutjoin_cut, and the execution
         # mesh's device count (see cache.config_compatible); a
         # cross-config hit recompiles instead of serving a plan the
-        # executor must refuse
+        # executor must refuse.  A domains=True / local=True request
+        # needs those nodes present; a plan that has them serves plain
+        # requests unchanged.
         if plan is not None and config_compatible(
                 plan, budget=budget, max_cutjoin_cut=max_cutjoin_cut,
                 mesh_devices=mesh_devices):
-            return lower(plan, graph, counter=counter, from_cache=True,
-                         budget=budget, cutjoin_kernel=cutjoin_kernel,
-                         device=device)
+            if (not domains or plan.meta.get("domains")) \
+                    and (not local or plan.meta.get("local")):
+                return lower(plan, graph, counter=counter,
+                             use_pallas=use_pallas, from_cache=True,
+                             budget=budget, cutjoin_kernel=cutjoin_kernel,
+                             device=device)
+            # config matches but the stored plan lacks a requested
+            # flavour: recompile with the UNION of requested and stored
+            # flags, so the overwrite supersets the entry instead of
+            # ping-ponging between domains-only and local-only plans on
+            # alternating request kinds
+            domains = domains or bool(plan.meta.get("domains"))
+            local = local or bool(plan.meta.get("local"))
 
     if apct is None:
         from repro_torch.core.apct import APCT
@@ -164,13 +259,21 @@ def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
         label_fracs=label_fracs, node_costs=node_costs,
         devices=mesh_devices, held=None)
     plan = frontend.assemble(selections)
+    if domains:
+        for p in patterns:
+            for node in frontend.domain_candidate(p).nodes:
+                plan.add(node)
+    if local:
+        _add_local_outputs(plan, patterns, graph, apct, budget, counter,
+                           label_fracs, max_cutjoin_cut,
+                           node_costs=node_costs)
     plan.meta.update({
         "key": key,
         "budget": budget,
         "max_cutjoin_cut": max_cutjoin_cut,
         "mesh_devices": mesh_devices,
-        "domains": False,
-        "local": False,
+        "domains": domains,
+        "local": local,
         "estimated_cost": total_cost,
         # per-node APCT predictions for committed nodes; uncommitted
         # fallback nodes and inf-priced entries carry no prediction
@@ -196,6 +299,6 @@ def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
                 obs.counter("analysis.always_refused")
     if use_cache:
         cache.put(key, plan)
-    return lower(plan, graph, counter=counter, from_cache=False,
-                 budget=budget, cutjoin_kernel=cutjoin_kernel,
-                 device=device)
+    return lower(plan, graph, counter=counter, use_pallas=use_pallas,
+                 from_cache=False, budget=budget,
+                 cutjoin_kernel=cutjoin_kernel, device=device)

@@ -7,7 +7,10 @@ device and evaluates nodes on demand with per-node memoisation:
                     elimination ``torch.einsum``s, f64, budget-chunked).
                     Free cut tensors stay on the device: the join tier
                     reads them where they lie;
-* ``Intersect``  -> degeneracy-ordered clique enumeration (host);
+* ``Intersect``  -> degeneracy-ordered clique enumeration (host), or the
+                    fused CUDA triangle kernel (``kernels.ops.
+                    triangle_count``, Σ A ⊙ (A @ A), f32 product, f64
+                    sum) when ``use_pallas`` is set and k == 3;
 * ``CutJoin``    -> the fused CUDA kernel tier for |cut| <= 3: the
                     k-factor masked product-reduce (``kernels.ops.
                     cutjoin_reduce``) for |cut| <= 2, the tri-join
@@ -24,22 +27,28 @@ device and evaluates nodes on demand with per-node memoisation:
                     explicit mask, axis-subset factors broadcast dense)
                     remains the counted route for wider cuts /
                     over-bound magnitudes / ``cutjoin_kernel=False``;
-* the combine ops run on host scalars.
+* ``LocalCount`` -> the same join without the final reduce (the
+                    partial-embedding reads): a reduce-free tensor is the
+                    dense factor product; one kept cut axis takes the
+                    keep-axis kernels (``cutjoin_reduce_keep`` /
+                    ``cutjoin_reduce3_keep``) under the same guard, else
+                    the dense f64 ``_join_keep`` / ``_join_keep3``;
+* the combine ops run on host scalars, or on device tensors for
+  vector-valued nodes.
 
 Node values memoise per plan *and* feed the engine's hom memo, so
 repeated queries against a compiled application never re-contract.
 
 Not ported yet (each raises ``NotImplementedError`` and names its
-ROADMAP.md queue item): the execution mesh, the morph count store, the
-fused triangle route of ``Intersect`` and the partial-embedding reads
-(``LocalCount`` nodes, ``local_counts`` / ``exists`` / ``domains`` /
-``mini_support``).  The reference's span-tracer hooks wait for the
-port of ``obs.trace``; every ``obs.counter`` is kept.
+ROADMAP.md queue item): the execution mesh and the morph count store.
+The reference's span-tracer hooks wait for the port of ``obs.trace``;
+every ``obs.counter`` is kept.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import obs
@@ -48,18 +57,14 @@ from repro_torch.core.pattern import Pattern, clique
 from repro_torch.graph.storage import Graph
 from repro_torch.compiler.ir import (Contract, CutJoin, Intersect, LocalCount,
                                      MobiusCombine, Plan, ShrinkageCorrect,
-                                     free_skeleton, is_local_output)
+                                     domain_keys, free_skeleton,
+                                     is_local_output, local_key)
 
 _NOT_PORTED = {
     "mesh": "mesh= (sharded tier) is not ported yet — ROADMAP.md queue 1, "
             "\"Sharded tier\"",
     "morph": "morph= / count_store= (the morph count store) is not ported "
              "yet — ROADMAP.md queue 1, \"compiler/morph.py\"",
-    "use_pallas": "use_pallas=True (the fused triangle route of Intersect) "
-                  "is not ported yet — ROADMAP.md queue 2, K6",
-    "local": "local=True / domains=True and the partial-embedding reads "
-             "(LocalCount, local_counts, exists, domains, mini_support) "
-             "are not ported yet — ROADMAP.md queue 1, \"LocalCount reads\"",
 }
 
 
@@ -70,6 +75,22 @@ def not_ported(what: str):
 def _join_reduce(stack):
     """Π of the stacked factor tensors (leading axis), then full sum."""
     return torch.sum(torch.prod(stack, dim=0))
+
+
+def _join_keep(stack, axis: int):
+    """Keep-axis dense route: Π of stacked (n, n) f64 factors, off-
+    diagonal masked, summed over the non-kept axis."""
+    prod = torch.prod(stack, dim=0)
+    prod.fill_diagonal_(0.0)
+    return torch.sum(prod, dim=1 - axis)
+
+
+def _join_keep3(stack, mask, keep: int):
+    """Keep-axis |cut| = 3 dense route: Π of stacked (n, n, n) f64 factors
+    under the dense pairwise-distinct mask, summed over the two non-kept
+    axes."""
+    prod = torch.prod(stack, dim=0) * mask
+    return torch.sum(prod, dim=tuple(a for a in range(3) if a != keep))
 
 
 class CompiledPlan:
@@ -84,14 +105,13 @@ class CompiledPlan:
             raise not_ported("mesh")
         if count_store is not None:
             raise not_ported("morph")
-        if use_pallas:
-            raise not_ported("use_pallas")
         self.plan = plan
         self.graph = graph
         # a caller-supplied counter keeps its own device binding
         self.counter = counter or CountingEngine(graph, budget=budget,
                                                  device=device)
         self.device = self.counter.device
+        self.use_pallas = use_pallas
         self.cutjoin_kernel = cutjoin_kernel
         self.from_cache = from_cache
         self._values: Dict[str, object] = {}
@@ -99,8 +119,9 @@ class CompiledPlan:
         self._factors: Dict[tuple, torch.Tensor] = {}
         self._factor_maxes: Dict[tuple, float] = {}
         self._precert: Optional[Dict[str, int]] = None
-        # one record per evaluated join node: cut size, route, granted
-        # chunk, and whether the guard was precertified or scanned
+        # one record per evaluated CutJoin / LocalCount node: cut size,
+        # kept axes, route, granted chunk, and whether the guard was
+        # precertified or scanned
         self.join_log: list = []
         self.stats = obs.StatsView(
             "plan", keys=("node_evals", "node_hits", "exists_early_exits"))
@@ -111,10 +132,64 @@ class CompiledPlan:
         return float(self.value(self.plan.output_for(p)))
 
     def counts(self) -> dict:
-        """All compiled count outputs: canonical pattern key -> count."""
+        """All compiled count outputs: canonical pattern key -> count
+        (partial-embedding outputs are tensors — read them through
+        ``local_counts``)."""
         return {pk: float(self.value(nk))
                 for pk, nk in self.plan.outputs.items()
                 if not is_local_output(pk)}
+
+    def has_local(self, p: Pattern, anchor: Optional[int] = None) -> bool:
+        """True when the plan carries the requested partial-embedding
+        output (compiled with ``local=True``; unanchored tensors need an
+        eligible cutting set — cliques have none)."""
+        return local_key(p, anchor) in self.plan.outputs
+
+    def local_counts(self, p: Pattern,
+                     anchor: Optional[int] = None) -> torch.Tensor:
+        """Partial-embedding counts of one pattern compiled with
+        ``local=True``, as an f64 tensor on the plan's device.
+
+        ``anchor=None``: the full local tensor over the cutting set
+        chosen for ``p.canonical()`` — axis j indexes the assignment of
+        the j-th smallest cut vertex *of the canonical form*
+        (``plan.meta["local_cuts"]`` records the cut), entry e_c is the
+        exact number of injective maps pinning the cut to e_c.
+        ``anchor=v``: the (N,) vector of completion counts with pattern
+        vertex v pinned per graph vertex — anchors in one automorphism
+        orbit share their entry.  Raises ``KeyError`` when the plan has
+        no such output."""
+        key = local_key(p, anchor)
+        nk = self.plan.outputs.get(key)
+        if nk is None:
+            raise KeyError(
+                f"plan has no partial-embedding output {key!r} "
+                f"(compiled without local=True, or the pattern has no "
+                f"eligible cutting set)")
+        # a copy, not the memo: plans are memoised across serving steps,
+        # so handing out the node value itself would let one caller's
+        # in-place edit corrupt every later answer
+        return self.value(nk).clone()
+
+    def exists(self, p: Pattern) -> bool:
+        """Existence with early exit: on a local plan, factor tensors
+        evaluate one subpattern at a time and an all-zero factor decides
+        False before the join or any shrinkage correction runs (one
+        subpattern with no embeddings means the whole pattern has none);
+        otherwise any positive local entry — or, without a local output,
+        the scalar count — decides."""
+        nk = self.plan.outputs.get(local_key(p))
+        node = self.plan.nodes.get(nk) if nk is not None else None
+        if isinstance(node, LocalCount):
+            for terms, ax in zip(node.factors, node.factor_axes()):
+                if not bool((self._combine(terms, len(ax)).abs()
+                             > 0.5).any()):
+                    self.stats["exists_early_exits"] += 1
+                    return False
+            return bool(self.value(nk).max() > 0.5)
+        if nk is not None:
+            return bool(self.value(nk).max() > 0.5)
+        return self.count(p) > 0.5
 
     def executable(self, p: Pattern):
         """Zero-arg closure for one pattern (plan handle for callers that
@@ -122,20 +197,25 @@ class CompiledPlan:
         key = self.plan.output_for(p)
         return lambda: float(self.value(key))
 
-    def has_local(self, p: Pattern, anchor: Optional[int] = None) -> bool:
-        raise not_ported("local")
-
-    def local_counts(self, p: Pattern, anchor: Optional[int] = None):
-        raise not_ported("local")
-
-    def exists(self, p: Pattern) -> bool:
-        raise not_ported("local")
-
     def domains(self, p: Pattern) -> dict:
-        raise not_ported("local")
+        """FSM MINI domain vectors of one pattern compiled with
+        ``domains=True``: canonical orbit-representative vertex -> (N,)
+        f64 tensor (a copy) counting injective maps sending that vertex to
+        each graph vertex.  Raises ``KeyError`` when the plan has no
+        domain nodes for ``p``."""
+        out = {}
+        for key in domain_keys(p):
+            if key not in self.plan.nodes:
+                raise KeyError(f"plan has no domain node {key!r} "
+                               f"(compiled without domains=True?)")
+            out[int(key.rsplit(":", 1)[1])] = self.value(key).clone()
+        return out
 
     def mini_support(self, p: Pattern) -> int:
-        raise not_ported("local")
+        """MINI support = min over pattern vertices of the domain size;
+        orbit representatives suffice (orbit members share domains)."""
+        return min(int(torch.count_nonzero(dom > 0.5))
+                   for dom in self.domains(p).values())
 
     # -- evaluation --------------------------------------------------------------
     def value(self, key: str):
@@ -159,6 +239,11 @@ class CompiledPlan:
                                                     order=node.order)
             return self.counter.hom(node.pattern, order=node.order or None)
         if isinstance(node, Intersect):
+            if self.use_pallas and node.k == 3:
+                from repro_torch.kernels import ops
+                adj = torch.from_numpy(self.graph.dense_adjacency(
+                    np.float32, pad=False)).to(self.device)
+                return 6.0 * ops.triangle_count(adj)
             return self.counter.hom(clique(node.k))
         if isinstance(node, MobiusCombine):
             acc = 0.0
@@ -176,16 +261,14 @@ class CompiledPlan:
             return acc / node.divisor
         raise TypeError(type(node))
 
-    def _eval_local(self, node: LocalCount):
-        raise not_ported("local")
-
     def _combine(self, terms, ndim: int) -> torch.Tensor:
         """One Möbius factor tensor Σ coeff · tensor(ref), f64, on the
         device — treat the result as READ-ONLY.  Genuine combinations
-        memoise by term tuple (CutJoin nodes over the same cut share
-        them); a single identity term returns the node value itself —
-        duplicating every Contract tensor into a second (n,)*ndim tensor
-        would roughly double a long-lived plan's steady-state memory."""
+        memoise by term tuple (CutJoin and LocalCount nodes over the same
+        cut, and ``exists`` early-exit probes, share them); a single
+        identity term returns the node value itself — duplicating every
+        Contract tensor into a second (n,)*ndim tensor would roughly
+        double a long-lived plan's steady-state memory."""
         if len(terms) == 1 and terms[0][0] == 1.0:
             return self.value(terms[0][1])
         key = (terms, ndim)
@@ -213,12 +296,12 @@ class CompiledPlan:
         return v
 
     def _join_factors(self, node):
-        """(factors, axes) of a CutJoin node: each factor combined over
-        its *own* axis subset (axis-subset factors stay at their own
-        size).  Max magnitudes are *not* scanned here — the exactness
-        guard (``_guard_block``) only pays for them when no static
-        certificate covers the node, and the dense route never needs
-        them at all."""
+        """(factors, axes) of a CutJoin/LocalCount node: each factor
+        combined over its *own* axis subset (axis-subset factors stay at
+        their own size).  Max magnitudes are *not* scanned here — the
+        exactness guard (``_guard_block``) only pays for them when no
+        static certificate covers the node, and the dense route never
+        needs them at all."""
         axes = node.factor_axes()
         Ms = [self._combine(terms, len(ax))
               for terms, ax in zip(node.factors, axes)]
@@ -278,7 +361,7 @@ class CompiledPlan:
 
     def _eval_cutjoin(self, node: CutJoin) -> float:
         Ms, axes = self._join_factors(node)
-        rec = {"node": node.key, "cut": node.cut_size,
+        rec = {"node": node.key, "cut": node.cut_size, "keep": None,
                "factor_shapes": [list(M.shape) for M in Ms],
                "route": "dense-f64", "block": None, "guard": None}
         self.join_log.append(rec)
@@ -301,6 +384,80 @@ class CompiledPlan:
         if node.cut_size >= 2:               # injectivity of the cut tuple
             Ms.append(self._mask(node.cut_size))
         return _join_reduce(torch.stack(Ms)).item()
+
+    def _eval_local(self, node: LocalCount) -> torch.Tensor:
+        """The decomposition join without the final reduce.  Reduce-free
+        (keep == all axes): the factor product with the off-diagonal
+        mask applied *after* subtracting corrections — anchored
+        correction tensors only equal true pinned-injective counts at
+        distinct pins, so diagonal entries are defined to zero by the
+        mask, matching Σ L = inj exactly.  Keep-axis (|cut| in {2, 3},
+        one surviving axis): the keep-axis kernels when the exactness
+        guard admits the factors, else the dense f64 mask-and-sum;
+        corrections are already vector-sized and subtract after the
+        reduce."""
+        Ms, axes = self._join_factors(node)
+        rec = {"node": node.key, "cut": node.cut_size,
+               "keep": list(node.keep),
+               "factor_shapes": [list(M.shape) for M in Ms],
+               "route": "dense-product", "block": None, "guard": None}
+        self.join_log.append(rec)
+        if node.cut_size == 1 or len(node.keep) == node.cut_size:
+            dense = self._dense_expand(Ms, axes, node.cut_size)
+            out = dense[0].clone(memory_format=torch.contiguous_format)
+            for M in dense[1:]:
+                out *= M
+            if node.corrections:
+                out -= self._combine(node.corrections, len(node.keep))
+            self._zero_collisions(out)       # injectivity of the cut tuple
+            return out
+        # keep-axis reduce: |cut| in {2, 3}, one surviving axis
+        axis = node.keep[0]
+        out = None
+        rec["route"] = "dense-f64-keep"
+        if self.cutjoin_kernel:
+            from repro_torch.kernels import ops
+            block, how = self._guard_block(node, Ms, axes)
+            rec.update(block=block, guard=how)
+            if block is not None:            # f32 chunks provably exact
+                rec["route"] = "kernel-keep"
+                if node.cut_size == 2:
+                    out = ops.cutjoin_reduce_keep(Ms, keep=axis,
+                                                  block=block)
+                else:
+                    out = ops.cutjoin_reduce3_keep(Ms, axes, keep=axis,
+                                                   n=self.graph.n,
+                                                   block=block)
+            else:
+                obs.counter("cutjoin.kernel_fallbacks", cut=node.cut_size,
+                            keep=True)
+        if out is None:
+            stack = torch.stack(self._dense_expand(Ms, axes,
+                                                   node.cut_size))
+            if node.cut_size == 2:
+                out = _join_keep(stack, axis)
+            else:
+                out = _join_keep3(stack, self._mask(3), axis)
+        if node.corrections:
+            out = out - self._combine(node.corrections, 1)
+        return out
+
+    @staticmethod
+    def _zero_collisions(out: torch.Tensor):
+        """Zero every entry whose index tuple repeats a value — the cut
+        injectivity mask applied in place to a reduce-free local tensor
+        (ndim 2: the diagonal; ndim 3: the three pairwise-equal planes;
+        ndim 1: nothing — a single cut vertex is always injective)."""
+        if out.ndim == 1:
+            return
+        if out.ndim == 2:
+            out.fill_diagonal_(0.0)
+            return
+        assert out.ndim == 3
+        idx = torch.arange(out.shape[0], device=out.device)
+        out[idx, idx, :] = 0.0
+        out[idx, :, idx] = 0.0
+        out[:, idx, idx] = 0.0
 
     def _mask(self, k: int) -> torch.Tensor:
         """Π_{a<b} [x_a != x_b] over a (n,)*k grid, f64 on the device."""

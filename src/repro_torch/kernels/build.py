@@ -1,11 +1,16 @@
 """Build-at-first-use for the CUDA sources under ``csrc/``.
 
-``load(name, sources)`` compiles the named ``.cu`` files with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface and returns
-it as a ``ctypes.CDLL``.  The library file is keyed by a hash of the
-sources and the flags, so a changed source rebuilds and an unchanged one
-is reused.  Nothing here runs at import time: a machine without ``nvcc``
-can import every module of the package; it only cannot launch a kernel.
+``load_all({name: sources, ...})`` compiles each library's ``.cu`` files
+with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
+interface, one ``nvcc`` per library, all started together, and returns
+them as ``ctypes.CDLL`` objects by name.  A library file is keyed by a
+hash of its sources and the flags, so a changed source rebuilds and an
+unchanged one is reused.  Nothing here runs at import time: a machine
+without ``nvcc`` can import every module of the package; it only cannot
+launch a kernel.
+
+A build that fails, and a launch that the card refuses, raise
+``KernelError``; callers that fall back on other errors re-raise it.
 
 The build directory is ``build/repro_torch/`` at the repository root.
 """
@@ -27,6 +32,10 @@ _LIBS: dict = {}
 build_seconds: dict = {}      # name -> seconds nvcc took (0.0 when reused)
 
 
+class KernelError(RuntimeError):
+    """A CUDA kernel of this package could not be built or launched."""
+
+
 def build_dir() -> Path:
     return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
@@ -39,31 +48,51 @@ def _nvcc() -> str:
                  "/usr/local/cuda"):
         if home and (Path(home) / "bin" / "nvcc").exists():
             return str(Path(home) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch are "
-                       "compiled at first use and need the CUDA toolkit")
+    raise KernelError("nvcc not found: the CUDA kernels of repro_torch are "
+                      "compiled at first use and need the CUDA toolkit")
 
 
-def load(name: str, sources) -> ctypes.CDLL:
-    """Compile (if needed) and load ``lib<name>-<hash>.so``."""
-    if name in _LIBS:
-        return _LIBS[name]
-    paths = [CSRC / s for s in sources]
+def _library(name: str, sources) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
-        h.update(p.read_bytes())
-    out = build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
-    build_seconds[name] = 0.0
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+    for s in sources:
+        h.update((CSRC / s).read_bytes())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def load_all(specs: dict) -> dict:
+    """Compile (where needed) and load every ``name -> sources`` library of
+    ``specs``; the ``nvcc`` runs of the missing ones all start together."""
+    todo = {}
+    for name, sources in specs.items():
+        if name in _LIBS:
+            continue
+        out = _library(name, sources)
+        build_seconds[name] = 0.0
+        if not out.exists():
+            todo[name] = (out, [str(CSRC / s) for s in sources])
+    if todo:
+        nvcc = _nvcc()
+        procs = {}
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-        build_seconds[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(out))
-    _LIBS[name] = lib
-    return lib
+        for name, (out, paths) in todo.items():
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *paths]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), cmd, tmp, out)
+        failed = []
+        for name, (proc, cmd, tmp, out) in procs.items():
+            log = proc.communicate()[0]
+            build_seconds[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{log}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise KernelError("\n".join(failed))
+    for name, sources in specs.items():
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(_library(name, sources)))
+    return {name: _LIBS[name] for name in specs}

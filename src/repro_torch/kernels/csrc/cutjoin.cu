@@ -5,12 +5,21 @@
 //   cutjoin_pair  Σ_{x,y} [gx != gy] Π_i F_i[x,y]             (|cut| = 2)
 //   cutjoin_tri   Σ_{x,y,z pairwise distinct} Π_i F_i[...]    (|cut| = 3)
 //
+// and their keep forms, which leave one cut axis as the output vector:
+//
+//   cutjoin_pair_keep  out[w] = Σ_{v != w} Π_i F_i           (|cut| = 2)
+//   cutjoin_tri_keep   out[w] = Σ over the other two axes     (|cut| = 3)
+//
 // They replace the reference package's TPU kernels _vecjoin_kernel,
-// _pairjoin_kernel and _trijoin_kernel (src/repro/kernels/matreduce.py).
-// All three are one kernel template over "k factors, three index axes,
-// per-factor strides (0 on an axis the factor does not span), per-axis
-// global offsets"; the vector and pair tiers leave the leading axes at
-// size 1.
+// _pairjoin_kernel, _pairjoin_keep_kernel and _trijoin_kernel (also run
+// by tri_reduce_keep) in src/repro/kernels/matreduce.py.  All are one
+// kernel template over "k factors, three index axes, per-factor strides
+// (0 on an axis the factor does not span), per-axis global offsets"; the
+// vector and pair tiers leave the leading axes at size 1.  In a keep form
+// the kept cut axis is kernel axis 2, the thread axis: the wrapper puts
+// it there by permuting the strides it passes (nothing is transposed or
+// copied), and every thread writes its own f64 row partial instead of
+// joining the block reduction.
 //
 // Arithmetic contract (what the exact_block guard certifies): factors are
 // integer-valued f64.  Each value is converted to f32 in registers, the
@@ -18,7 +27,11 @@
 // `block` cells before it is folded into an f64 register.  `block` is a
 // loop bound here, not a tile shape.  Every thread block reduces its f64
 // registers by a fixed tree and writes ONE f64 into `partials`; the caller
-// sums that buffer.  No atomics: two runs give the same bits.
+// sums that buffer.  In a keep form each thread writes its f64 register to
+// partials[(blockIdx.z * gridDim.y + blockIdx.y) * n2 + i2] and the caller
+// sums dim 0 of that (gz * gy, n2) buffer.  The f32 partial folds the same
+// <= `block` cells either way, so exact_block certifies both forms alike.
+// No atomics: two runs give the same bits.
 //
 // What bounds it on this card: the vector and pair tiers read every factor
 // cell once (8 bytes) and do a handful of operations on it, so they are
@@ -30,6 +43,9 @@
 // them for TX rows of x, hoists the factors that span axis 0 but not the
 // chunk axis (and the x-against-z part of the mask) out of the loop, and
 // walks the remaining factors with register pointers that step by a stride.
+// A keep form whose kept axis is a row axis of its factors reads them
+// uncoalesced (neighbouring threads walk neighbouring rows); that is left
+// as it is, with its time written down.
 //
 // Ragged edges are masked here; nothing is padded and nothing is
 // allocated.  Launches go to the stream the caller passes and never
@@ -53,8 +69,9 @@ struct FactorTable {
 // NB >= 0: the count of B factors is known at compile time, so their row
 // pointers live in registers and step by a stride per cell instead of being
 // recomputed from three 64-bit products; NB < 0: any count, read from the
-// table per cell.
-template <int TX, int MASK, int NB>
+// table per cell.  KEEP: write one f64 per thread (the kept axis is axis 2)
+// instead of one per thread block.
+template <int TX, int MASK, int NB, bool KEEP>
 __global__ void __launch_bounds__(THREADS)
 cutjoin_kernel(FactorTable T, int n0, int n1, int n2, int span1, int block,
                int off0, int off1, int off2, double* __restrict__ partials)
@@ -143,6 +160,13 @@ cutjoin_kernel(FactorTable T, int n0, int n1, int n2, int span1, int block,
         }
     }
 
+    if constexpr (KEEP) {      // every thread of the block takes this branch
+        if (i2 < n2)
+            partials[((size_t)blockIdx.z * gridDim.y + blockIdx.y) * n2 + i2]
+                = acc64;
+        return;
+    }
+
     // fixed-tree block reduction: shuffles within a warp, then warp 0 lane 0
     // adds the warp sums in order
     __shared__ double warp_sum[THREADS / 32];
@@ -182,21 +206,22 @@ static FactorTable make_table(const void* const* ptrs, const long long* strides,
 #define TX_FLAT 1
 #define TX_TRI 8
 
-template <int TX, int MASK, int NB>
+template <int TX, int MASK, int NB, bool KEEP>
 static int launch_nb(const FactorTable& T, int n0, int n1, int n2, int span1,
                      int block, int off0, int off1, int off2, void* partials,
                      dim3 grid, void* stream)
 {
-    cutjoin_kernel<TX, MASK, NB><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+    cutjoin_kernel<TX, MASK, NB, KEEP>
+        <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         T, n0, n1, n2, span1, block, off0, off1, off2, (double*)partials);
     return (int)cudaGetLastError();
 }
 
 #define LAUNCH_NB(NB)                                                         \
-    launch_nb<TX, MASK, NB>(T, n0, n1, n2, span1, block, off0, off1, off2,    \
-                            partials, grid, stream)
+    launch_nb<TX, MASK, NB, KEEP>(T, n0, n1, n2, span1, block, off0, off1,    \
+                                  off2, partials, grid, stream)
 
-template <int TX, int MASK>
+template <int TX, int MASK, bool KEEP>
 static int launch(const void* const* ptrs, const long long* strides, int nf,
                   int na, int nb, int n0, int n1, int n2, int span1, int block,
                   int off0, int off1, int off2, void* partials,
@@ -239,21 +264,35 @@ int cutjoin_threads() { return THREADS; }
 int cutjoin_vec(CUTJOIN_ARGS)
 {
     (void)masked;
-    return launch<TX_FLAT, 0>(CUTJOIN_PASS);
+    return launch<TX_FLAT, 0, false>(CUTJOIN_PASS);
 }
 
 // |cut| = 2: n0 = 1, axis 1 is the row (chunk) axis, axis 2 the column axis.
 int cutjoin_pair(CUTJOIN_ARGS)
 {
-    return masked ? launch<TX_FLAT, 1>(CUTJOIN_PASS)
-                  : launch<TX_FLAT, 0>(CUTJOIN_PASS);
+    return masked ? launch<TX_FLAT, 1, false>(CUTJOIN_PASS)
+                  : launch<TX_FLAT, 0, false>(CUTJOIN_PASS);
 }
 
 // |cut| = 3: axes (0, 1, 2) are the three cut axes; axis 1 is the chunk axis.
 int cutjoin_tri(CUTJOIN_ARGS)
 {
-    return masked ? launch<TX_TRI, 2>(CUTJOIN_PASS)
-                  : launch<TX_TRI, 0>(CUTJOIN_PASS);
+    return masked ? launch<TX_TRI, 2, false>(CUTJOIN_PASS)
+                  : launch<TX_TRI, 0, false>(CUTJOIN_PASS);
+}
+
+// Keep forms: axis 2 is the kept cut axis; `partials` holds gz * gy * n2
+// doubles.
+int cutjoin_pair_keep(CUTJOIN_ARGS)
+{
+    return masked ? launch<TX_FLAT, 1, true>(CUTJOIN_PASS)
+                  : launch<TX_FLAT, 0, true>(CUTJOIN_PASS);
+}
+
+int cutjoin_tri_keep(CUTJOIN_ARGS)
+{
+    return masked ? launch<TX_TRI, 2, true>(CUTJOIN_PASS)
+                  : launch<TX_TRI, 0, true>(CUTJOIN_PASS);
 }
 
 }  // extern "C"

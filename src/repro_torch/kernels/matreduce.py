@@ -10,16 +10,25 @@
                  tensors — and broadcasts over the rest.  Nothing is
                  expanded in memory and no O(n^|cut|) mask is built: the
                  mask is an index compare inside the kernel.
+``prod_reduce_keep`` / ``tri_reduce_keep``  the keep forms behind
+                 ``LocalCount`` (the partial-embedding API): one cut axis
+                 survives as the (n,) output, the others are reduced
+                 under the same mask.
+``matreduce``    Σ mask ⊙ (lhs @ rhsᵀ) over f32 (M, K), (N, K), (M, N)
+                 inputs — the fused triangle count behind ``Intersect``.
 
 These replace the reference package's ``_vecjoin_tiles``,
-``_pairjoin_tiles`` and ``_trijoin_tiles``
+``_pairjoin_tiles``, ``_pairjoin_keep_tiles``, ``_trijoin_tiles`` (also
+behind ``tri_reduce_keep``) and ``matreduce``
 (``src/repro/kernels/matreduce.py``).  On a CUDA tensor they launch the
-hand-written kernels of ``csrc/cutjoin.cu`` (compiled at first use, see
-``kernels.build``); the source says what bounds each on the card and
-what its design does about it.  On a CPU tensor — and only because the
-tensor lies on the CPU — they take the plain PyTorch versions
-``prod_reduce_plain`` / ``tri_reduce_plain`` in this module.  A CUDA
-tensor never reaches a plain version through a wrapper.
+hand-written kernels of ``csrc/cutjoin.cu`` and ``csrc/matreduce.cu``
+(compiled at first use, see ``kernels.build``); the sources say what
+bounds each on the card and what its design does about it.  On a CPU
+tensor — and only because the tensor lies on the CPU — they take the
+plain PyTorch versions ``prod_reduce_plain``, ``tri_reduce_plain``,
+``prod_reduce_keep_plain``, ``tri_reduce_keep_plain`` and
+``matreduce_plain`` in this module.  A CUDA tensor never reaches a plain
+version through a wrapper.
 
 **Arithmetic contract.**  Factors are integer-valued f64 (read directly,
 converted to f32 in registers).  Products are f32; an f32 partial sum
@@ -35,7 +44,9 @@ and the mask still compares global cut vertices.
 
 **Tile-level entries.**  ``prod_reduce_tiles`` / ``tri_reduce_tiles``
 return the f64 partials tensor on the factors' device without the final
-sum — a sharded caller sums partials of per-rank slices itself.
+sum — a sharded caller sums partials of per-rank slices itself.  The
+keep forms' ``*_keep_tiles`` return (P, n_keep) partials; their sum over
+dim 0 is the output vector.
 """
 from __future__ import annotations
 
@@ -49,11 +60,15 @@ EXACT_LIMIT = float(1 << 24)                 # f32 exact-integer range
 
 # kernel launches per tier, counted where the kernel is launched and
 # nowhere else (plain-version calls do not count)
-launches = {"vecjoin": 0, "pairjoin": 0, "trijoin": 0}
+launches = {"vecjoin": 0, "pairjoin": 0, "trijoin": 0, "pairjoin_keep": 0,
+            "trijoin_keep": 0, "matreduce": 0}
 
-_SOURCES = ("cutjoin.cu",)
+# one library per source; the first launch of any kernel builds them all,
+# with one nvcc each, started together
+_SOURCES = {"cutjoin": ("cutjoin.cu",), "matreduce": ("matreduce.cu",)}
 _ENTRY = {"vecjoin": "cutjoin_vec", "pairjoin": "cutjoin_pair",
-          "trijoin": "cutjoin_tri"}
+          "trijoin": "cutjoin_tri", "pairjoin_keep": "cutjoin_pair_keep",
+          "trijoin_keep": "cutjoin_tri_keep"}
 _TARGET_BLOCKS = 2048        # thread blocks wanted before axis 1 stops splitting
 _MIN_SPAN = 32               # fewest axis-1 cells one thread block walks
 _PLAIN_SLAB = 1 << 27        # cells per slab of the plain tri version
@@ -96,23 +111,30 @@ def exact_block(factors, max_block: int = 1024, min_block: int = 8,
 _LIB = None
 
 
-def _lib():
-    """The compiled kernel library, built and bound at first use."""
+def _lib(name: str = "cutjoin"):
+    """One compiled kernel library (``cutjoin`` or ``matreduce``); the
+    first call builds and binds them all."""
     global _LIB
     if _LIB is None:
-        lib = _build.load("cutjoin", _SOURCES)
-        P, I = ctypes.c_void_p, ctypes.c_int
+        libs = _build.load_all(_SOURCES)
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        cj = libs["cutjoin"]
         for entry in _ENTRY.values():
-            fn = getattr(lib, entry)
+            fn = getattr(cj, entry)
             fn.argtypes = [P, P, I, I, I, I, I, I, I, I, I, I, I, I, P,
                            I, I, I, P]
             fn.restype = I
         for q in ("cutjoin_tx_tri", "cutjoin_max_factors",
                   "cutjoin_threads"):
-            getattr(lib, q).argtypes = []
-            getattr(lib, q).restype = I
-        _LIB = lib
-    return _LIB
+            getattr(cj, q).argtypes = []
+            getattr(cj, q).restype = I
+        mm = libs["matreduce"]
+        mm.matreduce_f32.argtypes = [P, P, P, I, I, I, L, L, L, P, P]
+        mm.matreduce_f32.restype = I
+        mm.matreduce_tile.argtypes = []
+        mm.matreduce_tile.restype = I
+        _LIB = libs
+    return _LIB[name]
 
 
 def _offsets(offsets, naxes: int):
@@ -157,8 +179,12 @@ def _fold_surplus(entries, cap: int):
 
 def _launch(kind: str, entries, sizes, masked: bool, off3, block: int):
     """Launch one tier on CUDA factors.  ``entries``: (tensor, axes) with
-    ``axes`` the sorted kernel axes (0, 1, 2) the tensor's dims map to;
-    ``sizes``: (n0, n1, n2).  Returns the (blocks,) f64 partials."""
+    ``axes[d]`` the kernel axis (0, 1, 2) that dim d of the tensor maps
+    to — any order: a keep form permutes the strides so that the kept cut
+    axis is kernel axis 2, and nothing is transposed or copied.
+    ``sizes``: (n0, n1, n2).  Returns the f64 partials: (blocks,), or
+    (gz * gy, n2) for a keep form."""
+    keep = kind.endswith("_keep")
     lib = _lib()
     threads, tx = lib.cutjoin_threads(), lib.cutjoin_tx_tri()
     entries = [(F if F.dtype == torch.float64 else F.double(), ax)
@@ -186,14 +212,15 @@ def _launch(kind: str, entries, sizes, masked: bool, off3, block: int):
             or int(block) < 1:
         raise ValueError(f"sizes {sizes} / block {block} out of range")
     gx = -(-n2 // threads)
-    gy = -(-n0 // (tx if kind == "trijoin" else 1))
+    gy = -(-n0 // (tx if kind.startswith("trijoin") else 1))
     want_z = max(1, -(-_TARGET_BLOCKS // (gx * gy)))
     span1 = max(-(-n1 // want_z), min(_MIN_SPAN, n1))
     gz = -(-n1 // span1)
     if gy > 65535 or gz > 65535:
         raise ValueError(f"grid ({gx}, {gy}, {gz}) exceeds the launch limits")
     dev = entries[0][0].device
-    partials = torch.empty((gx * gy * gz,), dtype=torch.float64, device=dev)
+    partials = torch.empty((gz * gy, n2) if keep else (gx * gy * gz,),
+                           dtype=torch.float64, device=dev)
     ptrs = (ctypes.c_void_p * nf)(*[F.data_ptr() for F, _ in entries])
     strd = (ctypes.c_longlong * (3 * nf))(*strides)
     with torch.cuda.device(dev):
@@ -204,7 +231,8 @@ def _launch(kind: str, entries, sizes, masked: bool, off3, block: int):
             span1, int(block), int(bool(masked)), off3[0], off3[1], off3[2],
             partials.data_ptr(), gx, gy, gz, stream)
     if err != 0:
-        raise RuntimeError(f"{_ENTRY[kind]} launch failed: CUDA error {err}")
+        raise _build.KernelError(f"{_ENTRY[kind]} launch failed: CUDA "
+                                 f"error {err}")
     launches[kind] += 1
     return partials
 
@@ -213,7 +241,7 @@ def _launch(kind: str, entries, sizes, masked: bool, off3, block: int):
 
 def _chunk_sums(prod, dim: int, block: int):
     """f32 sums of ``prod`` along ``dim`` in chunks of at most ``block``
-    cells, returned flattened in f64."""
+    cells, in f64, with ``dim`` now indexing the chunks."""
     n = prod.shape[dim]
     full = (n // block) * block
     parts = []
@@ -221,27 +249,31 @@ def _chunk_sums(prod, dim: int, block: int):
         head = prod.narrow(dim, 0, full)
         shape = list(head.shape)
         shape[dim:dim + 1] = [full // block, block]
-        parts.append(head.reshape(shape).sum(dim + 1).double().reshape(-1))
+        parts.append(head.reshape(shape).sum(dim + 1).double())
     if full < n:
-        parts.append(prod.narrow(dim, full, n - full).sum(dim).double()
-                     .reshape(-1))
-    return torch.cat(parts)
+        parts.append(prod.narrow(dim, full, n - full)
+                     .sum(dim, keepdim=True).double())
+    return torch.cat(parts, dim)
 
 
-def _prod_partials_plain(factors, distinct, block, offsets):
-    factors = _as_factors(factors)
+def _pair_product_plain(factors, distinct, offsets):
+    """f32 product of (m, n) factors, masked where global row == column."""
     prod = factors[0].to(torch.float32)
     for F in factors[1:]:
         prod = prod * F.to(torch.float32)
-    if prod.ndim == 1:
-        return prod.double()                 # one cell per partial
-    assert prod.ndim == 2
-    if distinct:
+    if distinct and prod.ndim == 2:
         off = _offsets(offsets, 2)
         gx = torch.arange(prod.shape[0], device=prod.device) + off[0]
         gy = torch.arange(prod.shape[1], device=prod.device) + off[1]
         prod = prod.masked_fill(gx[:, None] == gy[None, :], 0.0)
-    return _chunk_sums(prod, 0, block)
+    return prod
+
+
+def _prod_partials_plain(factors, distinct, block, offsets):
+    prod = _pair_product_plain(_as_factors(factors), distinct, offsets)
+    if prod.ndim == 1:
+        return prod.double()                 # one cell per partial
+    return _chunk_sums(prod, 0, block).reshape(-1)
 
 
 def prod_reduce_plain(factors, *, distinct: bool = True, block: int = 128,
@@ -272,12 +304,27 @@ def _tri_check(factors, axes, sizes):
     return factors, axes
 
 
-def _tri_partials_plain(factors, axes, n, distinct, block, offsets):
+def _tri_partials_plain(factors, axes, n, distinct, block, offsets,
+                        keep=None):
+    """Per-slab f64 sums of the tri join, or with ``keep`` the (1, n_keep)
+    output row: the kept axis is moved to the front by permuting views
+    (the mask is symmetric, so only the offsets move with it)."""
     sizes = _tri_sizes(n)
     factors, axes = _tri_check(factors, axes, sizes)
+    off = _offsets(offsets, 3)
+    if keep is not None:
+        perm = (keep,) + tuple(a for a in range(3) if a != keep)
+        rank = {a: i for i, a in enumerate(perm)}
+        moved = []
+        for F, ax in zip(factors, axes):
+            new = tuple(sorted(rank[a] for a in ax))
+            moved.append((F.permute([ax.index(perm[a]) for a in new]), new))
+        factors = [F for F, _ in moved]
+        axes = [ax for _, ax in moved]
+        sizes = tuple(sizes[a] for a in perm)
+        off = tuple(off[a] for a in perm)
     n0, n1, n2 = sizes
     dev = factors[0].device
-    off = _offsets(offsets, 3)
     views = [F.to(torch.float32).reshape(
         tuple(sizes[a] if a in ax else 1 for a in range(3)))
         for F, ax in zip(factors, axes)]
@@ -296,8 +343,11 @@ def _tri_partials_plain(factors, axes, n, distinct, block, offsets):
                 .view(bw, 1, 1)
             prod = prod.masked_fill((gx == gy) | (gx == gz) | (gy == gz),
                                     0.0)
-        parts.append(_chunk_sums(prod, 1, block).sum())
-    return torch.stack(parts)
+        sums = _chunk_sums(prod, 1, block)
+        parts.append(sums.sum() if keep is None else sums.sum(dim=(1, 2)))
+    if keep is None:
+        return torch.stack(parts)
+    return torch.cat(parts)[None, :]
 
 
 def tri_reduce_plain(factors, axes, *, n, distinct: bool = True,
@@ -307,6 +357,75 @@ def tri_reduce_plain(factors, axes, *, n, distinct: bool = True,
     mask from ``arange`` + offsets, f64 finish."""
     return _tri_partials_plain(factors, axes, n, distinct, block,
                                offsets).sum().item()
+
+
+def _pair_check(factors):
+    factors = _as_factors(factors)
+    if factors[0].ndim != 2 or any(F.shape != factors[0].shape
+                                   for F in factors):
+        raise ValueError("keep-axis factors must all be (m, n): "
+                         f"{[tuple(F.shape) for F in factors]}")
+    return factors
+
+
+def _pair_keep_partials_plain(factors, keep, distinct, block, offsets):
+    prod = _pair_product_plain(factors, distinct, offsets)
+    if keep == 1:                            # reduce rows: (chunks, n)
+        return _chunk_sums(prod, 0, block)
+    return _chunk_sums(prod, 1, block).T     # reduce columns: (chunks, m)
+
+
+def prod_reduce_keep_plain(factors, *, keep: int = 0, distinct: bool = True,
+                           block: int = 128, offsets=None) -> torch.Tensor:
+    """Plain PyTorch version of ``prod_reduce_keep``: f32 product, mask
+    from ``arange`` + offsets, f32 sums over at most ``block`` cells of
+    the reduced axis, f64 sum of those per kept index."""
+    if keep not in (0, 1):
+        raise ValueError(f"keep={keep}: a pair join keeps axis 0 or 1")
+    return _pair_keep_partials_plain(_pair_check(factors), keep, distinct,
+                                     block, offsets).sum(0)
+
+
+def tri_reduce_keep_plain(factors, axes, *, keep: int, n,
+                          distinct: bool = True, block: int = 128,
+                          offsets=None) -> torch.Tensor:
+    """Plain PyTorch version of ``tri_reduce_keep``: the kept axis moved
+    to the front by permuted views, then as ``tri_reduce_plain`` with the
+    f64 sums taken per kept index."""
+    if keep not in (0, 1, 2):
+        raise ValueError(f"keep={keep}: a tri join keeps axis 0, 1 or 2")
+    return _tri_partials_plain(factors, axes, n, distinct, block, offsets,
+                               keep=keep).sum(0)
+
+
+def _mm_operands(lhs, rhs, mask):
+    out = []
+    for x in (lhs, rhs, mask):
+        x = torch.as_tensor(x)
+        if x.ndim != 2:
+            raise ValueError(f"matreduce takes 2-D operands: {tuple(x.shape)}")
+        out.append(x if x.dtype == torch.float32 else x.float())
+    lhs, rhs, mask = out
+    (M, K), N = lhs.shape, rhs.shape[0]
+    if rhs.shape[1] != K or tuple(mask.shape) != (M, N):
+        raise ValueError(f"lhs {tuple(lhs.shape)}, rhs {tuple(rhs.shape)}, "
+                         f"mask {tuple(mask.shape)}: want (M, K), (N, K), "
+                         f"(M, N)")
+    if rhs.device != lhs.device or mask.device != lhs.device:
+        raise ValueError("matreduce operands lie on different devices")
+    return lhs, rhs, mask
+
+
+def _matreduce_plain(lhs, rhs, mask) -> torch.Tensor:
+    return ((lhs @ rhs.T).double() * mask.double()).sum().reshape(1)
+
+
+def matreduce_plain(lhs, rhs, mask) -> float:
+    """Plain PyTorch version of ``matreduce``: the f32 product (on a card
+    it follows ``torch.backends.cuda.matmul.allow_tf32``, which a caller
+    comparing counts leaves False), each cell times the mask in f64, f64
+    sum."""
+    return _matreduce_plain(*_mm_operands(lhs, rhs, mask)).item()
 
 
 # -- the wrappers -------------------------------------------------------------------
@@ -377,3 +496,119 @@ def tri_reduce(factors, axes, *, n, distinct: bool = True, block: int = 128,
     same bound as for the pair tier."""
     return tri_reduce_tiles(factors, axes, n=n, distinct=distinct,
                             block=block, offsets=offsets).sum().item()
+
+
+def prod_reduce_keep_tiles(factors, *, keep: int = 0, distinct: bool = True,
+                           block: int = 128, offsets=None) -> torch.Tensor:
+    """(P, n_keep) f64 partials of ``prod_reduce_keep`` on the factors'
+    device; their sum over dim 0 is the output vector."""
+    factors = _pair_check(factors)
+    if keep not in (0, 1):
+        raise ValueError(f"keep={keep}: a pair join keeps axis 0 or 1")
+    if not factors[0].is_cuda:
+        return _pair_keep_partials_plain(factors, keep, distinct, block,
+                                         offsets)
+    m, n = factors[0].shape
+    if m == 0 or n == 0:
+        return torch.zeros((1, (m, n)[keep]), dtype=torch.float64,
+                           device=factors[0].device)
+    off = _offsets(offsets, 2)
+    if keep == 0:       # rows are kept: row axis -> thread axis 2
+        return _launch("pairjoin_keep", [(F, (2, 1)) for F in factors],
+                       (1, n, m), distinct, (0, off[1], off[0]), block)
+    return _launch("pairjoin_keep", [(F, (1, 2)) for F in factors],
+                   (1, m, n), distinct, (0, off[0], off[1]), block)
+
+
+def prod_reduce_keep(factors, *, keep: int = 0, distinct: bool = True,
+                     block: int = 128, offsets=None) -> torch.Tensor:
+    """Keep-axis masked product-reduce over (m, n) factors, as an f64
+    vector on the factors' device:
+
+        keep=0:  out[x] = Σ_y [gx≠gy] · Π_i F_i[x, y]
+        keep=1:  out[y] = Σ_x [gx≠gy] · Π_i F_i[x, y]
+
+    The anchored partial-embedding read off a |cut| = 2 join.  Exact for
+    integer-valued factors that ``exact_block`` admits with ``block`` —
+    each f32 partial folds the same ≤ ``block`` cells as ``prod_reduce``.
+    ``offsets`` gives the factors' global start index per cut axis."""
+    return prod_reduce_keep_tiles(factors, keep=keep, distinct=distinct,
+                                  block=block, offsets=offsets).sum(0)
+
+
+def tri_reduce_keep_tiles(factors, axes, *, keep: int, n,
+                          distinct: bool = True, block: int = 128,
+                          offsets=None) -> torch.Tensor:
+    """(P, n_keep) f64 partials of ``tri_reduce_keep`` on the factors'
+    device; their sum over dim 0 is the output vector."""
+    sizes = _tri_sizes(n)
+    factors, axes = _tri_check(factors, axes, sizes)
+    if keep not in (0, 1, 2):
+        raise ValueError(f"keep={keep}: a tri join keeps axis 0, 1 or 2")
+    if not factors[0].is_cuda:
+        return _tri_partials_plain(factors, axes, sizes, distinct, block,
+                                   offsets, keep=keep)
+    if min(sizes) == 0:
+        return torch.zeros((1, sizes[keep]), dtype=torch.float64,
+                           device=factors[0].device)
+    # the kept axis becomes kernel axis 2 (the thread axis), the other two
+    # keep their order as kernel axes 0 and 1: only strides move
+    others = [a for a in range(3) if a != keep]
+    kaxis = {others[0]: 0, others[1]: 1, keep: 2}
+    off = _offsets(offsets, 3)
+    ksizes, koff = [0] * 3, [0] * 3
+    for a in range(3):
+        ksizes[kaxis[a]], koff[kaxis[a]] = sizes[a], off[a]
+    entries = [(F, tuple(kaxis[a] for a in ax))
+               for F, ax in zip(factors, axes)]
+    return _launch("trijoin_keep", entries, tuple(ksizes), distinct,
+                   tuple(koff), block)
+
+
+def tri_reduce_keep(factors, axes, *, keep: int, n, distinct: bool = True,
+                    block: int = 128, offsets=None) -> torch.Tensor:
+    """Keep-axis tri-join: out[w] = Σ over the other two (pairwise-
+    distinct) cut axes of Π_i F_i, an f64 vector on the factors' device —
+    the anchored partial-embedding vector of a |cut| = 3 plan.  Factors
+    span axis subsets as in ``tri_reduce``; ``offsets`` are per original
+    cut axis.  The same ``exact_block`` bound holds."""
+    return tri_reduce_keep_tiles(factors, axes, keep=keep, n=n,
+                                 distinct=distinct, block=block,
+                                 offsets=offsets).sum(0)
+
+
+def matreduce_tiles(lhs, rhs, mask) -> torch.Tensor:
+    """f64 per-thread-block partials of ``matreduce`` on the operands'
+    device; their sum is the result."""
+    lhs, rhs, mask = _mm_operands(lhs, rhs, mask)
+    if not lhs.is_cuda:
+        return _matreduce_plain(lhs, rhs, mask)
+    (M, K), N = lhs.shape, rhs.shape[0]
+    if M == 0 or N == 0 or K == 0:
+        return torch.zeros((1,), dtype=torch.float64, device=lhs.device)
+    # the kernel takes a row stride and unit column stride
+    lhs, rhs, mask = (x if x.stride(1) == 1 and x.stride(0) >= x.shape[1]
+                      else x.contiguous() for x in (lhs, rhs, mask))
+    lib = _lib("matreduce")
+    tile = lib.matreduce_tile()
+    partials = torch.empty((-(-M // tile) * -(-N // tile),),
+                           dtype=torch.float64, device=lhs.device)
+    with torch.cuda.device(lhs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.matreduce_f32(lhs.data_ptr(), rhs.data_ptr(),
+                                mask.data_ptr(), M, N, K, lhs.stride(0),
+                                rhs.stride(0), mask.stride(0),
+                                partials.data_ptr(), stream)
+    if err != 0:
+        raise _build.KernelError(f"matreduce_f32 launch failed: CUDA "
+                                 f"error {err}")
+    launches["matreduce"] += 1
+    return partials
+
+
+def matreduce(lhs, rhs, mask) -> float:
+    """Σ_{i,j} mask[i,j] · (lhs @ rhsᵀ)[i,j] for lhs (M, K), rhs (N, K),
+    mask (M, N); other dtypes are cast to f32.  The product is exact f32
+    (no TF32); the masked cells are summed in f64, so 0/1 inputs give the
+    exact integer while every product cell stays below 2^24."""
+    return matreduce_tiles(lhs, rhs, mask).sum().item()

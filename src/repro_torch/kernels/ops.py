@@ -1,9 +1,12 @@
-"""Public wrappers for the join kernels: defaults, route counters, guard.
+"""Public wrappers for the join and triangle kernels: defaults, route
+counters, guard.
 
 Counter names and labels (``kernel.calls``, ``kernel.exact_block``) are
 the reference package's, so route counters compare one-to-one.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch import obs
 from repro_torch.kernels import matreduce as _mr
@@ -52,6 +55,49 @@ def cutjoin_reduce3(factors, axes, *, n, distinct=True, block=None,
     obs.counter("kernel.calls", op="cutjoin_reduce3", cut=3)
     return _mr.tri_reduce(factors, axes, n=n, distinct=distinct,
                           block=block, offsets=offsets)
+
+
+def cutjoin_reduce_keep(factors, *, keep=0, distinct=True, block=None,
+                        offsets=None):
+    """Keep-axis decomposition join: out[x] = Σ_{y≠x} Π_i M_i(x, y) over
+    (m, n) cut tensors — the anchored partial-embedding vector of a
+    |cut| = 2 plan (``keep`` picks which cut axis survives), as an f64
+    vector on the factors' device.  Same masking and chunked f32/f64
+    exactness story as ``cutjoin_reduce``; ``cutjoin_exact_block``
+    certifies the same chunk size for both."""
+    if block is None:
+        block = MAX_BLOCK
+    obs.counter("kernel.calls", op="cutjoin_reduce_keep", cut=2)
+    return _mr.prod_reduce_keep(factors, keep=keep, distinct=distinct,
+                                block=block, offsets=offsets)
+
+
+def cutjoin_reduce3_keep(factors, axes, *, keep, n, distinct=True,
+                         block=None, offsets=None):
+    """Keep-axis |cut| = 3 join: out[w] = Σ over the two non-kept cut
+    axes (pairwise-distinct triples only) of Π_i M_i — the anchored
+    partial-embedding vector of a 3-cut plan.  Same axis-subset reads,
+    in-kernel mask and chunked f32/f64 exactness story as
+    ``cutjoin_reduce3``."""
+    if block is None:
+        block = MAX_BLOCK
+    obs.counter("kernel.calls", op="cutjoin_reduce3_keep", cut=3)
+    return _mr.tri_reduce_keep(factors, axes, keep=keep, n=n,
+                               distinct=distinct, block=block,
+                               offsets=offsets)
+
+
+def masked_matmul_reduce(lhs, rhs, mask) -> float:
+    """Σ mask ⊙ (lhs @ rhsᵀ) with the product tile never written out:
+    lhs (M, K), rhs (N, K), mask (M, N), f32 product, f64 sum."""
+    return _mr.matreduce(lhs, rhs, mask)
+
+
+def triangle_count(adj) -> float:
+    """Σ A ⊙ (A @ A) / 6 for a symmetric 0/1 adjacency: the number of
+    triangles, exact while every vertex degree stays below 2^24."""
+    a = torch.as_tensor(adj, dtype=torch.float32)
+    return masked_matmul_reduce(a, a, a) / 6.0
 
 
 def runtime_block(block: int) -> int:

@@ -255,22 +255,13 @@ def test_lower_verify_rejects_a_corrupted_plan(both):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": object()}, {"morph": True}, {"local": True},
-    {"domains": True}, {"use_pallas": True},
+    {"mesh": object()}, {"morph": True},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_features_raise_and_name_their_roadmap_item(both, kwargs):
     r = both(("er60", "house"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
         tcompiler.compile(r["pats"], r["tg"], cache=False, device="cpu",
                           **kwargs)
-
-
-@pytest.mark.parametrize("method", ["local_counts", "exists", "domains",
-                                    "mini_support", "has_local"])
-def test_partial_embedding_reads_raise_not_implemented(both, method):
-    r = both(("er60", "house"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
-        getattr(r["tcp"], method)(HOUSE)
 
 
 def test_plan_meta_keeps_the_shared_fields(both):

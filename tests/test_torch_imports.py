@@ -44,9 +44,11 @@ def test_port_has_the_expected_modules():
                  "compiler/ir.py", "compiler/frontend.py",
                  "compiler/costing.py", "compiler/cache.py",
                  "compiler/lowering.py", "compiler/__init__.py",
-                 "analysis/verify.py", "analysis/__init__.py"):
+                 "analysis/verify.py", "analysis/__init__.py",
+                 "api/__init__.py", "api/local.py"):
         assert want in names, want
-    assert (PORT / "kernels" / "csrc" / "cutjoin.cu").is_file()
+    for source in ("cutjoin.cu", "matreduce.cu"):
+        assert (PORT / "kernels" / "csrc" / source).is_file(), source
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -67,7 +69,7 @@ def test_importing_the_compiler_pulls_in_neither_jax_nor_repro():
     proc = _run(
         "import sys\n"
         "import repro_torch.compiler, repro_torch.kernels.ops, "
-        "repro_torch.analysis, repro_torch.interop\n"
+        "repro_torch.analysis, repro_torch.interop, repro_torch.api\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -107,7 +109,8 @@ def test_kernel_modules_import_without_a_compiler_and_build_nothing():
         "import repro_torch.kernels.matreduce as m, "
         "repro_torch.kernels.build as b\n"
         "assert m._LIB is None and not b._LIBS\n"
-        "assert m.launches == {'vecjoin': 0, 'pairjoin': 0, 'trijoin': 0}\n",
+        "assert m.launches == {'vecjoin': 0, 'pairjoin': 0, 'trijoin': 0, "
+        "'pairjoin_keep': 0, 'trijoin_keep': 0, 'matreduce': 0}\n",
         PATH="/nonexistent")
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

@@ -1,0 +1,370 @@
+"""Keep-axis join kernels (K3, the keep form of K4) and the masked
+matrix-product reduce (K6) of the port vs the reference's interpret-mode
+kernels.
+
+On the CPU the port's wrappers take the kernels' plain PyTorch versions
+(the CUDA kernels are held against those on the card by
+``chip_smoke.py``).  Here ``prod_reduce_keep_plain``,
+``tri_reduce_keep_plain`` and ``matreduce_plain`` — and the wrappers
+that reach them for CPU tensors — are held against
+``repro.kernels.ops.cutjoin_reduce_keep`` / ``cutjoin_reduce3_keep`` /
+``masked_matmul_reduce`` run with ``interpret=True``, and against a dense
+f64 numpy oracle, on the same seeded inputs.  Tolerance is **0** for every
+integer-valued input (each stays within the ``exact_block`` guard, or is
+0/1 with product cells below 2^24); random float input to K6 uses the
+reference's own tolerance, |got - want| < 3e-2 · |want| + 1
+(``tests/test_kernels.py``).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import compiler as tcompiler
+from repro_torch.core.counting import CountingEngine
+from repro_torch.core.pattern import clique, tailed_triangle
+from repro_torch.graph.generators import erdos_renyi
+from repro_torch.kernels import matreduce as tmr
+from repro_torch.kernels import ops as tops
+
+from test_torch_kernels import AXIS_MIXES, _factors, _hi, _t
+from test_torch_reference import reference  # noqa: F401  (shared fixture)
+
+BLOCKS = (8, 128, 1024)
+
+
+def _pair_keep_oracle(fs, keep, distinct, offsets=(0, 0)):
+    prod = np.prod(np.stack(fs), axis=0)
+    if distinct:
+        gx = np.arange(prod.shape[0]) + offsets[0]
+        gy = np.arange(prod.shape[1]) + offsets[1]
+        prod = np.where(gx[:, None] == gy[None, :], 0.0, prod)
+    return prod.sum(axis=1 - keep)
+
+
+def _tri_keep_oracle(fs, axes, sizes, keep, distinct, offsets=(0, 0, 0)):
+    prod = np.ones(sizes)
+    for F, ax in zip(fs, axes):
+        prod = prod * F.reshape(tuple(sizes[a] if a in ax else 1
+                                      for a in range(3)))
+    if distinct:
+        x = (np.arange(sizes[0]) + offsets[0])[:, None, None]
+        y = (np.arange(sizes[1]) + offsets[1])[None, :, None]
+        z = (np.arange(sizes[2]) + offsets[2])[None, None, :]
+        prod = np.where((x == y) | (x == z) | (y == z), 0.0, prod)
+    return prod.sum(axis=tuple(a for a in range(3) if a != keep))
+
+
+# -- K3: pair keep against the dense oracle -----------------------------------------
+
+@pytest.mark.parametrize("distinct", (True, False))
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("keep", (0, 1))
+@pytest.mark.parametrize("k", (1, 2, 3))
+@pytest.mark.parametrize("n", (24, 130))
+def test_pair_keep_plain_and_wrapper_equal_dense(n, k, keep, block,
+                                                 distinct):
+    fs = _factors(3 * n + k + keep, [(n, n)] * k, _hi(k, block))
+    want = _pair_keep_oracle(fs, keep, distinct)
+    got = tmr.prod_reduce_keep_plain(_t(fs), keep=keep, distinct=distinct,
+                                     block=block)
+    assert got.dtype == torch.float64 and tuple(got.shape) == (n,)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(tops.cutjoin_reduce_keep(
+        _t(fs), keep=keep, distinct=distinct, block=block).numpy(), want)
+    tiles = tmr.prod_reduce_keep_tiles(_t(fs), keep=keep, distinct=distinct,
+                                       block=block)
+    assert tiles.shape[1] == n
+    assert np.array_equal(tiles.sum(0).numpy(), want)
+
+
+@pytest.mark.parametrize("keep", (0, 1))
+@pytest.mark.parametrize("rows,start,col0", [(17, 5, 0), (40, 90, 3),
+                                             (1, 129, 0)])
+def test_pair_keep_rectangular_slice_with_offsets_equals_dense(rows, start,
+                                                               col0, keep):
+    n, block = 130, 128
+    full = _factors(rows + start + keep, [(n, n)] * 2, _hi(2, block))
+    sl = [F[start:start + rows, col0:] for F in full]
+    want = _pair_keep_oracle(sl, keep, True, (start, col0))
+    got = tmr.prod_reduce_keep(_t(sl), keep=keep, block=block,
+                               offsets=(start, col0))
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_pair_keep_row_slices_concatenate_to_the_whole():
+    n, block = 130, 128
+    fs = _factors(4, [(n, n)] * 2, _hi(2, block))
+    whole = tmr.prod_reduce_keep(_t(fs), keep=0, block=block)
+    parts = torch.cat([tmr.prod_reduce_keep(_t([F[s:s + 50] for F in fs]),
+                                            keep=0, block=block,
+                                            offsets=(s, 0))
+                       for s in range(0, n, 50)])
+    assert torch.equal(parts, whole)
+    assert np.array_equal(whole.numpy(), _pair_keep_oracle(fs, 0, True))
+
+
+# -- K4 keep form against the dense oracle ------------------------------------------
+
+@pytest.mark.parametrize("block", (8, 1024))
+@pytest.mark.parametrize("keep", (0, 1, 2))
+@pytest.mark.parametrize("mix", range(len(AXIS_MIXES)))
+def test_tri_keep_plain_and_wrapper_equal_dense(mix, keep, block):
+    axes = AXIS_MIXES[mix]
+    n = 24 if mix % 2 else 37
+    fs = _factors(mix + 10 * keep, [(n,) * len(ax) for ax in axes],
+                  _hi(len(axes), block))
+    want = _tri_keep_oracle(fs, axes, (n, n, n), keep, True)
+    got = tmr.tri_reduce_keep_plain(_t(fs), axes, keep=keep, n=n,
+                                    block=block)
+    assert got.dtype == torch.float64 and tuple(got.shape) == (n,)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(tops.cutjoin_reduce3_keep(
+        _t(fs), axes, keep=keep, n=n, block=block).numpy(), want)
+
+
+@pytest.mark.parametrize("keep", (0, 1, 2))
+def test_tri_keep_unmasked_and_sliced_with_offsets_equal_dense(keep):
+    n, block = 40, 8
+    axes = [(0, 1, 2), (0, 2), (1, 2)]
+    fs = _factors(12 + keep, [(n,) * len(ax) for ax in axes], _hi(3, block))
+    want = _tri_keep_oracle(fs, axes, (n, n, n), keep, False)
+    assert np.array_equal(tmr.tri_reduce_keep(
+        _t(fs), axes, keep=keep, n=n, distinct=False, block=block).numpy(),
+        want)
+    s, w = 16, 14
+    sl = [fs[0][s:s + w], fs[1][s:s + w], fs[2]]
+    want = _tri_keep_oracle(sl, axes, (w, n, n), keep, True, (s, 0, 0))
+    got = tmr.tri_reduce_keep(_t(sl), axes, keep=keep, n=(w, n, n),
+                              block=block, offsets=(s, 0, 0))
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_keep_axis_out_of_range_raises():
+    F = torch.ones((4, 4), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        tmr.prod_reduce_keep([F], keep=2)
+    with pytest.raises(ValueError):
+        tmr.tri_reduce_keep([F], [(0, 1)], keep=3, n=4)
+
+
+def test_cuda_tensor_never_reaches_a_keep_plain_version(monkeypatch):
+    """As for the scalar forms: a tensor that claims to lie on the card
+    goes to the launcher, with the kept axis moved to kernel axis 2 by
+    the axis map alone."""
+    called = []
+
+    def fake_launch(kind, entries, sizes, masked, off3, block):
+        called.append((kind, [ax for _, ax in entries], sizes, off3))
+        return torch.zeros((1, sizes[2]), dtype=torch.float64)
+
+    class OnCard(torch.Tensor):
+        is_cuda = True
+
+    monkeypatch.setattr(tmr, "_launch", fake_launch)
+    for plain in ("_pair_keep_partials_plain", "_tri_partials_plain"):
+        monkeypatch.setattr(tmr, plain,
+                            lambda *a, **k: pytest.fail("plain version"))
+    monkeypatch.setattr(tmr, "_as_factors", lambda fs: list(fs))
+    F = torch.ones((4, 6), dtype=torch.float64).as_subclass(OnCard)
+    tmr.prod_reduce_keep_tiles([F], keep=0, block=8, offsets=(2, 1))
+    tmr.prod_reduce_keep_tiles([F], keep=1, block=8, offsets=(2, 1))
+    G = torch.ones((5, 5), dtype=torch.float64).as_subclass(OnCard)
+    tmr.tri_reduce_keep_tiles([G, G], [(0, 1), (1, 2)], keep=0, n=5,
+                              block=8, offsets=(1, 2, 3))
+    assert called == [
+        ("pairjoin_keep", [(2, 1)], (1, 6, 4), (0, 1, 2)),
+        ("pairjoin_keep", [(1, 2)], (1, 4, 6), (0, 2, 1)),
+        ("trijoin_keep", [(2, 0), (0, 1)], (5, 5, 5), (2, 3, 1)),
+    ]
+
+
+# -- against the reference's interpret-mode kernels ----------------------------------
+
+@pytest.mark.parametrize("n,k,block,keep", [
+    (24, 1, 8, 0), (24, 3, 1024, 1), (130, 2, 128, 0), (130, 2, 8, 1),
+    (200, 1, 1024, 0),
+])
+def test_pair_keep_equals_reference_interpret_kernel(reference, n, k, block,
+                                                     keep):
+    fs = _factors(n * k + block + keep, [(n, n)] * k, _hi(k, block))
+    want = reference.ops.cutjoin_reduce_keep(fs, keep=keep, bm=block,
+                                             bn=block, interpret=True)
+    assert np.array_equal(tops.cutjoin_reduce_keep(
+        _t(fs), keep=keep, block=block).numpy(), want)
+    assert np.array_equal(tmr.prod_reduce_keep_plain(
+        _t(fs), keep=keep, block=block).numpy(), want)
+
+
+@pytest.mark.parametrize("keep", (0, 1))
+def test_pair_keep_slice_offsets_equal_reference_interpret_kernel(reference,
+                                                                  keep):
+    n, rows, start, block = 130, 40, 64, 128
+    full = _factors(98 + keep, [(n, n)] * 2, _hi(2, block))
+    sl = [F[start:start + rows] for F in full]
+    want = reference.ops.cutjoin_reduce_keep(sl, keep=keep, bm=block,
+                                             bn=block, interpret=True,
+                                             offsets=(start, 0))
+    assert np.array_equal(tops.cutjoin_reduce_keep(
+        _t(sl), keep=keep, block=block, offsets=(start, 0)).numpy(), want)
+
+
+@pytest.mark.parametrize("n,mix,block,keep", [
+    (24, 0, 8, 0), (24, 0, 8, 2), (24, 1, 1024, 1), (30, 4, 8, 2),
+    (24, 6, 128, 1), (37, 2, 1024, 0),
+])
+def test_tri_keep_equals_reference_interpret_kernel(reference, n, mix, block,
+                                                    keep):
+    axes = AXIS_MIXES[mix]
+    fs = _factors(n + mix + keep, [(n,) * len(ax) for ax in axes],
+                  _hi(len(axes), block))
+    want = reference.ops.cutjoin_reduce3_keep(fs, axes, keep=keep, n=n,
+                                              block=block, interpret=True)
+    assert np.array_equal(tops.cutjoin_reduce3_keep(
+        _t(fs), axes, keep=keep, n=n, block=block).numpy(), want)
+    assert np.array_equal(tmr.tri_reduce_keep_plain(
+        _t(fs), axes, keep=keep, n=n, block=block).numpy(), want)
+
+
+def test_tri_keep_offsets_equal_reference_interpret_kernel(reference):
+    n, block = 24, 8
+    axes = [(0, 1), (1, 2)]
+    fs = _factors(6, [(n, n)] * 2, _hi(2, block))
+    for keep in (0, 1, 2):
+        want = reference.ops.cutjoin_reduce3_keep(
+            fs, axes, keep=keep, n=n, block=block, interpret=True,
+            offsets=(3, 0, 7))
+        got = tops.cutjoin_reduce3_keep(_t(fs), axes, keep=keep, n=n,
+                                        block=block, offsets=(3, 0, 7))
+        assert np.array_equal(got.numpy(), want), keep
+
+
+# -- K6: masked matrix-product reduce --------------------------------------------------
+
+def _adjacency_like(seed, M, N, K, p=0.3):
+    rng = np.random.default_rng(seed)
+    return [(rng.random(s) < p).astype(np.float32)
+            for s in ((M, K), (N, K), (M, N))]
+
+
+def _matreduce_oracle(lhs, rhs, mask):
+    return float(((lhs.astype(np.float64) @ rhs.astype(np.float64).T)
+                  * mask.astype(np.float64)).sum())
+
+
+@pytest.mark.parametrize("M,N,K", [(128, 128, 128), (96, 64, 160),
+                                   (200, 130, 70), (1, 7, 3), (129, 1, 257)])
+def test_matreduce_on_01_inputs_equals_reference_exactly(reference, M, N, K):
+    lhs, rhs, mask = _adjacency_like(M + N + K, M, N, K)
+    want = float(reference.ops.masked_matmul_reduce(
+        lhs, rhs, mask, bm=64, bn=64, bk=32, interpret=True))
+    assert want == _matreduce_oracle(lhs, rhs, mask)
+    got = tmr.matreduce_plain(*_t([lhs, rhs, mask]))
+    assert got == want
+    assert tops.masked_matmul_reduce(*_t([lhs, rhs, mask])) == want
+    assert tmr.matreduce_tiles(*_t([lhs, rhs, mask])).sum().item() == want
+
+
+@pytest.mark.parametrize("M,N,K", [(128, 128, 128), (96, 64, 160)])
+def test_matreduce_on_random_floats_within_the_reference_tolerance(
+        reference, M, N, K):
+    rng = np.random.default_rng(M * K)
+    lhs = rng.normal(size=(M, K)).astype(np.float32)
+    rhs = rng.normal(size=(N, K)).astype(np.float32)
+    mask = (rng.random((M, N)) < 0.5).astype(np.float32)
+    ref = float(reference.ops.masked_matmul_reduce(
+        lhs, rhs, mask, bm=64, bn=64, bk=32, interpret=True))
+    got = tmr.matreduce(*_t([lhs, rhs, mask]))
+    want = _matreduce_oracle(lhs, rhs, mask)
+    assert abs(got - want) < abs(want) * 3e-2 + 1.0
+    assert abs(ref - want) < abs(want) * 3e-2 + 1.0
+
+
+def test_matreduce_casts_and_strides():
+    """Non-f32 operands are cast; a transposed (strided) operand gives the
+    same value as its contiguous copy."""
+    lhs, rhs, mask = _adjacency_like(3, 50, 40, 30)
+    want = _matreduce_oracle(lhs, rhs, mask)
+    assert tmr.matreduce(*[torch.from_numpy(x.astype(np.float64))
+                           for x in (lhs, rhs, mask)]) == want
+    rhs_t = torch.from_numpy(np.ascontiguousarray(rhs.T)).T
+    assert tmr.matreduce(torch.from_numpy(lhs), rhs_t,
+                         torch.from_numpy(mask)) == want
+    with pytest.raises(ValueError):
+        tmr.matreduce(torch.from_numpy(lhs), torch.from_numpy(lhs),
+                      torch.from_numpy(mask))
+
+
+def test_cuda_tensor_never_reaches_the_matreduce_plain_version(monkeypatch):
+    class OnCard(torch.Tensor):
+        is_cuda = True
+
+    calls = []
+
+    class FakeLib:
+        def matreduce_tile(self):
+            return 128
+
+        def matreduce_f32(self, *args):
+            calls.append(args[3:9])
+            return 0
+
+    monkeypatch.setattr(tmr, "_matreduce_plain",
+                        lambda *a: pytest.fail("plain version taken"))
+    monkeypatch.setattr(tmr, "_lib", lambda name="cutjoin": FakeLib())
+    monkeypatch.setattr(torch.cuda, "device", lambda d: _NoContext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    a = torch.ones((3, 5), dtype=torch.float32).as_subclass(OnCard)
+    m = torch.ones((3, 3), dtype=torch.float32).as_subclass(OnCard)
+    before = tmr.launches["matreduce"]
+    tmr.matreduce_tiles(a, a, m)
+    assert calls == [(3, 3, 5, 5, 5, 3)]
+    assert tmr.launches["matreduce"] == before + 1
+    tmr.launches["matreduce"] = before
+
+
+class _NoContext:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_triangle_count_equals_engine_and_reference(reference):
+    g = erdos_renyi(150, 10.0, seed=4)
+    adj = g.dense_adjacency(np.float32, pad=False)
+    want = CountingEngine(g, device="cpu").edge_induced(clique(3))
+    assert tops.triangle_count(torch.from_numpy(adj)) == want
+    assert float(reference.ops.triangle_count(adj, interpret=True)) == want
+
+
+def test_use_pallas_triangle_route_equals_edge_induced(reference):
+    """``compile(use_pallas=True)`` counts triangles through the K6 route
+    (its plain version on the CPU); the count equals the engine's Möbius
+    count and the reference's own ``use_pallas`` compile."""
+    from test_torch_reference import port_graph, shared_apct
+    from repro_torch.core.apct import APCT
+    rg = reference.generators.erdos_renyi(60, 6.0, seed=1)
+    tg = port_graph(rg)
+    pats = [clique(3), tailed_triangle()]
+    calls = []
+    real = tops.triangle_count
+    try:
+        tops.triangle_count = lambda adj: calls.append(adj.shape) or \
+            real(adj)
+        cp = tcompiler.compile(pats, tg, cache=False, device="cpu",
+                               use_pallas=True,
+                               apct=shared_apct("port", tg, APCT))
+        counts = [cp.count(p) for p in pats]
+    finally:
+        tops.triangle_count = real
+    assert calls == [(60, 60)]
+    eng = CountingEngine(tg, device="cpu")
+    assert counts == [eng.edge_induced(p) for p in pats]
+    RP = reference.pattern.Pattern
+    rcp = reference.compiler.compile(
+        [RP(p.n, sorted(p.edges)) for p in pats], rg, cache=False,
+        use_pallas=True, apct=shared_apct("ref", rg, reference.APCT))
+    assert rcp.counts() == cp.counts()
+    assert rcp.plan.to_json() == cp.plan.to_json()
