@@ -7,17 +7,23 @@ It imports only ``repro_torch`` (from ``src/`` beside this file) and
 exits non-zero on any failure.  Phases, each printing one JSON line:
 
 1. ``device``     the card's name and power limit; fails without CUDA.
-2. ``kernel_cases``  builds ``csrc/cutjoin.cu`` and ``csrc/matreduce.cu``
-   (one nvcc each, started together) and holds each kernel against its
-   plain PyTorch version on the card: the join kernels (vector, pair,
-   tri, and the keep forms of pair and tri) at n = 8192 (the tri keep
-   form at n = 512 and 256), over factor counts, kept axes, rectangular
-   slices with offsets, axis-subset mixes and chunk sizes 8 / 128 / 1024;
-   the masked matrix-product reduce on 0/1 inputs, ragged shapes
-   included.  Tolerance: none — the difference must be 0 (integer-valued
-   inputs within the exactness guard).  On random f32 input the masked
-   matrix-product reduce is held against an f64 product with the
-   reference package's tolerance, |got - want| < 3e-2 · |want| + 1.
+2. ``kernel_cases``  builds ``csrc/cutjoin.cu``, ``csrc/matreduce.cu`` and
+   ``csrc/bitset.cu`` (one nvcc each, started together) and holds each
+   kernel against its plain PyTorch version on the card: the join kernels
+   (vector, pair, tri, and the keep forms of pair and tri) at n = 8192
+   (the tri keep form at n = 512 and 256), over factor counts, kept axes,
+   rectangular slices with offsets, axis-subset mixes and chunk sizes
+   8 / 128 / 1024; the masked matrix-product reduce and SDDMM (f32 and
+   bf16) on 0/1 inputs, ragged shapes, strided views and the R-MAT
+   adjacency included; both bitset entries on random words (bit 31 set in
+   about half), word and row counts that are no multiple of 32 or of a
+   thread block's rows, and the packed R-MAT adjacency.  Tolerance: none
+   — the difference must be 0 (integer-valued inputs within the exactness
+   guard).  On random input the masked matrix-product reduce is held
+   against an f64 product with the reference package's tolerance,
+   |got - want| < 3e-2 · |want| + 1, and SDDMM per cell with 2e-4 (f32)
+   or 2e-2 (bf16), relative and absolute — except f32 at K = 8192, held
+   to the f32 dot-product rounding bound γ_K · Σ_k |l_k r_k|.
 3. ``main_path``  ``compile(patterns, graph)`` on ``rmat(13, 24.0, seed=0)``
    (8192 vertices, about 10^5 edges, skewed degrees: the user's graph),
    then the same call on a *coverage graph*, ``erdos_renyi(8192, 24.0,
@@ -55,19 +61,40 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    cycle(6) and the house (anchored |cut| = 3 candidates need n^3 within
    the budget, so n <= 512), checked against ``CountingEngine.inj_free``
    and the dense f64 route.
-5. ``kernels``    per kernel: launches over its path (phase 3 for the
-   scalar joins, phase 4 for the keep forms and the triangle kernel; on
-   each graph apart), error against the plain version, time, the plain
-   version's time, the card's bound for the timed function and a
-   PyTorch yardstick for it, at the shapes its path gave the kernel.
-6. last line: ``{"ok": true, "device": {...}}``.
+5. ``graph_ops``  the two graph kernels through ``kernels.ops`` on the
+   R-MAT graph: ``common_neighbors(A, g.edges)`` (the bitset kernel, rows
+   gathered in the kernel) summed is 3 T, ``sddmm(A, A, A)`` read at each
+   edge equals it, its sum is 6 T, T being phase 3's triangle count and
+   the masked matrix-product reduce's.
+6. ``mine_path``  ``repro_torch.launch.mine.main`` as a user runs it, on
+   ``--graph rmat --n 8192 --deg 24`` (phase 3's graph), stdout captured:
+   ``motif --k 4`` equal line for line to ``--no-compiler``; ``chain --k 5
+   --local-counts`` equal to phase 3's chain(5) count and its hottest
+   vertices to ``api.vertex_counts(top_k=10)``; ``pc --k 4
+   --local-counts`` against ``mine_pseudo_cliques`` (Σ per_vertex = Σ n_p
+   · totals); ``existence --k 5`` with and without ``--local-counts``;
+   ``fsm --labels 6 --k 3`` compiled equal to ``--no-compiler`` over at
+   least two levels.  Then ``triangle_count_blocksparse(use_kernel=True)``
+   = T with one triangle-kernel launch per output tile, and
+   ``hom_oriented`` against ``hom_count`` (a clique orbit) and against
+   the distinct-endpoint count (an independent orbit).
+7. ``kernels``    per kernel: launches over its path (phase 3 for the
+   scalar joins, phase 4 for the keep forms and the triangle kernel,
+   phase 5 for SDDMM and the bitset kernel; on each graph apart), error
+   against the plain version, time, the plain version's time, the card's
+   bound for the timed function and a PyTorch yardstick for it, at the
+   shapes its path gave the kernel.
+8. last line: ``{"ok": true, "device": {...}}``.
 
 No phase catches a failure and carries on.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -85,15 +112,24 @@ if not torch.cuda.is_available():
 from repro_torch import api, compiler, obs                  # noqa: E402
 from repro_torch.compiler import lowering                   # noqa: E402
 from repro_torch.compiler.ir import Intersect               # noqa: E402
+from repro_torch.core import homomorphism as H              # noqa: E402
+from repro_torch.core import search, symmetry               # noqa: E402
 from repro_torch.core.apct import APCT                      # noqa: E402
+from repro_torch.core.blocksparse import (                  # noqa: E402
+    BlockSparseAdjacency, triangle_count_blocksparse)
 from repro_torch.core.counting import CountingEngine        # noqa: E402
 from repro_torch.core.homomorphism import PlanTooWide       # noqa: E402
 from repro_torch.core.motifs import motif_patterns          # noqa: E402
 from repro_torch.core.pattern import (Pattern, chain,       # noqa: E402
-                                      cycle, tailed_triangle)
+                                      cycle, pseudo_clique,
+                                      tailed_triangle)
 from repro_torch.graph.generators import erdos_renyi, rmat  # noqa: E402
+from repro_torch.kernels import bitset as kbs               # noqa: E402
 from repro_torch.kernels import build as kbuild             # noqa: E402
 from repro_torch.kernels import matreduce as mr             # noqa: E402
+from repro_torch.kernels import ops                         # noqa: E402
+from repro_torch.kernels import sddmm as ksd                # noqa: E402
+from repro_torch.launch import mine                         # noqa: E402
 
 DEV = torch.device("cuda")
 N = 8192
@@ -103,6 +139,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 CUTJOIN_SOURCE = "src/repro_torch/kernels/csrc/cutjoin.cu"
 MATREDUCE_SOURCE = "src/repro_torch/kernels/csrc/matreduce.cu"
+BITSET_SOURCE = "src/repro_torch/kernels/csrc/bitset.cu"
+LAUNCH_TABLES = (mr.launches, ksd.launches, kbs.launches)
 HOUSE = Pattern(5, [(0, 1), (1, 2), (2, 3), (3, 0), (0, 4), (1, 4)])
 # counts are exact: no TF32 in the plain versions' and yardsticks' products
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -111,6 +149,26 @@ torch.backends.cudnn.allow_tf32 = False
 
 def emit(phase: str, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel."""
+    out = {}
+    for table in LAUNCH_TABLES:
+        out.update(table)
+    return out
+
+
+def reset_launch_counts():
+    for table in LAUNCH_TABLES:
+        for k in table:
+            table[k] = 0
+
+
+def rmat_adjacency(g) -> torch.Tensor:
+    """The graph's 0/1 adjacency as an f32 tensor on the card."""
+    return torch.from_numpy(g.dense_adjacency(np.float32,
+                                              pad=False)).to(DEV)
 
 
 def timed_ms(fn, reps: int) -> float:
@@ -176,10 +234,10 @@ def phase_device() -> str:
 # -- phase 2 ------------------------------------------------------------------------
 
 def check_case(kernel: str, name: str, run_kernel, run_plain, cases: list):
-    before = dict(mr.launches)
+    before = launch_counts()
     got = run_kernel()
     torch.cuda.synchronize()
-    assert mr.launches[kernel] == before[kernel] + 1, \
+    assert launch_counts()[kernel] == before[kernel] + 1, \
         f"{name}: wrapper did not launch {kernel}"
     t0 = time.perf_counter()
     want = run_plain()
@@ -198,7 +256,7 @@ def phase_kernel_cases():
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=DEV).manual_seed(0)
     t0 = time.perf_counter()
-    mr._lib()                                # builds both csrc/*.cu
+    mr._lib()                                # builds every csrc/*.cu
     build_s = time.perf_counter() - t0
     cases: list = []
     blocks = (8, 128, 1024)
@@ -372,11 +430,127 @@ def phase_kernel_cases():
                                  f"{got!r} vs f64 {want!r}")
         del lhs, rhs, mask
 
+    sddmm_float = sddmm_cases(gen, cases)
+    bitset_cases(gen, cases)
     emit("kernel_cases", build_s=round(build_s, 3),
          nvcc_s={k: round(v, 3) for k, v in kbuild.build_seconds.items()},
          n_cases=len(cases), max_abs_err=max(c["max_abs_err"] for c in cases),
-         cases=cases, matreduce_random_f32=float_cases)
+         cases=cases, matreduce_random_f32=float_cases,
+         sddmm_random=sddmm_float)
     torch.cuda.empty_cache()
+
+
+def sddmm_cases(gen, cases: list) -> list:
+    """K7 against its plain version on 0/1 inputs in f32 and bf16 (every
+    cell an integer: difference 0) — ragged shapes, strided views, and
+    the R-MAT adjacency at n = 8192 — then on random normal input against
+    an f64 product of the same (rounded) inputs, per cell, with the
+    reference package's tolerances: 2e-4 (f32) and 2e-2 (bf16), relative
+    and absolute.  Those were set for K <= 384; at K = 8192 an f32 sum of
+    normal products is off by more than 2e-4 wherever the value is near
+    0, so f32 at K = 8192 is held to the rounding bound of any f32
+    K-term dot product instead, γ_K · Σ_k |l_k r_k| with γ_K =
+    K·u / (1 - K·u), u = 2^-24."""
+    A = rmat_adjacency(rmat(13, 24.0, seed=0))
+    shapes = [(200, 130, 70, 0.3), (1, 5, 3, 0.5), (129, 257, 130, 0.3),
+              (1000, 777, 333, 0.05), (8191, 129, 8193, 0.01)]
+    for dt in (torch.float32, torch.bfloat16):
+        for M_, N_, K_, p in shapes:
+            l, r, m = [(torch.rand(s, generator=gen, device=DEV) < p).float()
+                       for s in ((M_, K_), (N_, K_), (M_, N_))]
+            l, r = l.to(dt), r.to(dt)
+            check_case("sddmm", f"sddmm 0/1 {dt} ({M_},{N_},{K_}) p={p}",
+                       lambda: ksd.sddmm(l, r, m),
+                       lambda: ksd.sddmm_plain(l, r, m), cases)
+        # row strides above the width: views into wider tensors
+        L, R, Mk = [(torch.rand(s, generator=gen, device=DEV) < 0.2).float()
+                    for s in ((300, 90), (200, 90), (300, 210))]
+        lv, rv, mv = L[:, 5:75].to(dt), R[:, 5:75].to(dt), Mk[:, 3:203]
+        check_case("sddmm", f"sddmm 0/1 {dt} strided views (300,200,70)",
+                   lambda: ksd.sddmm(lv, rv, mv),
+                   lambda: ksd.sddmm_plain(lv, rv, mv), cases)
+        Ad = A.to(dt)
+        check_case("sddmm", f"sddmm {dt} R-MAT adjacency n={N}",
+                   lambda: ksd.sddmm(Ad, Ad, A),
+                   lambda: ksd.sddmm_plain(Ad, Ad, A), cases)
+        del Ad
+    out = []
+    for dt, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+        for M_, N_, K_ in [(200, 130, 70), (1000, 777, 333), (N, N, N)]:
+            l = torch.randn((M_, K_), generator=gen, device=DEV).to(dt)
+            r = torch.randn((N_, K_), generator=gen, device=DEV).to(dt)
+            m = (torch.rand((M_, N_), generator=gen, device=DEV)
+                 < 0.3).float()
+            got = ksd.sddmm(l, r, m).double()
+            want = (l.double() @ r.double().T) * m.double()
+            err = (got - want).abs()
+            if dt == torch.float32 and K_ > 384:
+                gamma = K_ * 2.0 ** -24 / (1 - K_ * 2.0 ** -24)
+                limit = gamma * (l.double().abs() @ r.double().abs().T) \
+                    * m.double()
+                tolerance = "gamma_K * sum_k |l_k r_k|"
+            else:
+                limit = tol + tol * want.abs()
+                tolerance = f"{tol} + {tol}*|f64 value|"
+            over = int((err > limit).sum().item())
+            out.append({"dtype": str(dt), "shape": [M_, N_, K_],
+                        "max_abs_err": err.max().item(),
+                        "max_abs_value": want.abs().max().item(),
+                        "cells_over_2e-4_abs_and_rel": int(
+                            (err > 2e-4 + 2e-4 * want.abs()).sum().item()),
+                        "tolerance": tolerance,
+                        "max_err_over_tolerance": (
+                            err / limit.clamp_min(1e-300)).max().item(),
+                        "cells_over_tolerance": over})
+            if over:
+                raise AssertionError(f"sddmm random {dt} {(M_, N_, K_)}: "
+                                     f"{over} cells over tolerance")
+            del l, r, m, got, want, err, limit
+    return out
+
+
+def bitset_cases(gen, cases: list):
+    """K8, both entries, against the plain versions: random words (about
+    half with bit 31 set, one row all ones), word counts that are no
+    multiple of 32, row counts that are no multiple of the 8 rows a
+    thread block takes, a strided view, and the packed R-MAT adjacency
+    with its edge list.  Difference 0."""
+    def words(E_, W_):
+        w = torch.randint(-2 ** 31, 2 ** 31, (E_, W_), generator=gen,
+                          device=DEV, dtype=torch.int64).to(torch.int32)
+        w[0] = -1
+        return w
+
+    for E_, W_ in [(1001, 37), (5, 1), (100003, 7), (79494, 256), (8, 64)]:
+        a, b = words(E_, W_), words(E_, W_)
+        check_case("bitset", f"bitset rows E={E_} W={W_}",
+                   lambda: kbs.bitset_intersect(a, b),
+                   lambda: kbs.bitset_intersect_plain(a, b), cases)
+        table = torch.cat([a, b])
+        pairs = torch.randint(0, 2 * E_, (E_ + 3, 2), generator=gen,
+                              device=DEV)
+        check_case("bitset_edges", f"bitset edges table=({2 * E_},{W_}) "
+                                   f"E={E_ + 3}",
+                   lambda: kbs.bitset_intersect_edges(table, pairs),
+                   lambda: kbs.bitset_intersect_edges_plain(table, pairs),
+                   cases)
+    wide = words(4000, 40)
+    av, bv = wide[:2000, :33], wide[2000:, 4:37]
+    check_case("bitset", "bitset rows strided views E=2000 W=33",
+               lambda: kbs.bitset_intersect(av, bv),
+               lambda: kbs.bitset_intersect_plain(av, bv), cases)
+    g = rmat(13, 24.0, seed=0)
+    packed = kbs.pack_bitsets(rmat_adjacency(g) > 0)
+    edges = torch.from_numpy(g.edges).to(DEV)
+    check_case("bitset_edges", f"bitset edges R-MAT n={N} packed, its "
+                               f"{len(g.edges)} edges",
+               lambda: kbs.bitset_intersect_edges(packed, edges),
+               lambda: kbs.bitset_intersect_edges_plain(packed, edges),
+               cases)
+    ga, gb = packed[edges[:, 0]], packed[edges[:, 1]]
+    check_case("bitset", "bitset rows R-MAT gathered rows",
+               lambda: kbs.bitset_intersect(ga, gb),
+               lambda: kbs.bitset_intersect_plain(ga, gb), cases)
 
 
 # -- phase 3 ------------------------------------------------------------------------
@@ -428,7 +602,7 @@ def drive(label: str, make_graph, patterns) -> dict:
     g = make_graph()
     graph_s = time.perf_counter() - t0
     cache = compiler.PlanCache()
-    before = dict(mr.launches)
+    before = launch_counts()
     torch.cuda.reset_peak_memory_stats()
     obs.reset()
     t0 = time.perf_counter()
@@ -442,7 +616,7 @@ def drive(label: str, make_graph, patterns) -> dict:
     counts = cp.counts()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {k: mr.launches[k] - before[k] for k in mr.launches}
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
     evals = cp.stats["node_evals"]
     t0 = time.perf_counter()
     again = cp.counts()
@@ -451,7 +625,8 @@ def drive(label: str, make_graph, patterns) -> dict:
     assert again == counts, "second counts() differs from the first"
     assert cp.stats["node_evals"] == evals, \
         "second counts() re-evaluated nodes instead of reading the memo"
-    assert {k: mr.launches[k] - before[k] for k in mr.launches} == launches, \
+    assert {k: v - before[k] for k, v in launch_counts().items()} \
+        == launches, \
         "second counts() launched kernels"
     snapshot = obs.snapshot()
     peak_bytes = torch.cuda.max_memory_allocated()
@@ -535,10 +710,10 @@ def phase_main_path() -> dict:
     graphs = [(MAIN_GRAPH, "main", lambda: rmat(13, 24.0, seed=0)),
               (COVERAGE_GRAPH, "coverage",
                lambda: erdos_renyi(8192, 24.0, seed=0))]
-    mr.reset_launches()                      # counts start at 0 here ...
+    reset_launch_counts()                    # counts start at 0 here ...
     runs = [dict(drive(label, make, patterns), role=role)
             for label, role, make in graphs]
-    launches = dict(mr.launches)             # ... and are read here
+    launches = launch_counts()               # ... and are read here
     by_role = {run["role"]: run["launches"] for run in runs}
     assert sum(by_role["main"].values()) >= 1, \
         f"{MAIN_GRAPH} launched no kernel"
@@ -563,10 +738,16 @@ def phase_main_path() -> dict:
         graphs.append({key: run[key] for key in
                        ("label", "role", "g", "apct", "cache", "counts")})
         graphs[-1]["intersect3"] = {k: cp.value(k) for k in tri}
+    # what the graph-op and mining-driver phases read of the user's graph:
+    # Intersect k=3 holds hom(K3) = 6 T
+    main = graphs[0]
+    rmat_info = {"g": main["g"], "apct": main["apct"],
+                 "counts": main["counts"],
+                 "triangles": next(iter(main["intersect3"].values())) / 6}
     del runs
     torch.cuda.empty_cache()
     return {"launches": launches, "by_role": by_role, "joins": joins,
-            "graphs": graphs}
+            "graphs": graphs, "rmat": rmat_info}
 
 
 # -- phase 4 ------------------------------------------------------------------------
@@ -669,7 +850,7 @@ def local_joins(cp) -> list:
 def drive_local(info: dict, patterns) -> dict:
     """The partial-embedding path on one graph of phase 3."""
     g, cache, apct = info["g"], info["cache"], info["apct"]
-    before = dict(mr.launches)
+    before = launch_counts()
     free_before = torch.cuda.mem_get_info()[0]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -689,7 +870,7 @@ def drive_local(info: dict, patterns) -> dict:
     got = read_local(cp, g, patterns, counts, cache, apct)
     torch.cuda.synchronize()
     reads_s = time.perf_counter() - t0
-    launches = {k: mr.launches[k] - before[k] for k in mr.launches}
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
     # the triangle count through the fused kernel vs clique enumeration
     triangles = {}
     for key, want in info["intersect3"].items():
@@ -763,7 +944,7 @@ def drive_keep3_coverage() -> dict:
     against ``CountingEngine.inj_free`` and the dense f64 route."""
     g = erdos_renyi(512, 8.0, seed=0)
     patterns = [chain(6), cycle(6), HOUSE]
-    before = dict(mr.launches)
+    before = launch_counts()
     cp = compiler.compile(patterns, g, cache=False, local=True)
     dense = lowering.lower(cp.plan, g, counter=cp.counter,
                            cutjoin_kernel=False)
@@ -779,7 +960,7 @@ def drive_keep3_coverage() -> dict:
                                      f"{orbit[0]}: kernel route differs")
             checked += 1
     joins = [j for j in local_joins(cp) if j["cut"] == 3]
-    launches = {k: mr.launches[k] - before[k] for k in mr.launches}
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
     if launches["trijoin_keep"] < 1:
         raise AssertionError(f"{COVERAGE_KEEP3_GRAPH}: no keep tri join "
                              f"launched: {cp.plan.meta['local_cuts']}")
@@ -795,10 +976,10 @@ def drive_keep3_coverage() -> dict:
 def phase_local_path(main: dict) -> dict:
     patterns = [tailed_triangle(), cycle(4), chain(5)] + \
         list(motif_patterns(4))
-    mr.reset_launches()                      # counts start at 0 here ...
+    reset_launch_counts()                    # counts start at 0 here ...
     reports = [drive_local(info, patterns) for info in main["graphs"]]
     coverage = drive_keep3_coverage()
-    launches = dict(mr.launches)             # ... and are read here
+    launches = launch_counts()               # ... and are read here
     for kernel in ("pairjoin_keep", "trijoin_keep", "matreduce"):
         if launches[kernel] < 1:
             raise AssertionError(f"the local path launched no {kernel}")
@@ -815,7 +996,217 @@ def phase_local_path(main: dict) -> dict:
 
 # -- phase 5 ------------------------------------------------------------------------
 
-def phase_kernels(main: dict, local: dict):
+def phase_graph_ops(main: dict) -> dict:
+    """The two graph kernels through ``kernels.ops`` on the user's graph:
+    per-edge common-neighbour counts (K8, the packed adjacency's rows
+    gathered in the kernel) and the wedge-closing product mask ⊙ (A·Aᵀ)
+    (K7).  Identities: Σ_edges common neighbours = 3 T, the product read
+    at each edge equals K8's count there, Σ of the product = 6 T, where T
+    is phase 3's triangle count (clique enumeration) and equals K6's."""
+    info = main["rmat"]
+    g, T = info["g"], info["triangles"]
+    A = rmat_adjacency(g)
+    Ab = A > 0
+    reset_launch_counts()                    # counts start at 0 here ...
+    t0 = time.perf_counter()
+    cn = ops.common_neighbors(Ab, g.edges)
+    torch.cuda.synchronize()
+    cn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    S = ops.sddmm(A, A, A)
+    torch.cuda.synchronize()
+    sddmm_s = time.perf_counter() - t0
+    launches = launch_counts()               # ... and are read here
+    for kernel in ("sddmm", "bitset_edges"):
+        if launches[kernel] < 1:
+            raise AssertionError(f"graph_ops launched no {kernel}")
+    edges = torch.from_numpy(g.edges).to(DEV)
+    at_edges = S[edges[:, 0], edges[:, 1]]
+    k6 = ops.triangle_count(A)
+    checks = {"triangles_T": T, "sum_common_neighbors": cn.sum().item(),
+              "sum_sddmm": S.sum(dtype=torch.float64).item(),
+              "k6_triangles": k6,
+              "sddmm_at_edges_equals_common_neighbors": bool(
+                  torch.equal(at_edges, cn.float()))}
+    if not (checks["sum_common_neighbors"] == 3 * T
+            and checks["sum_sddmm"] == 6 * T and k6 == T
+            and checks["sddmm_at_edges_equals_common_neighbors"]):
+        raise AssertionError(f"graph_ops identities fail: {checks}")
+    emit("graph_ops", graph=MAIN_GRAPH, edges=len(g.edges),
+         launches=launches, checks=checks,
+         seconds={"common_neighbors": round(cn_s, 4),
+                  "sddmm": round(sddmm_s, 4)})
+    del S, at_edges, Ab
+    torch.cuda.empty_cache()
+    return {"launches": launches, "by_role": {"main": launches},
+            "edges": len(g.edges)}
+
+
+# -- phase 6 ------------------------------------------------------------------------
+
+MINE_GRAPH = ["--graph", "rmat", "--n", str(N), "--deg", "24"]
+FSM_SUPPORT = 100
+_TIMING = re.compile(r"^done in |plan nodes \(cache (hit|miss), ")
+
+
+def run_mine(argv) -> dict:
+    """``repro_torch.launch.mine.main`` as a user calls it, on the card,
+    with its standard output captured: the lines without the timing ones,
+    and the seconds it took."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        mine.main(list(argv) + MINE_GRAPH)
+    torch.cuda.synchronize()
+    lines = buf.getvalue().splitlines()
+    return {"argv": " ".join(argv), "seconds": round(time.perf_counter() - t0,
+                                                     3),
+            "lines": [line for line in lines if not _TIMING.search(line)]}
+
+
+def _number(text: str) -> float:
+    return float(text.replace(",", ""))
+
+
+def _after(lines, head: str) -> list:
+    """(value, vertex) pairs of the ``vN: value`` lines after ``head``."""
+    out = []
+    for line in lines[lines.index(head) + 1:]:
+        m = re.fullmatch(r"\s+v(\d+): ([\d,]+)", line)
+        if not m:
+            break
+        out.append((_number(m.group(2)), int(m.group(1))))
+    return out
+
+
+def check_mine_runs(info: dict) -> dict:
+    """Every ``--app`` of the mining CLI on the user's graph, each held to
+    an identity or to a second route.  Returns the runs and checks."""
+    runs, checks = {}, {}
+    runs["motif"] = run_mine(["--app", "motif", "--k", "4"])
+    runs["motif_legacy"] = run_mine(["--app", "motif", "--k", "4",
+                                     "--no-compiler"])
+    if runs["motif"]["lines"] != runs["motif_legacy"]["lines"]:
+        raise AssertionError("motif: compiled and --no-compiler differ")
+    checks["motif_equals_no_compiler"] = len(runs["motif"]["lines"])
+
+    run = runs["chain"] = run_mine(["--app", "chain", "--k", "5",
+                                    "--local-counts"])
+    count = _number(run["lines"][1].rsplit(": ", 1)[1])
+    want = info["counts"][compiler.pattern_key(chain(5))]
+    top = api.vertex_counts(chain(5), info["g"], apct=info["apct"],
+                            top_k=10)
+    printed = _after(run["lines"], "  hottest vertices (embeddings "
+                                   "containing u):")
+    if count != want or printed != top:
+        raise AssertionError(f"chain(5): {count!r} vs phase 3 {want!r}; "
+                             f"top {printed} vs vertex_counts {top}")
+    checks["chain5_count"] = count
+    checks["chain5_top10_equals_vertex_counts"] = True
+
+    run = runs["pc"] = run_mine(["--app", "pc", "--k", "4",
+                                 "--local-counts"])
+    pc = search.mine_pseudo_cliques(info["g"], 4, missing=1)
+    weighted = sum(p.n * t for p, t in pc.totals.items())
+    total = _number(run["lines"][1].split(": ", 1)[1].split(" across")[0])
+    hot = _after(run["lines"], "  hotspots (participation):")
+    want_hot = [(pc.per_vertex[u].item(), u) for u in pc.hotspots[:10]]
+    diamond = pseudo_clique(4, 1)[0]
+    if not (pc.per_vertex.sum().item() == weighted
+            and total == sum(pc.totals.values()) and hot == want_hot
+            and pc.totals[diamond]
+            == info["counts"][compiler.pattern_key(diamond)]):
+        raise AssertionError(f"pc: Σ per_vertex {pc.per_vertex.sum()} vs "
+                             f"Σ n_p·totals {weighted}; printed {total} / "
+                             f"{hot}")
+    checks["pc_sum_per_vertex_equals_sum_np_totals"] = weighted
+
+    runs["existence_local"] = run_mine(["--app", "existence", "--k", "5",
+                                        "--local-counts"])
+    runs["existence"] = run_mine(["--app", "existence", "--k", "5"])
+    if runs["existence"]["lines"] != runs["existence_local"]["lines"]:
+        raise AssertionError("existence: --local-counts answers differ")
+    checks["existence"] = runs["existence"]["lines"][1:]
+
+    fsm_args = ["--app", "fsm", "--labels", "6", "--k", "3", "--support",
+                str(FSM_SUPPORT)]
+    runs["fsm"] = run_mine(fsm_args)
+    runs["fsm_legacy"] = run_mine(fsm_args + ["--no-compiler"])
+    head = runs["fsm"]["lines"][1]
+    levels = re.search(r"(\d+)/(\d+) levels compiled", head)
+    compiled_levels, total_levels = int(levels[1]), int(levels[2])
+    legacy = [line.replace(f"0/{total_levels} levels",
+                           f"{total_levels}/{total_levels} levels")
+              for line in runs["fsm_legacy"]["lines"]]
+    if runs["fsm"]["lines"] != legacy or total_levels < 2 \
+            or compiled_levels != total_levels:
+        raise AssertionError(f"fsm: compiled {runs['fsm']['lines']} vs "
+                             f"--no-compiler {runs['fsm_legacy']['lines']}")
+    checks["fsm_levels"] = total_levels
+    return {"runs": runs, "checks": checks}
+
+
+def check_engine_tier(info: dict) -> dict:
+    """Block-sparse triangles through K6 and partial symmetry breaking on
+    the user's graph."""
+    g, T = info["g"], info["triangles"]
+    before = launch_counts()
+    t0 = time.perf_counter()
+    bsa = BlockSparseAdjacency(g)
+    tb = triangle_count_blocksparse(bsa, use_kernel=True)
+    bs_s = time.perf_counter() - t0
+    k6 = launch_counts()["matreduce"] - before["matreduce"]
+    tiles = sum(1 for (i, j) in bsa.blocks
+                if any((k, j) in bsa.blocks for k in bsa.row_blocks[i]))
+    if tb != T or k6 != tiles:
+        raise AssertionError(f"blocksparse: {tb!r} vs T {T!r}; {k6} K6 "
+                             f"launches for {tiles} output tiles")
+    A = torch.from_numpy(g.dense_adjacency(np.float64, pad=False)).to(DEV)
+    # a clique orbit (the tailed triangle's (0, 1)): hom itself.  The
+    # order is given: greedy_plan with free (0, 1) eliminates vertex 2
+    # before the leaf 3, an n^3 intermediate (PlanTooWide at n = 8192)
+    tt = tailed_triangle()
+    oriented = symmetry.hom_oriented(tt, A, (0, 1),
+                                     order=(3, 2, 0, 1)).item()
+    hom = H.hom_count(tt, A).item()
+    # an independent orbit (chain(3)'s endpoints): hom over distinct
+    # endpoint assignments, Σ_v d(d - 1), which is hom(chain(3)) - 2m
+    ends = symmetry.hom_oriented(chain(3), A, (0, 2)).item()
+    deg = A.sum(1)
+    distinct = (deg * (deg - 1)).sum().item()
+    hom3 = H.hom_count(chain(3), A).item()
+    if oriented != hom or ends != distinct or hom3 - ends != 2 * g.m:
+        raise AssertionError(f"hom_oriented: {oriented} vs {hom}; chain(3) "
+                             f"ends {ends} vs {distinct}")
+    del A
+    torch.cuda.empty_cache()
+    return {"blocksparse": {**bsa.stats(), "triangles": tb,
+                            "k6_launches": k6, "seconds": round(bs_s, 3)},
+            "hom_oriented": {"tailed_triangle_orbit_01": oriented,
+                             "hom_count": hom,
+                             "chain3_endpoints": ends,
+                             "chain3_distinct_endpoints": distinct,
+                             "chain3_hom_count": hom3}}
+
+
+def phase_mine_path(main: dict) -> dict:
+    """The mining driver as users run it, ``python -m
+    repro_torch.launch.mine`` with ``--graph rmat --n 8192 --deg 24`` (the
+    graph of phases 3-5), then the engine tier's block-sparse and
+    symmetry routes on the same graph."""
+    info = main["rmat"]
+    reset_launch_counts()                    # counts start at 0 here ...
+    mined = check_mine_runs(info)
+    engine = check_engine_tier(info)
+    launches = launch_counts()               # ... and are read here
+    emit("mine_path", graph=MAIN_GRAPH, launches=launches,
+         checks=mined["checks"], runs=mined["runs"], **engine)
+    return {"launches": launches, "by_role": {"main": launches}}
+
+
+# -- phase 7 ------------------------------------------------------------------------
+
+def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict):
     """Every kernel at the shapes its path gave it (two factors each, as
     the joins carry; chunk = what the guard granted there, 128 where no
     graph reached the tier).  ``bound_ms`` is for the function that is
@@ -984,7 +1375,46 @@ def phase_kernels(main: dict, local: dict):
           dense_operations=2 * N ** 3,
           dense_operations_bound_ms=2 * N ** 3 / PEAK_F32_OPS_PER_S * 1e3,
           yardstick="torch.sum((A @ A) * A, dtype=float64), f32 product, "
-                    "TF32 off")
+                    "TF32 off",
+          launches_mine_path_blocksparse=mined["launches"]["matreduce"])
+    # K7 as graph_ops calls it: mask ⊙ (A @ Aᵀ) on the R-MAT adjacency, f32.
+    # For 0/1 data the products it needs are the 6T nonzero ones, so the
+    # bound is the bytes of its three inputs and its output; the dense
+    # algorithm's bound, 2 n^3 operations, is given beside it.
+    entry("sddmm", "sddmm", "src/repro/kernels/sddmm.py:47", None,
+          lambda: ksd.sddmm(A, A, A), lambda: ksd.sddmm_plain(A, A, A),
+          lambda: (A @ A.T) * A, 5, 4 * N * N * 4, 2 * six_t,
+          path=graph_ops, source=MATREDUCE_SOURCE,
+          dense_operations=2 * N ** 3,
+          dense_operations_bound_ms=2 * N ** 3 / PEAK_F32_OPS_PER_S * 1e3,
+          yardstick="(A @ A.T) * A, f32 product, TF32 off")
+    # K8 as common_neighbors calls it: the packed R-MAT table (8192 x 256
+    # words) and its edge list, rows gathered in the kernel.  The bound is
+    # the bytes of the table, the pairs and the counts.  No single PyTorch
+    # call counts bits: the yardstick works on the unpacked bool rows.
+    g = main["rmat"]["g"]
+    Ab = A > 0
+    packed = kbs.pack_bitsets(Ab)
+    edges = torch.from_numpy(g.edges).to(DEV)
+    E, W = edges.shape[0], packed.shape[1]
+    # the launch alone, without the wrapper's check that every pair lies
+    # in the table (two reductions and two host syncs per call)
+    counts8 = torch.empty((E,), dtype=torch.int32, device=DEV)
+    stream = torch.cuda.current_stream().cuda_stream
+    launch8 = lambda: kbs._lib().bitset_edges(  # noqa: E731
+        packed.data_ptr(), W, packed.stride(0), edges.data_ptr(), E,
+        counts8.data_ptr(), stream)
+    entry("bitset_intersect", "bitset_edges",
+          "src/repro/kernels/bitset.py:39", None,
+          lambda: kbs.bitset_intersect_edges(packed, edges),
+          lambda: kbs.bitset_intersect_edges_plain(packed, edges),
+          lambda: (Ab[edges[:, 0]] & Ab[edges[:, 1]]).sum(1), 50,
+          N * W * 4 + E * 2 * 8 + E * 4, 2 * E * W, path=graph_ops,
+          source=BITSET_SOURCE, shape=[N, W, E],
+          launches_rows_entry=graph_ops["launches"]["bitset"],
+          ms_launch_only=timed_ms(launch8, 50),
+          yardstick="(Ab[u] & Ab[v]).sum(1) on the unpacked bool rows, "
+                    "not a popcount")
     print(json.dumps({"kernels": out}), flush=True)
 
 
@@ -993,7 +1423,9 @@ def main():
     phase_kernel_cases()
     main_path = phase_main_path()
     local_path = phase_local_path(main_path)
-    phase_kernels(main_path, local_path)
+    graph_ops = phase_graph_ops(main_path)
+    mine_path = phase_mine_path(main_path)
+    phase_kernels(main_path, local_path, graph_ops, mine_path)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

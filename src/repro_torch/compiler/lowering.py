@@ -40,7 +40,8 @@ Node values memoise per plan *and* feed the engine's hom memo, so
 repeated queries against a compiled application never re-contract.
 
 Not ported yet (each raises ``NotImplementedError`` and names its
-ROADMAP.md queue item): the execution mesh and the morph count store.
+ROADMAP.md queue item): the execution mesh, the morph count store and
+the span tracer.
 The reference's span-tracer hooks wait for the port of ``obs.trace``;
 every ``obs.counter`` is kept.
 """
@@ -62,9 +63,11 @@ from repro_torch.compiler.ir import (Contract, CutJoin, Intersect, LocalCount,
 
 _NOT_PORTED = {
     "mesh": "mesh= (sharded tier) is not ported yet — ROADMAP.md queue 1, "
-            "\"Sharded tier\"",
+            "item 11, \"Sharded tier\"",
     "morph": "morph= / count_store= (the morph count store) is not ported "
-             "yet — ROADMAP.md queue 1, \"compiler/morph.py\"",
+             "yet — ROADMAP.md queue 1, item 8, \"compiler/morph.py\"",
+    "trace": "tracing (the span tracer) is not ported yet — ROADMAP.md "
+             "queue 1, item 9, \"obs/trace.py\"",
 }
 
 

@@ -28,6 +28,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+# every kernel library of the package, one source each: the first launch
+# of any kernel builds them all (``load_all(SOURCES)``), one nvcc each,
+# started together
+SOURCES = {"cutjoin": ("cutjoin.cu",), "matreduce": ("matreduce.cu",),
+           "bitset": ("bitset.cu",)}
+
 _LIBS: dict = {}
 build_seconds: dict = {}      # name -> seconds nvcc took (0.0 when reused)
 

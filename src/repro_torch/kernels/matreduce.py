@@ -63,9 +63,6 @@ EXACT_LIMIT = float(1 << 24)                 # f32 exact-integer range
 launches = {"vecjoin": 0, "pairjoin": 0, "trijoin": 0, "pairjoin_keep": 0,
             "trijoin_keep": 0, "matreduce": 0}
 
-# one library per source; the first launch of any kernel builds them all,
-# with one nvcc each, started together
-_SOURCES = {"cutjoin": ("cutjoin.cu",), "matreduce": ("matreduce.cu",)}
 _ENTRY = {"vecjoin": "cutjoin_vec", "pairjoin": "cutjoin_pair",
           "trijoin": "cutjoin_tri", "pairjoin_keep": "cutjoin_pair_keep",
           "trijoin_keep": "cutjoin_tri_keep"}
@@ -116,7 +113,7 @@ def _lib(name: str = "cutjoin"):
     first call builds and binds them all."""
     global _LIB
     if _LIB is None:
-        libs = _build.load_all(_SOURCES)
+        libs = _build.load_all(_build.SOURCES)
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         cj = libs["cutjoin"]
         for entry in _ENTRY.values():

@@ -1,15 +1,22 @@
-"""Public wrappers for the join and triangle kernels: defaults, route
-counters, guard.
+"""Public wrappers for the join, triangle, SDDMM and bitset kernels:
+defaults, route counters, guard, placement.
 
 Counter names and labels (``kernel.calls``, ``kernel.exact_block``) are
 the reference package's, so route counters compare one-to-one.
+``sddmm`` and ``common_neighbors`` take tensors or numpy arrays: a
+tensor's device decides where they run, numpy input goes to
+``device.resolve(device)`` — the CUDA device unless the caller names the
+CPU.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import device as _device
 from repro_torch import obs
+from repro_torch.kernels import bitset as _bitset
 from repro_torch.kernels import matreduce as _mr
+from repro_torch.kernels import sddmm as _sd
 
 # The largest chunk the guard grants.  ``block`` is only a loop bound in
 # the kernels, so one cap serves the card and the CPU alike, and it is
@@ -117,3 +124,28 @@ def cutjoin_exact_block(factors, *, maxes=None):
     obs.counter("kernel.exact_block",
                 outcome="granted" if block is not None else "refused")
     return block
+
+
+def _placed(args, device):
+    """Tensors for ``args`` on one device: the device of the tensors among
+    them, else ``device.resolve(device)`` for numpy input."""
+    devs = {a.device for a in args if isinstance(a, torch.Tensor)}
+    if len(devs) > 1:
+        raise ValueError(f"operands lie on different devices: {devs}")
+    dev = devs.pop() if devs else _device.resolve(device)
+    return [torch.as_tensor(a).to(dev) for a in args]
+
+
+def sddmm(lhs, rhs, mask, *, device=None) -> torch.Tensor:
+    """mask ⊙ (lhs @ rhsᵀ) as an f32 (M, N) tensor: lhs (M, K), rhs
+    (N, K) in f32 or bf16, mask (M, N).  No padding: ragged shapes go to
+    the kernel as they are."""
+    return _sd.sddmm(*_placed((lhs, rhs, mask), device))
+
+
+def common_neighbors(adj_bool, edges, *, device=None) -> torch.Tensor:
+    """Per-edge common-neighbour counts, (E,) int32: the adjacency packed
+    into 32-bit words, then one popcount(row u & row v) per edge, the two
+    rows gathered inside the kernel.  Σ over a graph's edges is 3 · T."""
+    adj, pairs = _placed((adj_bool, edges), device)
+    return _bitset.bitset_intersect_edges(_bitset.pack_bitsets(adj), pairs)

@@ -45,9 +45,13 @@ def test_port_has_the_expected_modules():
                  "compiler/costing.py", "compiler/cache.py",
                  "compiler/lowering.py", "compiler/__init__.py",
                  "analysis/verify.py", "analysis/__init__.py",
-                 "api/__init__.py", "api/local.py"):
+                 "api/__init__.py", "api/local.py",
+                 "kernels/sddmm.py", "kernels/bitset.py", "core/engine.py",
+                 "core/search.py", "core/fsm.py", "core/symmetry.py",
+                 "core/blocksparse.py", "launch/__init__.py",
+                 "launch/mine.py"):
         assert want in names, want
-    for source in ("cutjoin.cu", "matreduce.cu"):
+    for source in ("cutjoin.cu", "matreduce.cu", "bitset.cu"):
         assert (PORT / "kernels" / "csrc" / source).is_file(), source
 
 
@@ -69,7 +73,9 @@ def test_importing_the_compiler_pulls_in_neither_jax_nor_repro():
     proc = _run(
         "import sys\n"
         "import repro_torch.compiler, repro_torch.kernels.ops, "
-        "repro_torch.analysis, repro_torch.interop, repro_torch.api\n"
+        "repro_torch.analysis, repro_torch.interop, repro_torch.api, "
+        "repro_torch.launch.mine, repro_torch.core.symmetry, "
+        "repro_torch.core.blocksparse\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -107,10 +113,14 @@ def test_device_policy_has_no_quiet_cpu_branch():
 def test_kernel_modules_import_without_a_compiler_and_build_nothing():
     proc = _run(
         "import repro_torch.kernels.matreduce as m, "
-        "repro_torch.kernels.build as b\n"
-        "assert m._LIB is None and not b._LIBS\n"
+        "repro_torch.kernels.build as b, repro_torch.kernels.sddmm as s, "
+        "repro_torch.kernels.bitset as t, repro_torch.kernels.ops\n"
+        "assert m._LIB is None and s._LIB is None and t._LIB is None\n"
+        "assert not b._LIBS\n"
         "assert m.launches == {'vecjoin': 0, 'pairjoin': 0, 'trijoin': 0, "
-        "'pairjoin_keep': 0, 'trijoin_keep': 0, 'matreduce': 0}\n",
+        "'pairjoin_keep': 0, 'trijoin_keep': 0, 'matreduce': 0}\n"
+        "assert s.launches == {'sddmm': 0}\n"
+        "assert t.launches == {'bitset': 0, 'bitset_edges': 0}\n",
         PATH="/nonexistent")
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

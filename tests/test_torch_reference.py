@@ -30,7 +30,8 @@ _APCTS = {}     # (side, graph signature) -> APCT, built once per test run
 def reference():
     """Namespace over the reference package, usable while the fixture is
     live: ``compiler``, ``obs``, ``ops``, ``H`` (homomorphism),
-    ``counting``, ``pattern``, ``generators``, ``analysis``, ``matreduce``."""
+    ``counting``, ``pattern``, ``generators``, ``analysis``, ``matreduce``,
+    ``bitset``, ``sddmm``, ``kref`` (the kernels' oracles)."""
     installed = not hasattr(jax.experimental, "enable_x64")
     if installed:
         jax.experimental.enable_x64 = functools.partial(jax.enable_x64, True)
@@ -38,12 +39,13 @@ def reference():
     from repro.core import counting, homomorphism, pattern
     from repro.core.apct import APCT
     from repro.graph import generators
-    from repro.kernels import matreduce, ops
+    from repro.kernels import bitset, matreduce, ops, sddmm
+    from repro.kernels import ref as kref
     ns = types.SimpleNamespace(
         compiler=compiler, obs=obs, ops=ops, H=homomorphism,
         counting=counting, pattern=pattern, generators=generators,
-        analysis=analysis, matreduce=matreduce, APCT=APCT,
-        x64=jax.experimental.enable_x64)
+        analysis=analysis, matreduce=matreduce, bitset=bitset, sddmm=sddmm,
+        kref=kref, APCT=APCT, x64=jax.experimental.enable_x64)
     try:
         yield ns
     finally:
