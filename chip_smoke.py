@@ -7,8 +7,9 @@ It imports only ``repro_torch`` (from ``src/`` beside this file) and
 exits non-zero on any failure.  Phases, each printing one JSON line:
 
 1. ``device``     the card's name and power limit; fails without CUDA.
-2. ``kernel_cases``  builds ``csrc/cutjoin.cu``, ``csrc/matreduce.cu`` and
-   ``csrc/bitset.cu`` (one nvcc each, started together) and holds each
+2. ``kernel_cases``  builds ``csrc/cutjoin.cu``, ``csrc/matreduce.cu``,
+   ``csrc/bitset.cu`` and ``csrc/flashattn.cu`` (one nvcc each, started
+   together) and holds each
    kernel against its plain PyTorch version on the card: the join kernels
    (vector, pair, tri, and the keep forms of pair and tri) at n = 8192
    (the tri keep form at n = 512 and 256), over factor counts, kept axes,
@@ -23,7 +24,14 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    against an f64 product with the reference package's tolerance,
    |got - want| < 3e-2 · |want| + 1, and SDDMM per cell with 2e-4 (f32)
    or 2e-2 (bf16), relative and absolute — except f32 at K = 8192, held
-   to the f32 dot-product rounding bound γ_K · Σ_k |l_k r_k|.
+   to the f32 dot-product rounding bound γ_K · Σ_k |l_k r_k|.  Flash
+   attention (K9) in f32 and bf16, causal and full, D = 64 and 128, ragged
+   and unequal sequence lengths, strided views and the serving shape
+   (1, 4096, 32, 128), against its plain version with the reference's
+   tolerance, 2e-5 (f32) and 3e-2 (bf16) relative and absolute, and in
+   bf16 against the f32 plain version within one rounding to bf16, a check
+   that scaled_dot_product_attention (bf16 P) must fail at the serving
+   shape; the largest differences are printed beside them.
 3. ``main_path``  ``compile(patterns, graph)`` on ``rmat(13, 24.0, seed=0)``
    (8192 vertices, about 10^5 edges, skewed degrees: the user's graph),
    then the same call on a *coverage graph*, ``erdos_renyi(8192, 24.0,
@@ -78,19 +86,36 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    = T with one triangle-kernel launch per output tile, and
    ``hom_oriented`` against ``hom_count`` (a clique orbit) and against
    the distinct-endpoint count (an independent orbit).
-7. ``kernels``    per kernel: launches over its path (phase 3 for the
+7. ``serve_path``  the LM serving path at full width: qwen3-4b unreduced
+   (36 layers, d_model 2560, 4 022 468 096 parameters in bf16, random
+   weights drawn on the card from a seed) behind
+   ``ContinuousBatcher(cfg, params, slots=4, capacity=4224)``, six
+   requests of 2048, 4096, 3072, 2048, 512 and 4096 tokens, 16 new tokens
+   each.  Checks: all six finish with 16 tokens; K9 launched exactly
+   36 × 5 = 180 times (every attention layer of every prefill longer than
+   the flash block, 1024) and no other kernel; for the 2048- and
+   512-token requests and a 12-token prompt, prefill + one decode step
+   against the full forward of the same tokens (``SERVE_LOGIT_TOL``,
+   bf16, argmax equal; the 12-token decode one position early must miss
+   it); then
+   ``repro_torch.launch.serve.main([])`` at its own flags (reduced
+   config, 12 requests, 144 tokens).  Reports seconds per admission,
+   median decode step, tokens per second and peak device memory.
+8. ``kernels``    per kernel: launches over its path (phase 3 for the
    scalar joins, phase 4 for the keep forms and the triangle kernel,
-   phase 5 for SDDMM and the bitset kernel; on each graph apart), error
-   against the plain version, time, the plain version's time, the card's
-   bound for the timed function and a PyTorch yardstick for it, at the
-   shapes its path gave the kernel.
-8. last line: ``{"ok": true, "device": {...}}``.
+   phase 5 for SDDMM and the bitset kernel, on each graph apart; phase 7
+   for K9), error against the plain version, time, the plain version's
+   time, the card's bound for the timed function and a PyTorch yardstick
+   for it, at the shapes its path gave the kernel (K9: the path's own
+   q, k, v of layer 0 of a 4096-token prefill).
+9. last line: ``{"ok": true, "device": {...}}``.
 
 No phase catches a failure and carries on.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -124,12 +149,21 @@ from repro_torch.core.pattern import (Pattern, chain,       # noqa: E402
                                       cycle, pseudo_clique,
                                       tailed_triangle)
 from repro_torch.graph.generators import erdos_renyi, rmat  # noqa: E402
+from repro_torch.configs.registry import get_config        # noqa: E402
 from repro_torch.kernels import bitset as kbs               # noqa: E402
 from repro_torch.kernels import build as kbuild             # noqa: E402
+from repro_torch.kernels import flashattn as kfa            # noqa: E402
 from repro_torch.kernels import matreduce as mr             # noqa: E402
 from repro_torch.kernels import ops                         # noqa: E402
 from repro_torch.kernels import sddmm as ksd                # noqa: E402
 from repro_torch.launch import mine                         # noqa: E402
+from repro_torch.launch import serve                        # noqa: E402
+from repro_torch.models import transformer                  # noqa: E402
+from repro_torch.models.params import leaves                # noqa: E402
+from repro_torch.serve.batching import (                    # noqa: E402
+    ContinuousBatcher, Request)
+from repro_torch.serve.engine import (                      # noqa: E402
+    make_decode_step, make_prefill_step)
 
 DEV = torch.device("cuda")
 N = 8192
@@ -140,7 +174,17 @@ PEAK_F32_OPS_PER_S = 67e12
 CUTJOIN_SOURCE = "src/repro_torch/kernels/csrc/cutjoin.cu"
 MATREDUCE_SOURCE = "src/repro_torch/kernels/csrc/matreduce.cu"
 BITSET_SOURCE = "src/repro_torch/kernels/csrc/bitset.cu"
-LAUNCH_TABLES = (mr.launches, ksd.launches, kbs.launches)
+FLASHATTN_SOURCE = "src/repro_torch/kernels/csrc/flashattn.cu"
+LAUNCH_TABLES = (mr.launches, ksd.launches, kbs.launches, kfa.launches)
+# the bf16 tensor-core peak (NVIDIA data sheet, dense), for K9's bound:
+# its S = QKᵀ multiplies bf16 inputs, P·V the f32 P
+PEAK_BF16_TC_OPS_PER_S = 989e12
+# K9 against its plain version: the reference's tolerance
+# (tests/test_kernels.py), relative and absolute; in bf16 also against the
+# f32 plain version on the same inputs within one rounding to bf16 (half
+# an ulp: 2^-8 relative) plus the f32 tolerance
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+FLASH_ONE_ROUNDING = 2.0 ** -8
 HOUSE = Pattern(5, [(0, 1), (1, 2), (2, 3), (3, 0), (0, 4), (1, 4)])
 # counts are exact: no TF32 in the plain versions' and yardsticks' products
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -432,11 +476,13 @@ def phase_kernel_cases():
 
     sddmm_float = sddmm_cases(gen, cases)
     bitset_cases(gen, cases)
+    flash = flash_cases(gen)
     emit("kernel_cases", build_s=round(build_s, 3),
          nvcc_s={k: round(v, 3) for k, v in kbuild.build_seconds.items()},
          n_cases=len(cases), max_abs_err=max(c["max_abs_err"] for c in cases),
          cases=cases, matreduce_random_f32=float_cases,
-         sddmm_random=sddmm_float)
+         sddmm_random=sddmm_float, flashattn_cases=flash,
+         flashattn_max_abs_err=max(c["max_abs_err"] for c in flash))
     torch.cuda.empty_cache()
 
 
@@ -551,6 +597,103 @@ def bitset_cases(gen, cases: list):
     check_case("bitset", "bitset rows R-MAT gathered rows",
                lambda: kbs.bitset_intersect(ga, gb),
                lambda: kbs.bitset_intersect_plain(ga, gb), cases)
+
+
+def sdpa(q, k, v, causal: bool):
+    """PyTorch's scaled_dot_product_attention on (B, S, H, D) tensors, read
+    through (B, H, S, D) views."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal).transpose(1, 2)
+
+
+def flash_check(name: str, q, k, v, causal: bool, cases: list,
+                block=None, library: bool = False) -> dict:
+    """K9 against its plain version (KV blocks of ``block`` rows, all of
+    Skv when None) on the same inputs: every cell within the reference's
+    tolerance, tol + tol·|plain|.  In bf16 also against the plain version
+    in f32 on the same (widened) inputs, within one rounding to bf16:
+    K9 keeps P in f32 and rounds once, at the output.  With ``library``,
+    PyTorch's scaled_dot_product_attention (P rounded to bf16) is held to
+    that second check too and must fail it, which shows that the check
+    tells the two functions apart."""
+    before = kfa.launches["flashattn"]
+    got = kfa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kfa.launches["flashattn"] == before + 1, \
+        f"{name}: wrapper did not launch flashattn"
+    want = kfa.flash_attention_plain(q, k, v, causal=causal,
+                                     block=block).float()
+    tol = FLASH_TOL[q.dtype]
+    err = (got.float() - want).abs()
+    over = int((err > tol + tol * want.abs()).sum().item())
+    case = {"kernel": "flashattn", "case": name,
+            "max_abs_err": err.max().item(),
+            "tolerance": f"{tol} + {tol}*|plain|",
+            "cells_over_tolerance": over}
+    if q.dtype == torch.bfloat16:
+        exact = kfa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                          causal=causal, block=block)
+        bound = (FLASH_ONE_ROUNDING + FLASH_TOL[torch.float32]) * \
+            exact.abs() + FLASH_TOL[torch.float32]
+        err32 = (got.float() - exact).abs()
+        case.update(max_abs_err_f32_plain=err32.max().item(),
+                    tolerance_f32_plain="(2^-8 + 2e-5)*|plain f32| + 2e-5",
+                    cells_over_one_rounding=int((err32 > bound).sum().item()))
+        over += case["cells_over_one_rounding"]
+        if library:
+            lib_err = (sdpa(q, k, v, causal).float() - exact).abs()
+            case.update(sdpa_max_abs_err_f32_plain=lib_err.max().item(),
+                        sdpa_cells_over_one_rounding=int(
+                            (lib_err > bound).sum().item()))
+            assert case["sdpa_cells_over_one_rounding"] > 0, \
+                f"{name}: the one-rounding check does not separate " \
+                f"K9 from SDPA: {case}"
+            del lib_err
+        del exact, bound, err32
+    cases.append(case)
+    if over or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: cells over tolerance: {case}")
+    return case
+
+
+def flash_cases(gen) -> list:
+    """K9, both types, causal and full, D = 64 and 128, ragged and unequal
+    sequence lengths, strided (B, S, H, D) views, and the serving path's
+    shape (1, 4096, 32, 128) in bf16 (the path's own q, k, v are held in
+    phase ``kernels``)."""
+    cases: list = []
+
+    def rnd(shape, dt):
+        return torch.randn(shape, generator=gen, device=DEV).to(dt)
+
+    for dt in (torch.float32, torch.bfloat16):
+        for D in kfa.HEAD_DIMS:
+            for causal in (True, False):
+                q, k, v = (rnd((2, 512, 4, D), dt) for _ in range(3))
+                flash_check(f"{dt} (2,512,4,{D}) causal={causal}", q, k, v,
+                            causal, cases, block=128)
+        for Sq, Skv, D, causal in [(77, 77, 64, True), (1000, 1000, 128, True),
+                                   (50, 77, 64, False), (77, 50, 128, True),
+                                   (1, 300, 128, False)]:
+            q = rnd((2, Sq, 3, D), dt)
+            k, v = (rnd((2, Skv, 3, D), dt) for _ in range(2))
+            flash_check(f"{dt} ragged Sq={Sq} Skv={Skv} D={D} "
+                        f"causal={causal}", q, k, v, causal, cases)
+        # (B, H, S, D) storage read as (B, S, H, D), and head / column
+        # slices of wider tensors: no unit stride but along D
+        q, k, v = (rnd((2, 4, 300, 128), dt).transpose(1, 2)
+                   for _ in range(3))
+        flash_check(f"{dt} strided (B,H,S,D) storage (2,300,4,128)", q, k, v,
+                    True, cases)
+        q, k, v = (rnd((1, 257, 6, 160), dt)[:, :, 1:5, 16:80]
+                   for _ in range(3))
+        flash_check(f"{dt} strided slices (1,257,4,64)", q, k, v, False,
+                    cases)
+    q, k, v = (rnd((1, 4096, 32, 128), torch.bfloat16) for _ in range(3))
+    flash_check("bf16 serving shape (1,4096,32,128) causal, random", q, k, v,
+                True, cases, block=1024, library=True)
+    return cases
 
 
 # -- phase 3 ------------------------------------------------------------------------
@@ -1206,7 +1349,201 @@ def phase_mine_path(main: dict) -> dict:
 
 # -- phase 7 ------------------------------------------------------------------------
 
-def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict):
+SERVE_ARCH = "qwen3-4b"
+SERVE_PROMPTS = (2048, 4096, 3072, 2048, 512, 4096)
+SERVE_NEW = 16
+SERVE_SLOTS, SERVE_CAPACITY = 4, 4224
+# decode-vs-forward logits in bf16 at full width (see check_decode): the
+# two sides round to bf16 in different places (other GEMM shapes, K9's
+# online softmax against the dense one, the decode path's bf16 P), and
+# one-ulp differences grow through 36 layers whose random weights (std
+# 1/sqrt(36), fan_in being the stacked layer axis) make the residual
+# stream large.  Readings on an H100 80GB HBM3 at 700 W (PERF.md, equal
+# in every run so far): prefill 0.141 (2048 tokens, K9) and 0.0 (512,
+# dense), decode 0.211 and 0.219, at logits up to 4.9; argmax equal in
+# all four.  At those prompt lengths the one new key carries about 1/T of
+# the attention weight, so a decode fault moves logits little there: the
+# 12-token prompt, where every key matters, holds decode to the same
+# limit and must fail it when decoded one position early (RoPE and cache
+# row off by one).  Readings there, same card (PERF.md): decode 0.195,
+# one position early 4.94.
+SERVE_LOGIT_TOL = 0.5
+SERVE_SHORT_PROMPT = 12
+_SERVED = re.compile(r"^served (\d+)/(\d+) requests, (\d+) tokens in (\d+) "
+                     r"engine steps, [0-9.]+s \([0-9.]+ tok/s\)$")
+
+
+def check_decode(cfg, params, prompt, uid, first=None,
+                 control: bool = False) -> dict:
+    """prefill(x[:T]) then one decode step at position T, against the full
+    forward (mode="train") of the T + 1 tokens, x being the prompt and the
+    token the prefill samples (which must be ``first``, the batcher's,
+    when given).  The full forward runs with a flash block above T + 1,
+    so that it takes the dense branch of ``causal_attention`` (the flash
+    branch needs S to be a multiple of the block; T + 1 is not).  Logits
+    within ``SERVE_LOGIT_TOL`` and argmax equal.  With ``control``, the
+    same decode step at position T - 1 must miss the forward by more than
+    the tolerance.  Everything in bf16, as served."""
+    T = len(prompt)
+    x = torch.tensor([list(prompt)], dtype=torch.long, device=DEV)
+    last, caches = make_prefill_step(cfg)(params, x)
+    sampled = int(last.argmax(-1)[0])
+    assert first is None or sampled == first, \
+        f"request {uid}: prefill samples {sampled}, the batcher {first}"
+    x = torch.cat([x, torch.tensor([[sampled]], device=DEV)], 1)
+    grown = transformer.init_cache(cfg, 1, T + 1, device=DEV)
+    for one, dst in zip(leaves(caches), leaves(grown)):
+        dst[:, :, :T] = one
+    spare = [t.clone() for t in leaves(grown)] if control else None
+    decode = make_decode_step(cfg)
+    dec, _ = decode(params, grown, x[:, T:T + 1],
+                    torch.tensor([T], device=DEV))
+    dense = dataclasses.replace(cfg, flash_block=2 * (T + 1))
+    full, _, _ = transformer.forward(dense, params, x, mode="train")
+    full = full[0].float()
+    err_prefill = (last[0].float() - full[T - 1]).abs().max().item()
+    err_decode = (dec[0].float() - full[T]).abs().max().item()
+    out = {"uid": uid, "prompt": T,
+           "prefill_route": "flash (K9)" if T > cfg.flash_block else "dense",
+           "max_abs_err_prefill": err_prefill,
+           "max_abs_err_decode": err_decode,
+           "max_abs_logit": full[T - 1:].abs().max().item(),
+           "argmax_equal": [int(last[0].argmax()) == int(full[T - 1].argmax()),
+                            int(dec[0].argmax()) == int(full[T].argmax())],
+           "tolerance": SERVE_LOGIT_TOL}
+    if control:
+        for src, dst in zip(spare, leaves(grown)):
+            dst.copy_(src)
+        early, _ = decode(params, grown, x[:, T:T + 1],
+                          torch.tensor([T - 1], device=DEV))
+        out["control_position"] = T - 1
+        out["control_max_abs_err_decode"] = \
+            (early[0].float() - full[T]).abs().max().item()
+    assert torch.isfinite(full).all() and torch.isfinite(dec).all()
+    assert max(err_prefill, err_decode) <= SERVE_LOGIT_TOL, out
+    assert all(out["argmax_equal"]), out
+    if control:
+        assert out["control_max_abs_err_decode"] > SERVE_LOGIT_TOL, out
+    return out
+
+
+def phase_serve_path() -> dict:
+    """The LM serving path at full width: qwen3-4b unreduced (36 layers,
+    bf16, random weights from a seed, drawn on the card) behind
+    ``ContinuousBatcher``, six prompts of which five are longer than the
+    flash block (1024), so that every attention layer of their prefills
+    runs K9; then decode-vs-forward logits for two requests and a
+    12-token prompt, and the serving CLI at its own flags."""
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = transformer.Model(cfg).init(0, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tensors = leaves(params)
+    n_params = sum(t.numel() for t in tensors)
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    assert n_params == cfg.param_count() == 4_022_468_096, n_params
+    assert {t.dtype for t in tensors} == {torch.bfloat16}
+    emit("serve_params", arch=SERVE_ARCH, num_layers=cfg.num_layers,
+         d_model=cfg.d_model, params=n_params, bytes=n_bytes,
+         init_s=round(init_s, 3))
+
+    rng = np.random.default_rng(0)
+    b = ContinuousBatcher(cfg, params, slots=SERVE_SLOTS,
+                          capacity=SERVE_CAPACITY)
+    for i, T in enumerate(SERVE_PROMPTS):
+        b.submit(Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab_size, T).astype(np.int32),
+            max_new_tokens=SERVE_NEW, eos_id=-1))
+    # host time of every admission (prefill) and decode step, each ending
+    # in a synchronize (the batcher reads every sampled token back anyway)
+    admissions, decode_steps = [], []
+    prefill_call, decode_call = b.model, b.decode
+
+    def timed_prefill(params_, prompt, **kw):
+        t = time.perf_counter()
+        out = prefill_call(params_, prompt, **kw)
+        torch.cuda.synchronize()
+        admissions.append({"prompt": int(prompt.shape[1]),
+                           "seconds": time.perf_counter() - t})
+        return out
+
+    def timed_decode(*args):
+        t = time.perf_counter()
+        out = decode_call(*args)
+        torch.cuda.synchronize()
+        decode_steps.append(time.perf_counter() - t)
+        return out
+
+    b.model, b.decode = timed_prefill, timed_decode
+    # keep q, k, v of layer 0 of the first 4096-token prefill for phase
+    # ``kernels`` (the call goes on to the kernel as it is)
+    captured: dict = {}
+    launch_k9 = kfa.flash_attention
+
+    def capturing(q, k, v, **kw):
+        if not captured and q.shape[1] == 4096:
+            captured.update(q=q.clone(), k=k.clone(), v=v.clone())
+        return launch_k9(q, k, v, **kw)
+
+    kfa.flash_attention = capturing
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        steps = b.run_to_completion()
+    finally:
+        kfa.flash_attention = launch_k9
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = sum(len(r.generated) for r in b.finished)
+    assert sorted(r.uid for r in b.finished) == list(range(6)), b.finished
+    for r in b.finished:
+        assert len(r.generated) == SERVE_NEW and r.done, (r.uid, r.generated)
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
+    want_k9 = cfg.num_layers * sum(T > cfg.flash_block for T in SERVE_PROMPTS)
+    assert launches["flashattn"] == want_k9 == 180, launches
+    assert {k for k, n in launches.items() if n} == {"flashattn"}, launches
+    assert captured, "no 4096-token prefill reached K9"
+    by_uid = {r.uid: r for r in b.finished}
+    checks = [check_decode(cfg, params, by_uid[u].prompt, u,
+                           first=by_uid[u].generated[0]) for u in (0, 4)]
+    checks.append(check_decode(
+        cfg, params, rng.integers(0, cfg.vocab_size, SERVE_SHORT_PROMPT),
+        "short", control=True))
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli = serve.main([])
+    cli_s = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    m = _SERVED.match(lines[0])
+    assert m and m.group(1, 2, 3) == ("12", "12", "144"), lines
+    assert len(lines) == 4 and all(x.startswith("  req ") for x in lines[1:])
+    assert cli.device.type == "cuda"
+    out = {"arch": SERVE_ARCH, "slots": SERVE_SLOTS,
+           "capacity": SERVE_CAPACITY, "prompts": list(SERVE_PROMPTS),
+           "max_new_tokens": SERVE_NEW, "steps": steps, "tokens": tokens,
+           "seconds": run_s, "tokens_per_s": tokens / run_s,
+           "admissions": admissions,
+           "decode_steps": len(decode_steps),
+           "decode_step_ms_median": float(np.median(decode_steps)) * 1e3,
+           "decode_step_ms_max": max(decode_steps) * 1e3,
+           "launches": launches, "peak_device_bytes": peak,
+           "decode_vs_forward": checks,
+           "cli": {"seconds": cli_s, "lines": lines}}
+    emit("serve_path", **out)
+    del b, params
+    torch.cuda.empty_cache()
+    return {**out, "captured": captured}
+
+
+# -- phase 8 ------------------------------------------------------------------------
+
+def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
+                  served: dict):
     """Every kernel at the shapes its path gave it (two factors each, as
     the joins carry; chunk = what the guard granted there, 128 where no
     graph reached the tier).  ``bound_ms`` is for the function that is
@@ -1415,7 +1752,57 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict):
           ms_launch_only=timed_ms(launch8, 50),
           yardstick="(Ab[u] & Ab[v]).sum(1) on the unpacked bool rows, "
                     "not a popcount")
+    out.append(flash_row(served))
     print(json.dumps({"kernels": out}), flush=True)
+
+
+def flash_row(served: dict) -> dict:
+    """K9 on the serving path's own q, k, v (layer 0 of a 4096-token
+    prefill, bf16, causal), held as ``flash_check`` holds the cases.
+    Bound: S = QKᵀ multiplies bf16 inputs, exact in f32 on the bf16 tensor
+    cores (f32 accumulation); P·V multiplies the f32 P (the reference keeps
+    P in f32) at the f32 rate outside the tensor cores; the two halves of
+    4·D·H·S(S+1)/2 operations add up, against the bytes of q, k, v and
+    out.  The all-f32 bound (this design's arithmetic) and the
+    all-tensor-core one (P rounded to bf16) stand beside it.  Yardstick:
+    PyTorch's scaled_dot_product_attention(is_causal=True) in bf16."""
+    q, k, v = (served["captured"][x] for x in "qkv")
+    B, S, H, D = q.shape
+    case = flash_check("bf16 serving path's layer-0 q, k, v", q, k, v, True,
+                       [], block=1024, library=True)
+    nbytes = 4 * q.numel() * q.element_size()
+    nops = 4 * D * H * B * S * (S + 1) // 2
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (nops / 2 / PEAK_BF16_TC_OPS_PER_S
+             + nops / 2 / PEAK_F32_OPS_PER_S) * 1e3
+    return {"name": "flash_attention", "route": "cuda",
+            "source": FLASHATTN_SOURCE,
+            "replaces": "src/repro/kernels/flashattn.py:74",
+            "launches": served["launches"]["flashattn"],
+            "max_abs_err": case["max_abs_err"],
+            "tolerance": case["tolerance"],
+            "check": case,
+            "ms": timed_ms(lambda: kfa.flash_attention(q, k, v, causal=True),
+                           20),
+            "plain_ms": timed_ms(lambda: kfa.flash_attention_plain(
+                q, k, v, causal=True, block=1024), 3),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": timed_ms(lambda: sdpa(q, k, v, True), 20),
+            "library_max_abs_diff": (sdpa(q, k, v, True).float()
+                                     - kfa.flash_attention(
+                                         q, k, v, causal=True).float()
+                                     ).abs().max().item(),
+            "shape": [B, S, H, D], "dtype": "bf16", "causal": True,
+            "bytes": nbytes, "operations": nops,
+            "bytes_bound_ms": t_bytes,
+            "operations_bound": "QK^T at the bf16 tensor-core rate + P.V "
+                                "at the f32 rate",
+            "f32_operations_bound_ms": nops / PEAK_F32_OPS_PER_S * 1e3,
+            "bf16_tensor_core_bound_ms":
+                nops / PEAK_BF16_TC_OPS_PER_S * 1e3,
+            "yardstick": "scaled_dot_product_attention(is_causal=True) on "
+                         "(B, H, S, D) views, bf16"}
 
 
 def main():
@@ -1425,7 +1812,8 @@ def main():
     local_path = phase_local_path(main_path)
     graph_ops = phase_graph_ops(main_path)
     mine_path = phase_mine_path(main_path)
-    phase_kernels(main_path, local_path, graph_ops, mine_path)
+    serve_path = phase_serve_path()
+    phase_kernels(main_path, local_path, graph_ops, mine_path, serve_path)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

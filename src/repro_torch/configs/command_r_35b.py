@@ -1,0 +1,18 @@
+"""Command-R 35B: dense, GQA kv=8, no-bias. 40L d_model=8192 64H d_ff=22528
+vocab=256000  [hf:CohereForAI/c4ai-command-r-v01; unverified]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="command-r-35b",
+    family="dense",
+    num_layers=40,
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=22528,
+    vocab_size=256000,
+    tie_embeddings=True,
+    rope_theta=4_000_000.0,
+    source="hf:CohereForAI/c4ai-command-r-v01; unverified",
+)

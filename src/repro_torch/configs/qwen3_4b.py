@@ -1,0 +1,19 @@
+"""Qwen3-4B: dense, qk_norm, GQA kv=8. 36L d_model=2560 32H d_ff=9728
+vocab=151936  [hf:Qwen/Qwen3-8B; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-4b",
+    family="dense",
+    num_layers=36,
+    d_model=2560,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=9728,
+    vocab_size=151936,
+    qk_norm=True,
+    tie_embeddings=True,
+    rope_theta=1_000_000.0,
+    source="hf:Qwen/Qwen3-8B; hf",
+)

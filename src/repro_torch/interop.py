@@ -1,16 +1,18 @@
 """State carried across from the reference package.
 
-Two functions that take numpy arrays and strings only (nothing of the
+Functions that take numpy arrays and strings only (nothing of the
 reference package is imported): a reference ``Graph`` travels as its
 ``n``, ``edges`` and ``labels`` arrays, a reference ``Plan`` as its
-``to_json()`` text.  Tests use them so that both packages bind the same
-plan to the same graph.
+``to_json()`` text, a reference parameter tree as numpy leaves.  Tests use
+them so that both packages bind the same plan to the same graph, and run
+the same weights.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.compiler.ir import Plan
 from repro_torch.graph.storage import Graph
@@ -28,3 +30,44 @@ def plan_from_json(text: str) -> Plan:
     """Load a plan serialised by either package (``Plan.to_json()``); the
     IR schema and ``PLAN_FORMAT_VERSION`` are shared."""
     return Plan.from_json(text)
+
+
+def _tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bf16: same bits
+        t = torch.from_numpy(a.view(np.uint16).astype(np.int16))
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))          # a writable copy
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_numpy(cfg, tree, device):
+    """The port's parameters for a reference parameter tree whose leaves
+    are numpy arrays (``jax.tree.map(np.asarray, params)``): the same
+    nesting — ``embed``, ``final_norm``, ``unembed`` when untied,
+    ``segments`` as a list of ``{"slot<j>": {...}}`` with stacked leaves —
+    as tensors of ``cfg.param_dtype`` on ``device``.  Every leaf's shape is
+    checked against ``param_specs(cfg)``."""
+    from repro_torch.models.params import is_spec
+    from repro_torch.models.transformer import _dtype, param_specs
+    dtype = _dtype(cfg.param_dtype)
+
+    def walk(spec, node, path):
+        if is_spec(spec):
+            if tuple(np.shape(node)) != tuple(spec.shape):
+                raise ValueError(f"{path}: shape {np.shape(node)}, the "
+                                 f"config wants {spec.shape}")
+            return _tensor(node, dtype, device)
+        if isinstance(spec, dict):
+            if not isinstance(node, dict) or set(node) != set(spec):
+                raise ValueError(f"{path}: keys {sorted(node)}, the config "
+                                 f"wants {sorted(spec)}")
+            return {k: walk(spec[k], node[k], f"{path}/{k}") for k in spec}
+        if len(node) != len(spec):
+            raise ValueError(f"{path}: {len(node)} entries, the config "
+                             f"wants {len(spec)}")
+        return [walk(s, n, f"{path}[{i}]")
+                for i, (s, n) in enumerate(zip(spec, node))]
+
+    return walk(param_specs(cfg), tree, "params")

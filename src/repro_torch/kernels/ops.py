@@ -1,5 +1,5 @@
-"""Public wrappers for the join, triangle, SDDMM and bitset kernels:
-defaults, route counters, guard, placement.
+"""Public wrappers for the join, triangle, SDDMM, bitset and attention
+kernels: defaults, route counters, guard, placement.
 
 Counter names and labels (``kernel.calls``, ``kernel.exact_block``) are
 the reference package's, so route counters compare one-to-one.
@@ -15,6 +15,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch import obs
 from repro_torch.kernels import bitset as _bitset
+from repro_torch.kernels import flashattn as _fa
 from repro_torch.kernels import matreduce as _mr
 from repro_torch.kernels import sddmm as _sd
 
@@ -149,3 +150,14 @@ def common_neighbors(adj_bool, edges, *, device=None) -> torch.Tensor:
     rows gathered inside the kernel.  Σ over a graph's edges is 3 · T."""
     adj, pairs = _placed((adj_bool, edges), device)
     return _bitset.bitset_intersect_edges(_bitset.pack_bitsets(adj), pairs)
+
+
+def flash_attention(q, k, v, *, causal=True, bq=128, bk=128) -> torch.Tensor:
+    """(B, S, H, D) attention through K9 (``kernels.flashattn``).  The
+    reference's tile sizes keep its assertion that they divide the
+    sequences; the kernel tiles by its own 64 rows, and the plain version
+    on a CPU tensor scans KV blocks of ``bk`` rows."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    bq, bk = min(bq, Sq), min(bk, Skv)
+    assert Sq % bq == 0 and Skv % bk == 0
+    return _fa.flash_attention(q, k, v, causal=causal, block=bk)

@@ -1,0 +1,272 @@
+"""Composable decoder: layer segments, a loop over periods, KV caches.
+
+The layer stack is a list of *segments*; each segment is a period of
+heterogeneous *slots* (mixer + ffn) repeated ``n`` times, with every
+parameter and cache stacked along a leading ``(n, ...)`` layer axis, as in
+the reference package.  The reference runs a segment with ``lax.scan``;
+here it is a loop over that axis.
+
+Ported: self-attention slots ('A') with an MLP, which covers the dense
+family (qwen3-4b, deepseek-7b, command-r-35b, granite-20b, repro-100m)
+and musicgen-large's backbone (embedding inputs).
+Mamba ('M') and cross-attention ('X') slots, MoE feed-forwards and MLA
+attention raise ``NotImplementedError`` in ``Model``'s constructor,
+before any work.  Rematerialisation (``cfg.remat``) is a training
+concern and has no effect here.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch import device as _device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.params import P, init_tree, stacked
+
+_NOT_PORTED = {
+    "M": "Mamba (SSM) mixers are not ported yet (ROADMAP queue 1, item 13)",
+    "X": "VLM cross-attention is not ported yet (ROADMAP queue 1, item 13)",
+    "moe": "MoE feed-forwards are not ported yet (ROADMAP queue 1, item 13)",
+    "mla": "MLA attention is not ported yet (ROADMAP queue 1, item 13)",
+}
+
+
+class Slot(NamedTuple):
+    kind: str            # 'A' | 'M' | 'X'
+    ffn: str             # 'mlp' | 'moe' | 'none'
+    ff: int              # mlp hidden size (unused for moe/none)
+
+
+class Segment(NamedTuple):
+    slots: tuple
+    n: int
+
+
+def build_segments(cfg: ModelConfig) -> list[Segment]:
+    kinds = cfg.pattern_layers()
+
+    def slot_for(i):
+        kind = kinds[i]
+        if kind == "M" and cfg.family == "ssm":
+            return Slot(kind, "none", 0)
+        if cfg.is_moe_layer(i):
+            return Slot(kind, "moe", 0)
+        ff = (cfg.dense_prefix_ff
+              if (cfg.moe is not None and i < cfg.dense_prefix
+                  and cfg.dense_prefix_ff) else cfg.d_ff)
+        return Slot(kind, "mlp", ff)
+
+    segs = []
+    start = 0
+    if cfg.dense_prefix:
+        slots = tuple(slot_for(i) for i in range(cfg.dense_prefix))
+        assert len(set(slots)) == 1, "dense prefix must be homogeneous"
+        segs.append(Segment((slots[0],), cfg.dense_prefix))
+        start = cfg.dense_prefix
+    period = math.lcm(len(cfg.layer_pattern),
+                      cfg.moe.every_k_layers if cfg.moe else 1)
+    rest = cfg.num_layers - start
+    assert rest % period == 0, (cfg.name, rest, period)
+    slots = tuple(slot_for(start + j) for j in range(period))
+    # verify periodicity
+    for i in range(start, cfg.num_layers):
+        assert slot_for(i) == slots[(i - start) % period], (cfg.name, i)
+    segs.append(Segment(slots, rest // period))
+    return segs
+
+
+def check_ported(cfg: ModelConfig):
+    """Raise ``NotImplementedError`` for any part of ``cfg`` that the port
+    does not run yet, naming its ROADMAP item."""
+    if cfg.mla is not None:
+        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['mla']}")
+    for seg in build_segments(cfg):
+        for slot in seg.slots:
+            for what in (slot.kind, slot.ffn):
+                if what in _NOT_PORTED:
+                    raise NotImplementedError(
+                        f"{cfg.name}: {_NOT_PORTED[what]}")
+
+
+# ---------------------------------------------------------------------------
+# Param specs
+# ---------------------------------------------------------------------------
+
+def _slot_specs(cfg, slot: Slot):
+    d = cfg.d_model
+    s = {"norm1": P((d,), ("embed",), "ones"), "mixer": L.attn_specs(cfg)}
+    if slot.ffn == "mlp":
+        s["norm2"] = P((d,), ("embed",), "ones")
+        s["ffn"] = L.mlp_specs(cfg, slot.ff)
+    return s
+
+
+def param_specs(cfg: ModelConfig):
+    check_ported(cfg)
+    d = cfg.d_model
+    specs = {
+        "embed": P((cfg.vocab_size, d), ("vocab", "embed"), scale=0.02),
+        "final_norm": P((d,), ("embed",), "ones"),
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = P((d, cfg.vocab_size), ("embed", "vocab"))
+    specs["segments"] = [
+        {f"slot{j}": stacked(_slot_specs(cfg, slot), seg.n)
+         for j, slot in enumerate(seg.slots)}
+        for seg in build_segments(cfg)
+    ]
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# Cache specs
+# ---------------------------------------------------------------------------
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def _slot_cache_spec(cfg, B: int, S: int):
+    f = _dtype(cfg.compute_dtype)
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    # flattened (kv*hd) layout, as the reference's
+    return {"k": ((B, S, kv * hd), ("batch", "kv_seq", "kv"), f),
+            "v": ((B, S, kv * hd), ("batch", "kv_seq", "kv"), f)}
+
+
+def cache_specs(cfg: ModelConfig, B: int, S: int):
+    """Returns (tree of (shape, dtype), tree of axes) for the decode
+    cache, one dict per segment with stacked leaves."""
+    check_ported(cfg)
+    shapes, axes = [], []
+    for seg in build_segments(cfg):
+        sh, ax = {}, {}
+        for j, slot in enumerate(seg.slots):
+            spec = _slot_cache_spec(cfg, B, S)
+            sh[f"slot{j}"] = {k: ((seg.n,) + s, d)
+                              for k, (s, a, d) in spec.items()}
+            ax[f"slot{j}"] = {k: ("layers",) + a
+                              for k, (s, a, d) in spec.items()}
+        shapes.append(sh)
+        axes.append(ax)
+    return shapes, axes
+
+
+def init_cache(cfg: ModelConfig, B: int, S: int, device=None):
+    """Zero caches for ``B`` sequences of capacity ``S`` on ``device``
+    (``None`` means CUDA, see ``repro_torch.device``)."""
+    dev = _device.resolve(device)
+    shapes, _ = cache_specs(cfg, B, S)
+    return [{slot: {k: torch.zeros(shape, dtype=dt, device=dev)
+                    for k, (shape, dt) in leaves.items()}
+             for slot, leaves in seg.items()} for seg in shapes]
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _apply_slot(cfg, slot: Slot, p, x, *, positions, mode, cache):
+    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    y, nc = L.attention(p["mixer"], h, cfg, positions=positions, mode=mode,
+                        cache=cache)
+    x = x + y
+    if slot.ffn != "none":
+        h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+        x = x + L.mlp_apply(p["ffn"], h2)
+    return x, nc
+
+
+def _layer(tree, i):
+    """Layer ``i`` of a stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _run_segment(cfg, seg: Segment, seg_params, x, *, positions, mode,
+                 caches):
+    """The reference's scan over the segment's stacked layers, as a loop.
+    Decode caches are written in place; prefill caches are stacked."""
+    new = {f"slot{j}": [] for j in range(len(seg.slots))}
+    for i in range(seg.n):
+        for j, slot in enumerate(seg.slots):
+            name = f"slot{j}"
+            c = _layer(caches[name], i) if caches is not None else None
+            x, nc = _apply_slot(cfg, slot, _layer(seg_params[name], i), x,
+                                positions=positions, mode=mode, cache=c)
+            new[name].append(nc)
+    if mode == "decode":
+        return x, caches
+    return x, {name: {k: torch.stack([c[k] for c in per_layer])
+                      for k in (per_layer[0] if per_layer else {})}
+               for name, per_layer in new.items()}
+
+
+def forward(cfg: ModelConfig, params, inputs, *, mode: str,
+            positions=None, caches=None, image_embeds=None):
+    """Full decoder forward.
+
+    mode='train'/'prefill': inputs (B,S) ids or (B,S,d) embeddings.
+    mode='decode': inputs (B,1)/(B,1,d), positions (B,), caches required
+    (written in place and returned).
+    Returns (logits, new_caches, aux); aux is 0 (no MoE).
+    """
+    if image_embeds is not None:
+        raise NotImplementedError(_NOT_PORTED["X"])
+    f = _dtype(cfg.compute_dtype)
+    embed = params["embed"]
+    inputs = torch.as_tensor(inputs, device=embed.device)
+    if cfg.input_mode == "embeddings" and inputs.ndim == 3:
+        x = inputs.to(f)
+    else:
+        # jnp.take clamps out-of-range ids; torch would raise
+        x = embed[inputs.long().clamp(0, embed.shape[0] - 1)].to(f)
+    S = x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    positions = torch.as_tensor(positions, device=x.device)
+
+    segs = build_segments(cfg)
+    new_caches = []
+    for i, seg in enumerate(segs):
+        c = caches[i] if caches is not None else None
+        x, nc = _run_segment(cfg, seg, params["segments"][i], x,
+                             positions=positions, mode=mode, caches=c)
+        new_caches.append(nc)
+
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", x, embed.to(f))
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x, params["unembed"].to(f))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, (new_caches if mode != "train" else None), aux
+
+
+# ---------------------------------------------------------------------------
+# Public model handle
+# ---------------------------------------------------------------------------
+
+class Model:
+    """A thin handle over a parameter tree: ``init`` draws one, calling
+    the model runs ``forward``.  Raises ``NotImplementedError`` in the
+    constructor for any part of the config that is not ported."""
+
+    def __init__(self, cfg: ModelConfig):
+        check_ported(cfg)
+        self.cfg = cfg
+        self.specs = param_specs(cfg)
+
+    def init(self, seed: int = 0, device=None):
+        """Parameters drawn from a ``torch.Generator`` seeded with
+        ``seed`` on ``device`` (``None`` means CUDA)."""
+        dev = _device.resolve(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return init_tree(self.specs, gen, _dtype(self.cfg.param_dtype), dev)
+
+    def __call__(self, params, inputs, **kw):
+        return forward(self.cfg, params, inputs, **kw)

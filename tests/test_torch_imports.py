@@ -49,9 +49,19 @@ def test_port_has_the_expected_modules():
                  "kernels/sddmm.py", "kernels/bitset.py", "core/engine.py",
                  "core/search.py", "core/fsm.py", "core/symmetry.py",
                  "core/blocksparse.py", "launch/__init__.py",
-                 "launch/mine.py"):
+                 "launch/mine.py", "configs/__init__.py", "configs/base.py",
+                 "configs/registry.py", "configs/qwen3_4b.py",
+                 "configs/command_r_35b.py", "configs/dbrx_132b.py",
+                 "configs/deepseek_7b.py", "configs/deepseek_v3_671b.py",
+                 "configs/granite_20b.py", "configs/jamba_1_5_large_398b.py",
+                 "configs/llama_3_2_vision_11b.py", "configs/mamba2_1_3b.py",
+                 "configs/musicgen_large.py", "configs/repro_100m.py",
+                 "models/__init__.py", "models/params.py",
+                 "models/layers.py", "models/transformer.py",
+                 "kernels/flashattn.py", "serve/__init__.py",
+                 "serve/engine.py", "serve/batching.py", "launch/serve.py"):
         assert want in names, want
-    for source in ("cutjoin.cu", "matreduce.cu", "bitset.cu"):
+    for source in ("cutjoin.cu", "matreduce.cu", "bitset.cu", "flashattn.cu"):
         assert (PORT / "kernels" / "csrc" / source).is_file(), source
 
 
@@ -75,7 +85,10 @@ def test_importing_the_compiler_pulls_in_neither_jax_nor_repro():
         "import repro_torch.compiler, repro_torch.kernels.ops, "
         "repro_torch.analysis, repro_torch.interop, repro_torch.api, "
         "repro_torch.launch.mine, repro_torch.core.symmetry, "
-        "repro_torch.core.blocksparse\n"
+        "repro_torch.core.blocksparse, repro_torch.launch.serve, "
+        "repro_torch.serve.batching, repro_torch.configs.registry\n"
+        "from repro_torch.configs.registry import ALL_IDS, get_config\n"
+        "[get_config(a) for a in ALL_IDS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -114,8 +127,10 @@ def test_kernel_modules_import_without_a_compiler_and_build_nothing():
     proc = _run(
         "import repro_torch.kernels.matreduce as m, "
         "repro_torch.kernels.build as b, repro_torch.kernels.sddmm as s, "
-        "repro_torch.kernels.bitset as t, repro_torch.kernels.ops\n"
+        "repro_torch.kernels.bitset as t, repro_torch.kernels.ops, "
+        "repro_torch.kernels.flashattn as f, repro_torch.models.layers\n"
         "assert m._LIB is None and s._LIB is None and t._LIB is None\n"
+        "assert f._LIB is None and f.launches == {'flashattn': 0}\n"
         "assert not b._LIBS\n"
         "assert m.launches == {'vecjoin': 0, 'pairjoin': 0, 'trijoin': 0, "
         "'pairjoin_keep': 0, 'trijoin_keep': 0, 'matreduce': 0}\n"

@@ -1,0 +1,188 @@
+"""The port's continuous batcher and serving CLI vs the reference's.
+
+Both packages serve the same prompts (numpy, from a seed) with the same
+weights (the reference's, carried across with
+``interop.params_from_numpy``) on reduced qwen3-4b in f32, two layers, as
+``tests/test_serving.py`` does.  The logits of every prefill and every
+decode step are compared first (tolerance 1e-4, relative and absolute:
+f32 sums in another order), then the generated tokens (exactly).  Prompts
+of 64 and 96 tokens take the flash path of the prefill (``flash_block``
+is 32), the others the dense one.
+"""
+import re
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import reduced_config as r_reduced
+from repro.configs.registry import get_config as r_get
+from repro.launch import serve as rserve
+from repro.models.transformer import Model as RModel
+from repro.serve.batching import ContinuousBatcher as RBatcher
+from repro.serve.batching import Request as RRequest
+
+from repro_torch import interop
+from repro_torch.configs.base import reduced_config as t_reduced
+from repro_torch.configs.registry import get_config as t_get
+from repro_torch.launch import serve as tserve
+from repro_torch.models.transformer import Model as TModel
+from repro_torch.serve.batching import ContinuousBatcher as TBatcher
+from repro_torch.serve.batching import Request as TRequest
+
+RCFG = r_reduced(r_get("qwen3-4b"), num_layers=2, remat=False)
+TCFG = t_reduced(t_get("qwen3-4b"), num_layers=2, remat=False)
+TOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def weights():
+    params = RModel(RCFG).init(jax.random.PRNGKey(0))
+    return params, interop.params_from_numpy(
+        TCFG, jax.tree.map(np.asarray, params), "cpu")
+
+
+class _Recorded:
+    """Wraps a batcher's prefill model and decode step so that every
+    logit row it hands the sampler is kept, in order."""
+
+    def __init__(self, batcher):
+        self.prefill, self.decode = [], []
+        model, decode = batcher.model, batcher.decode
+
+        def prefill_call(params, prompt, **kw):
+            out = model(params, prompt, **kw)
+            self.prefill.append(np.asarray(out[0][0, -1], np.float32))
+            return out
+
+        def decode_call(*args):
+            out = decode(*args)
+            self.decode.append(np.asarray(out[0], np.float32))
+            return out
+
+        batcher.model, batcher.decode = prefill_call, decode_call
+
+
+def _serve(weights, prompts, *, slots, capacity, max_new, eos=None):
+    """Serve ``prompts`` with both packages; returns both batchers and
+    their recorded logits."""
+    out = []
+    for Batcher, Request, params, kw in (
+            (RBatcher, RRequest, weights[0], {}),
+            (TBatcher, TRequest, weights[1], {"device": "cpu"})):
+        cfg = RCFG if Batcher is RBatcher else TCFG
+        b = Batcher(cfg, params, slots=slots, capacity=capacity, **kw)
+        rec = _Recorded(b)
+        for i, p in enumerate(prompts):
+            b.submit(Request(uid=i, prompt=p, max_new_tokens=max_new,
+                             eos_id=-1 if eos is None else eos[i]))
+        steps = b.run_to_completion()
+        out.append((b, rec, steps))
+    return out
+
+
+def _prompts(seed, lengths):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, TCFG.vocab_size, T).astype(np.int32)
+            for T in lengths]
+
+
+def _same_run(ref, port):
+    (rb, rrec, rsteps), (tb, trec, tsteps) = ref, port
+    assert len(trec.prefill) == len(rrec.prefill)
+    for got, want in zip(trec.prefill, rrec.prefill):
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    assert len(trec.decode) == len(rrec.decode) and tsteps == rsteps
+    for got, want in zip(trec.decode, rrec.decode):
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    assert [(r.uid, r.generated, r.done) for r in tb.finished] == \
+        [(r.uid, r.generated, r.done) for r in rb.finished]
+    assert not tb.active and not tb.queue
+
+
+def test_batcher_matches_reference_with_flash_prefills(weights):
+    prompts = _prompts(1, [5, 64, 8, 96, 20])
+    ref, port = _serve(weights, prompts, slots=2, capacity=128, max_new=6)
+    _same_run(ref, port)
+    assert len(port[0].finished) == 5
+    assert all(len(r.generated) == 6 for r in port[0].finished)
+
+
+def test_batcher_retires_at_admission_like_the_reference(weights):
+    """max_new_tokens == 1 retires at admission, never occupying a slot;
+    so does a first token equal to EOS (``tests/test_serving.py``)."""
+    prompts = _prompts(3, [6, 5])
+    ref, port = _serve(weights, prompts, slots=2, capacity=32, max_new=1)
+    _same_run(ref, port)
+    firsts = [r.generated[0] for r in port[0].finished]
+    ref, port = _serve(weights, prompts, slots=2, capacity=32, max_new=8,
+                       eos=firsts)
+    _same_run(ref, port)
+    assert [r.generated for r in port[0].finished] == [[t] for t in firsts]
+    assert port[2] == 1 and not port[1].decode
+
+
+def test_freed_slot_readmits_in_the_same_step(weights):
+    prompts = _prompts(5, [5, 5, 5])
+    for Batcher, Request, params, kw in (
+            (RBatcher, RRequest, weights[0], {}),
+            (TBatcher, TRequest, weights[1], {"device": "cpu"})):
+        b = Batcher(RCFG if Batcher is RBatcher else TCFG, params, slots=1,
+                    capacity=32, **kw)
+        for i, p in enumerate(prompts):
+            b.submit(Request(uid=i, prompt=p, max_new_tokens=1))
+        b.step()
+        assert len(b.finished) == 3
+        assert all(len(r.generated) == 1 for r in b.finished)
+
+
+def test_slot_reuse_matches_reference(weights):
+    prompts = _prompts(2, [5] * 6)
+    ref, port = _serve(weights, prompts, slots=2, capacity=48, max_new=4)
+    _same_run(ref, port)
+    assert len(port[0].finished) == 6 and port[2] >= 9
+
+
+def test_capacity_retires_a_slot_like_the_reference(weights):
+    prompts = _prompts(6, [30, 9])
+    ref, port = _serve(weights, prompts, slots=2, capacity=34, max_new=20)
+    _same_run(ref, port)
+    assert [len(r.generated) for r in port[0].finished] == [4, 20]
+
+
+def test_batcher_device_none_raises_without_cuda(weights, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TBatcher(TCFG, weights[1], slots=1, capacity=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tserve.main(["--requests", "1"])
+
+
+_TIMING = re.compile(r", [0-9.]+s \([0-9.]+ tok/s\)$")
+
+
+def test_serve_cli_matches_reference_line_for_line(monkeypatch, capsys):
+    """``repro_torch.launch.serve.main([... "--device", "cpu"])`` prints
+    the reference's lines (timing dropped), with the reference's weights
+    for ``--seed`` carried across."""
+    argv = ["--arch", "qwen3-4b", "--reduced", "--requests", "6",
+            "--max-new", "5", "--seed", "2"]
+    rserve.main(argv)
+    want = capsys.readouterr().out.splitlines()
+
+    class CarriedModel(TModel):
+        def init(self, seed=0, device=None):
+            params = RModel(r_reduced(r_get("qwen3-4b"))).init(
+                jax.random.PRNGKey(seed))
+            return interop.params_from_numpy(
+                self.cfg, jax.tree.map(np.asarray, params), device)
+
+    monkeypatch.setattr(tserve, "Model", CarriedModel)
+    b = tserve.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want) == 4
+    assert [_TIMING.sub("", x) for x in got] == \
+        [_TIMING.sub("", x) for x in want]
+    assert got[0].startswith("served 6/6 requests, 30 tokens in ")
+    assert b.device.type == "cpu"
