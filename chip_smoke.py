@@ -26,7 +26,8 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    or 2e-2 (bf16), relative and absolute — except f32 at K = 8192, held
    to the f32 dot-product rounding bound γ_K · Σ_k |l_k r_k|.  Flash
    attention (K9) in f32 and bf16, causal and full, D = 64 and 128, ragged
-   and unequal sequence lengths, strided views and the serving shape
+   and unequal sequence lengths, strided views, views that TMA cannot read
+   in place (copied first in bf16) and the serving shape
    (1, 4096, 32, 128), against its plain version with the reference's
    tolerance, 2e-5 (f32) and 3e-2 (bf16) relative and absolute, and in
    bf16 against the f32 plain version within one rounding to bf16, a check
@@ -107,7 +108,9 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    for K9), error against the plain version, time, the plain version's
    time, the card's bound for the timed function and a PyTorch yardstick
    for it, at the shapes its path gave the kernel (K9: the path's own
-   q, k, v of layer 0 of a 4096-token prefill).
+   q, k, v of layer 0 of a 4096-token prefill; its bound takes P·V as two
+   bf16 tensor-core passes, and its row carries ptxas's register and spill
+   counts from this run's build).
 9. last line: ``{"ok": true, "device": {...}}``.
 
 No phase catches a failure and carries on.
@@ -177,8 +180,13 @@ BITSET_SOURCE = "src/repro_torch/kernels/csrc/bitset.cu"
 FLASHATTN_SOURCE = "src/repro_torch/kernels/csrc/flashattn.cu"
 LAUNCH_TABLES = (mr.launches, ksd.launches, kbs.launches, kfa.launches)
 # the bf16 tensor-core peak (NVIDIA data sheet, dense), for K9's bound:
-# its S = QKᵀ multiplies bf16 inputs, P·V the f32 P
+# its S = QKᵀ multiplies bf16 inputs, and P·V the two bf16 terms of P
 PEAK_BF16_TC_OPS_PER_S = 989e12
+# exp2 results per clock per SM on the special-function units, compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput table); times the SM count and the card's maximum SM clock as
+# nvidia-smi reports it in the run
+SFU_EXP2_PER_CLOCK_PER_SM = 16
 # K9 against its plain version: the reference's tolerance
 # (tests/test_kernels.py), relative and absolute; in bf16 also against the
 # f32 plain version on the same inputs within one rounding to bf16 (half
@@ -613,7 +621,8 @@ def flash_check(name: str, q, k, v, causal: bool, cases: list,
     Skv when None) on the same inputs: every cell within the reference's
     tolerance, tol + tol·|plain|.  In bf16 also against the plain version
     in f32 on the same (widened) inputs, within one rounding to bf16:
-    K9 keeps P in f32 and rounds once, at the output.  With ``library``,
+    K9 keeps P to f32 grade (P_hi + P_lo) and rounds once, at the output.
+    With ``library``,
     PyTorch's scaled_dot_product_attention (P rounded to bf16) is held to
     that second check too and must fail it, which shows that the check
     tells the two functions apart."""
@@ -690,6 +699,14 @@ def flash_cases(gen) -> list:
                    for _ in range(3))
         flash_check(f"{dt} strided slices (1,257,4,64)", q, k, v, False,
                     cases)
+        # a start 4 (bf16) or 8 (f32) bytes past a 16-byte boundary, a
+        # head stride of 68 elements, and v broadcast over the heads: the
+        # bf16 kernel's TMA copies cannot read these in place, so the
+        # wrapper copies them first
+        q, k = (rnd((1, 300, 3, 68), dt)[..., 2:66] for _ in range(2))
+        v = rnd((1, 300, 1, 64), dt).expand(1, 300, 3, 64)
+        flash_check(f"{dt} unaligned and broadcast views (1,300,3,64)", q,
+                    k, v, True, cases)
     q, k, v = (rnd((1, 4096, 32, 128), torch.bfloat16) for _ in range(3))
     flash_check("bf16 serving shape (1,4096,32,128) causal, random", q, k, v,
                 True, cases, block=1024, library=True)
@@ -1756,25 +1773,61 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
     print(json.dumps({"kernels": out}), flush=True)
 
 
+def ptxas_counts(log: str) -> list:
+    """Registers and spills of each flash attention kernel instance, from
+    the ``-Xptxas -v`` lines of this run's build of ``csrc/flashattn.cu``
+    (none when the library was not built in this process)."""
+    out, current = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '.*?(bf16k|f32k)"
+                          r"9flash_fwdILi(\d+)ELb([01])E", line)
+        if entry:
+            current = {"kernel": f"{entry[1]}::flash_fwd<{entry[2]}, "
+                                 f"{'causal' if entry[3] == '1' else 'full'}>"}
+            out.append(current)
+        elif current is not None:
+            spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                current.update(stack_bytes=int(spill[1]),
+                               spill_store_bytes=int(spill[2]),
+                               spill_load_bytes=int(spill[3]))
+            if regs:
+                current["registers_at_entry"] = int(regs[1])
+                current = None
+    return out
+
+
 def flash_row(served: dict) -> dict:
     """K9 on the serving path's own q, k, v (layer 0 of a 4096-token
     prefill, bf16, causal), held as ``flash_check`` holds the cases.
-    Bound: S = QKᵀ multiplies bf16 inputs, exact in f32 on the bf16 tensor
-    cores (f32 accumulation); P·V multiplies the f32 P (the reference keeps
-    P in f32) at the f32 rate outside the tensor cores; the two halves of
-    4·D·H·S(S+1)/2 operations add up, against the bytes of q, k, v and
-    out.  The all-f32 bound (this design's arithmetic) and the
-    all-tensor-core one (P rounded to bf16) stand beside it.  Yardstick:
-    PyTorch's scaled_dot_product_attention(is_causal=True) in bf16."""
+    Bound, for the function at f32 grade: S = QKᵀ multiplies bf16 inputs,
+    exact in f32 on the bf16 tensor cores, and P·V is two bf16 passes
+    (P_hi·V + P_lo·V, within 2^-17·|P| of the f32 P): three passes of
+    half of 4·D·H·S(S+1)/2 operations at the bf16 tensor-core rate,
+    against the bytes of q, k, v and out and against one exp per visible
+    score on the special-function units, which run beside the tensor
+    cores.  Beside it, labelled: one pass with P rounded to bf16 (another
+    function, SDPA's), P·V at the f32 rate (the bound until the split was
+    used), and all in f32.  Yardstick: PyTorch's
+    scaled_dot_product_attention(is_causal=True) in bf16."""
     q, k, v = (served["captured"][x] for x in "qkv")
     B, S, H, D = q.shape
     case = flash_check("bf16 serving path's layer-0 q, k, v", q, k, v, True,
                        [], block=1024, library=True)
     nbytes = 4 * q.numel() * q.element_size()
     nops = 4 * D * H * B * S * (S + 1) // 2
+    nexp = B * H * S * (S + 1) // 2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    exp_rate = SFU_EXP2_PER_CLOCK_PER_SM * sms * clock_mhz * 1e6
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (nops / 2 / PEAK_BF16_TC_OPS_PER_S
-             + nops / 2 / PEAK_F32_OPS_PER_S) * 1e3
+    t_tc = 3 * (nops / 2) / PEAK_BF16_TC_OPS_PER_S * 1e3
+    t_exp = nexp / exp_rate * 1e3
     return {"name": "flash_attention", "route": "cuda",
             "source": FLASHATTN_SOURCE,
             "replaces": "src/repro/kernels/flashattn.py:74",
@@ -1786,21 +1839,30 @@ def flash_row(served: dict) -> dict:
                            20),
             "plain_ms": timed_ms(lambda: kfa.flash_attention_plain(
                 q, k, v, causal=True, block=1024), 3),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": max(t_bytes, t_tc, t_exp),
+            "bound_by": "bytes" if t_bytes >= max(t_tc, t_exp)
+                        else "operations",
             "library_ms": timed_ms(lambda: sdpa(q, k, v, True), 20),
             "library_max_abs_diff": (sdpa(q, k, v, True).float()
                                      - kfa.flash_attention(
                                          q, k, v, causal=True).float()
                                      ).abs().max().item(),
             "shape": [B, S, H, D], "dtype": "bf16", "causal": True,
-            "bytes": nbytes, "operations": nops,
+            "bytes": nbytes, "operations": nops, "exps": nexp,
             "bytes_bound_ms": t_bytes,
-            "operations_bound": "QK^T at the bf16 tensor-core rate + P.V "
-                                "at the f32 rate",
+            "operations_bound": "S = QK^T + two-pass P.V (P_hi.V + P_lo.V) "
+                                "at the bf16 tensor-core rate",
+            "tensor_core_bound_ms": t_tc,
+            "exp_bound_ms": t_exp,
+            "exp_rate": f"{SFU_EXP2_PER_CLOCK_PER_SM} exp2 / clock / SM "
+                        f"(CUDA C++ Programming Guide, cc 9.0) x {sms} SMs "
+                        f"x {clock_mhz:g} MHz (nvidia-smi clocks.max.sm)",
+            "one_pass_bf16_p_bound_ms": nops / PEAK_BF16_TC_OPS_PER_S * 1e3,
+            "retired_pv_f32_rate_bound_ms":
+                (nops / 2 / PEAK_BF16_TC_OPS_PER_S
+                 + nops / 2 / PEAK_F32_OPS_PER_S) * 1e3,
             "f32_operations_bound_ms": nops / PEAK_F32_OPS_PER_S * 1e3,
-            "bf16_tensor_core_bound_ms":
-                nops / PEAK_BF16_TC_OPS_PER_S * 1e3,
+            "ptxas": ptxas_counts(kbuild.build_logs.get("flashattn", "")),
             "yardstick": "scaled_dot_product_attention(is_causal=True) on "
                          "(B, H, S, D) views, bf16"}
 

@@ -5,7 +5,9 @@ with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
 interface, one ``nvcc`` per library, all started together, and returns
 them as ``ctypes.CDLL`` objects by name.  A library file is keyed by a
 hash of its sources and the flags, so a changed source rebuilds and an
-unchanged one is reused.  Nothing here runs at import time: a machine
+unchanged one is reused.  ``build_logs`` keeps what ``nvcc`` printed for
+each library built in this process (``-Xptxas -v``: every kernel's
+registers, shared memory and spills).  Nothing here runs at import time: a machine
 without ``nvcc`` can import every module of the package; it only cannot
 launch a kernel.
 
@@ -26,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # every kernel library of the package, one source each: the first launch
 # of any kernel builds them all (``load_all(SOURCES)``), one nvcc each,
@@ -36,6 +38,7 @@ SOURCES = {"cutjoin": ("cutjoin.cu",), "matreduce": ("matreduce.cu",),
 
 _LIBS: dict = {}
 build_seconds: dict = {}      # name -> seconds nvcc took (0.0 when reused)
+build_logs: dict = {}         # name -> nvcc's output (built in this process)
 
 
 class KernelError(RuntimeError):
@@ -91,6 +94,7 @@ def load_all(specs: dict) -> dict:
         for name, (proc, cmd, tmp, out) in procs.items():
             log = proc.communicate()[0]
             build_seconds[name] = time.perf_counter() - t0
+            build_logs[name] = log
             if proc.returncode != 0:
                 failed.append(f"nvcc failed ({proc.returncode}): "
                               f"{' '.join(cmd)}\n{log}")

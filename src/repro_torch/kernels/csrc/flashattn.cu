@@ -1,4 +1,4 @@
-// K9: blocked causal (or full) attention with online softmax, f32 arithmetic.
+// K9: blocked causal (or full) attention with online softmax.
 //
 // Replaces the reference package's TPU kernel `flash_attention` /
 // `_kernel` (src/repro/kernels/flashattn.py), and on the serving path the
@@ -8,69 +8,94 @@
 //   out[b, i, h, :] = Σ_j softmax_j(scale · q[b,i,h,:] · k[b,j,h,:]) v[b,j,h,:]
 //   over j <= i when causal (top-left aligned, as the reference's positions).
 //
-// Arithmetic, as the reference's: q, k, v widened to f32 as they are loaded;
-// q scaled before the product; masked scores set to NEG_INF = -1e30; per KV
-// tile m_new = max(m, rowmax s), p = exp(s - m_new) zeroed where masked (after
-// the exp), l = l·exp(m - m_new) + Σ p, acc = acc·exp(m - m_new) + p·v; the
-// output is acc / max(l, 1e-20), rounded once to the output's type.  P stays
-// f32 (no bf16 rounding of P, no tensor cores): every product is a plain f32
-// FMA.
+// Arithmetic, as the reference's: q, k, v widened to f32; scores scaled;
+// masked scores set to NEG_INF = -1e30; per KV tile m_new = max(m, rowmax s),
+// p = exp(s - m_new) zeroed where masked (after the exp),
+// l = l·exp(m - m_new) + Σ p with the f32 p, acc = acc·exp(m - m_new) + p·v;
+// the output is acc / max(l, 1e-20), rounded once to the output's type.
 //
 // Layout: q, k, v and out are (B, S, H, D) read by their batch, sequence and
 // head strides (unit stride along D); no transposed copy is made.  D = 64 and
-// D = 128 are template instances.
+// D = 128 are template instances.  Two designs, one per entry point:
 //
-// Tiles: one thread block of 256 threads per (batch·head, 64-row query tile).
-// A loop inside the block walks 64-row KV tiles and, when causal, stops at the
-// tile holding the diagonal: the TPU grid's sequential KV axis becomes that
-// loop, and the causal skip its bound.  Query tiles are issued heaviest
-// first.  Q (scaled, transposed), K (transposed), V and P are f32 tiles in
-// dynamic shared memory (113 KB at D = 128, which admits two blocks per SM);
-// each thread holds a 4 x 4 block of S and a 4 x D/16 block of the
-// accumulator, with its rows' running max and sum, in registers.  Row
-// reductions are shuffles across the 16 threads that share a row.  Ragged
-// Sq and Skv are handled by bounds checks (zeros loaded, scores masked,
-// rows past Sq not stored).
-//
+// flashattn_bf16 (Hopper: wgmma + TMA).  One CTA of 384 threads per
+// (batch·head, 128-row query tile); the grid runs the heaviest query tiles
+// of every head first; a loop walks 128-row KV tiles and, when causal,
+// stops at the tile holding the diagonal.  Warpgroup 0 is the producer:
+// after `setmaxnreg` hands its registers to the consumers, one thread loads
+// Q once and K, V per tile with TMA (`cp.async.bulk.tensor`, a 4-D map over
+// (D, H, S, B) with the operand's strides, 64-column boxes with 128-byte
+// swizzle) into three stages of shared memory (Q 32 KB, K and V 3 x 32 KB
+// each at D = 128: 224 KB), with one `mbarrier` per stage and operand for
+// arrival and one per stage for release by both consumers.  Warpgroups 1
+// and 2 own 64 query rows each, with their rows' m, l and output
+// accumulator in registers:
+//   - S = QKᵀ is `wgmma m64n128k16 .f32.bf16.bf16` from shared memory (Q as
+//     A, K as a K-major B): exact products of the bf16 inputs, accumulated
+//     in f32.  The scale (times log2 e, for exp2) multiplies S in f32 after
+//     the product, where the reference scales q before it: they differ by
+//     f32 roundings only.
+//   - Softmax in registers; row max and sum are shuffles over the 4 threads
+//     that share a row in the accumulator layout.  Only tiles that reach
+//     the causal diagonal or a ragged Skv carry mask arithmetic; TMA fills
+//     rows past the tensor's end with zeros, and their scores are masked
+//     all the same.
+//   - P·V keeps P to f32 grade on the bf16 tensor cores: P is split in
+//     registers into P_hi = bf16(P) and P_lo = bf16(P - P_hi), which sum to
+//     P within 2^-17·|P| (round to nearest: half an ulp of the residual),
+//     and `wgmma m64nDk16` with A from registers (the f32 accumulator
+//     layout of S is the bf16 A-fragment layout of P: no shared-memory
+//     round trip) and V as an N-major B (transpose bit) adds P_hi·V, then
+//     P_lo·V, into one f32 accumulator.  Products of bf16 values are exact
+//     in f32.  The split's error is far under one bf16 rounding of the
+//     output (2^-8), which is what rounding P to bf16 once costs.
+//   - Tile t issues S_t, then P_{t-1}·V_{t-1} behind it, waits for S_t
+//     only, and runs its softmax while that product is in flight; O is
+//     rescaled once the product has landed, which frees its stage.
+//   - The epilogue divides by max(l, 1e-20), rounds once to bf16 and stores
+//     rows < Sq through the output strides.
 // What bounds it: at the serving path's shape (1, 4096, 32, 128) causal, the
-// work is 4·D·H·S(S+1)/2 = 137.5 GFLOP, half in S = QKᵀ and half in P·V.
-// S is a product of bf16 inputs, which the bf16 tensor cores (989 TFLOP/s)
-// compute exactly with f32 accumulation; P·V multiplies the f32 P, which the
-// reference keeps in f32, so it needs the f32 rate outside the tensor cores
-// (67 TFLOP/s).  That bound is 0.07 + 1.03 = 1.10 ms; all in f32 it is
-// 2.05 ms, all on the tensor cores 0.139 ms, and the bytes of q, k, v and
-// out in bf16 take 0.040 ms.  This design does both products as f32 FMAs,
-// so its own floor is the 2.05 ms: it keeps every operand of the inner
-// loops in shared memory or registers (16-byte shared loads feeding 16 or
-// 32 FMAs) so that the loop is limited by FMA issue, not by loads.  S on
-// the tensor cores (wgmma) is the next step.
+// function is 4·D·H·S(S+1)/2 = 137.5 GFLOP; with P·V in two passes that is
+// three bf16 tensor-core passes of 68.7 GFLOP at 989 TFLOP/s: 0.209 ms.
+// The 268 M exps take about 0.065 ms on the special-function units, beside
+// the tensor cores; the bytes take 0.040 ms.  No FMA loop over D or over
+// the KV tile is left: both products are on `wgmma`; TMA copies run two
+// tiles ahead of the math; the softmax of one tile hides behind the P·V of
+// the one before, and the two consumer warpgroups interleave as the
+// scheduler finds them ready.  Left: the warpgroups are not ordered against
+// each other (ping-pong), and on the diagonal tile the lower 64 rows
+// compute 64 columns that are all masked for them.
+//
+// flashattn_f32 (f32 q, k, v: the bf16 tensor cores would round them).  One
+// block of 256 threads per (batch·head, 64-row query tile), 64-row KV tiles;
+// Q (scaled before the product, as the reference), K (both transposed), V
+// and P are f32 tiles in 113 KB of dynamic shared memory; each thread holds
+// a 4 x 4 block of S and a 4 x D/16 block of the accumulator; both products
+// are register-blocked f32 FMAs (16-byte shared loads feeding 16 or 32 FMAs)
+// at the f32 rate outside the tensor cores, 67 TFLOP/s; row reductions are
+// shuffles across the 16 threads of a row.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
+
+constexpr float NEG_INF = -1e30f;
+
+struct Strides {                    // element strides of (B, S, H); D is unit
+  long long b, s, h;
+};
+
+// ---------------------------------------------------------------------------
+// f32: register-blocked FMAs
+// ---------------------------------------------------------------------------
+namespace f32k {
 
 constexpr int BQ = 64;              // query rows per block
 constexpr int BK = 64;              // KV rows per tile
 constexpr int THREADS = 256;        // 16 x 16: ty owns rows, tx owns columns
 constexpr int PS = BK + 4;          // P row stride, padded against conflicts
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T narrow(float x);
-template <> __device__ __forceinline__ float narrow<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-struct Strides {                    // element strides of (B, S, H); D is unit
-  long long b, s, h;
-};
 
 template <int D>
 constexpr int smem_floats() {
@@ -79,8 +104,8 @@ constexpr int smem_floats() {
 
 // rows [0, R) of a (R, D) tile starting at sequence row `row0`, written to
 // shared memory transposed (dst[d * R + r]), times `mul`; zeros past `rows`
-template <typename T, int D, int R>
-__device__ __forceinline__ void load_transposed(float* dst, const T* src,
+template <int D, int R>
+__device__ __forceinline__ void load_transposed(float* dst, const float* src,
                                                 long long stride_s, int row0,
                                                 int rows, float mul) {
   for (int e = threadIdx.x; e < R * (D / 4); e += THREADS) {
@@ -88,19 +113,19 @@ __device__ __forceinline__ void load_transposed(float* dst, const T* src,
     const int row = row0 + r;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
     if (row < rows) {
-      const T* p = src + row * stride_s + c;
+      const float* p = src + row * stride_s + c;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) x[u] = widen(p[u]) * mul;
+      for (int u = 0; u < 4; ++u) x[u] = p[u] * mul;
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) dst[(c + u) * R + r] = x[u];
   }
 }
 
-template <typename T, int D, bool CAUSAL>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 2)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out, int H, int Sq,
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ out, int H, int Sq,
           int Skv, Strides sq, Strides sk, Strides sv, Strides so,
           float scale) {
   constexpr int NC = D / 64;        // 64-column groups of the accumulator
@@ -115,11 +140,11 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
 
-  load_transposed<T, D, BQ>(qT, qb, sq.s, q0, Sq, scale);
+  load_transposed<D, BQ>(qT, qb, sq.s, q0, Sq, scale);
 
   float m[4], l[4], acc[4][4 * NC];
 #pragma unroll
@@ -135,10 +160,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int kt = 0; kt < n_kv; ++kt) {
     const int kv0 = kt * BK;
-    load_transposed<T, D, BK>(kT, kb, sk.s, kv0, Skv, 1.f);
+    load_transposed<D, BK>(kT, kb, sk.s, kv0, Skv, 1.f);
     for (int e = threadIdx.x; e < BK * D; e += THREADS) {
       const int t = e / D, d = e % D;
-      vs[e] = kv0 + t < Skv ? widen(vb[(kv0 + t) * sv.s + d]) : 0.f;
+      vs[e] = kv0 + t < Skv ? vb[(kv0 + t) * sv.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -223,7 +248,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
 
-  T* ob = out + b * so.b + h * so.h;
+  float* ob = out + b * so.b + h * so.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
@@ -233,16 +258,15 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int g = 0; g < NC; ++g)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        ob[row * so.s + g * 64 + tx * 4 + j] =
-            narrow<T>(acc[i][g * 4 + j] / den);
+        ob[row * so.s + g * 64 + tx * 4 + j] = acc[i][g * 4 + j] / den;
   }
 }
 
-template <typename T, int D, bool CAUSAL>
-int launch(const T* q, const T* k, const T* v, T* out, int B, int H, int Sq,
-           int Skv, Strides sq, Strides sk, Strides sv, Strides so,
-           float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd<T, D, CAUSAL>;
+template <int D, bool CAUSAL>
+int launch(const float* q, const float* k, const float* v, float* out, int B,
+           int H, int Sq, int Skv, Strides sq, Strides sk, Strides sv,
+           Strides so, float scale, cudaStream_t stream) {
+  auto kernel = flash_fwd<D, CAUSAL>;
   const int bytes = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -257,30 +281,486 @@ int launch(const T* q, const T* k, const T* v, T* out, int B, int H, int Sq,
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int H, int Sq, int Skv, int D, const long long* st, float scale,
-             int causal, void* stream) {
-  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
-      sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
-  auto s = static_cast<cudaStream_t>(stream);
-  auto Q = static_cast<const T*>(q), K = static_cast<const T*>(k),
-       V = static_cast<const T*>(v);
-  auto O = static_cast<T*>(out);
-  if (D == 64 && causal)
-    return launch<T, 64, true>(Q, K, V, O, B, H, Sq, Skv, sq, sk, sv, so,
-                               scale, s);
-  if (D == 64)
-    return launch<T, 64, false>(Q, K, V, O, B, H, Sq, Skv, sq, sk, sv, so,
-                                scale, s);
-  if (D == 128 && causal)
-    return launch<T, 128, true>(Q, K, V, O, B, H, Sq, Skv, sq, sk, sv, so,
-                                scale, s);
-  if (D == 128)
-    return launch<T, 128, false>(Q, K, V, O, B, H, Sq, Skv, sq, sk, sv, so,
-                                 scale, s);
-  return cudaErrorInvalidValue;
+}  // namespace f32k
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA, warp-specialised
+// ---------------------------------------------------------------------------
+namespace bf16k {
+
+constexpr int BQ = 128;             // query rows per CTA: 2 consumers x 64
+constexpr int BK = 128;             // KV rows per tile (wgmma_ss's N)
+constexpr int STAGES = 3;           // K/V tiles in flight
+constexpr int THREADS = 384;        // producer + two consumer warpgroups
+constexpr int CONSUMERS = 256;      // threads that release a stage
+constexpr int ROW_BYTES = 128;      // one 64-column box row, swizzled
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Smem {                       // byte offsets from a 1024-aligned base
+  static constexpr int Q = BQ * D * 2;           // one Q tile
+  static constexpr int KV = BK * D * 2;          // one K or V stage
+  static constexpr int K0 = Q, V0 = Q + STAGES * KV;
+  static constexpr int BARS = V0 + STAGES * KV;  // 1 + 3 · STAGES mbarriers
+  static constexpr int BYTES = BARS + 8 * (1 + 3 * STAGES) + 1024;
+  static_assert(BYTES <= 232448, "a block's shared memory on Hopper");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost
+// first, into shared memory at `dst`; completion counted on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// byte offset (K-major: unused; N-major: between 64-column boxes), stride
+// byte offset (between groups of 8 rows: 8 x 128 bytes)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(8 * ROW_BYTES >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// until at most `N` committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// the accumulator is read and written by the asynchronous product: keep the
+// compiler from moving its uses across the fence / wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// an A fragment stays in its registers until the product reading it has
+// landed: the compiler must not reuse them while it is in flight
+template <int N>
+__device__ __forceinline__ void frag_fence(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+#define ACC8(i)                                                              \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),                \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define REGS32                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+#define REGS64                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128, f32) = [d +] A B: A (64 x 16) and B (16 x 128, K-major)
+// from shared memory; `accumulate` = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
+        ACC8(56)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x N, f32) += A B: A (64 x 16 bf16) from registers in the wgmma
+// fragment layout, B (16 x N) from shared memory N-major (transposed)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
+        ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// hi = bf16(x), lo = bf16(x - hi), for x and y: x - hi is exact in f32, and
+// hi + lo is within 2^-17·|x| of x
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd(const __grid_constant__ CUtensorMap tq,
+          const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv,
+          __nv_bfloat16* __restrict__ out, int H, int Sq, int Skv, Strides so,
+          float scale_log2) {
+  using L = Smem<D>;
+  constexpr int BOXES = D / 64;     // 64-column TMA boxes per row
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_full = base + L::BARS;
+  auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8 * (1 + STAGES + s); };
+  auto kv_free = [&](int s) { return q_full + 8 * (1 + 2 * STAGES + s); };
+
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - blockIdx.y) * BQ;     // heaviest tiles first,
+  const int b = blockIdx.x / H, h = blockIdx.x % H;  // of every head
+  int n_kv = (Skv + BK - 1) / BK;
+  if (CAUSAL) n_kv = min(n_kv, (q0 + BQ - 1) / BK + 1);
+  const int group = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(k_full(s), 1);
+      bar_init(v_full(s), 1);
+      bar_init(kv_free(s), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (group == 0) {
+    // producer: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (threadIdx.x == 0) {
+      bar_expect(q_full, L::Q);
+      for (int c = 0; c < BOXES; ++c)
+        tma_load(base + c * BQ * ROW_BYTES, &tq, q_full, 64 * c, h, q0, b);
+      for (int kt = 0; kt < n_kv; ++kt) {
+        const int s = kt % STAGES;
+        bar_wait(kv_free(s), ((kt / STAGES) & 1) ^ 1);
+        bar_expect(k_full(s), L::KV);
+        for (int c = 0; c < BOXES; ++c)
+          tma_load(base + L::K0 + s * L::KV + c * BK * ROW_BYTES, &tk,
+                   k_full(s), 64 * c, h, kt * BK, b);
+        bar_expect(v_full(s), L::KV);
+        for (int c = 0; c < BOXES; ++c)
+          tma_load(base + L::V0 + s * L::KV + c * BK * ROW_BYTES, &tv,
+                   v_full(s), 64 * c, h, kt * BK, b);
+      }
+    }
+  } else {
+    // consumer: 64 query rows, rows r and r + 8 of each warp's 16 per thread
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    const int cw = group - 1, t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int row_lo = q0 + 64 * cw;              // first row of this group
+    const int row = row_lo + 16 * (t / 32) + lane / 4;   // and row + 8
+    const int col = 2 * (lane % 4);  // column of d[0] in each 8-column group
+    const uint32_t qa = base + cw * 64 * ROW_BYTES;
+
+    float o[D / 2], s[BK / 2];
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    // accumulator index i: row + 8 · ((i / 2) % 2), column 8 · (i / 4) +
+    // col + i % 2; a row sees the columns below `end`
+    int end[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      end[r] = CAUSAL ? min(Skv, row + 8 * r + 1) : Skv;
+
+    // Tile t: S_t = Q K_tᵀ is issued, then O += P_{t-1} V_{t-1} behind it;
+    // the softmax of S_t runs while that product is in flight, and O is
+    // rescaled once it has landed.
+    uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
+    auto pv = [&](uint32_t vs) {      // O += P_hi V + P_lo V, 16 V rows a step
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<D>(o, p_hi[kk],
+                    sw128_desc(vs + kk * 16 * ROW_BYTES, BK * ROW_BYTES));
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<D>(o, p_lo[kk],
+                    sw128_desc(vs + kk * 16 * ROW_BYTES, BK * ROW_BYTES));
+    };
+    auto v_stage = [&](int kt) { return base + L::V0 + kt % STAGES * L::KV; };
+
+    bar_wait(q_full, 0);
+    for (int kt = 0; kt < n_kv; ++kt) {
+      const int st = kt % STAGES, phase = (kt / STAGES) & 1;
+      const int kv0 = kt * BK;
+      const uint32_t ks = base + L::K0 + st * L::KV;
+
+      // S = Q Kᵀ, k-steps of 16 columns: 32 bytes inside a 128-byte box row
+      bar_wait(k_full(st), phase);
+      reg_fence(s);
+      reg_fence(o);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss(s, sw128_desc(qa + (kk / 4) * BQ * ROW_BYTES + off, 16),
+                 sw128_desc(ks + (kk / 4) * BK * ROW_BYTES + off, 16), kk > 0);
+      }
+      wg_commit();
+      if (kt > 0) {
+        pv(v_stage(kt - 1));
+        wg_commit();
+        wg_wait<1>();                        // S_t has landed
+      } else {
+        wg_wait<0>();
+      }
+      reg_fence(s);
+
+      // online softmax in the log2 domain: t = scale · log2(e) · S (the
+      // row max of S times the scale is the row max of t); only a tile that
+      // reaches the diagonal or Skv carries the masks
+      const bool edge =
+          kv0 + BK > Skv || (CAUSAL && kv0 + BK - 1 > row_lo);
+      float mx[2] = {NEG_INF, NEG_INF};
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const bool seen = kv0 + 8 * (i / 4) + col + i % 2 < end[(i / 2) % 2];
+          s[i] = seen ? s[i] * scale_log2 : NEG_INF;
+          mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i)
+          mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+        mx[0] *= scale_log2;
+        mx[1] *= scale_log2;
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const bool seen = kv0 + 8 * (i / 4) + col + i % 2 < end[(i / 2) % 2];
+          s[i] = seen ? exp2f(s[i] - m[(i / 2) % 2]) : 0.f;
+          l[(i / 2) % 2] += s[i];            // this thread's part of the sum
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          s[i] = exp2f(fmaf(s[i], scale_log2, -m[(i / 2) % 2]));
+          l[(i / 2) % 2] += s[i];
+        }
+      }
+
+      // P_{t-1} V_{t-1} has landed: its stage is free, O and the P
+      // fragments may be written
+      wg_wait<0>();
+      reg_fence(o);
+      frag_fence(p_hi);
+      frag_fence(p_lo);
+      if (kt > 0) bar_arrive(kv_free((kt - 1) % STAGES));
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+
+      // P = P_hi + P_lo in the A-fragment layout: k-step kk holds
+      // accumulator columns 16 kk .. 16 kk + 15, i.e. s[8 kk .. 8 kk + 7]
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          split_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], p_hi[kk][j],
+                     p_lo[kk][j]);
+      bar_wait(v_full(st), phase);
+    }
+    // the last tile's P V
+    reg_fence(o);
+    wg_fence();
+    pv(v_stage(n_kv - 1));
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(o);
+
+    // epilogue: the row's sum over its 4 threads, one rounding to bf16
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = fmaxf(l[r], 1e-20f);
+    }
+    __nv_bfloat16* ob = out + b * so.b + h * so.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qrow = row + 8 * r;
+      if (qrow >= Sq) continue;
+      __nv_bfloat16* orow = ob + qrow * so.s + col;
+#pragma unroll
+      for (int g = 0; g < D / 8; ++g)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * g) =
+            __floats2bfloat162_rn(o[4 * g + 2 * r] / l[r],
+                                  o[4 * g + 2 * r + 1] / l[r]);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (CUDA driver API), found through the runtime, so
+// that the library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a 4-D map over (D, H, S, B) of a bf16 (B, S, H, D) tensor, boxes of 64
+// columns x `rows` sequence rows, 128-byte swizzle, zeros past the edges.
+// The strides of dimensions of size 1 are never followed; they are given
+// as 128 bytes, which TMA takes.  Returns 0 or the CUresult, negated.
+int make_map(CUtensorMap* map, const void* x, int B, int S, int H, int D,
+             Strides st, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  auto bytes = [](long long stride, int n) {
+    return static_cast<cuuint64_t>(n > 1 ? stride * 2 : ROW_BYTES);
+  };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {bytes(st.h, H), bytes(st.s, S),
+                                 bytes(st.b, B)};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : -static_cast<int>(res);
+}
+
+template <int D, bool CAUSAL>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int H, int Sq, int Skv, Strides sq, Strides sk, Strides sv,
+           Strides so, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, q, B, Sq, H, D, sq, BQ);
+  if (err == 0) err = make_map(&tk, k, B, Skv, H, D, sk, BK);
+  if (err == 0) err = make_map(&tv, v, B, Skv, H, D, sv, BK);
+  if (err != 0) return err;
+  auto kernel = flash_fwd<D, CAUSAL>;
+  const int bytes = Smem<D>::BYTES;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
+  kernel<<<grid, THREADS, bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), H, Sq, Skv, so,
+      scale * LOG2E);
+  return cudaGetLastError();
+}
+
+}  // namespace bf16k
+
+// (batch, sequence, head) strides of q, k, v and out, in that order
+struct Args {
+  Strides sq, sk, sv, so;
+  explicit Args(const long long* st)
+      : sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
+        sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]} {}
+};
 
 }  // namespace
 
@@ -291,14 +771,47 @@ extern "C" int flashattn_f32(const void* q, const void* k, const void* v,
                              void* out, int B, int H, int Sq, int Skv, int D,
                              const long long* strides, float scale,
                              int causal, void* stream) {
-  return dispatch<float>(q, k, v, out, B, H, Sq, Skv, D, strides, scale,
-                         causal, stream);
+  const Args a(strides);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto Q = static_cast<const float*>(q), K = static_cast<const float*>(k),
+       V = static_cast<const float*>(v);
+  auto O = static_cast<float*>(out);
+  if (D == 64 && causal)
+    return f32k::launch<64, true>(Q, K, V, O, B, H, Sq, Skv, a.sq, a.sk,
+                                  a.sv, a.so, scale, s);
+  if (D == 64)
+    return f32k::launch<64, false>(Q, K, V, O, B, H, Sq, Skv, a.sq, a.sk,
+                                   a.sv, a.so, scale, s);
+  if (D == 128 && causal)
+    return f32k::launch<128, true>(Q, K, V, O, B, H, Sq, Skv, a.sq, a.sk,
+                                   a.sv, a.so, scale, s);
+  if (D == 128)
+    return f32k::launch<128, false>(Q, K, V, O, B, H, Sq, Skv, a.sq, a.sk,
+                                    a.sv, a.so, scale, s);
+  return cudaErrorInvalidValue;
 }
 
+// As flashattn_f32; besides, q, k and v must start on a 16-byte boundary
+// and their strides be multiples of 8 elements (TMA), along dimensions of
+// more than one row.  A negative return is the CUresult of building
+// a tensor map, negated.
 extern "C" int flashattn_bf16(const void* q, const void* k, const void* v,
                               void* out, int B, int H, int Sq, int Skv, int D,
                               const long long* strides, float scale,
                               int causal, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, out, B, H, Sq, Skv, D, strides,
-                                 scale, causal, stream);
+  const Args a(strides);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (D == 64 && causal)
+    return bf16k::launch<64, true>(q, k, v, out, B, H, Sq, Skv, a.sq, a.sk,
+                                   a.sv, a.so, scale, s);
+  if (D == 64)
+    return bf16k::launch<64, false>(q, k, v, out, B, H, Sq, Skv, a.sq, a.sk,
+                                    a.sv, a.so, scale, s);
+  if (D == 128 && causal)
+    return bf16k::launch<128, true>(q, k, v, out, B, H, Sq, Skv, a.sq, a.sk,
+                                    a.sv, a.so, scale, s);
+  if (D == 128)
+    return bf16k::launch<128, false>(q, k, v, out, B, H, Sq, Skv, a.sq,
+                                     a.sk, a.sv, a.so, scale, s);
+  return cudaErrorInvalidValue;
 }

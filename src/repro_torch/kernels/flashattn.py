@@ -8,8 +8,11 @@ tensor it launches ``flashattn_f32`` / ``flashattn_bf16`` of
 ``csrc/flashattn.cu`` (compiled at first use, see ``kernels.build``; the
 source says what bounds it on the card), or raises: only D = 64 and
 D = 128, f32 and bf16, q, k and v of one type on one device, no position
-vectors.  On a CPU tensor — and only because the tensor lies on the CPU —
-it takes the plain PyTorch version ``flash_attention_plain``.
+vectors.  The bf16 kernel runs both products on the Hopper tensor cores
+(``wgmma``) with K and V staged by TMA, and keeps P to f32 grade by
+splitting it into two bf16 terms; the f32 kernel does both as f32 FMAs.
+On a CPU tensor — and only because the tensor lies on the CPU — it takes
+the plain PyTorch version ``flash_attention_plain``.
 
 **Arithmetic contract** (both versions, the reference's): q, k and v are
 widened to f32; q is scaled by ``scale`` (default 1/√D) before the
@@ -18,9 +21,12 @@ max, sum and accumulator are rescaled by exp(m_prev − m_new) and
 p = exp(s − m_new) is zeroed where masked; the output is
 acc / max(l, 1e-20) in q's type.  Causal masking compares absolute
 positions (query i sees keys j <= i, top-left aligned).  The kernel's KV
-tiles are its own (64 rows); ``block`` sets the plain version's KV block,
-as the reference's scan takes it.  Sums run in another order in the two,
-so they agree to f32 rounding, not bit for bit.
+tiles are its own (128 rows in bf16, 64 in f32); ``block`` sets the plain
+version's KV block, as the reference's scan takes it.  Sums run in another
+order in the two, so they agree to f32 rounding, not bit for bit; the
+bf16 kernel scales S after the product and multiplies V by
+P_hi + P_lo, within 2^-17·|P| of the f32 P (far under the output's one
+rounding to bf16).
 """
 from __future__ import annotations
 
@@ -133,6 +139,21 @@ def _check_kernel_operands(q, k, v, q_positions, kv_positions):
                          f"{HEAD_DIMS} with Dq == Dv: {D}, {Dv}")
 
 
+def _kernel_reads(x) -> bool:
+    """Whether the kernel can read ``x`` in place: unit stride along D, and
+    for bf16 (TMA) a start on a 16-byte boundary and (batch, sequence, head)
+    strides that are nonzero 16-byte multiples along dimensions longer
+    than 1 (a broadcast view is copied)."""
+    if x.stride(3) != 1:
+        return False
+    if x.dtype != torch.bfloat16:
+        return True
+    size = x.element_size()
+    return x.data_ptr() % 16 == 0 and all(
+        st > 0 and st * size % 16 == 0
+        for st, n in zip(x.stride()[:3], x.shape[:3]) if n > 1)
+
+
 def flash_attention(q, k, v, *, causal: bool, block=None, q_positions=None,
                     kv_positions=None, scale=None) -> torch.Tensor:
     """Attention over (B, S, H, D) tensors (see the module docstring): the
@@ -151,8 +172,10 @@ def flash_attention(q, k, v, *, causal: bool, block=None, q_positions=None,
     if B * Sq * H == 0:
         return out
     # the kernel reads rows by their (batch, sequence, head) strides and
-    # needs unit stride along D only
-    q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
+    # needs unit stride along D; the bf16 kernel's TMA copies also need a
+    # 16-byte aligned start and strides of 16-byte multiples
+    q, k, v = (x if _kernel_reads(x) else x.clone(
+        memory_format=torch.contiguous_format) for x in (q, k, v))
     strides = (ctypes.c_longlong * 12)(*(
         s for x in (q, k, v, out) for s in x.stride()[:3]))
     entry = _ENTRY[q.dtype]

@@ -27,8 +27,8 @@ from repro_torch.core.motifs import motif_patterns
 from repro_torch.core.pattern import (Pattern, chain, cycle,
                                       tailed_triangle)
 
-from test_torch_reference import (port_graph, reference,  # noqa: F401
-                                  shared_apct)
+from test_torch_reference import (counters_moved, port_graph,
+                                  reference, shared_apct)  # noqa: F401
 
 HOUSE = Pattern(5, [(0, 1), (1, 2), (2, 3), (3, 0), (0, 4), (1, 4)])
 ROUTE_COUNTERS = ("kernel.calls", "kernel.exact_block",
@@ -85,12 +85,12 @@ def both(reference):
         RP = reference.pattern.Pattern
         rpats = [RP(p.n, sorted(p.edges), p.labels) for p in pats]
 
-        reference.obs.reset()
+        rbefore = reference.obs.snapshot()
         rcp = reference.compiler.compile(
             rpats, rg, cache=False,
             apct=shared_apct("ref", rg, reference.APCT))
         rcounts = [rcp.count(p) for p in rpats]
-        rsnap = _route_counters(reference.obs.snapshot())
+        rsnap = counters_moved(reference.obs, rbefore, ROUTE_COUNTERS)
 
         tobs.reset()
         tcp = tcompiler.compile(pats, tg, cache=False, device="cpu",

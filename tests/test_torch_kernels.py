@@ -17,7 +17,7 @@ from repro_torch import obs as tobs
 from repro_torch.kernels import matreduce as tmr
 from repro_torch.kernels import ops as tops
 
-from test_torch_reference import reference  # noqa: F401  (shared fixture)
+from test_torch_reference import counters_moved, reference  # noqa: F401
 
 BLOCKS = (8, 128, 1024)
 SIZES = (24, 130, 200)
@@ -266,12 +266,12 @@ def test_exact_block_parity(reference, maxes):
     assert tmr.exact_block(_t(fs), max_block=1024) == want
     assert tmr.exact_block((), max_block=1024, maxes=maxes) == want
     # interpret mode is where the reference uses the port's cap of 1024
-    reference.obs.reset()
+    rbefore = reference.obs.snapshot()
     tobs.reset()
     want = reference.ops.cutjoin_exact_block(fs, interpret=True)
     assert tops.cutjoin_exact_block(_t(fs)) == want
-    assert tobs.snapshot().get("kernel.exact_block") == \
-        reference.obs.snapshot().get("kernel.exact_block")
+    assert tobs.snapshot().get("kernel.exact_block") == counters_moved(
+        reference.obs, rbefore, ("kernel.exact_block",))["kernel.exact_block"]
 
 
 def test_exact_block_refusal_case(reference):

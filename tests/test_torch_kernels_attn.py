@@ -217,3 +217,111 @@ def test_cpu_tensors_launch_nothing():
     tops.flash_attention(q, q, q, bq=32, bk=32)
     tlayers.causal_attention(q, q, q, flash_block=16)
     assert tfa.launches["flashattn"] == n0
+
+
+# -- the bf16 kernel's P·V: P = P_hi + P_lo, two bf16 tensor-core passes ----------------
+
+ONE_ROUNDING = 2.0 ** -8          # one rounding to bf16, relative
+F32_TOL = 2e-5                    # the reference's f32 tolerance
+SPLIT_BOUND = 2.0 ** -17          # |P - P_hi - P_lo| / |P|: half an ulp of
+#                                   the residual, 8 bits after the 8 of P_hi
+KERNEL_BK = 128                   # the bf16 kernel's KV tile
+
+
+def _split_attention(q, k, v, causal, terms):
+    """The bf16 kernel's arithmetic in f32 on the CPU: per KV tile of
+    ``KERNEL_BK`` rows the reference's online softmax, with P·V taken as
+    Σ_t bf16-term_t(P)·V, each product of bf16 values exact in f32 and
+    accumulated in f32 (``terms`` = 2: P_hi + P_lo; 1: P_hi alone, P
+    rounded once to bf16).  Returns the output rounded to bf16 and the
+    largest |P - Σ terms| / |P| over the cells with P > 0."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    qf = q.float() / np.sqrt(D)
+    m = torch.full((B, Sq, H), -1e30)
+    l = torch.zeros((B, Sq, H))
+    acc = torch.zeros((B, Sq, H, D))
+    worst = 0.0
+    rows = torch.arange(Sq)[:, None]
+    for start in range(0, Skv, KERNEL_BK):
+        kb = k[:, start:start + KERNEL_BK].float()
+        vb = v[:, start:start + KERNEL_BK].float()
+        cols = torch.arange(start, start + kb.shape[1])[None, :]
+        mask = (rows >= cols if causal else torch.ones_like(rows >= cols))
+        mask = mask[None, :, None, :]
+        s = torch.where(mask, torch.einsum("bqhd,bthd->bqht", qf, kb), -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None]) * mask
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        parts, rest = [], p
+        for _ in range(terms):
+            parts.append(rest.to(torch.bfloat16).float())
+            rest = rest - parts[-1]
+        on = p > 0
+        worst = max(worst, ((p - sum(parts)).abs()[on] / p[on]).max().item())
+        acc = acc * alpha[..., None]
+        for part in parts:
+            acc = acc + torch.einsum("bqht,bthd->bqhd", part, vb)
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-20)[..., None]).to(torch.bfloat16)
+    return out, worst
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 512, 4, 128), (1, 300, 3, 64)])
+def test_two_term_split_keeps_p_to_f32_grade(shape, causal):
+    """What the bf16 kernel is built to: P_hi + P_lo within 2^-17·|P| of
+    the f32 P in every cell (and not within 2^-18: the bound is tight), the
+    output of the two bf16 passes within one bf16 rounding of the f32 plain
+    version in every cell — the check ``chip_smoke.py`` holds the kernel
+    to — and P_hi alone (P rounded to bf16 once) over it in some cell."""
+    (q, k, v), _ = _qkv(sum(shape) + causal, shape, "bf16")
+    exact = tfa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                      causal=causal)
+    bound = (ONE_ROUNDING + F32_TOL) * exact.abs() + F32_TOL
+    two, worst = _split_attention(q, k, v, causal, terms=2)
+    assert 2.0 ** -18 < worst <= SPLIT_BOUND
+    assert int(((two.float() - exact).abs() > bound).sum()) == 0
+    one, _ = _split_attention(q, k, v, causal, terms=1)
+    assert int(((one.float() - exact).abs() > bound).sum()) > 0
+
+
+@pytest.mark.parametrize("what,make", [
+    ("start off a 16-byte boundary",
+     lambda: torch.zeros((1, 40, 3, 128), dtype=torch.bfloat16)[..., 4:68]),
+    ("head stride of 136 bytes",
+     lambda: torch.zeros((1, 40, 3, 68), dtype=torch.bfloat16)[..., :64]),
+    ("sequence stride of 264 bytes",
+     lambda: torch.zeros(40 * 132, dtype=torch.bfloat16).as_strided(
+         (1, 40, 2, 64), (40 * 132, 132, 64, 1))),
+    ("heads broadcast (stride 0)",
+     lambda: torch.zeros((1, 40, 1, 64), dtype=torch.bfloat16).expand(
+         1, 40, 4, 64))])
+def test_bf16_views_tma_cannot_read_are_copied(fake_card, what, make):
+    """The bf16 kernel loads q, k, v with TMA, which needs a 16-byte
+    aligned start and nonzero 16-byte multiples for strides: a view that
+    fails either is copied to a contiguous tensor, then launched (once,
+    never the plain version)."""
+    n0 = tfa.launches["flashattn"]
+    x = make()
+    q = on_card(x)
+    tfa.flash_attention(q, q, q, causal=True)
+    assert tfa.launches["flashattn"] == n0 + 1
+    (entry, args, strides), = fake_card
+    B, S, H, D = x.shape
+    contiguous = [S * H * D, H * D, D]
+    assert entry == "flashattn_bf16"
+    assert all(ptr != x.data_ptr() for ptr in args[:3])
+    assert strides[:9] == contiguous * 3
+
+
+def test_f32_views_are_read_in_place(fake_card):
+    """The f32 kernel reads by strides without TMA: an odd start and odd
+    strides are read where they lie."""
+    x = torch.zeros((1, 40, 3, 67))[..., 1:65]
+    q = on_card(x)
+    tfa.flash_attention(q, q, q, causal=False)
+    (entry, args, strides), = fake_card
+    assert entry == "flashattn_f32" and args[0] == x.data_ptr()
+    assert strides[:3] == [40 * 3 * 67, 3 * 67, 67]

@@ -33,8 +33,8 @@ from repro_torch.graph.storage import Graph
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.build import KernelError
 
-from test_torch_reference import (port_graph, reference,  # noqa: F401
-                                  shared_apct)
+from test_torch_reference import (counters_moved, port_graph,
+                                  reference, shared_apct)  # noqa: F401
 
 HOUSE = Pattern(5, [(0, 1), (1, 2), (2, 3), (3, 0), (0, 4), (1, 4)])
 ROUTE_COUNTERS = ("kernel.calls", "kernel.exact_block",
@@ -95,12 +95,11 @@ def both(reference):
         rpats = [RP(p.n, sorted(p.edges), p.labels) for p in pats]
         flags = dict(cache=False, **FLAGS[case])
 
-        reference.obs.reset()
+        rbefore = reference.obs.snapshot()
         rcp = reference.compiler.compile(
             rpats, rg, apct=shared_apct("ref", rg, reference.APCT), **flags)
         rreads = _reads(rcp, rpats, np.asarray)
-        rsnap = {k: reference.obs.snapshot().get(k, {})
-                 for k in ROUTE_COUNTERS}
+        rsnap = counters_moved(reference.obs, rbefore, ROUTE_COUNTERS)
 
         tobs.reset()
         tcp = tcompiler.compile(pats, tg, device="cpu",

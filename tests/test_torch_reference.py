@@ -6,7 +6,10 @@ from a seed and handed to both.  Tolerance everywhere is **0** — exact
 equality — since every compared quantity is an integer held in f64.
 
 ``reference`` is the one module-scoped fixture the ``test_torch_*``
-files share.  The reference reads ``jax.experimental.enable_x64``, which
+files share.  It never clears the reference's metrics registry: those
+counters are monotonic and the reference's own tests read what earlier
+tests in the same process recorded; a comparison reads what moved
+(``counters_moved``).  The reference reads ``jax.experimental.enable_x64``, which
 recent jax releases no longer have; where it is missing the fixture
 installs ``functools.partial(jax.enable_x64, True)`` for the duration of
 the requesting module and removes it again at module teardown, so the
@@ -49,9 +52,23 @@ def reference():
     try:
         yield ns
     finally:
-        obs.reset()
         if installed:
             del jax.experimental.enable_x64
+
+
+def counters_moved(obs, before, names):
+    """The reference's counters ``names`` as they moved since ``before``
+    (an ``obs.snapshot()``): {name: {label string: increase}}, series that
+    did not move left out — what a cleared registry would read after the
+    same calls, with the registry left as it is."""
+    now = obs.snapshot()
+    moved = {}
+    for name in names:
+        was = before.get(name, {})
+        moved[name] = {lbl: v - was.get(lbl, 0.0)
+                       for lbl, v in now.get(name, {}).items()
+                       if v != was.get(lbl, 0.0)}
+    return moved
 
 
 def port_graph(g):
