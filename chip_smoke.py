@@ -7,32 +7,38 @@ It imports only ``repro_torch`` (from ``src/`` beside this file) and
 exits non-zero on any failure.  Phases, each printing one JSON line:
 
 1. ``device``     the card's name and power limit; fails without CUDA.
-2. ``kernel_cases``  builds ``csrc/cutjoin.cu``, ``csrc/matreduce.cu``,
-   ``csrc/bitset.cu`` and ``csrc/flashattn.cu`` (one nvcc each, started
-   together) and holds each
-   kernel against its plain PyTorch version on the card: the join kernels
-   (vector, pair, tri, and the keep forms of pair and tri) at n = 8192
-   (the tri keep form at n = 512 and 256), over factor counts, kept axes,
-   rectangular slices with offsets, axis-subset mixes and chunk sizes
-   8 / 128 / 1024; the masked matrix-product reduce and SDDMM (f32 and
-   bf16) on 0/1 inputs, ragged shapes, strided views and the R-MAT
-   adjacency included; both bitset entries on random words (bit 31 set in
-   about half), word and row counts that are no multiple of 32 or of a
-   thread block's rows, and the packed R-MAT adjacency.  Tolerance: none
-   — the difference must be 0 (integer-valued inputs within the exactness
-   guard).  On random input the masked matrix-product reduce is held
-   against an f64 product with the reference package's tolerance,
-   |got - want| < 3e-2 · |want| + 1, and SDDMM per cell with 2e-4 (f32)
-   or 2e-2 (bf16), relative and absolute — except f32 at K = 8192, held
-   to the f32 dot-product rounding bound γ_K · Σ_k |l_k r_k|.  Flash
-   attention (K9) in f32 and bf16, causal and full, D = 64 and 128, ragged
-   and unequal sequence lengths, strided views, views that TMA cannot read
-   in place (copied first in bf16) and the serving shape
-   (1, 4096, 32, 128), against its plain version with the reference's
-   tolerance, 2e-5 (f32) and 3e-2 (bf16) relative and absolute, and in
-   bf16 against the f32 plain version within one rounding to bf16, a check
-   that scaled_dot_product_attention (bf16 P) must fail at the serving
-   shape; the largest differences are printed beside them.
+2. ``kernel_cases``  builds ``csrc/cutjoin.cu``, ``csrc/trijoin.cu``,
+   ``csrc/matreduce.cu``, ``csrc/bitset.cu`` and ``csrc/flashattn.cu`` (one
+   nvcc each, started together) and holds each kernel against its plain
+   PyTorch version on the card: the join kernels (vector, pair, tri, and the
+   keep forms of pair and tri) at n = 8192 (the tri join's dense route at n
+   = 256, keep forms also at n = 512), over factor counts, kept axes,
+   rectangular slices with offsets, axis-subset mixes and chunk sizes 8 /
+   128 / 1024.  A scalar tri join runs on the route ``tri_route`` gives its
+   mix — path, triangle or dense — and is held against the n^3 plain
+   version and, on the path and triangle routes, against the route's own
+   plain version (at n = 8192 the unmasked and sliced cases against the
+   route's alone, and the same cases at n = 1024 against both); the keep
+   form takes the dense route on every mix;
+   the masked matrix-product reduce and SDDMM (f32 and bf16) on 0/1 inputs,
+   ragged shapes, strided views and the R-MAT adjacency included; both
+   bitset entries on random words (bit 31 set in about half), word and row
+   counts that are no multiple of 32 or of a thread block's rows, and the
+   packed R-MAT adjacency.  Tolerance: none — the difference must be 0
+   (integer-valued inputs within the exactness guard).  On random input the
+   masked matrix-product reduce is held against an f64 product with the
+   reference package's tolerance, |got - want| < 3e-2 · |want| + 1, and
+   SDDMM per cell with 2e-4 (f32) or 2e-2 (bf16), relative and absolute —
+   except f32 at K = 8192, held to the f32 dot-product rounding bound γ_K ·
+   Σ_k |l_k r_k|.  Flash attention (K9) in f32 and bf16, causal and full, D
+   = 64 and 128, ragged and unequal sequence lengths, strided views, views
+   that TMA cannot read in place (copied first in bf16) and the serving
+   shape (1, 4096, 32, 128) and an f32 case with B·H = 65600 (more than grid
+   axis y takes), against its plain version with the reference's tolerance,
+   2e-5 (f32) and 3e-2 (bf16) relative and absolute, and in bf16 against the
+   f32 plain version within one rounding to bf16, a check that
+   scaled_dot_product_attention (bf16 P) must fail at the serving shape; the
+   largest differences are printed beside them.
 3. ``main_path``  ``compile(patterns, graph)`` on ``rmat(13, 24.0, seed=0)``
    (8192 vertices, about 10^5 edges, skewed degrees: the user's graph),
    then the same call on a *coverage graph*, ``erdos_renyi(8192, 24.0,
@@ -46,6 +52,16 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    of ``CountingEngine.edge_induced``), and ``cycle(4)`` against the closed
    form (tr(A^4) - 2 Σd² + Σd) / 8.  Launches are reported per graph;
    which joins the R-MAT graph leaves to the dense route is said plainly.
+   Then ``compile([cycle(4), cycle(5), cycle(6)], g)`` on the coverage
+   graph (role ``coverage-cycles``): the cost model cuts cycle(5) and
+   cycle(6) three ways into three pair factors, one on each pair of cut
+   axes, the triangle route's mix, and checks as above (cycle(5) and
+   cycle(6) against ``edge_induced``).  On the R-MAT graph the same joins
+   are chosen but the guard refuses them, and the dense route cannot hold
+   n^3 cells, so the cycles are not driven there.  Every tri join is
+   printed with its factors' axes and its route; the coverage graph's
+   chain(5) join must take the path route and the cycles' joins the
+   triangle route.
 4. ``local_path``  the partial-embedding API on the same two graphs, each
    reusing its APCT and its plan cache from phase 3:
    ``compile(patterns, g, local=True, use_pallas=True)`` (a cache miss
@@ -69,7 +85,9 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    ``erdos_renyi(512, 8.0, seed=0)`` with anchored reads of chain(6),
    cycle(6) and the house (anchored |cut| = 3 candidates need n^3 within
    the budget, so n <= 512), checked against ``CountingEngine.inj_free``
-   and the dense f64 route.
+   and the dense f64 route; its tri joins are printed with their axes
+   and routes (anchored joins carry every factor over the whole cut, so
+   they take the dense route).
 5. ``graph_ops``  the two graph kernels through ``kernels.ops`` on the
    R-MAT graph: ``common_neighbors(A, g.edges)`` (the bitset kernel, rows
    gathered in the kernel) summed is 3 T, ``sddmm(A, A, A)`` read at each
@@ -98,19 +116,26 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    512-token requests and a 12-token prompt, prefill + one decode step
    against the full forward of the same tokens (``SERVE_LOGIT_TOL``,
    bf16, argmax equal; the 12-token decode one position early must miss
-   it); then
+   it); four more requests through the same batcher, each decode step
+   run eagerly and by the captured CUDA graph in turns on the same cache
+   state (tokens equal; the largest logit difference and both step
+   medians printed); then
    ``repro_torch.launch.serve.main([])`` at its own flags (reduced
    config, 12 requests, 144 tokens).  Reports seconds per admission,
-   median decode step, tokens per second and peak device memory.
-8. ``kernels``    per kernel: launches over its path (phase 3 for the
-   scalar joins, phase 4 for the keep forms and the triangle kernel,
-   phase 5 for SDDMM and the bitset kernel, on each graph apart; phase 7
-   for K9), error against the plain version, time, the plain version's
-   time, the card's bound for the timed function and a PyTorch yardstick
-   for it, at the shapes its path gave the kernel (K9: the path's own
-   q, k, v of layer 0 of a 4096-token prefill; its bound takes P·V as two
-   bf16 tensor-core passes, and its row carries ptxas's register and spill
-   counts from this run's build).
+   median decode step (graphed), tokens per second and peak device
+   memory.
+8. ``kernels``    per kernel: launches over its path (phase 3 for the scalar
+   joins, phase 4 for the keep forms and the triangle kernel, phase 5 for
+   SDDMM and the bitset kernel, on each graph apart; phase 7 for K9; the tri
+   join in one row per route: path and triangle at n = 8192, dense at n =
+   512, with ptxas's register and spill counts for the path and triangle
+   kernels; the keep form on its one route, dense, at n = 512), error
+   against the plain version, time, the plain
+   version's time, the card's bound for the timed function and a PyTorch
+   yardstick for it, at the shapes its path gave the kernel (K9: the path's
+   own q, k, v of layer 0 of a 4096-token prefill; its bound takes P·V as
+   two bf16 tensor-core passes, and its row carries ptxas's register and
+   spill counts from this run's build).
 9. last line: ``{"ok": true, "device": {...}}``.
 
 No phase catches a failure and carries on.
@@ -175,10 +200,17 @@ N = 8192
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 CUTJOIN_SOURCE = "src/repro_torch/kernels/csrc/cutjoin.cu"
+TRIJOIN_SOURCE = "src/repro_torch/kernels/csrc/trijoin.cu"
 MATREDUCE_SOURCE = "src/repro_torch/kernels/csrc/matreduce.cu"
 BITSET_SOURCE = "src/repro_torch/kernels/csrc/bitset.cu"
 FLASHATTN_SOURCE = "src/repro_torch/kernels/csrc/flashattn.cu"
-LAUNCH_TABLES = (mr.launches, ksd.launches, kbs.launches, kfa.launches)
+# every tri join counts in mr.launches ("trijoin", "trijoin_keep"), and a
+# scalar one also in mr.tri_routes by route ("trijoin_path", ...)
+LAUNCH_TABLES = (mr.launches, mr.tri_routes, ksd.launches, kbs.launches,
+                 kfa.launches)
+# the f64 tensor-core peak (NVIDIA data sheet), for the tri join's
+# triangle route: the same 67 TFLOP/s as f32 outside the tensor cores
+PEAK_F64_TC_OPS_PER_S = 67e12
 # the bf16 tensor-core peak (NVIDIA data sheet, dense), for K9's bound:
 # its S = QKᵀ multiplies bf16 inputs, and P·V the two bf16 terms of P
 PEAK_BF16_TC_OPS_PER_S = 989e12
@@ -217,6 +249,29 @@ def reset_launch_counts():
             table[k] = 0
 
 
+@contextlib.contextmanager
+def recording_tri_joins(log: list):
+    """Every tri join the entry points run, as it reaches the wrappers:
+    its factors' axes, kept axis, sizes and the route ``tri_route``
+    gives them."""
+    scalar, keep = mr.tri_reduce_tiles, mr.tri_reduce_keep_tiles
+
+    def record(fn, kept):
+        def call(factors, axes, **kw):
+            keep = kw.get("keep") if kept else None
+            log.append({"axes": [list(ax) for ax in axes], "keep": keep,
+                        "n": kw["n"], "route": mr.tri_route(axes, keep)})
+            return fn(factors, axes, **kw)
+        return call
+
+    mr.tri_reduce_tiles = record(scalar, False)
+    mr.tri_reduce_keep_tiles = record(keep, True)
+    try:
+        yield log
+    finally:
+        mr.tri_reduce_tiles, mr.tri_reduce_keep_tiles = scalar, keep
+
+
 def rmat_adjacency(g) -> torch.Tensor:
     """The graph's 0/1 adjacency as an f32 tensor on the card."""
     return torch.from_numpy(g.dense_adjacency(np.float32,
@@ -252,9 +307,10 @@ def dev_factor(gen, shape, hi: int) -> torch.Tensor:
 
 
 def max_abs_diff(got, want) -> float:
-    if isinstance(got, torch.Tensor):
-        return (got - want).abs().max().item()
-    return abs(got - want)
+    diff = got - want
+    if isinstance(diff, torch.Tensor):
+        return diff.abs().max().item()
+    return abs(diff)
 
 
 def max_value(nf: int, block: int, cells: int = 1) -> int:
@@ -302,6 +358,58 @@ def check_case(kernel: str, name: str, run_kernel, run_plain, cases: list):
     if diff != 0:
         raise AssertionError(f"{name}: kernel and plain version differ by "
                              f"{diff!r}")
+    return got
+
+
+def route_plain(axes):
+    """The plain version of the path or triangle route that a tri join of
+    these axes takes (the dense route's is ``tri_reduce_plain``)."""
+    return {"path": mr._tri_path_plain,
+            "triangle": mr._tri_triangle_plain}[mr.tri_route(axes)]
+
+
+def check_tri_case(name, fs, axes, sizes, cases, *, distinct=True,
+                   offsets=None, keep=None, block=128, n3_plain=True):
+    """A tri join on the card against the plain version of its route
+    (path and triangle) and, with ``n3_plain``, against the n^3 plain
+    version ``tri_reduce_plain`` / ``tri_reduce_keep_plain``: both at
+    difference 0."""
+    kernel = "trijoin" if keep is None else "trijoin_keep"
+    route = mr.tri_route(axes, keep)
+    label = f"{name} [{route}]"
+    before = launch_counts()
+    if keep is None:
+        run = lambda: mr.tri_reduce(fs, axes, n=sizes, distinct=distinct,
+                                    block=block, offsets=offsets)
+        n3 = lambda: mr.tri_reduce_plain(fs, axes, n=sizes,
+                                         distinct=distinct, block=block,
+                                         offsets=offsets)
+    else:
+        run = lambda: mr.tri_reduce_keep(fs, axes, keep=keep, n=sizes,
+                                         distinct=distinct, block=block,
+                                         offsets=offsets)
+        n3 = lambda: mr.tri_reduce_keep_plain(fs, axes, keep=keep, n=sizes,
+                                              distinct=distinct, block=block,
+                                              offsets=offsets)
+    if route == "dense" or n3_plain:
+        got = check_case(kernel, label, run, n3, cases)
+    else:
+        got = run()
+    key = "trijoin_keep" if keep is not None else f"trijoin_{route}"
+    counted = launch_counts()[key] - before[key]
+    assert counted == 1, f"{label}: {counted} launches of the {route} route"
+    if route != "dense":
+        t0 = time.perf_counter()
+        want = route_plain(axes)(fs, axes, sizes, distinct,
+                                 offsets).sum().item()
+        torch.cuda.synchronize()
+        diff = max_abs_diff(got, want)
+        cases.append({"kernel": kernel, "case": f"{label} vs route plain",
+                      "route": route, "max_abs_err": diff,
+                      "plain_s": round(time.perf_counter() - t0, 4)})
+        if diff != 0:
+            raise AssertionError(f"{label}: kernel and the {route} route's "
+                                 f"plain version differ by {diff!r}")
 
 
 def phase_kernel_cases():
@@ -367,7 +475,13 @@ def phase_kernel_cases():
                     cases)
             del fs, sl
 
-    # K4: axis-subset mixes at n = 8192
+    # K4 on its three routes.  At n = 8192 the mixes of pair factors
+    # (path: chain(5)'s (0,1)+(1,2), and with a vector; triangle: +(0,2),
+    # the cycles' mix), each against the route's plain version and the n^3
+    # plain version; then unmasked and an axis-0 slice with offsets,
+    # against the route's plain version, and the same two at n = 1024
+    # against the n^3 plain version too (cheap there), so that how the
+    # route assigns factors to operands is held against an independent sum
     mixes = {
         "tri (0,1)+(1,2)": [(0, 1), (1, 2)],
         "tri (0,1)+(1,2)+(0,2)": [(0, 1), (1, 2), (0, 2)],
@@ -377,16 +491,38 @@ def phase_kernel_cases():
         for block in blocks:
             hi = max_value(len(axes), block, N ** 3)
             fs = [int_factor(rng, (N,) * len(ax), hi) for ax in axes]
-            check_case(
-                "trijoin", f"{label} n={N} block={block}",
-                lambda: mr.tri_reduce(fs, axes, n=N, block=block),
-                lambda: mr.tri_reduce_plain(fs, axes, n=N, block=block),
-                cases)
-            del fs
-    # K4: a full 3-D factor at n = 256 beside one, two and three factors
-    # that span axes 0 and 1 (the kernel's compile-time and run-time
-    # paths for such factors), masked and unmasked, and as an axis-0 slice
-    # with offsets
+            check_tri_case(f"{label} n={N} block={block}", fs, axes,
+                           (N, N, N), cases, block=block)
+        check_tri_case(f"{label} n={N} distinct=False", fs, axes, (N, N, N),
+                       cases, distinct=False, n3_plain=False)
+        sl = [F[3001:4001] if 0 in ax else F for F, ax in zip(fs, axes)]
+        check_tri_case(f"{label} slice (1000,{N},{N}) offsets=(3001,0,0)",
+                       sl, axes, (1000, N, N), cases, offsets=(3001, 0, 0),
+                       n3_plain=False)
+        del fs, sl
+        n4 = 1024
+        fs = [int_factor(rng, (n4,) * len(ax), max_value(len(axes), 128,
+                                                         n4 ** 3))
+              for ax in axes]
+        check_tri_case(f"{label} n={n4} distinct=False", fs, axes,
+                       (n4,) * 3, cases, distinct=False)
+        sl = [F[301:701] if 0 in ax else F for F, ax in zip(fs, axes)]
+        check_tri_case(f"{label} slice (400,{n4},{n4}) offsets=(301,0,0)",
+                       sl, axes, (400, n4, n4), cases, offsets=(301, 0, 0))
+        del fs, sl
+    # the triangle route with a vector on y and two factors on (0,1),
+    # ragged sizes and offsets on every axis
+    axes = [(0, 1), (0, 1), (1, 2), (0, 2), (1,)]
+    sizes = (1000, 777, 333)
+    fs = [int_factor(rng, tuple(sizes[a] for a in ax), 3) for ax in axes]
+    for distinct in (True, False):
+        check_tri_case(f"tri (0,1)x2+(1,2)+(0,2)+(1,) {sizes} "
+                       f"offsets=(5,130,7) distinct={distinct}", fs, axes,
+                       sizes, cases, distinct=distinct, offsets=(5, 130, 7))
+    # the dense route: a full 3-D factor at n = 256 beside one, two and
+    # three factors that span axes 0 and 1 (the kernel's compile-time and
+    # run-time paths for such factors), masked and unmasked, and as an
+    # axis-0 slice with offsets
     n3 = 256
     mixes3 = [[(0, 1, 2), (0, 2)], [(0, 1, 2), (0, 1), (1, 2)],
               [(0, 1, 2), (0, 1), (0, 1), (2,)]]
@@ -396,58 +532,35 @@ def phase_kernel_cases():
             hi = max_value(len(axes), block)
             fs = [int_factor(rng, (n3,) * len(ax), hi) for ax in axes]
             for distinct in (True, False):
-                check_case(
-                    "trijoin", f"tri {label} n={n3} block={block} "
-                               f"distinct={distinct}",
-                    lambda: mr.tri_reduce(fs, axes, n=n3, distinct=distinct,
-                                          block=block),
-                    lambda: mr.tri_reduce_plain(fs, axes, n=n3,
-                                                distinct=distinct,
-                                                block=block), cases)
+                check_tri_case(f"tri {label} n={n3} block={block} "
+                               f"distinct={distinct}", fs, axes, (n3,) * 3,
+                               cases, distinct=distinct, block=block)
             sl = [F[100:150] if 0 in ax else F for F, ax in zip(fs, axes)]
-            check_case(
-                "trijoin", f"tri {label} slice (50,{n3},{n3}) "
-                           f"offsets=(100,0,0) block={block}",
-                lambda: mr.tri_reduce(sl, axes, n=(50, n3, n3), block=block,
-                                      offsets=(100, 0, 0)),
-                lambda: mr.tri_reduce_plain(sl, axes, n=(50, n3, n3),
-                                            block=block, offsets=(100, 0, 0)),
-                cases)
+            check_tri_case(f"tri {label} slice (50,{n3},{n3}) "
+                           f"offsets=(100,0,0) block={block}", sl, axes,
+                           (50, n3, n3), cases, offsets=(100, 0, 0),
+                           block=block)
             # K4's keep form on the same mixes, each kept axis
             for keep in (0, 1, 2):
-                check_case(
-                    "trijoin_keep", f"tri keep={keep} {label} n={n3} "
-                                    f"block={block}",
-                    lambda: mr.tri_reduce_keep(fs, axes, keep=keep, n=n3,
-                                               block=block),
-                    lambda: mr.tri_reduce_keep_plain(fs, axes, keep=keep,
-                                                     n=n3, block=block),
-                    cases)
-                check_case(
-                    "trijoin_keep", f"tri keep={keep} {label} slice "
-                                    f"(50,{n3},{n3}) offsets=(100,0,0) "
-                                    f"block={block}",
-                    lambda: mr.tri_reduce_keep(sl, axes, keep=keep,
-                                               n=(50, n3, n3), block=block,
-                                               offsets=(100, 0, 0)),
-                    lambda: mr.tri_reduce_keep_plain(
-                        sl, axes, keep=keep, n=(50, n3, n3), block=block,
-                        offsets=(100, 0, 0)), cases)
+                check_tri_case(f"tri keep={keep} {label} n={n3} "
+                               f"block={block}", fs, axes, (n3,) * 3, cases,
+                               keep=keep, block=block)
+                check_tri_case(f"tri keep={keep} {label} slice "
+                               f"(50,{n3},{n3}) offsets=(100,0,0) "
+                               f"block={block}", sl, axes, (50, n3, n3),
+                               cases, offsets=(100, 0, 0), keep=keep,
+                               block=block)
     # K4's keep form on the pair-factor mixes at the coverage case's size
+    # (the dense route, whatever the mix), against the n^3 plain version
     n5 = 512
     for label, axes in mixes.items():
         for block in blocks:
             hi = max_value(len(axes), block, n5 ** 3)
             fs = [dev_factor(gen, (n5,) * len(ax), hi) for ax in axes]
             for keep in (0, 1, 2):
-                check_case(
-                    "trijoin_keep", f"{label} keep={keep} n={n5} "
-                                    f"block={block}",
-                    lambda: mr.tri_reduce_keep(fs, axes, keep=keep, n=n5,
-                                               block=block),
-                    lambda: mr.tri_reduce_keep_plain(fs, axes, keep=keep,
-                                                     n=n5, block=block),
-                    cases)
+                check_tri_case(f"{label} keep={keep} n={n5} block={block}",
+                               fs, axes, (n5,) * 3, cases, keep=keep,
+                               block=block)
     # surplus factors beyond the kernel's table are folded exactly
     fs = [int_factor(rng, (N,), 2) for _ in range(11)]
     check_case("vecjoin", "vec k=11 (surplus factors folded) block=8",
@@ -710,6 +823,9 @@ def flash_cases(gen) -> list:
     q, k, v = (rnd((1, 4096, 32, 128), torch.bfloat16) for _ in range(3))
     flash_check("bf16 serving shape (1,4096,32,128) causal, random", q, k, v,
                 True, cases, block=1024, library=True)
+    # B * H = 65600, above the 65535 that CUDA allows on grid axis y
+    q, k, v = (rnd((2050, 16, 32, 64), torch.float32) for _ in range(3))
+    flash_check("f32 B*H=65600 (2050,16,32,64) causal", q, k, v, True, cases)
     return cases
 
 
@@ -755,9 +871,10 @@ def time_nodes(cp) -> dict:
     return seconds
 
 
-def drive(label: str, make_graph, patterns) -> dict:
+def drive(label: str, make_graph, patterns, apct=None) -> dict:
     """The main path on one graph: compile, ``counts()`` twice (the second
-    from the memo), and a second compile that hits the plan cache."""
+    from the memo), and a second compile that hits the plan cache.  Given
+    the graph's ``apct``, the compile reuses it."""
     t0 = time.perf_counter()
     g = make_graph()
     graph_s = time.perf_counter() - t0
@@ -766,15 +883,17 @@ def drive(label: str, make_graph, patterns) -> dict:
     torch.cuda.reset_peak_memory_stats()
     obs.reset()
     t0 = time.perf_counter()
-    apct = APCT(g)                           # what compile() builds unasked
+    if apct is None:
+        apct = APCT(g)                       # what compile() builds unasked
     apct_s = time.perf_counter() - t0
     cp = compiler.compile(patterns, g, cache=cache, apct=apct)
     torch.cuda.synchronize()
     compile_s = time.perf_counter() - t0
     node_s = time_nodes(cp)
     t0 = time.perf_counter()
-    counts = cp.counts()
-    torch.cuda.synchronize()
+    with recording_tri_joins([]) as tri_joins:
+        counts = cp.counts()
+        torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {k: v - before[k] for k, v in launch_counts().items()}
     evals = cp.stats["node_evals"]
@@ -796,7 +915,7 @@ def drive(label: str, make_graph, patterns) -> dict:
     assert cp_hit.from_cache and (cache.hits, cache.misses) == (1, 1), \
         "second compile did not hit the plan cache"
     return {"label": label, "g": g, "cp": cp, "counts": counts,
-            "apct": apct, "cache": cache,
+            "apct": apct, "cache": cache, "tri_joins": tri_joins,
             "launches": launches, "obs": snapshot,
             "peak_device_bytes": peak_bytes,
             "seconds": {"make_graph": round(graph_s, 3),
@@ -846,6 +965,7 @@ def verify_run(run: dict, patterns) -> dict:
             "styles": cp.plan.meta["styles"], "cuts": cp.plan.meta["cuts"],
             "joins": cp.join_log,
             "cut3_join_chosen": any(j["cut"] == 3 for j in cp.join_log),
+            "tri_joins": run["tri_joins"],
             "joins_refused_by_guard": refused,
             "launches": run["launches"], "obs": run["obs"],
             "peak_device_bytes": run["peak_device_bytes"],
@@ -855,6 +975,7 @@ def verify_run(run: dict, patterns) -> dict:
 MAIN_GRAPH = "rmat(13, 24.0, seed=0)"
 MAIN_PATH_KERNELS = ("vecjoin", "pairjoin", "trijoin")
 COVERAGE_GRAPH = "erdos_renyi(8192, 24.0, seed=0)"
+CYCLES = (cycle(4), cycle(5), cycle(6))
 
 
 def phase_main_path() -> dict:
@@ -871,15 +992,23 @@ def phase_main_path() -> dict:
               (COVERAGE_GRAPH, "coverage",
                lambda: erdos_renyi(8192, 24.0, seed=0))]
     reset_launch_counts()                    # counts start at 0 here ...
-    runs = [dict(drive(label, make, patterns), role=role)
+    runs = [dict(drive(label, make, patterns), role=role, patterns=patterns)
             for label, role, make in graphs]
+    g_cov, apct_cov = runs[1]["g"], runs[1]["apct"]
+    runs.append(dict(drive(COVERAGE_GRAPH, lambda: g_cov, list(CYCLES),
+                           apct=apct_cov),
+                     role="coverage-cycles", patterns=list(CYCLES)))
     launches = launch_counts()               # ... and are read here
     by_role = {run["role"]: run["launches"] for run in runs}
     assert sum(by_role["main"].values()) >= 1, \
         f"{MAIN_GRAPH} launched no kernel"
     for kernel in MAIN_PATH_KERNELS:
-        assert launches[kernel] >= 1, f"neither graph launched {kernel}"
-    reports = [dict(verify_run(run, patterns), role=run["role"])
+        assert launches[kernel] >= 1, f"no graph launched {kernel}"
+    assert by_role["coverage"]["trijoin_path"] >= 1, \
+        f"{COVERAGE_GRAPH}: no tri join took the path route"
+    assert by_role["coverage-cycles"]["trijoin_triangle"] >= 2, \
+        f"{COVERAGE_GRAPH}: the cycles' joins did not take the triangle route"
+    reports = [dict(verify_run(run, run["patterns"]), role=run["role"])
                for run in runs]
     emit("main_path", patterns=len(patterns), launches=launches,
          launches_main_graph=by_role["main"],
@@ -891,7 +1020,7 @@ def phase_main_path() -> dict:
     # what the partial-embedding path reuses: graph, APCT, plan cache,
     # counts, and the triangle count that clique enumeration gave
     graphs = []
-    for run in runs:
+    for run in runs[:2]:                     # the cycles' plan has no sequel
         cp = run["cp"]
         tri = [k for k, node in cp.plan.nodes.items()
                if isinstance(node, Intersect) and node.k == 3]
@@ -1108,10 +1237,11 @@ def drive_keep3_coverage() -> dict:
     cp = compiler.compile(patterns, g, cache=False, local=True)
     dense = lowering.lower(cp.plan, g, counter=cp.counter,
                            cutjoin_kernel=False)
-    checked = 0
+    checked, tri_joins = 0, []
     for p in patterns:
         for orbit in p.vertex_orbits():
-            vec = cp.local_counts(p, orbit[0])
+            with recording_tri_joins(tri_joins):
+                vec = cp.local_counts(p, orbit[0])
             want = torch.from_numpy(
                 cp.counter.inj_free(p, orbit[0]).copy()).to(DEV)
             if not (torch.equal(vec, want)
@@ -1130,6 +1260,7 @@ def drive_keep3_coverage() -> dict:
             "keep3_joins": [{k: j[k] for k in ("node", "keep", "route",
                                                "block", "guard")}
                             for j in joins],
+            "tri_joins": tri_joins,
             "local_cuts": cp.plan.meta["local_cuts"], "launches": launches}
 
 
@@ -1444,6 +1575,59 @@ def check_decode(cfg, params, prompt, uid, first=None,
     return out
 
 
+SERVE_PAIRED_PROMPTS = (256, 512, 768, 1000)
+SERVE_PAIRED_NEW = 8
+
+
+def compare_graphed_decode(cfg, params, b, rng) -> dict:
+    """Graphed against eager decode steps on the same batch and cache
+    state: four more requests through the same batcher (so the same
+    captured graph), each step run eagerly (``make_decode_step``) and by
+    the graph in turns — eager first on even steps, graph first on odd
+    ones.  Both write the same cache rows (the token and position are the
+    same), the graph's logits drive the batch, and the tokens the two
+    sample must be equal.  Returns both step medians and the largest
+    logit difference."""
+    eager, graphed = make_decode_step(cfg), b.decode
+    rows = []
+
+    def paired(params_, cache, toks, pos):
+        order = ("eager", "graph") if len(rows) % 2 == 0 \
+            else ("graph", "eager")
+        logits, ms = {}, {}
+        for which in order:
+            step = eager if which == "eager" else graphed
+            t = time.perf_counter()
+            out = step(params_, cache, toks, pos)[0]
+            torch.cuda.synchronize()
+            ms[which] = (time.perf_counter() - t) * 1e3
+            logits[which] = out.clone()
+        rows.append({"ms": ms, "tokens_equal": torch.equal(
+            logits["eager"].argmax(-1), logits["graph"].argmax(-1)),
+            "max_abs_logit_diff": (logits["eager"].float()
+                                   - logits["graph"].float()
+                                   ).abs().max().item()})
+        return logits["graph"], cache
+
+    b.decode = paired
+    for i, T in enumerate(SERVE_PAIRED_PROMPTS):
+        b.submit(Request(uid=100 + i, prompt=rng.integers(
+            0, cfg.vocab_size, T).astype(np.int32),
+            max_new_tokens=SERVE_PAIRED_NEW, eos_id=-1))
+    b.run_to_completion()
+    b.decode = graphed
+    out = {"prompts": list(SERVE_PAIRED_PROMPTS),
+           "max_new_tokens": SERVE_PAIRED_NEW, "steps": len(rows),
+           "eager_step_ms_median": float(np.median(
+               [r["ms"]["eager"] for r in rows])),
+           "graph_step_ms_median": float(np.median(
+               [r["ms"]["graph"] for r in rows])),
+           "tokens_equal": all(r["tokens_equal"] for r in rows),
+           "max_abs_logit_diff": max(r["max_abs_logit_diff"] for r in rows)}
+    assert rows and out["tokens_equal"], rows
+    return out
+
+
 def phase_serve_path() -> dict:
     """The LM serving path at full width: qwen3-4b unreduced (36 layers,
     bf16, random weights from a seed, drawn on the card) behind
@@ -1523,6 +1707,9 @@ def phase_serve_path() -> dict:
     assert launches["flashattn"] == want_k9 == 180, launches
     assert {k for k, n in launches.items() if n} == {"flashattn"}, launches
     assert captured, "no 4096-token prefill reached K9"
+    b.model, b.decode = prefill_call, decode_call
+    paired = compare_graphed_decode(cfg, params, b,
+                                    np.random.default_rng(1))
     by_uid = {r.uid: r for r in b.finished}
     checks = [check_decode(cfg, params, by_uid[u].prompt, u,
                            first=by_uid[u].generated[0]) for u in (0, 4)]
@@ -1548,6 +1735,8 @@ def phase_serve_path() -> dict:
            "decode_steps": len(decode_steps),
            "decode_step_ms_median": float(np.median(decode_steps)) * 1e3,
            "decode_step_ms_max": max(decode_steps) * 1e3,
+           "decode_step_ms_first": decode_steps[0] * 1e3,
+           "graphed_vs_eager": paired,
            "launches": launches, "peak_device_bytes": peak,
            "decode_vs_forward": checks,
            "cli": {"seconds": cli_s, "lines": lines}}
@@ -1558,6 +1747,92 @@ def phase_serve_path() -> dict:
 
 
 # -- phase 8 ------------------------------------------------------------------------
+
+def tri_rows(entry, b, b_keep, rng, eye, local):
+    """K4, one row per route, at the shapes its joins take, and its keep
+    form on its one route.  Path: chain(5)'s mix (0,1)+(1,2) at n = 8192,
+    an O(n^2) function: Σ_y a[y] b[y] − Σ_{x≠y} F1[x,y] F2[y,x] with
+    a[y] = Σ_{x≠y} F1[x,y], b[y] = Σ_{z≠y} F2[y,z] — one read of both
+    factors, its bound; the yardstick computes it so in f64 torch calls.
+    Triangle: the cycles' mix, a third pair factor on (0,2): Σ_{x≠z}
+    F3[x,z] (F1′F2′)[x,z], F1′ and F2′ without their diagonals: 2 n^3
+    operations at the f64 tensor-core rate; the yardstick is the f64
+    matmul form.  Dense: a full 3-D factor beside a pair factor on (0,2)
+    at n = 512 — anchored |cut| = 3 joins are built with every factor over
+    the whole cut, and the keep form takes this route on every mix — bound
+    by the bytes of the 3-D factor; the yardstick multiplies the broadcast
+    product by a precomputed 0/1 off-diagonal mask in f64."""
+    replaces = "src/repro/kernels/matreduce.py:346"
+    chain_axes, tri_axes = [(0, 1), (1, 2)], [(0, 1), (1, 2), (0, 2)]
+    ptxas = ptxas_counts(kbuild.build_logs.get("trijoin", ""),
+                         _trijoin_label)
+
+    fs3 = [int_factor(rng, (N, N), max_value(2, b, N ** 3))
+           for _ in range(2)]
+    F1, F2 = fs3
+    a = F1.sum(0) - F1.diagonal()
+    bb = F2.sum(1) - F2.diagonal()
+    G1 = F1.masked_fill(eye, 0)
+    entry("trijoin_path", "trijoin_path", replaces, b,
+          lambda: mr.tri_reduce(fs3, chain_axes, n=N, block=b),
+          lambda: mr._tri_path_plain(fs3, chain_axes, (N, N, N), True,
+                                     None).sum(),
+          lambda: torch.dot(a, bb) - (G1 * F2.T).sum(), 20, 2 * N * N * 8,
+          4 * N * N, source=TRIJOIN_SOURCE, join_route="path",
+          factors="(0,1)+(1,2)",
+          ptxas=[e for e in ptxas if e["kernel"].startswith("path")],
+          yardstick="a.b - sum_{x!=y} F1[x,y] F2[y,x], f64 torch calls")
+    del fs3, G1
+
+    fs4 = [int_factor(rng, (N, N), max_value(3, b, N ** 3))
+           for _ in range(3)]
+    P1, P2, P3 = (F.masked_fill(eye, 0) for F in fs4)
+    entry("trijoin_triangle", "trijoin_triangle", replaces, b,
+          lambda: mr.tri_reduce(fs4, tri_axes, n=N, block=b),
+          lambda: mr._tri_triangle_plain(fs4, tri_axes, (N, N, N), True,
+                                         None).sum(),
+          lambda: ((P1 @ P2) * P3).sum(), 3, 3 * N * N * 8, 2 * N ** 3,
+          source=TRIJOIN_SOURCE, peak_ops=PEAK_F64_TC_OPS_PER_S,
+          join_route="triangle", factors="(0,1)+(1,2)+(0,2)",
+          ptxas=[e for e in ptxas if e["kernel"].startswith("tri")],
+          yardstick="((F1' @ F2') * F3').sum(), ' = off-diagonal, f64")
+    del fs4, P1, P2, P3
+
+    n5 = 512
+    dense_axes = [(0, 1, 2), (0, 2)]
+    i = torch.arange(n5, device=DEV)
+    off3 = ((i[:, None, None] != i[None, :, None])
+            & (i[:, None, None] != i[None, None, :])
+            & (i[None, :, None] != i[None, None, :])).double()
+    for keep, block in ((None, b), (0, b_keep)):
+        hi = max_value(2, block, n5 ** 3)
+        F3d = int_factor(rng, (n5,) * 3, hi)
+        F02 = int_factor(rng, (n5, n5), hi)
+        fsd = [F3d, F02]
+        if keep is None:
+            run = lambda: mr.tri_reduce(fsd, dense_axes, n=n5, block=block)
+            plain = lambda: mr.tri_reduce_plain(fsd, dense_axes, n=n5,
+                                                block=block)
+            library = lambda: (F3d * F02[:, None, :] * off3).sum()
+            name, kernel, kw = "cutjoin_tri", "trijoin_dense", {}
+        else:
+            run = lambda: mr.tri_reduce_keep(fsd, dense_axes, keep=0, n=n5,
+                                             block=block)
+            plain = lambda: mr.tri_reduce_keep_plain(fsd, dense_axes, keep=0,
+                                                     n=n5, block=block)
+            library = lambda: (F3d * F02[:, None, :] * off3).sum((1, 2))
+            name, kernel, kw = "cutjoin_tri_keep", "trijoin_keep", \
+                {"path": local, "ms_keep1": timed_ms(
+                    lambda: mr.tri_reduce_keep(fsd, dense_axes, keep=1,
+                                               n=n5, block=block), 20)}
+        entry(name, kernel, replaces, block, run, plain, library, 20,
+              (n5 ** 3 + n5 * n5) * 8, 2 * n5 ** 3, join_route="dense",
+              keep=keep, factors="(0,1,2)+(0,2)", n=n5,
+              yardstick="(F012 * F02[:, None, :] * offdiag).sum(" +
+                        (")" if keep is None else "(1, 2))") + ", f64", **kw)
+        del F3d, F02, fsd
+    del off3
+
 
 def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
                   served: dict):
@@ -1574,7 +1849,8 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
     out = []
 
     def entry(name, kernel, replaces, block, run, plain, library, reps,
-              nbytes, nops, path=main, source=CUTJOIN_SOURCE, **more):
+              nbytes, nops, path=main, source=CUTJOIN_SOURCE,
+              peak_ops=PEAK_F32_OPS_PER_S, **more):
         got = run()
         want = plain()
         err = max_abs_diff(got, want)
@@ -1590,7 +1866,7 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
                                      f"kernel")
             library_ms = timed_ms(library, reps)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = nops / PEAK_F32_OPS_PER_S * 1e3
+        t_ops = nops / peak_ops * 1e3
         by_graph = {f"launches_{role.replace('-', '_')}_graph": n[kernel]
                     for role, n in path["by_role"].items()}
         out.append({"name": name, "route": "cuda", "source": source,
@@ -1621,62 +1897,6 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
           lambda: (fs2[0] * fs2[1]).masked_fill(eye, 0).sum(), 20,
           2 * N * N * 8, 2 * N * N)
     del fs2
-    # K4 as chain(5)'s join calls it: Σ_{x,y,z distinct} F1[x,y] F2[y,z].
-    # With pair factors on (0,1) and (1,2) only, this function needs no
-    # n^3 loop: it is Σ_y a[y] b[y] - Σ_{x≠y} F1[x,y] F2[y,x], where
-    # a[y] = Σ_{x≠y} F1[x,y] and b[y] = Σ_{z≠y} F2[y,z].  That is one read
-    # of both factors and about 4 n^2 operations, which is what the bound
-    # counts, and the yardstick computes it so in f64 torch.
-    b = granted.get(3, 128)
-    hi = max_value(2, b, N ** 3)
-    fs3 = [int_factor(rng, (N, N), hi) for _ in range(2)]
-    axes = [(0, 1), (1, 2)]
-
-    def chain_closed_form():
-        F1, F2 = fs3
-        a = F1.sum(0) - F1.diagonal()
-        bb = F2.sum(1) - F2.diagonal()
-        back = (F1 * F2.T).sum() - torch.dot(F1.diagonal(), F2.diagonal())
-        return torch.dot(a, bb) - back
-
-    entry("cutjoin_tri", "trijoin", "src/repro/kernels/matreduce.py:346", b,
-          lambda: mr.tri_reduce(fs3, axes, n=N, block=b),
-          lambda: mr.tri_reduce_plain(fs3, axes, n=N, block=b),
-          chain_closed_form, 3, 2 * N * N * 8, 4 * N * N,
-          factors="(0,1)+(1,2)",
-          yardstick="a.b - sum_{x!=y} F1[x,y] F2[y,x], f64 torch calls")
-    # K4 on a mix whose function does need n^3 work: with a third pair
-    # factor on (0,2) it is Σ_{x≠z} F3[x,z] (F1' F2')[x,z], F1' and F2'
-    # being F1 and F2 without their diagonals: a matrix product, 2 n^3
-    # operations.  No join of phase 3 has this mix; it is kept inside K4's
-    # entry so that the kernel's loop is also read against a bound it
-    # cannot sidestep.
-    axes3 = [(0, 1), (1, 2), (0, 2)]
-    hi = max_value(3, b, N ** 3)
-    fs4 = [int_factor(rng, (N, N), hi) for _ in range(3)]
-
-    def triangle_matmul():
-        F1, F2, F3 = fs4
-        P = F1.masked_fill(eye, 0) @ F2.masked_fill(eye, 0)
-        return (P * F3).masked_fill(eye, 0).sum()
-
-    got3 = mr.tri_reduce(fs4, axes3, n=N, block=b)
-    want3 = mr.tri_reduce_plain(fs4, axes3, n=N, block=b)
-    lib3 = triangle_matmul().item()
-    if not got3 == want3 == lib3:
-        raise AssertionError(f"tri (0,1)+(1,2)+(0,2): kernel {got3!r}, "
-                             f"plain {want3!r}, matmul form {lib3!r}")
-    nbytes3, nops3 = 3 * N * N * 8, 2 * N ** 3
-    out[-1]["mix_with_n3_work"] = {
-        "factors": "(0,1)+(1,2)+(0,2)", "block": b, "max_abs_err": 0.0,
-        "ms": timed_ms(lambda: mr.tri_reduce(fs4, axes3, n=N, block=b), 3),
-        "bound_ms": max(nbytes3 / PEAK_BYTES_PER_S,
-                        nops3 / PEAK_F32_OPS_PER_S) * 1e3,
-        "bound_by": "operations", "library_ms": timed_ms(triangle_matmul, 3),
-        "yardstick": "((F1' @ F2') * F3).masked_fill(eye, 0).sum() in f64",
-        "bytes": nbytes3, "operations": nops3}
-    del fs3, fs4
-
     # K3 as the anchored |cut| = 2 reads call it, keep=0 (most of them):
     # out[x] = Σ_{y≠x} F1[x,y] F2[x,y]; one read of both factors
     b = granted_keep.get(2, 128)
@@ -1691,27 +1911,8 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
               lambda: mr.prod_reduce_keep(fsk, keep=1, block=b), 20),
           yardstick="(F1*F2).masked_fill(eye, 0).sum(1), f64")
     del fsk
-    # K4's keep form on chain(5)'s mix, keep=0, for comparison with K4:
-    # out[x] = Σ_{y≠x} F1[x,y] (b[y] - F2[y,x]), b[y] = Σ_{z≠y} F2[y,z] —
-    # an O(n^2) function, computed so in f64 torch as the yardstick
-    b = granted_keep.get(3, 128)
-    hi = max_value(2, b, N ** 3)
-    fs5 = [int_factor(rng, (N, N), hi) for _ in range(2)]
-
-    def chain_keep_closed_form():
-        F1, F2 = fs5
-        G = F1.masked_fill(eye, 0)
-        return G @ (F2.sum(1) - F2.diagonal()) - (G * F2.T).sum(1)
-
-    entry("cutjoin_tri_keep", "trijoin_keep",
-          "src/repro/kernels/matreduce.py:346", b,
-          lambda: mr.tri_reduce_keep(fs5, axes, keep=0, n=N, block=b),
-          lambda: mr.tri_reduce_keep_plain(fs5, axes, keep=0, n=N, block=b),
-          chain_keep_closed_form, 3, 2 * N * N * 8 + N * 8, 4 * N * N,
-          path=local, factors="(0,1)+(1,2)", keep=0,
-          yardstick="G @ (F2.sum(1) - diag F2) - (G * F2.T).sum(1), "
-                    "G = F1 off-diagonal, f64 torch calls")
-    del fs5
+    tri_rows(entry, granted.get(3, 128), granted_keep.get(3, 128), rng, eye,
+             local)
     # K6 as the use_pallas Intersect route calls it, on the R-MAT
     # adjacency.  For 0/1 data the products it needs are the 6T nonzero
     # ones, so the bound is the bytes of its three dense inputs; the dense
@@ -1773,18 +1974,19 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
     print(json.dumps({"kernels": out}), flush=True)
 
 
-def ptxas_counts(log: str) -> list:
-    """Registers and spills of each flash attention kernel instance, from
-    the ``-Xptxas -v`` lines of this run's build of ``csrc/flashattn.cu``
-    (none when the library was not built in this process)."""
+def ptxas_counts(log: str, label) -> list:
+    """Registers and spills of each kernel instance, from the ``-Xptxas
+    -v`` lines of this run's build of one library (none when it was not
+    built in this process); ``label`` names an entry function's mangled
+    name, or returns None to leave it out."""
     out, current = [], None
     for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '.*?(bf16k|f32k)"
-                          r"9flash_fwdILi(\d+)ELb([01])E", line)
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
-            current = {"kernel": f"{entry[1]}::flash_fwd<{entry[2]}, "
-                                 f"{'causal' if entry[3] == '1' else 'full'}>"}
-            out.append(current)
+            name = label(entry[1])
+            current = None if name is None else {"kernel": name}
+            if current is not None:
+                out.append(current)
         elif current is not None:
             spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                               r"stores, (\d+) bytes spill loads", line)
@@ -1797,6 +1999,25 @@ def ptxas_counts(log: str) -> list:
                 current["registers_at_entry"] = int(regs[1])
                 current = None
     return out
+
+
+def _flash_label(mangled: str):
+    m = re.search(r"(bf16k|f32k)9flash_fwdILi(\d+)ELb([01])E", mangled)
+    return m and (f"{m[1]}::flash_fwd<{m[2]}, "
+                  f"{'causal' if m[3] == '1' else 'full'}>")
+
+
+def _trijoin_label(mangled: str):
+    """path::path_cols<MASK>, path::path_finish<MASK> and
+    tri::tri_mma<KIN_A, KIN_B> by their template flags."""
+    m = re.search(r"(path_cols|path_finish|tri_mma)I((?:Lb[01]E)+)E",
+                  mangled)
+    if not m:
+        return None
+    flags = ", ".join("true" if f == "1" else "false"
+                      for f in re.findall(r"Lb([01])E", m[2]))
+    space = "tri" if m[1] == "tri_mma" else "path"
+    return f"{space}::{m[1]}<{flags}>"
 
 
 def flash_row(served: dict) -> dict:
@@ -1862,7 +2083,8 @@ def flash_row(served: dict) -> dict:
                 (nops / 2 / PEAK_BF16_TC_OPS_PER_S
                  + nops / 2 / PEAK_F32_OPS_PER_S) * 1e3,
             "f32_operations_bound_ms": nops / PEAK_F32_OPS_PER_S * 1e3,
-            "ptxas": ptxas_counts(kbuild.build_logs.get("flashattn", "")),
+            "ptxas": ptxas_counts(kbuild.build_logs.get("flashattn", ""),
+                                  _flash_label),
             "yardstick": "scaled_dot_product_attention(is_causal=True) on "
                          "(B, H, S, D) views, bf16"}
 

@@ -33,8 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # every kernel library of the package, one source each: the first launch
 # of any kernel builds them all (``load_all(SOURCES)``), one nvcc each,
 # started together
-SOURCES = {"cutjoin": ("cutjoin.cu",), "matreduce": ("matreduce.cu",),
-           "bitset": ("bitset.cu",), "flashattn": ("flashattn.cu",)}
+SOURCES = {"cutjoin": ("cutjoin.cu",), "trijoin": ("trijoin.cu",),
+           "matreduce": ("matreduce.cu",), "bitset": ("bitset.cu",),
+           "flashattn": ("flashattn.cu",)}
 
 _LIBS: dict = {}
 build_seconds: dict = {}      # name -> seconds nvcc took (0.0 when reused)

@@ -3,7 +3,8 @@
 //
 //   cutjoin_vec   Σ_x Π_i F_i[x]                              (|cut| = 1)
 //   cutjoin_pair  Σ_{x,y} [gx != gy] Π_i F_i[x,y]             (|cut| = 2)
-//   cutjoin_tri   Σ_{x,y,z pairwise distinct} Π_i F_i[...]    (|cut| = 3)
+//   cutjoin_tri   Σ_{x,y,z pairwise distinct} Π_i F_i[...]    (|cut| = 3,
+//                 dense route: a factor spans all three axes)
 //
 // and their keep forms, which leave one cut axis as the output vector:
 //
@@ -37,12 +38,19 @@
 // cell once (8 bytes) and do a handful of operations on it, so they are
 // bound by memory bytes; the design gives every thread one column, so a
 // warp reads 256 contiguous bytes per row, and splits the rows over
-// gridDim.z so that the grid fills the card.  The tri tier visits n^3
-// cells from O(n^2) bytes, so it is bound by f32 operations; the design
-// loads the factors that do not span axis 0 once per (y, z) and reuses
-// them for TX rows of x, hoists the factors that span axis 0 but not the
-// chunk axis (and the x-against-z part of the mask) out of the loop, and
-// walks the remaining factors with register pointers that step by a stride.
+// gridDim.z so that the grid fills the card.  The scalar tri tier here is
+// the tri join's dense route only: a factor spans all three cut axes, so
+// the n^3 cells are read once from n^3 bytes and the route is bound by
+// bytes (kernels/matreduce.py sends the scalar join's mixes of pairs and
+// vectors to trijoin.cu: the path route, an O(n^2) function bound by the
+// bytes of its factors, and the triangle route, a matrix product bound by
+// f64 tensor-core operations).  The tri keep form takes every mix here;
+// on a mix without a factor over all three axes it walks n^3 cells of
+// O(n^2) bytes and is bound by f32 operations.  The design loads the
+// factors that do not span axis 0 once per (y, z) and reuses them for TX
+// rows of x, hoists the factors that span axis 0 but not the chunk axis
+// (and the x-against-z part of the mask) out of the loop, and walks the
+// remaining factors with register pointers that step by a stride.
 // A keep form whose kept axis is a row axis of its factors reads them
 // uncoalesced (neighbouring threads walk neighbouring rows); that is left
 // as it is, with its time written down.

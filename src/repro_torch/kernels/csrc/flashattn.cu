@@ -136,8 +136,9 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   float* ps = vs + BK * D;                       // [BQ][PS]
 
   const int nq = (Sq + BQ - 1) / BQ;
-  const int q0 = (nq - 1 - blockIdx.x) * BQ;     // heaviest tiles first
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  // B * H on grid axis x (up to 2^31 - 1), the query tiles on y
+  const int q0 = (nq - 1 - blockIdx.y) * BQ;     // heaviest tiles first
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
   const float* qb = q + b * sq.b + h * sq.h;
@@ -275,7 +276,7 @@ int launch(const float* q, const float* k, const float* v, float* out, int B,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   kernel<<<grid, THREADS, bytes, stream>>>(q, k, v, out, H, Sq, Skv, sq, sk,
                                            sv, so, scale);
   return cudaGetLastError();

@@ -8,12 +8,21 @@
                  a sorted subset ``axes[i]`` of the three cut axes —
                  (n,) vectors, (n, n) pair tensors or full (n, n, n)
                  tensors — and broadcasts over the rest.  Nothing is
-                 expanded in memory and no O(n^|cut|) mask is built: the
-                 mask is an index compare inside the kernel.
+                 expanded in memory and no O(n^|cut|) mask is built.
+                 It takes one of three routes, which ``tri_route``
+                 decides from ``axes`` alone: **dense** (a factor spans
+                 all three axes: the n^3 walk, the mask an index compare
+                 inside the kernel), **path** (at most two of the three
+                 axis pairs spanned: an O(n^2) function, the sum over the
+                 middle axis of row sums minus one back term) and
+                 **triangle** (all three pairs: Σ C′ ⊙ (A′·B′), a matrix
+                 product with a masked-reduce epilogue on the f64 tensor
+                 cores).
 ``prod_reduce_keep`` / ``tri_reduce_keep``  the keep forms behind
                  ``LocalCount`` (the partial-embedding API): one cut axis
                  survives as the (n,) output, the others are reduced
-                 under the same mask.
+                 under the same mask.  ``tri_reduce_keep`` takes the
+                 dense route (the n^3 walk) on every mix.
 ``matreduce``    Σ mask ⊙ (lhs @ rhsᵀ) over f32 (M, K), (N, K), (M, N)
                  inputs — the fused triangle count behind ``Intersect``.
 
@@ -21,21 +30,28 @@ These replace the reference package's ``_vecjoin_tiles``,
 ``_pairjoin_tiles``, ``_pairjoin_keep_tiles``, ``_trijoin_tiles`` (also
 behind ``tri_reduce_keep``) and ``matreduce``
 (``src/repro/kernels/matreduce.py``).  On a CUDA tensor they launch the
-hand-written kernels of ``csrc/cutjoin.cu`` and ``csrc/matreduce.cu``
-(compiled at first use, see ``kernels.build``); the sources say what
-bounds each on the card and what its design does about it.  On a CPU
+hand-written kernels of ``csrc/cutjoin.cu``, ``csrc/trijoin.cu`` and
+``csrc/matreduce.cu`` (compiled at first use, see ``kernels.build``); the
+sources say what bounds each on the card and what its design does about
+it.  On a CPU
 tensor — and only because the tensor lies on the CPU — they take the
 plain PyTorch versions ``prod_reduce_plain``, ``tri_reduce_plain``,
 ``prod_reduce_keep_plain``, ``tri_reduce_keep_plain`` and
-``matreduce_plain`` in this module.  A CUDA tensor never reaches a plain
-version through a wrapper.
+``matreduce_plain`` in this module — for the tri join, the plain version
+of the route it takes: ``_tri_partials_plain`` (dense),
+``_tri_path_plain`` or ``_tri_triangle_plain``.  A CUDA tensor never
+reaches a plain version through a wrapper.
 
 **Arithmetic contract.**  Factors are integer-valued f64 (read directly,
 converted to f32 in registers).  Products are f32; an f32 partial sum
 accumulates at most ``block`` cells before it is folded into f64.  For
 factors that ``exact_block`` admits with that ``block`` every f32 value
 is an integer below 2^24, so the result is integer-equal to the f64
-dense join.  ``block`` is a loop bound, not a tile shape.
+dense join.  ``block`` is a loop bound, not a tile shape.  The path and
+triangle routes of the tri join multiply and sum in f64 throughout:
+exact while every partial stays below 2^53, which the f64 fold of the
+chunked routes already requires (n^3 · Π_i max|F_i| < 2^53); ``block``
+does not change them.
 
 **Global index offsets.**  ``offsets`` (one int per cut axis, default
 zeros) is added to the local indices before the injectivity compare, so
@@ -63,6 +79,11 @@ EXACT_LIMIT = float(1 << 24)                 # f32 exact-integer range
 launches = {"vecjoin": 0, "pairjoin": 0, "trijoin": 0, "pairjoin_keep": 0,
             "trijoin_keep": 0, "matreduce": 0}
 
+# scalar tri joins per route, counted where the route's kernels are
+# launched; every one also counts in ``launches["trijoin"]`` (the keep form
+# takes the dense route alone and counts in ``launches["trijoin_keep"]``)
+tri_routes = {"trijoin_path": 0, "trijoin_triangle": 0, "trijoin_dense": 0}
+
 _ENTRY = {"vecjoin": "cutjoin_vec", "pairjoin": "cutjoin_pair",
           "trijoin": "cutjoin_tri", "pairjoin_keep": "cutjoin_pair_keep",
           "trijoin_keep": "cutjoin_tri_keep"}
@@ -72,8 +93,9 @@ _PLAIN_SLAB = 1 << 27        # cells per slab of the plain tri version
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    for table in (launches, tri_routes):
+        for k in table:
+            table[k] = 0
 
 
 # -- the exactness guard ---------------------------------------------------------
@@ -109,8 +131,8 @@ _LIB = None
 
 
 def _lib(name: str = "cutjoin"):
-    """One compiled kernel library (``cutjoin`` or ``matreduce``); the
-    first call builds and binds them all."""
+    """One compiled kernel library (``cutjoin``, ``trijoin`` or
+    ``matreduce``); the first call builds and binds them all."""
     global _LIB
     if _LIB is None:
         libs = _build.load_all(_build.SOURCES)
@@ -125,6 +147,16 @@ def _lib(name: str = "cutjoin"):
                   "cutjoin_threads"):
             getattr(cj, q).argtypes = []
             getattr(cj, q).restype = I
+        tj = libs["trijoin"]
+        tj.trijoin_path.argtypes = [P, P, I, I, I, I, I, I, I, I, I, I,
+                                    P, P, P]
+        tj.trijoin_triangle.argtypes = [P, P, I, I, I, I, I, I, I, I, I,
+                                        I, P, P]
+        for q in ("trijoin_path", "trijoin_triangle"):
+            getattr(tj, q).restype = I
+        for q in ("trijoin_path_tile", "trijoin_triangle_tile"):
+            getattr(tj, q).argtypes = []
+            getattr(tj, q).restype = I
         mm = libs["matreduce"]
         mm.matreduce_f32.argtypes = [P, P, P, I, I, I, L, L, L, P, P]
         mm.matreduce_f32.restype = I
@@ -232,6 +264,232 @@ def _launch(kind: str, entries, sizes, masked: bool, off3, block: int):
                                  f"error {err}")
     launches[kind] += 1
     return partials
+
+
+# -- the routes of the tri join ----------------------------------------------------
+
+def tri_route(axes, keep=None) -> str:
+    """The route of a tri join, from the axis sets of its factors and its
+    kept axis alone: ``"dense"`` for the keep form and when a factor spans
+    all three cut axes, ``"triangle"`` when the factors span all three
+    axis pairs (0,1), (1,2) and (0,2), and ``"path"`` otherwise (at most
+    two pairs spanned: vectors, uncovered axes and a lone pair
+    included)."""
+    axes = [tuple(ax) for ax in axes]
+    if keep is not None or any(len(ax) == 3 for ax in axes):
+        return "dense"
+    pairs = {ax for ax in axes if len(ax) == 2}
+    return "triangle" if len(pairs) == 3 else "path"
+
+
+def _path_layout(axes):
+    """(a, m, c) of a path mix: the middle axis m, shared by the spanned
+    pairs, and the ends a and c, which no factor spans together.  Every
+    factor then lies on (a, m) or on (m, c)."""
+    pairs = sorted({tuple(ax) for ax in axes if len(ax) == 2})
+    if len(pairs) == 2:
+        m = (set(pairs[0]) & set(pairs[1])).pop()
+    else:
+        m = pairs[0][0] if pairs else 1
+    a, c = (x for x in range(3) if x != m)
+    return a, m, c
+
+
+def _operand_strides(F, ax, rows, cols):
+    """Element strides of ``F`` (spanning ``ax``) along the operand axes
+    ``rows`` and ``cols``: 0 where it does not span them."""
+    st = {a: F.stride(d) for d, a in enumerate(ax)}
+    return st.get(rows, 0), st.get(cols, 0)
+
+
+def _path_groups(factors, axes):
+    """The path route's operands: A on (a, m) and B on (m, c), each a
+    list of (factor, row stride, column stride); factors on m alone and
+    scalars go to A.  Returns (a, m, c), A, B."""
+    a, m, c = _path_layout(axes)
+    A, B = [], []
+    for F, ax in zip(factors, axes):
+        if set(ax) <= {a, m}:
+            A.append((F, *_operand_strides(F, ax, a, m)))
+        else:
+            B.append((F, *_operand_strides(F, ax, m, c)))
+    return (a, m, c), A, B
+
+
+def _triangle_groups(factors, axes):
+    """The triangle route's operands, with x, y, z = 0, 1, 2 and the
+    product over y: A′ on (x, y) — its pair factor first, then a vector
+    on y or a second pair factor — B′ on (z, y), its pair factor first,
+    and C′ on (x, z) with every vector on x or z and any scalar; each a
+    list of (factor, row stride, column stride).  Returns A, B, C."""
+    x, y, z = 0, 1, 2
+    A, B, C = [], [], []
+    for F, ax in zip(factors, axes):
+        s = set(ax)
+        if y in s and s <= {x, y}:
+            A.append((F, *_operand_strides(F, ax, x, y)))
+        elif y in s:
+            B.append((F, *_operand_strides(F, ax, z, y)))
+        else:
+            C.append((F, *_operand_strides(F, ax, x, z)))
+    for G in (A, B):                     # the pair factor leads its operand
+        G.sort(key=lambda e: 0 if e[1] and e[2] else 1)
+    return A, B, C
+
+
+def _dense_operand(entries, shape, dev):
+    """Plain version of an operand: the f64 product of its factors, read
+    through their strides as the kernels read them."""
+    X = torch.ones(shape, dtype=torch.float64, device=dev)
+    for F, sr, sc in entries:
+        X = X * torch.as_strided(F, shape, (sr, sc), F.storage_offset())
+    return X
+
+
+def _globals(n, off, dev):
+    return torch.arange(n, device=dev) + off
+
+
+def _tri_path_plain(factors, axes, sizes, distinct, offsets):
+    """Plain PyTorch version of the path route, in f64: with A on (a, m)
+    and B on (m, c), r_A[m] = Σ_{a≠m} A[a,m], r_B[m] = Σ_{c≠m} B[m,c] and
+    the back term A[a,m]·B[m,c] at global c = global a,
+
+        Σ_distinct = Σ_m [ r_A[m]·r_B[m] − Σ_{a≠m} A[a,m]·B[m,c(a)] ]
+
+    Without ``distinct`` no term is excluded.  Returns the (n_m,)
+    brackets, whose sum is the join."""
+    sizes = _tri_sizes(sizes)
+    factors, axes = _tri_check(factors, axes, sizes)
+    factors = [F.double() for F in factors]
+    off = _offsets(offsets, 3)
+    (a, m, c), GA, GB = _path_groups(factors, axes)
+    dev = factors[0].device
+    A = _dense_operand(GA, (sizes[a], sizes[m]), dev)
+    B = _dense_operand(GB, (sizes[m], sizes[c]), dev)
+    ga, gm, gc = (_globals(sizes[q], off[q], dev) for q in (a, m, c))
+    back = torch.zeros_like(A)
+    if distinct:
+        A = A.masked_fill(ga[:, None] == gm[None, :], 0.0)
+        B = B.masked_fill(gm[:, None] == gc[None, :], 0.0)
+        ca = ga - off[c]                      # the column of B at c = a
+        inside = (ca >= 0) & (ca < sizes[c])
+        back = (B.T[ca.clamp(0, sizes[c] - 1)]
+                * inside[:, None].double())   # back[a, m] = B[m, c(a)]
+    return A.sum(0) * B.sum(1) - (A * back).sum(0)
+
+
+def _tri_triangle_plain(factors, axes, sizes, distinct, offsets):
+    """Plain PyTorch version of the triangle route, in f64: A′ on (x, y),
+    B′ on (z, y) and C′ on (x, z), each the product of its factors with
+    its global diagonal zeroed under ``distinct``, then Σ C′ ⊙ (A′·B′ᵀ).
+    Returns the (1,) partial."""
+    sizes = _tri_sizes(sizes)
+    factors, axes = _tri_check(factors, axes, sizes)
+    factors = [F.double() for F in factors]
+    off = _offsets(offsets, 3)
+    GA, GB, GC = _triangle_groups(factors, axes)
+    dev = factors[0].device
+    ops = []
+    for G, (r, q) in ((GA, (0, 1)), (GB, (2, 1)), (GC, (0, 2))):
+        X = _dense_operand(G, (sizes[r], sizes[q]), dev)
+        if distinct:
+            gr, gq = _globals(sizes[r], off[r], dev), \
+                _globals(sizes[q], off[q], dev)
+            X = X.masked_fill(gr[:, None] == gq[None, :], 0.0)
+        ops.append(X)
+    A, B, C = ops
+    return (C * (A @ B.T)).sum().reshape(1)
+
+
+def _table(groups):
+    """ctypes arrays of the factors' pointers and (row, column) strides,
+    group after group, and their count."""
+    entries = [e for G in groups for e in G]
+    ptrs = (ctypes.c_void_p * len(entries))(*[F.data_ptr()
+                                             for F, _, _ in entries])
+    strides = (ctypes.c_longlong * (2 * len(entries)))(
+        *[s for _, sr, sc in entries for s in (sr, sc)])
+    return ptrs, strides, len(entries)
+
+
+def _f64_entries(factors, axes, cap: int = 8):
+    """f64 factors on the card, surplus ones folded into the capacity of
+    ``csrc/trijoin.cu``'s factor table (MAXF); returns (factors, axes)."""
+    entries = [(F if F.dtype == torch.float64 else F.double(), tuple(ax))
+               for F, ax in zip(factors, axes)]
+    for F, _ in entries:
+        if not F.is_cuda:
+            raise ValueError(f"factor on {F.device}: the tri join's kernels "
+                             f"take CUDA tensors")
+    entries = _fold_surplus(entries, cap)
+    return [F for F, _ in entries], [ax for _, ax in entries]
+
+
+_TARGET_PATH_BLOCKS = 2048    # thread blocks wanted per pass of the path route
+
+
+def _count(route: str):
+    launches["trijoin"] += 1
+    tri_routes[f"trijoin_{route}"] += 1
+
+
+def _launch_path(factors, axes, sizes, masked: bool, off3):
+    """The path route on the card: ``csrc/trijoin.cu`` ``trijoin_path``.
+    Returns the f64 partials: the (n_m,) brackets."""
+    lib = _lib("trijoin")
+    factors, axes = _f64_entries(factors, axes)
+    (a, m, c), GA, GB = _path_groups(factors, axes)
+    n_a, n_m, n_c = sizes[a], sizes[m], sizes[c]
+    tile = lib.trijoin_path_tile()
+    g_tiles = -(-(max(off3[a] + n_a, off3[c] + n_c)
+                  - min(off3[a], off3[c])) // tile)
+    split = max(1, min(g_tiles, -(-_TARGET_PATH_BLOCKS // -(-n_m // tile))))
+    dev = factors[0].device
+    scratch = torch.empty((split * 3 * n_m,), dtype=torch.float64,
+                          device=dev)
+    out = torch.empty((n_m,), dtype=torch.float64, device=dev)
+    ptrs, strides, nf = _table((GA, GB))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.trijoin_path(
+            ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.cast(strides, ctypes.c_void_p), nf, len(GA), n_a, n_m,
+            n_c, off3[a], off3[m], off3[c], int(bool(masked)), split,
+            scratch.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise _build.KernelError(f"trijoin_path launch failed: CUDA "
+                                 f"error {err}")
+    _count("path")
+    return out
+
+
+def _launch_triangle(factors, axes, sizes, masked: bool, off3):
+    """The triangle route on the card: ``csrc/trijoin.cu``
+    ``trijoin_triangle``.  Returns the f64 partials, one per thread
+    block."""
+    lib = _lib("trijoin")
+    factors, axes = _f64_entries(factors, axes)
+    GA, GB, GC = _triangle_groups(factors, axes)
+    nx, ny, nz = sizes
+    tile = lib.trijoin_triangle_tile()
+    tiles_x, tiles_z = -(-nx // tile), -(-nz // tile)
+    if tiles_x * tiles_z >= 1 << 31:
+        raise ValueError(f"sizes {sizes} exceed the launch limits")
+    dev = factors[0].device
+    out = torch.empty((tiles_x * tiles_z,), dtype=torch.float64, device=dev)
+    ptrs, strides, nf = _table((GA, GB, GC))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.trijoin_triangle(
+            ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.cast(strides, ctypes.c_void_p), nf, len(GA), len(GB),
+            nx, ny, nz, *off3, int(bool(masked)), out.data_ptr(), stream)
+    if err != 0:
+        raise _build.KernelError(f"trijoin_triangle launch failed: CUDA "
+                                 f"error {err}")
+    _count("triangle")
+    return out
 
 
 # -- plain PyTorch versions --------------------------------------------------------
@@ -466,20 +724,37 @@ def prod_reduce(factors, *, distinct: bool = True, block: int = 128,
                              offsets=offsets).sum().item()
 
 
+def _tri_join(factors, axes, sizes, distinct, block, offsets):
+    """The scalar tri join's partials by its route: on the CPU the route's
+    plain version, on the card its kernel."""
+    route = tri_route(axes)
+    if not factors[0].is_cuda:
+        if route == "dense":
+            return _tri_partials_plain(factors, axes, sizes, distinct, block,
+                                       offsets)
+        plain = _tri_path_plain if route == "path" else _tri_triangle_plain
+        return plain(factors, axes, sizes, distinct, offsets)
+    if min(sizes) == 0:
+        return torch.zeros((1,), dtype=torch.float64,
+                           device=factors[0].device)
+    off = _offsets(offsets, 3)
+    if route == "path":
+        return _launch_path(factors, axes, sizes, distinct, off)
+    if route == "triangle":
+        return _launch_triangle(factors, axes, sizes, distinct, off)
+    out = _launch("trijoin", list(zip(factors, axes)), sizes, distinct, off,
+                  block)
+    tri_routes["trijoin_dense"] += 1
+    return out
+
+
 def tri_reduce_tiles(factors, axes, *, n, distinct: bool = True,
                      block: int = 128, offsets=None) -> torch.Tensor:
     """f64 partials of ``tri_reduce`` on the factors' device.  ``n`` is the
     cut-axis length, or a (n0, n1, n2) triple for a sliced caller."""
     sizes = _tri_sizes(n)
     factors, axes = _tri_check(factors, axes, sizes)
-    if not factors[0].is_cuda:
-        return _tri_partials_plain(factors, axes, sizes, distinct, block,
-                                   offsets)
-    if min(sizes) == 0:
-        return torch.zeros((1,), dtype=torch.float64,
-                           device=factors[0].device)
-    return _launch("trijoin", list(zip(factors, axes)), sizes, distinct,
-                   _offsets(offsets, 3), block)
+    return _tri_join(factors, axes, sizes, distinct, block, offsets)
 
 
 def tri_reduce(factors, axes, *, n, distinct: bool = True, block: int = 128,
@@ -488,9 +763,10 @@ def tri_reduce(factors, axes, *, n, distinct: bool = True, block: int = 128,
     i spans only the cut axes ``axes[i]`` (a sorted subset of (0, 1, 2))
     and broadcasts along the rest — the |cut| = 3 decomposition join.
     Axes no factor covers still count: every cell of the n^3 grid that
-    passes the mask contributes the product.  Each f32 partial
-    accumulates at most ``block`` cells, so ``exact_block`` certifies the
-    same bound as for the pair tier."""
+    passes the mask contributes the product.  On the dense route each f32
+    partial accumulates at most ``block`` cells, so ``exact_block``
+    certifies the same bound as for the pair tier; the path and triangle
+    routes (``tri_route``) multiply and sum in f64."""
     return tri_reduce_tiles(factors, axes, n=n, distinct=distinct,
                             block=block, offsets=offsets).sum().item()
 

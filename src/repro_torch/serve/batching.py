@@ -8,10 +8,12 @@ their slot.  This is the vLLM-style serving loop reduced to its essential
 batching mechanics on top of ``serve.engine``.
 
 Ported half: ``Request`` and ``ContinuousBatcher`` (the LM serving loop).
-The reference's ``jax.jit(..., donate_argnums=(1,))`` decode becomes an
-eager call that updates the batch cache in place, and the splice writes
-the slot's rows in place.  The graph-mining half, ``PatternQueryBatcher``
-and ``PatternRequest``, is not ported yet (ROADMAP queue 1, item 10).
+The reference's ``jax.jit(..., donate_argnums=(1,))`` decode becomes, on
+a CUDA device, the decode step captured once in a CUDA graph
+(``GraphedDecode``) and replayed every step; on the CPU it is the eager
+call.  Both update the batch cache in place, and the splice writes the
+slot's rows in place.  The graph-mining half, ``PatternQueryBatcher`` and
+``PatternRequest``, is not ported yet (ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -28,6 +30,48 @@ from repro_torch.models.transformer import Model, cache_specs, init_cache
 from repro_torch.serve.engine import greedy_sample, make_decode_step
 
 
+class GraphedDecode:
+    """``step(params, caches, inputs, positions) -> (logits, caches)``
+    captured in a CUDA graph at its first call and replayed after that:
+    the port's counterpart of the reference's ``jax.jit``.  The graph
+    reads the (slots, 1) tokens and (slots,) positions from static
+    buffers, which each call copies its arguments into, writes the caches
+    in place (they must be the same tensors at every call, as the
+    batcher's are) and leaves the logits in a static tensor, which every
+    call returns: read it before the next call.  The first call runs the
+    step once eagerly on a side stream, as capture requires; that run
+    writes the same cache rows as the replay after it."""
+
+    def __init__(self, step):
+        self.step = step
+        self.graph = None
+
+    def __call__(self, params, caches, inputs, positions):
+        if self.graph is None:
+            self._capture(params, caches, inputs, positions)
+        elif params is not self._params or caches is not self._caches:
+            raise ValueError("a captured decode step replays on the "
+                             "parameters and caches it was captured with")
+        self._inputs.copy_(inputs)
+        self._positions.copy_(positions)
+        self.graph.replay()
+        return self._logits, caches
+
+    def _capture(self, params, caches, inputs, positions):
+        self._params, self._caches = params, caches
+        self._inputs, self._positions = inputs.clone(), positions.clone()
+        side = torch.cuda.Stream(device=inputs.device)
+        side.wait_stream(torch.cuda.current_stream(inputs.device))
+        with torch.cuda.stream(side):
+            self.step(params, caches, self._inputs, self._positions)
+        torch.cuda.current_stream(inputs.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._logits, _ = self.step(params, caches, self._inputs,
+                                        self._positions)
+        self.graph = graph
+
+
 @dataclass
 class Request:
     uid: int
@@ -42,7 +86,8 @@ class ContinuousBatcher:
     """Serves ``Request``s on ``slots`` decode slots of ``capacity``
     positions each, with the parameters ``params`` (tensors on one device,
     see ``Model.init`` / ``interop.params_from_numpy``).  ``device=None``
-    means CUDA, and raises where there is none."""
+    means CUDA, and raises where there is none.  On CUDA the decode step
+    is a ``GraphedDecode``; on the CPU it runs eagerly."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  capacity: int = 128, device=None):
@@ -54,6 +99,8 @@ class ContinuousBatcher:
         self.capacity = capacity
         self.model = Model(cfg)
         self.decode = make_decode_step(cfg)
+        if self.device.type == "cuda":
+            self.decode = GraphedDecode(self.decode)
         self.cache = init_cache(cfg, slots, capacity, device=self.device)
         self.positions = np.zeros(slots, np.int32)
         self.last_token = np.zeros(slots, np.int32)

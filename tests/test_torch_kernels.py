@@ -174,23 +174,179 @@ def test_surplus_factors_are_folded_exactly():
 
 def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
     """The wrapper picks the plain version only for CPU tensors: with a
-    tensor that claims to lie on the card it goes to the launcher."""
+    tensor that claims to lie on the card it goes to the launcher — for
+    the tri join, to the launcher of the route its mix takes."""
     called = {}
 
     def fake_launch(kind, entries, sizes, masked, off3, block):
         called["kind"] = kind
+        if kind.startswith("trijoin"):
+            called.setdefault("tri", []).append(("dense", kind))
         return torch.zeros((1,), dtype=torch.float64)
+
+    def fake_route(route):
+        def launch(factors, axes, sizes, masked, off3):
+            called.setdefault("tri", []).append((route, axes, sizes, off3))
+            return torch.zeros((1,), dtype=torch.float64)
+        return launch
 
     class OnCard(torch.Tensor):
         is_cuda = True
 
     monkeypatch.setattr(tmr, "_launch", fake_launch)
-    monkeypatch.setattr(tmr, "_prod_partials_plain",
-                        lambda *a, **k: pytest.fail("plain version taken"))
+    monkeypatch.setattr(tmr, "_launch_path", fake_route("path"))
+    monkeypatch.setattr(tmr, "_launch_triangle", fake_route("triangle"))
+    for plain in ("_prod_partials_plain", "_tri_partials_plain",
+                  "_tri_path_plain", "_tri_triangle_plain"):
+        monkeypatch.setattr(tmr, plain,
+                            lambda *a, **k: pytest.fail("plain version taken"))
     F = torch.ones((4, 4), dtype=torch.float64).as_subclass(OnCard)
     monkeypatch.setattr(tmr, "_as_factors", lambda fs: list(fs))
     tmr.prod_reduce_tiles([F, F], block=8)
     assert called["kind"] == "pairjoin"
+    G = torch.ones((4, 4, 4), dtype=torch.float64).as_subclass(OnCard)
+    tmr.tri_reduce_tiles([F, F], [(0, 1), (1, 2)], n=4, block=8,
+                         offsets=(1, 0, 2))
+    tmr.tri_reduce_tiles([F, F, F], [(0, 1), (1, 2), (0, 2)], n=4, block=8)
+    tmr.tri_reduce_tiles([G, F], [(0, 1, 2), (0, 2)], n=4, block=8)
+    assert called["tri"] == [
+        ("path", [(0, 1), (1, 2)], (4, 4, 4), (1, 0, 2)),
+        ("triangle", [(0, 1), (1, 2), (0, 2)], (4, 4, 4), (0, 0, 0)),
+        ("dense", "trijoin"),
+    ]
+
+
+# -- the tri join's routes -----------------------------------------------------------
+
+# AXIS_MIXES and a triangle mix with a vector and two factors on one pair
+ROUTE_MIXES = AXIS_MIXES + [[(0, 1), (0, 1), (1, 2), (0, 2), (1,)]]
+ROUTES = ["path", "triangle", "path", "dense", "dense", "path", "path",
+          "path", "triangle"]
+ROUTE_N, ROUTE_TILE = 12, 4
+ROUTE_SLICE = (4, 8)                      # axis-0 rows of the sliced case
+
+
+def _route_plain(axes):
+    return {"path": tmr._tri_path_plain, "triangle": tmr._tri_triangle_plain,
+            "dense": lambda fs, ax, sizes, distinct, off:
+            tmr._tri_partials_plain(fs, ax, sizes, distinct, ROUTE_TILE,
+                                    off)}[tmr.tri_route(axes)]
+
+
+def _route_case(mix, sliced, seed):
+    """Seeded factors of ``ROUTE_MIXES[mix]`` within the guard at the
+    tile ``ROUTE_TILE``: whole (n, n, n), or their axis-0 rows
+    ``ROUTE_SLICE`` with the global offsets of that slice."""
+    axes = ROUTE_MIXES[mix]
+    n = ROUTE_N
+    fs = _factors(seed, [(n,) * len(ax) for ax in axes],
+                  _hi(len(axes), ROUTE_TILE))
+    if not sliced:
+        return axes, fs, (n, n, n), (0, 0, 0)
+    lo, hi = ROUTE_SLICE
+    fs = [F[lo:hi] if 0 in ax else F for F, ax in zip(fs, axes)]
+    return axes, fs, (hi - lo, n, n), (lo, 0, 0)
+
+
+def ref_tri_tiles(reference, fs, axes, sizes, offsets, distinct, b,
+                  keep=None):
+    """The reference's interpret-mode tri kernel, ``_trijoin_tiles``, on
+    rectangular sizes with global offsets, as ``tri_reduce``,
+    ``tri_reduce_keep`` and the mesh tier call it: the kept axis moved
+    first, factors as 3-D views with size-1 absent axes, present axes
+    zero-padded to the tile, a zero-padded ones vector on an uncovered
+    axis.  Returns the join, or the kept vector."""
+    import jax.numpy as jnp
+    perm = (0, 1, 2) if keep is None else \
+        (keep,) + tuple(a for a in range(3) if a != keep)
+    rank = {a: i for i, a in enumerate(perm)}
+    psizes = [sizes[a] for a in perm]
+    stack, present = [], []
+    for F, ax in zip(fs, axes):
+        new = tuple(sorted(rank[a] for a in ax))
+        G = np.transpose(F, [ax.index(perm[a]) for a in new])
+        stack.append(G.reshape([psizes[i] if i in new else 1
+                                for i in range(3)]))
+        present.append(new)
+    for a in sorted({0, 1, 2} - {i for p in present for i in p}):
+        stack.append(np.ones([psizes[i] if i == a else 1 for i in range(3)]))
+        present.append((a,))
+    stack = [np.pad(S, [(0, -S.shape[i] % b) for i in range(3)])
+             for S in stack]
+    tiles = reference.matreduce._trijoin_tiles(
+        *[jnp.asarray(S, jnp.float32) for S in stack],
+        offsets=jnp.asarray([offsets[a] for a in perm], jnp.int32),
+        present=tuple(present), distinct=distinct, bm=b, bn=b, bk=b,
+        interpret=True)
+    t = np.asarray(tiles, np.float64)
+    return t.sum() if keep is None else t.sum(axis=(1, 2))[:psizes[0]]
+
+
+def test_tri_route_of_each_mix():
+    assert [tmr.tri_route(ax) for ax in ROUTE_MIXES] == ROUTES
+    assert {tmr.tri_route(ax, keep=k) for ax in ROUTE_MIXES
+            for k in (0, 1, 2)} == {"dense"}
+    assert tmr.tri_route([(0, 2), (1, 2)]) == "path"
+    assert tmr.tri_route([(0, 1), (0, 2), (1, 2), (0, 1, 2)]) == "dense"
+    assert tmr.tri_route([]) == "path"
+
+
+@pytest.mark.parametrize("sliced", (False, True))
+@pytest.mark.parametrize("distinct", (True, False))
+@pytest.mark.parametrize("mix", range(len(ROUTE_MIXES)))
+def test_tri_route_plain_equals_plain_and_reference_interpret_kernel(
+        reference, mix, distinct, sliced):
+    axes, fs, sizes, off = _route_case(mix, sliced, 40 + mix)
+    got = _route_plain(axes)(_t(fs), axes, sizes, distinct, off).sum().item()
+    assert got == tmr.tri_reduce_plain(_t(fs), axes, n=sizes,
+                                       distinct=distinct, block=ROUTE_TILE,
+                                       offsets=off)
+    assert got == ref_tri_tiles(reference, fs, axes, sizes, off, distinct,
+                                ROUTE_TILE)
+    assert got == tmr.tri_reduce(_t(fs), axes, n=sizes, distinct=distinct,
+                                 block=ROUTE_TILE, offsets=off)
+    assert got == _tri_oracle(fs, axes, sizes, distinct, off)
+
+
+def test_route_counters_move_only_at_a_launch(monkeypatch):
+    """A tri join on the CPU takes its route's plain version and counts
+    nothing; a launch counts once in ``launches["trijoin"]`` and once in
+    ``tri_routes`` under its route; ``reset_launches`` zeroes both."""
+    monkeypatch.setattr(tmr, "launches", dict.fromkeys(tmr.launches, 0))
+    monkeypatch.setattr(tmr, "tri_routes", dict.fromkeys(tmr.tri_routes, 0))
+    axes, fs, sizes, off = _route_case(0, False, 3)
+    tmr.tri_reduce(_t(fs), axes, n=sizes)
+    tmr.tri_reduce_keep(_t(fs), axes, keep=1, n=sizes)
+    assert not any(tmr.launches.values()) and \
+        not any(tmr.tri_routes.values())
+    tmr._count("path")
+    tmr._count("triangle")
+    assert tmr.launches["trijoin"] == 2 and tmr.launches["trijoin_keep"] == 0
+    assert {k for k, v in tmr.tri_routes.items() if v} == \
+        {"trijoin_path", "trijoin_triangle"}
+    tmr.reset_launches()
+    assert not any(tmr.launches.values()) and \
+        not any(tmr.tri_routes.values())
+
+
+@pytest.mark.parametrize("mix", range(len(ROUTE_MIXES)))
+def test_tri_route_plain_reads_factors_through_their_strides(mix):
+    """Transposed, expanded and f32 views reach the route's plain version
+    (and the kernels) through their strides, as the kernels read them."""
+    axes = ROUTE_MIXES[mix]
+    n = 9
+    fs = _factors(70 + mix, [(n,) * len(ax) for ax in axes], 3)
+    want = _tri_oracle(fs, axes, (n, n, n), True)
+    views = []
+    for i, F in enumerate(fs):
+        T = torch.from_numpy(F)
+        if T.ndim == 2 and i % 2 == 0:
+            T = T.T.contiguous().T               # column-major storage
+        elif T.ndim == 1:
+            T = T[:, None].expand(n, 3)[:, 1]     # stride 3
+        views.append(T.float() if i == 1 else T)
+    got = _route_plain(axes)(views, axes, (n, n, n), True, None)
+    assert got.sum().item() == want
 
 
 # -- against the reference's interpret-mode kernels ----------------------------------

@@ -26,7 +26,8 @@ from repro_torch.graph.generators import erdos_renyi
 from repro_torch.kernels import matreduce as tmr
 from repro_torch.kernels import ops as tops
 
-from test_torch_kernels import AXIS_MIXES, _factors, _hi, _t
+from test_torch_kernels import (AXIS_MIXES, ROUTE_MIXES, ROUTE_TILE, _factors,
+                                _hi, _route_case, _t, ref_tri_tiles)
 from test_torch_reference import reference  # noqa: F401  (shared fixture)
 
 BLOCKS = (8, 128, 1024)
@@ -150,7 +151,7 @@ def test_keep_axis_out_of_range_raises():
 def test_cuda_tensor_never_reaches_a_keep_plain_version(monkeypatch):
     """As for the scalar forms: a tensor that claims to lie on the card
     goes to the launcher, with the kept axis moved to kernel axis 2 by
-    the axis map alone."""
+    the axis map alone — on every mix, path and triangle mixes too."""
     called = []
 
     def fake_launch(kind, entries, sizes, masked, off3, block):
@@ -161,7 +162,11 @@ def test_cuda_tensor_never_reaches_a_keep_plain_version(monkeypatch):
         is_cuda = True
 
     monkeypatch.setattr(tmr, "_launch", fake_launch)
-    for plain in ("_pair_keep_partials_plain", "_tri_partials_plain"):
+    for route in ("_launch_path", "_launch_triangle"):
+        monkeypatch.setattr(tmr, route,
+                            lambda *a, **k: pytest.fail("scalar route"))
+    for plain in ("_pair_keep_partials_plain", "_tri_partials_plain",
+                  "_tri_path_plain", "_tri_triangle_plain"):
         monkeypatch.setattr(tmr, plain,
                             lambda *a, **k: pytest.fail("plain version"))
     monkeypatch.setattr(tmr, "_as_factors", lambda fs: list(fs))
@@ -171,11 +176,39 @@ def test_cuda_tensor_never_reaches_a_keep_plain_version(monkeypatch):
     G = torch.ones((5, 5), dtype=torch.float64).as_subclass(OnCard)
     tmr.tri_reduce_keep_tiles([G, G], [(0, 1), (1, 2)], keep=0, n=5,
                               block=8, offsets=(1, 2, 3))
+    tmr.tri_reduce_keep_tiles([G, G, G], [(0, 1), (1, 2), (0, 2)], keep=1,
+                              n=5, block=8)
     assert called == [
         ("pairjoin_keep", [(2, 1)], (1, 6, 4), (0, 1, 2)),
         ("pairjoin_keep", [(1, 2)], (1, 4, 6), (0, 2, 1)),
         ("trijoin_keep", [(2, 0), (0, 1)], (5, 5, 5), (2, 3, 1)),
+        ("trijoin_keep", [(0, 2), (2, 1), (0, 1)], (5, 5, 5), (0, 0, 0)),
     ]
+
+
+@pytest.mark.parametrize("sliced", (False, True))
+@pytest.mark.parametrize("distinct", (True, False))
+@pytest.mark.parametrize("keep", (0, 1, 2))
+@pytest.mark.parametrize("mix", range(len(ROUTE_MIXES)))
+def test_tri_keep_route_plain_equals_plain_and_reference_interpret_kernel(
+        reference, mix, keep, distinct, sliced):
+    """The keep form's route is the dense one whatever the mix: on the
+    scalar join's path and triangle mixes too, with their slices, its
+    plain version equals ``tri_reduce_keep_plain``, the reference's
+    interpret-mode kernel and the numpy oracle."""
+    axes, fs, sizes, off = _route_case(mix, sliced, 50 + mix + 7 * keep)
+    assert tmr.tri_route(axes, keep=keep) == "dense"
+    got = tmr.tri_reduce_keep(_t(fs), axes, keep=keep, n=sizes,
+                              distinct=distinct, block=ROUTE_TILE,
+                              offsets=off)
+    assert tuple(got.shape) == (sizes[keep],)
+    assert torch.equal(got, tmr.tri_reduce_keep_plain(
+        _t(fs), axes, keep=keep, n=sizes, distinct=distinct,
+        block=ROUTE_TILE, offsets=off))
+    assert np.array_equal(got.numpy(), ref_tri_tiles(
+        reference, fs, axes, sizes, off, distinct, ROUTE_TILE, keep=keep))
+    assert np.array_equal(got.numpy(), _tri_keep_oracle(
+        fs, axes, sizes, keep, distinct, off))
 
 
 # -- against the reference's interpret-mode kernels ----------------------------------

@@ -29,6 +29,7 @@ from repro_torch.configs.registry import get_config as t_get
 from repro_torch.launch import serve as tserve
 from repro_torch.models.transformer import Model as TModel
 from repro_torch.serve.batching import ContinuousBatcher as TBatcher
+from repro_torch.serve.batching import GraphedDecode
 from repro_torch.serve.batching import Request as TRequest
 
 RCFG = r_reduced(r_get("qwen3-4b"), num_layers=2, remat=False)
@@ -157,6 +158,23 @@ def test_batcher_device_none_raises_without_cuda(weights, monkeypatch):
         TBatcher(TCFG, weights[1], slots=1, capacity=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         tserve.main(["--requests", "1"])
+
+
+def test_decode_step_is_eager_on_the_cpu_and_graphed_on_cuda(weights):
+    """The CPU runs the decode step eagerly (the device's own path); on a
+    CUDA device the batcher wraps the same step in a ``GraphedDecode``,
+    which replays only on the parameters and caches it captured."""
+    b = TBatcher(TCFG, weights[1], slots=2, capacity=8, device="cpu")
+    assert not isinstance(b.decode, GraphedDecode)
+    graphed = GraphedDecode(b.decode)
+    assert graphed.step is b.decode and graphed.graph is None
+    graphed.graph, graphed._params, graphed._caches = object(), b.params, \
+        b.cache
+    toks, pos = torch.zeros((2, 1), dtype=torch.long), torch.zeros(2)
+    with pytest.raises(ValueError, match="captured"):
+        graphed(b.params, [dict(c) for c in b.cache], toks, pos)
+    with pytest.raises(ValueError, match="captured"):
+        graphed(dict(b.params), b.cache, toks, pos)
 
 
 _TIMING = re.compile(r", [0-9.]+s \([0-9.]+ tok/s\)$")
