@@ -14,7 +14,14 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    keep forms of pair and tri) at n = 8192 (the tri join's dense route at n
    = 256, keep forms also at n = 512), over factor counts, kept axes,
    rectangular slices with offsets, axis-subset mixes and chunk sizes 8 /
-   128 / 1024.  A scalar tri join runs on the route ``tri_route`` gives its
+   128 / 1024; K1's one-launch entry at odd lengths, unaligned and strided
+   starts, one CTA and a capped grid, each twice (the ticket counter is
+   reset by the launch); K3 on both entries (``keep_entry``: the row entry
+   where the reduced axis has unit stride, the strided template
+   otherwise) over row- and column-major factors, odd rows and column
+   slices; the f64 instances of K1 and K3 at n = 8192 with Π max about
+   2^33 against their f64 plain versions and against an int64 join of the
+   same factors.  A scalar tri join runs on the route ``tri_route`` gives its
    mix — path, triangle or dense — and is held against the n^3 plain
    version and, on the path and triangle routes, against the route's own
    plain version (at n = 8192 the unmasked and sliced cases against the
@@ -51,7 +58,11 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    refuses a |cut| = 3 join as too wide, against the direct Möbius count
    of ``CountingEngine.edge_induced``), and ``cycle(4)`` against the closed
    form (tr(A^4) - 2 Σd² + Σd) / 8.  Launches are reported per graph;
-   which joins the R-MAT graph leaves to the dense route is said plainly.
+   which joins the R-MAT graph leaves to the dense route is said plainly:
+   each join the f32 guard refuses takes the f64 instance of its kernel
+   (route ``kernel-f64`` for |cut| = 1) where ``exact_f64`` admits its
+   factors, computed here from the plan's own factors, else the dense
+   route.
    Then ``compile([cycle(4), cycle(5), cycle(6)], g)`` on the coverage
    graph (role ``coverage-cycles``): the cost model cuts cycle(5) and
    cycle(6) three ways into three pair factors, one on each pair of cut
@@ -77,9 +88,14 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    n_p · count, each anchored vector equal to the same plan's dense f64
    route (``cutjoin_kernel=False``) and to the domain vector of its
    orbit, and the triangle count through the fused kernel equal to
-   phase 3's clique enumeration.  An anchored vector whose flat Möbius
-   route needs an n^3 free-hom intermediate (the 4-clique's at n = 8192)
-   raises ``PlanTooWide``; that refusal is accepted, and reported, only
+   phase 3's clique enumeration.  Each keep join the f32 guard refuses
+   must take ``kernel-keep-f64`` where ``exact_f64`` admits it (on R-MAT
+   the f64 instance of K3 must launch); after the phase's launches are
+   read, each such join is timed on the plan's own factors on that
+   instance and on the dense f64 route it replaced, vectors equal.  An
+   anchored
+   vector whose flat Möbius route needs an n^3 free-hom intermediate
+   (the 4-clique's at n = 8192) raises ``PlanTooWide``; that refusal is accepted, and reported, only
    where ``CountingEngine.inj_free`` refuses the same vectors.  Then a
    *coverage case* for the keep form of the tri join,
    ``erdos_renyi(512, 8.0, seed=0)`` with anchored reads of chain(6),
@@ -124,7 +140,8 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    config, 12 requests, 144 tokens).  Reports seconds per admission,
    median decode step (graphed), tokens per second and peak device
    memory.
-8. ``kernels``    per kernel: launches over its path (phase 3 for the scalar
+8. ``kernels``    per kernel entry (K1 and K3 in f32 and f64, K3 on both
+   entries): launches over its path (phase 3 for the scalar
    joins, phase 4 for the keep forms and the triangle kernel, phase 5 for
    SDDMM and the bitset kernel, on each graph apart; phase 7 for K9; the tri
    join in one row per route: path and triangle at n = 8192, dense at n =
@@ -135,7 +152,10 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    yardstick for it, at the shapes its path gave the kernel (K9: the path's
    own q, k, v of layer 0 of a 4096-token prefill; its bound takes P·V as
    two bf16 tensor-core passes, and its row carries ptxas's register and
-   spill counts from this run's build).
+   spill counts from this run's build; so do K1's and K3's line entries).
+   A call that ends in ``.item()`` is timed against a yardstick that ends
+   in ``.item()`` too; K1 also through its device-tensor entry against
+   bare ``torch.dot``, and its launch alone by CUDA events.
 9. last line: ``{"ok": true, "device": {...}}``.
 
 No phase catches a failure and carries on.
@@ -206,8 +226,11 @@ BITSET_SOURCE = "src/repro_torch/kernels/csrc/bitset.cu"
 FLASHATTN_SOURCE = "src/repro_torch/kernels/csrc/flashattn.cu"
 # every tri join counts in mr.launches ("trijoin", "trijoin_keep"), and a
 # scalar one also in mr.tri_routes by route ("trijoin_path", ...)
-LAUNCH_TABLES = (mr.launches, mr.tri_routes, ksd.launches, kbs.launches,
-                 kfa.launches)
+LAUNCH_TABLES = (mr.launches, mr.tri_routes, mr.join_entries, ksd.launches,
+                 kbs.launches, kfa.launches)
+# the f64 instances of K1 and K3 are checked on factors whose product
+# reaches about 2^33 (beyond the f32 guard's 2^24) against an int64 join
+F64_HI = int(2 ** 16.5)
 # the f64 tensor-core peak (NVIDIA data sheet), for the tri join's
 # triangle route: the same 67 TFLOP/s as f32 outside the tensor cores
 PEAK_F64_TC_OPS_PER_S = 67e12
@@ -475,6 +498,8 @@ def phase_kernel_cases():
                     cases)
             del fs, sl
 
+    vec_and_keep_entry_cases(rng, gen, cases)
+
     # K4 on its three routes.  At n = 8192 the mixes of pair factors
     # (path: chain(5)'s (0,1)+(1,2), and with a vector; triangle: +(0,2),
     # the cycles' mix), each against the route's plain version and the n^3
@@ -605,6 +630,111 @@ def phase_kernel_cases():
          sddmm_random=sddmm_float, flashattn_cases=flash,
          flashattn_max_abs_err=max(c["max_abs_err"] for c in flash))
     torch.cuda.empty_cache()
+
+
+def int64_case(name: str, got, factors, keep, cases: list):
+    """An f64 instance's result against the int64 join of the same factors
+    on the card (exact: every product and sum stays below 2^63)."""
+    prod = factors[0].long()
+    for F in factors[1:]:
+        prod = prod * F.long()
+    if keep is None:
+        want = prod.sum().item()
+    else:
+        eye = torch.eye(prod.shape[0], dtype=torch.bool, device=DEV)
+        want = prod.masked_fill(eye, 0).sum(1 - keep).double()
+    diff = max_abs_diff(got, want)
+    cases.append({"kernel": "f64", "case": f"{name} vs int64 join",
+                  "max_abs_err": diff})
+    if diff != 0:
+        raise AssertionError(f"{name}: f64 instance differs from the int64 "
+                             f"join by {diff!r}")
+
+
+def vec_and_keep_entry_cases(rng, gen, cases: list):
+    """K1's one-launch entry and K3's two entries beyond the square cases:
+    K1 at an odd length (the tail cell), a start 8 bytes off 16 and a
+    stride-2 view (8-byte loads), one CTA (n = 1000) and a grid at its
+    cap (n = 2^22: 256 CTAs, whose last one sums the partials), each
+    twice, so that the second launch finds the ticket counter reset; K3
+    on column-major factors (keep=0 on the strided template, keep=1 on
+    the row entry), an odd row length and a column slice (8-byte loads);
+    the f64 instances of both at n = 8192 with Π max about 2^33 against
+    their f64 plain versions and the int64 join."""
+    for k in (2, 5):
+        hi = max_value(k, 128, 1 << 22)
+        long_ = [int_factor(rng, (1 << 22,), hi) for _ in range(k)]
+        views = {"n=2^22 (grid cap)": long_,
+                 f"n={N - 1} odd": [F[:N - 1] for F in long_],
+                 f"n={N} start 8 bytes off": [F[1:N + 1] for F in long_],
+                 f"n={N} stride 2": [F[:2 * N:2] for F in long_],
+                 "n=1000 (one CTA)": [F[:1000] for F in long_]}
+        for label, fs in views.items():
+            for rep in (1, 2):
+                check_case("cutjoin_vec", f"vec {label} k={k} call {rep}",
+                           lambda: mr.prod_reduce(fs, block=128),
+                           lambda: mr.prod_reduce_plain(fs, block=128),
+                           cases)
+        del long_, views
+    for k in (1, 2, 3):
+        hi = max_value(k, 128)
+        fs = [int_factor(rng, (N, N), hi) for _ in range(k)]
+        cm = [F.T.contiguous().T for F in fs]          # column-major
+        for keep in (0, 1):
+            entry = ("cutjoin_pair_keep_rows" if mr.keep_entry(cm[0], keep)
+                     == "rows" else "cutjoin_pair_keep")
+            for distinct in (True, False):
+                check_case(entry, f"pair keep={keep} column-major k={k} "
+                                  f"distinct={distinct}",
+                           lambda: mr.prod_reduce_keep(cm, keep=keep,
+                                                       distinct=distinct),
+                           lambda: mr.prod_reduce_keep_plain(
+                               cm, keep=keep, distinct=distinct), cases)
+        del cm
+        odd = [F[:, :N - 3] for F in fs]
+        cols = [F[1000:2000, 3:] for F in fs]
+        for keep in (0, 1):
+            check_case("pairjoin_keep", f"pair keep={keep} {N}x{N - 3} "
+                                        f"k={k}",
+                       lambda: mr.prod_reduce_keep(odd, keep=keep),
+                       lambda: mr.prod_reduce_keep_plain(odd, keep=keep),
+                       cases)
+            check_case("pairjoin_keep", f"pair keep={keep} slice "
+                                        f"[1000:2000, 3:] offsets=(1000,3) "
+                                        f"k={k}",
+                       lambda: mr.prod_reduce_keep(cols, keep=keep,
+                                                   offsets=(1000, 3)),
+                       lambda: mr.prod_reduce_keep_plain(
+                           cols, keep=keep, offsets=(1000, 3)), cases)
+        del fs, odd, cols
+    # the f64 instances: the product of two factors reaches 2^33, beyond
+    # what any f32 chunk holds, and the sums stay below 2^53
+    fv = [dev_factor(gen, (N,), F64_HI) for _ in range(2)]
+    for label, fs in ((f"n={N}", fv), (f"n={N - 1} start 8 bytes off",
+                                       [F[1:] for F in fv])):
+        assert mr.exact_block(fs) is None
+        assert mr.exact_f64([F.abs().max().item() for F in fs], len(fs[0]))
+        got = check_case("cutjoin_vec_f64", f"vec f64 {label}",
+                         lambda: mr.prod_reduce(fs, f64=True),
+                         lambda: mr.prod_reduce_f64_plain(fs), cases)
+        int64_case(f"vec f64 {label}", got, fs, None, cases)
+    fk = [dev_factor(gen, (N, N), F64_HI) for _ in range(2)]
+    assert mr.exact_block(fk) is None
+    assert mr.exact_f64([F.abs().max().item() for F in fk], N)
+    for label, fs in (("row-major", fk),
+                      ("column-major", [F.T.contiguous().T for F in fk])):
+        for keep in (0, 1):
+            entry = ("cutjoin_pair_keep_rows_f64"
+                     if mr.keep_entry(fs[0], keep) == "rows"
+                     else "cutjoin_pair_keep_f64")
+            name = f"pair keep={keep} f64 {label} n={N}"
+            got = check_case(entry, name,
+                             lambda: mr.prod_reduce_keep(fs, keep=keep,
+                                                         f64=True),
+                             lambda: mr.prod_reduce_keep_f64_plain(
+                                 fs, keep=keep), cases)
+            int64_case(name, got, fs, keep, cases)
+    del fv, fk
 
 
 def sddmm_cases(gen, cases: list) -> list:
@@ -958,7 +1088,7 @@ def verify_run(run: dict, patterns) -> dict:
     if cp.count(cycle(4)) != c4:
         raise AssertionError(f"{run['label']} cycle(4): "
                              f"{cp.count(cycle(4))!r} != closed form {c4!r}")
-    refused = [j["node"] for j in cp.join_log if j["route"] != "kernel"]
+    refused = check_f64_routes(run["label"], cp, cp.join_log)
     return {"graph": {"generator": run["label"], "n": g.n, "edges": g.m,
                       "max_degree": int(np.max(g.degrees))},
             "counts": counts, "checks": checks, "cycle4_closed_form": c4,
@@ -967,9 +1097,42 @@ def verify_run(run: dict, patterns) -> dict:
             "cut3_join_chosen": any(j["cut"] == 3 for j in cp.join_log),
             "tri_joins": run["tri_joins"],
             "joins_refused_by_guard": refused,
+            "joins_left_to_dense_route": [
+                j["node"] for j in cp.join_log if j["route"] == "dense-f64"],
             "launches": run["launches"], "obs": run["obs"],
             "peak_device_bytes": run["peak_device_bytes"],
             "seconds": run["seconds"]}
+
+
+def check_f64_routes(label: str, cp, joins: list) -> list:
+    """Every join the f32 guard refused took the f64 instance of its kernel
+    where it has one (a |cut| = 1 join, a |cut| = 2 keep join) and
+    ``exact_f64`` admits its factors, computed here from the plan's own
+    factors; every other refusal kept the dense route.  Returns one record
+    per refusal: node, route, cells · Π max|F_i| over 2^53."""
+    out = []
+    for j in joins:
+        if j["guard"] != "scanned" or j["block"] is not None:
+            continue
+        keep = j["keep"] is not None
+        dense = "dense-f64-keep" if keep else "dense-f64"
+        want = dense
+        bound = None
+        if (j["cut"] == 1 and not keep) or \
+                (j["cut"] == 2 and keep and len(j["keep"]) == 1):
+            Ms, _ = cp._join_factors(cp.plan.nodes[j["node"]])
+            maxes = [M.abs().max().item() for M in Ms]
+            cells = Ms[0].shape[0] if not keep else \
+                Ms[0].shape[1 - j["keep"][0]]
+            bound = float(np.prod(maxes)) * cells / 2.0 ** 53
+            if mr.exact_f64(maxes, cells):
+                want = "kernel-keep-f64" if keep else "kernel-f64"
+        if j["route"] != want:
+            raise AssertionError(f"{label} {j['node']}: route {j['route']}, "
+                                 f"want {want}")
+        out.append({"node": j["node"], "route": j["route"],
+                    "bound_over_2_53": bound})
+    return out
 
 
 MAIN_GRAPH = "rmat(13, 24.0, seed=0)"
@@ -1136,6 +1299,32 @@ def local_joins(cp) -> list:
     return [j for j in cp.join_log if j["keep"] is not None]
 
 
+def time_refused_keep_joins(cp, refusals: list) -> list:
+    """Each keep join the f32 guard refused and the f64 instance of K3
+    took, on the plan's own factors: that instance against the dense f64
+    route it replaced (``lowering._join_keep`` on the stacked factors), by
+    CUDA events; both must give the same vector."""
+    out = []
+    for r in refusals:
+        if r["route"] != "kernel-keep-f64":
+            continue
+        node = cp.plan.nodes[r["node"]]
+        Ms, _ = cp._join_factors(node)
+        axis = node.keep[0]
+        kernel = lambda: mr.prod_reduce_keep(  # noqa: E731
+            Ms, keep=axis, f64=True)
+        dense = lambda: lowering._join_keep(  # noqa: E731
+            torch.stack(Ms), axis)
+        if not torch.equal(kernel(), dense()):
+            raise AssertionError(f"{r['node']}: the f64 instance differs "
+                                 f"from the dense route")
+        out.append({"node": r["node"], "keep": axis, "factors": len(Ms),
+                    "shape": list(Ms[0].shape),
+                    "kernel_ms": timed_ms(kernel, 10),
+                    "dense_route_ms": timed_ms(dense, 10)})
+    return out
+
+
 def drive_local(info: dict, patterns) -> dict:
     """The partial-embedding path on one graph of phase 3."""
     g, cache, apct = info["g"], info["cache"], info["apct"]
@@ -1173,6 +1362,7 @@ def drive_local(info: dict, patterns) -> dict:
     t0 = time.perf_counter()
     against = check_dense_route(cp, g, patterns, got["anchored"])
     dense_s = time.perf_counter() - t0
+    refusals = check_f64_routes(info["label"], cp, local_joins(cp))
     # MINI domains: a second union recompile, same engine
     t0 = time.perf_counter()
     cpd = compiler.compile(patterns, g, cache=cache, apct=apct,
@@ -1205,6 +1395,7 @@ def drive_local(info: dict, patterns) -> dict:
                        for j in joins if len(j["keep"]) < j["cut"]],
         "keep_joins_left_to_dense_route": [
             j["node"] for j in joins if j["route"] == "dense-f64-keep"],
+        "keep_joins_refused_by_guard": refusals,
         "triangles_via_fused_kernel": triangles,
         "anchored_checked_against": against,
         "unanchored_cut2_tensor": got["unanchored"],
@@ -1217,7 +1408,9 @@ def drive_local(info: dict, patterns) -> dict:
                     "reads": round(reads_s, 3),
                     "dense_route_check": round(dense_s, 3),
                     "compile_domains_and_reads": round(domains_s, 3)}}
-    del cp, cpd, got
+    if any(r["route"] == "kernel-keep-f64" for r in refusals):
+        report["_plan"] = cp         # for time_refused_keep_joins, after
+    del cp, cpd, got                 # the phase has read its launch counts
     torch.cuda.empty_cache()
     report["free_bytes_before"] = free_before
     report["free_bytes_after"] = torch.cuda.mem_get_info()[0]
@@ -1271,10 +1464,24 @@ def phase_local_path(main: dict) -> dict:
     reports = [drive_local(info, patterns) for info in main["graphs"]]
     coverage = drive_keep3_coverage()
     launches = launch_counts()               # ... and are read here
-    for kernel in ("pairjoin_keep", "trijoin_keep", "matreduce"):
+    for kernel in ("pairjoin_keep", "trijoin_keep", "matreduce",
+                   "cutjoin_pair_keep_rows"):
         if launches[kernel] < 1:
             raise AssertionError(f"the local path launched no {kernel}")
     by_role = {r["role"]: r["launches"] for r in reports}
+    main_keep = by_role["main"]
+    if main_keep["cutjoin_pair_keep_rows_f64"] + \
+            main_keep["cutjoin_pair_keep_f64"] < 1:
+        raise AssertionError(f"{MAIN_GRAPH}: no keep join took the f64 "
+                             f"instance of K3")
+    # the refused keep joins on both routes, after the counts were read:
+    # these launches are a measurement, not the path
+    for r in reports:
+        cp = r.pop("_plan", None)
+        r["refused_keep_joins_timed"] = cp and time_refused_keep_joins(
+            cp, r["keep_joins_refused_by_guard"])
+        del cp
+    torch.cuda.empty_cache()
     by_role["coverage-keep3"] = coverage["launches"]
     emit("local_path", patterns=len(patterns), launches=launches,
          graphs=reports, keep3_coverage=coverage)
@@ -1864,7 +2071,13 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
             if max_abs_diff(library(), got) != 0:
                 raise AssertionError(f"{name}: yardstick differs from the "
                                      f"kernel")
-            library_ms = timed_ms(library, reps)
+            if isinstance(got, float):
+                # the call ends in .item() (a host sync): so does the
+                # yardstick's, like with like
+                timed_library = lambda: library().item()  # noqa: E731
+            else:
+                timed_library = library
+            library_ms = timed_ms(timed_library, reps)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = nops / peak_ops * 1e3
         by_graph = {f"launches_{role.replace('-', '_')}_graph": n[kernel]
@@ -1878,15 +2091,59 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
                     "library_ms": library_ms, "block": block,
                     "bytes": nbytes, "operations": nops, **more})
 
-    # K1: Σ_x F1[x] F2[x]
+    cj_ptxas = ptxas_counts(kbuild.build_logs.get("cutjoin", ""),
+                            _cutjoin_label)
+
+    def ptxas_of(kernel: str, f64: bool):
+        """ptxas's counts for the instances of ``kernel`` this row runs
+        (two factors, f32 or f64), and the instance of ``kernel`` with
+        the most spill bytes, then registers."""
+        tag = "f64" if f64 else "f32"
+        mine = [e for e in cj_ptxas if e["kernel"].startswith(kernel + "<2,")
+                and f", {tag}," in e["kernel"]]
+        every = [e for e in cj_ptxas if e["kernel"].startswith(kernel + "<")]
+        worst = max(every, default=None, key=lambda e: (
+            e.get("spill_store_bytes", 0), e.get("registers_at_entry", 0)))
+        return {"ptxas": mine, "ptxas_worst_instance": worst}
+
+    # K1: Σ_x F1[x] F2[x], the call (ending in .item()) against
+    # torch.dot(...).item(); beside it the device-tensor entry against bare
+    # torch.dot, and the launch alone (the ctypes call, CUDA events around
+    # it, no wrapper)
     b = granted.get(1, 128)
     fs = [int_factor(rng, (N,), max_value(2, b)) for _ in range(2)]
-    blocks1 = -(-N // 256)
-    entry("cutjoin_vec", "vecjoin", "src/repro/kernels/matreduce.py:195", b,
-          lambda: mr.prod_reduce(fs, block=b),
-          lambda: mr.prod_reduce_plain(fs, block=b),
-          lambda: torch.dot(fs[0], fs[1]), 200,
-          2 * N * 8 + blocks1 * 8, 2 * N)
+    fs64 = [int_factor(rng, (N,), F64_HI) for _ in range(2)]
+    for kernel, f64, fv, blk in (("cutjoin_vec", False, fs, b),
+                                 ("cutjoin_vec_f64", True, fs64, 1)):
+        stream = torch.cuda.current_stream().cuda_stream
+        scratch, slot, _ = mr._vec_scratch(fv[0].device, stream)
+        table = mr._TABLES[2](*[F.data_ptr() for F in fv], 1, 0, 1, 0)
+        launch1 = lambda: mr._lib().cutjoin_vec(  # noqa: E731
+            table, 2, N, blk, int(f64), scratch, slot, stream)
+        extra = {}
+        if f64:
+            extra["int64_join"] = (fv[0].long() * fv[1].long()).sum().item()
+            if mr.prod_reduce(fv, f64=True) != extra["int64_join"]:
+                raise AssertionError("cutjoin_vec_f64 differs from the "
+                                     "int64 join")
+        entry(kernel, kernel, "src/repro/kernels/matreduce.py:195", blk,
+              lambda: mr.prod_reduce(fv, block=blk, f64=f64),
+              (lambda: mr.prod_reduce_f64_plain(fv)) if f64
+              else (lambda: mr.prod_reduce_plain(fv, block=blk)),
+              lambda: torch.dot(fv[0], fv[1]), 200, 2 * N * 8 + 8, 2 * N,
+              arithmetic="f64" if f64 else "f32",
+              ms_tiles=timed_ms(lambda: mr.prod_reduce_tiles(
+                  fv, block=blk, f64=f64), 200),
+              ms_launch=timed_ms(launch1, 200),
+              library_ms_tiles=timed_ms(lambda: torch.dot(fv[0], fv[1]),
+                                        200),
+              **ptxas_of("vec_kernel", f64), **extra,
+              timed="ms: prod_reduce (one launch + .item()); ms_tiles: "
+                    "prod_reduce_tiles (device tensor); ms_launch: the "
+                    "ctypes launch alone",
+              yardstick="library_ms: torch.dot(F1, F2).item(); "
+                        "library_ms_tiles: torch.dot(F1, F2)")
+    del fs, fs64
     # K2: Σ_{x≠y} F1[x,y] F2[x,y]
     b = granted.get(2, 128)
     fs2 = [int_factor(rng, (N, N), max_value(2, b)) for _ in range(2)]
@@ -1897,20 +2154,47 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
           lambda: (fs2[0] * fs2[1]).masked_fill(eye, 0).sum(), 20,
           2 * N * N * 8, 2 * N * N)
     del fs2
-    # K3 as the anchored |cut| = 2 reads call it, keep=0 (most of them):
-    # out[x] = Σ_{y≠x} F1[x,y] F2[x,y]; one read of both factors
+    # K3 as the anchored |cut| = 2 reads call it, on row-major factors:
+    # keep=0 (most of them) takes the row entry, keep=1 the strided
+    # template; out[x] = Σ_{y≠x} F1[x,y] F2[x,y]; one read of both
+    # factors.  The keep=0 row also times the strided template that took
+    # keep=0 before the row entry existed (partials, then .sum(0)).
     b = granted_keep.get(2, 128)
     fsk = [int_factor(rng, (N, N), max_value(2, b)) for _ in range(2)]
-    entry("cutjoin_pair_keep", "pairjoin_keep",
-          "src/repro/kernels/matreduce.py:231", b,
-          lambda: mr.prod_reduce_keep(fsk, keep=0, block=b),
-          lambda: mr.prod_reduce_keep_plain(fsk, keep=0, block=b),
-          lambda: (fsk[0] * fsk[1]).masked_fill(eye, 0).sum(1), 20,
-          2 * N * N * 8 + N * 8, 2 * N * N, path=local, keep=0,
-          ms_keep1=timed_ms(
-              lambda: mr.prod_reduce_keep(fsk, keep=1, block=b), 20),
-          yardstick="(F1*F2).masked_fill(eye, 0).sum(1), f64")
-    del fsk
+    fsk64 = [int_factor(rng, (N, N), F64_HI) for _ in range(2)]
+    for kernel, f64, fv, blk, keep in (
+            ("cutjoin_pair_keep_rows", False, fsk, b, 0),
+            ("cutjoin_pair_keep", False, fsk, b, 1),
+            ("cutjoin_pair_keep_rows_f64", True, fsk64, 1, 0),
+            ("cutjoin_pair_keep_f64", True, fsk64, 1, 1)):
+        assert (mr.keep_entry(fv[0], keep) == "rows") == ("rows" in kernel)
+        extra = {}
+        if keep == 0:
+            extra["ms_keep1"] = timed_ms(lambda: mr.prod_reduce_keep(
+                fv, keep=1, block=blk, f64=f64), 20)
+            extra.update(ptxas_of("keep_rows_kernel", f64))
+        if kernel == "cutjoin_pair_keep_rows":
+            extra["ms_old_template"] = timed_ms(lambda: mr._launch(
+                "pairjoin_keep", [(F, (2, 1)) for F in fv], (1, N, N), True,
+                (0, 0, 0), blk).sum(0), 20)
+        if f64:
+            want = (fv[0].long() * fv[1].long()).masked_fill(eye, 0) \
+                .sum(1 - keep)
+            if not torch.equal(mr.prod_reduce_keep(fv, keep=keep, f64=True),
+                               want.double()):
+                raise AssertionError(f"{kernel} differs from the int64 join")
+            extra["int64_join"] = "equal"
+        entry(kernel, kernel, "src/repro/kernels/matreduce.py:231", blk,
+              lambda: mr.prod_reduce_keep(fv, keep=keep, block=blk,
+                                          f64=f64),
+              (lambda: mr.prod_reduce_keep_f64_plain(fv, keep=keep)) if f64
+              else (lambda: mr.prod_reduce_keep_plain(fv, keep=keep,
+                                                      block=blk)),
+              lambda: (fv[0] * fv[1]).masked_fill(eye, 0).sum(1 - keep), 20,
+              2 * N * N * 8 + N * 8, 2 * N * N, path=local, keep=keep,
+              arithmetic="f64" if f64 else "f32", **extra,
+              yardstick=f"(F1*F2).masked_fill(eye, 0).sum({1 - keep}), f64")
+    del fsk, fsk64
     tri_rows(entry, granted.get(3, 128), granted_keep.get(3, 128), rng, eye,
              local)
     # K6 as the use_pallas Intersect route calls it, on the R-MAT
@@ -1999,6 +2283,21 @@ def ptxas_counts(log: str, label) -> list:
                 current["registers_at_entry"] = int(regs[1])
                 current = None
     return out
+
+
+def _cutjoin_label(mangled: str):
+    """vec_kernel<NF, f32|f64, v2|v1> and keep_rows_kernel<NF, f32|f64,
+    mask|nomask, v2|v1> by their template arguments (NF 0: any count)."""
+    m = re.search(r"(vec_kernel|keep_rows_kernel)ILi(\d+)E((?:Lb[01]E)+)E",
+                  mangled)
+    if not m:
+        return None
+    flags = re.findall(r"Lb([01])E", m[3])
+    names = [("f32", "f64")] + ([("nomask", "mask")]
+                                if m[1] == "keep_rows_kernel" else []) + \
+        [("v1", "v2")]
+    args = [m[2]] + [pair[int(f)] for pair, f in zip(names, flags)]
+    return f"{m[1]}<{', '.join(args)}>"
 
 
 def _flash_label(mangled: str):

@@ -23,16 +23,24 @@ device and evaluates nodes on demand with per-node memoisation:
                     (``cutjoin_exact_block``) fed by per-factor max
                     magnitudes cached on the plan: integer counts are
                     only routed to f32 chunks the bound proves exact.
-                    The dense f64 ``_join_reduce`` (dense factor stack x
-                    explicit mask, axis-subset factors broadcast dense)
-                    remains the counted route for wider cuts /
-                    over-bound magnitudes / ``cutjoin_kernel=False``;
+                    On the card, a |cut| = 1 join the guard refuses
+                    takes the vector kernel's f64 instance where
+                    ``cutjoin_exact_f64`` admits it (route
+                    ``kernel-f64``).  The dense f64 ``_join_reduce``
+                    (dense factor stack x explicit mask, axis-subset
+                    factors broadcast dense) remains the counted route
+                    for wider cuts / over-bound magnitudes /
+                    ``cutjoin_kernel=False``;
 * ``LocalCount`` -> the same join without the final reduce (the
                     partial-embedding reads): a reduce-free tensor is the
                     dense factor product; one kept cut axis takes the
                     keep-axis kernels (``cutjoin_reduce_keep`` /
-                    ``cutjoin_reduce3_keep``) under the same guard, else
-                    the dense f64 ``_join_keep`` / ``_join_keep3``;
+                    ``cutjoin_reduce3_keep``) under the same guard; on
+                    the card a |cut| = 2 one the guard refuses takes the
+                    keep kernel's f64 instance where
+                    ``cutjoin_exact_f64`` admits it (route
+                    ``kernel-keep-f64``); else the dense f64
+                    ``_join_keep`` / ``_join_keep3``;
 * the combine ops run on host scalars, or on device tensors for
   vector-valued nodes.
 
@@ -323,20 +331,31 @@ class CompiledPlan:
         return self._precert
 
     def _guard_block(self, node, Ms, axes):
-        """The ``exact_block`` guard for one join: (block, how).
+        """The ``exact_block`` guard for one join: (block, how, maxes).
         Precertified nodes trust the static certificate — no factor
-        scan and no device→host transfer; everything else reduces each
-        factor's max magnitude on the device and moves them together."""
+        scan and no device→host transfer (``maxes`` None); everything
+        else reduces each factor's max magnitude on the device and moves
+        them together."""
         from repro_torch.kernels import ops
         static = self._precertified().get(node.key)
         if static is not None:
             block = ops.runtime_block(static)
             obs.counter("kernel.exact_block", outcome="precertified")
-            return block, "precertified"
+            return block, "precertified", None
         maxes = torch.stack([self._factor_max(terms, len(ax), M)
                              for terms, M, ax in zip(node.factors, Ms, axes)]
                             ).tolist()
-        return ops.cutjoin_exact_block(Ms, maxes=maxes), "scanned"
+        return ops.cutjoin_exact_block(Ms, maxes=maxes), "scanned", maxes
+
+    @staticmethod
+    def _f64_admits(Ms, maxes, cells: int) -> bool:
+        """A join the f32 guard refused may take the f64 instance of its
+        kernel: on the card only (on the CPU every route stays the
+        reference's), and where ``cutjoin_exact_f64`` admits its
+        factors over ``cells`` reduced cells."""
+        from repro_torch.kernels import ops
+        return Ms[0].is_cuda and maxes is not None and \
+            ops.cutjoin_exact_f64(maxes, cells)
 
     def _dense_expand(self, Ms, axes, k: int):
         """Broadcast axis-subset factors to the full (n,)*k cut grid —
@@ -370,7 +389,7 @@ class CompiledPlan:
         self.join_log.append(rec)
         if self.cutjoin_kernel and node.cut_size <= 3:
             from repro_torch.kernels import ops
-            block, how = self._guard_block(node, Ms, axes)
+            block, how, maxes = self._guard_block(node, Ms, axes)
             rec.update(block=block, guard=how)
             if block is not None:            # f32 chunks provably exact
                 rec["route"] = "kernel"
@@ -380,6 +399,11 @@ class CompiledPlan:
                                               block=block)
                 return ops.cutjoin_reduce3(Ms, axes, n=self.graph.n,
                                            block=block)
+            if node.cut_size == 1 and \
+                    self._f64_admits(Ms, maxes, Ms[0].shape[0]):
+                rec["route"] = "kernel-f64"
+                obs.counter("cutjoin.kernel_f64", cut=1)
+                return ops.cutjoin_reduce_f64(Ms)
             # factor magnitudes exceed what chunked f32 can represent
             # exactly: fall through to the f64 dense join
             obs.counter("cutjoin.kernel_fallbacks", cut=node.cut_size)
@@ -420,7 +444,7 @@ class CompiledPlan:
         rec["route"] = "dense-f64-keep"
         if self.cutjoin_kernel:
             from repro_torch.kernels import ops
-            block, how = self._guard_block(node, Ms, axes)
+            block, how, maxes = self._guard_block(node, Ms, axes)
             rec.update(block=block, guard=how)
             if block is not None:            # f32 chunks provably exact
                 rec["route"] = "kernel-keep"
@@ -431,6 +455,11 @@ class CompiledPlan:
                     out = ops.cutjoin_reduce3_keep(Ms, axes, keep=axis,
                                                    n=self.graph.n,
                                                    block=block)
+            elif node.cut_size == 2 and \
+                    self._f64_admits(Ms, maxes, Ms[0].shape[1 - axis]):
+                rec["route"] = "kernel-keep-f64"
+                obs.counter("cutjoin.kernel_f64", cut=2, keep=True)
+                out = ops.cutjoin_reduce_keep_f64(Ms, keep=axis)
             else:
                 obs.counter("cutjoin.kernel_fallbacks", cut=node.cut_size,
                             keep=True)

@@ -8,52 +8,81 @@
 //
 // and their keep forms, which leave one cut axis as the output vector:
 //
-//   cutjoin_pair_keep  out[w] = Σ_{v != w} Π_i F_i           (|cut| = 2)
-//   cutjoin_tri_keep   out[w] = Σ over the other two axes     (|cut| = 3)
+//   cutjoin_pair_keep_rows  out[w] = Σ_{v != w} Π_i F_i      (|cut| = 2,
+//                           the reduced axis has unit stride)
+//   cutjoin_pair_keep       the same, any strides              (|cut| = 2)
+//   cutjoin_tri_keep        out[w] = Σ over the other two axes (|cut| = 3)
 //
 // They replace the reference package's TPU kernels _vecjoin_kernel,
 // _pairjoin_kernel, _pairjoin_keep_kernel and _trijoin_kernel (also run
-// by tri_reduce_keep) in src/repro/kernels/matreduce.py.  All are one
-// kernel template over "k factors, three index axes, per-factor strides
-// (0 on an axis the factor does not span), per-axis global offsets"; the
-// vector and pair tiers leave the leading axes at size 1.  In a keep form
-// the kept cut axis is kernel axis 2, the thread axis: the wrapper puts
-// it there by permuting the strides it passes (nothing is transposed or
-// copied), and every thread writes its own f64 row partial instead of
-// joining the block reduction.
+// by tri_reduce_keep) in src/repro/kernels/matreduce.py.
 //
-// Arithmetic contract (what the exact_block guard certifies): factors are
-// integer-valued f64.  Each value is converted to f32 in registers, the
-// product is taken in f32, and an f32 partial sum accumulates at most
-// `block` cells before it is folded into an f64 register.  `block` is a
-// loop bound here, not a tile shape.  Every thread block reduces its f64
-// registers by a fixed tree and writes ONE f64 into `partials`; the caller
-// sums that buffer.  In a keep form each thread writes its f64 register to
-// partials[(blockIdx.z * gridDim.y + blockIdx.y) * n2 + i2] and the caller
-// sums dim 0 of that (gz * gy, n2) buffer.  The f32 partial folds the same
-// <= `block` cells either way, so exact_block certifies both forms alike.
-// No atomics: two runs give the same bits.
+// Arithmetic contract.  Factors are integer-valued f64.  Two instances:
+//   f32 (what the exact_block guard certifies): each value is converted
+//     to f32 in registers, the product is taken in f32, and an f32 partial
+//     sum accumulates at most `block` cells before it is folded into an
+//     f64 register.  `block` is a loop bound here, not a tile shape;
+//     exact while Π max|F_i| · block <= 2^24.
+//   f64 (cutjoin_vec and the pair keep forms, with f64 = 1): products and
+//     sums in f64, no chunks; exact while cells · Π max|F_i| <= 2^53, where
+//     cells is the reduced length (n for cutjoin_vec, the reduced axis for
+//     a keep form) — what exact_f64 in kernels/matreduce.py checks.  The
+//     joins are bound by the bytes of their f64 factors, so the f64
+//     instance moves the same bytes as the f32 one.
+// Every sum is taken in a fixed order and nothing is summed by atomics:
+// two runs give the same bits.
 //
-// What bounds it on this card: the vector and pair tiers read every factor
-// cell once (8 bytes) and do a handful of operations on it, so they are
-// bound by memory bytes; the design gives every thread one column, so a
-// warp reads 256 contiguous bytes per row, and splits the rows over
-// gridDim.z so that the grid fills the card.  The scalar tri tier here is
-// the tri join's dense route only: a factor spans all three cut axes, so
-// the n^3 cells are read once from n^3 bytes and the route is bound by
-// bytes (kernels/matreduce.py sends the scalar join's mixes of pairs and
-// vectors to trijoin.cu: the path route, an O(n^2) function bound by the
-// bytes of its factors, and the triangle route, a matrix product bound by
-// f64 tensor-core operations).  The tri keep form takes every mix here;
-// on a mix without a factor over all three axes it walks n^3 cells of
-// O(n^2) bytes and is bound by f32 operations.  The design loads the
-// factors that do not span axis 0 once per (y, z) and reuses them for TX
-// rows of x, hoists the factors that span axis 0 but not the chunk axis
-// (and the x-against-z part of the mask) out of the loop, and walks the
-// remaining factors with register pointers that step by a stride.
-// A keep form whose kept axis is a row axis of its factors reads them
-// uncoalesced (neighbouring threads walk neighbouring rows); that is left
-// as it is, with its time written down.
+// cutjoin_vec: one launch to the final value.  Each thread walks the
+// vectors with a grid stride (16-byte double2 loads when every factor has
+// unit stride and a 16-byte aligned start), each CTA reduces its threads
+// by a fixed tree and writes one partial to a scratch buffer, and the last
+// CTA to arrive (a __threadfence, then an atomic ticket on a counter at the
+// head of that buffer) sums the partials in index order, writes the one
+// f64 result and resets the counter for the next launch.  The wrapper
+// keeps one zeroed scratch buffer per device and stream.
+//
+// cutjoin_pair_keep_rows: one warp per kept row.  Its lanes walk the row
+// along its unit stride, 16-byte double2 loads where every factor's start
+// and row stride allow it, else 8-byte loads; each lane folds its cells as
+// the contract says, the warp adds its lanes by a fixed shuffle tree, and
+// lane 0 writes out[row]: one launch, no partials.  The wrapper takes this
+// entry when the reduced axis has unit stride in the lead factor (keep=0
+// on row-major factors, the anchored reads' case).
+//
+// The other entries are one template over "k factors, three index axes,
+// per-factor strides (0 on an axis the factor does not span), per-axis
+// global offsets"; the pair tier leaves axis 0 at size 1.  In a keep form
+// the kept cut axis is kernel axis 2, the thread axis: the wrapper puts it
+// there by permuting the strides it passes, and every thread writes its
+// own f64 row partial to partials[(blockIdx.z * gridDim.y + blockIdx.y)
+// * n2 + i2] instead of joining the block reduction; the caller sums dim 0
+// of that (gz * gy, n2) buffer.  Otherwise every thread block reduces its
+// f64 registers by a fixed tree and writes ONE f64 into `partials`; the
+// caller sums that buffer.  The f32 partial folds the same <= `block`
+// cells either way, so exact_block certifies every form alike.
+//
+// What bounds them on this card: the vector and pair tiers read every
+// factor cell once (8 bytes) and do a handful of operations on it, so they
+// are bound by memory bytes.  The template gives every thread one column,
+// so a warp reads 256 contiguous bytes per row, and splits the rows over
+// gridDim.z so that the grid fills the card; a keep form whose kept axis
+// has unit stride (keep=1 on row-major factors) reads coalesced there.
+// The scalar tri tier here is the tri join's dense route only: a factor
+// spans all three cut axes, so the n^3 cells are read once from n^3 bytes
+// and the route is bound by bytes (kernels/matreduce.py sends the scalar
+// join's mixes of pairs and vectors to trijoin.cu: the path route, an
+// O(n^2) function bound by the bytes of its factors, and the triangle
+// route, a matrix product bound by f64 tensor-core operations).  The tri
+// keep form takes every mix here; on a mix without a factor over all three
+// axes it walks n^3 cells of O(n^2) bytes and is bound by f32 operations.
+// The design loads the factors that do not span axis 0 once per (y, z) and
+// reuses them for TX rows of x, hoists the factors that span axis 0 but not
+// the chunk axis (and the x-against-z part of the mask) out of the loop,
+// and walks the remaining factors with register pointers that step by a
+// stride.  The tri keep form's kept axis is a row axis of its 3-D factors:
+// neighbouring threads walk neighbouring rows, uncoalesced (its time is in
+// PERF.md; a warp per kept row, as cutjoin_pair_keep_rows does, is the
+// remedy).
 //
 // Ragged edges are masked here; nothing is padded and nothing is
 // allocated.  Launches go to the stream the caller passes and never
@@ -63,6 +92,210 @@
 
 #define MAXF 8        // factor-table capacity; the wrapper folds surplus factors
 #define THREADS 256
+#define WARPS (THREADS / 32)
+#define VEC_MAX_GRID 256    // CTAs of cutjoin_vec at most (partials in scratch)
+#define VEC_CELLS 8         // cells per thread cutjoin_vec aims at
+#define UNROLL 4            // double2 steps a thread loads before it folds
+
+// the product type of each arithmetic
+template <bool F64> struct Arith { typedef float T; };
+template <> struct Arith<true> { typedef double T; };
+
+// One thread's sum under the arithmetic contract: f64 straight, or f32
+// partials of at most `block` cells folded into f64.
+template <bool F64>
+struct Fold {
+    typedef typename Arith<F64>::T T;
+    double a64 = 0.0;
+    float a32 = 0.0f;
+    int left, block;
+    __device__ explicit Fold(int b) : left(b), block(b) {}
+    __device__ __forceinline__ void add(T p)
+    {
+        if constexpr (F64) {
+            a64 += p;
+        } else {
+            a32 += p;
+            if (--left == 0) {
+                a64 += (double)a32;
+                a32 = 0.0f;
+                left = block;
+            }
+        }
+    }
+    __device__ __forceinline__ double total() const
+    {
+        return F64 ? a64 : a64 + (double)a32;
+    }
+};
+
+__device__ __forceinline__ double warp_sum(double v)
+{
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
+    return v;
+}
+
+// Fixed-tree block sum: shuffles within a warp, then thread 0 adds the warp
+// sums in order.  The result is valid in thread 0 only.
+__device__ __forceinline__ double block_sum(double v)
+{
+    __shared__ double warp_total[WARPS];
+    v = warp_sum(v);
+    if ((threadIdx.x & 31) == 0) warp_total[threadIdx.x >> 5] = v;
+    __syncthreads();
+    double total = 0.0;
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) total += warp_total[w];
+    }
+    return total;
+}
+
+// -- one strided line: cutjoin_vec and cutjoin_pair_keep_rows ---------------------
+
+struct LineTable {
+    const double* ptr[MAXF];   // start of the line per factor
+    long long step[MAXF];      // element stride along the line
+    long long lead[MAXF];      // element stride between lines (rows entry)
+    int nf;
+};
+
+// Fold Π_f F_f[j] into `acc` for the cells j = first, first + stride, ...
+// < n of one line (base[f] its start in factor f, step[f] its stride);
+// the cell j == skip (the mask's diagonal, -1 for none) adds 0.  NF > 0:
+// the factor count at compile time; NF == 0: any count, read per cell.
+// V2: unit steps and 16-byte aligned starts, the cells taken in pairs by
+// one double2 load per factor, UNROLL pairs loaded before any is folded;
+// the odd last cell goes to the thread whose first cell is 0.
+template <int NF, bool F64, bool V2>
+__device__ __forceinline__ void walk_line(const double* const* base,
+                                          const long long* step, int nf,
+                                          long long n, long long first,
+                                          long long stride, long long skip,
+                                          Fold<F64>& acc)
+{
+    typedef typename Arith<F64>::T T;
+    const int nfr = NF > 0 ? NF : nf;
+    if constexpr (V2) {
+        const long long pairs = n >> 1;
+        for (long long q0 = first; q0 < pairs; q0 += UNROLL * stride) {
+            T lo[UNROLL], hi[UNROLL];
+#pragma unroll
+            for (int u = 0; u < UNROLL; ++u) {
+                const long long q = q0 + u * stride;
+                lo[u] = T(0);
+                hi[u] = T(0);
+                if (q < pairs) {
+                    const double2 v0 =
+                        __ldg(reinterpret_cast<const double2*>(base[0]) + q);
+                    lo[u] = (T)v0.x;
+                    hi[u] = (T)v0.y;
+#pragma unroll
+                    for (int f = 1; f < (NF > 0 ? NF : MAXF); ++f) {
+                        if (NF == 0 && f >= nfr) break;
+                        const double2 v = __ldg(
+                            reinterpret_cast<const double2*>(base[f]) + q);
+                        lo[u] *= (T)v.x;
+                        hi[u] *= (T)v.y;
+                    }
+                    if (2 * q == skip) lo[u] = T(0);
+                    if (2 * q + 1 == skip) hi[u] = T(0);
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < UNROLL; ++u) {
+                if (q0 + u * stride < pairs) {
+                    acc.add(lo[u]);
+                    acc.add(hi[u]);
+                }
+            }
+        }
+        if ((n & 1) && first == 0) {
+            const long long j = n - 1;
+            T p = (T)__ldg(base[0] + j);
+#pragma unroll
+            for (int f = 1; f < (NF > 0 ? NF : MAXF); ++f) {
+                if (NF == 0 && f >= nfr) break;
+                p *= (T)__ldg(base[f] + j);
+            }
+            acc.add(j == skip ? T(0) : p);
+        }
+    } else {
+        for (long long j = first; j < n; j += stride) {
+            T p = (T)__ldg(base[0] + j * step[0]);
+#pragma unroll
+            for (int f = 1; f < (NF > 0 ? NF : MAXF); ++f) {
+                if (NF == 0 && f >= nfr) break;
+                p *= (T)__ldg(base[f] + j * step[f]);
+            }
+            acc.add(j == skip ? T(0) : p);
+        }
+    }
+}
+
+template <int NF, bool F64, bool V2>
+__global__ void __launch_bounds__(THREADS)
+vec_kernel(LineTable T, long long n, int block, double* __restrict__ scratch,
+           double* __restrict__ out)
+{
+    const double* base[MAXF];
+    long long step[MAXF];
+#pragma unroll
+    for (int f = 0; f < MAXF; ++f) {
+        base[f] = T.ptr[f];
+        step[f] = T.step[f];
+    }
+    Fold<F64> acc(block);
+    walk_line<NF, F64, V2>(base, step, T.nf, n,
+                           (long long)blockIdx.x * THREADS + threadIdx.x,
+                           (long long)gridDim.x * THREADS, -1, acc);
+    const double part = block_sum(acc.total());
+    if (threadIdx.x != 0) return;
+    if (gridDim.x == 1) {
+        out[0] = part;
+        return;
+    }
+    // scratch: an unsigned counter in the first double, then one partial
+    // per CTA; the last CTA to take a ticket finishes the sum
+    unsigned* ticket = reinterpret_cast<unsigned*>(scratch);
+    double* partials = scratch + 1;
+    partials[blockIdx.x] = part;
+    __threadfence();
+    if (atomicAdd(ticket, 1u) == gridDim.x - 1) {
+        __threadfence();
+        double total = 0.0;
+        for (unsigned b = 0; b < gridDim.x; ++b) total += __ldcg(partials + b);
+        out[0] = total;
+        *ticket = 0u;                   // ready for the next launch
+    }
+}
+
+// One warp per kept row: out[row] = Σ_j [g_row != g_j] Π_f F_f[row, j].
+template <int NF, bool F64, bool MASK, bool V2>
+__global__ void __launch_bounds__(THREADS)
+keep_rows_kernel(LineTable T, int m, int n, int block, int off_keep,
+                 int off_red, double* __restrict__ out)
+{
+    const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= m) return;              // the whole warp leaves together
+    const double* base[MAXF];
+    long long step[MAXF];
+#pragma unroll
+    for (int f = 0; f < MAXF; ++f) {
+        base[f] = T.ptr[f] + (long long)row * T.lead[f];
+        step[f] = T.step[f];
+    }
+    // the reduced index whose global vertex is the row's
+    const long long skip = MASK ? (long long)row + off_keep - off_red : -1;
+    Fold<F64> acc(block);
+    walk_line<NF, F64, V2>(base, step, T.nf, n, lane, 32, skip, acc);
+    const double v = warp_sum(acc.total());
+    if (lane == 0) out[row] = v;
+}
+
+// -- the strided template: cutjoin_pair, cutjoin_tri and their keep forms --------
 
 struct FactorTable {
     const double* ptr[MAXF];
@@ -78,12 +311,13 @@ struct FactorTable {
 // pointers live in registers and step by a stride per cell instead of being
 // recomputed from three 64-bit products; NB < 0: any count, read from the
 // table per cell.  KEEP: write one f64 per thread (the kept axis is axis 2)
-// instead of one per thread block.
-template <int TX, int MASK, int NB, bool KEEP>
+// instead of one per thread block.  F64: the f64 instance (no chunks).
+template <int TX, int MASK, int NB, bool KEEP, bool F64>
 __global__ void __launch_bounds__(THREADS)
 cutjoin_kernel(FactorTable T, int n0, int n1, int n2, int span1, int block,
                int off0, int off1, int off2, double* __restrict__ partials)
 {
+    typedef typename Arith<F64>::T R;
     const int i2 = blockIdx.x * THREADS + threadIdx.x;
     const int x0 = blockIdx.y * TX;
     const int nrow = min(TX, n0 - x0);          // rows of axis 0 that exist
@@ -96,15 +330,15 @@ cutjoin_kernel(FactorTable T, int n0, int n1, int n2, int span1, int block,
         const int nab = T.na + T.nb;
         // per row of axis 0: the C factors, and the part of the mask that
         // does not depend on axis 1
-        float hoist[TX];
+        R hoist[TX];
 #pragma unroll
         for (int t = 0; t < TX; ++t) {
-            float h = 1.0f;
+            R h = R(1);
             if (t < nrow) {
                 const int i0 = x0 + t;
                 for (int f = nab; f < T.nf; ++f)
-                    h *= (float)T.ptr[f][i0 * T.s0[f] + i2 * T.s2[f]];
-                if (MASK == 2 && i0 + off0 == g2) h = 0.0f;
+                    h *= (R)T.ptr[f][i0 * T.s0[f] + i2 * T.s2[f]];
+                if (MASK == 2 && i0 + off0 == g2) h = R(0);
             }
             hoist[t] = h;
         }
@@ -122,16 +356,16 @@ cutjoin_kernel(FactorTable T, int n0, int n1, int n2, int span1, int block,
             }
         }
         for (int c = y_begin; c < y_end; c += block) {
-            float acc[TX];
+            R acc[TX];
 #pragma unroll
-            for (int t = 0; t < TX; ++t) acc[t] = 0.0f;
+            for (int t = 0; t < TX; ++t) acc[t] = R(0);
             const int c_end = min(c + block, y_end);
             for (int i1 = c; i1 < c_end; ++i1) {
-                float pin = 1.0f;
+                R pin = R(1);
                 for (int f = 0; f < T.na; ++f)
-                    pin *= (float)T.ptr[f][i1 * T.s1[f] + i2 * T.s2[f]];
+                    pin *= (R)T.ptr[f][i1 * T.s1[f] + i2 * T.s2[f]];
                 const int g1 = i1 + off1;
-                if (MASK != 0 && g1 == g2) pin = 0.0f;
+                if (MASK != 0 && g1 == g2) pin = R(0);
                 const int d01 = g1 - off0 - x0;   // the row t with g0 == g1
                 const double* q[NBR];
                 if (NB > 0) {
@@ -144,21 +378,21 @@ cutjoin_kernel(FactorTable T, int n0, int n1, int n2, int span1, int block,
 #pragma unroll
                 for (int t = 0; t < TX; ++t) {
                     if (t < nrow) {
-                        float p = pin * hoist[t];
+                        R p = pin * hoist[t];
                         if (NB > 0) {
 #pragma unroll
                             for (int f = 0; f < NBR; ++f) {
-                                p *= (float)(*q[f]);
+                                p *= (R)(*q[f]);
                                 q[f] += sb0[f];
                             }
                         } else if (NB < 0) {
                             const int i0 = x0 + t;
                             for (int f = T.na; f < nab; ++f)
-                                p *= (float)T.ptr[f][i0 * T.s0[f]
-                                                     + i1 * T.s1[f]
-                                                     + i2 * T.s2[f]];
+                                p *= (R)T.ptr[f][i0 * T.s0[f]
+                                                 + i1 * T.s1[f]
+                                                 + i2 * T.s2[f]];
                         }
-                        if (MASK == 2 && t == d01) p = 0.0f;
+                        if (MASK == 2 && t == d01) p = R(0);
                         acc[t] += p;
                     }
                 }
@@ -175,21 +409,10 @@ cutjoin_kernel(FactorTable T, int n0, int n1, int n2, int span1, int block,
         return;
     }
 
-    // fixed-tree block reduction: shuffles within a warp, then warp 0 lane 0
-    // adds the warp sums in order
-    __shared__ double warp_sum[THREADS / 32];
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1)
-        acc64 += __shfl_down_sync(0xffffffffu, acc64, d);
-    if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = acc64;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        double total = 0.0;
-#pragma unroll
-        for (int w = 0; w < THREADS / 32; ++w) total += warp_sum[w];
+    const double total = block_sum(acc64);
+    if (threadIdx.x == 0)
         partials[((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x
                  + blockIdx.x] = total;
-    }
 }
 
 static FactorTable make_table(const void* const* ptrs, const long long* strides,
@@ -214,22 +437,22 @@ static FactorTable make_table(const void* const* ptrs, const long long* strides,
 #define TX_FLAT 1
 #define TX_TRI 8
 
-template <int TX, int MASK, int NB, bool KEEP>
+template <int TX, int MASK, int NB, bool KEEP, bool F64>
 static int launch_nb(const FactorTable& T, int n0, int n1, int n2, int span1,
                      int block, int off0, int off1, int off2, void* partials,
                      dim3 grid, void* stream)
 {
-    cutjoin_kernel<TX, MASK, NB, KEEP>
+    cutjoin_kernel<TX, MASK, NB, KEEP, F64>
         <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         T, n0, n1, n2, span1, block, off0, off1, off2, (double*)partials);
     return (int)cudaGetLastError();
 }
 
 #define LAUNCH_NB(NB)                                                         \
-    launch_nb<TX, MASK, NB, KEEP>(T, n0, n1, n2, span1, block, off0, off1,    \
-                                  off2, partials, grid, stream)
+    launch_nb<TX, MASK, NB, KEEP, F64>(T, n0, n1, n2, span1, block, off0,     \
+                                       off1, off2, partials, grid, stream)
 
-template <int TX, int MASK, bool KEEP>
+template <int TX, int MASK, bool KEEP, bool F64 = false>
 static int launch(const void* const* ptrs, const long long* strides, int nf,
                   int na, int nb, int n0, int n1, int n2, int span1, int block,
                   int off0, int off1, int off2, void* partials,
@@ -261,18 +484,116 @@ static int launch(const void* const* ptrs, const long long* strides, int nf,
     ptrs, strides, nf, na, nb, n0, n1, n2, span1, block, off0, off1, off2,    \
     partials, gx, gy, gz, stream
 
+// -- launchers of the line kernels -------------------------------------------------
+
+// table: the nf factors' addresses, then per factor (step along the line,
+// stride between lines), as 64-bit integers (one array from the caller);
+// returns false when the table is out of range
+static bool make_lines(const long long* table, int nf, LineTable& T,
+                       bool& v2)
+{
+    if (nf < 1 || nf > MAXF) return false;
+    const long long* strides = table + nf;
+    v2 = true;
+    for (int f = 0; f < MAXF; ++f) {
+        T.ptr[f] = f < nf ? (const double*)table[f] : nullptr;
+        T.step[f] = f < nf ? strides[2 * f] : 0;
+        T.lead[f] = f < nf ? strides[2 * f + 1] : 0;
+        if (f < nf)
+            v2 = v2 && T.step[f] == 1 && (T.lead[f] & 1) == 0
+                 && ((unsigned long long)T.ptr[f] & 15) == 0;
+    }
+    T.nf = nf;
+    return true;
+}
+
+template <int NF, bool F64, bool V2>
+static int launch_vec(const LineTable& T, long long n, int block, int grid,
+                      void* scratch, void* out, void* stream)
+{
+    vec_kernel<NF, F64, V2><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        T, n, block, (double*)scratch, (double*)out);
+    return (int)cudaGetLastError();
+}
+
+template <bool F64, bool V2>
+static int launch_vec_nf(const LineTable& T, long long n, int block, int grid,
+                         void* scratch, void* out, void* stream)
+{
+    switch (T.nf) {
+        case 1: return launch_vec<1, F64, V2>(T, n, block, grid, scratch, out, stream);
+        case 2: return launch_vec<2, F64, V2>(T, n, block, grid, scratch, out, stream);
+        case 3: return launch_vec<3, F64, V2>(T, n, block, grid, scratch, out, stream);
+        case 4: return launch_vec<4, F64, V2>(T, n, block, grid, scratch, out, stream);
+        default: return launch_vec<0, F64, V2>(T, n, block, grid, scratch, out, stream);
+    }
+}
+
+template <int NF, bool F64, bool MASK, bool V2>
+static int launch_rows(const LineTable& T, int m, int n, int block,
+                       int off_keep, int off_red, void* out, void* stream)
+{
+    const unsigned grid = (unsigned)((m + WARPS - 1) / WARPS);
+    keep_rows_kernel<NF, F64, MASK, V2>
+        <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        T, m, n, block, off_keep, off_red, (double*)out);
+    return (int)cudaGetLastError();
+}
+
+template <bool F64, bool MASK, bool V2>
+static int launch_rows_nf(const LineTable& T, int m, int n, int block,
+                          int off_keep, int off_red, void* out, void* stream)
+{
+    switch (T.nf) {
+        case 1: return launch_rows<1, F64, MASK, V2>(T, m, n, block, off_keep, off_red, out, stream);
+        case 2: return launch_rows<2, F64, MASK, V2>(T, m, n, block, off_keep, off_red, out, stream);
+        case 3: return launch_rows<3, F64, MASK, V2>(T, m, n, block, off_keep, off_red, out, stream);
+        case 4: return launch_rows<4, F64, MASK, V2>(T, m, n, block, off_keep, off_red, out, stream);
+        default: return launch_rows<0, F64, MASK, V2>(T, m, n, block, off_keep, off_red, out, stream);
+    }
+}
+
+template <bool F64>
+static int launch_rows_mask(const LineTable& T, bool v2, int masked, int m,
+                            int n, int block, int off_keep, int off_red,
+                            void* out, void* stream)
+{
+    if (masked)
+        return v2 ? launch_rows_nf<F64, true, true>(T, m, n, block, off_keep, off_red, out, stream)
+                  : launch_rows_nf<F64, true, false>(T, m, n, block, off_keep, off_red, out, stream);
+    return v2 ? launch_rows_nf<F64, false, true>(T, m, n, block, off_keep, off_red, out, stream)
+              : launch_rows_nf<F64, false, false>(T, m, n, block, off_keep, off_red, out, stream);
+}
+
 extern "C" {
 
 int cutjoin_tx_tri() { return TX_TRI; }
 int cutjoin_max_factors() { return MAXF; }
 int cutjoin_threads() { return THREADS; }
+// doubles of the scratch buffer cutjoin_vec takes: its counter, then one
+// partial per CTA
+int cutjoin_vec_scratch() { return 1 + VEC_MAX_GRID; }
 
-// |cut| = 1: n0 = n1 = 1, axis 2 is the cut axis; a single vertex is always
-// injective, so there is no mask.
-int cutjoin_vec(CUTJOIN_ARGS)
+// |cut| = 1: Σ_x Π_f F_f[x] over n cells into out[0], in one launch.
+// table: the factors' addresses, then per factor (element stride, 0);
+// scratch: cutjoin_vec_scratch() doubles, zeroed once by the caller and
+// left zeroed by every launch; f64: the f64 instance (block unused).  A
+// single vertex is always injective, so there is no mask.
+int cutjoin_vec(const long long* table, int nf, long long n, int block,
+                int f64, void* scratch, void* out, void* stream)
 {
-    (void)masked;
-    return launch<TX_FLAT, 0, false>(CUTJOIN_PASS);
+    LineTable T;
+    bool v2;
+    if (!make_lines(table, nf, T, v2) || n < 1 || block < 1)
+        return (int)cudaErrorInvalidValue;
+    const long long want = (n + (long long)THREADS * VEC_CELLS - 1)
+                           / ((long long)THREADS * VEC_CELLS);
+    const int grid = (int)(want < VEC_MAX_GRID ? want : VEC_MAX_GRID);
+    if (f64)
+        return v2 ? launch_vec_nf<true, true>(T, n, block, grid, scratch, out, stream)
+                  : launch_vec_nf<true, false>(T, n, block, grid, scratch, out, stream);
+    return v2 ? launch_vec_nf<false, true>(T, n, block, grid, scratch, out, stream)
+              : launch_vec_nf<false, false>(T, n, block, grid, scratch, out, stream);
 }
 
 // |cut| = 2: n0 = 1, axis 1 is the row (chunk) axis, axis 2 the column axis.
@@ -289,12 +610,37 @@ int cutjoin_tri(CUTJOIN_ARGS)
                   : launch<TX_TRI, 0, false>(CUTJOIN_PASS);
 }
 
-// Keep forms: axis 2 is the kept cut axis; `partials` holds gz * gy * n2
-// doubles.
+// The pair keep form, one warp per kept row: out[r] for r < m over the n
+// cells of the reduced axis.  table: the factors' addresses, then per
+// factor (reduced-axis stride, kept-axis stride); off_keep / off_red: the
+// global offsets of the kept and the reduced axis (the mask compares
+// r + off_keep with j + off_red); out: m doubles; f64: the f64 instance.
+int cutjoin_pair_keep_rows(const long long* table, int nf, int m, int n,
+                           int block, int masked, int off_keep, int off_red,
+                           int f64, void* out, void* stream)
+{
+    LineTable T;
+    bool v2;
+    if (!make_lines(table, nf, T, v2) || m < 1 || n < 1 || block < 1)
+        return (int)cudaErrorInvalidValue;
+    return f64 ? launch_rows_mask<true>(T, v2, masked, m, n, block, off_keep,
+                                        off_red, out, stream)
+               : launch_rows_mask<false>(T, v2, masked, m, n, block, off_keep,
+                                         off_red, out, stream);
+}
+
+// Keep forms of the template: axis 2 is the kept cut axis; `partials` holds
+// gz * gy * n2 doubles.
 int cutjoin_pair_keep(CUTJOIN_ARGS)
 {
     return masked ? launch<TX_FLAT, 1, true>(CUTJOIN_PASS)
                   : launch<TX_FLAT, 0, true>(CUTJOIN_PASS);
+}
+
+int cutjoin_pair_keep_f64(CUTJOIN_ARGS)
+{
+    return masked ? launch<TX_FLAT, 1, true, true>(CUTJOIN_PASS)
+                  : launch<TX_FLAT, 0, true, true>(CUTJOIN_PASS);
 }
 
 int cutjoin_tri_keep(CUTJOIN_ARGS)

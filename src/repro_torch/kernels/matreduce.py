@@ -51,7 +51,11 @@ dense join.  ``block`` is a loop bound, not a tile shape.  The path and
 triangle routes of the tri join multiply and sum in f64 throughout:
 exact while every partial stays below 2^53, which the f64 fold of the
 chunked routes already requires (n^3 · Π_i max|F_i| < 2^53); ``block``
-does not change them.
+does not change them.  ``prod_reduce`` on vectors and ``prod_reduce_keep``
+also have an **f64 instance** (``f64=True``): f64 products and sums, no
+chunks, exact while cells · Π_i max|F_i| <= 2^53 over the reduced length
+(``exact_f64``) — the route the compiler takes on the card for the joins
+``exact_block`` refuses.
 
 **Global index offsets.**  ``offsets`` (one int per cut axis, default
 zeros) is added to the local indices before the injectivity compare, so
@@ -60,19 +64,24 @@ and the mask still compares global cut vertices.
 
 **Tile-level entries.**  ``prod_reduce_tiles`` / ``tri_reduce_tiles``
 return the f64 partials tensor on the factors' device without the final
-sum — a sharded caller sums partials of per-rank slices itself.  The
-keep forms' ``*_keep_tiles`` return (P, n_keep) partials; their sum over
-dim 0 is the output vector.
+sum — a sharded caller sums partials of per-rank slices itself; for
+vectors on the card it is the (1,) result, which one launch finishes.
+The keep forms' ``*_keep_tiles`` return (P, n_keep) partials; their sum
+over dim 0 is the output vector (P = 1 where K3's row entry ran, see
+``keep_entry``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels import build as _build
 
 EXACT_LIMIT = float(1 << 24)                 # f32 exact-integer range
+EXACT_F64_LIMIT = 1 << 53                    # f64 exact-integer range
 
 # kernel launches per tier, counted where the kernel is launched and
 # nowhere else (plain-version calls do not count)
@@ -84,8 +93,14 @@ launches = {"vecjoin": 0, "pairjoin": 0, "trijoin": 0, "pairjoin_keep": 0,
 # takes the dense route alone and counts in ``launches["trijoin_keep"]``)
 tri_routes = {"trijoin_path": 0, "trijoin_triangle": 0, "trijoin_dense": 0}
 
-_ENTRY = {"vecjoin": "cutjoin_vec", "pairjoin": "cutjoin_pair",
-          "trijoin": "cutjoin_tri", "pairjoin_keep": "cutjoin_pair_keep",
+# K1 and K3 launches per C entry and arithmetic; every one also counts in
+# ``launches["vecjoin"]`` or ``launches["pairjoin_keep"]``
+join_entries = {"cutjoin_vec": 0, "cutjoin_vec_f64": 0,
+                "cutjoin_pair_keep_rows": 0, "cutjoin_pair_keep_rows_f64": 0,
+                "cutjoin_pair_keep": 0, "cutjoin_pair_keep_f64": 0}
+
+_ENTRY = {"pairjoin": "cutjoin_pair", "trijoin": "cutjoin_tri",
+          "pairjoin_keep": "cutjoin_pair_keep",
           "trijoin_keep": "cutjoin_tri_keep"}
 _TARGET_BLOCKS = 2048        # thread blocks wanted before axis 1 stops splitting
 _MIN_SPAN = 32               # fewest axis-1 cells one thread block walks
@@ -93,12 +108,12 @@ _PLAIN_SLAB = 1 << 27        # cells per slab of the plain tri version
 
 
 def reset_launches():
-    for table in (launches, tri_routes):
+    for table in (launches, tri_routes, join_entries):
         for k in table:
             table[k] = 0
 
 
-# -- the exactness guard ---------------------------------------------------------
+# -- the exactness guards -----------------------------------------------------------
 
 def exact_block(factors, max_block: int = 1024, min_block: int = 8,
                 maxes=None):
@@ -125,9 +140,27 @@ def exact_block(factors, max_block: int = 1024, min_block: int = 8,
     return None
 
 
+def exact_f64(maxes, cells: int) -> bool:
+    """True iff the f64 instance of the vector join and of the pair keep
+    join (``f64=True``) is exact for integer-valued factors with max
+    magnitudes ``maxes`` over ``cells`` reduced cells (n for a vector
+    join, the reduced axis for a keep join): every product and every
+    partial sum is then an integer of magnitude at most cells · Π_i
+    max|F_i| <= 2^53.  Counted in integers, so the edge is exact."""
+    bound = int(cells)
+    for m in maxes:
+        m = float(m)
+        if not math.isfinite(m):
+            return False
+        bound *= math.ceil(abs(m))
+    return bound <= EXACT_F64_LIMIT
+
+
 # -- launch plumbing --------------------------------------------------------------
 
 _LIB = None
+_CONST: dict = {}       # the join library's constants, read once when it binds
+_VEC_SCRATCH: dict = {}   # (device index, stream) -> K1's zeroed scratch
 
 
 def _lib(name: str = "cutjoin"):
@@ -137,16 +170,25 @@ def _lib(name: str = "cutjoin"):
     if _LIB is None:
         libs = _build.load_all(_build.SOURCES)
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        PL = ctypes.POINTER(L)
         cj = libs["cutjoin"]
-        for entry in _ENTRY.values():
+        for entry in (*_ENTRY.values(), "cutjoin_pair_keep_f64"):
             fn = getattr(cj, entry)
             fn.argtypes = [P, P, I, I, I, I, I, I, I, I, I, I, I, I, P,
                            I, I, I, P]
             fn.restype = I
+        cj.cutjoin_vec.argtypes = [PL, I, L, I, I, P, P, P]
+        cj.cutjoin_pair_keep_rows.argtypes = [PL, I, I, I, I, I, I, I, I, P,
+                                              P]
+        for q in ("cutjoin_vec", "cutjoin_pair_keep_rows"):
+            getattr(cj, q).restype = I
         for q in ("cutjoin_tx_tri", "cutjoin_max_factors",
-                  "cutjoin_threads"):
+                  "cutjoin_threads", "cutjoin_vec_scratch"):
             getattr(cj, q).argtypes = []
             getattr(cj, q).restype = I
+        _CONST.update(threads=cj.cutjoin_threads(), tx=cj.cutjoin_tx_tri(),
+                      maxf=cj.cutjoin_max_factors(),
+                      vec_scratch=cj.cutjoin_vec_scratch())
         tj = libs["trijoin"]
         tj.trijoin_path.argtypes = [P, P, I, I, I, I, I, I, I, I, I, I,
                                     P, P, P]
@@ -166,6 +208,42 @@ def _lib(name: str = "cutjoin"):
     return _LIB[name]
 
 
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _current_stream(dev) -> int:
+    """The handle of ``dev``'s current stream (PyTorch's raw query where it
+    has one: it builds no Stream object)."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _entered(dev):
+    """A launch runs on the runtime's current device: enter ``dev`` only
+    when it is not that device already."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def _vec_scratch(dev, stream: int):
+    """K1's scratch on ``dev`` for launches on ``stream``, zeroed once:
+    (its address, the address of a result slot after it, that slot as a
+    (1,) tensor).  The kernel's ticket counter and per-CTA partials lie at
+    the address, and every launch leaves the counter at 0; ``prod_reduce``
+    reads its result from the slot.  One per stream, so that launches on
+    two streams never share a counter or a slot."""
+    key = (dev.index, stream)
+    got = _VEC_SCRATCH.get(key)
+    if got is None:
+        size = _CONST["vec_scratch"]
+        buf = torch.zeros((size + 1,), dtype=torch.float64, device=dev)
+        got = (buf.data_ptr(), buf.data_ptr() + 8 * size, buf[size:])
+        _VEC_SCRATCH[key] = got
+    return got
+
+
 def _offsets(offsets, naxes: int):
     if offsets is None:
         return (0,) * naxes
@@ -178,7 +256,8 @@ def _offsets(offsets, naxes: int):
 
 
 def _as_factors(factors):
-    out = [torch.as_tensor(F) for F in factors]
+    out = [F if isinstance(F, torch.Tensor) else torch.as_tensor(F)
+           for F in factors]
     if not out:
         raise ValueError("a join needs at least one factor")
     if any(F.device != out[0].device for F in out):
@@ -206,19 +285,21 @@ def _fold_surplus(entries, cap: int):
     return entries
 
 
-def _launch(kind: str, entries, sizes, masked: bool, off3, block: int):
-    """Launch one tier on CUDA factors.  ``entries``: (tensor, axes) with
-    ``axes[d]`` the kernel axis (0, 1, 2) that dim d of the tensor maps
-    to — any order: a keep form permutes the strides so that the kept cut
-    axis is kernel axis 2, and nothing is transposed or copied.
-    ``sizes``: (n0, n1, n2).  Returns the f64 partials: (blocks,), or
-    (gz * gy, n2) for a keep form."""
+def _launch(kind: str, entries, sizes, masked: bool, off3, block: int,
+            f64: bool = False):
+    """Launch one tier of the strided template on CUDA factors.
+    ``entries``: (tensor, axes) with ``axes[d]`` the kernel axis (0, 1, 2)
+    that dim d of the tensor maps to — any order: a keep form permutes the
+    strides so that the kept cut axis is kernel axis 2, and nothing is
+    transposed or copied.  ``sizes``: (n0, n1, n2).  ``f64``: the f64
+    instance (the pair keep form only).  Returns the f64 partials:
+    (blocks,), or (gz * gy, n2) for a keep form."""
     keep = kind.endswith("_keep")
     lib = _lib()
-    threads, tx = lib.cutjoin_threads(), lib.cutjoin_tx_tri()
+    threads, tx = _CONST["threads"], _CONST["tx"]
     entries = [(F if F.dtype == torch.float64 else F.double(), ax)
                for F, ax in entries]
-    entries = _fold_surplus(entries, lib.cutjoin_max_factors())
+    entries = _fold_surplus(entries, _CONST["maxf"])
     # group order the kernel expects: [A: no axis 0 | B: axes 0 and 1 |
     # C: axis 0 without axis 1]
     group = lambda ax: 0 if 0 not in ax else (1 if 1 in ax else 2)
@@ -252,18 +333,99 @@ def _launch(kind: str, entries, sizes, masked: bool, off3, block: int):
                            dtype=torch.float64, device=dev)
     ptrs = (ctypes.c_void_p * nf)(*[F.data_ptr() for F, _ in entries])
     strd = (ctypes.c_longlong * (3 * nf))(*strides)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _ENTRY[kind])(
+    name = _ENTRY[kind] + ("_f64" if f64 else "")
+    stream = _current_stream(dev)
+    with _entered(dev):
+        err = getattr(lib, name)(
             ctypes.cast(ptrs, ctypes.c_void_p),
             ctypes.cast(strd, ctypes.c_void_p), nf, na, nb, n0, n1, n2,
             span1, int(block), int(bool(masked)), off3[0], off3[1], off3[2],
             partials.data_ptr(), gx, gy, gz, stream)
     if err != 0:
-        raise _build.KernelError(f"{_ENTRY[kind]} launch failed: CUDA "
-                                 f"error {err}")
+        raise _build.KernelError(f"{name} launch failed: CUDA error {err}")
     launches[kind] += 1
+    if name in join_entries:
+        join_entries[name] += 1
     return partials
+
+
+def _line_factors(factors, cap: int):
+    """f64 factors for a line kernel, surplus ones folded into its table
+    (every factor spans the same axes)."""
+    if len(factors) <= cap and all(F.dtype == torch.float64
+                                   for F in factors):
+        return factors
+    fs = [F if F.dtype == torch.float64 else F.double() for F in factors]
+    if len(fs) > cap:
+        fs = [F for F, _ in _fold_surplus([(F, (0,)) for F in fs], cap)]
+    return fs
+
+
+# ctypes array types of the line kernels' factor tables (addresses, then
+# two strides per factor), by factor count up to MAXF
+_TABLES = [ctypes.c_longlong * (3 * k) for k in range(9)]
+
+
+def _launch_vec(factors, block: int, f64: bool, fresh: bool = True):
+    """K1 on CUDA (n,) factors: ``csrc/cutjoin.cu`` ``cutjoin_vec``, one
+    launch to the final value.  Returns the (1,) f64 result: a new tensor,
+    or with ``fresh=False`` the stream's result slot, which the next
+    launch on the stream overwrites (``prod_reduce`` reads it at once)."""
+    lib = _lib()
+    fs = _line_factors(factors, _CONST["maxf"])
+    nf, dev = len(fs), fs[0].device
+    stream = _current_stream(dev)
+    scratch, slot, out = _vec_scratch(dev, stream)
+    if fresh:
+        out = torch.empty((1,), dtype=torch.float64, device=dev)
+        slot = out.data_ptr()
+    table = _TABLES[nf](*[F.data_ptr() for F in fs],
+                        *[s for F in fs for s in (F.stride(0), 0)])
+    with _entered(dev):
+        err = lib.cutjoin_vec(table, nf, fs[0].shape[0], block, f64,
+                              scratch, slot, stream)
+    name = "cutjoin_vec_f64" if f64 else "cutjoin_vec"
+    if err != 0:
+        raise _build.KernelError(f"{name} launch failed: CUDA error {err}")
+    launches["vecjoin"] += 1
+    join_entries[name] += 1
+    return out
+
+
+def keep_entry(F, keep: int) -> str:
+    """The entry of K3 a pair keep join takes, from its lead factor's
+    strides: ``"rows"`` (``cutjoin_pair_keep_rows``, a warp per kept row)
+    when the reduced axis has unit stride — keep=0 on row-major factors —
+    else ``"cols"`` (the strided template, a thread per kept index, which
+    reads coalesced when the kept axis has unit stride)."""
+    return "rows" if F.stride(1 - keep) == 1 else "cols"
+
+
+def _launch_keep_rows(factors, keep: int, masked: bool, off, block: int,
+                      f64: bool):
+    """K3's row entry on CUDA (m, n) factors: ``csrc/cutjoin.cu``
+    ``cutjoin_pair_keep_rows``, one launch, no partials.  Returns the
+    (1, n_keep) output."""
+    lib = _lib()
+    fs = _line_factors(factors, _CONST["maxf"])
+    nf, dev, red = len(fs), fs[0].device, 1 - keep
+    stream = _current_stream(dev)
+    m = fs[0].shape[keep]
+    out = torch.empty((1, m), dtype=torch.float64, device=dev)
+    table = _TABLES[nf](*[F.data_ptr() for F in fs],
+                        *[s for F in fs
+                          for s in (F.stride(red), F.stride(keep))])
+    with _entered(dev):
+        err = lib.cutjoin_pair_keep_rows(
+            table, nf, m, fs[0].shape[red], int(block),
+            int(bool(masked)), off[keep], off[red], int(f64),
+            out.data_ptr(), stream)
+    name = "cutjoin_pair_keep_rows" + ("_f64" if f64 else "")
+    if err != 0:
+        raise _build.KernelError(f"{name} launch failed: CUDA error {err}")
+    launches["pairjoin_keep"] += 1
+    join_entries[name] += 1
+    return out
 
 
 # -- the routes of the tri join ----------------------------------------------------
@@ -511,11 +673,12 @@ def _chunk_sums(prod, dim: int, block: int):
     return torch.cat(parts, dim)
 
 
-def _pair_product_plain(factors, distinct, offsets):
-    """f32 product of (m, n) factors, masked where global row == column."""
-    prod = factors[0].to(torch.float32)
+def _pair_product_plain(factors, distinct, offsets, dtype=torch.float32):
+    """Product of (m, n) factors in ``dtype`` (f32, or f64 for the f64
+    instance), masked where global row == column."""
+    prod = factors[0].to(dtype)
     for F in factors[1:]:
-        prod = prod * F.to(torch.float32)
+        prod = prod * F.to(dtype)
     if distinct and prod.ndim == 2:
         off = _offsets(offsets, 2)
         gx = torch.arange(prod.shape[0], device=prod.device) + off[0]
@@ -524,7 +687,10 @@ def _pair_product_plain(factors, distinct, offsets):
     return prod
 
 
-def _prod_partials_plain(factors, distinct, block, offsets):
+def _prod_partials_plain(factors, distinct, block, offsets, f64=False):
+    if f64:
+        return _pair_product_plain(_as_factors(factors), distinct, offsets,
+                                   torch.float64).sum().reshape(1)
     prod = _pair_product_plain(_as_factors(factors), distinct, offsets)
     if prod.ndim == 1:
         return prod.double()                 # one cell per partial
@@ -538,6 +704,12 @@ def prod_reduce_plain(factors, *, distinct: bool = True, block: int = 128,
     finish."""
     return _prod_partials_plain(factors, distinct, block,
                                 offsets).sum().item()
+
+
+def prod_reduce_f64_plain(factors) -> float:
+    """Plain PyTorch version of ``prod_reduce(f64=True)`` on (n,)
+    factors: the f64 product, then its f64 sum."""
+    return _prod_partials_plain(factors, False, 1, None, f64=True).item()
 
 
 def _tri_sizes(n):
@@ -623,7 +795,11 @@ def _pair_check(factors):
     return factors
 
 
-def _pair_keep_partials_plain(factors, keep, distinct, block, offsets):
+def _pair_keep_partials_plain(factors, keep, distinct, block, offsets,
+                              f64=False):
+    if f64:                                  # one row: (1, n_keep)
+        return _pair_product_plain(factors, distinct, offsets,
+                                   torch.float64).sum(1 - keep)[None, :]
     prod = _pair_product_plain(factors, distinct, offsets)
     if keep == 1:                            # reduce rows: (chunks, n)
         return _chunk_sums(prod, 0, block)
@@ -639,6 +815,18 @@ def prod_reduce_keep_plain(factors, *, keep: int = 0, distinct: bool = True,
         raise ValueError(f"keep={keep}: a pair join keeps axis 0 or 1")
     return _pair_keep_partials_plain(_pair_check(factors), keep, distinct,
                                      block, offsets).sum(0)
+
+
+def prod_reduce_keep_f64_plain(factors, *, keep: int = 0,
+                               distinct: bool = True,
+                               offsets=None) -> torch.Tensor:
+    """Plain PyTorch version of ``prod_reduce_keep(f64=True)``: the f64
+    product, mask from ``arange`` + offsets, f64 sums over the reduced
+    axis."""
+    if keep not in (0, 1):
+        raise ValueError(f"keep={keep}: a pair join keeps axis 0 or 1")
+    return _pair_keep_partials_plain(_pair_check(factors), keep, distinct,
+                                     1, offsets, f64=True)[0]
 
 
 def tri_reduce_keep_plain(factors, axes, *, keep: int, n,
@@ -686,24 +874,30 @@ def matreduce_plain(lhs, rhs, mask) -> float:
 # -- the wrappers -------------------------------------------------------------------
 
 def prod_reduce_tiles(factors, *, distinct: bool = True, block: int = 128,
-                      offsets=None) -> torch.Tensor:
+                      offsets=None, f64: bool = False) -> torch.Tensor:
     """f64 partials of ``prod_reduce`` on the factors' device; their sum
-    is the join.  Factors all (n,) or all (m, n)."""
+    is the join.  Factors all (n,) or all (m, n); ``f64`` (vectors only)
+    takes the f64 instance."""
+    return _prod_tiles(factors, distinct, block, offsets, f64, True)
+
+
+def _prod_tiles(factors, distinct, block, offsets, f64, fresh):
     factors = _as_factors(factors)
     ndim = factors[0].ndim
     if ndim not in (1, 2) or any(F.shape != factors[0].shape
                                  for F in factors):
         raise ValueError("factors must all be (n,) or all be (m, n): "
                          f"{[tuple(F.shape) for F in factors]}")
+    if f64 and ndim != 1:
+        raise ValueError("the f64 instance of prod_reduce takes (n,) "
+                         "factors (the |cut| = 1 join)")
     if not factors[0].is_cuda:
-        return _prod_partials_plain(factors, distinct, block, offsets)
+        return _prod_partials_plain(factors, distinct, block, offsets, f64)
     if factors[0].numel() == 0:
         return torch.zeros((1,), dtype=torch.float64,
                            device=factors[0].device)
     if ndim == 1:                            # |cut| = 1: no mask, no offsets
-        n = factors[0].shape[0]
-        return _launch("vecjoin", [(F, (2,)) for F in factors], (1, 1, n),
-                       False, (0, 0, 0), block)
+        return _launch_vec(factors, block, f64, fresh)
     m, n = factors[0].shape
     off = _offsets(offsets, 2)
     return _launch("pairjoin", [(F, (1, 2)) for F in factors], (1, m, n),
@@ -711,17 +905,18 @@ def prod_reduce_tiles(factors, *, distinct: bool = True, block: int = 128,
 
 
 def prod_reduce(factors, *, distinct: bool = True, block: int = 128,
-                offsets=None) -> float:
+                offsets=None, f64: bool = False) -> float:
     """Σ over index tuples of Π_i F_i, factors all (n,) or all (m, n).
 
     ``distinct`` (2-D only) restricts the sum to cells whose global row
     and column differ — the |cut| = 2 injectivity constraint.  Exact for
-    integer-valued factors that ``exact_block`` admits with ``block``.
-    ``offsets`` gives the factors' global start index per cut axis
-    (sliced callers only; the 1-D path has no mask and ignores them).
-    One device→host transfer: the final scalar."""
-    return prod_reduce_tiles(factors, distinct=distinct, block=block,
-                             offsets=offsets).sum().item()
+    integer-valued factors that ``exact_block`` admits with ``block``, or
+    with ``f64`` (vectors only: f64 products and sums) for factors that
+    ``exact_f64`` admits.  ``offsets`` gives the factors' global start
+    index per cut axis (sliced callers only; the 1-D path has no mask and
+    ignores them).  One device→host transfer: the final scalar."""
+    tiles = _prod_tiles(factors, distinct, block, offsets, f64, False)
+    return (tiles if tiles.numel() == 1 else tiles.sum()).item()
 
 
 def _tri_join(factors, axes, sizes, distinct, block, offsets):
@@ -772,29 +967,35 @@ def tri_reduce(factors, axes, *, n, distinct: bool = True, block: int = 128,
 
 
 def prod_reduce_keep_tiles(factors, *, keep: int = 0, distinct: bool = True,
-                           block: int = 128, offsets=None) -> torch.Tensor:
+                           block: int = 128, offsets=None,
+                           f64: bool = False) -> torch.Tensor:
     """(P, n_keep) f64 partials of ``prod_reduce_keep`` on the factors'
-    device; their sum over dim 0 is the output vector."""
+    device; their sum over dim 0 is the output vector.  On the card the
+    lead factor's strides pick the entry (``keep_entry``): the row entry
+    returns the output itself, P = 1.  ``f64`` takes the f64 instance."""
     factors = _pair_check(factors)
     if keep not in (0, 1):
         raise ValueError(f"keep={keep}: a pair join keeps axis 0 or 1")
     if not factors[0].is_cuda:
         return _pair_keep_partials_plain(factors, keep, distinct, block,
-                                         offsets)
+                                         offsets, f64)
     m, n = factors[0].shape
     if m == 0 or n == 0:
         return torch.zeros((1, (m, n)[keep]), dtype=torch.float64,
                            device=factors[0].device)
     off = _offsets(offsets, 2)
+    if keep_entry(factors[0], keep) == "rows":
+        return _launch_keep_rows(factors, keep, distinct, off, block, f64)
     if keep == 0:       # rows are kept: row axis -> thread axis 2
         return _launch("pairjoin_keep", [(F, (2, 1)) for F in factors],
-                       (1, n, m), distinct, (0, off[1], off[0]), block)
+                       (1, n, m), distinct, (0, off[1], off[0]), block, f64)
     return _launch("pairjoin_keep", [(F, (1, 2)) for F in factors],
-                   (1, m, n), distinct, (0, off[0], off[1]), block)
+                   (1, m, n), distinct, (0, off[0], off[1]), block, f64)
 
 
 def prod_reduce_keep(factors, *, keep: int = 0, distinct: bool = True,
-                     block: int = 128, offsets=None) -> torch.Tensor:
+                     block: int = 128, offsets=None,
+                     f64: bool = False) -> torch.Tensor:
     """Keep-axis masked product-reduce over (m, n) factors, as an f64
     vector on the factors' device:
 
@@ -803,10 +1004,13 @@ def prod_reduce_keep(factors, *, keep: int = 0, distinct: bool = True,
 
     The anchored partial-embedding read off a |cut| = 2 join.  Exact for
     integer-valued factors that ``exact_block`` admits with ``block`` —
-    each f32 partial folds the same ≤ ``block`` cells as ``prod_reduce``.
-    ``offsets`` gives the factors' global start index per cut axis."""
-    return prod_reduce_keep_tiles(factors, keep=keep, distinct=distinct,
-                                  block=block, offsets=offsets).sum(0)
+    each f32 partial folds the same ≤ ``block`` cells as ``prod_reduce``
+    — or, with ``f64`` (f64 products and sums), for factors that
+    ``exact_f64`` admits over the reduced axis.  ``offsets`` gives the
+    factors' global start index per cut axis."""
+    tiles = prod_reduce_keep_tiles(factors, keep=keep, distinct=distinct,
+                                   block=block, offsets=offsets, f64=f64)
+    return tiles[0] if tiles.shape[0] == 1 else tiles.sum(0)
 
 
 def tri_reduce_keep_tiles(factors, axes, *, keep: int, n,

@@ -46,6 +46,14 @@ def cutjoin_reduce(factors, *, distinct=True, block=None,
                            offsets=offsets)
 
 
+def cutjoin_reduce_f64(factors) -> float:
+    """The |cut| = 1 join Σ_x Π_i M_i(x) through the f64 instance of the
+    vector kernel: f64 products and sums, exact while n · Π_i max|M_i| <=
+    2^53 (``cutjoin_exact_f64``) — for the joins the f32 guard refuses."""
+    obs.counter("kernel.calls", op="cutjoin_reduce_f64", cut=1)
+    return _mr.prod_reduce(factors, f64=True)
+
+
 def cutjoin_reduce3(factors, axes, *, n, distinct=True, block=None,
                     offsets=None) -> float:
     """The |cut| = 3 decomposition join Σ_{e_c pairwise distinct} Π_i
@@ -78,6 +86,17 @@ def cutjoin_reduce_keep(factors, *, keep=0, distinct=True, block=None,
     obs.counter("kernel.calls", op="cutjoin_reduce_keep", cut=2)
     return _mr.prod_reduce_keep(factors, keep=keep, distinct=distinct,
                                 block=block, offsets=offsets)
+
+
+def cutjoin_reduce_keep_f64(factors, *, keep=0, distinct=True,
+                            offsets=None):
+    """Keep-axis |cut| = 2 join through the f64 instance of the keep
+    kernel: f64 products and sums, exact while (reduced length) · Π_i
+    max|M_i| <= 2^53 (``cutjoin_exact_f64``) — for the anchored reads the
+    f32 guard refuses."""
+    obs.counter("kernel.calls", op="cutjoin_reduce_keep_f64", cut=2)
+    return _mr.prod_reduce_keep(factors, keep=keep, distinct=distinct,
+                                offsets=offsets, f64=True)
 
 
 def cutjoin_reduce3_keep(factors, axes, *, keep, n, distinct=True,
@@ -125,6 +144,16 @@ def cutjoin_exact_block(factors, *, maxes=None):
     obs.counter("kernel.exact_block",
                 outcome="granted" if block is not None else "refused")
     return block
+
+
+def cutjoin_exact_f64(maxes, cells: int) -> bool:
+    """Whether the f64 instances (``cutjoin_reduce_f64``,
+    ``cutjoin_reduce_keep_f64``) are exact for factors with these max
+    magnitudes over ``cells`` reduced cells (see ``matreduce.exact_f64``);
+    counted in ``kernel.exact_f64``."""
+    ok = _mr.exact_f64(maxes, cells)
+    obs.counter("kernel.exact_f64", outcome="granted" if ok else "refused")
+    return ok
 
 
 def _placed(args, device):

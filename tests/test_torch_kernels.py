@@ -441,3 +441,103 @@ def test_exact_block_refusal_case(reference):
 def test_runtime_block_parity(reference, block):
     assert tops.runtime_block(block) == \
         reference.ops.runtime_block(block, interpret=True)
+
+
+# -- the f64 instance of K1 and its guard ---------------------------------------------
+
+def _hi_f64(nf: int, cells: int) -> int:
+    """Largest factor magnitude the f64 instance admits over ``cells``
+    cells: hi^nf * cells <= 2^53."""
+    hi = int((2.0 ** 53 / cells) ** (1.0 / nf))
+    while (hi + 1) ** nf * cells <= 1 << 53:
+        hi += 1
+    while hi ** nf * cells > 1 << 53:
+        hi -= 1
+    return hi
+
+
+def _ref_dense_join(reference, fs, reduce_axis=None):
+    """The reference's dense f64 join (``_join_reduce`` under x64) of the
+    stacked factors; with ``reduce_axis`` the masked keep form
+    ``_join_keep`` keeping the other axis."""
+    import jax.numpy as jnp
+    from repro.compiler import lowering as rlowering
+    with reference.x64():
+        stack = jnp.stack([jnp.asarray(F, jnp.float64) for F in fs])
+        if reduce_axis is None:
+            return float(rlowering._join_reduce(stack))
+        return np.asarray(rlowering._join_keep(stack, 1 - reduce_axis),
+                          np.float64)
+
+
+@pytest.mark.parametrize("k", (1, 2, 3))
+@pytest.mark.parametrize("n", (24, 130, 1001))
+def test_vec_f64_plain_equals_reference_dense_and_int64(reference, n, k):
+    """Factors whose Π max lies beyond the f32 guard (2^24) and within
+    the f64 instance's bound (n · Π max <= 2^53): the f64 plain version,
+    the wrapper on the CPU and ``ops.cutjoin_reduce_f64`` equal the
+    reference's dense f64 join and an int64 numpy join."""
+    hi = _hi_f64(k, n)
+    fs = _factors(500 + n + k, [(n,)] * k, hi)
+    fs[0][0] = hi                          # reach the bound
+    maxes = [np.abs(F).max() for F in fs]
+    assert tmr.exact_block((), maxes=maxes) is None
+    assert tmr.exact_f64(maxes, n)
+    want = int(np.prod(np.stack(fs).astype(np.int64), axis=0).sum())
+    got = tmr.prod_reduce_f64_plain(_t(fs))
+    assert got == want == _ref_dense_join(reference, fs)
+    assert tmr.prod_reduce(_t(fs), f64=True) == want
+    assert tops.cutjoin_reduce_f64(_t(fs)) == want
+    tiles = tmr.prod_reduce_tiles(_t(fs), f64=True)
+    assert tiles.shape == (1,) and tiles.item() == want
+
+
+def test_vec_f64_refuses_pair_factors():
+    F = torch.ones((4, 4), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        tmr.prod_reduce([F, F], f64=True)
+
+
+@pytest.mark.parametrize("maxes,cells,admitted", [
+    ((2.0 ** 26, 2.0 ** 14), 2 ** 13, True),          # 2^53 exactly
+    ((2.0 ** 26, 2.0 ** 14), 2 ** 13 + 1, False),     # 2^53 + 2^40
+    ((3.0,), (1 << 53) // 3, True),                   # 2^53 - 2
+    ((3.0,), (1 << 53) // 3 + 1, False),              # 2^53 + 1
+    ((2.0 ** 53,), 1, True),
+    ((2.0 ** 53 + 2.0,), 1, False),
+    ((0.0, 1e300), 8192, True),
+    ((float("inf"),), 1, False),
+    ((), 1 << 53, True),
+])
+def test_exact_f64_at_its_edges(maxes, cells, admitted):
+    """cells · Π max|F_i| <= 2^53, counted in integers: the edge is
+    exact where f64 products would round (2^53 + 1)."""
+    assert tmr.exact_f64(maxes, cells) is admitted
+    tobs.reset()
+    assert tops.cutjoin_exact_f64(maxes, cells) is admitted
+    assert tobs.snapshot()["kernel.exact_f64"] == {
+        f"outcome={'granted' if admitted else 'refused'}": 1.0}
+
+
+def test_cuda_vector_join_takes_the_one_launch_entry(monkeypatch):
+    """K1 on a tensor that claims to lie on the card goes to the one-launch
+    entry, f32 or f64, and never to a plain version; ``prod_reduce``
+    reads the stream's result slot, ``prod_reduce_tiles`` a new tensor."""
+    calls = []
+
+    def fake_vec(factors, block, f64, fresh=True):
+        calls.append((len(factors), block, f64, fresh))
+        return torch.full((1,), 7.0, dtype=torch.float64)
+
+    class OnCard(torch.Tensor):
+        is_cuda = True
+
+    monkeypatch.setattr(tmr, "_launch_vec", fake_vec)
+    monkeypatch.setattr(tmr, "_prod_partials_plain",
+                        lambda *a, **k: pytest.fail("plain version taken"))
+    F = torch.ones((5,), dtype=torch.float64).as_subclass(OnCard)
+    assert tmr.prod_reduce([F, F], block=8) == 7.0
+    assert tmr.prod_reduce([F], f64=True) == 7.0
+    assert tmr.prod_reduce_tiles([F, F, F], block=16).item() == 7.0
+    assert calls == [(2, 8, False, False), (1, 128, True, False),
+                     (3, 16, False, True)]

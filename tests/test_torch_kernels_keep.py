@@ -27,7 +27,8 @@ from repro_torch.kernels import matreduce as tmr
 from repro_torch.kernels import ops as tops
 
 from test_torch_kernels import (AXIS_MIXES, ROUTE_MIXES, ROUTE_TILE, _factors,
-                                _hi, _route_case, _t, ref_tri_tiles)
+                                _hi, _hi_f64, _ref_dense_join, _route_case,
+                                _t, ref_tri_tiles)
 from test_torch_reference import reference  # noqa: F401  (shared fixture)
 
 BLOCKS = (8, 128, 1024)
@@ -104,6 +105,114 @@ def test_pair_keep_row_slices_concatenate_to_the_whole():
     assert np.array_equal(whole.numpy(), _pair_keep_oracle(fs, 0, True))
 
 
+# -- K3's f64 instance and its entries ---------------------------------------------
+
+def _pair_keep_int64(fs, keep, distinct, offsets=(0, 0)):
+    prod = np.prod(np.stack(fs).astype(np.int64), axis=0)
+    if distinct:
+        gx = np.arange(prod.shape[0]) + offsets[0]
+        gy = np.arange(prod.shape[1]) + offsets[1]
+        prod = np.where(gx[:, None] == gy[None, :], 0, prod)
+    return prod.sum(axis=1 - keep)
+
+
+@pytest.mark.parametrize("distinct", (True, False))
+@pytest.mark.parametrize("keep", (0, 1))
+@pytest.mark.parametrize("k", (1, 2, 3))
+@pytest.mark.parametrize("n", (24, 130))
+def test_pair_keep_f64_plain_equals_reference_dense_and_int64(
+        reference, n, k, keep, distinct):
+    """Factors whose Π max lies beyond the f32 guard and within the f64
+    instance's bound over the reduced axis: the f64 plain version, the
+    wrapper on the CPU (its tiles one row) and ``ops.cutjoin_reduce_keep_f64``
+    equal an int64 numpy join and, masked, the reference's dense f64 keep
+    join ``_join_keep``."""
+    hi = _hi_f64(k, n)
+    fs = _factors(600 + n + 3 * k + keep, [(n, n)] * k, hi)
+    fs[0][1, 0] = hi
+    maxes = [np.abs(F).max() for F in fs]
+    assert tmr.exact_block((), maxes=maxes) is None
+    assert tmr.exact_f64(maxes, n)
+    want = _pair_keep_int64(fs, keep, distinct)
+    got = tmr.prod_reduce_keep_f64_plain(_t(fs), keep=keep,
+                                         distinct=distinct)
+    assert got.dtype == torch.float64 and tuple(got.shape) == (n,)
+    assert np.array_equal(got.numpy(), want.astype(np.float64))
+    assert np.array_equal(got.numpy().astype(np.int64), want)
+    assert torch.equal(tmr.prod_reduce_keep(_t(fs), keep=keep,
+                                            distinct=distinct, f64=True), got)
+    assert torch.equal(tops.cutjoin_reduce_keep_f64(
+        _t(fs), keep=keep, distinct=distinct), got)
+    tiles = tmr.prod_reduce_keep_tiles(_t(fs), keep=keep, distinct=distinct,
+                                       f64=True)
+    assert tuple(tiles.shape) == (1, n) and torch.equal(tiles[0], got)
+    if distinct:
+        assert np.array_equal(got.numpy(),
+                              _ref_dense_join(reference, fs, 1 - keep))
+
+
+@pytest.mark.parametrize("keep", (0, 1))
+@pytest.mark.parametrize("rows,start,col0", [(17, 5, 0), (40, 90, 3)])
+def test_pair_keep_f64_rectangular_slice_with_offsets_equals_int64(
+        rows, start, col0, keep):
+    n = 130
+    full = _factors(rows + start + keep, [(n, n)] * 2, _hi_f64(2, n))
+    sl = [F[start:start + rows, col0:] for F in full]
+    want = _pair_keep_int64(sl, keep, True, (start, col0))
+    got = tmr.prod_reduce_keep(_t(sl), keep=keep, offsets=(start, col0),
+                               f64=True)
+    assert np.array_equal(got.numpy(), want.astype(np.float64))
+    assert torch.equal(got, tmr.prod_reduce_keep_f64_plain(
+        _t(sl), keep=keep, offsets=(start, col0)))
+
+
+def test_keep_entry_follows_the_reduced_axis_stride():
+    """The row entry (a warp per kept row) where the reduced axis has unit
+    stride in the lead factor, the strided template otherwise."""
+    F = torch.zeros((6, 9), dtype=torch.float64)
+    assert tmr.keep_entry(F, 0) == "rows"          # row-major, rows kept
+    assert tmr.keep_entry(F, 1) == "cols"
+    C = F.T.contiguous().T                         # column-major (6, 9)
+    assert tmr.keep_entry(C, 0) == "cols"
+    assert tmr.keep_entry(C, 1) == "rows"
+    assert tmr.keep_entry(F[1:4, 2:7], 0) == "rows"     # a slice
+    assert tmr.keep_entry(F[:, ::2], 0) == "cols"       # stride 2
+
+
+def test_cuda_keep_join_picks_its_entry_by_stride(monkeypatch):
+    """On tensors that claim to lie on the card: column-major factors go
+    to the row entry for keep=1 and to the strided template for keep=0;
+    the f64 flag and the slice's offsets reach either launcher."""
+    called = []
+
+    def fake_launch(kind, entries, sizes, masked, off3, block, f64=False):
+        called.append(("cols", [ax for _, ax in entries], sizes, off3, f64))
+        return torch.zeros((2, sizes[2]), dtype=torch.float64)
+
+    def fake_rows(factors, keep, masked, off, block, f64):
+        called.append(("rows", keep, tuple(factors[0].stride()), tuple(off),
+                       f64))
+        return torch.zeros((1, factors[0].shape[keep]), dtype=torch.float64)
+
+    class OnCard(torch.Tensor):
+        is_cuda = True
+
+    monkeypatch.setattr(tmr, "_launch", fake_launch)
+    monkeypatch.setattr(tmr, "_launch_keep_rows", fake_rows)
+    monkeypatch.setattr(tmr, "_pair_keep_partials_plain",
+                        lambda *a, **k: pytest.fail("plain version"))
+    C = torch.ones((6, 4), dtype=torch.float64).T.contiguous().T \
+        .as_subclass(OnCard)
+    out0 = tmr.prod_reduce_keep([C, C], keep=0, block=8, offsets=(3, 1))
+    out1 = tmr.prod_reduce_keep([C], keep=1, block=8, offsets=(3, 1),
+                                f64=True)
+    assert tuple(out0.shape) == (6,) and tuple(out1.shape) == (4,)
+    assert called == [
+        ("cols", [(2, 1), (2, 1)], (1, 4, 6), (0, 1, 3), False),
+        ("rows", 1, (1, 6), (3, 1), True),
+    ]
+
+
 # -- K4 keep form against the dense oracle ------------------------------------------
 
 @pytest.mark.parametrize("block", (8, 1024))
@@ -150,18 +259,27 @@ def test_keep_axis_out_of_range_raises():
 
 def test_cuda_tensor_never_reaches_a_keep_plain_version(monkeypatch):
     """As for the scalar forms: a tensor that claims to lie on the card
-    goes to the launcher, with the kept axis moved to kernel axis 2 by
-    the axis map alone — on every mix, path and triangle mixes too."""
+    goes to a launcher.  K3 keep=0 on a row-major factor, whose reduced
+    axis has unit stride, goes to the row entry (a warp per kept row);
+    keep=1 there goes to the strided template with the kept axis moved to
+    kernel axis 2 by the axis map alone; the tri keep form goes to the
+    template on every mix, path and triangle mixes too."""
     called = []
 
-    def fake_launch(kind, entries, sizes, masked, off3, block):
+    def fake_launch(kind, entries, sizes, masked, off3, block, f64=False):
         called.append((kind, [ax for _, ax in entries], sizes, off3))
         return torch.zeros((1, sizes[2]), dtype=torch.float64)
+
+    def fake_rows(factors, keep, masked, off, block, f64):
+        called.append(("pairjoin_keep_rows", keep,
+                       tuple(factors[0].shape), tuple(off)))
+        return torch.zeros((1, factors[0].shape[keep]), dtype=torch.float64)
 
     class OnCard(torch.Tensor):
         is_cuda = True
 
     monkeypatch.setattr(tmr, "_launch", fake_launch)
+    monkeypatch.setattr(tmr, "_launch_keep_rows", fake_rows)
     for route in ("_launch_path", "_launch_triangle"):
         monkeypatch.setattr(tmr, route,
                             lambda *a, **k: pytest.fail("scalar route"))
@@ -179,7 +297,7 @@ def test_cuda_tensor_never_reaches_a_keep_plain_version(monkeypatch):
     tmr.tri_reduce_keep_tiles([G, G, G], [(0, 1), (1, 2), (0, 2)], keep=1,
                               n=5, block=8)
     assert called == [
-        ("pairjoin_keep", [(2, 1)], (1, 6, 4), (0, 1, 2)),
+        ("pairjoin_keep_rows", 0, (4, 6), (2, 1)),
         ("pairjoin_keep", [(1, 2)], (1, 4, 6), (0, 2, 1)),
         ("trijoin_keep", [(2, 0), (0, 1)], (5, 5, 5), (2, 3, 1)),
         ("trijoin_keep", [(0, 2), (2, 1), (0, 1)], (5, 5, 5), (0, 0, 0)),

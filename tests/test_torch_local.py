@@ -30,6 +30,7 @@ from repro_torch.core.counting import CountingEngine
 from repro_torch.core.pattern import (Pattern, chain, cycle,
                                       tailed_triangle)
 from repro_torch.graph.storage import Graph
+from repro_torch.kernels import matreduce as tmr
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.build import KernelError
 
@@ -416,3 +417,150 @@ def test_every_cutting_set_local_tensor_equals_reference(reference, pattern):
             assert got.sum().item() == inj
             seen3 += len(cut) == 3
     assert seen3
+
+
+# -- the guard's refusals on a skewed graph; the f64 routes on the card ---------------
+
+# the port's join_log route -> the reference's span annotation
+REF_ROUTE = {"kernel": "kernel", "kernel-keep": "kernel-keep",
+             "dense-f64": "xla-dense", "dense-f64-keep": "xla-keep",
+             "dense-product": "dense-product"}
+HUB_PATTERNS = [tailed_triangle(), cycle(4), chain(5)]
+
+
+def _hub_edges(n=300, hubs=10, p=0.1, seed=0):
+    """A skewed graph: ``hubs`` vertices joined to every other, the rest
+    an Erdős–Rényi graph of density ``p``.  Hub-to-hub walk counts make
+    the f32 guard refuse an anchored |cut| = 2 join and a |cut| = 1 join
+    here (Π max|F_i| · 8 > 2^24)."""
+    rng = np.random.default_rng(seed)
+    iu, ju = np.triu_indices(n, 1)
+    pick = (iu < hubs) | (rng.random(iu.shape) < p)
+    return np.stack([iu[pick], ju[pick]], axis=1)
+
+
+@pytest.fixture(scope="module")
+def hub(reference):
+    """Both sides' local plans on the hub graph, every anchored vector
+    read, the reference traced (its spans carry each join's route)."""
+    from repro.graph.storage import Graph as RGraph
+    rg = RGraph(300, _hub_edges())
+    tg = port_graph(rg)
+    RP = reference.pattern.Pattern
+    rpats = [RP(p.n, sorted(p.edges)) for p in HUB_PATTERNS]
+    rbefore = reference.obs.snapshot()
+    rcp = reference.compiler.compile(
+        rpats, rg, cache=False, local=True,
+        apct=shared_apct("ref", rg, reference.APCT))
+    rcp.tracer = reference.obs.Tracer()
+    rreads = _reads(rcp, rpats, np.asarray)
+    rsnap = counters_moved(reference.obs, rbefore, ROUTE_COUNTERS)
+    tobs.reset()
+    tcp = tcompiler.compile(HUB_PATTERNS, tg, cache=False, local=True,
+                            device="cpu", apct=shared_apct("port", tg, TAPCT))
+    treads = _reads(tcp, HUB_PATTERNS, lambda t: t.numpy())
+    tsnap = {k: tobs.snapshot().get(k, {}) for k in ROUTE_COUNTERS}
+    ref_routes = {s.name: s.attrs["route"] for s in rcp.tracer.walk()
+                  if s.kind in ("CutJoin", "LocalCount")
+                  and "route" in s.attrs}
+    return dict(rg=rg, tg=tg, rcp=rcp, tcp=tcp, rreads=rreads,
+                treads=treads, rsnap=rsnap, tsnap=tsnap,
+                ref_routes=ref_routes)
+
+
+def test_guard_refusals_on_a_skewed_graph_keep_the_reference_routes(hub):
+    """On the CPU a join the f32 guard refuses keeps the reference's
+    dense route, label and counters: the f64 instances are for the card.
+    Here the guard refuses an anchored |cut| = 2 join and a |cut| = 1
+    join, and ``exact_f64`` admits both — on the card they take
+    ``kernel-keep-f64`` and ``kernel-f64``."""
+    tcp = hub["tcp"]
+    assert tcp.plan.to_json() == hub["rcp"].plan.to_json()
+    assert hub["treads"]["counts"] == hub["rreads"]["counts"]
+    for key, vec in hub["treads"]["anchored"].items():
+        assert np.array_equal(vec, hub["rreads"]["anchored"][key]), key
+    assert hub["tsnap"] == hub["rsnap"]
+    routes = {j["node"]: j["route"] for j in tcp.join_log}
+    assert {k: REF_ROUTE[r] for k, r in routes.items()} == hub["ref_routes"]
+    refused = [j for j in tcp.join_log if j["guard"] == "scanned"
+               and j["block"] is None]
+    assert {(j["cut"], j["route"]) for j in refused} >= \
+        {(1, "dense-f64"), (2, "dense-f64-keep")}
+    for j in refused:
+        if j["cut"] != (1 if j["keep"] is None else 2):
+            continue                 # K2's refusals: not routed to f64
+        node = tcp.plan.nodes[j["node"]]
+        Ms, _ = tcp._join_factors(node)
+        maxes = [M.abs().max().item() for M in Ms]
+        cells = Ms[0].shape[0] if j["cut"] == 1 else \
+            Ms[0].shape[1 - j["keep"][0]]
+        assert tops.cutjoin_exact_block(Ms, maxes=maxes) is None
+        assert tops.cutjoin_exact_f64(maxes, cells), j["node"]
+
+
+@pytest.mark.parametrize("kind", ("cut1", "keep2"))
+@pytest.mark.parametrize("case", ("granted", "f64", "dense", "cpu"))
+def test_route_of_a_join_by_guard_and_device(hub, monkeypatch, kind, case):
+    """Lowering's routing with factors that claim to lie on the card:
+    guard granted -> the f32 entry; guard refused and ``exact_f64``
+    admitted -> the f64 entry (``kernel-f64`` / ``kernel-keep-f64``,
+    counted in ``cutjoin.kernel_f64``); both refused -> the dense route,
+    counted in ``cutjoin.kernel_fallbacks``.  On the CPU a refusal goes
+    to the dense route whatever ``exact_f64`` says."""
+    tcp = hub["tcp"]
+    key = next(j["node"] for j in tcp.join_log
+               if j["guard"] == "scanned" and j["block"] is None
+               and j["cut"] == (1 if kind == "cut1" else 2)
+               and (kind == "cut1") == (j["keep"] is None))
+    node = tcp.plan.nodes[key]
+    want = tcp.value(key)
+
+    class OnCard(torch.Tensor):
+        is_cuda = True
+
+    cp = tlowering.lower(tcp.plan, hub["tg"], counter=tcp.counter,
+                         device="cpu")
+    real = cp._join_factors
+    on_card = case != "cpu"
+    monkeypatch.setattr(cp, "_join_factors", lambda nd: (
+        [M.as_subclass(OnCard) if on_card else M for M in real(nd)[0]],
+        real(nd)[1]))
+    guard = {"granted": (8, [1.0, 1.0]), "f64": (None, [2.0 ** 20] * 2),
+             "dense": (None, [2.0 ** 40] * 2),
+             "cpu": (None, [2.0 ** 20] * 2)}[case]
+    monkeypatch.setattr(cp, "_guard_block",
+                        lambda nd, Ms, axes: (guard[0], "scanned", guard[1]))
+    called = []
+
+    def entry(name):
+        def run(Ms, **kw):           # the exact join, wherever it was sent
+            called.append(name)
+            Ms = [M.as_subclass(torch.Tensor) for M in Ms]
+            if kind == "cut1":
+                return tmr.prod_reduce_f64_plain(Ms)
+            return tmr.prod_reduce_keep_f64_plain(Ms, keep=kw["keep"])
+        return run
+
+    for name in ("cutjoin_reduce", "cutjoin_reduce_f64",
+                 "cutjoin_reduce_keep", "cutjoin_reduce_keep_f64"):
+        monkeypatch.setattr(tops, name, entry(name))
+    tobs.reset()
+    got = cp.value(key)
+    route = cp.join_log[-1]["route"]
+    snap = tobs.snapshot()
+    f32 = "cutjoin_reduce" if kind == "cut1" else "cutjoin_reduce_keep"
+    expect = {"granted": ([f32], "kernel" if kind == "cut1"
+                          else "kernel-keep"),
+              "f64": ([f32 + "_f64"], "kernel-f64" if kind == "cut1"
+                      else "kernel-keep-f64"),
+              "dense": ([], "dense-f64" if kind == "cut1"
+                        else "dense-f64-keep"),
+              "cpu": ([], "dense-f64" if kind == "cut1"
+                      else "dense-f64-keep")}[case]
+    assert (called, route) == expect
+    assert ("cutjoin.kernel_f64" in snap) == (case == "f64")
+    assert ("cutjoin.kernel_fallbacks" in snap) == (case in ("dense", "cpu"))
+    if kind == "cut1":
+        assert got == want
+    else:
+        assert torch.equal(got.as_subclass(torch.Tensor), want)
