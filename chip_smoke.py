@@ -26,16 +26,21 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    version and, on the path and triangle routes, against the route's own
    plain version (at n = 8192 the unmasked and sliced cases against the
    route's alone, and the same cases at n = 1024 against both); the keep
-   form takes the dense route on every mix;
+   form takes the dense route on every mix, by the entry ``tri_keep_entry``
+   picks (the slab entry unless the kept axis has unit stride);
    the masked matrix-product reduce and SDDMM (f32 and bf16) on 0/1 inputs,
-   ragged shapes, strided views and the R-MAT adjacency included; both
+   ragged shapes, strided views and the R-MAT adjacency included, SDDMM on
+   its tensor-core route (the flag it leaves on the card must admit them
+   and equal ``sddmm_exact_plain``; the R-MAT call's tile occupancy must
+   equal ``sddmm_occupancy_plain``); both
    bitset entries on random words (bit 31 set in about half), word and row
    counts that are no multiple of 32 or of a thread block's rows, and the
    packed R-MAT adjacency.  Tolerance: none — the difference must be 0
    (integer-valued inputs within the exactness guard).  On random input the
    masked matrix-product reduce is held against an f64 product with the
    reference package's tolerance, |got - want| < 3e-2 · |want| + 1, and
-   SDDMM per cell with 2e-4 (f32) or 2e-2 (bf16), relative and absolute —
+   SDDMM (f32 on its FMA route, bf16 on the tensor cores) per cell with
+   2e-4 (f32) or 2e-2 (bf16), relative and absolute —
    except f32 at K = 8192, held to the f32 dot-product rounding bound γ_K ·
    Σ_k |l_k r_k|.  Flash attention (K9) in f32 and bf16, causal and full, D
    = 64 and 128, ragged and unequal sequence lengths, strided views, views
@@ -101,14 +106,16 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    ``erdos_renyi(512, 8.0, seed=0)`` with anchored reads of chain(6),
    cycle(6) and the house (anchored |cut| = 3 candidates need n^3 within
    the budget, so n <= 512), checked against ``CountingEngine.inj_free``
-   and the dense f64 route; its tri joins are printed with their axes
-   and routes (anchored joins carry every factor over the whole cut, so
-   they take the dense route).
+   and the dense f64 route; its tri joins are printed with their axes,
+   routes and entries (anchored joins carry every factor over the whole
+   cut, so they take the dense route; the slab entry must run, and the
+   launches per entry must match the entries recorded).
 5. ``graph_ops``  the two graph kernels through ``kernels.ops`` on the
    R-MAT graph: ``common_neighbors(A, g.edges)`` (the bitset kernel, rows
    gathered in the kernel) summed is 3 T, ``sddmm(A, A, A)`` read at each
    edge equals it, its sum is 6 T, T being phase 3's triangle count and
-   the masked matrix-product reduce's.
+   the masked matrix-product reduce's; SDDMM must take its tensor-core
+   route, and the tiles it skipped are printed.
 6. ``mine_path``  ``repro_torch.launch.mine.main`` as a user runs it, on
    ``--graph rmat --n 8192 --deg 24`` (phase 3's graph), stdout captured:
    ``motif --k 4`` equal line for line to ``--no-compiler``; ``chain --k 5
@@ -146,7 +153,12 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    SDDMM and the bitset kernel, on each graph apart; phase 7 for K9; the tri
    join in one row per route: path and triangle at n = 8192, dense at n =
    512, with ptxas's register and spill counts for the path and triangle
-   kernels; the keep form on its one route, dense, at n = 512), error
+   kernels; the keep form on its one route, dense, at n = 512, one row per
+   kept axis with the entry it takes and ptxas's counts of the slab
+   entry's instances; SDDMM with its route, skipped tiles, the dense
+   bound at the bf16 tensor-core rate beside the f32 one, the times of
+   prep and of the tensor-core kernel alone, and a second yardstick on
+   the tensor cores), error
    against the plain version, time, the plain
    version's time, the card's bound for the timed function and a PyTorch
    yardstick for it, at the shapes its path gave the kernel (K9: the path's
@@ -227,7 +239,7 @@ FLASHATTN_SOURCE = "src/repro_torch/kernels/csrc/flashattn.cu"
 # every tri join counts in mr.launches ("trijoin", "trijoin_keep"), and a
 # scalar one also in mr.tri_routes by route ("trijoin_path", ...)
 LAUNCH_TABLES = (mr.launches, mr.tri_routes, mr.join_entries, ksd.launches,
-                 kbs.launches, kfa.launches)
+                 ksd.entries, kbs.launches, kfa.launches)
 # the f64 instances of K1 and K3 are checked on factors whose product
 # reaches about 2^33 (beyond the f32 guard's 2^24) against an int64 join
 F64_HI = int(2 ** 16.5)
@@ -275,8 +287,8 @@ def reset_launch_counts():
 @contextlib.contextmanager
 def recording_tri_joins(log: list):
     """Every tri join the entry points run, as it reaches the wrappers:
-    its factors' axes, kept axis, sizes and the route ``tri_route``
-    gives them."""
+    its factors' axes, kept axis, sizes, the route ``tri_route`` gives
+    them and, for a keep join, the entry ``tri_keep_entry`` picks."""
     scalar, keep = mr.tri_reduce_tiles, mr.tri_reduce_keep_tiles
 
     def record(fn, kept):
@@ -284,6 +296,9 @@ def recording_tri_joins(log: list):
             keep = kw.get("keep") if kept else None
             log.append({"axes": [list(ax) for ax in axes], "keep": keep,
                         "n": kw["n"], "route": mr.tri_route(axes, keep)})
+            if kept:
+                log[-1]["entry"] = mr.tri_keep_entry(
+                    factors, axes, keep, mr._tri_sizes(kw["n"]))
             return fn(factors, axes, **kw)
         return call
 
@@ -737,11 +752,112 @@ def vec_and_keep_entry_cases(rng, gen, cases: list):
     del fv, fk
 
 
+def sddmm_route(lhs, rhs, want: str) -> str:
+    """K7's route in the last call, from the flag it left on the card
+    (read after a synchronize): ``tc`` for bf16 operands and for f32
+    operands the flag admits, else ``fma``.  The flag must equal its
+    plain version, and the route ``want``."""
+    exact = bool(ksd.last_exact.item())
+    if exact != ksd.sddmm_exact_plain(lhs, rhs):
+        raise AssertionError(f"sddmm_prep's flag {exact} differs from "
+                             f"sddmm_exact_plain")
+    route = "tc" if lhs.dtype == torch.bfloat16 or exact else "fma"
+    if route != want:
+        raise AssertionError(f"sddmm took the {route} route, not {want}")
+    return route
+
+
+def sddmm_skipped(tiles) -> dict:
+    """From K7's tile occupancy (one word per 128 x 128 tile): the empty
+    tiles, and the 128 x 256 tiles of the tensor-core kernel that skip
+    their product (both words empty) under the exact flag."""
+    occupied = tiles.bool()
+    pairs = torch.nn.functional.pad(occupied, (0, occupied.shape[1] % 2)) \
+        .view(occupied.shape[0], -1, 2).any(2)
+    return {"tiles_128x128": occupied.numel(),
+            "tiles_128x128_empty": int((~occupied).sum().item()),
+            "cta_tiles_128x256": pairs.numel(),
+            "cta_tiles_skipped": int((~pairs).sum().item())}
+
+
+def sddmm_exact_edges(gen, cases: list):
+    """K7's exact route at the edges of its contract, f32 operands, each
+    case on the tensor-core route (read from the flag) and at difference
+    0 to the plain version: (a) integers in [-256, 256] at K = 256, so
+    K · max|lhs| · max|rhs| = 2^24 exactly, with rows of 256, -256, 255
+    and a row whose partial sums climb to 2^23 and fall back to 0, so
+    cells reach ±2^24 and just below; (b) integers in [0, 256] under a
+    mask of values in [-3, 3] with two empty 128 x 256 tiles (one of
+    -0.0 cells, one ragged, of +0.0 with some -0.0) and -0.0 cells
+    elsewhere, so the tile skip runs on data that is not 0/1; (c) the
+    same mask with +0.0 in its empty tiles and operands in [-256, 256]:
+    negative operands turn the skip off, and wherever the product is not
+    0 the sign of each output cell must be the plain version's (a
+    skipped tile would write +0.0 where acc · +0.0 is -0.0).  Then one
+    over the edge — K = 257, rows of 256, the rest in [-16, 16], so every
+    partial sum is still exact in f32 — must take the FMA route, also at
+    difference 0."""
+    def ints(shape, lo, hi):
+        return torch.randint(lo, hi + 1, shape, generator=gen, device=DEV,
+                             dtype=torch.int32).float()
+
+    def case(name, l, r, m, route):
+        got = check_case("sddmm", f"sddmm exact edge {name}",
+                         lambda: ksd.sddmm(l, r, m),
+                         lambda: ksd.sddmm_plain(l, r, m), cases)
+        cases[-1]["route"] = sddmm_route(l, r, route)
+        prod = l.double() @ r.double().T
+        want = ksd.sddmm_plain(l, r, m)
+        flips = (torch.signbit(got) != torch.signbit(want)) & (prod != 0)
+        cases[-1]["sign_differs_where_product_nonzero"] = int(
+            flips.sum().item())
+        cases[-1]["max_abs_product"] = prod.abs().max().item()
+        cases[-1].update(sddmm_skipped(ksd.last_tiles))
+        # the kernel skips empty tiles only with no operand of negative sign
+        cases[-1]["tile_skip_on"] = route == "tc" and not bool(
+            l.signbit().any() or r.signbit().any())
+        if cases[-1]["sign_differs_where_product_nonzero"]:
+            raise AssertionError(f"sddmm exact edge {name}: the sign of a "
+                                 f"masked cell differs from the plain "
+                                 f"version's")
+        return cases[-1]
+
+    l, r = ints((384, 256), -256, 256), ints((384, 256), -256, 256)
+    l[0], l[1], l[2], r[0], r[1] = 256, -256, 255, 256, 255
+    l[3, :128], l[3, 128:] = 256, -256
+    m = ints((384, 384), -1, 2)
+    row = case("(a) K=256 at +-256: K*max*max = 2^24", l, r, m, "tc")
+    if row["max_abs_product"] != 2 ** 24:
+        raise AssertionError("case (a) does not reach 2^24")
+    M_, N_, K_ = 700, 900, 200
+    m = ints((M_, N_), -3, 3)
+    m[torch.rand((M_, N_), generator=gen, device=DEV) < 0.1] = -0.0
+    m[128:256, 256:512] = -0.0
+    m[640:, 768:] = 0.0
+    m[650:700:7, 770:900:5] = -0.0
+    l, r = ints((M_, K_), 0, 256), ints((N_, K_), 0, 256)
+    row = case("(b) non-negative, empty tiles, -0.0 mask cells", l, r, m,
+               "tc")
+    if row["cta_tiles_skipped"] < 2 or not row["tile_skip_on"]:
+        raise AssertionError("case (b) skips fewer than two tiles")
+    m[128:256, 256:512] = 0.0
+    l, r = ints((M_, K_), -256, 256), ints((N_, K_), -256, 256)
+    case("(c) negative operands, empty +0.0 tiles: no skip", l, r, m, "tc")
+    l, r = ints((300, 257), -16, 16), ints((200, 257), -16, 16)
+    l[0], r[0] = 256, 256
+    case("one over: K=257 at 256 takes the FMA route", l, r,
+         ints((300, 200), -1, 2), "fma")
+
+
 def sddmm_cases(gen, cases: list) -> list:
     """K7 against its plain version on 0/1 inputs in f32 and bf16 (every
     cell an integer: difference 0) — ragged shapes, strided views, and
-    the R-MAT adjacency at n = 8192 — then on random normal input against
-    an f64 product of the same (rounded) inputs, per cell, with the
+    the R-MAT adjacency at n = 8192, all on the tensor-core route (the
+    flag, read from the card, must admit them; the R-MAT call's tile
+    occupancy must equal its plain version), then integer data at the
+    edges of the exact route's contract (``sddmm_exact_edges``) — then on
+    random normal input (f32 on the FMA route, bf16 on the tensor cores)
+    against an f64 product of the same (rounded) inputs, per cell, with the
     reference package's tolerances: 2e-4 (f32) and 2e-2 (bf16), relative
     and absolute.  Those were set for K <= 384; at K = 8192 an f32 sum of
     normal products is off by more than 2e-4 wherever the value is near
@@ -759,6 +875,7 @@ def sddmm_cases(gen, cases: list) -> list:
             check_case("sddmm", f"sddmm 0/1 {dt} ({M_},{N_},{K_}) p={p}",
                        lambda: ksd.sddmm(l, r, m),
                        lambda: ksd.sddmm_plain(l, r, m), cases)
+            cases[-1]["route"] = sddmm_route(l, r, "tc")
         # row strides above the width: views into wider tensors
         L, R, Mk = [(torch.rand(s, generator=gen, device=DEV) < 0.2).float()
                     for s in ((300, 90), (200, 90), (300, 210))]
@@ -766,11 +883,19 @@ def sddmm_cases(gen, cases: list) -> list:
         check_case("sddmm", f"sddmm 0/1 {dt} strided views (300,200,70)",
                    lambda: ksd.sddmm(lv, rv, mv),
                    lambda: ksd.sddmm_plain(lv, rv, mv), cases)
+        cases[-1]["route"] = sddmm_route(lv, rv, "tc")
         Ad = A.to(dt)
         check_case("sddmm", f"sddmm {dt} R-MAT adjacency n={N}",
                    lambda: ksd.sddmm(Ad, Ad, A),
                    lambda: ksd.sddmm_plain(Ad, Ad, A), cases)
+        cases[-1]["route"] = sddmm_route(Ad, Ad, "tc")
+        occupied = ksd.sddmm_occupancy_plain(A)
+        if not torch.equal(ksd.last_tiles.bool(), occupied):
+            raise AssertionError("sddmm_prep's tile occupancy differs from "
+                                 "sddmm_occupancy_plain")
+        cases[-1].update(sddmm_skipped(ksd.last_tiles))
         del Ad
+    sddmm_exact_edges(gen, cases)
     out = []
     for dt, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
         for M_, N_, K_ in [(200, 130, 70), (1000, 777, 333), (N, N, N)]:
@@ -779,6 +904,8 @@ def sddmm_cases(gen, cases: list) -> list:
             m = (torch.rand((M_, N_), generator=gen, device=DEV)
                  < 0.3).float()
             got = ksd.sddmm(l, r, m).double()
+            torch.cuda.synchronize()
+            route = sddmm_route(l, r, "fma" if dt == torch.float32 else "tc")
             want = (l.double() @ r.double().T) * m.double()
             err = (got - want).abs()
             if dt == torch.float32 and K_ > 384:
@@ -791,7 +918,7 @@ def sddmm_cases(gen, cases: list) -> list:
                 tolerance = f"{tol} + {tol}*|f64 value|"
             over = int((err > limit).sum().item())
             out.append({"dtype": str(dt), "shape": [M_, N_, K_],
-                        "max_abs_err": err.max().item(),
+                        "route": route, "max_abs_err": err.max().item(),
                         "max_abs_value": want.abs().max().item(),
                         "cells_over_2e-4_abs_and_rel": int(
                             (err > 2e-4 + 2e-4 * want.abs()).sum().item()),
@@ -1423,14 +1550,17 @@ COVERAGE_KEEP3_GRAPH = "erdos_renyi(512, 8.0, seed=0)"
 def drive_keep3_coverage() -> dict:
     """Anchored |cut| = 3 joins are chosen only on a small graph: there
     the keep form of the tri join runs, and each anchored vector is held
-    against ``CountingEngine.inj_free`` and the dense f64 route."""
+    against ``CountingEngine.inj_free`` and the dense f64 route.  Each of
+    its launches is reported with the entry it took (the slab entry must
+    run), and the per-entry launch counts must match those entries."""
     g = erdos_renyi(512, 8.0, seed=0)
     patterns = [chain(6), cycle(6), HOUSE]
     before = launch_counts()
-    cp = compiler.compile(patterns, g, cache=False, local=True)
+    checked, tri_joins = 0, []
+    with recording_tri_joins(tri_joins):
+        cp = compiler.compile(patterns, g, cache=False, local=True)
     dense = lowering.lower(cp.plan, g, counter=cp.counter,
                            cutjoin_kernel=False)
-    checked, tri_joins = 0, []
     for p in patterns:
         for orbit in p.vertex_orbits():
             with recording_tri_joins(tri_joins):
@@ -1447,13 +1577,20 @@ def drive_keep3_coverage() -> dict:
     if launches["trijoin_keep"] < 1:
         raise AssertionError(f"{COVERAGE_KEEP3_GRAPH}: no keep tri join "
                              f"launched: {cp.plan.meta['local_cuts']}")
+    entries = {"slab": launches["cutjoin_tri_keep_slab"],
+               "template": launches["cutjoin_tri_keep"]}
+    recorded = {e: sum(j.get("entry") == e for j in tri_joins)
+                for e in entries}
+    if entries["slab"] < 1 or entries != recorded:
+        raise AssertionError(f"{COVERAGE_KEEP3_GRAPH}: keep tri joins by "
+                             f"entry {entries}, recorded {recorded}")
     return {"graph": COVERAGE_KEEP3_GRAPH, "role": "coverage-keep3",
             "patterns": [compiler.pattern_key(p) for p in patterns],
             "anchored_vectors_checked": checked,
             "keep3_joins": [{k: j[k] for k in ("node", "keep", "route",
                                                "block", "guard")}
                             for j in joins],
-            "tri_joins": tri_joins,
+            "tri_joins": tri_joins, "keep3_launches_by_entry": entries,
             "local_cuts": cp.plan.meta["local_cuts"], "launches": launches}
 
 
@@ -1465,7 +1602,7 @@ def phase_local_path(main: dict) -> dict:
     coverage = drive_keep3_coverage()
     launches = launch_counts()               # ... and are read here
     for kernel in ("pairjoin_keep", "trijoin_keep", "matreduce",
-                   "cutjoin_pair_keep_rows"):
+                   "cutjoin_pair_keep_rows", "cutjoin_tri_keep_slab"):
         if launches[kernel] < 1:
             raise AssertionError(f"the local path launched no {kernel}")
     by_role = {r["role"]: r["launches"] for r in reports}
@@ -1500,7 +1637,9 @@ def phase_graph_ops(main: dict) -> dict:
     gathered in the kernel) and the wedge-closing product mask ⊙ (A·Aᵀ)
     (K7).  Identities: Σ_edges common neighbours = 3 T, the product read
     at each edge equals K8's count there, Σ of the product = 6 T, where T
-    is phase 3's triangle count (clique enumeration) and equals K6's."""
+    is phase 3's triangle count (clique enumeration) and equals K6's.  The
+    product must take K7's tensor-core route (read from the flag it left
+    on the card)."""
     info = main["rmat"]
     g, T = info["g"], info["triangles"]
     A = rmat_adjacency(g)
@@ -1515,9 +1654,11 @@ def phase_graph_ops(main: dict) -> dict:
     torch.cuda.synchronize()
     sddmm_s = time.perf_counter() - t0
     launches = launch_counts()               # ... and are read here
-    for kernel in ("sddmm", "bitset_edges"):
+    for kernel in ("sddmm", "sddmm_prep", "sddmm_tc", "bitset_edges"):
         if launches[kernel] < 1:
             raise AssertionError(f"graph_ops launched no {kernel}")
+    route = sddmm_route(A, A, "tc")
+    skipped = sddmm_skipped(ksd.last_tiles)
     edges = torch.from_numpy(g.edges).to(DEV)
     at_edges = S[edges[:, 0], edges[:, 1]]
     k6 = ops.triangle_count(A)
@@ -1531,7 +1672,8 @@ def phase_graph_ops(main: dict) -> dict:
             and checks["sddmm_at_edges_equals_common_neighbors"]):
         raise AssertionError(f"graph_ops identities fail: {checks}")
     emit("graph_ops", graph=MAIN_GRAPH, edges=len(g.edges),
-         launches=launches, checks=checks,
+         launches=launches, checks=checks, sddmm_route=route,
+         sddmm_tiles=skipped,
          seconds={"common_neighbors": round(cn_s, 4),
                   "sddmm": round(sddmm_s, 4)})
     del S, at_edges, Ab
@@ -2011,7 +2153,10 @@ def tri_rows(entry, b, b_keep, rng, eye, local):
     off3 = ((i[:, None, None] != i[None, :, None])
             & (i[:, None, None] != i[None, None, :])
             & (i[None, :, None] != i[None, None, :])).double()
-    for keep, block in ((None, b), (0, b_keep)):
+    cj_slab = [e for e in ptxas_counts(kbuild.build_logs.get("cutjoin", ""),
+                                       _cutjoin_label)
+               if e["kernel"].startswith("slab_kernel<")]
+    for keep, block in ((None, b), (0, b_keep), (1, b_keep), (2, b_keep)):
         hi = max_value(2, block, n5 ** 3)
         F3d = int_factor(rng, (n5,) * 3, hi)
         F02 = int_factor(rng, (n5, n5), hi)
@@ -2021,22 +2166,44 @@ def tri_rows(entry, b, b_keep, rng, eye, local):
             plain = lambda: mr.tri_reduce_plain(fsd, dense_axes, n=n5,
                                                 block=block)
             library = lambda: (F3d * F02[:, None, :] * off3).sum()
-            name, kernel, kw = "cutjoin_tri", "trijoin_dense", {}
-        else:
-            run = lambda: mr.tri_reduce_keep(fsd, dense_axes, keep=0, n=n5,
-                                             block=block)
-            plain = lambda: mr.tri_reduce_keep_plain(fsd, dense_axes, keep=0,
-                                                     n=n5, block=block)
-            library = lambda: (F3d * F02[:, None, :] * off3).sum((1, 2))
-            name, kernel, kw = "cutjoin_tri_keep", "trijoin_keep", \
-                {"path": local, "ms_keep1": timed_ms(
-                    lambda: mr.tri_reduce_keep(fsd, dense_axes, keep=1,
-                                               n=n5, block=block), 20)}
-        entry(name, kernel, replaces, block, run, plain, library, 20,
-              (n5 ** 3 + n5 * n5) * 8, 2 * n5 ** 3, join_route="dense",
-              keep=keep, factors="(0,1,2)+(0,2)", n=n5,
-              yardstick="(F012 * F02[:, None, :] * offdiag).sum(" +
-                        (")" if keep is None else "(1, 2))") + ", f64", **kw)
+            name, kw = "cutjoin_tri", {}
+            entry(name, "trijoin_dense", replaces, block, run, plain,
+                  library, 20, (n5 ** 3 + n5 * n5) * 8, 2 * n5 ** 3,
+                  join_route="dense", factors="(0,1,2)+(0,2)", n=n5,
+                  yardstick="(F012 * F02[:, None, :] * offdiag).sum(), f64")
+            del F3d, F02, fsd
+            continue
+        red = tuple(a for a in range(3) if a != keep)
+        run = lambda: mr.tri_reduce_keep(fsd, dense_axes, keep=keep, n=n5,
+                                         block=block)
+        plain = lambda: mr.tri_reduce_keep_plain(fsd, dense_axes, keep=keep,
+                                                 n=n5, block=block)
+        library = lambda: (F3d * F02[:, None, :] * off3).sum(red)
+        kind = mr.tri_keep_entry(fsd, dense_axes, keep)
+        if kind != ("template" if keep == 2 else "slab"):
+            raise AssertionError(f"keep={keep} took the {kind} entry")
+        kw = {"entry": kind}
+        if kind == "slab":
+            u, v = mr._slab_axes(fsd, dense_axes, keep)
+            per_cell = sum(u in ax and v in ax for ax in dense_axes)
+            kw["ptxas"] = [e for e in cj_slab if e["kernel"] ==
+                           f"slab_kernel<{per_cell}, mask, v2>"]
+            kw["ptxas_every_slab_instance"] = cj_slab
+            # the strided template on the same factors, as before the
+            # slab entry existed
+            real = mr.tri_keep_entry
+            mr.tri_keep_entry = lambda *a, **k: "template"
+            try:
+                kw["ms_template"] = timed_ms(run, 10)
+            finally:
+                mr.tri_keep_entry = real
+        name = {"slab": "cutjoin_tri_keep_slab",
+                "template": "cutjoin_tri_keep"}[kind]
+        entry(name, name, replaces, block, run, plain, library, 20,
+              (n5 ** 3 + n5 * n5) * 8, 2 * n5 ** 3, path=local,
+              join_route="dense", keep=keep, factors="(0,1,2)+(0,2)", n=n5,
+              yardstick=f"(F012 * F02[:, None, :] * offdiag).sum({red}), "
+                        f"f64", **kw)
         del F3d, F02, fsd
     del off3
 
@@ -2199,7 +2366,8 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
              local)
     # K6 as the use_pallas Intersect route calls it, on the R-MAT
     # adjacency.  For 0/1 data the products it needs are the 6T nonzero
-    # ones, so the bound is the bytes of its three dense inputs; the dense
+    # ones, so the bound is the bytes of its inputs — lhs, rhs and mask
+    # are one tensor, read once — and of its f64 result; the dense
     # algorithm's bound, 2 n^3 operations, is given beside it.
     A = torch.from_numpy(rmat(13, 24.0, seed=0).dense_adjacency(
         np.float32, pad=False)).to(DEV)
@@ -2209,7 +2377,8 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
           None, lambda: mr.matreduce(A, A, A),
           lambda: mr.matreduce_plain(A, A, A),
           lambda: torch.sum((A @ A) * A, dtype=torch.float64), 5,
-          3 * N * N * 4 + tiles * 8, 2 * six_t, path=local,
+          distinct_bytes(A, A, A) + 8, 2 * six_t, path=local,
+          partials_bytes=tiles * 8,
           source=MATREDUCE_SOURCE, value=six_t,
           dense_operations=2 * N ** 3,
           dense_operations_bound_ms=2 * N ** 3 / PEAK_F32_OPS_PER_S * 1e3,
@@ -2218,15 +2387,23 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
           launches_mine_path_blocksparse=mined["launches"]["matreduce"])
     # K7 as graph_ops calls it: mask ⊙ (A @ Aᵀ) on the R-MAT adjacency, f32.
     # For 0/1 data the products it needs are the 6T nonzero ones, so the
-    # bound is the bytes of its three inputs and its output; the dense
-    # algorithm's bound, 2 n^3 operations, is given beside it.
+    # bound is the bytes of its input — lhs, rhs and mask are one tensor,
+    # read once — and of its output; the dense algorithm's bound, 2 n^3
+    # operations, is given beside it at the bf16 tensor-core rate (the
+    # route taken), also for the occupied tiles alone, and at the f32 rate.
+    # The yardstick is the product on the tensor cores, which computes the
+    # same function exactly on this data; the f32 product (TF32 off) is
+    # timed beside it.  Also beside the row: prep, the tensor-core kernel
+    # and the gated FMA kernel launched alone on the call's own buffers,
+    # the call on bf16 operands, and the FMA route on random f32 operands.
+    tc_library, tc_yardstick = sddmm_tc_yardstick(A)
     entry("sddmm", "sddmm", "src/repro/kernels/sddmm.py:47", None,
           lambda: ksd.sddmm(A, A, A), lambda: ksd.sddmm_plain(A, A, A),
-          lambda: (A @ A.T) * A, 5, 4 * N * N * 4, 2 * six_t,
+          tc_library, 5, distinct_bytes(A, A, A) + N * N * 4, 2 * six_t,
           path=graph_ops, source=MATREDUCE_SOURCE,
-          dense_operations=2 * N ** 3,
-          dense_operations_bound_ms=2 * N ** 3 / PEAK_F32_OPS_PER_S * 1e3,
-          yardstick="(A @ A.T) * A, f32 product, TF32 off")
+          **sddmm_row_extras(A),
+          yardstick=f"library_ms: {tc_yardstick}; library_f32_ms: "
+                    f"(A @ A.T) * A, f32 product, TF32 off")
     # K8 as common_neighbors calls it: the packed R-MAT table (8192 x 256
     # words) and its edge list, rows gathered in the kernel.  The bound is
     # the bytes of the table, the pairs and the counts.  No single PyTorch
@@ -2258,6 +2435,95 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
     print(json.dumps({"kernels": out}), flush=True)
 
 
+def distinct_bytes(*tensors) -> int:
+    """Bytes of the tensors, each distinct one (by its first address and
+    shape) counted once: a function reads an input it is given twice
+    once."""
+    seen = {(t.data_ptr(), tuple(t.shape), tuple(t.stride())): t
+            for t in tensors}
+    return sum(t.numel() * t.element_size() for t in seen.values())
+
+
+def sddmm_tc_yardstick(A):
+    """K7's yardstick on the tensor cores: ``torch.mm(Ab, Abᵀ,
+    out_dtype=f32) * A`` on bf16 operands where the installed torch takes
+    ``out_dtype``, else the fp16 product (exact here: every count is at
+    most the max degree 1906 < 2048); ``entry`` holds it equal to the
+    kernel.  Returns the call and its description."""
+    Ab = A.bfloat16()
+    try:
+        call = lambda: torch.mm(  # noqa: E731
+            Ab, Ab.T, out_dtype=torch.float32) * A
+        call()
+        return call, "torch.mm(Ab, Ab.T, out_dtype=float32) * A, bf16"
+    except (TypeError, RuntimeError):
+        Ah = A.half()
+        return ((lambda: (Ah @ Ah.T).float() * A),
+                "(Ah @ Ah.T).float() * A, fp16 product")
+
+
+def sddmm_row_extras(A) -> dict:
+    """K7's row beyond the common fields, on the R-MAT adjacency: the
+    route and skipped tiles of the call, its bounds, its kernels timed
+    alone (``ksd.buffers`` / ``ksd.launch``, the wrapper's own two
+    halves), the f32 yardstick, ptxas's counts, and the FMA route on
+    random normal f32 operands of the same shape: the call, and each of
+    its three kernels alone (prep with its state zeroed first, as the
+    call allocates it zeroed, because prep's operand blocks leave once
+    the state says a value failed)."""
+    got = ksd.sddmm(A, A, A)
+    torch.cuda.synchronize()
+    route = sddmm_route(A, A, "tc")
+    skipped = sddmm_skipped(ksd.last_tiles)
+    occupied = int(ksd.last_tiles.sum().item())
+    n = A.shape[0]
+    buf = ksd.buffers(A, A, A)
+    ksd.launch(buf)
+    torch.cuda.synchronize()
+    if not torch.equal(buf.out, got):
+        raise AssertionError("sddmm launched alone differs from the call")
+    f32_library = lambda: (A @ A.T) * A  # noqa: E731
+    if not torch.equal(f32_library(), got):
+        raise AssertionError("the f32 yardstick differs from K7")
+    Ab = A.bfloat16()
+    alone = {key: timed_ms(lambda: ksd.launch(buf, (step,)), 10)
+             for key, step in zip(("ms_prep", "ms_tc", "ms_fma_gated"),
+                                  ksd.STEPS)}
+    del buf
+    # the FMA route: random normal f32 operands, the flag refuses them
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    lr = [torch.randn((n, n), generator=gen, device=DEV) for _ in range(2)]
+    mk = (torch.rand((n, n), generator=gen, device=DEV) < 0.3).float()
+    ksd.sddmm(lr[0], lr[1], mk)
+    torch.cuda.synchronize()
+    sddmm_route(lr[0], lr[1], "fma")
+    buf = ksd.buffers(lr[0], lr[1], mk)
+    fma_route = {
+        "shape": [n, n, n], "ms_call": timed_ms(
+            lambda: ksd.sddmm(lr[0], lr[1], mk), 3),
+        "ms_prep": timed_ms(lambda: (buf.state.zero_(),
+                                     ksd.launch(buf, ("sddmm_prep",))), 10),
+        "ms_tc_gated": timed_ms(lambda: ksd.launch(buf, ("sddmm_tc",)), 10),
+        "ms_fma_alone": timed_ms(lambda: ksd.launch(buf, ("sddmm_f32",)),
+                                 3)}
+    del buf, lr, mk
+    return {
+        "sddmm_route": route, **skipped, "dense_operations": 2 * n ** 3,
+        "dense_bf16_tc_bound_ms": 2 * n ** 3 / PEAK_BF16_TC_OPS_PER_S * 1e3,
+        "dense_bf16_tc_bound_occupied_ms":
+            2 * occupied * ksd.TILE ** 2 * n / PEAK_BF16_TC_OPS_PER_S * 1e3,
+        "dense_bf16_tc_bound_cta_tiles_run_ms":
+            2 * (skipped["cta_tiles_128x256"] - skipped["cta_tiles_skipped"])
+            * 2 * ksd.TILE ** 2 * n / PEAK_BF16_TC_OPS_PER_S * 1e3,
+        "dense_operations_bound_ms": 2 * n ** 3 / PEAK_F32_OPS_PER_S * 1e3,
+        **alone,
+        "ms_bf16_operands": timed_ms(lambda: ksd.sddmm(Ab, Ab, A), 10),
+        "library_f32_ms": timed_ms(f32_library, 5),
+        "fma_route_random_f32": fma_route,
+        "ptxas": ptxas_counts(kbuild.build_logs.get("matreduce", ""),
+                              _matreduce_label)}
+
+
 def ptxas_counts(log: str, label) -> list:
     """Registers and spills of each kernel instance, from the ``-Xptxas
     -v`` lines of this run's build of one library (none when it was not
@@ -2286,18 +2552,34 @@ def ptxas_counts(log: str, label) -> list:
 
 
 def _cutjoin_label(mangled: str):
-    """vec_kernel<NF, f32|f64, v2|v1> and keep_rows_kernel<NF, f32|f64,
-    mask|nomask, v2|v1> by their template arguments (NF 0: any count)."""
-    m = re.search(r"(vec_kernel|keep_rows_kernel)ILi(\d+)E((?:Lb[01]E)+)E",
-                  mangled)
+    """vec_kernel<NF, f32|f64, v2|v1>, keep_rows_kernel<NF, f32|f64,
+    mask|nomask, v2|v1> and slab_kernel<NC, mask|nomask, v2|v1> by their
+    template arguments (NF 0: any count; NC -1: any count)."""
+    m = re.search(r"(vec_kernel|keep_rows_kernel|slab_kernel)ILi(n?\d+)E"
+                  r"((?:Lb[01]E)+)E", mangled)
     if not m:
         return None
     flags = re.findall(r"Lb([01])E", m[3])
-    names = [("f32", "f64")] + ([("nomask", "mask")]
-                                if m[1] == "keep_rows_kernel" else []) + \
+    names = ([] if m[1] == "slab_kernel" else [("f32", "f64")]) + \
+        ([("nomask", "mask")] if m[1] != "vec_kernel" else []) + \
         [("v1", "v2")]
-    args = [m[2]] + [pair[int(f)] for pair, f in zip(names, flags)]
+    args = [m[2].replace("n", "-")] + [pair[int(f)]
+                                       for pair, f in zip(names, flags)]
     return f"{m[1]}<{', '.join(args)}>"
+
+
+def _matreduce_label(mangled: str):
+    """tc::product_kernel<Epilogue>, prep_kernel<float|bf16> and
+    masked_product_kernel<reduce|write>."""
+    m = re.search(r"product_kernelINS_(\d+)(\w+?)EE", mangled)
+    if "tc14product_kernel" in mangled and m:
+        return f"tc::product_kernel<{m[2][:int(m[1])]}>"
+    m = re.search(r"(prep_kernel|masked_product_kernel)I(\w+?)E", mangled)
+    if not m:
+        return None
+    arg = {"f": "float", "13__nv_bfloat16": "bf16", "Lb0": "reduce",
+           "Lb1": "write"}.get(m[2], m[2])
+    return f"{m[1]}<{arg}>"
 
 
 def _flash_label(mangled: str):
@@ -2336,7 +2618,7 @@ def flash_row(served: dict) -> dict:
     B, S, H, D = q.shape
     case = flash_check("bf16 serving path's layer-0 q, k, v", q, k, v, True,
                        [], block=1024, library=True)
-    nbytes = 4 * q.numel() * q.element_size()
+    nbytes = distinct_bytes(q, k, v) + q.numel() * q.element_size()
     nops = 4 * D * H * B * S * (S + 1) // 2
     nexp = B * H * S * (S + 1) // 2
     sms = torch.cuda.get_device_properties(0).multi_processor_count

@@ -11,7 +11,9 @@
 //   cutjoin_pair_keep_rows  out[w] = Σ_{v != w} Π_i F_i      (|cut| = 2,
 //                           the reduced axis has unit stride)
 //   cutjoin_pair_keep       the same, any strides              (|cut| = 2)
-//   cutjoin_tri_keep        out[w] = Σ over the other two axes (|cut| = 3)
+//   cutjoin_tri_keep_slab   out[w] = Σ over the other two axes (|cut| = 3,
+//                           the kept axis is not the unit-stride axis)
+//   cutjoin_tri_keep        the same, the kept axis has unit stride
 //
 // They replace the reference package's TPU kernels _vecjoin_kernel,
 // _pairjoin_kernel, _pairjoin_keep_kernel and _trijoin_kernel (also run
@@ -49,6 +51,24 @@
 // entry when the reduced axis has unit stride in the lead factor (keep=0
 // on row-major factors, the anchored reads' case).
 //
+// cutjoin_tri_keep_slab: S CTAs per kept index w (grid (n_keep, S)), each
+// walking its share of the rows of the n_v x n_u slab of the two reduced
+// axes.  The lanes run along the reduced axis u that has the smallest
+// stride in the lead factor (the factor over the most axes): a warp reads
+// one row of the slab, 16-byte double2 loads where every factor read per
+// cell has unit stride along u, even strides elsewhere and a 16-byte
+// aligned start, else 8-byte loads.  Factors are read by what they span:
+// over u and v (with or without w) per cell; over u alone (with or
+// without w, as (0,2) at keep=0) once per CTA into a row of f32 products
+// in shared memory; over v alone once per slab row into the row's scalar;
+// over w alone (or nothing) once per CTA.  The mask compares global
+// indices: the row with g_v == g_w is skipped, and the cells g_u == g_w
+// and g_u == g_v add 0.  Each lane folds its cells as the contract says,
+// the CTA adds its threads by a fixed tree, and thread 0 writes one f64 to
+// partials[split * n_keep + w]; the caller sums dim 0 of that (S, n_keep)
+// buffer.  The wrapper takes this entry unless the kept axis is the
+// lead factor's unit-stride axis (tri_keep_entry in kernels/matreduce.py).
+//
 // The other entries are one template over "k factors, three index axes,
 // per-factor strides (0 on an axis the factor does not span), per-axis
 // global offsets"; the pair tier leaves axis 0 at size 1.  In a keep form
@@ -79,10 +99,14 @@
 // reuses them for TX rows of x, hoists the factors that span axis 0 but not
 // the chunk axis (and the x-against-z part of the mask) out of the loop,
 // and walks the remaining factors with register pointers that step by a
-// stride.  The tri keep form's kept axis is a row axis of its 3-D factors:
-// neighbouring threads walk neighbouring rows, uncoalesced (its time is in
-// PERF.md; a warp per kept row, as cutjoin_pair_keep_rows does, is the
-// remedy).
+// stride.  The tri keep form takes the template (cutjoin_tri_keep) only
+// when its kept axis is the unit-stride axis, which then lies on the
+// threads and reads coalesced; otherwise it takes the slab entry, whose
+// lanes walk the unit stride.  The slab entry reads each cell of its
+// per-cell factors once and the rest once per CTA or per row, so on the
+// anchored joins' mixes (a factor over all three axes) it is bound by the
+// bytes of those factors; on a mix without one it walks n^3 cells of
+// O(n^2) bytes and is bound by f32 operations.
 //
 // Ragged edges are masked here; nothing is padded and nothing is
 // allocated.  Launches go to the stream the caller passes and never
@@ -293,6 +317,139 @@ keep_rows_kernel(LineTable T, int m, int n, int block, int off_keep,
     walk_line<NF, F64, V2>(base, step, T.nf, n, lane, 32, skip, acc);
     const double v = warp_sum(acc.total());
     if (lane == 0) out[row] = v;
+}
+
+// -- the slab entry of the tri keep form -------------------------------------------
+
+#define SLAB_MAX_U 8192     // floats of the staged u row: 32 KB of shared memory
+
+struct SlabTable {
+    const double* ptr[MAXF];
+    long long sk[MAXF], sv[MAXF], su[MAXF];   // element strides along w, v, u
+    int nf;   // factors in all, ordered [cells | u rows | v rows | w scalars]
+    int nc;   // span u and v                 (read per cell)
+    int nu;   // span u, not v                (staged once per CTA)
+    int nv;   // span v, not u                (read once per slab row)
+};
+
+// One slab row of one lane: Σ_u pin · row_u[u] · Π_f F_f[u] into `acc`,
+// the cells skip_w and skip_v adding 0.  NC >= 0: the per-cell factor
+// count at compile time; NC < 0: any count, `nc` at run time.  V2: unit
+// strides and 16-byte aligned rows, the cells taken in pairs.
+template <int NC, bool V2>
+__device__ __forceinline__ void walk_slab_row(const double* const* base,
+                                              const long long* su, int nc,
+                                              const float* row_u, int n,
+                                              int lane, float pin,
+                                              long long skip_w,
+                                              long long skip_v,
+                                              Fold<false>& acc)
+{
+    constexpr int NCM = NC >= 0 ? NC : MAXF;
+    if constexpr (V2) {
+        const int pairs = n >> 1;
+        for (int q0 = lane; q0 < pairs; q0 += UNROLL * 32) {
+            float lo[UNROLL], hi[UNROLL];
+#pragma unroll
+            for (int s = 0; s < UNROLL; ++s) {
+                const int q = q0 + s * 32;
+                lo[s] = 0.0f;
+                hi[s] = 0.0f;
+                if (q < pairs) {
+                    const float2 r = reinterpret_cast<const float2*>(row_u)[q];
+                    lo[s] = pin * r.x;
+                    hi[s] = pin * r.y;
+#pragma unroll
+                    for (int f = 0; f < NCM; ++f) {
+                        if (NC < 0 && f >= nc) break;
+                        const double2 x = __ldg(
+                            reinterpret_cast<const double2*>(base[f]) + q);
+                        lo[s] *= (float)x.x;
+                        hi[s] *= (float)x.y;
+                    }
+                    const long long j = 2 * (long long)q;
+                    if (j == skip_w || j == skip_v) lo[s] = 0.0f;
+                    if (j + 1 == skip_w || j + 1 == skip_v) hi[s] = 0.0f;
+                }
+            }
+#pragma unroll
+            for (int s = 0; s < UNROLL; ++s) {
+                if (q0 + s * 32 < pairs) {
+                    acc.add(lo[s]);
+                    acc.add(hi[s]);
+                }
+            }
+        }
+        if ((n & 1) && lane == 0) {
+            const int j = n - 1;
+            float p = pin * row_u[j];
+#pragma unroll
+            for (int f = 0; f < NCM; ++f) {
+                if (NC < 0 && f >= nc) break;
+                p *= (float)__ldg(base[f] + j);
+            }
+            acc.add(j == skip_w || j == skip_v ? 0.0f : p);
+        }
+    } else {
+        for (int j = lane; j < n; j += 32) {
+            float p = pin * row_u[j];
+#pragma unroll
+            for (int f = 0; f < NCM; ++f) {
+                if (NC < 0 && f >= nc) break;
+                p *= (float)__ldg(base[f] + j * su[f]);
+            }
+            acc.add(j == skip_w || j == skip_v ? 0.0f : p);
+        }
+    }
+}
+
+// out[w] partials: CTA (w, split) walks rows v in [split * span, ...) of
+// the (n_v, n_u) slab of kept index w, a warp per row.
+template <int NC, bool MASK, bool V2>
+__global__ void __launch_bounds__(THREADS)
+slab_kernel(SlabTable T, int n_k, int n_u, int n_v, int span, int block,
+            int off_k, int off_u, int off_v, double* __restrict__ partials)
+{
+    extern __shared__ float row_u[];          // Π of the u-row factors at w
+    constexpr int NCM = NC > 0 ? NC : (NC == 0 ? 1 : MAXF);
+    const int w = blockIdx.x;
+    const int v_end = min((int)blockIdx.y * span + span, n_v);
+    const int urows = T.nc + T.nu, vrows = urows + T.nv;
+    for (int u = threadIdx.x; u < n_u; u += THREADS) {
+        float p = 1.0f;
+        for (int f = T.nc; f < urows; ++f)
+            p *= (float)__ldg(T.ptr[f] + w * T.sk[f] + u * T.su[f]);
+        row_u[u] = p;
+    }
+    float scalar = 1.0f;
+    for (int f = vrows; f < T.nf; ++f)
+        scalar *= (float)__ldg(T.ptr[f] + w * T.sk[f]);
+    long long su[NCM];
+#pragma unroll
+    for (int f = 0; f < NCM; ++f) su[f] = T.su[f];
+    __syncthreads();
+
+    const int lane = threadIdx.x & 31;
+    const long long gw = (long long)w + off_k;
+    const long long skip_w = MASK ? gw - off_u : -1;   // the u with g_u == g_w
+    Fold<false> acc(block);
+    for (int v = blockIdx.y * span + (threadIdx.x >> 5); v < v_end;
+         v += WARPS) {
+        const long long gv = (long long)v + off_v;
+        if (MASK && gv == gw) continue;
+        float pin = scalar;
+        for (int f = urows; f < vrows; ++f)
+            pin *= (float)__ldg(T.ptr[f] + w * T.sk[f] + v * T.sv[f]);
+        const double* base[NCM];
+#pragma unroll
+        for (int f = 0; f < NCM; ++f)
+            base[f] = T.ptr[f] + w * T.sk[f] + v * T.sv[f];
+        walk_slab_row<NC, V2>(base, su, T.nc, row_u, n_u, lane, pin, skip_w,
+                              MASK ? gv - off_u : -1, acc);
+    }
+    const double part = block_sum(acc.total());
+    if (threadIdx.x == 0)
+        partials[(size_t)blockIdx.y * n_k + w] = part;
 }
 
 // -- the strided template: cutjoin_pair, cutjoin_tri and their keep forms --------
@@ -565,9 +722,40 @@ static int launch_rows_mask(const LineTable& T, bool v2, int masked, int m,
               : launch_rows_nf<F64, false, false>(T, m, n, block, off_keep, off_red, out, stream);
 }
 
+template <int NC, bool MASK, bool V2>
+static int launch_slab(const SlabTable& T, int n_k, int n_u, int n_v,
+                       int splits, int span, int block, int off_k, int off_u,
+                       int off_v, void* partials, void* stream)
+{
+    slab_kernel<NC, MASK, V2><<<dim3((unsigned)n_k, (unsigned)splits),
+                                THREADS, n_u * sizeof(float),
+                                (cudaStream_t)stream>>>(
+        T, n_k, n_u, n_v, span, block, off_k, off_u, off_v,
+        (double*)partials);
+    return (int)cudaGetLastError();
+}
+
+#define LAUNCH_SLAB(NC, MASK, V2)                                             \
+    launch_slab<NC, MASK, V2>(T, n_k, n_u, n_v, splits, span, block, off_k,   \
+                              off_u, off_v, partials, stream)
+
+template <bool MASK, bool V2>
+static int launch_slab_nc(const SlabTable& T, int n_k, int n_u, int n_v,
+                          int splits, int span, int block, int off_k,
+                          int off_u, int off_v, void* partials, void* stream)
+{
+    switch (T.nc) {
+        case 0: return LAUNCH_SLAB(0, MASK, V2);
+        case 1: return LAUNCH_SLAB(1, MASK, V2);
+        case 2: return LAUNCH_SLAB(2, MASK, V2);
+        default: return LAUNCH_SLAB(-1, MASK, V2);
+    }
+}
+
 extern "C" {
 
 int cutjoin_tx_tri() { return TX_TRI; }
+int cutjoin_slab_max_u() { return SLAB_MAX_U; }
 int cutjoin_max_factors() { return MAXF; }
 int cutjoin_threads() { return THREADS; }
 // doubles of the scratch buffer cutjoin_vec takes: its counter, then one
@@ -647,6 +835,43 @@ int cutjoin_tri_keep(CUTJOIN_ARGS)
 {
     return masked ? launch<TX_TRI, 2, true>(CUTJOIN_PASS)
                   : launch<TX_TRI, 0, true>(CUTJOIN_PASS);
+}
+
+// The tri keep form's slab entry: out[w] for w < n_k over the (n_v, n_u)
+// slab of the reduced axes.  ptrs: the nf factors' addresses, ordered
+// [nc over u and v | nu over u | nv over v | the rest over w or nothing];
+// strides: per factor (w, v, u) element strides, 0 on an axis it does not
+// span; off_*: the axes' global offsets; partials: splits * n_k doubles,
+// split s taking rows [s * span, (s + 1) * span) of every slab.
+int cutjoin_tri_keep_slab(const void* const* ptrs, const long long* strides,
+                          int nf, int nc, int nu, int nv, int n_k, int n_u,
+                          int n_v, int splits, int span, int block,
+                          int masked, int off_k, int off_u, int off_v,
+                          void* partials, void* stream)
+{
+    if (nf < 1 || nf > MAXF || nc < 0 || nu < 0 || nv < 0
+        || nc + nu + nv > nf || n_k < 1 || n_u < 1 || n_u > SLAB_MAX_U
+        || n_v < 1 || splits < 1 || splits > 65535 || span < 1
+        || (long long)splits * span < n_v || block < 1)
+        return (int)cudaErrorInvalidValue;
+    SlabTable T;
+    bool v2 = true;
+    for (int f = 0; f < MAXF; ++f) {
+        T.ptr[f] = f < nf ? (const double*)ptrs[f] : nullptr;
+        T.sk[f] = f < nf ? strides[3 * f + 0] : 0;
+        T.sv[f] = f < nf ? strides[3 * f + 1] : 0;
+        T.su[f] = f < nf ? strides[3 * f + 2] : 0;
+        if (f < nc)
+            v2 = v2 && T.su[f] == 1 && (T.sk[f] & 1) == 0
+                 && (T.sv[f] & 1) == 0
+                 && ((unsigned long long)T.ptr[f] & 15) == 0;
+    }
+    T.nf = nf; T.nc = nc; T.nu = nu; T.nv = nv;
+    if (masked)
+        return v2 ? launch_slab_nc<true, true>(T, n_k, n_u, n_v, splits, span, block, off_k, off_u, off_v, partials, stream)
+                  : launch_slab_nc<true, false>(T, n_k, n_u, n_v, splits, span, block, off_k, off_u, off_v, partials, stream);
+    return v2 ? launch_slab_nc<false, true>(T, n_k, n_u, n_v, splits, span, block, off_k, off_u, off_v, partials, stream)
+              : launch_slab_nc<false, false>(T, n_k, n_u, n_v, splits, span, block, off_k, off_u, off_v, partials, stream);
 }
 
 }  // extern "C"

@@ -22,7 +22,10 @@
                  ``LocalCount`` (the partial-embedding API): one cut axis
                  survives as the (n,) output, the others are reduced
                  under the same mask.  ``tri_reduce_keep`` takes the
-                 dense route (the n^3 walk) on every mix.
+                 dense route (the n^3 walk) on every mix, on the card
+                 by one of two entries (``tri_keep_entry``): the slab
+                 entry, whose lanes walk the lead factor's unit stride,
+                 or the strided template where the kept axis has it.
 ``matreduce``    Σ mask ⊙ (lhs @ rhsᵀ) over f32 (M, K), (N, K), (M, N)
                  inputs — the fused triangle count behind ``Intersect``.
 
@@ -93,16 +96,19 @@ launches = {"vecjoin": 0, "pairjoin": 0, "trijoin": 0, "pairjoin_keep": 0,
 # takes the dense route alone and counts in ``launches["trijoin_keep"]``)
 tri_routes = {"trijoin_path": 0, "trijoin_triangle": 0, "trijoin_dense": 0}
 
-# K1 and K3 launches per C entry and arithmetic; every one also counts in
-# ``launches["vecjoin"]`` or ``launches["pairjoin_keep"]``
+# K1, K3 and K4-keep launches per C entry and arithmetic; every one also
+# counts in ``launches["vecjoin"]``, ``launches["pairjoin_keep"]`` or
+# ``launches["trijoin_keep"]``
 join_entries = {"cutjoin_vec": 0, "cutjoin_vec_f64": 0,
                 "cutjoin_pair_keep_rows": 0, "cutjoin_pair_keep_rows_f64": 0,
-                "cutjoin_pair_keep": 0, "cutjoin_pair_keep_f64": 0}
+                "cutjoin_pair_keep": 0, "cutjoin_pair_keep_f64": 0,
+                "cutjoin_tri_keep": 0, "cutjoin_tri_keep_slab": 0}
 
 _ENTRY = {"pairjoin": "cutjoin_pair", "trijoin": "cutjoin_tri",
           "pairjoin_keep": "cutjoin_pair_keep",
           "trijoin_keep": "cutjoin_tri_keep"}
 _TARGET_BLOCKS = 2048        # thread blocks wanted before axis 1 stops splitting
+SLAB_MAX_U = 8192            # the slab entry's staged u row, as csrc/cutjoin.cu
 _MIN_SPAN = 32               # fewest axis-1 cells one thread block walks
 _PLAIN_SLAB = 1 << 27        # cells per slab of the plain tri version
 
@@ -178,17 +184,23 @@ def _lib(name: str = "cutjoin"):
                            I, I, I, P]
             fn.restype = I
         cj.cutjoin_vec.argtypes = [PL, I, L, I, I, P, P, P]
+        cj.cutjoin_tri_keep_slab.argtypes = [P, P] + [I] * 14 + [P, P]
+        cj.cutjoin_tri_keep_slab.restype = I
         cj.cutjoin_pair_keep_rows.argtypes = [PL, I, I, I, I, I, I, I, I, P,
                                               P]
         for q in ("cutjoin_vec", "cutjoin_pair_keep_rows"):
             getattr(cj, q).restype = I
         for q in ("cutjoin_tx_tri", "cutjoin_max_factors",
-                  "cutjoin_threads", "cutjoin_vec_scratch"):
+                  "cutjoin_threads", "cutjoin_vec_scratch",
+                  "cutjoin_slab_max_u"):
             getattr(cj, q).argtypes = []
             getattr(cj, q).restype = I
         _CONST.update(threads=cj.cutjoin_threads(), tx=cj.cutjoin_tx_tri(),
                       maxf=cj.cutjoin_max_factors(),
                       vec_scratch=cj.cutjoin_vec_scratch())
+        if cj.cutjoin_slab_max_u() != SLAB_MAX_U:
+            raise _build.KernelError("csrc/cutjoin.cu's SLAB_MAX_U is not "
+                                     "kernels.matreduce.SLAB_MAX_U")
         tj = libs["trijoin"]
         tj.trijoin_path.argtypes = [P, P, I, I, I, I, I, I, I, I, I, I,
                                     P, P, P]
@@ -426,6 +438,104 @@ def _launch_keep_rows(factors, keep: int, masked: bool, off, block: int,
     launches["pairjoin_keep"] += 1
     join_entries[name] += 1
     return out
+
+
+def _lead(factors, axes):
+    """The lead factor of a tri join and its axes: the first factor over
+    the most cut axes."""
+    i = max(range(len(axes)), key=lambda j: (len(axes[j]), -j))
+    return factors[i], tuple(axes[i])
+
+
+def _slab_axes(factors, axes, keep: int):
+    """(u, v) of the slab entry: u, the lanes' axis, is the reduced axis
+    with the smallest stride in the lead factor (the later reduced axis
+    where the lead factor spans neither), v the other reduced axis."""
+    F, ax = _lead(factors, axes)
+    red = [a for a in range(3) if a != keep]
+    spanned = [(abs(F.stride(d)), a) for d, a in enumerate(ax) if a != keep]
+    u = min(spanned)[1] if spanned else red[1]
+    return u, red[0] if u == red[1] else red[1]
+
+
+def tri_keep_entry(factors, axes, keep: int, sizes=None) -> str:
+    """The entry of K4-keep a tri keep join takes, from its lead factor's
+    strides: ``"template"`` (``cutjoin_tri_keep``, a thread per kept
+    index) when the kept axis is the lead factor's unit-stride axis — it
+    then reads coalesced — or when the slab's u row would not fit its
+    shared-memory row (more than ``SLAB_MAX_U`` cells; ``sizes``, the
+    three cut-axis lengths, default to the factors' shapes); else
+    ``"slab"`` (``cutjoin_tri_keep_slab``, CTAs per kept index whose
+    lanes walk the unit stride)."""
+    F, ax = _lead(factors, axes)
+    if any(a == keep and F.stride(d) == 1 for d, a in enumerate(ax)):
+        return "template"
+    u, _ = _slab_axes(factors, axes, keep)
+    if sizes is None:
+        sizes = [0, 0, 0]
+        for G, ax_ in zip(factors, axes):
+            for d, a in enumerate(ax_):
+                sizes[a] = G.shape[d]
+    return "template" if sizes[u] > SLAB_MAX_U else "slab"
+
+
+def _slab_plan(factors, axes, sizes, keep: int, cap: int = 8,
+               threads: int = 256):
+    """What ``cutjoin_tri_keep_slab`` is handed: (entries, counts,
+    strides, (u, v), (splits, span)).  ``entries``: (f64 factor, axes)
+    with surplus factors beyond ``cap`` folded, ordered [over u and v |
+    over u | over v | the rest]; ``counts``: the first three groups'
+    sizes; ``strides``: per entry its (w, v, u) element strides, 0 on an
+    axis it does not span; the v rows of every slab are split ``splits``
+    ways of ``span`` rows so that the grid fills the card."""
+    u, v = _slab_axes(factors, axes, keep)
+    entries = [(F if F.dtype == torch.float64 else F.double(), tuple(ax))
+               for F, ax in zip(factors, axes)]
+    entries = _fold_surplus(entries, cap)
+    group = lambda ax: (0 if u in ax and v in ax else 1 if u in ax
+                        else 2 if v in ax else 3)
+    entries.sort(key=lambda e: group(e[1]))
+    counts = [sum(group(ax) == g for _, ax in entries) for g in range(3)]
+    strides = []
+    for F, ax in entries:
+        st = {a: F.stride(d) for d, a in enumerate(ax)}
+        strides.extend((st.get(keep, 0), st.get(v, 0), st.get(u, 0)))
+    n_k, n_v = sizes[keep], sizes[v]
+    splits = max(1, min(-(-_TARGET_BLOCKS // n_k), -(-n_v // (threads // 32)),
+                        65535))
+    span = -(-n_v // splits)
+    return entries, counts, strides, (u, v), (-(-n_v // span), span)
+
+
+def _launch_tri_keep_slab(factors, axes, sizes, keep: int, masked: bool,
+                          off, block: int):
+    """K4-keep's slab entry on CUDA factors: ``csrc/cutjoin.cu``
+    ``cutjoin_tri_keep_slab``, laid out by ``_slab_plan``.  Returns the
+    (splits, n_keep) f64 partials."""
+    lib = _lib()
+    entries, counts, strides, (u, v), (splits, span) = _slab_plan(
+        factors, axes, sizes, keep, _CONST["maxf"], _CONST["threads"])
+    n_k, n_u, n_v = sizes[keep], sizes[u], sizes[v]
+    if max(n_k, n_u, n_v) >= (1 << 30) or n_u > SLAB_MAX_U:
+        raise ValueError(f"sizes {sizes} out of the slab entry's range")
+    dev = entries[0][0].device
+    partials = torch.empty((splits, n_k), dtype=torch.float64, device=dev)
+    nf = len(entries)
+    ptrs = (ctypes.c_void_p * nf)(*[F.data_ptr() for F, _ in entries])
+    strd = (ctypes.c_longlong * (3 * nf))(*strides)
+    stream = _current_stream(dev)
+    with _entered(dev):
+        err = lib.cutjoin_tri_keep_slab(
+            ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.cast(strd, ctypes.c_void_p), nf, *counts, n_k, n_u, n_v,
+            splits, span, int(block), int(bool(masked)), off[keep], off[u],
+            off[v], partials.data_ptr(), stream)
+    if err != 0:
+        raise _build.KernelError(f"cutjoin_tri_keep_slab launch failed: "
+                                 f"CUDA error {err}")
+    launches["trijoin_keep"] += 1
+    join_entries["cutjoin_tri_keep_slab"] += 1
+    return partials
 
 
 # -- the routes of the tri join ----------------------------------------------------
@@ -1017,7 +1127,8 @@ def tri_reduce_keep_tiles(factors, axes, *, keep: int, n,
                           distinct: bool = True, block: int = 128,
                           offsets=None) -> torch.Tensor:
     """(P, n_keep) f64 partials of ``tri_reduce_keep`` on the factors'
-    device; their sum over dim 0 is the output vector."""
+    device; their sum over dim 0 is the output vector.  On the card the
+    lead factor's strides pick the entry (``tri_keep_entry``)."""
     sizes = _tri_sizes(n)
     factors, axes = _tri_check(factors, axes, sizes)
     if keep not in (0, 1, 2):
@@ -1028,11 +1139,15 @@ def tri_reduce_keep_tiles(factors, axes, *, keep: int, n,
     if min(sizes) == 0:
         return torch.zeros((1, sizes[keep]), dtype=torch.float64,
                            device=factors[0].device)
-    # the kept axis becomes kernel axis 2 (the thread axis), the other two
-    # keep their order as kernel axes 0 and 1: only strides move
+    off = _offsets(offsets, 3)
+    if tri_keep_entry(factors, axes, keep, sizes) == "slab":
+        return _launch_tri_keep_slab(factors, axes, sizes, keep, distinct,
+                                     off, block)
+    # the template: the kept axis becomes kernel axis 2 (the thread axis),
+    # the other two keep their order as kernel axes 0 and 1: only strides
+    # move
     others = [a for a in range(3) if a != keep]
     kaxis = {others[0]: 0, others[1]: 1, keep: 2}
-    off = _offsets(offsets, 3)
     ksizes, koff = [0] * 3, [0] * 3
     for a in range(3):
         ksizes[kaxis[a]], koff[kaxis[a]] = sizes[a], off[a]

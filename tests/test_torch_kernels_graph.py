@@ -96,6 +96,89 @@ def test_sddmm_numpy_input_follows_the_device_policy(monkeypatch):
         tops.sddmm(lhs, rhs[:, :2], mask, device="cpu")
 
 
+EXACT_CASES = [
+    # (name, lhs values, rhs values, K, the flag)
+    ("0/1", (0.0, 1.0), (0.0, 1.0), 300, True),
+    ("+-256 at K=256", (-256.0, 256.0, 3.0), (256.0, -7.0), 256, True),
+    ("K max max = 2^24 + 2^16", (256.0,), (256.0,), 257, False),
+    ("257", (257.0, 1.0), (1.0,), 4, False),
+    ("0.5", (0.5, 1.0), (1.0,), 4, False),
+    ("inf", (float("inf"), 1.0), (1.0,), 4, False),
+    ("NaN", (1.0,), (float("nan"), 2.0), 4, False),
+    ("K max max = 2^24", (64.0, -3.0), (128.0,), 2048, True),
+    ("K max max = 2^24 + 1 K", (64.0,), (128.0,), 2049, False),
+    ("-0.0", (-0.0, 2.0), (5.0,), 9, True),
+    ("all zero", (0.0,), (0.0,), 5, True),
+]
+
+
+@pytest.mark.parametrize("case", range(len(EXACT_CASES)))
+def test_sddmm_exact_plain_flag(case):
+    """The plain version of ``sddmm_prep``'s flag: finite integers with
+    |v| <= 256 and K · max|lhs| · max|rhs| <= 2^24, at the edges, on
+    f32 operands and on their bf16 forms where those are the same
+    values."""
+    name, lv, rv, K, want = EXACT_CASES[case]
+    rng = np.random.default_rng(case)
+    lhs = torch.tensor(rng.choice(lv, size=(5, K)), dtype=torch.float32)
+    rhs = torch.tensor(rng.choice(rv, size=(3, K)), dtype=torch.float32)
+    lhs[0, 0], rhs[0, 0] = lv[0], rv[0]              # each value present
+    assert tsd.sddmm_exact_plain(lhs, rhs) is want, name
+    if name not in ("257",):                         # 257 rounds in bf16
+        assert tsd.sddmm_exact_plain(lhs.bfloat16(), rhs.bfloat16()) \
+            is want, name
+
+
+@pytest.mark.parametrize("M,N", [(300, 260), (128, 128), (1, 129), (257, 3)])
+def test_sddmm_occupancy_plain_equals_numpy(M, N):
+    """The tile occupancy of the mask: 128 x 128 tiles, ragged at the
+    edges, a tile occupied iff a value in it is non-zero, NaN included
+    and -0.0 not."""
+    rng = np.random.default_rng(M * N)
+    mask = np.where(rng.random((M, N)) < 0.0005, 1.0, 0.0) \
+        .astype(np.float32)
+    mask[-1, -1] = np.nan
+    mask[0, 0] = -0.0
+    got = tsd.sddmm_occupancy_plain(torch.from_numpy(mask))
+    tm, tn = -(-M // 128), -(-N // 128)
+    want = np.zeros((tm, tn), bool)
+    for i in range(tm):
+        for j in range(tn):
+            tile = mask[128 * i:128 * i + 128, 128 * j:128 * j + 128]
+            want[i, j] = bool((tile != 0).any())
+    assert got.dtype == torch.bool and np.array_equal(got.numpy(), want)
+    assert want[-1, -1]
+
+
+@pytest.mark.parametrize("M,N,K", [(300, 260, 70), (129, 257, 130)])
+def test_sddmm_exact_route_emulated_equals_plain(M, N, K):
+    """The exact route as the tensor cores run it, emulated: operands
+    rounded to bf16, f32 products and sums, the 128 x 256 output tiles
+    whose two occupancy words are 0 left at 0, then times the mask.  On
+    integer operands the flag admits (±256 included) it equals
+    ``sddmm_plain`` value for value; on 0.5 the flag refuses."""
+    rng = np.random.default_rng(K)
+    lhs = torch.tensor(rng.integers(-2, 3, size=(M, K)), dtype=torch.float32)
+    rhs = torch.tensor(rng.integers(0, 2, size=(N, K)), dtype=torch.float32)
+    lhs[0, :4] = torch.tensor([256.0, -256.0, 255.0, 17.0])
+    mask = torch.zeros((M, N))
+    mask[5, 7], mask[-1, -1], mask[200 % M, 3] = 1.0, 2.0, float("nan")
+    mask[-1, 0] = -0.0
+    assert tsd.sddmm_exact_plain(lhs, rhs)
+    occ = tsd.sddmm_occupancy_plain(mask)
+    assert not occ.all()
+    prod = lhs.bfloat16().float() @ rhs.bfloat16().float().T
+    pairs = torch.nn.functional.pad(occ, (0, occ.shape[1] % 2)) \
+        .view(occ.shape[0], -1, 2).any(2)
+    keep = pairs.repeat_interleave(128, 0).repeat_interleave(256, 1)[:M, :N]
+    emulated = prod.masked_fill(~keep, 0.0) * mask
+    want = tsd.sddmm_plain(lhs, rhs, mask)
+    assert torch.equal(emulated.isnan(), want.isnan())
+    assert torch.equal(emulated.nan_to_num(), want.nan_to_num())
+    half = lhs + 0.5
+    assert not tsd.sddmm_exact_plain(half, rhs)
+
+
 # -- K8 --------------------------------------------------------------------------------
 
 def _words(seed, E, W):
@@ -222,9 +305,12 @@ def fake_card(monkeypatch):
 
 
 def test_cuda_tensors_go_to_the_kernels(fake_card):
+    """K7 on f32 operands launches prep, the tensor-core kernel (gated on
+    the flag) and the FMA kernel, in that order; on bf16 prep and the
+    tensor-core kernel (ungated); K8 its two entries."""
     on = lambda x: torch.as_tensor(x).as_subclass(_OnCard)  # noqa: E731
     n0 = (tsd.launches["sddmm"], tbs.launches["bitset"],
-          tbs.launches["bitset_edges"])
+          tbs.launches["bitset_edges"], dict(tsd.entries))
     lhs = on(torch.ones((3, 5)))
     tsd.sddmm(lhs, on(torch.ones((4, 5))), on(torch.ones((3, 4))))
     tsd.sddmm(on(torch.ones((3, 5), dtype=torch.bfloat16)),
@@ -233,10 +319,77 @@ def test_cuda_tensors_go_to_the_kernels(fake_card):
     words = on(torch.zeros((6, 2), dtype=torch.int32))
     tbs.bitset_intersect(words, words)
     tbs.bitset_intersect_edges(words, on(torch.tensor([[0, 5], [1, 2]])))
-    assert [c[0] for c in fake_card] == ["sddmm_f32", "sddmm_bf16",
-                                         "bitset_rows", "bitset_edges"]
+    assert [c[0] for c in fake_card] == [
+        "sddmm_prep", "sddmm_tc", "sddmm_f32", "sddmm_prep", "sddmm_tc",
+        "bitset_rows", "bitset_edges"]
     assert fake_card[0][1][3:6] == (3, 4, 5)         # M, N, K
-    assert fake_card[2][1][2:4] == (6, 2)            # E, W
+    assert fake_card[0][1][9:11] == (0, 0)           # f32, two tensors
+    assert fake_card[1][1][8:11] == (3, 4, 5)        # M, N, K
+    assert fake_card[1][1][12:14] == (1, 0)          # gated, two tensors
+    assert fake_card[2][1][3:6] == (3, 4, 5)
+    assert fake_card[3][1][9] == 1                   # bf16
+    assert fake_card[4][1][12] == 0                  # bf16: not gated
+    assert fake_card[5][1][2:4] == (6, 2)            # E, W
     assert (tsd.launches["sddmm"], tbs.launches["bitset"],
             tbs.launches["bitset_edges"]) == (n0[0] + 2, n0[1] + 1,
                                               n0[2] + 1)
+    assert {k: tsd.entries[k] - n0[3][k] for k in tsd.entries} == {
+        "sddmm_prep": 2, "sddmm_tc": 2, "sddmm_f32": 1}
+    tsd.entries.update(n0[3])
+
+
+def test_cuda_sddmm_reads_one_tensor_once_and_copies_what_tma_cannot_read(
+        fake_card):
+    """``sddmm(A, A, A)`` tells the kernels that lhs and rhs are one
+    tensor (f32: one bf16 copy, written by prep); a bf16 operand whose row
+    stride is no multiple of 8 elements is copied into a buffer whose row
+    stride is, before the tensor-core kernel reads it."""
+    on = lambda x: torch.as_tensor(x).as_subclass(_OnCard)  # noqa: E731
+    before = dict(tsd.entries)
+    A = on(torch.ones((6, 6)))
+    tsd.sddmm(A, A, A)
+    prep, tc = fake_card[0][1], fake_card[1][1]
+    assert prep[10] == 1 and tc[13] == 1                  # same
+    assert prep[11] == prep[12] and prep[13] == 8         # one copy, ld 8
+    assert tc[0] == tc[2] == prep[11] and tc[1] == tc[3] == 8
+    fake_card.clear()
+    B = on(torch.ones((4, 13), dtype=torch.bfloat16))
+    tsd.sddmm(B[:, :5], B[:, 2:7], on(torch.ones((4, 4))))
+    tc = fake_card[1][1]
+    assert tc[1] == 8 and tc[3] == 8                      # copied, ld 8
+    tsd.entries.update(before)
+
+
+@pytest.mark.parametrize("dtype,steps", [
+    (torch.float32, ("sddmm_prep",)),
+    (torch.float32, ("sddmm_tc",)),
+    (torch.float32, ("sddmm_f32",)),
+    (torch.float32, ("sddmm_tc", "sddmm_f32")),
+    (torch.bfloat16, ("sddmm_prep", "sddmm_tc")),
+])
+def test_cuda_sddmm_launch_runs_the_steps_it_is_given(fake_card, dtype,
+                                                      steps):
+    """``launch`` on a call's ``buffers`` launches the named steps, in
+    order, with the arguments the wrapper passes, and counts each; a bf16
+    call has no FMA step."""
+    on = lambda x: torch.as_tensor(x).as_subclass(_OnCard)  # noqa: E731
+    before = dict(tsd.entries)
+    lhs, rhs = (on(torch.ones(s, dtype=dtype)) for s in ((3, 5), (4, 5)))
+    mask = on(torch.ones((3, 4)))
+    tsd.sddmm(lhs, rhs, mask)
+    whole = {entry: args for entry, args in fake_card}
+    fake_card.clear()
+    buf = tsd.buffers(lhs, rhs, mask)
+    tsd.launch(buf, steps)
+    assert [c[0] for c in fake_card] == list(steps)
+    for entry, args in fake_card:
+        # the same arguments but the buffers' addresses
+        assert len(args) == len(whole[entry])
+        assert [a for a in args if isinstance(a, int) and a < 1 << 20] == \
+            [a for a in whole[entry] if isinstance(a, int) and a < 1 << 20]
+    assert {k: tsd.entries[k] - before[k] for k in tsd.entries} == {
+        k: int(k in steps) + int(k in whole) for k in tsd.entries}
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="no step"):
+            tsd.launch(buf, ("sddmm_f32",))
+    tsd.entries.update(before)

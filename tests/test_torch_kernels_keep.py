@@ -262,8 +262,10 @@ def test_cuda_tensor_never_reaches_a_keep_plain_version(monkeypatch):
     goes to a launcher.  K3 keep=0 on a row-major factor, whose reduced
     axis has unit stride, goes to the row entry (a warp per kept row);
     keep=1 there goes to the strided template with the kept axis moved to
-    kernel axis 2 by the axis map alone; the tri keep form goes to the
-    template on every mix, path and triangle mixes too."""
+    kernel axis 2 by the axis map alone; the tri keep form goes to one of
+    its two entries on every mix, path and triangle mixes too: the slab
+    entry where the kept axis is not the lead factor's unit-stride axis,
+    else the template."""
     called = []
 
     def fake_launch(kind, entries, sizes, masked, off3, block, f64=False):
@@ -275,11 +277,16 @@ def test_cuda_tensor_never_reaches_a_keep_plain_version(monkeypatch):
                        tuple(factors[0].shape), tuple(off)))
         return torch.zeros((1, factors[0].shape[keep]), dtype=torch.float64)
 
+    def fake_slab(factors, axes, sizes, keep, masked, off, block):
+        called.append(("trijoin_keep_slab", keep, list(axes), sizes, off))
+        return torch.zeros((1, sizes[keep]), dtype=torch.float64)
+
     class OnCard(torch.Tensor):
         is_cuda = True
 
     monkeypatch.setattr(tmr, "_launch", fake_launch)
     monkeypatch.setattr(tmr, "_launch_keep_rows", fake_rows)
+    monkeypatch.setattr(tmr, "_launch_tri_keep_slab", fake_slab)
     for route in ("_launch_path", "_launch_triangle"):
         monkeypatch.setattr(tmr, route,
                             lambda *a, **k: pytest.fail("scalar route"))
@@ -299,9 +306,163 @@ def test_cuda_tensor_never_reaches_a_keep_plain_version(monkeypatch):
     assert called == [
         ("pairjoin_keep_rows", 0, (4, 6), (2, 1)),
         ("pairjoin_keep", [(1, 2)], (1, 4, 6), (0, 2, 1)),
-        ("trijoin_keep", [(2, 0), (0, 1)], (5, 5, 5), (2, 3, 1)),
+        ("trijoin_keep_slab", 0, [(0, 1), (1, 2)], (5, 5, 5), (1, 2, 3)),
         ("trijoin_keep", [(0, 2), (2, 1), (0, 1)], (5, 5, 5), (0, 0, 0)),
     ]
+
+
+# -- K4-keep's two entries on the card ------------------------------------------------
+
+def _row_major(n, order):
+    """A (n, n, n) f64 factor whose dims lie in memory in ``order``
+    (outermost first): its unit-stride axis is ``order[-1]``."""
+    return torch.zeros([n] * 3, dtype=torch.float64).permute(order) \
+        .contiguous().permute([order.index(a) for a in range(3)])
+
+
+@pytest.mark.parametrize("order,keep,entry,u", [
+    ((0, 1, 2), 0, "slab", 2), ((0, 1, 2), 1, "slab", 2),
+    ((0, 1, 2), 2, "template", None), ((1, 2, 0), 0, "template", None),
+    ((1, 2, 0), 1, "slab", 0), ((2, 0, 1), 2, "slab", 1),
+])
+def test_tri_keep_entry_follows_the_lead_factor_stride(order, keep, entry,
+                                                       u):
+    """The slab entry unless the kept axis is the unit-stride axis of the
+    lead factor (the first over the most axes, here the 3-D one even
+    where a pair factor comes first); the slab's lanes then walk the
+    reduced axis of smallest stride."""
+    F = _row_major(6, order)
+    P = torch.zeros((6, 6), dtype=torch.float64)
+    fs, axes = [P, F], [(0, 2), (0, 1, 2)]
+    assert tmr.tri_keep_entry(fs, axes, keep) == entry
+    if u is not None:
+        assert tmr._slab_axes(fs, axes, keep)[0] == u
+
+
+def test_tri_keep_entry_on_pair_mixes_and_wide_rows():
+    """On a mix of pair factors the first is the lead; a u row beyond the
+    slab's shared-memory row goes to the template."""
+    P = torch.zeros((5, 5), dtype=torch.float64)
+    assert tmr.tri_keep_entry([P, P], [(0, 1), (1, 2)], 0) == "slab"
+    assert tmr.tri_keep_entry([P, P], [(0, 1), (1, 2)], 1) == "template"
+    assert tmr.tri_keep_entry([P.T, P], [(0, 1), (1, 2)], 1) == "slab"
+    wide = tmr.SLAB_MAX_U + 1
+    assert tmr.tri_keep_entry([P], [(0, 1)], 0, sizes=(5, 5, 5)) == "slab"
+    assert tmr.tri_keep_entry([P], [(0, 1)], 0,
+                              sizes=(5, wide, 5)) == "template"
+
+
+def _slab_emulation(fs, axes, sizes, keep, distinct, block, offsets):
+    """``cutjoin_tri_keep_slab`` emulated in numpy on the layout
+    ``_slab_plan`` hands it: per CTA (w, split) a warp per slab row (every
+    eighth row of the split's span), its lanes along u (pairs of cells
+    where the double2 rule holds), cells in the kernel's order, each
+    lane's f32 partial folded into f64 every ``block`` cells counted over
+    its rows; the masked row g_v == g_w is skipped, the masked cells add
+    0.  Asserts that every slab cell is walked once and that no f32
+    partial folds more than ``block`` cells or passes 2^24 in magnitude.
+    Returns out[w]."""
+    threads, warps = 256, 8
+    entries, counts, strides, (u, v), (splits, span) = tmr._slab_plan(
+        _t(fs), axes, sizes, keep)
+    nc, nu, nv = counts
+    n_k, n_u, n_v = sizes[keep], sizes[u], sizes[v]
+    vals = [torch.as_strided(F, (n_k, n_v, n_u), strides[3 * f:3 * f + 3],
+                             F.storage_offset()).numpy().astype(np.float32)
+            for f, (F, _) in enumerate(entries)]
+    row_u = np.ones((n_k, n_u), np.float32)
+    for V in vals[nc:nc + nu]:
+        row_u = row_u * V[:, 0, :]
+    pin = np.ones((n_k, n_v), np.float32)
+    for V in vals[nc + nu + nv:]:
+        pin = pin * V[:, :1, 0]
+    for V in vals[nc + nu:nc + nu + nv]:
+        pin = pin * V[:, :, 0]
+    prod = pin[:, :, None] * row_u[:, None, :]
+    for V in vals[:nc]:
+        prod = prod * V
+    gw = np.arange(n_k)[:, None, None] + offsets[keep]
+    gv = np.arange(n_v)[None, :, None] + offsets[v]
+    gu = np.arange(n_u)[None, None, :] + offsets[u]
+    skip_row = np.zeros((n_k, n_v), bool)
+    if distinct:
+        prod = np.where((gu == gw) | (gu == gv), np.float32(0), prod)
+        skip_row = (gv == gw)[:, :, 0]
+    v2 = all(strides[3 * f + 2] == 1 and strides[3 * f] % 2 == 0
+             and strides[3 * f + 1] % 2 == 0 and F.data_ptr() % 16 == 0
+             for f, (F, _) in enumerate(entries[:nc]))
+    walked = np.zeros((n_v, n_u), int)
+    partials = np.zeros((splits, n_k))
+    for split in range(splits):
+        for t in range(threads):
+            lane, rows = t % 32, range(split * span + t // 32,
+                                       min(split * span + span, n_v), warps)
+            if v2:
+                cells = [c for q in range(lane, n_u // 2, 32)
+                         for c in (2 * q, 2 * q + 1)]
+                cells += [n_u - 1] if n_u % 2 and lane == 0 else []
+            else:
+                cells = list(range(lane, n_u, 32))
+            sv = np.repeat(np.asarray(rows, int), len(cells))
+            su = np.tile(np.asarray(cells, int), len(rows))
+            np.add.at(walked, (sv, su), 1)
+            if not len(sv):
+                continue
+            seq = prod[:, sv, su]                          # (n_k, cells)
+            present = ~skip_row[:, sv]
+            chunk = (np.cumsum(present, axis=1) - 1) // block
+            key = (np.arange(n_k)[:, None] * (len(sv) // block + 1)
+                   + chunk)[present]
+            cells_per = np.bincount(key)
+            assert cells_per.max(initial=0) <= block
+            mag = np.bincount(key, weights=np.abs(seq[present]))
+            assert mag.max(initial=0) <= 2 ** 24
+            partials[split] += np.where(present, seq, 0).astype(
+                np.float64).sum(axis=1)
+    assert (walked == 1).all()
+    return partials.sum(axis=0)
+
+
+SLAB_CASES = [
+    # (axes, sizes, keep, memory order of 3-D factors, offsets)
+    ([(0, 1, 2), (0, 2)], (6, 20, 150), 0, (0, 1, 2), (0, 0, 0)),
+    ([(0, 1, 2), (0, 2)], (20, 6, 151), 1, (0, 1, 2), (3, 0, 5)),
+    ([(0, 1, 2), (0, 2)], (20, 151, 6), 2, (0, 1, 2), (0, 0, 0)),
+    ([(0, 1, 2), (0, 1, 2)], (7, 21, 333), 0, (0, 1, 2), (0, 9, 0)),
+    ([(0, 1, 2), (0, 1), (1, 2), (2,)], (9, 17, 140), 1, (1, 0, 2),
+     (2, 4, 6)),
+    ([(0, 1, 2), (0,), (1,)], (150, 5, 19), 1, (2, 1, 0), (0, 0, 0)),
+    ([(0, 1), (1, 2)], (140, 8, 13), 2, None, (0, 0, 0)),
+    ([(0, 1), (1, 2), (0, 2)], (6, 16, 129), 0, None, (1, 1, 1)),
+]
+
+
+@pytest.mark.parametrize("block", (8, 128))
+@pytest.mark.parametrize("distinct", (True, False))
+@pytest.mark.parametrize("case", range(len(SLAB_CASES)))
+def test_tri_keep_slab_fold_order_equals_plain_and_reference(
+        reference, case, distinct, block):
+    """The slab entry's fold order, emulated on integer factors at the
+    guard's limit for ``block`` (rectangular slabs, odd u rows, offsets,
+    per-cell, u-row, v-row and w-scalar factors, several splits): equal at
+    difference 0 to ``tri_reduce_keep_plain`` and to the reference's
+    interpret-mode kernel, every cell walked once, no f32 partial over
+    ``block`` cells."""
+    axes, sizes, keep, order, off = SLAB_CASES[case]
+    hi = _hi(len(axes), block)
+    fs = _factors(40 + case + block, [tuple(sizes[a] for a in ax)
+                                      for ax in axes], hi)
+    fs[0].flat[1] = hi
+    if order is not None:
+        fs[0] = np.ascontiguousarray(fs[0].transpose(order)).transpose(
+            [order.index(a) for a in range(3)])
+    got = _slab_emulation(fs, axes, sizes, keep, distinct, block, off)
+    want = tmr.tri_reduce_keep_plain(_t(fs), axes, keep=keep, n=sizes,
+                                     distinct=distinct, block=block,
+                                     offsets=off)
+    assert np.array_equal(got, want.numpy())
+    assert np.array_equal(got, ref_tri_tiles(
+        reference, fs, axes, sizes, off, distinct, block, keep=keep))
 
 
 @pytest.mark.parametrize("sliced", (False, True))
