@@ -28,17 +28,22 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    route's alone, and the same cases at n = 1024 against both); the keep
    form takes the dense route on every mix, by the entry ``tri_keep_entry``
    picks (the slab entry unless the kept axis has unit stride);
-   the masked matrix-product reduce and SDDMM (f32 and bf16) on 0/1 inputs,
-   ragged shapes, strided views and the R-MAT adjacency included, SDDMM on
-   its tensor-core route (the flag it leaves on the card must admit them
-   and equal ``sddmm_exact_plain``; the R-MAT call's tile occupancy must
-   equal ``sddmm_occupancy_plain``); both
+   the masked matrix-product reduce (K6) and SDDMM (f32 and bf16) on 0/1
+   inputs, ragged shapes, strided views and the R-MAT adjacency included,
+   both on their tensor-core routes (the flag each leaves on the card must
+   admit them and equal ``sddmm_exact_plain``; the R-MAT call's tile
+   occupancy must equal ``sddmm_occupancy_plain``), and both at the exact
+   route's edges (±256 at K = 256, empty tiles under -0.0 mask cells,
+   negative operands, K = 257 on the FMA route); K6's tile list on random
+   0/1 stacks with ragged lists (tensor cores; tiles of 100 padded to 128)
+   and on a stack holding 2.5 (FMA route, the flag read back); both
    bitset entries on random words (bit 31 set in about half), word and row
    counts that are no multiple of 32 or of a thread block's rows, and the
    packed R-MAT adjacency.  Tolerance: none — the difference must be 0
    (integer-valued inputs within the exactness guard).  On random input the
-   masked matrix-product reduce is held against an f64 product with the
-   reference package's tolerance, |got - want| < 3e-2 · |want| + 1, and
+   masked matrix-product reduce (FMA route) is held against an f64
+   product with the reference package's tolerance, |got - want| < 3e-2 ·
+   |want| + 1, and
    SDDMM (f32 on its FMA route, bf16 on the tensor cores) per cell with
    2e-4 (f32) or 2e-2 (bf16), relative and absolute —
    except f32 at K = 8192, held to the f32 dot-product rounding bound γ_K ·
@@ -110,12 +115,12 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    routes and entries (anchored joins carry every factor over the whole
    cut, so they take the dense route; the slab entry must run, and the
    launches per entry must match the entries recorded).
-5. ``graph_ops``  the two graph kernels through ``kernels.ops`` on the
-   R-MAT graph: ``common_neighbors(A, g.edges)`` (the bitset kernel, rows
+5. ``graph_ops``  the graph kernels through ``kernels.ops`` on the R-MAT
+   graph: ``common_neighbors(A, g.edges)`` (the bitset kernel, rows
    gathered in the kernel) summed is 3 T, ``sddmm(A, A, A)`` read at each
    edge equals it, its sum is 6 T, T being phase 3's triangle count and
-   the masked matrix-product reduce's; SDDMM must take its tensor-core
-   route, and the tiles it skipped are printed.
+   ``triangle_count(A)``'s (K6); SDDMM and K6 must take their tensor-core
+   routes, and the tiles SDDMM skipped are printed.
 6. ``mine_path``  ``repro_torch.launch.mine.main`` as a user runs it, on
    ``--graph rmat --n 8192 --deg 24`` (phase 3's graph), stdout captured:
    ``motif --k 4`` equal line for line to ``--no-compiler``; ``chain --k 5
@@ -125,7 +130,8 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    · totals); ``existence --k 5`` with and without ``--local-counts``;
    ``fsm --labels 6 --k 3`` compiled equal to ``--no-compiler`` over at
    least two levels.  Then ``triangle_count_blocksparse(use_kernel=True)``
-   = T with one triangle-kernel launch per output tile, and
+   = T with one call of K6's tile list over every output tile (one launch
+   of each of its three entries, tensor-core route, no per-tile sync), and
    ``hom_oriented`` against ``hom_count`` (a clique orbit) and against
    the distinct-endpoint count (an independent orbit).
 7. ``serve_path``  the LM serving path at full width: qwen3-4b unreduced
@@ -158,7 +164,9 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    entry's instances; SDDMM with its route, skipped tiles, the dense
    bound at the bf16 tensor-core rate beside the f32 one, the times of
    prep and of the tensor-core kernel alone, and a second yardstick on
-   the tensor cores), error
+   the tensor cores; K6 likewise, its yardstick on the tensor cores with
+   the f32 one beside it, and its tile list on the R-MAT graph's tiles
+   with the bound of its tile products), error
    against the plain version, time, the plain
    version's time, the card's bound for the timed function and a PyTorch
    yardstick for it, at the shapes its path gave the kernel (K9: the path's
@@ -201,7 +209,7 @@ from repro_torch.core import homomorphism as H              # noqa: E402
 from repro_torch.core import search, symmetry               # noqa: E402
 from repro_torch.core.apct import APCT                      # noqa: E402
 from repro_torch.core.blocksparse import (                  # noqa: E402
-    BlockSparseAdjacency, triangle_count_blocksparse)
+    GROUP, BlockSparseAdjacency, tile_lists, triangle_count_blocksparse)
 from repro_torch.core.counting import CountingEngine        # noqa: E402
 from repro_torch.core.homomorphism import PlanTooWide       # noqa: E402
 from repro_torch.core.motifs import motif_patterns          # noqa: E402
@@ -238,8 +246,9 @@ BITSET_SOURCE = "src/repro_torch/kernels/csrc/bitset.cu"
 FLASHATTN_SOURCE = "src/repro_torch/kernels/csrc/flashattn.cu"
 # every tri join counts in mr.launches ("trijoin", "trijoin_keep"), and a
 # scalar one also in mr.tri_routes by route ("trijoin_path", ...)
-LAUNCH_TABLES = (mr.launches, mr.tri_routes, mr.join_entries, ksd.launches,
-                 ksd.entries, kbs.launches, kfa.launches)
+LAUNCH_TABLES = (mr.launches, mr.tri_routes, mr.join_entries,
+                 mr.matreduce_entries, ksd.launches, ksd.entries,
+                 kbs.launches, kfa.launches)
 # the f64 instances of K1 and K3 are checked on factors whose product
 # reaches about 2^33 (beyond the f32 guard's 2^24) against an int64 join
 F64_HI = int(2 ** 16.5)
@@ -608,7 +617,8 @@ def phase_kernel_cases():
                lambda: mr.prod_reduce_plain(fs, block=8), cases)
 
     # K6 on 0/1 inputs: square at n = 8192 with an adjacency's density,
-    # ragged shapes (no multiple of the 128 tile), a single row
+    # ragged shapes (no multiple of the 128 tile), a single row; the
+    # tensor-core route (the flag, read from the card, must admit them)
     shapes = [(N, N, N, 0.003), (1000, 777, 333, 0.05),
               (129, 257, 130, 0.3), (1, 5, 3, 0.5), (8191, 129, 8193, 0.01)]
     for M_, N_, K_, p in shapes:
@@ -617,7 +627,9 @@ def phase_kernel_cases():
         check_case("matreduce", f"matreduce 0/1 ({M_},{N_},{K_}) p={p}",
                    lambda: mr.matreduce(*ops01),
                    lambda: mr.matreduce_plain(*ops01), cases)
-    # and on random f32 input, against an f64 product
+        cases[-1]["route"] = matreduce_route(ops01[0], ops01[1], "tc")
+    matreduce_exact_edges(gen, cases)
+    # and on random f32 input, against an f64 product: the FMA route
     float_cases = []
     for M_, N_, K_ in [(N, N, N), (1000, 777, 333), (129, 257, 130)]:
         lhs = torch.randn((M_, K_), generator=gen, device=DEV)
@@ -625,15 +637,17 @@ def phase_kernel_cases():
         mask = (torch.rand((M_, N_), generator=gen, device=DEV)
                 < 0.5).float()
         got = mr.matreduce(lhs, rhs, mask)
+        route = matreduce_route(lhs, rhs, "fma")
         want = ((lhs.double() @ rhs.double().T) * mask.double()).sum().item()
         err = abs(got - want)
-        float_cases.append({"shape": [M_, N_, K_], "value": got,
-                            "f64_value": want, "abs_err": err,
+        float_cases.append({"shape": [M_, N_, K_], "route": route,
+                            "value": got, "f64_value": want, "abs_err": err,
                             "tolerance": 3e-2 * abs(want) + 1.0})
         if not err < 3e-2 * abs(want) + 1.0:
             raise AssertionError(f"matreduce random f32 {(M_, N_, K_)}: "
                                  f"{got!r} vs f64 {want!r}")
         del lhs, rhs, mask
+    tilelist_cases(gen, cases)
 
     sddmm_float = sddmm_cases(gen, cases)
     bitset_cases(gen, cases)
@@ -752,6 +766,85 @@ def vec_and_keep_entry_cases(rng, gen, cases: list):
     del fv, fk
 
 
+def k6_route(plain_exact: bool, want: str) -> str:
+    """K6's route in its last call, dense or tile list, from the flag it
+    left on the card (read after a synchronize): ``tc`` where the flag
+    admits the operands, else ``fma``.  The flag must equal its plain
+    version, ``plain_exact``, and the route ``want``."""
+    exact = bool(mr.last_exact.item())
+    if exact != plain_exact:
+        raise AssertionError(f"K6's flag {exact} differs from its plain "
+                             f"version")
+    route = "tc" if exact else "fma"
+    if route != want:
+        raise AssertionError(f"K6 took the {route} route, not {want}")
+    return route
+
+
+def matreduce_route(lhs, rhs, want: str) -> str:
+    return k6_route(ksd.sddmm_exact_plain(lhs.float(), rhs.float()), want)
+
+
+def tilelist_route(stack, k_ptr, want: str) -> str:
+    return k6_route(mr.tilelist_exact_plain(stack, k_ptr), want)
+
+
+def matreduce_exact_edges(gen, cases: list):
+    """K6 on ``exact_edge_inputs``, each case on its route (read from the
+    flag) and at difference 0 to the plain version; on the tensor-core
+    route the tile occupancy the call left on the card must equal its
+    plain version."""
+    for name, l, r, m, route in exact_edge_inputs(gen):
+        check_case("matreduce", f"matreduce exact edge {name}",
+                   lambda: mr.matreduce(l, r, m),
+                   lambda: mr.matreduce_plain(l, r, m), cases)
+        cases[-1]["route"] = matreduce_route(l, r, route)
+        if route == "tc" and not torch.equal(
+                mr.last_tiles.bool(), ksd.sddmm_occupancy_plain(m)):
+            raise AssertionError(f"matreduce exact edge {name}: tile "
+                                 f"occupancy differs from the plain "
+                                 f"version's")
+        cases[-1].update(edge_case_extras(name, l, r, mr.last_tiles, route))
+
+
+def random_tile_lists(rng, T: int, O: int, longest: int):
+    """Seeded lists over a stack of T tiles: O output tiles, ragged lists
+    of 0 to ``longest`` entries (the first has ``longest``, the second
+    none), any tile anywhere, repeats allowed."""
+    lengths = rng.integers(0, longest + 1, size=O)
+    lengths[0], lengths[1] = longest, 0
+    k_ptr = np.concatenate([[0], np.cumsum(lengths)])
+    P = int(k_ptr[-1])
+    return (rng.integers(0, T, size=O), k_ptr, rng.integers(0, T, size=P),
+            rng.integers(0, T, size=P))
+
+
+def tilelist_cases(gen, cases: list):
+    """K6's tile list against its plain version, difference 0: random 0/1
+    stacks of 128 x 128 tiles with ragged lists (up to 64 entries, K =
+    8192 for the flag) on the tensor-core route, tiles of 100 x 100 that
+    the wrapper pads, and a stack with values 2.5 (every product a
+    multiple of 1/4 below 2^22, exact in f32) on the FMA route."""
+    rng = np.random.default_rng(7)
+    for T, t, values, O, longest, route in (
+            (300, 128, None, 200, 64, "tc"), (41, 128, None, 9, 3, "tc"),
+            (120, 100, None, 77, 20, "tc"),
+            (200, 128, 2.5, 120, 40, "fma")):
+        stack = (torch.rand((T, t, t), generator=gen, device=DEV)
+                 < 0.05).float()
+        if values is not None:
+            stack[torch.rand((T, t, t), generator=gen, device=DEV)
+                  < 0.02] = values
+        lists = random_tile_lists(rng, T, O, longest)
+        name = (f"matreduce_tilelist T={T} t={t} O={O} longest={longest}"
+                + (f" values 0/1/{values}" if values else " 0/1"))
+        check_case("matreduce_tilelist", name,
+                   lambda: mr.matreduce_tilelist(stack, *lists),
+                   lambda: mr.matreduce_tilelist_plain(stack, *lists), cases)
+        cases[-1]["route"] = tilelist_route(stack, lists[1], route)
+        del stack
+
+
 def sddmm_route(lhs, rhs, want: str) -> str:
     """K7's route in the last call, from the flag it left on the card
     (read after a synchronize): ``tc`` for bf16 operands and for f32
@@ -780,28 +873,72 @@ def sddmm_skipped(tiles) -> dict:
             "cta_tiles_skipped": int((~pairs).sum().item())}
 
 
-def sddmm_exact_edges(gen, cases: list):
-    """K7's exact route at the edges of its contract, f32 operands, each
-    case on the tensor-core route (read from the flag) and at difference
-    0 to the plain version: (a) integers in [-256, 256] at K = 256, so
-    K · max|lhs| · max|rhs| = 2^24 exactly, with rows of 256, -256, 255
-    and a row whose partial sums climb to 2^23 and fall back to 0, so
-    cells reach ±2^24 and just below; (b) integers in [0, 256] under a
-    mask of values in [-3, 3] with two empty 128 x 256 tiles (one of
-    -0.0 cells, one ragged, of +0.0 with some -0.0) and -0.0 cells
-    elsewhere, so the tile skip runs on data that is not 0/1; (c) the
-    same mask with +0.0 in its empty tiles and operands in [-256, 256]:
-    negative operands turn the skip off, and wherever the product is not
-    0 the sign of each output cell must be the plain version's (a
-    skipped tile would write +0.0 where acc · +0.0 is -0.0).  Then one
-    over the edge — K = 257, rows of 256, the rest in [-16, 16], so every
-    partial sum is still exact in f32 — must take the FMA route, also at
-    difference 0."""
+def exact_edge_inputs(gen):
+    """The exact route at the edges of its contract, f32 operands, as
+    (name, lhs, rhs, mask, route) for K7 and K6 alike: (a) integers in
+    [-256, 256] at K = 256, so K · max|lhs| · max|rhs| = 2^24 exactly,
+    with rows of 256, -256, 255 and a row whose partial sums climb to
+    2^23 and fall back to 0, so cells reach ±2^24 and just below; (b)
+    integers in [0, 256] under a mask of values in [-3, 3] with two empty
+    128 x 256 tiles (one of -0.0 cells, one ragged, of +0.0 with some
+    -0.0) and -0.0 cells elsewhere, so the tile skip runs on data that is
+    not 0/1; (c) the same mask with +0.0 in its empty tiles and operands
+    in [-256, 256]: negative operands turn the skip off.  Then one over
+    the edge — K = 257, rows of 256, the rest in [-16, 16], so every
+    partial sum is still exact in f32 — must take the FMA route.  Each
+    case is used before the next is drawn."""
     def ints(shape, lo, hi):
         return torch.randint(lo, hi + 1, shape, generator=gen, device=DEV,
                              dtype=torch.int32).float()
 
-    def case(name, l, r, m, route):
+    l, r = ints((384, 256), -256, 256), ints((384, 256), -256, 256)
+    l[0], l[1], l[2], r[0], r[1] = 256, -256, 255, 256, 255
+    l[3, :128], l[3, 128:] = 256, -256
+    yield ("(a) K=256 at +-256: K*max*max = 2^24", l, r,
+           ints((384, 384), -1, 2), "tc")
+    M_, N_, K_ = 700, 900, 200
+    m = ints((M_, N_), -3, 3)
+    m[torch.rand((M_, N_), generator=gen, device=DEV) < 0.1] = -0.0
+    m[128:256, 256:512] = -0.0
+    m[640:, 768:] = 0.0
+    m[650:700:7, 770:900:5] = -0.0
+    l, r = ints((M_, K_), 0, 256), ints((N_, K_), 0, 256)
+    yield "(b) non-negative, empty tiles, -0.0 mask cells", l, r, m, "tc"
+    m[128:256, 256:512] = 0.0
+    l, r = ints((M_, K_), -256, 256), ints((N_, K_), -256, 256)
+    yield "(c) negative operands, empty +0.0 tiles: no skip", l, r, m, "tc"
+    l, r = ints((300, 257), -16, 16), ints((200, 257), -16, 16)
+    l[0], r[0] = 256, 256
+    yield ("one over: K=257 at 256 takes the FMA route", l, r,
+           ints((300, 200), -1, 2), "fma")
+
+
+def edge_case_extras(name: str, l, r, tiles, route: str) -> dict:
+    """What an exact-edge case reports beyond its difference: the largest
+    |product| cell, the tiles skipped (from the occupancy the call left on
+    the card) and whether the skip was on (the kernels skip empty tiles
+    only with no operand of negative sign); case (a) must reach 2^24, (b)
+    skip at least two tiles, (c) run with the skip off."""
+    row = {"max_abs_product": (l.double() @ r.double().T).abs().max()
+           .item()}
+    if route == "tc":
+        row.update(sddmm_skipped(tiles))
+        row["tile_skip_on"] = not bool(l.signbit().any()
+                                       or r.signbit().any())
+    if (name.startswith("(a)") and row["max_abs_product"] != 2 ** 24) or (
+            name.startswith("(b)") and (row["cta_tiles_skipped"] < 2
+                                        or not row["tile_skip_on"])) or (
+            name.startswith("(c)") and row["tile_skip_on"]):
+        raise AssertionError(f"exact edge {name}: {row}")
+    return row
+
+
+def sddmm_exact_edges(gen, cases: list):
+    """K7 on ``exact_edge_inputs``, each case on its route (read from the
+    flag) and at difference 0 to the plain version; wherever the product
+    is not 0 the sign of each output cell must be the plain version's (a
+    skipped tile would write +0.0 where acc · +0.0 is -0.0)."""
+    for name, l, r, m, route in exact_edge_inputs(gen):
         got = check_case("sddmm", f"sddmm exact edge {name}",
                          lambda: ksd.sddmm(l, r, m),
                          lambda: ksd.sddmm_plain(l, r, m), cases)
@@ -811,42 +948,11 @@ def sddmm_exact_edges(gen, cases: list):
         flips = (torch.signbit(got) != torch.signbit(want)) & (prod != 0)
         cases[-1]["sign_differs_where_product_nonzero"] = int(
             flips.sum().item())
-        cases[-1]["max_abs_product"] = prod.abs().max().item()
-        cases[-1].update(sddmm_skipped(ksd.last_tiles))
-        # the kernel skips empty tiles only with no operand of negative sign
-        cases[-1]["tile_skip_on"] = route == "tc" and not bool(
-            l.signbit().any() or r.signbit().any())
+        cases[-1].update(edge_case_extras(name, l, r, ksd.last_tiles, route))
         if cases[-1]["sign_differs_where_product_nonzero"]:
             raise AssertionError(f"sddmm exact edge {name}: the sign of a "
                                  f"masked cell differs from the plain "
                                  f"version's")
-        return cases[-1]
-
-    l, r = ints((384, 256), -256, 256), ints((384, 256), -256, 256)
-    l[0], l[1], l[2], r[0], r[1] = 256, -256, 255, 256, 255
-    l[3, :128], l[3, 128:] = 256, -256
-    m = ints((384, 384), -1, 2)
-    row = case("(a) K=256 at +-256: K*max*max = 2^24", l, r, m, "tc")
-    if row["max_abs_product"] != 2 ** 24:
-        raise AssertionError("case (a) does not reach 2^24")
-    M_, N_, K_ = 700, 900, 200
-    m = ints((M_, N_), -3, 3)
-    m[torch.rand((M_, N_), generator=gen, device=DEV) < 0.1] = -0.0
-    m[128:256, 256:512] = -0.0
-    m[640:, 768:] = 0.0
-    m[650:700:7, 770:900:5] = -0.0
-    l, r = ints((M_, K_), 0, 256), ints((N_, K_), 0, 256)
-    row = case("(b) non-negative, empty tiles, -0.0 mask cells", l, r, m,
-               "tc")
-    if row["cta_tiles_skipped"] < 2 or not row["tile_skip_on"]:
-        raise AssertionError("case (b) skips fewer than two tiles")
-    m[128:256, 256:512] = 0.0
-    l, r = ints((M_, K_), -256, 256), ints((N_, K_), -256, 256)
-    case("(c) negative operands, empty +0.0 tiles: no skip", l, r, m, "tc")
-    l, r = ints((300, 257), -16, 16), ints((200, 257), -16, 16)
-    l[0], r[0] = 256, 256
-    case("one over: K=257 at 256 takes the FMA route", l, r,
-         ints((300, 200), -1, 2), "fma")
 
 
 def sddmm_cases(gen, cases: list) -> list:
@@ -1632,14 +1738,15 @@ def phase_local_path(main: dict) -> dict:
 # -- phase 5 ------------------------------------------------------------------------
 
 def phase_graph_ops(main: dict) -> dict:
-    """The two graph kernels through ``kernels.ops`` on the user's graph:
+    """The graph kernels through ``kernels.ops`` on the user's graph:
     per-edge common-neighbour counts (K8, the packed adjacency's rows
-    gathered in the kernel) and the wedge-closing product mask ⊙ (A·Aᵀ)
-    (K7).  Identities: Σ_edges common neighbours = 3 T, the product read
-    at each edge equals K8's count there, Σ of the product = 6 T, where T
-    is phase 3's triangle count (clique enumeration) and equals K6's.  The
-    product must take K7's tensor-core route (read from the flag it left
-    on the card)."""
+    gathered in the kernel), the wedge-closing product mask ⊙ (A·Aᵀ) (K7)
+    and the triangle count Σ A ⊙ (A·A) / 6 (K6).  Identities: Σ_edges
+    common neighbours = 3 T, the product read at each edge equals K8's
+    count there, Σ of the product = 6 T, where T is phase 3's triangle
+    count (clique enumeration) and equals K6's.  K7 and K6 must take
+    their tensor-core routes (read from the flags they left on the
+    card)."""
     info = main["rmat"]
     g, T = info["g"], info["triangles"]
     A = rmat_adjacency(g)
@@ -1653,15 +1760,19 @@ def phase_graph_ops(main: dict) -> dict:
     S = ops.sddmm(A, A, A)
     torch.cuda.synchronize()
     sddmm_s = time.perf_counter() - t0
-    launches = launch_counts()               # ... and are read here
-    for kernel in ("sddmm", "sddmm_prep", "sddmm_tc", "bitset_edges"):
-        if launches[kernel] < 1:
-            raise AssertionError(f"graph_ops launched no {kernel}")
     route = sddmm_route(A, A, "tc")
     skipped = sddmm_skipped(ksd.last_tiles)
+    t0 = time.perf_counter()
+    k6 = ops.triangle_count(A)
+    k6_s = time.perf_counter() - t0
+    launches = launch_counts()               # ... and are read here
+    for kernel in ("sddmm", "sddmm_prep", "sddmm_tc", "bitset_edges",
+                   "matreduce", "matreduce_prep", "matreduce_tc"):
+        if launches[kernel] < 1:
+            raise AssertionError(f"graph_ops launched no {kernel}")
+    k6_route = matreduce_route(A, A, "tc")
     edges = torch.from_numpy(g.edges).to(DEV)
     at_edges = S[edges[:, 0], edges[:, 1]]
-    k6 = ops.triangle_count(A)
     checks = {"triangles_T": T, "sum_common_neighbors": cn.sum().item(),
               "sum_sddmm": S.sum(dtype=torch.float64).item(),
               "k6_triangles": k6,
@@ -1673,9 +1784,10 @@ def phase_graph_ops(main: dict) -> dict:
         raise AssertionError(f"graph_ops identities fail: {checks}")
     emit("graph_ops", graph=MAIN_GRAPH, edges=len(g.edges),
          launches=launches, checks=checks, sddmm_route=route,
-         sddmm_tiles=skipped,
+         sddmm_tiles=skipped, matreduce_route=k6_route,
          seconds={"common_neighbors": round(cn_s, 4),
-                  "sddmm": round(sddmm_s, 4)})
+                  "sddmm": round(sddmm_s, 4),
+                  "triangle_count": round(k6_s, 4)})
     del S, at_edges, Ab
     torch.cuda.empty_cache()
     return {"launches": launches, "by_role": {"main": launches},
@@ -1787,20 +1899,37 @@ def check_mine_runs(info: dict) -> dict:
 
 
 def check_engine_tier(info: dict) -> dict:
-    """Block-sparse triangles through K6 and partial symmetry breaking on
-    the user's graph."""
+    """Block-sparse triangles through K6's tile list — one call (one
+    launch of each of its three entries, no dense K6 launch) over every
+    output tile — and partial symmetry breaking on the user's graph."""
     g, T = info["g"], info["triangles"]
     before = launch_counts()
     t0 = time.perf_counter()
     bsa = BlockSparseAdjacency(g)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
     tb = triangle_count_blocksparse(bsa, use_kernel=True)
+    count_s = time.perf_counter() - t1
     bs_s = time.perf_counter() - t0
-    k6 = launch_counts()["matreduce"] - before["matreduce"]
+    moved = {k: v - before[k] for k, v in launch_counts().items()
+             if v != before[k]}
+    out_idx, k_ptr = tile_lists(bsa)[:2]
     tiles = sum(1 for (i, j) in bsa.blocks
                 if any((k, j) in bsa.blocks for k in bsa.row_blocks[i]))
-    if tb != T or k6 != tiles:
-        raise AssertionError(f"blocksparse: {tb!r} vs T {T!r}; {k6} K6 "
-                             f"launches for {tiles} output tiles")
+    want = dict(matreduce_tilelist=1, **dict.fromkeys(mr.TILELIST_STEPS, 1))
+    if tb != T or moved != want or len(out_idx) != tiles:
+        raise AssertionError(f"blocksparse: {tb!r} vs T {T!r}; launches "
+                             f"{moved} for {tiles} output tiles")
+    route = tilelist_route(bsa.tiles, k_ptr, "tc")
+    blocksparse = {**bsa.stats(), "triangles": tb, "launches": moved,
+                   "route": route, "output_tiles": tiles,
+                   "tile_products": int(k_ptr[-1]),
+                   "longest_list": int(np.diff(k_ptr).max()),
+                   "seconds": round(bs_s, 4),
+                   "seconds_build": round(build_s, 4),
+                   "seconds_count": round(count_s, 4)}
+    del bsa
     A = torch.from_numpy(g.dense_adjacency(np.float64, pad=False)).to(DEV)
     # a clique orbit (the tailed triangle's (0, 1)): hom itself.  The
     # order is given: greedy_plan with free (0, 1) eliminates vertex 2
@@ -1820,8 +1949,7 @@ def check_engine_tier(info: dict) -> dict:
                              f"ends {ends} vs {distinct}")
     del A
     torch.cuda.empty_cache()
-    return {"blocksparse": {**bsa.stats(), "triangles": tb,
-                            "k6_launches": k6, "seconds": round(bs_s, 3)},
+    return {"blocksparse": blocksparse,
             "hom_oriented": {"tailed_triangle_orbit_01": oriented,
                              "hom_count": hom,
                              "chain3_endpoints": ends,
@@ -2364,27 +2492,56 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
     del fsk, fsk64
     tri_rows(entry, granted.get(3, 128), granted_keep.get(3, 128), rng, eye,
              local)
-    # K6 as the use_pallas Intersect route calls it, on the R-MAT
-    # adjacency.  For 0/1 data the products it needs are the 6T nonzero
-    # ones, so the bound is the bytes of its inputs — lhs, rhs and mask
-    # are one tensor, read once — and of its f64 result; the dense
-    # algorithm's bound, 2 n^3 operations, is given beside it.
+    # K6 as the use_pallas Intersect route and ops.triangle_count call it,
+    # on the R-MAT adjacency.  For 0/1 data the products it needs are the
+    # 6T nonzero ones, so the bound is the bytes of its inputs — lhs, rhs
+    # and mask are one tensor, read once — and of its f64 result; beside
+    # it the dense algorithm's 2 n^3 operations at the bf16 tensor-core
+    # rate (the route taken) and at the f32 rate.  The yardstick is the
+    # product on the tensor cores, then the masked f64 sum, which computes
+    # the same function exactly on this data; the f32 product (TF32 off)
+    # is timed beside it.  Also beside the row: its three kernels launched
+    # alone on the call's own buffers, and the FMA route on random f32.
     A = torch.from_numpy(rmat(13, 24.0, seed=0).dense_adjacency(
         np.float32, pad=False)).to(DEV)
     six_t = mr.matreduce(A, A, A)
-    tiles = (-(-N // 128)) ** 2
+    tc_product, tc_yardstick = sddmm_tc_yardstick(A)
     entry("matreduce", "matreduce", "src/repro/kernels/matreduce.py:128",
           None, lambda: mr.matreduce(A, A, A),
           lambda: mr.matreduce_plain(A, A, A),
-          lambda: torch.sum((A @ A) * A, dtype=torch.float64), 5,
+          lambda: tc_product().sum(dtype=torch.float64), 5,
           distinct_bytes(A, A, A) + 8, 2 * six_t, path=local,
-          partials_bytes=tiles * 8,
           source=MATREDUCE_SOURCE, value=six_t,
-          dense_operations=2 * N ** 3,
-          dense_operations_bound_ms=2 * N ** 3 / PEAK_F32_OPS_PER_S * 1e3,
-          yardstick="torch.sum((A @ A) * A, dtype=float64), f32 product, "
-                    "TF32 off",
-          launches_mine_path_blocksparse=mined["launches"]["matreduce"])
+          launches_graph_ops=graph_ops["launches"]["matreduce"],
+          launches_mine_path_dense=mined["launches"].get("matreduce", 0),
+          **matreduce_row_extras(A),
+          yardstick=f"library_ms: ({tc_yardstick}).sum(dtype=float64); "
+                    f"library_f32_ms: torch.sum((A @ A) * A, "
+                    f"dtype=float64), f32 product, TF32 off")
+    # K6's tile list as block-sparse triangles call it on the R-MAT
+    # graph's 128 x 128 tiles: the same function, so the same bound (the
+    # bytes of the stack, read once, the lists and the result; 2 · 6T
+    # products); beside it the tile products the lists name, at the bf16
+    # tensor-core rate and at the f32 rate.  No one PyTorch call takes
+    # tile lists: library_ms is null, and the dense row's tensor-core
+    # yardstick, which counts the same 6T from the dense adjacency, is
+    # given beside it.
+    bsa = BlockSparseAdjacency(main["rmat"]["g"])
+    lists = tile_lists(bsa, GROUP)           # as the path orders them
+    stack = bsa.tiles
+    if mr.matreduce_tilelist(stack, *lists) != six_t:
+        raise AssertionError("the tile list differs from K6 on the dense "
+                             "adjacency")
+    entry("matreduce_tilelist", "matreduce_tilelist",
+          "src/repro/kernels/matreduce.py:128", None,
+          lambda: mr.matreduce_tilelist(stack, *lists),
+          lambda: mr.matreduce_tilelist_plain(stack, *lists), None, 5,
+          distinct_bytes(stack) + sum(x.size for x in lists) * 4 + 8,
+          2 * six_t, path=mined, source=MATREDUCE_SOURCE, value=six_t,
+          **tilelist_row_extras(stack, lists, tile_lists(bsa), tc_product),
+          yardstick="none (no PyTorch call takes tile lists); beside it "
+                    "dense_tc_yardstick_ms: the dense row's library call")
+    del bsa, stack
     # K7 as graph_ops calls it: mask ⊙ (A @ Aᵀ) on the R-MAT adjacency, f32.
     # For 0/1 data the products it needs are the 6T nonzero ones, so the
     # bound is the bytes of its input — lhs, rhs and mask are one tensor,
@@ -2524,6 +2681,120 @@ def sddmm_row_extras(A) -> dict:
                               _matreduce_label)}
 
 
+def matreduce_row_extras(A) -> dict:
+    """K6's dense row beyond the common fields, on the R-MAT adjacency:
+    the route and skipped tiles of the call, its bounds, its kernels
+    timed alone (``mr.matreduce_buffers`` / ``mr.matreduce_launch``, the
+    wrapper's own two halves), the f32 yardstick, ptxas's counts, and the
+    FMA route on random normal f32 operands of the same shape: the call,
+    and each of its three kernels alone (prep with its state zeroed
+    first, as the call allocates it zeroed)."""
+    got = mr.matreduce(A, A, A)
+    route = matreduce_route(A, A, "tc")
+    skipped = sddmm_skipped(mr.last_tiles)
+    n = A.shape[0]
+    buf = mr.matreduce_buffers(A, A, A)
+    mr.matreduce_launch(buf)
+    if buf.partials.sum().item() != got:
+        raise AssertionError("matreduce launched alone differs from the "
+                             "call")
+    f32_library = lambda: torch.sum((A @ A) * A,  # noqa: E731
+                                    dtype=torch.float64)
+    if f32_library().item() != got:
+        raise AssertionError("the f32 yardstick differs from K6")
+    alone = {key: timed_ms(lambda: mr.matreduce_launch(buf, (step,)), 10)
+             for key, step in zip(("ms_prep", "ms_tc", "ms_fma_gated"),
+                                  mr.MATREDUCE_STEPS)}
+    del buf
+    # the FMA route: random normal f32 operands, the flag refuses them
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    lr = [torch.randn((n, n), generator=gen, device=DEV) for _ in range(2)]
+    mk = (torch.rand((n, n), generator=gen, device=DEV) < 0.3).float()
+    mr.matreduce(lr[0], lr[1], mk)
+    matreduce_route(lr[0], lr[1], "fma")
+    buf = mr.matreduce_buffers(lr[0], lr[1], mk)
+    fma_route = {
+        "shape": [n, n, n], "ms_call": timed_ms(
+            lambda: mr.matreduce(lr[0], lr[1], mk), 3),
+        "ms_prep": timed_ms(lambda: (buf.prep.state.zero_(),
+                                     mr.matreduce_launch(
+                                         buf, ("matreduce_prep",))), 10),
+        "ms_tc_gated": timed_ms(
+            lambda: mr.matreduce_launch(buf, ("matreduce_tc",)), 10),
+        "ms_fma_alone": timed_ms(
+            lambda: mr.matreduce_launch(buf, ("matreduce_f32",)), 3)}
+    del buf, lr, mk
+    return {
+        "matreduce_route": route, **skipped,
+        "dense_operations": 2 * n ** 3,
+        "dense_bf16_tc_bound_ms": 2 * n ** 3 / PEAK_BF16_TC_OPS_PER_S * 1e3,
+        "dense_bf16_tc_bound_cta_tiles_run_ms":
+            2 * (skipped["cta_tiles_128x256"] - skipped["cta_tiles_skipped"])
+            * 2 * mr._ksd.TILE ** 2 * n / PEAK_BF16_TC_OPS_PER_S * 1e3,
+        "dense_operations_bound_ms": 2 * n ** 3 / PEAK_F32_OPS_PER_S * 1e3,
+        **alone, "library_f32_ms": timed_ms(lambda: f32_library().item(), 5),
+        "fma_route_random_f32": fma_route,
+        "ptxas": ptxas_counts(kbuild.build_logs.get("matreduce", ""),
+                              _matreduce_label)}
+
+
+def tilelist_row_extras(stack, lists, ungrouped, tc_product) -> dict:
+    """K6's tile-list row beyond the common fields: the lists' sizes, the
+    route, the tile products' bounds, its three kernels timed alone
+    (``mr.tilelist_buffers`` / ``mr.tilelist_launch``), the tensor-core
+    kernel also on the same lists in ``_tile_triples``' order
+    (``ungrouped``: output tiles row by row, not in groups of rows), the
+    dense row's tensor-core yardstick, and the FMA route on the same
+    stack with a value of 2.5 in every tile (the call and its FMA kernel
+    alone)."""
+    out_idx, k_ptr = lists[:2]
+    products = int(k_ptr[-1])
+    tops_ = 2 * products * mr._ksd.TILE ** 3
+    mr.matreduce_tilelist(stack, *lists)
+    route = tilelist_route(stack, k_ptr, "tc")
+    buf = mr.tilelist_buffers(stack, *lists)
+    mr.tilelist_launch(buf)
+    got = mr.matreduce_tilelist(stack, *lists)
+    if buf.partials.sum().item() != got:
+        raise AssertionError("the tile list launched alone differs from "
+                             "the call")
+    alone = {key: timed_ms(lambda: mr.tilelist_launch(buf, (step,)), 10)
+             for key, step in zip(("ms_prep", "ms_tc", "ms_fma_gated"),
+                                  mr.TILELIST_STEPS)}
+    buf = mr.tilelist_buffers(stack, *ungrouped)
+    mr.tilelist_launch(buf)
+    if buf.partials.sum().item() != got:
+        raise AssertionError("the ungrouped tile list differs")
+    alone["ms_tc_ungrouped"] = timed_ms(
+        lambda: mr.tilelist_launch(buf, ("tilelist_tc",)), 10)
+    del buf
+    odd = stack.clone()
+    odd[:, 0, 0] = 2.5
+    want = mr.matreduce_tilelist_plain(odd, *lists)
+    if mr.matreduce_tilelist(odd, *lists) != want:
+        raise AssertionError("the tile list's FMA route differs from its "
+                             "plain version")
+    tilelist_route(odd, k_ptr, "fma")
+    buf = mr.tilelist_buffers(odd, *lists)
+    mr.tilelist_launch(buf, ("tilelist_prep",))      # the flag refuses
+    fma_route = {"values": "0/1 and 2.5 at cell (0, 0) of every tile",
+                 "ms_call": timed_ms(
+                     lambda: mr.matreduce_tilelist(odd, *lists), 2),
+                 "ms_fma_alone": timed_ms(
+                     lambda: mr.tilelist_launch(buf, ("tilelist_f32",)), 2)}
+    del buf, odd
+    return {"tilelist_route": route, "tiles": stack.shape[0],
+            "output_tiles": len(out_idx), "tile_products": products,
+            "longest_list": int(np.diff(k_ptr).max()),
+            "tile_product_operations": tops_,
+            "tile_products_bf16_tc_bound_ms":
+                tops_ / PEAK_BF16_TC_OPS_PER_S * 1e3,
+            "tile_products_f32_bound_ms": tops_ / PEAK_F32_OPS_PER_S * 1e3,
+            **alone, "fma_route": fma_route,
+            "dense_tc_yardstick_ms": timed_ms(
+                lambda: tc_product().sum(dtype=torch.float64).item(), 5)}
+
+
 def ptxas_counts(log: str, label) -> list:
     """Registers and spills of each kernel instance, from the ``-Xptxas
     -v`` lines of this run's build of one library (none when it was not
@@ -2569,11 +2840,20 @@ def _cutjoin_label(mangled: str):
 
 
 def _matreduce_label(mangled: str):
-    """tc::product_kernel<Epilogue>, prep_kernel<float|bf16> and
-    masked_product_kernel<reduce|write>."""
-    m = re.search(r"product_kernelINS_(\d+)(\w+?)EE", mangled)
-    if "tc14product_kernel" in mangled and m:
-        return f"tc::product_kernel<{m[2][:int(m[1])]}>"
+    """tc::product_kernel<BN, Schedule, Epilogue>, tilelist_fma_kernel,
+    prep_kernel<float|bf16> and masked_product_kernel<reduce|write>."""
+    head = "tc14product_kernelILi"
+    at = mangled.find(head)
+    if at >= 0:
+        bn, rest = mangled[at + len(head):].split("E", 1)
+        names = []
+        while (m := re.match(r"NS_(\d+)", rest)):
+            end = m.end() + int(m[1])
+            names.append(rest[m.end():end])
+            rest = rest[end:].removeprefix("E")
+        return f"tc::product_kernel<{bn}, {', '.join(names)}>"
+    if "tilelist_fma_kernel" in mangled:
+        return "tilelist_fma_kernel"
     m = re.search(r"(prep_kernel|masked_product_kernel)I(\w+?)E", mangled)
     if not m:
         return None

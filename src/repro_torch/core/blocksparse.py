@@ -7,12 +7,15 @@ analogue of the paper's observation that enumeration cost follows
 pattern/graph structure, not n^k.
 
 ``BlockSparseAdjacency`` stores the non-empty tiles of A as f32 tensors on
-the device (one stacked (T, tile, tile) tensor; ``blocks[(i, j)]`` is a
-view into it); the counting functions below (triangle / wedge-closing)
-iterate only over non-empty tile triples, and each tile-level product is
-exactly the masked matrix-product reduce of ``kernels.ops`` (K6,
-``masked_matmul_reduce``).  Occupancy statistics quantify the skipped
-work.
+the device (one stacked (T, tile, tile) tensor in the order of the sorted
+tile keys i·nb + j, ``keys``; ``blocks[(i, j)]`` is a view into it); the
+counting functions below (triangle / wedge-closing) iterate only over
+non-empty tile triples, and each tile-level product is exactly the masked
+matrix-product reduce of ``kernels.ops`` (K6, ``masked_matmul_reduce``).
+``tile_lists`` turns the triples into K6's tile lists, so that the
+kernel route counts every output tile in one call
+(``kernels.matreduce.matreduce_tilelist``).  Occupancy statistics
+quantify the skipped work.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch import device as _device
 from repro_torch.graph.storage import Graph
 
 TILE = 128
+GROUP = 8       # output row tiles the kernel route's lists sweep together
 
 
 class BlockSparseAdjacency:
@@ -42,6 +46,7 @@ class BlockSparseAdjacency:
                for a in (inv.reshape(-1), src % tile, dst % tile)]
         tiles[idx[0], idx[1], idx[2]] = 1.0
         self.tiles = tiles
+        self.keys = keys
         self.block_rows = torch.from_numpy(keys // self.nb).to(dev)
         self.blocks = {(int(k) // self.nb, int(k) % self.nb): tiles[t]
                        for t, k in enumerate(keys)}
@@ -71,6 +76,52 @@ def _tile_triples(bsa: BlockSparseAdjacency):
             yield i, j, mask, ks
 
 
+def tile_lists(bsa: BlockSparseAdjacency, group: int = 1):
+    """K6's tile lists of the triangle count, built with numpy from the
+    tile keys: for each output tile (i, j) that ``_tile_triples`` yields
+    the stack index of (i, j) (``out_idx``), and for each k of its list,
+    in ascending order, the stack indices of A[i, k] (``lhs_idx``) and of
+    the tile (j, k) (``rhs_idx``); ``k_ptr`` bounds each output tile's
+    entries.  The product kernels take lhs @ rhsᵀ, and A[k, j] = tile
+    (j, k)ᵀ because the adjacency is symmetric: ``BlockSparseAdjacency``
+    inserts both (u, v) and (v, u) of every edge, so tile (j, k) is
+    stored exactly when (k, j) is, as its transpose.
+
+    Output tiles come in groups of ``group`` row tiles, column by column
+    inside a group (``group=1``: ``_tile_triples``' order).  The card
+    runs them in that order, so the output tiles in flight share their
+    rhs tiles (j, k), and a group's lhs tiles stay in L2 while it sweeps
+    its columns."""
+    nb, keys = bsa.nb, np.asarray(bsa.keys, np.int64)
+    rows, cols = keys // nb, keys % nb
+    start = np.searchsorted(rows, np.arange(nb + 1))
+    # every stored (i, k) beside every stored (k, j) of row k
+    count = start[cols + 1] - start[cols]
+    first = np.cumsum(count) - count
+    a = np.repeat(np.arange(len(keys)), count)
+    b = np.repeat(start[cols], count) + np.arange(count.sum()) \
+        - np.repeat(first, count)
+    # ... whose output tile (i, j) is stored
+    want = rows[a] * nb + cols[b]
+    out = np.minimum(np.searchsorted(keys, want), len(keys) - 1)
+    hit = keys[out] == want
+    a, b, out = a[hit], b[hit], out[hit]
+    i, j = rows[out], cols[out]
+    order = np.lexsort((cols[a], i, j, i // group))
+    a, b, out = a[order], b[order], out[order]
+    rhs_key = cols[b] * nb + rows[b]
+    rhs = np.searchsorted(keys, rhs_key)
+    if len(rhs) and (rhs.max() >= len(keys)
+                     or not np.array_equal(keys[rhs], rhs_key)):
+        raise ValueError("the tiles are not symmetric: a tile (k, j) is "
+                         "stored without (j, k)")
+    first = np.ones(len(out), bool)
+    first[1:] = out[1:] != out[:-1]
+    out_idx = out[first]
+    k_ptr = np.concatenate([np.nonzero(first)[0], [len(out)]])
+    return out_idx, k_ptr, a, rhs
+
+
 def triangle_count_blocksparse(bsa: BlockSparseAdjacency,
                                use_kernel: bool = False) -> float:
     """Σ A ⊙ (A @ A) / 6 over non-empty tile triples only.
@@ -78,19 +129,21 @@ def triangle_count_blocksparse(bsa: BlockSparseAdjacency,
     For each non-empty output tile (i,j), stack the factor tiles A[i,k]
     and A[k,j] over the k where BOTH exist into one K dimension, then
     mask with A[i,j] and reduce — per tile exactly the masked
-    matrix-product reduce.  ``use_kernel=True`` takes
-    ``ops.masked_matmul_reduce`` (K6 on a CUDA tensor, its plain version
-    on a CPU one); otherwise an f32 product and an f64 sum.
+    matrix-product reduce.  ``use_kernel=True`` hands every output tile
+    to ``kernels.matreduce.matreduce_tilelist`` at once (the lists of
+    ``tile_lists``; K6's tile-list launches on a CUDA tensor, one host
+    sync in all; its plain version on a CPU one); otherwise an f32
+    product and an f64 sum per tile.
     """
-    from repro_torch.kernels import ops
+    if use_kernel:
+        from repro_torch.kernels import matreduce
+        return matreduce.matreduce_tilelist(
+            bsa.tiles, *tile_lists(bsa, GROUP)) / 6.0
     total = 0.0
     for i, j, mask, ks in _tile_triples(bsa):
         lhs = torch.cat([bsa.blocks[(i, k)] for k in ks], dim=1)
         rhs = torch.cat([bsa.blocks[(k, j)].T for k in ks], dim=1)
-        if use_kernel:
-            total += ops.masked_matmul_reduce(lhs, rhs, mask)
-        else:
-            total += float(((lhs @ rhs.T) * mask).sum(dtype=torch.float64))
+        total += float(((lhs @ rhs.T) * mask).sum(dtype=torch.float64))
     return total / 6.0
 
 

@@ -28,6 +28,18 @@
                  or the strided template where the kept axis has it.
 ``matreduce``    Σ mask ⊙ (lhs @ rhsᵀ) over f32 (M, K), (N, K), (M, N)
                  inputs — the fused triangle count behind ``Intersect``.
+                 On the card three launches, as K7's (``kernels.sddmm``):
+                 ``sddmm_prep`` (the exactness flag, one bf16 copy when
+                 lhs is rhs, the mask's tile occupancy), ``matreduce_tc``
+                 (bf16 ``wgmma`` with a reducing epilogue, gated on the
+                 flag) and ``matreduce_f32`` (f32 FMAs, returns at once
+                 when the flag admits); no host sync before the final
+                 ``.item()``.
+``matreduce_tilelist``  the same function summed over a list of tile
+                 products per output tile of a (T, t, t) stack — the
+                 block-sparse triangle count in one call: one prep of
+                 the stack, one tensor-core launch (a CTA per output
+                 tile walking its list), one gated FMA launch.
 
 These replace the reference package's ``_vecjoin_tiles``,
 ``_pairjoin_tiles``, ``_pairjoin_keep_tiles``, ``_trijoin_tiles`` (also
@@ -39,9 +51,9 @@ sources say what bounds each on the card and what its design does about
 it.  On a CPU
 tensor — and only because the tensor lies on the CPU — they take the
 plain PyTorch versions ``prod_reduce_plain``, ``tri_reduce_plain``,
-``prod_reduce_keep_plain``, ``tri_reduce_keep_plain`` and
-``matreduce_plain`` in this module — for the tri join, the plain version
-of the route it takes: ``_tri_partials_plain`` (dense),
+``prod_reduce_keep_plain``, ``tri_reduce_keep_plain``,
+``matreduce_plain`` and ``matreduce_tilelist_plain`` in this module —
+for the tri join, the plain version of the route it takes: ``_tri_partials_plain`` (dense),
 ``_tri_path_plain`` or ``_tri_triangle_plain``.  A CUDA tensor never
 reaches a plain version through a wrapper.
 
@@ -58,7 +70,11 @@ does not change them.  ``prod_reduce`` on vectors and ``prod_reduce_keep``
 also have an **f64 instance** (``f64=True``): f64 products and sums, no
 chunks, exact while cells · Π_i max|F_i| <= 2^53 over the reduced length
 (``exact_f64``) — the route the compiler takes on the card for the joins
-``exact_block`` refuses.
+``exact_block`` refuses.  ``matreduce`` and ``matreduce_tilelist`` take
+f32 operands: an f32 product (exact on the tensor cores under the flag —
+finite integers, |v| <= 256, K · max · max <= 2^24 — else on FMAs), each
+cell times the mask in f64, f64 sums (equal to ``matreduce_plain`` at
+difference 0 where every product cell is an exact integer).
 
 **Global index offsets.**  ``offsets`` (one int per cut axis, default
 zeros) is added to the local indices before the injectivity compare, so
@@ -78,10 +94,13 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import sddmm as _ksd
 
 EXACT_LIMIT = float(1 << 24)                 # f32 exact-integer range
 EXACT_F64_LIMIT = 1 << 53                    # f64 exact-integer range
@@ -89,7 +108,7 @@ EXACT_F64_LIMIT = 1 << 53                    # f64 exact-integer range
 # kernel launches per tier, counted where the kernel is launched and
 # nowhere else (plain-version calls do not count)
 launches = {"vecjoin": 0, "pairjoin": 0, "trijoin": 0, "pairjoin_keep": 0,
-            "trijoin_keep": 0, "matreduce": 0}
+            "trijoin_keep": 0, "matreduce": 0, "matreduce_tilelist": 0}
 
 # scalar tri joins per route, counted where the route's kernels are
 # launched; every one also counts in ``launches["trijoin"]`` (the keep form
@@ -104,6 +123,18 @@ join_entries = {"cutjoin_vec": 0, "cutjoin_vec_f64": 0,
                 "cutjoin_pair_keep": 0, "cutjoin_pair_keep_f64": 0,
                 "cutjoin_tri_keep": 0, "cutjoin_tri_keep_slab": 0}
 
+# K6's launches per C entry (its prep step launches ``sddmm_prep``, the
+# tile list's ``matreduce_stack_prep``); a call launches all three of its
+# entries and counts once in ``launches["matreduce"]`` or
+# ``launches["matreduce_tilelist"]``
+matreduce_entries = {"matreduce_prep": 0, "matreduce_tc": 0,
+                     "matreduce_f32": 0, "tilelist_prep": 0,
+                     "tilelist_tc": 0, "tilelist_f32": 0}
+MATREDUCE_STEPS = ("matreduce_prep", "matreduce_tc", "matreduce_f32")
+TILELIST_STEPS = ("tilelist_prep", "tilelist_tc", "tilelist_f32")
+last_exact = None       # K6's last flag, (1,) int32 on the card: read after a sync
+last_tiles = None       # the last dense call's tile occupancy, (M/128, N/128)
+
 _ENTRY = {"pairjoin": "cutjoin_pair", "trijoin": "cutjoin_tri",
           "pairjoin_keep": "cutjoin_pair_keep",
           "trijoin_keep": "cutjoin_tri_keep"}
@@ -111,10 +142,12 @@ _TARGET_BLOCKS = 2048        # thread blocks wanted before axis 1 stops splittin
 SLAB_MAX_U = 8192            # the slab entry's staged u row, as csrc/cutjoin.cu
 _MIN_SPAN = 32               # fewest axis-1 cells one thread block walks
 _PLAIN_SLAB = 1 << 27        # cells per slab of the plain tri version
+_TC_COLUMNS = 256            # K6's output columns a tensor-core CTA (the source's)
+_PREP_WIDTH = 1024           # a tile stack's values as prep reads them, per row
 
 
 def reset_launches():
-    for table in (launches, tri_routes, join_entries):
+    for table in (launches, tri_routes, join_entries, matreduce_entries):
         for k in table:
             table[k] = 0
 
@@ -212,10 +245,27 @@ def _lib(name: str = "cutjoin"):
             getattr(tj, q).argtypes = []
             getattr(tj, q).restype = I
         mm = libs["matreduce"]
-        mm.matreduce_f32.argtypes = [P, P, P, I, I, I, L, L, L, P, P]
-        mm.matreduce_f32.restype = I
-        mm.matreduce_tile.argtypes = []
-        mm.matreduce_tile.restype = I
+        mm.sddmm_prep.argtypes = [P, P, P, I, I, I, L, L, L, I, I, P, P, L,
+                                  P, P]
+        mm.matreduce_tc.argtypes = [P, L, P, L, P, L, P, I, I, I, P, I, I,
+                                    P]
+        mm.matreduce_f32.argtypes = [P, P, P, I, I, I, L, L, L, P, P, I, P]
+        mm.matreduce_stack_prep.argtypes = [P, I, I, L, P, L, P, P]
+        mm.matreduce_tilelist_tc.argtypes = [P, I, P, P, P, P, P, I, I, P,
+                                             P, P]
+        mm.matreduce_tilelist_f32.argtypes = [P, I, P, P, P, P, I, I, P, P,
+                                              P]
+        for q in ("sddmm_prep", "matreduce_tc", "matreduce_f32",
+                  "matreduce_stack_prep", "matreduce_tilelist_tc",
+                  "matreduce_tilelist_f32"):
+            getattr(mm, q).restype = I
+        for q in ("matreduce_tile", "matreduce_tc_columns"):
+            getattr(mm, q).argtypes = []
+            getattr(mm, q).restype = I
+        if (mm.matreduce_tile(), mm.matreduce_tc_columns()) != \
+                (_ksd.TILE, _TC_COLUMNS):
+            raise _build.KernelError("csrc/matreduce.cu's tiles are not "
+                                     "kernels.matreduce's")
         _LIB = libs
     return _LIB[name]
 
@@ -981,6 +1031,73 @@ def matreduce_plain(lhs, rhs, mask) -> float:
     return _matreduce_plain(*_mm_operands(lhs, rhs, mask)).item()
 
 
+def _tilelist_operands(stack, out_idx, k_ptr, lhs_idx, rhs_idx):
+    """The f32 (T, t, t) stack and the four lists as int64 numpy arrays,
+    checked: k_ptr (O + 1) runs from 0 to the lists' length without
+    falling, and every index names a tile of the stack."""
+    stack = torch.as_tensor(stack)
+    if stack.ndim != 3 or stack.shape[1] != stack.shape[2]:
+        raise ValueError(f"matreduce_tilelist takes a (T, t, t) stack of "
+                         f"square tiles: {tuple(stack.shape)}")
+    stack = stack if stack.dtype == torch.float32 else stack.float()
+    out_idx, k_ptr, lhs_idx, rhs_idx = (
+        np.asarray(x, dtype=np.int64).reshape(-1)
+        for x in (out_idx, k_ptr, lhs_idx, rhs_idx))
+    T = stack.shape[0]
+    if len(k_ptr) != len(out_idx) + 1 or k_ptr[0] != 0 or \
+            (np.diff(k_ptr) < 0).any() or \
+            k_ptr[-1] != len(lhs_idx) or len(rhs_idx) != len(lhs_idx):
+        raise ValueError("matreduce_tilelist: k_ptr must run from 0 to the "
+                         "lists' length, one entry per output tile and one "
+                         "more, without falling")
+    for x in (out_idx, lhs_idx, rhs_idx):
+        if len(x) and (x.min() < 0 or x.max() >= T):
+            raise ValueError(f"matreduce_tilelist: a tile index outside "
+                             f"the stack's {T} tiles")
+    return stack, out_idx, k_ptr, lhs_idx, rhs_idx
+
+
+def _tilelist_plain(stack, out_idx, k_ptr, lhs_idx, rhs_idx):
+    """Per output tile o: Σ stack[out_idx[o]] ⊙ Σ_p stack[lhs_idx[p]] @
+    stack[rhs_idx[p]]ᵀ over p in [k_ptr[o], k_ptr[o + 1]), the product
+    summed in f32 (list position by list position, a batched product
+    each), masked and summed in f64: the (O,) f64 partials."""
+    dev = stack.device
+    t = stack.shape[1]
+    lengths = np.diff(k_ptr)
+    acc = torch.zeros((len(out_idx), t, t), dtype=torch.float32,
+                      device=dev)
+    for q in range(int(lengths.max(initial=0))):
+        outs = np.nonzero(lengths > q)[0]
+        p = k_ptr[outs] + q
+        lhs = stack[torch.from_numpy(lhs_idx[p]).to(dev)]
+        rhs = stack[torch.from_numpy(rhs_idx[p]).to(dev)]
+        rows = torch.from_numpy(outs).to(dev)
+        acc[rows] += torch.bmm(lhs, rhs.transpose(1, 2))
+    mask = stack[torch.from_numpy(out_idx).to(dev)]
+    return (acc.double() * mask.double()).sum((1, 2))
+
+
+def tilelist_exact_plain(stack, k_ptr) -> bool:
+    """Plain version of the tile list's flag: every value of the stack a
+    finite integer with |v| <= 256, and 128 × the longest list × max|v|²
+    <= 2^24 (counted in integers)."""
+    x = torch.as_tensor(stack).float()
+    if not bool((torch.isfinite(x) & (x == torch.round(x))
+                 & (x.abs() <= _ksd.EXACT_VALUE)).all()):
+        return False
+    top = int(x.abs().max().item()) if x.numel() else 0
+    longest = int(np.diff(np.asarray(k_ptr, np.int64)).max(initial=0))
+    return _ksd.TILE * longest * top * top <= _ksd.EXACT_SUM
+
+
+def matreduce_tilelist_plain(stack, out_idx, k_ptr, lhs_idx,
+                             rhs_idx) -> float:
+    """Plain PyTorch version of ``matreduce_tilelist``."""
+    return _tilelist_plain(*_tilelist_operands(
+        stack, out_idx, k_ptr, lhs_idx, rhs_idx)).sum().item()
+
+
 # -- the wrappers -------------------------------------------------------------------
 
 def prod_reduce_tiles(factors, *, distinct: bool = True, block: int = 128,
@@ -1169,38 +1286,195 @@ def tri_reduce_keep(factors, axes, *, keep: int, n, distinct: bool = True,
                                  offsets=offsets).sum(0)
 
 
+class ReduceBuffers(NamedTuple):
+    """One dense ``matreduce`` call's buffers: K7's prep buffers without
+    an output (operands, bf16 copies, state), and the f64 partials — the
+    tensor-core CTAs' (one per 128 x 256 tile), then the FMA blocks' (one
+    per 128 x 128 tile); the route not taken writes zeros."""
+    prep: _ksd.Buffers
+    partials: torch.Tensor
+    n_tc: int
+
+
+def matreduce_buffers(lhs, rhs, mask) -> ReduceBuffers:
+    """The buffers of one ``matreduce`` call on card operands (M, N, K >=
+    1), as the wrapper allocates them."""
+    prep = _ksd.buffers(*_mm_operands(lhs, rhs, mask), out=False)
+    (M, _), N = prep.lhs.shape, prep.rhs.shape[0]
+    tm = -(-M // _ksd.TILE)
+    n_tc = tm * -(-N // _TC_COLUMNS)
+    partials = torch.empty((n_tc + tm * -(-N // _ksd.TILE),),
+                           dtype=torch.float64, device=prep.lhs.device)
+    return ReduceBuffers(prep, partials, n_tc)
+
+
+def matreduce_launch(buf: ReduceBuffers, steps=MATREDUCE_STEPS):
+    """Launch ``steps`` (entries of ``MATREDUCE_STEPS``, in that order) of
+    one call on its buffers; each launch adds one to its count in
+    ``matreduce_entries``."""
+    lib = _lib("matreduce")
+    p, partials = buf.prep, buf.partials
+    (M, K), N = p.lhs.shape, p.rhs.shape[0]
+    with torch.cuda.device(p.lhs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for step in steps:
+            if step == "matreduce_prep":
+                err = lib.sddmm_prep(*_ksd.prep_args(p, stream))
+            elif step == "matreduce_tc":
+                err = lib.matreduce_tc(
+                    p.a.data_ptr(), p.a.stride(0), p.b.data_ptr(),
+                    p.b.stride(0), p.mask.data_ptr(), p.mask.stride(0),
+                    partials.data_ptr(), M, N, K, p.state.data_ptr(), 1,
+                    int(p.same), stream)
+            elif step == "matreduce_f32":
+                err = lib.matreduce_f32(
+                    p.lhs.data_ptr(), p.rhs.data_ptr(), p.mask.data_ptr(), M,
+                    N, K, p.lhs.stride(0), p.rhs.stride(0), p.mask.stride(0),
+                    partials[buf.n_tc:].data_ptr(), p.state.data_ptr(),
+                    int(p.same), stream)
+            else:
+                raise ValueError(f"matreduce has no step {step!r}")
+            if err != 0:
+                raise _build.KernelError(f"{step} launch failed: CUDA error "
+                                         f"{err}")
+            matreduce_entries[step] += 1
+
+
 def matreduce_tiles(lhs, rhs, mask) -> torch.Tensor:
     """f64 per-thread-block partials of ``matreduce`` on the operands'
     device; their sum is the result."""
+    global last_exact, last_tiles
     lhs, rhs, mask = _mm_operands(lhs, rhs, mask)
     if not lhs.is_cuda:
         return _matreduce_plain(lhs, rhs, mask)
     (M, K), N = lhs.shape, rhs.shape[0]
     if M == 0 or N == 0 or K == 0:
         return torch.zeros((1,), dtype=torch.float64, device=lhs.device)
-    # the kernel takes a row stride and unit column stride
-    lhs, rhs, mask = (x if x.stride(1) == 1 and x.stride(0) >= x.shape[1]
-                      else x.contiguous() for x in (lhs, rhs, mask))
-    lib = _lib("matreduce")
-    tile = lib.matreduce_tile()
-    partials = torch.empty((-(-M // tile) * -(-N // tile),),
-                           dtype=torch.float64, device=lhs.device)
-    with torch.cuda.device(lhs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.matreduce_f32(lhs.data_ptr(), rhs.data_ptr(),
-                                mask.data_ptr(), M, N, K, lhs.stride(0),
-                                rhs.stride(0), mask.stride(0),
-                                partials.data_ptr(), stream)
-    if err != 0:
-        raise _build.KernelError(f"matreduce_f32 launch failed: CUDA "
-                                 f"error {err}")
+    buf = matreduce_buffers(lhs, rhs, mask)
+    matreduce_launch(buf)
     launches["matreduce"] += 1
-    return partials
+    state = buf.prep.state
+    last_exact = state[_ksd._EXACT_SLOT:_ksd._EXACT_SLOT + 1]
+    last_tiles = state[_ksd._STATE_HEAD:].view(-(-M // _ksd.TILE),
+                                               -(-N // _ksd.TILE))
+    return buf.partials
 
 
 def matreduce(lhs, rhs, mask) -> float:
     """Σ_{i,j} mask[i,j] · (lhs @ rhsᵀ)[i,j] for lhs (M, K), rhs (N, K),
     mask (M, N); other dtypes are cast to f32.  The product is exact f32
-    (no TF32); the masked cells are summed in f64, so 0/1 inputs give the
-    exact integer while every product cell stays below 2^24."""
+    (no TF32; on the tensor cores only where the flag makes bf16 exact);
+    the masked cells are summed in f64, so 0/1 inputs give the exact
+    integer while every product cell stays below 2^24."""
     return matreduce_tiles(lhs, rhs, mask).sum().item()
+
+
+class TileListBuffers(NamedTuple):
+    """One ``matreduce_tilelist`` call's buffers on the card: the f32
+    stack as (T·128, 128) rows (tiles narrower than 128 zero-padded), its
+    bf16 copy, the four lists as int32 views of one tensor, the f64
+    partials (the tensor-core CTAs', then the FMA blocks', one each per
+    output tile), the zeroed state, and the flag's K (128 × the longest
+    list)."""
+    rows: torch.Tensor
+    x16: torch.Tensor
+    out_idx: torch.Tensor
+    k_ptr: torch.Tensor
+    lhs_idx: torch.Tensor
+    rhs_idx: torch.Tensor
+    partials: torch.Tensor
+    state: torch.Tensor
+    kflag: int
+
+
+def tilelist_buffers(stack, out_idx, k_ptr, lhs_idx,
+                     rhs_idx) -> TileListBuffers:
+    """The buffers of one ``matreduce_tilelist`` call on a card stack with
+    at least one output tile, as the wrapper allocates them: the lists
+    reach the card in one copy."""
+    return _tilelist_buffers(*_tilelist_operands(stack, out_idx, k_ptr,
+                                                 lhs_idx, rhs_idx))
+
+
+def _tilelist_buffers(stack, out_idx, k_ptr, lhs_idx, rhs_idx):
+    tile, t = _ksd.TILE, stack.shape[1]
+    if t > tile:
+        raise ValueError(f"matreduce_tilelist takes tiles of at most "
+                         f"{tile} x {tile} on the card: {t} x {t}")
+    if t < tile:
+        stack = torch.nn.functional.pad(stack, (0, tile - t, 0, tile - t))
+    rows = stack.contiguous().view(-1, tile)
+    dev, O, P = rows.device, len(out_idx), len(lhs_idx)
+    idx = torch.from_numpy(np.concatenate(
+        [out_idx, k_ptr, lhs_idx, rhs_idx]).astype(np.int32)).to(dev)
+    x16 = torch.empty(rows.shape, dtype=torch.bfloat16, device=dev)
+    return TileListBuffers(
+        rows, x16, idx[:O], idx[O:2 * O + 1], idx[2 * O + 1:2 * O + 1 + P],
+        idx[2 * O + 1 + P:],
+        torch.empty((2 * O,), dtype=torch.float64, device=dev),
+        torch.zeros((_ksd._STATE_HEAD,), dtype=torch.int32, device=dev),
+        tile * int(np.diff(k_ptr).max()))
+
+
+def tilelist_launch(buf: TileListBuffers, steps=TILELIST_STEPS):
+    """Launch ``steps`` (entries of ``TILELIST_STEPS``, in that order) of
+    one call on its buffers; each launch adds one to its count in
+    ``matreduce_entries``."""
+    lib = _lib("matreduce")
+    n_rows, O = buf.rows.shape[0], buf.out_idx.shape[0]
+    lists = (buf.out_idx.data_ptr(), buf.k_ptr.data_ptr(),
+             buf.lhs_idx.data_ptr(), buf.rhs_idx.data_ptr())
+    with torch.cuda.device(buf.rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for step in steps:
+            if step == "tilelist_prep":
+                width = _PREP_WIDTH
+                err = lib.matreduce_stack_prep(
+                    buf.rows.data_ptr(), buf.rows.numel() // width, width,
+                    width, buf.x16.data_ptr(), width, buf.state.data_ptr(),
+                    stream)
+            elif step == "tilelist_tc":
+                err = lib.matreduce_tilelist_tc(
+                    buf.x16.data_ptr(), n_rows, buf.rows.data_ptr(), *lists,
+                    O, buf.kflag, buf.partials.data_ptr(),
+                    buf.state.data_ptr(), stream)
+            elif step == "tilelist_f32":
+                err = lib.matreduce_tilelist_f32(
+                    buf.rows.data_ptr(), n_rows, *lists, O, buf.kflag,
+                    buf.partials[O:].data_ptr(), buf.state.data_ptr(),
+                    stream)
+            else:
+                raise ValueError(f"matreduce_tilelist has no step {step!r}")
+            if err != 0:
+                raise _build.KernelError(f"{step} launch failed: CUDA error "
+                                         f"{err}")
+            matreduce_entries[step] += 1
+
+
+def matreduce_tilelist_tiles(stack, out_idx, k_ptr, lhs_idx,
+                             rhs_idx) -> torch.Tensor:
+    """f64 partials of ``matreduce_tilelist`` on the stack's device;
+    their sum is the result."""
+    global last_exact
+    stack, out_idx, k_ptr, lhs_idx, rhs_idx = _tilelist_operands(
+        stack, out_idx, k_ptr, lhs_idx, rhs_idx)
+    if not stack.is_cuda:
+        return _tilelist_plain(stack, out_idx, k_ptr, lhs_idx, rhs_idx)
+    if len(lhs_idx) == 0:
+        return torch.zeros((1,), dtype=torch.float64, device=stack.device)
+    buf = _tilelist_buffers(stack, out_idx, k_ptr, lhs_idx, rhs_idx)
+    tilelist_launch(buf)
+    launches["matreduce_tilelist"] += 1
+    last_exact = buf.state[_ksd._EXACT_SLOT:_ksd._EXACT_SLOT + 1]
+    return buf.partials
+
+
+def matreduce_tilelist(stack, out_idx, k_ptr, lhs_idx, rhs_idx) -> float:
+    """Σ_o Σ stack[out_idx[o]] ⊙ (Σ_p stack[lhs_idx[p]] @
+    stack[rhs_idx[p]]ᵀ), p over [k_ptr[o], k_ptr[o + 1]), for a (T, t, t)
+    f32 stack (other dtypes are cast; on the card t <= 128) and host
+    integer lists: K6 over many output tiles in one call, each with its
+    own list of tile products (``core.blocksparse``).  Arithmetic as
+    ``matreduce``; the flag's K is 128 × the longest list."""
+    return matreduce_tilelist_tiles(stack, out_idx, k_ptr, lhs_idx,
+                                    rhs_idx).sum().item()

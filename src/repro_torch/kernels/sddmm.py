@@ -168,13 +168,14 @@ def _tma_operand(x):
 
 class Buffers(NamedTuple):
     """One ``sddmm`` call's operands as its kernels take them: lhs, rhs
-    and mask with unit column strides, the f32 output, the bf16 operands
-    of the tensor-core kernel (copies of f32 operands, which
-    ``sddmm_prep`` writes), and the zeroed int32 state."""
+    and mask with unit column strides, the f32 output (None where the
+    caller needs none: K6 shares this prep), the bf16 operands of the
+    tensor-core kernel (copies of f32 operands, which ``sddmm_prep``
+    writes), and the zeroed int32 state."""
     lhs: torch.Tensor
     rhs: torch.Tensor
     mask: torch.Tensor
-    out: torch.Tensor
+    out: torch.Tensor | None
     a: torch.Tensor
     b: torch.Tensor
     state: torch.Tensor
@@ -185,9 +186,10 @@ class Buffers(NamedTuple):
 STEPS = ("sddmm_prep", "sddmm_tc", "sddmm_f32")
 
 
-def buffers(lhs, rhs, mask) -> Buffers:
+def buffers(lhs, rhs, mask, out: bool = True) -> Buffers:
     """The buffers of one call on card operands (M, N, K >= 1), as
-    ``sddmm`` allocates them."""
+    ``sddmm`` allocates them; ``out=False`` leaves the output out (K6's
+    calls, ``kernels.matreduce``)."""
     lhs, rhs, mask = _operands(lhs, rhs, mask)
     (M, K), N = lhs.shape, rhs.shape[0]
     same = lhs.data_ptr() == rhs.data_ptr() and lhs.shape == rhs.shape \
@@ -208,8 +210,22 @@ def buffers(lhs, rhs, mask) -> Buffers:
                         device=lhs.device)[:, :K]
         b = a if same else torch.empty((N, ld), dtype=torch.bfloat16,
                                        device=lhs.device)[:, :K]
-    out = torch.empty((M, N), dtype=torch.float32, device=lhs.device)
-    return Buffers(lhs, rhs, mask, out, a, b, state, bf16, same)
+    dst = torch.empty((M, N), dtype=torch.float32, device=lhs.device) \
+        if out else None
+    return Buffers(lhs, rhs, mask, dst, a, b, state, bf16, same)
+
+
+def prep_args(buf: Buffers, stream: int) -> tuple:
+    """The arguments of ``sddmm_prep`` for a call's buffers: the first
+    launch of K7 and of K6 (``kernels.matreduce``) alike."""
+    lhs, rhs, mask, a, b, state = buf.lhs, buf.rhs, buf.mask, buf.a, \
+        buf.b, buf.state
+    (M, K), N = lhs.shape, rhs.shape[0]
+    copies = (0, 0, 0) if buf.bf16 else (a.data_ptr(), b.data_ptr(),
+                                         a.stride(0))
+    return (lhs.data_ptr(), rhs.data_ptr(), mask.data_ptr(), M, N, K,
+            lhs.stride(0), rhs.stride(0), mask.stride(0), int(buf.bf16),
+            int(buf.same), *copies, state.data_ptr(), stream)
 
 
 def launch(buf: Buffers, steps=STEPS):
@@ -219,17 +235,11 @@ def launch(buf: Buffers, steps=STEPS):
     lib = _lib()
     lhs, rhs, mask, out, a, b, state = buf[:7]
     (M, K), N = lhs.shape, rhs.shape[0]
-    copies = (0, 0, 0) if buf.bf16 else (a.data_ptr(), b.data_ptr(),
-                                         a.stride(0))
     with torch.cuda.device(lhs.device):
         stream = torch.cuda.current_stream().cuda_stream
         for step in steps:
             if step == "sddmm_prep":
-                err = lib.sddmm_prep(
-                    lhs.data_ptr(), rhs.data_ptr(), mask.data_ptr(), M, N, K,
-                    lhs.stride(0), rhs.stride(0), mask.stride(0),
-                    int(buf.bf16), int(buf.same), *copies, state.data_ptr(),
-                    stream)
+                err = lib.sddmm_prep(*prep_args(buf, stream))
             elif step == "sddmm_tc":
                 err = lib.sddmm_tc(
                     a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),

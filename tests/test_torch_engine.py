@@ -275,6 +275,57 @@ def test_blocksparse_equal(reference, graphs, tile):
     assert tbsp.dense_flops(tg.n) == rbsp.dense_flops(rg.n)
 
 
+@pytest.mark.parametrize("name,tile", [("tri48", 16), ("tri48", 32),
+                                       ("g40", 16), ("g24", 8)])
+def test_blocksparse_tile_lists_follow_the_tile_triples(graphs, name, tile):
+    """K6's tile lists, built with numpy from the tile keys, hold the
+    output tiles of ``_tile_triples`` in its order, each with its k in
+    ascending order: lhs the stored tile (i, k), rhs the stored tile
+    (j, k), which equals (k, j)ᵀ since the adjacency is symmetric."""
+    _, tg = graphs[name]
+    t = tbsp.BlockSparseAdjacency(tg, tile=tile, device="cpu")
+    out_idx, k_ptr, lhs_idx, rhs_idx = tbsp.tile_lists(t)
+    keys = [(int(k) // t.nb, int(k) % t.nb) for k in t.keys]
+    assert list(t.blocks) == keys
+    triples = list(tbsp._tile_triples(t))
+    assert len(triples) == len(out_idx) and k_ptr[0] == 0
+    for (i, j, mask, ks), o, a, b in zip(triples, out_idx, k_ptr[:-1],
+                                          k_ptr[1:]):
+        assert keys[o] == (i, j) and mask is t.blocks[(i, j)]
+        assert [keys[p] for p in lhs_idx[a:b]] == [(i, k) for k in ks]
+        assert [keys[p] for p in rhs_idx[a:b]] == [(j, k) for k in ks]
+        for p, q in zip(lhs_idx[a:b], rhs_idx[a:b]):
+            k = keys[p][1]
+            assert torch.equal(t.tiles[q].T, t.blocks[(k, j)])
+    assert k_ptr[-1] * 2.0 * tile ** 3 == tbsp.blocksparse_flops(t)
+    # in groups of rows: the same lists, output tiles ordered by (i // 2,
+    # j, i)
+    lists = {int(o): (list(lhs_idx[a:b]), list(rhs_idx[a:b]))
+             for o, a, b in zip(out_idx, k_ptr[:-1], k_ptr[1:])}
+    g_out, g_ptr, g_lhs, g_rhs = tbsp.tile_lists(t, group=2)
+    assert {int(o): (list(g_lhs[a:b]), list(g_rhs[a:b]))
+            for o, a, b in zip(g_out, g_ptr[:-1], g_ptr[1:])} == lists
+    order = [(keys[o][0] // 2, keys[o][1], keys[o][0]) for o in g_out]
+    assert order == sorted(order)
+
+
+@pytest.mark.parametrize("name,tile", [("g40", 16), ("tri48", 32),
+                                       ("gl36", 16)])
+def test_blocksparse_kernel_route_equals_reference(reference, graphs, name,
+                                                   tile):
+    """``triangle_count_blocksparse(use_kernel=True)`` — one tile-list
+    call, its plain version on the CPU — equals the reference's count
+    and the engine's, on graphs whose n is no multiple of the tile."""
+    from repro.core import blocksparse as rbsp
+    rg, tg = graphs[name]
+    assert tg.n % tile
+    r = rbsp.BlockSparseAdjacency(rg, tile=tile)
+    t = tbsp.BlockSparseAdjacency(tg, tile=tile, device="cpu")
+    want = CountingEngine(tg, device="cpu").edge_induced(clique(3))
+    assert tbsp.triangle_count_blocksparse(t, use_kernel=True) == \
+        rbsp.triangle_count_blocksparse(r) == want
+
+
 # -- the mining CLI --------------------------------------------------------------------
 
 _APCT_MEMO = {}

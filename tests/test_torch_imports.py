@@ -133,7 +133,9 @@ def test_kernel_modules_import_without_a_compiler_and_build_nothing():
         "assert f._LIB is None and f.launches == {'flashattn': 0}\n"
         "assert not b._LIBS\n"
         "assert m.launches == {'vecjoin': 0, 'pairjoin': 0, 'trijoin': 0, "
-        "'pairjoin_keep': 0, 'trijoin_keep': 0, 'matreduce': 0}\n"
+        "'pairjoin_keep': 0, 'trijoin_keep': 0, 'matreduce': 0, "
+        "'matreduce_tilelist': 0}\n"
+        "assert not any(m.matreduce_entries.values())\n"
         "assert s.launches == {'sddmm': 0}\n"
         "assert t.launches == {'bitset': 0, 'bitset_edges': 0}\n",
         PATH="/nonexistent")

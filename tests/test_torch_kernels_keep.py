@@ -25,6 +25,7 @@ from repro_torch.core.pattern import clique, tailed_triangle
 from repro_torch.graph.generators import erdos_renyi
 from repro_torch.kernels import matreduce as tmr
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import sddmm as tsd
 
 from test_torch_kernels import (AXIS_MIXES, ROUTE_MIXES, ROUTE_TILE, _factors,
                                 _hi, _hi_f64, _ref_dense_join, _route_case,
@@ -606,33 +607,290 @@ def test_matreduce_casts_and_strides():
                       torch.from_numpy(mask))
 
 
-def test_cuda_tensor_never_reaches_the_matreduce_plain_version(monkeypatch):
-    class OnCard(torch.Tensor):
-        is_cuda = True
+def _k6_tc_emulated(lhs, rhs, mask):
+    """K6's tensor-core route as the card runs it, emulated: the flag must
+    admit the operands; bf16 operands, f32 products and sums; with no
+    operand of negative sign, the 128 x 256 output tiles whose two
+    128 x 128 occupancy words are 0 left at 0; each cell times the mask
+    in f64, one f64 partial per 128 x 256 tile, their f64 sum; and the
+    number of tiles skipped."""
+    assert tsd.sddmm_exact_plain(lhs, rhs)
+    prod = lhs.bfloat16().float() @ rhs.bfloat16().float().T
+    M, N = prod.shape
+    skipped = 0
+    if not (lhs.signbit().any() or rhs.signbit().any()):
+        occ = tsd.sddmm_occupancy_plain(mask)
+        pairs = torch.nn.functional.pad(occ, (0, occ.shape[1] % 2)) \
+            .view(occ.shape[0], -1, 2).any(2)
+        skipped = int((~pairs).sum())
+        keep = pairs.repeat_interleave(128, 0) \
+            .repeat_interleave(256, 1)[:M, :N]
+        prod = prod.masked_fill(~keep, 0.0)
+    cells = torch.zeros((-(-M // 128) * 128, -(-N // 256) * 256),
+                        dtype=torch.float64)
+    cells[:M, :N] = prod.double() * mask.double()
+    partials = cells.view(-1, 128, cells.shape[1] // 256, 256).sum((1, 3))
+    return partials.sum().item(), skipped
 
+
+def _k6_edge_case(name):
+    """Inputs of the tensor-core route: 0/1 operands under a 0/1 mask with
+    empty 128 x 256 tiles and -0.0 cells (the tile skip runs), or the
+    contract's edge, integers in [-256, 256] at K = 256 against rows of
+    ±256 (K · max · max = 2^24; cells reach ±2^24; negative operands, no
+    skip) under a sparse mask of small integers, so that every partial
+    sum of the reference's f32 accumulator is a multiple of 256 below
+    2^32 and exact too."""
+    rng = np.random.default_rng(len(name))
+    if name == "0/1":
+        M, N, K = 300, 600, 200
+        lhs, rhs = ((rng.random(s) < 0.3).astype(np.float32)
+                    for s in ((M, K), (N, K)))
+        mask = (rng.random((M, N)) < 0.2).astype(np.float32)
+        mask[128:256, 256:512] = 0.0
+        mask[256:, 512:] = 0.0
+        mask[rng.random((M, N)) < 0.05] = -0.0
+    else:
+        M, N, K = 300, 260, 256
+        lhs = rng.integers(-256, 257, size=(M, K)).astype(np.float32)
+        rhs = rng.choice([-256.0, 256.0], size=(N, K)).astype(np.float32)
+        lhs[0], lhs[1], rhs[0] = 256.0, -256.0, 256.0
+        mask = np.where(rng.random((M, N)) < 0.001,
+                        rng.integers(-2, 3, size=(M, N)), 0) \
+            .astype(np.float32)
+        mask[0, 0], mask[1, 0] = 1.0, 1.0
+    return lhs, rhs, mask
+
+
+@pytest.mark.parametrize("name", ["0/1", "+-256 at K=256"])
+def test_matreduce_tc_route_emulated_equals_plain_and_reference(reference,
+                                                                name):
+    """The emulated tensor-core route of K6 equals ``matreduce_plain``,
+    the numpy oracle and the reference's interpret-mode kernel at
+    difference 0, on 0/1 inputs with skipped tiles and at the edge of the
+    exact route's contract."""
+    lhs, rhs, mask = _k6_edge_case(name)
+    got, skipped = _k6_tc_emulated(*_t([lhs, rhs, mask]))
+    want = _matreduce_oracle(lhs, rhs, mask)
+    assert got == want == tmr.matreduce_plain(*_t([lhs, rhs, mask]))
+    ref = float(reference.ops.masked_matmul_reduce(
+        lhs, rhs, mask, bm=64, bn=64, bk=32, interpret=True))
+    assert ref == want
+    if name == "0/1":
+        assert skipped == 2
+    else:
+        assert np.abs(lhs.astype(np.float64) @ rhs.T.astype(np.float64)) \
+            .max() == 2 ** 24
+
+
+def _tilelist_case(seed, T=7, t=16, O=5, values=(0.0, 1.0)):
+    """A seeded (T, t, t) stack and ragged lists (one empty), as the
+    kernel takes them."""
+    rng = np.random.default_rng(seed)
+    stack = rng.choice(values, size=(T, t, t)).astype(np.float32)
+    lengths = rng.integers(0, 6, size=O)
+    lengths[1] = 0
+    k_ptr = np.concatenate([[0], np.cumsum(lengths)])
+    P = int(k_ptr[-1])
+    return (stack, rng.integers(0, T, size=O), k_ptr,
+            rng.integers(0, T, size=P), rng.integers(0, T, size=P))
+
+
+def _tilelist_oracle(stack, out_idx, k_ptr, lhs_idx, rhs_idx):
+    s = stack.astype(np.float64)
+    parts = []
+    for o, a, b in zip(out_idx, k_ptr[:-1], k_ptr[1:]):
+        acc = np.zeros(s.shape[1:])
+        for p in range(a, b):
+            acc += s[lhs_idx[p]] @ s[rhs_idx[p]].T
+        parts.append((acc * s[o]).sum())
+    return np.array(parts)
+
+
+@pytest.mark.parametrize("seed,t,values", [
+    (0, 16, (0.0, 1.0)), (1, 32, (0.0, 1.0, 2.5)), (2, 5, (-3.0, 0.0, 2.0)),
+    (3, 128, (0.0, 1.0))])
+def test_tilelist_plain_equals_numpy_oracle(seed, t, values):
+    """K6's tile list, plain version: per output tile and summed, equal to
+    a numpy f64 oracle over the same lists (ragged, one empty, repeated
+    tiles), and to K6 on each output tile's concatenated operands."""
+    case = _tilelist_case(seed, t=t, values=values)
+    stack, out_idx, k_ptr, lhs_idx, rhs_idx = case
+    want = _tilelist_oracle(*case)
+    parts = tmr.matreduce_tilelist_tiles(torch.from_numpy(stack), *case[1:])
+    assert parts.dtype == torch.float64
+    assert np.array_equal(parts.numpy(), want)
+    assert tmr.matreduce_tilelist(torch.from_numpy(stack), *case[1:]) == \
+        tmr.matreduce_tilelist(stack, *case[1:]) == float(want.sum())
+    for o, a, b, w in zip(out_idx, k_ptr[:-1], k_ptr[1:], want):
+        if b > a:
+            lhs = np.concatenate([stack[i] for i in lhs_idx[a:b]], axis=1)
+            rhs = np.concatenate([stack[i] for i in rhs_idx[a:b]], axis=1)
+            assert tmr.matreduce_plain(*_t([lhs, rhs, stack[o]])) == w
+
+
+@pytest.mark.parametrize("values,longest,want", [
+    ((0.0, 1.0), 64, True), ((0.0, 1.0, 256.0), 2, True),
+    ((0.0, 256.0), 3, False), ((0.0, 2.5), 1, False),
+    ((0.0, float("nan")), 1, False), ((-0.0, -3.0), 5, True)])
+def test_tilelist_exact_plain_flag(values, longest, want):
+    """The tile list's flag: finite integers, |v| <= 256, 128 × the
+    longest list × max|v|² <= 2^24, at its edges."""
+    stack = torch.tensor(values, dtype=torch.float32).repeat(2, 4, 1)
+    k_ptr = [0, 1, 1 + longest]
+    assert tmr.tilelist_exact_plain(stack, k_ptr) is want
+
+
+def test_tilelist_rejects_bad_lists():
+    stack, out_idx, k_ptr, lhs_idx, rhs_idx = _tilelist_case(4)
+    st = torch.from_numpy(stack)
+    for bad in ((out_idx, k_ptr[1:], lhs_idx, rhs_idx),
+                (out_idx, k_ptr[::-1], lhs_idx, rhs_idx),
+                (out_idx + 7, k_ptr, lhs_idx, rhs_idx),
+                (out_idx, k_ptr, lhs_idx, rhs_idx[:-1])):
+        with pytest.raises(ValueError):
+            tmr.matreduce_tilelist(st, *bad)
+    with pytest.raises(ValueError, match="square"):
+        tmr.matreduce_tilelist(st[:, :3], out_idx, k_ptr, lhs_idx, rhs_idx)
+
+
+class _OnCard(torch.Tensor):
+    is_cuda = True
+
+
+@pytest.fixture
+def k6_card(monkeypatch):
+    """Stand-ins for the card under K6: the library records its launches
+    (entry, arguments), the plain versions fail."""
     calls = []
 
     class FakeLib:
-        def matreduce_tile(self):
-            return 128
-
-        def matreduce_f32(self, *args):
-            calls.append(args[3:9])
-            return 0
+        def __getattr__(self, entry):
+            return lambda *args: calls.append((entry, args)) or 0
 
     monkeypatch.setattr(tmr, "_matreduce_plain",
+                        lambda *a: pytest.fail("plain version taken"))
+    monkeypatch.setattr(tmr, "_tilelist_plain",
                         lambda *a: pytest.fail("plain version taken"))
     monkeypatch.setattr(tmr, "_lib", lambda name="cutjoin": FakeLib())
     monkeypatch.setattr(torch.cuda, "device", lambda d: _NoContext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: type("S", (), {"cuda_stream": 0})())
-    a = torch.ones((3, 5), dtype=torch.float32).as_subclass(OnCard)
-    m = torch.ones((3, 3), dtype=torch.float32).as_subclass(OnCard)
-    before = tmr.launches["matreduce"]
-    tmr.matreduce_tiles(a, a, m)
-    assert calls == [(3, 3, 5, 5, 5, 3)]
-    assert tmr.launches["matreduce"] == before + 1
-    tmr.launches["matreduce"] = before
+    before = (dict(tmr.launches), dict(tmr.matreduce_entries))
+    yield calls
+    tmr.launches.update(before[0])
+    tmr.matreduce_entries.update(before[1])
+
+
+def test_cuda_tensor_never_reaches_the_matreduce_plain_version(k6_card):
+    """K6 on card tensors is three launches, no plain version: prep (the
+    flag, one bf16 copy when lhs is rhs, the mask's tile occupancy), the
+    tensor-core kernel (gated) and the FMA kernel with the state passed;
+    the partials hold one slot per 128 x 256 tile, then one per 128 x 128
+    tile.  One call counts once in ``launches["matreduce"]`` and once per
+    entry."""
+    a = torch.ones((3, 5), dtype=torch.float32).as_subclass(_OnCard)
+    m = torch.ones((3, 3), dtype=torch.float32).as_subclass(_OnCard)
+    before = (tmr.launches["matreduce"], dict(tmr.matreduce_entries))
+    partials = tmr.matreduce_tiles(a, a, m)
+    assert [c[0] for c in k6_card] == ["sddmm_prep", "matreduce_tc",
+                                       "matreduce_f32"]
+    prep, tc, fma = (c[1] for c in k6_card)
+    assert prep[3:11] == (3, 3, 5, 5, 5, 3, 0, 1)   # M N K, strides, f32, same
+    assert prep[11] == prep[12] and prep[13] == 8   # one bf16 copy, ld 8
+    assert tc[0] == tc[2] == prep[11] and tc[1] == tc[3] == 8
+    assert tc[6] == partials.data_ptr()
+    assert tc[7:10] == (3, 3, 5) and tc[10] == prep[14]     # the state
+    assert tc[11:13] == (1, 1)                      # gated, one tensor
+    assert fma[3:9] == (3, 3, 5, 5, 5, 3)
+    assert fma[9] == partials.data_ptr() + 8        # after the one tc slot
+    assert fma[10] == prep[14] and fma[11] == 1     # the state, one tensor
+    assert partials.shape == (2,) and partials.dtype == torch.float64
+    assert tmr.launches["matreduce"] == before[0] + 1
+    assert {k: tmr.matreduce_entries[k] - before[1][k]
+            for k in tmr.MATREDUCE_STEPS} == dict.fromkeys(
+                tmr.MATREDUCE_STEPS, 1)
+
+
+def test_cuda_matreduce_two_tensors_and_steps_alone(k6_card):
+    """lhs and rhs apart: two bf16 copies, and the kernels are told so;
+    ``matreduce_launch`` on ``matreduce_buffers`` runs only the steps it
+    is given, with the call's arguments, and counts each."""
+    on = lambda x: torch.as_tensor(x).as_subclass(_OnCard)  # noqa: E731
+    lhs, rhs = on(torch.ones((130, 7))), on(torch.ones((300, 7)))
+    mask = on(torch.ones((130, 300)))
+    partials = tmr.matreduce_tiles(lhs, rhs, mask)
+    prep, tc, fma = (c[1] for c in k6_card)
+    assert prep[10] == 0 and prep[11] != prep[12]   # two copies
+    assert tc[12] == 0 and fma[11] == 0
+    # 2 x 2 tensor-core tiles of 128 x 256, then 2 x 3 FMA tiles
+    assert partials.shape == (4 + 6,)
+    assert fma[9] == partials.data_ptr() + 4 * 8
+    whole = dict(k6_card)
+    k6_card.clear()
+    before = dict(tmr.matreduce_entries)
+    buf = tmr.matreduce_buffers(lhs, rhs, mask)
+    tmr.matreduce_launch(buf, ("matreduce_tc",))
+    assert [c[0] for c in k6_card] == ["matreduce_tc"]
+    small = [a for a in k6_card[0][1] if isinstance(a, int) and a < 1 << 20]
+    assert small == [a for a in whole["matreduce_tc"]
+                     if isinstance(a, int) and a < 1 << 20]
+    assert tmr.matreduce_entries["matreduce_tc"] == \
+        before["matreduce_tc"] + 1
+    with pytest.raises(ValueError, match="no step"):
+        tmr.matreduce_launch(buf, ("sddmm_tc",))
+
+
+@pytest.mark.parametrize("t", [128, 16])
+def test_cuda_tilelist_is_three_launches(k6_card, t):
+    """K6's tile list on a card stack: the stack's prep (its values as
+    rows of 1024), one tensor-core launch and one gated FMA launch over
+    every output tile, the lists in one int32 tensor; tiles narrower than
+    128 are zero-padded to 128, and the flag's K is 128 × the longest
+    list."""
+    stack, out_idx, k_ptr, lhs_idx, rhs_idx = _tilelist_case(5, t=t)
+    st = torch.from_numpy(stack).as_subclass(_OnCard)
+    before = (tmr.launches["matreduce_tilelist"], dict(tmr.matreduce_entries))
+    partials = tmr.matreduce_tilelist_tiles(st, out_idx, k_ptr, lhs_idx,
+                                            rhs_idx)
+    assert [c[0] for c in k6_card] == ["matreduce_stack_prep",
+                                       "matreduce_tilelist_tc",
+                                       "matreduce_tilelist_f32"]
+    prep, tc, fma = (c[1] for c in k6_card)
+    T, O, P = len(stack), len(out_idx), len(lhs_idx)
+    assert prep[1:4] == (T * 128 * 128 // 1024, 1024, 1024)
+    assert prep[5] == 1024 and tc[0] == prep[4]      # the bf16 copy
+    assert tc[1] == fma[1] == T * 128                # rows of the stack
+    assert tc[2] == prep[0] == fma[0]
+    kflag = 128 * int(np.diff(k_ptr).max())
+    assert tc[7:9] == fma[6:8] == (O, kflag)
+    assert tc[9] == partials.data_ptr() and fma[8] == tc[9] + 8 * O
+    assert tc[10] == fma[9]                          # one state
+    idx = tc[3]
+    assert tc[3:7] == fma[2:6] == (idx, idx + 4 * O, idx + 4 * (2 * O + 1),
+                                   idx + 4 * (2 * O + 1 + P))
+    assert partials.shape == (2 * O,)
+    assert tmr.launches["matreduce_tilelist"] == before[0] + 1
+    assert {k: tmr.matreduce_entries[k] - before[1][k]
+            for k in tmr.TILELIST_STEPS} == dict.fromkeys(
+                tmr.TILELIST_STEPS, 1)
+    buf = tmr.tilelist_buffers(st, out_idx, k_ptr, lhs_idx, rhs_idx)
+    assert buf.rows.shape == (T * 128, 128)
+    assert torch.equal(torch.Tensor(buf.rows).view(T, 128, 128)[:, :t, :t],
+                       torch.from_numpy(stack))
+    assert not torch.Tensor(buf.rows).view(T, 128, 128)[:, t:].any()
+    for got, want in ((buf.out_idx, out_idx), (buf.k_ptr, k_ptr),
+                      (buf.lhs_idx, lhs_idx), (buf.rhs_idx, rhs_idx)):
+        assert got.dtype == torch.int32
+        assert np.array_equal(torch.Tensor(got).numpy(), want)
+
+
+def test_cuda_tilelist_refuses_wide_tiles(k6_card):
+    stack, out_idx, k_ptr, lhs_idx, rhs_idx = _tilelist_case(6, t=130, T=3)
+    st = torch.from_numpy(stack).as_subclass(_OnCard)
+    with pytest.raises(ValueError, match="at most 128"):
+        tmr.matreduce_tilelist(st, out_idx, k_ptr, lhs_idx, rhs_idx)
+    assert k6_card == []
 
 
 class _NoContext:
