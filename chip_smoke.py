@@ -36,10 +36,17 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    route's edges (±256 at K = 256, empty tiles under -0.0 mask cells,
    negative operands, K = 257 on the FMA route); K6's tile list on random
    0/1 stacks with ragged lists (tensor cores; tiles of 100 padded to 128)
-   and on a stack holding 2.5 (FMA route, the flag read back); both
-   bitset entries on random words (bit 31 set in about half), word and row
-   counts that are no multiple of 32 or of a thread block's rows, and the
-   packed R-MAT adjacency.  Tolerance: none — the difference must be 0
+   and on a stack holding 2.5 (FMA route, the flag read back); the
+   bitset kernels: both intersect entries on random words (bit 31 set in
+   about half), word and row counts that are no multiple of 32 or of a
+   thread block's rows, and the packed R-MAT adjacency; ``bitset_pack``
+   on the R-MAT adjacency and on odd n, unaligned rows, uint8 entries
+   other than 0/1, a column slice and f32 input; ``bitset_edges`` on
+   sorted lists with a 2000-edge star and runs that straddle its 8-edge
+   chunks at the widths of its vector entry's four instances, on random
+   unsorted pairs, on its word entry (W = 37, strided views), with the
+   entry each call takes asserted, and pairs on the card with one outside
+   the table, which must raise ``ValueError``.  Tolerance: none — the difference must be 0
    (integer-valued inputs within the exactness guard).  On random input the
    masked matrix-product reduce (FMA route) is held against an f64
    product with the reference package's tolerance, |got - want| < 3e-2 ·
@@ -120,7 +127,23 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    gathered in the kernel) summed is 3 T, ``sddmm(A, A, A)`` read at each
    edge equals it, its sum is 6 T, T being phase 3's triangle count and
    ``triangle_count(A)``'s (K6); SDDMM and K6 must take their tensor-core
-   routes, and the tiles SDDMM skipped are printed.
+   routes, and the tiles SDDMM skipped are printed.  ``common_neighbors``
+   runs under ``torch.cuda.set_sync_debug_mode("error")`` (no
+   synchronising call) and must launch ``bitset_pack`` and
+   ``bitset_edges`` once each; it is then split into its pieces (upload,
+   packing, host check, kernel), beside the pieces of its earlier design
+   (a blocking upload, packing in PyTorch, a check with two host syncs).
+5b. ``morph_path``  the morph count store on the R-MAT graph with phase
+   3's APCT: a ``CountStore`` under ``build/morph_store`` warmed by
+   ``compile(..., morph=store)`` of the 3-star and the diamond (which
+   must launch a join kernel), then every ``motif_family(4)`` member
+   compiled with ``morph=`` in turn (at least one on the fast path, at
+   least one searched with the held homs in its plan priced at 0), then
+   the family again from a fresh ``CountStore`` on the same directory:
+   every member on the fast path, no contraction (``hom_evals`` 0) and no
+   kernel launch.  Every count equals the family compiled with
+   ``morph=False``; the time to answer the family from the store is
+   printed beside that compile and count.
 6. ``mine_path``  ``repro_torch.launch.mine.main`` as a user runs it, on
    ``--graph rmat --n 8192 --deg 24`` (phase 3's graph), stdout captured:
    ``motif --k 4`` equal line for line to ``--no-compiler``; ``chain --k 5
@@ -156,7 +179,8 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
 8. ``kernels``    per kernel entry (K1 and K3 in f32 and f64, K3 on both
    entries): launches over its path (phase 3 for the scalar
    joins, phase 4 for the keep forms and the triangle kernel, phase 5 for
-   SDDMM and the bitset kernel, on each graph apart; phase 7 for K9; the tri
+   SDDMM and the bitset kernels (``bitset_edges`` and ``bitset_pack``,
+   each with its row), on each graph apart; phase 7 for K9; the tri
    join in one row per route: path and triangle at n = 8192, dense at n =
    512, with ptxas's register and spill counts for the path and triangle
    kernels; the keep form on its one route, dense, at n = 512, one row per
@@ -188,6 +212,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -204,7 +229,9 @@ if not torch.cuda.is_available():
 
 from repro_torch import api, compiler, obs                  # noqa: E402
 from repro_torch.compiler import lowering                   # noqa: E402
-from repro_torch.compiler.ir import Intersect               # noqa: E402
+from repro_torch.compiler import morph as cmorph            # noqa: E402
+from repro_torch.compiler.cache import graph_signature      # noqa: E402
+from repro_torch.compiler.ir import Intersect, pattern_key  # noqa: E402
 from repro_torch.core import homomorphism as H              # noqa: E402
 from repro_torch.core import search, symmetry               # noqa: E402
 from repro_torch.core.apct import APCT                      # noqa: E402
@@ -1040,16 +1067,33 @@ def sddmm_cases(gen, cases: list) -> list:
 
 
 def bitset_cases(gen, cases: list):
-    """K8, both entries, against the plain versions: random words (about
-    half with bit 31 set, one row all ones), word counts that are no
-    multiple of 32, row counts that are no multiple of the 8 rows a
+    """K8, its three entries, against the plain versions: random words
+    (about half with bit 31 set, one row all ones), word counts that are
+    no multiple of 32, row counts that are no multiple of the 8 rows a
     thread block takes, a strided view, and the packed R-MAT adjacency
-    with its edge list.  Difference 0."""
+    with its edge list.  ``bitset_pack`` on the R-MAT adjacency and on odd
+    n (scalar tail, unaligned rows, uint8 entries other than 0/1, a
+    column slice, f32 input); ``bitset_edges`` on sorted lists with a
+    2000-edge star (a u-run longer than a warp's 8-edge chunk) and runs
+    that straddle chunks, at each width of the vector entry's four
+    instances and on the word entry (W = 37, strided views), with the
+    entry each call took asserted; random unsorted pairs; pairs on the
+    card with one outside the table, which must raise ``ValueError``.
+    Difference 0."""
     def words(E_, W_):
         w = torch.randint(-2 ** 31, 2 ** 31, (E_, W_), generator=gen,
                           device=DEV, dtype=torch.int64).to(torch.int32)
         w[0] = -1
         return w
+
+    def edge_case(name, table, pairs, entry):
+        before = dict(kbs.edge_entries)
+        check_case("bitset_edges", f"{name} [{entry}]",
+                   lambda: kbs.bitset_intersect_edges(table, pairs),
+                   lambda: kbs.bitset_intersect_edges_plain(table, pairs),
+                   cases)
+        took = [k for k, v in kbs.edge_entries.items() if v != before[k]]
+        assert took == [entry], f"{name}: took the {took} entry, not {entry}"
 
     for E_, W_ in [(1001, 37), (5, 1), (100003, 7), (79494, 256), (8, 64)]:
         a, b = words(E_, W_), words(E_, W_)
@@ -1059,28 +1103,80 @@ def bitset_cases(gen, cases: list):
         table = torch.cat([a, b])
         pairs = torch.randint(0, 2 * E_, (E_ + 3, 2), generator=gen,
                               device=DEV)
-        check_case("bitset_edges", f"bitset edges table=({2 * E_},{W_}) "
-                                   f"E={E_ + 3}",
-                   lambda: kbs.bitset_intersect_edges(table, pairs),
-                   lambda: kbs.bitset_intersect_edges_plain(table, pairs),
-                   cases)
+        edge_case(f"bitset edges table=({2 * E_},{W_}) E={E_ + 3} random "
+                  f"unsorted pairs", table, pairs, kbs.edges_entry(table))
     wide = words(4000, 40)
     av, bv = wide[:2000, :33], wide[2000:, 4:37]
     check_case("bitset", "bitset rows strided views E=2000 W=33",
                lambda: kbs.bitset_intersect(av, bv),
                lambda: kbs.bitset_intersect_plain(av, bv), cases)
+    # sorted lists: a star of 2000 edges on one u, then runs of 7, 31, 33,
+    # 1, 64 and 5 edges (so runs straddle the 8-edge chunks), at the
+    # widths of the vector entry's four instances
+    rng = np.random.default_rng(20)
+    for rows, W_ in [(4096, 128), (4096, 256), (2048, 512), (1024, 1024)]:
+        table = words(rows, W_)
+        parts = [np.stack([np.full(2000, 3), rng.integers(0, rows, 2000)],
+                          1), np.stack([np.full(7, 4),
+                                        rng.integers(0, rows, 7)], 1)]
+        for u, k in ((10, 31), (11, 33), (12, 1), (13, 64), (14, 5)):
+            parts.append(np.stack([np.full(k, u), rng.integers(0, rows, k)],
+                                  1))
+        srt = np.concatenate(parts)
+        srt = srt[np.lexsort((srt[:, 1], srt[:, 0]))]
+        edge_case(f"bitset edges sorted star + straddling runs "
+                  f"table=({rows},{W_}) E={len(srt)}", table,
+                  torch.from_numpy(srt).to(DEV), "vec")
+        edge_case(f"bitset edges the same pairs from the host "
+                  f"table=({rows},{W_})", table, srt, "vec")
+    srt37 = np.stack([np.repeat(np.arange(40), 50),
+                      rng.integers(0, 2002, 2000)], 1)
+    edge_case("bitset edges sorted runs of 50, W=37", words(2002, 37),
+              torch.from_numpy(srt37).to(DEV), "word")
+    wide = words(3000, 264)
+    edge_case("bitset edges strided view W=256 at a 4-byte offset",
+              wide[:, 1:257], torch.from_numpy(srt37).to(DEV), "word")
+    edge_case("bitset edges strided view W=256 at a 16-byte offset",
+              wide[:, 4:260], torch.from_numpy(srt37).to(DEV), "vec")
     g = rmat(13, 24.0, seed=0)
-    packed = kbs.pack_bitsets(rmat_adjacency(g) > 0)
+    Ab = rmat_adjacency(g) > 0
+    packed = check_case("bitset_pack", f"bitset pack R-MAT n={N} bool",
+                        lambda: kbs.pack_bitsets(Ab),
+                        lambda: kbs.pack_bitsets_plain(Ab), cases)
+    odd = torch.rand((1001, 8191), generator=gen, device=DEV) < 0.3
+    odd_u8 = odd.to(torch.uint8) * torch.randint(
+        1, 256, odd.shape, generator=gen, device=DEV, dtype=torch.uint8)
+    for name, adj in [("odd n=8191 bool (unaligned rows)", odd),
+                      ("odd n=8191 uint8 entries 0..255", odd_u8),
+                      ("n=1000 column slice at offset 5", Ab[:1000, 5:1005]),
+                      ("n=8176 (16 | n, 32 does not) f32",
+                       odd[:, :8176].float()),
+                      ("n=45 R=3", odd[:3, :45])]:
+        check_case("bitset_pack", f"bitset pack {name}",
+                   lambda: kbs.pack_bitsets(adj),
+                   lambda: kbs.pack_bitsets_plain(adj), cases)
     edges = torch.from_numpy(g.edges).to(DEV)
-    check_case("bitset_edges", f"bitset edges R-MAT n={N} packed, its "
-                               f"{len(g.edges)} edges",
-               lambda: kbs.bitset_intersect_edges(packed, edges),
-               lambda: kbs.bitset_intersect_edges_plain(packed, edges),
-               cases)
+    edge_case(f"bitset edges R-MAT n={N} packed, its {len(g.edges)} "
+              f"edges", packed, edges, "vec")
     ga, gb = packed[edges[:, 0]], packed[edges[:, 1]]
     check_case("bitset", "bitset rows R-MAT gathered rows",
                lambda: kbs.bitset_intersect(ga, gb),
                lambda: kbs.bitset_intersect_plain(ga, gb), cases)
+    # pairs on the card, one outside the table: the kernel's flag, read
+    # once by the wrapper, raises ValueError (it never reads outside)
+    for bad in ([5, N], [-1, 7]):
+        wrong = edges.clone()
+        wrong[40000] = torch.tensor(bad, device=DEV)
+        try:
+            kbs.bitset_intersect_edges(packed, wrong)
+        except ValueError as exc:
+            cases.append({"kernel": "bitset_edges", "case": f"pair {bad} "
+                          f"outside the table raises", "raised": str(exc),
+                          "max_abs_err": 0})
+        else:
+            raise AssertionError(f"pair {bad} outside the table did not "
+                                 f"raise")
+    torch.cuda.synchronize()
 
 
 def sdpa(q, k, v, causal: bool):
@@ -1739,21 +1835,29 @@ def phase_local_path(main: dict) -> dict:
 
 def phase_graph_ops(main: dict) -> dict:
     """The graph kernels through ``kernels.ops`` on the user's graph:
-    per-edge common-neighbour counts (K8, the packed adjacency's rows
-    gathered in the kernel), the wedge-closing product mask ⊙ (A·Aᵀ) (K7)
-    and the triangle count Σ A ⊙ (A·A) / 6 (K6).  Identities: Σ_edges
-    common neighbours = 3 T, the product read at each edge equals K8's
-    count there, Σ of the product = 6 T, where T is phase 3's triangle
-    count (clique enumeration) and equals K6's.  K7 and K6 must take
-    their tensor-core routes (read from the flags they left on the
-    card)."""
+    per-edge common-neighbour counts (K8: the adjacency packed on the card,
+    the packed rows gathered in the kernel), the wedge-closing product
+    mask ⊙ (A·Aᵀ) (K7) and the triangle count Σ A ⊙ (A·A) / 6 (K6).
+    Identities: Σ_edges common neighbours = 3 T, the product read at each
+    edge equals K8's count there, Σ of the product = 6 T, where T is phase
+    3's triangle count (clique enumeration) and equals K6's.  K7 and K6
+    must take their tensor-core routes (read from the flags they left on
+    the card).  ``common_neighbors(Ab, g.edges)`` runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: it must make no
+    synchronising call.  Then, after the launches are read, the call is
+    split into its pieces (``common_neighbors_split``)."""
     info = main["rmat"]
     g, T = info["g"], info["triangles"]
     A = rmat_adjacency(g)
     Ab = A > 0
+    torch.cuda.synchronize()
     reset_launch_counts()                    # counts start at 0 here ...
     t0 = time.perf_counter()
-    cn = ops.common_neighbors(Ab, g.edges)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cn = ops.common_neighbors(Ab, g.edges)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     cn_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1767,9 +1871,14 @@ def phase_graph_ops(main: dict) -> dict:
     k6_s = time.perf_counter() - t0
     launches = launch_counts()               # ... and are read here
     for kernel in ("sddmm", "sddmm_prep", "sddmm_tc", "bitset_edges",
-                   "matreduce", "matreduce_prep", "matreduce_tc"):
+                   "bitset_pack", "matreduce", "matreduce_prep",
+                   "matreduce_tc"):
         if launches[kernel] < 1:
             raise AssertionError(f"graph_ops launched no {kernel}")
+    if (launches["bitset_pack"], launches["bitset_edges"]) != (1, 1):
+        raise AssertionError(f"common_neighbors launched bitset_pack "
+                             f"{launches['bitset_pack']} and bitset_edges "
+                             f"{launches['bitset_edges']} times, not once")
     k6_route = matreduce_route(A, A, "tc")
     edges = torch.from_numpy(g.edges).to(DEV)
     at_edges = S[edges[:, 0], edges[:, 1]]
@@ -1777,21 +1886,169 @@ def phase_graph_ops(main: dict) -> dict:
               "sum_sddmm": S.sum(dtype=torch.float64).item(),
               "k6_triangles": k6,
               "sddmm_at_edges_equals_common_neighbors": bool(
-                  torch.equal(at_edges, cn.float()))}
+                  torch.equal(at_edges, cn.float())),
+              "common_neighbors_sync_debug_mode": "error"}
     if not (checks["sum_common_neighbors"] == 3 * T
             and checks["sum_sddmm"] == 6 * T and k6 == T
             and checks["sddmm_at_edges_equals_common_neighbors"]):
         raise AssertionError(f"graph_ops identities fail: {checks}")
+    del S, at_edges
+    split = common_neighbors_split(g, Ab, cn)
     emit("graph_ops", graph=MAIN_GRAPH, edges=len(g.edges),
          launches=launches, checks=checks, sddmm_route=route,
          sddmm_tiles=skipped, matreduce_route=k6_route,
-         seconds={"common_neighbors": round(cn_s, 4),
+         seconds={"common_neighbors": round(cn_s, 6),
                   "sddmm": round(sddmm_s, 4),
-                  "triangle_count": round(k6_s, 4)})
-    del S, at_edges, Ab
+                  "triangle_count": round(k6_s, 4)},
+         common_neighbors_split=split)
+    del Ab
     torch.cuda.empty_cache()
     return {"launches": launches, "by_role": {"main": launches},
-            "edges": len(g.edges)}
+            "edges": len(g.edges), "split": split}
+
+
+def common_neighbors_split(g, Ab, cn) -> dict:
+    """``ops.common_neighbors(Ab, g.edges)`` in its pieces, by CUDA events
+    (mean after a warm-up): the pairs' upload (not blocking), the
+    packing kernel, the host check of the pairs (numpy), the edge kernel
+    alone, and the whole call; beside them the pieces of its earlier design
+    (a blocking upload, the packing in PyTorch
+    ``pack_bitsets_plain``, the check by two reductions and two host
+    syncs on the card).  Each piece's result is held to the call's."""
+    packed = kbs.pack_bitsets(Ab)
+    edges = kbs.upload(g.edges, DEV)
+    E, W = edges.shape[0], packed.shape[1]
+    counts = torch.empty((E,), dtype=torch.int32, device=DEV)
+    flag = torch.zeros((1,), dtype=torch.int32, device=DEV)
+    stream = torch.cuda.current_stream().cuda_stream
+    launch = lambda: kbs._lib().bitset_edges(  # noqa: E731
+        packed.data_ptr(), W, packed.stride(0), packed.shape[0],
+        edges.data_ptr(), E, counts.data_ptr(), flag.data_ptr(), 1, stream)
+
+    def old_check():                         # on the uploaded pairs
+        return int(edges.min()) >= 0 and int(edges.max()) < packed.shape[0]
+
+    launch()
+    assert torch.equal(counts, cn) and flag.item() == 0
+    assert torch.equal(kbs.pack_bitsets_plain(Ab), packed) and old_check()
+    return {
+        "upload_ms": timed_ms(lambda: kbs.upload(g.edges, DEV), 20),
+        "pack_ms": timed_ms(lambda: kbs.pack_bitsets(Ab), 20),
+        "check_ms": timed_ms(lambda: kbs.check_pairs_host(g.edges, N), 20),
+        "kernel_ms": timed_ms(launch, 50),
+        "call_ms": timed_ms(lambda: ops.common_neighbors(Ab, g.edges), 20),
+        "earlier_design": {
+            "upload_ms": timed_ms(lambda: torch.as_tensor(g.edges).to(DEV),
+                                  20),
+            "pack_plain_ms": timed_ms(lambda: kbs.pack_bitsets_plain(Ab), 5),
+            "check_two_syncs_ms": timed_ms(old_check, 20)}}
+
+
+# -- morph path --------------------------------------------------------------------
+
+MORPH_STORE_DIR = os.path.join(ROOT, "build", "morph_store")
+JOIN_KERNELS = ("vecjoin", "pairjoin", "trijoin")
+
+
+def phase_morph_path(main: dict) -> dict:
+    """The morph count store on the user's graph, with phase 3's APCT: a
+    ``CountStore`` on disk under the ignored ``build/`` is warmed by
+    compiling the 3-star and the diamond with ``morph=`` (their joins run
+    the join kernels: the 3-star's |cut| = 1 join and the diamond's
+    |cut| = 2 join, as in phase 3); then every ``motif_family(4)`` member
+    is compiled with ``morph=`` and counted in turn (pass 1): a member
+    whose identity closes over the store takes the fast path (``meta
+    ["morph"]``), the others search with the held homs priced at 0 and
+    feed the store back.  Pass 2 answers the family again from a fresh
+    ``CountStore`` on the same directory: every member on the fast path,
+    no contraction, no kernel launch.  Every count must equal the same
+    family compiled with ``morph=False`` on the same graph (timed, the
+    answer without the store)."""
+    g, apct = main["rmat"]["g"], main["rmat"]["apct"]
+    shutil.rmtree(MORPH_STORE_DIR, ignore_errors=True)
+    store = cmorph.CountStore(MORPH_STORE_DIR)
+    gsig = graph_signature(g)
+    family = cmorph.motif_family(4)
+    warm = [p for p in family if pattern_key(p) in ("4.52", "4.62")]
+    assert len(warm) == 2, "the 3-star and the diamond are family members"
+    before = launch_counts()
+    t0 = time.perf_counter()
+    cp = compiler.compile(warm, g, apct=apct, cache=False, morph=store)
+    cp.counts()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_launches = {k: v - before[k] for k, v in launch_counts().items()
+                     if v != before[k]}
+    if not any(warm_launches.get(k) for k in JOIN_KERNELS):
+        raise AssertionError(f"warming the store launched no join kernel: "
+                             f"{warm_launches}")
+    del cp
+    t0 = time.perf_counter()
+    plain = compiler.compile(family, g, apct=apct, cache=False)
+    want = plain.counts()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    del plain
+    first, fallbacks = [], []
+    for p in family:
+        held = store.held_hom_keys(gsig)
+        t0 = time.perf_counter()
+        cp = compiler.compile((p,), g, apct=apct, cache=False, morph=store)
+        got = cp.count(p)
+        torch.cuda.synchronize()
+        row = {"pattern": pattern_key(p), "count": got,
+               "fast": cp.plan.meta.get("morph") is True,
+               "store_reads": len(cp.morph_reads),
+               "contractions": cp.counter.stats["hom_evals"],
+               "seconds": round(time.perf_counter() - t0, 4)}
+        if not row["fast"]:
+            costs = cp.plan.meta["node_costs"]
+            priced = sorted(k for k in cp.plan.nodes if k in held)
+            row["held_nodes_in_plan"] = priced
+            row["held_nodes_priced_0"] = all(costs.get(k) == 0.0
+                                             for k in priced)
+            fallbacks.append(row)
+        first.append(row)
+        del cp
+    assert any(r["fast"] for r in first), "no member took the fast path"
+    assert any(r["held_nodes_in_plan"] and r["held_nodes_priced_0"]
+               for r in fallbacks), \
+        "no member fell back to a search with held homs priced at 0"
+    # pass 2: a fresh store on the same directory answers the family
+    fresh = cmorph.CountStore(MORPH_STORE_DIR)
+    before = launch_counts()
+    second = []
+    t0 = time.perf_counter()
+    for p in family:
+        cp = compiler.compile((p,), g, apct=apct, cache=False, morph=fresh)
+        second.append({"pattern": pattern_key(p), "count": cp.count(p),
+                       "fast": cp.plan.meta.get("morph") is True,
+                       "contractions": cp.counter.stats["hom_evals"]})
+    torch.cuda.synchronize()
+    store_s = time.perf_counter() - t0
+    moved = {k: v - before[k] for k, v in launch_counts().items()
+             if v != before[k]}
+    if moved:
+        raise AssertionError(f"answers from the store launched {moved}")
+    for r in second:
+        if not r["fast"] or r["contractions"]:
+            raise AssertionError(f"{r['pattern']}: not answered from the "
+                                 f"store alone: {r}")
+    for rows in (first, second):
+        for r in rows:
+            if r["count"] != want[r["pattern"]] or \
+                    r["count"] != round(r["count"]):
+                raise AssertionError(f"{r['pattern']}: morph count "
+                                     f"{r['count']} != {want[r['pattern']]}")
+    emit("morph_path", graph=MAIN_GRAPH, store_dir="build/morph_store",
+         family=len(family), warm=[pattern_key(p) for p in warm],
+         warm_launches=warm_launches, store_entries=len(fresh),
+         first_pass=first, second_pass=second,
+         seconds={"warm": round(warm_s, 4),
+                  "family_without_store": round(plain_s, 4),
+                  "family_from_store": round(store_s, 6)})
+    return {"seconds": {"family_without_store": plain_s,
+                        "family_from_store": store_s}}
 
 
 # -- phase 6 ------------------------------------------------------------------------
@@ -2562,21 +2819,34 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
           yardstick=f"library_ms: {tc_yardstick}; library_f32_ms: "
                     f"(A @ A.T) * A, f32 product, TF32 off")
     # K8 as common_neighbors calls it: the packed R-MAT table (8192 x 256
-    # words) and its edge list, rows gathered in the kernel.  The bound is
-    # the bytes of the table, the pairs and the counts.  No single PyTorch
-    # call counts bits: the yardstick works on the unpacked bool rows.
+    # words) and its edge list, rows gathered in the kernel (its vector
+    # entry: row u held along each run).  The bound is the bytes of the
+    # table, the pairs and the counts.  The row's call takes the pairs on
+    # the card, so it checks them in the kernel and reads the flag once;
+    # beside it the call with the pairs on the host (numpy check, upload
+    # without a sync), the launch alone, the host check, and the L2
+    # traffic of row reads: the old design read both rows of every edge,
+    # the vector entry one row per edge plus row u once per run and chunk.
+    # No single PyTorch call counts bits: the yardstick works on the
+    # unpacked bool rows.
     g = main["rmat"]["g"]
     Ab = A > 0
     packed = kbs.pack_bitsets(Ab)
     edges = torch.from_numpy(g.edges).to(DEV)
     E, W = edges.shape[0], packed.shape[1]
-    # the launch alone, without the wrapper's check that every pair lies
-    # in the table (two reductions and two host syncs per call)
     counts8 = torch.empty((E,), dtype=torch.int32, device=DEV)
+    flag8 = torch.zeros((1,), dtype=torch.int32, device=DEV)
     stream = torch.cuda.current_stream().cuda_stream
     launch8 = lambda: kbs._lib().bitset_edges(  # noqa: E731
-        packed.data_ptr(), W, packed.stride(0), edges.data_ptr(), E,
-        counts8.data_ptr(), stream)
+        packed.data_ptr(), W, packed.stride(0), packed.shape[0],
+        edges.data_ptr(), E, counts8.data_ptr(), flag8.data_ptr(), 1,
+        stream)
+    u = g.edges[:, 0]
+    u_runs = 1 + int(np.count_nonzero(np.diff(u)))
+    chunks = -(-E // 8)
+    row_bytes = W * 4
+    bs_ptxas = ptxas_counts(kbuild.build_logs.get("bitset", ""),
+                            _bitset_label)
     entry("bitset_intersect", "bitset_edges",
           "src/repro/kernels/bitset.py:39", None,
           lambda: kbs.bitset_intersect_edges(packed, edges),
@@ -2584,10 +2854,31 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
           lambda: (Ab[edges[:, 0]] & Ab[edges[:, 1]]).sum(1), 50,
           N * W * 4 + E * 2 * 8 + E * 4, 2 * E * W, path=graph_ops,
           source=BITSET_SOURCE, shape=[N, W, E],
+          entry=kbs.edges_entry(packed),
           launches_rows_entry=graph_ops["launches"]["bitset"],
           ms_launch_only=timed_ms(launch8, 50),
+          ms_call_host_pairs=timed_ms(
+              lambda: kbs.bitset_intersect_edges(packed, g.edges), 50),
+          ms_host_check=timed_ms(lambda: kbs.check_pairs_host(g.edges, N),
+                                 50),
+          u_runs=u_runs, chunks=chunks,
+          l2_row_bytes={"two_rows_per_edge": 2 * E * row_bytes,
+                        "vec_entry_at_most": (E + u_runs + chunks)
+                        * row_bytes},
+          ptxas=[c for c in bs_ptxas if "edges" in c["kernel"]],
           yardstick="(Ab[u] & Ab[v]).sum(1) on the unpacked bool rows, "
                     "not a popcount")
+    # the packing as common_neighbors calls it: the R-MAT bool adjacency
+    # (8192 x 8192 bytes) into 8192 x 256 words.  Bound: the bytes read
+    # and written.  No PyTorch call packs bits: no yardstick.
+    entry("pack_bitsets", "bitset_pack",
+          "src/repro/kernels/bitset.py:53 (pack_bitsets, numpy on the "
+          "host, feeding bitset_intersect at :39)", None,
+          lambda: kbs.pack_bitsets(Ab), lambda: kbs.pack_bitsets_plain(Ab),
+          None, 20, N * N + N * W * 4, 0, path=graph_ops,
+          source=BITSET_SOURCE, shape=[N, N],
+          ptxas=[c for c in bs_ptxas if "pack" in c["kernel"]],
+          yardstick="none (no PyTorch call packs bits)")
     out.append(flash_row(served))
     print(json.dumps({"kernels": out}), flush=True)
 
@@ -2862,6 +3153,20 @@ def _matreduce_label(mangled: str):
     return f"{m[1]}<{arg}>"
 
 
+def _bitset_label(mangled: str):
+    """edges_vec_kernel<K, U>, pack_kernel<VEC>, edges_word_kernel and
+    bitset_rows_kernel by their template arguments."""
+    m = re.search(r"(edges_vec_kernel|pack_kernel|edges_word_kernel|"
+                  r"bitset_rows_kernel)(?:I((?:L[ib]\d+E)+)E)?", mangled)
+    if not m:
+        return None
+    if not m[2]:
+        return m[1]
+    args = [("true" if v == "1" else "false") if t == "b" else v
+            for t, v in re.findall(r"L([ib])(\d+)E", m[2])]
+    return f"{m[1]}<{', '.join(args)}>"
+
+
 def _flash_label(mangled: str):
     m = re.search(r"(bf16k|f32k)9flash_fwdILi(\d+)ELb([01])E", mangled)
     return m and (f"{m[1]}::flash_fwd<{m[2]}, "
@@ -2956,6 +3261,7 @@ def main():
     main_path = phase_main_path()
     local_path = phase_local_path(main_path)
     graph_ops = phase_graph_ops(main_path)
+    phase_morph_path(main_path)
     mine_path = phase_mine_path(main_path)
     serve_path = phase_serve_path()
     phase_kernels(main_path, local_path, graph_ops, mine_path, serve_path)

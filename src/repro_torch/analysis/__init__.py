@@ -3,12 +3,14 @@
 ``verify``  — structural verifier + abstract interpreter: DAG/ref/output
               integrity, shape and tier-matrix legality, budget checks,
               and ``exact_block`` precertification (see
-              ``analysis.verify``).
+              ``analysis.verify``).  ``morph_check`` validates a
+              committed morph identity on the pattern-lattice endpoints.
 """
 from repro_torch.analysis.verify import (Diagnostic, GraphInfo,
                                          PlanVerifyError, VerifyResult,
-                                         infer_shapes, precertify,
-                                         refusal_flags, verify)
+                                         infer_shapes, morph_check,
+                                         precertify, refusal_flags, verify)
 
 __all__ = ["Diagnostic", "GraphInfo", "PlanVerifyError", "VerifyResult",
-           "infer_shapes", "precertify", "refusal_flags", "verify"]
+           "infer_shapes", "morph_check", "precertify", "refusal_flags",
+           "verify"]

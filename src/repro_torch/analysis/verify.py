@@ -27,8 +27,10 @@ execution skips the device→host factor scan entirely.  Joins whose
 factors provably always blow the exactness limit are flagged at verify
 time instead of silently falling back on every query.
 
-``shard_check`` and ``morph_check`` of the reference package belong to
-the mesh and morph tiers and arrive with them.
+``morph_check`` validates a committed morph identity
+(``compiler.morph.MorphCandidate``) on the pattern-lattice endpoints,
+graph-free.  ``shard_check`` of the reference package belongs to the mesh
+tier and arrives with it.
 
 Diagnostics carry stable ``code`` strings (one per failure class) so
 tests and callers can assert *which* invariant broke, not just that one
@@ -667,3 +669,86 @@ def _factor_floor(plan, terms, rank, info: GraphInfo) -> Optional[float]:
         inj_floor = float(info.n) * \
             float(max(0, info.min_degree - k + 2)) ** (k - 1)
     return inj_floor / float(info.n) ** rank
+
+
+# -- morph identity validation ----------------------------------------------------
+
+def _km_labels(p, m: int) -> Optional[tuple]:
+    """Vertex labels for the labelled complete graph K_m: cycle the
+    pattern's own alphabet, so every pattern label is realised."""
+    if p.labels is None:
+        return None
+    alphabet = sorted(set(p.labels))
+    return tuple(alphabet[i % len(alphabet)] for i in range(m))
+
+
+def _brute_hom_km(q, m: int, glabels: Optional[tuple]) -> int:
+    """hom(q, K_m) by enumeration: maps sending every pattern edge to
+    distinct endpoints (all distinct pairs are K_m edges), respecting
+    labels when both sides carry them."""
+    import itertools
+    total = 0
+    for f in itertools.product(range(m), repeat=q.n):
+        if glabels is not None and q.labels is not None and any(
+                glabels[f[v]] != q.labels[v] for v in range(q.n)):
+            continue
+        if all(f[u] != f[v] for u, v in q.edges):
+            total += 1
+    return total
+
+
+def _brute_inj_km(p, m: int, glabels: Optional[tuple]) -> int:
+    """inj(p, K_m) by enumeration: every injective (label-respecting)
+    map embeds, since all distinct pairs are adjacent in K_m."""
+    import itertools
+    total = 0
+    for f in itertools.permutations(range(m), p.n):
+        if glabels is not None and p.labels is not None and any(
+                glabels[f[v]] != p.labels[v] for v in range(p.n)):
+            continue
+        total += 1
+    return total
+
+
+def morph_check(candidate) -> VerifyResult:
+    """Validate one committed morph identity (``morph.MorphCandidate``)
+    on the pattern-lattice endpoints, graph-free:
+
+    * empty graph: every edged hom/inj vanishes, so the identity
+      degenerates to 0 = 0 — a nonzero coefficient on an edge*less*
+      quotient would break it (quotients of an edged pattern always
+      keep an edge);
+    * complete graphs K_m, m in {n, n+1, n+2} (label-cycled when the
+      pattern is labelled): both sides brute-forced by enumeration and
+      compared as exact integers — wrong Möbius coefficients, a missing
+      quotient, or a wrong automorphism divisor all surface here.
+
+    Diagnostics: ``morph-endpoint-empty``, ``morph-endpoint-complete``,
+    ``morph-divisor``; ``ok`` means the identity is safe to serve."""
+    res = VerifyResult()
+    p = candidate.pattern
+    pk = f"morph:{p.n}v{p.m}e"
+    if p.m:
+        for coeff, q in candidate.terms:
+            if coeff and not q.m:
+                res.diagnostics.append(_err(
+                    "morph-endpoint-empty", pk,
+                    f"coefficient {coeff} on edgeless quotient breaks "
+                    f"the empty-graph endpoint (lhs 0, rhs "
+                    f"{coeff} * hom(edgeless) != 0)"))
+    divisor = getattr(candidate, "divisor", None)
+    if divisor is not None and divisor != p.aut_order():
+        res.diagnostics.append(_err(
+            "morph-divisor", pk,
+            f"divisor {divisor} != |Aut| = {p.aut_order()}"))
+    for m in range(p.n, p.n + 3):
+        glabels = _km_labels(p, m)
+        lhs = _brute_inj_km(p, m, glabels)
+        rhs = sum(coeff * _brute_hom_km(q, m, glabels)
+                  for coeff, q in candidate.terms)
+        if lhs != rhs:
+            res.diagnostics.append(_err(
+                "morph-endpoint-complete", pk,
+                f"identity fails on K_{m}: brute inj {lhs} != "
+                f"expanded sum {rhs}"))
+    return res

@@ -47,12 +47,16 @@ from repro_torch import device as _device
 from repro_torch.core.pattern import Pattern
 from repro_torch.graph.storage import Graph
 from repro_torch.compiler import costing, frontend
-from repro_torch.compiler.cache import PlanCache, config_compatible, plan_key
+from repro_torch.compiler import morph as _morph
+from repro_torch.compiler.cache import (PlanCache, config_compatible,
+                                        graph_signature, plan_key)
 from repro_torch.compiler.ir import Plan, local_key, pattern_key
 from repro_torch.compiler.lowering import CompiledPlan, lower, not_ported
+from repro_torch.compiler.morph import CountStore, default_store
 
-__all__ = ["compile", "Plan", "PlanCache", "CompiledPlan", "pattern_key",
-           "plan_key", "local_key", "default_cache", "config_compatible"]
+__all__ = ["compile", "Plan", "PlanCache", "CompiledPlan", "CountStore",
+           "pattern_key", "plan_key", "local_key", "default_cache",
+           "default_store", "config_compatible"]
 
 _DEFAULT_CACHE = PlanCache()
 
@@ -195,16 +199,30 @@ def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
     joins that could never take the kernel route are flagged to the
     metrics registry (``analysis.always_refused``).
 
-    ``mesh=`` and ``morph=`` are features of the reference package that
-    are not ported yet: each raises ``NotImplementedError`` naming its
-    ROADMAP.md queue item.  ``plan.meta`` still records
-    ``mesh_devices: 1``, so a plan serialised by either package loads in
-    the other.
+    ``morph`` turns the pattern-morphing count algebra on
+    (``compiler.morph``): ``True`` uses the process-wide
+    ``default_store()``, or pass a ``CountStore``.  Before searching,
+    every query pattern is expanded over the store's held counts
+    (inclusion–exclusion over the pattern lattice); when the whole query
+    set closes algebraically the compiler skips candidate search and
+    serves a direct-shaped plan whose hom reads come back from the store
+    (``plan.meta["morph"]``, route ``morph-derive``, ``obs`` counter
+    ``morph.hits``): zero contractions and no kernel launch.  Partially
+    closed queries still search, but held homs price at 0
+    (``costing.select_candidates(held=)``) and are served from the store
+    at execution; each pattern with missing homs counts
+    ``morph.missing_compiles``.  Every count read of the returned plan
+    harvests its exact scalars back into the store.  Morph-compiled
+    plans are never written to the plan cache (their selection is
+    store-biased), and ``morph=False`` (the default) changes nothing.
+
+    ``mesh=`` is a feature of the reference package that is not ported
+    yet: it raises ``NotImplementedError`` naming its ROADMAP.md queue
+    item.  ``plan.meta`` still records ``mesh_devices: 1``, so a plan
+    serialised by either package loads in the other.
     """
     if mesh is not None:
         raise not_ported("mesh")
-    if morph is not False and morph is not None:
-        raise not_ported("morph")
     if isinstance(patterns, Pattern):
         patterns = (patterns,)
     patterns = tuple(patterns)
@@ -218,6 +236,10 @@ def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
     use_cache = cache is not False
     if cache is None:
         cache = _DEFAULT_CACHE
+    morph_store = None
+    if morph is not False and morph is not None:
+        morph_store = (morph if isinstance(morph, _morph.CountStore)
+                       else _morph.default_store())
     mesh_devices = 1
     key = plan_key(patterns, graph)
     if use_cache:
@@ -237,7 +259,7 @@ def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
                 return lower(plan, graph, counter=counter,
                              use_pallas=use_pallas, from_cache=True,
                              budget=budget, cutjoin_kernel=cutjoin_kernel,
-                             device=device)
+                             count_store=morph_store, device=device)
             # config matches but the stored plan lacks a requested
             # flavour: recompile with the UNION of requested and stored
             # flags, so the overwrite supersets the entry instead of
@@ -245,6 +267,46 @@ def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
             # alternating request kinds
             domains = domains or bool(plan.meta.get("domains"))
             local = local or bool(plan.meta.get("local"))
+
+    held = None
+    if morph_store is not None:
+        from repro_torch import obs
+        gsig = graph_signature(graph)
+        derived = [_morph.derive(p, morph_store, gsig) for p in patterns]
+        if all(d.complete for d in derived) and not domains and not local:
+            # the whole query set closes algebraically over held counts:
+            # skip candidate search and serve the direct-shaped plan —
+            # lowering answers every hom node from the store (route
+            # "morph-derive"), so no contraction runs
+            for _ in patterns:
+                obs.counter("morph.hits")
+            plan = frontend.assemble(
+                [(p, frontend.direct_candidate(p)) for p in patterns])
+            plan.meta.update({
+                "key": key, "budget": budget,
+                "max_cutjoin_cut": max_cutjoin_cut,
+                "mesh_devices": mesh_devices,
+                "domains": False, "local": False,
+                "estimated_cost": 0.0, "morph": True,
+                "styles": {pattern_key(p): "morph" for p in patterns},
+                "cuts": {pattern_key(p): None for p in patterns},
+            })
+            if verify:
+                from repro_torch import analysis
+                ginfo = analysis.GraphInfo.from_graph(graph)
+                plan.meta["graph_info"] = ginfo.to_dict()
+                analysis.verify(plan, graph_info=ginfo,
+                                budget=budget).raise_if_failed()
+            return lower(plan, graph, counter=counter,
+                         use_pallas=use_pallas, from_cache=False,
+                         budget=budget, cutjoin_kernel=cutjoin_kernel,
+                         count_store=morph_store, device=device)
+        for d in derived:
+            if d.missing:
+                obs.counter("morph.missing_compiles")
+        # partial closure (or a domains/local request): search, with the
+        # held hom pool priced at 0 and served from the store
+        held = morph_store.held_hom_keys(gsig)
 
     if apct is None:
         from repro_torch.core.apct import APCT
@@ -257,7 +319,7 @@ def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
     selections, total_cost = costing.select_candidates(
         per_pattern, apct, graph.n, budget, counter=counter,
         label_fracs=label_fracs, node_costs=node_costs,
-        devices=mesh_devices, held=None)
+        devices=mesh_devices, held=held)
     plan = frontend.assemble(selections)
     if domains:
         for p in patterns:
@@ -297,8 +359,11 @@ def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
         for diag in result.warnings:
             if diag.code == "always-refused":
                 obs.counter("analysis.always_refused")
-    if use_cache:
+    if use_cache and morph_store is None:
+        # store-biased selections never enter the shared plan cache: a
+        # later morph=False compile must behave as if morphing never was
         cache.put(key, plan)
     return lower(plan, graph, counter=counter, use_pallas=use_pallas,
                  from_cache=False, budget=budget,
-                 cutjoin_kernel=cutjoin_kernel, device=device)
+                 cutjoin_kernel=cutjoin_kernel, count_store=morph_store,
+                 device=device)

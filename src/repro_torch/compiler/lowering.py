@@ -42,14 +42,18 @@ device and evaluates nodes on demand with per-node memoisation:
                     ``kernel-keep-f64``); else the dense f64
                     ``_join_keep`` / ``_join_keep3``;
 * the combine ops run on host scalars, or on device tensors for
-  vector-valued nodes.
+  vector-valued nodes; a scalar may be a Python number or a 0-d tensor.
 
 Node values memoise per plan *and* feed the engine's hom memo, so
 repeated queries against a compiled application never re-contract.
+With a morph count store (``count_store=``, a ``compiler.morph.
+CountStore``) scalar ``Contract`` and ``Intersect`` reads consult the
+store first (route ``morph-derive``: no contraction, no kernel; the node
+keys land in ``CompiledPlan.morph_reads``), and every count read
+harvests the plan's exact scalars back into it.
 
 Not ported yet (each raises ``NotImplementedError`` and names its
-ROADMAP.md queue item): the execution mesh, the morph count store and
-the span tracer.
+ROADMAP.md queue item): the execution mesh and the span tracer.
 The reference's span-tracer hooks wait for the port of ``obs.trace``;
 every ``obs.counter`` is kept.
 """
@@ -72,8 +76,6 @@ from repro_torch.compiler.ir import (Contract, CutJoin, Intersect, LocalCount,
 _NOT_PORTED = {
     "mesh": "mesh= (sharded tier) is not ported yet — ROADMAP.md queue 1, "
             "item 11, \"Sharded tier\"",
-    "morph": "morph= / count_store= (the morph count store) is not ported "
-             "yet — ROADMAP.md queue 1, item 8, \"compiler/morph.py\"",
     "trace": "tracing (the span tracer) is not ported yet — ROADMAP.md "
              "queue 1, item 9, \"obs/trace.py\"",
 }
@@ -114,8 +116,6 @@ class CompiledPlan:
                  mesh=None, count_store=None, device=None):
         if mesh is not None:
             raise not_ported("mesh")
-        if count_store is not None:
-            raise not_ported("morph")
         self.plan = plan
         self.graph = graph
         # a caller-supplied counter keeps its own device binding
@@ -125,6 +125,11 @@ class CompiledPlan:
         self.use_pallas = use_pallas
         self.cutjoin_kernel = cutjoin_kernel
         self.from_cache = from_cache
+        # morph count store (compiler.morph.CountStore): scalar hom reads
+        # consult it before contracting (route "morph-derive")
+        self.count_store = count_store
+        self._gsig: Optional[str] = None
+        self.morph_reads: list = []        # node keys served from the store
         self._values: Dict[str, object] = {}
         self._masks: Dict[int, torch.Tensor] = {}
         self._factors: Dict[tuple, torch.Tensor] = {}
@@ -137,18 +142,40 @@ class CompiledPlan:
         self.stats = obs.StatsView(
             "plan", keys=("node_evals", "node_hits", "exists_early_exits"))
 
+    # -- morph store hooks -------------------------------------------------------
+    def _store_hom(self, node_key: str):
+        """Held scalar hom for one ``hom:`` node key, or None (no store
+        attached / miss).  The graph signature is resolved lazily once."""
+        if self.count_store is None:
+            return None
+        if self._gsig is None:
+            from repro_torch.compiler.cache import graph_signature
+            self._gsig = graph_signature(self.graph)
+        held = self.count_store.get_key(self._gsig, node_key)
+        if held is not None:
+            self.morph_reads.append(node_key)
+        return held
+
+    def _harvest(self):
+        if self.count_store is not None:
+            self.count_store.harvest(self)
+
     # -- public API --------------------------------------------------------------
     def count(self, p: Pattern) -> float:
         """Edge-induced embedding count of one compiled pattern."""
-        return float(self.value(self.plan.output_for(p)))
+        val = float(self.value(self.plan.output_for(p)))
+        self._harvest()
+        return val
 
     def counts(self) -> dict:
         """All compiled count outputs: canonical pattern key -> count
         (partial-embedding outputs are tensors — read them through
         ``local_counts``)."""
-        return {pk: float(self.value(nk))
-                for pk, nk in self.plan.outputs.items()
-                if not is_local_output(pk)}
+        out = {pk: float(self.value(nk))
+               for pk, nk in self.plan.outputs.items()
+               if not is_local_output(pk)}
+        self._harvest()
+        return out
 
     def has_local(self, p: Pattern, anchor: Optional[int] = None) -> bool:
         """True when the plan carries the requested partial-embedding
@@ -241,6 +268,10 @@ class CompiledPlan:
 
     def _eval(self, node):
         if isinstance(node, Contract):
+            if not node.free:
+                held = self._store_hom(node.key)
+                if held is not None:
+                    return float(held)
             if node.free:
                 # decode the marker-encoded pattern: strips cut-rank
                 # markers, restores real vertex labels (label-masked
@@ -250,6 +281,9 @@ class CompiledPlan:
                                                     order=node.order)
             return self.counter.hom(node.pattern, order=node.order or None)
         if isinstance(node, Intersect):
+            held = self._store_hom(node.key)
+            if held is not None:
+                return float(held)
             if self.use_pallas and node.k == 3:
                 from repro_torch.kernels import ops
                 adj = torch.from_numpy(self.graph.dense_adjacency(
@@ -516,7 +550,9 @@ def lower(plan: Plan, graph: Graph, *, counter=None, use_pallas=False,
     ``verify=True`` runs the static verifier against this graph first and
     raises ``PlanVerifyError`` instead of binding a malformed plan — for
     plans that arrived from outside ``compiler.compile`` (hand-built,
-    deserialized, mutated), which already verifies what it commits."""
+    deserialized, mutated), which already verifies what it commits.
+    ``count_store`` (a ``compiler.morph.CountStore``) serves held scalar
+    homs without contracting and is fed by every count read."""
     if verify:
         from repro_torch import analysis
         analysis.verify(

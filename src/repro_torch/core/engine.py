@@ -51,15 +51,14 @@ class PartialEmbedding:
 class MiningEngine:
     def __init__(self, graph: Graph, apct: Optional[APCT] = None,
                  budget: int = 1 << 27, morph=False, device=None):
-        if morph:
-            # before any try: no fallback below may swallow it
-            from repro_torch.compiler.lowering import not_ported
-            raise not_ported("morph")
         self.graph = graph
         self.counter = CountingEngine(graph, budget=budget, device=device)
         self.apct = apct or APCT(graph)
         self._compiled: dict = {}           # canonical pattern -> CompiledPlan
         self.compiler_fallbacks = 0
+        # morphing count algebra (compiler.morph): False off, True the
+        # process store, or a CountStore — threaded into every compile,
+        # so clustered queries serve algebraically from earlier reads
         self.morph = morph
 
     # -- decomposition choice -------------------------------------------------
@@ -86,7 +85,8 @@ class MiningEngine:
                 cp = self._compiled.get(key)
                 if cp is None:
                     cp = compiler.compile((p,), self.graph, apct=self.apct,
-                                          counter=self.counter)
+                                          counter=self.counter,
+                                          morph=self.morph)
                 val = cp.count(p)
                 # cache only plans that executed: a plan whose execution
                 # raised (e.g. PlanTooWide) must not be retried from the

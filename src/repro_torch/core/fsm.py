@@ -92,12 +92,18 @@ def _extensions(p: Pattern, labels: range) -> list:
 
 def _level_supports(g: Graph, level: list, counter: CountingEngine,
                     apct, plan_cache, res: FSMResult,
-                    support_fn) -> dict:
+                    support_fn, count_store=None) -> dict:
     """MINI supports for one candidate frontier.  ``apct`` not None =>
     compile the frontier jointly (domain plans, cross-sibling CSE, plan
     cache); on a failure other than ``KernelError`` — or with the
     compiler disabled — every pattern falls back to ``support_fn`` over
-    the shared engine."""
+    the shared engine.
+
+    ``count_store`` (a ``compiler.morph.CountStore``) makes the frontier
+    feed and read the morphing algebra: level plans compile with
+    ``morph=``, so homs already held (from earlier levels' reads) serve
+    without contracting, and the level's exact counts are read once and
+    harvested back — level k warms the store for level k+1."""
     if apct is not None:
         try:
             from repro_torch import compiler
@@ -108,8 +114,15 @@ def _level_supports(g: Graph, level: list, counter: CountingEngine,
                                   counter=counter,
                                   cache=plan_cache if plan_cache is not None
                                   else False,
-                                  domains=True)
+                                  domains=True,
+                                  morph=count_store
+                                  if count_store is not None else False)
             supports = {p: cp.mini_support(p) for p in level}
+            if count_store is not None:
+                # the counts() read evaluates the scalar count outputs
+                # (domain reads alone touch only tensors) and harvests
+                # them — the feeding cost morphing opts into
+                cp.counts()
             res.compiled_levels += 1
             return supports
         except KernelError:
@@ -135,13 +148,12 @@ def fsm(g: Graph, min_support: int, max_vertices: int = 3,
     the process cache; pass a ``PlanCache`` to persist plans across
     repeated runs over the same graph.  ``support_fn(counter, p)``
     serves the non-compiled path.  ``device=None`` means the CUDA device
-    (a ``counter`` brings its own).  ``count_store=`` (the morph count
-    store) is not ported yet and raises ``NotImplementedError``.
+    (a ``counter`` brings its own).  ``count_store`` (a
+    ``compiler.morph.CountStore``) threads the morphing count algebra
+    through every level compile: each frontier's exact counts are
+    harvested into the store and later levels' held homs serve without
+    contracting.
     """
-    if count_store is not None:
-        # before any try: no fallback below may swallow it
-        from repro_torch.compiler.lowering import not_ported
-        raise not_ported("morph")
     if g.labels is None:
         raise ValueError("FSM requires a labelled graph")
     counter = counter or CountingEngine(g, device=device)
@@ -158,7 +170,7 @@ def fsm(g: Graph, min_support: int, max_vertices: int = 3,
         res.levels += 1
         res.evaluated += len(level)
         supports = _level_supports(g, level, counter, apct, plan_cache,
-                                   res, support_fn)
+                                   res, support_fn, count_store)
         survivors = []
         for p in level:
             s = supports[p]

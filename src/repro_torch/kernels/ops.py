@@ -156,13 +156,18 @@ def cutjoin_exact_f64(maxes, cells: int) -> bool:
     return ok
 
 
-def _placed(args, device):
-    """Tensors for ``args`` on one device: the device of the tensors among
-    them, else ``device.resolve(device)`` for numpy input."""
+def _device_of(args, device) -> torch.device:
+    """The device of the tensors among ``args``, else
+    ``device.resolve(device)`` for numpy input."""
     devs = {a.device for a in args if isinstance(a, torch.Tensor)}
     if len(devs) > 1:
         raise ValueError(f"operands lie on different devices: {devs}")
-    dev = devs.pop() if devs else _device.resolve(device)
+    return devs.pop() if devs else _device.resolve(device)
+
+
+def _placed(args, device):
+    """Tensors for ``args`` on one device (``_device_of``)."""
+    dev = _device_of(args, device)
     return [torch.as_tensor(a).to(dev) for a in args]
 
 
@@ -176,9 +181,13 @@ def sddmm(lhs, rhs, mask, *, device=None) -> torch.Tensor:
 def common_neighbors(adj_bool, edges, *, device=None) -> torch.Tensor:
     """Per-edge common-neighbour counts, (E,) int32: the adjacency packed
     into 32-bit words, then one popcount(row u & row v) per edge, the two
-    rows gathered inside the kernel.  Σ over a graph's edges is 3 · T."""
-    adj, pairs = _placed((adj_bool, edges), device)
-    return _bitset.bitset_intersect_edges(_bitset.pack_bitsets(adj), pairs)
+    rows gathered inside the kernel.  Σ over a graph's edges is 3 · T.
+    On the card the adjacency is packed there (``bitset_pack``), and pairs
+    on the host (``Graph.edges``) are checked with numpy and uploaded
+    without blocking: the call makes no host sync."""
+    dev = _device_of((adj_bool, edges), device)
+    adj = _bitset.upload(adj_bool, dev)
+    return _bitset.bitset_intersect_edges(_bitset.pack_bitsets(adj), edges)
 
 
 def flash_attention(q, k, v, *, causal=True, bq=128, bk=128) -> torch.Tensor:

@@ -258,7 +258,17 @@ def test_lower_verify_rejects_a_corrupted_plan(both):
     {"mesh": object()}, {"morph": True},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_features_raise_and_name_their_roadmap_item(both, kwargs):
+    """``mesh=`` raises, naming its ROADMAP.md queue item; ``morph=`` is
+    ported (the count store): through the process store it counts as the
+    reference does."""
     r = both(("er60", "house"))
+    if "morph" in kwargs:
+        cp = tcompiler.compile(r["pats"], r["tg"], cache=False, device="cpu",
+                               apct=shared_apct("port", r["tg"], TAPCT),
+                               **kwargs)
+        assert cp.count_store is tcompiler.default_store()
+        assert [cp.count(p) for p in r["pats"]] == r["rcounts"]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
         tcompiler.compile(r["pats"], r["tg"], cache=False, device="cpu",
                           **kwargs)

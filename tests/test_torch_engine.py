@@ -444,12 +444,28 @@ def test_kernel_error_propagates_through_fsm(monkeypatch, graphs):
     assert res.fallbacks == res.levels >= 2 and res.compiled_levels == 0
 
 
-def test_unported_options_raise(graphs):
-    _, tg = graphs["gl36"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tengine.MiningEngine(tg, device="cpu", morph=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tfsm.fsm(tg, 2, device="cpu", count_store=object())
+def test_unported_options_raise(reference, graphs):
+    """``MiningEngine(morph=)`` and ``fsm(count_store=)`` are ported (the
+    morph count store): counts and frequent sets through one store equal
+    the reference's."""
+    from repro.compiler.morph import CountStore as RefStore
+    from repro.core import fsm as rfsm
+    from repro_torch.compiler.morph import CountStore
+    from test_torch_reference import shared_apct
+    rg, tg = graphs["gl36"]
+    store = CountStore()
+    eng = tengine.MiningEngine(tg, device="cpu", morph=store,
+                               apct=shared_apct("port", tg, tapct.APCT))
+    for p in LABELLED:
+        assert eng.get_pattern_count(p) == \
+            reference.counting.brute_force_edge_induced(rg, _rp(reference,
+                                                                p))
+    assert eng.compiler_fallbacks == 0 and len(store) > 0
+    got = tfsm.fsm(tg, 2, device="cpu", count_store=store)
+    want = rfsm.fsm(rg, 2, count_store=RefStore())
+    assert {_key(p): s for p, s in got.frequent.items()} == \
+        {_key(p): s for p, s in want.frequent.items()}
+    assert got.fallbacks == want.fallbacks == 0
 
 
 def test_device_none_raises_without_cuda(monkeypatch, graphs):

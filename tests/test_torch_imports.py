@@ -44,7 +44,7 @@ def test_port_has_the_expected_modules():
                  "compiler/ir.py", "compiler/frontend.py",
                  "compiler/costing.py", "compiler/cache.py",
                  "compiler/lowering.py", "compiler/__init__.py",
-                 "analysis/verify.py", "analysis/__init__.py",
+                 "compiler/morph.py", "analysis/verify.py", "analysis/__init__.py",
                  "api/__init__.py", "api/local.py",
                  "kernels/sddmm.py", "kernels/bitset.py", "core/engine.py",
                  "core/search.py", "core/fsm.py", "core/symmetry.py",
@@ -137,7 +137,9 @@ def test_kernel_modules_import_without_a_compiler_and_build_nothing():
         "'matreduce_tilelist': 0}\n"
         "assert not any(m.matreduce_entries.values())\n"
         "assert s.launches == {'sddmm': 0}\n"
-        "assert t.launches == {'bitset': 0, 'bitset_edges': 0}\n",
+        "assert t.launches == {'bitset': 0, 'bitset_edges': 0, "
+        "'bitset_pack': 0}\n"
+        "assert not any(t.edge_entries.values())\n",
         PATH="/nonexistent")
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

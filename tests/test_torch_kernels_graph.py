@@ -236,6 +236,107 @@ def test_pack_bitsets_equal_bit_for_bit(reference, n):
     assert np.array_equal(got.numpy().view(np.uint32), want)
 
 
+@pytest.mark.parametrize("n", [7, 17, 45, 50, 77])
+def test_pack_bitsets_plain_equal_bit_for_bit(reference, n):
+    """The plain packing (the port's CPU path and the card's oracle) at n
+    no multiple of 32 or of 16, where the kernel's scalar tail and its
+    unaligned-row path run; uint8 entries other than 0/1 pack as their
+    ``!= 0`` (the reference packs bool rows only)."""
+    rng = np.random.default_rng(100 + n)
+    adj = rng.random((n + 5, n)) < 0.4
+    adj[0, :] = True
+    want = reference.bitset.pack_bitsets(adj)
+    got = tbs.pack_bitsets_plain(torch.from_numpy(adj))
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+    bytes_ = torch.from_numpy(adj.astype(np.uint8) * rng.integers(
+        1, 256, size=adj.shape).astype(np.uint8))
+    assert torch.equal(tbs.pack_bitsets_plain(bytes_), got)
+    assert torch.equal(tbs.pack_bitsets(bytes_), got)
+
+
+@pytest.mark.parametrize("pairs", [
+    np.array([[0, 8]]), np.array([[-1, 2]]), np.array([[3, 1], [2, -5]]),
+    torch.tensor([[0, 8]]), torch.tensor([[4, 4], [-1, 0]]),
+], ids=["numpy-high", "numpy-negative", "numpy-second-negative",
+        "tensor-high", "tensor-negative"])
+def test_bitset_host_pairs_checked_on_the_host(pairs):
+    table = torch.from_numpy(_words(2, 8, 4).view(np.int32))
+    with pytest.raises(ValueError, match="outside"):
+        tbs.check_pairs_host(np.asarray(pairs), 8)
+    with pytest.raises(ValueError, match="outside"):
+        tbs.bitset_intersect_edges(table, pairs)
+    with pytest.raises(ValueError, match="outside"):
+        tbs.bitset_intersect_edges_plain(table, pairs)
+
+
+def _edge_lists(rng, N):
+    """Sorted (u, v) pairs with u-runs longer than a warp's 8-edge chunk
+    and runs that straddle chunks; the same shuffled; one u repeated over
+    the whole list."""
+    star = np.stack([np.zeros(70, np.int64), rng.integers(1, N, 70)], 1)
+    runs = np.concatenate([np.stack([np.full(k, u), rng.integers(0, N, k)],
+                                    1) for u, k in ((3, 31), (5, 2), (7, 40),
+                                                    (9, 33), (11, 1))])
+    srt = np.concatenate([star, runs])
+    srt = srt[np.lexsort((srt[:, 1], srt[:, 0]))]
+    return {"sorted": srt, "unsorted": rng.permutation(srt),
+            "repeated-u": np.stack([np.full(45, 6), rng.integers(0, N, 45)],
+                                   1)}
+
+
+def _vec_entry_emulated(table, edges, chunk=8, group=4):
+    """The vector entry of ``bitset_edges`` in numpy (at W <= 128, one
+    16-byte vector a lane): a warp per ``chunk`` consecutive edges, row u
+    held and reloaded only when u changes, rows v of ``group`` edges
+    loaded together.  Returns the counts and the number of row-u loads."""
+    out, reloads = np.zeros(len(edges), np.int32), 0
+    for e0 in range(0, len(edges), chunk):
+        held, row = -1, None
+        for j0 in range(e0, min(e0 + chunk, len(edges)), group):
+            block = range(j0, min(j0 + group, e0 + chunk, len(edges)))
+            rows_v = [table[edges[e, 1]] for e in block]
+            for e, rv in zip(block, rows_v):
+                if edges[e, 0] != held:
+                    held, row = edges[e, 0], table[edges[e, 0]]
+                    reloads += 1
+                out[e] = np.bitwise_count(row & rv).sum()
+    return out, reloads
+
+
+@pytest.mark.parametrize("order", ["sorted", "unsorted", "repeated-u"])
+def test_bitset_edge_entry_on_sorted_unsorted_and_repeated_u(reference,
+                                                            order):
+    rng = np.random.default_rng(5)
+    N, W = 64, 8
+    table = _words(6, N, W)
+    edges = _edge_lists(rng, N)[order]
+    want = reference.kref.bitset_popcount_ref(table[edges[:, 0]],
+                                              table[edges[:, 1]])
+    got = tbs.bitset_intersect_edges(table, edges)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(tbs.bitset_intersect_edges_plain(
+        torch.from_numpy(table.view(np.int32)),
+        torch.from_numpy(edges)).numpy(), want)
+    emulated, reloads = _vec_entry_emulated(table, edges)
+    assert np.array_equal(emulated, want)
+    runs = 1 + np.count_nonzero(np.diff(edges[:, 0]))
+    chunks = -(-len(edges) // 8)
+    assert reloads <= runs + chunks        # one load per run and chunk
+    if order != "unsorted":
+        assert reloads < len(edges) // 4
+
+
+def test_edges_entry_follows_width_and_alignment():
+    words = torch.zeros((10, 264), dtype=torch.int32)
+    assert tbs.edges_entry(words[:, :256]) == "vec"
+    assert tbs.edges_entry(words[:, :37]) == "word"
+    assert tbs.edges_entry(words[:, 4:260]) == "vec"
+    assert tbs.edges_entry(words[:, 1:257]) == "word"     # 4-byte offset
+    assert tbs.edges_entry(torch.zeros((4, 1028), dtype=torch.int32)) \
+        == "word"
+
+
 def test_common_neighbors_equal_per_edge_and_sum_to_three_triangles(
         reference):
     rg = reference.generators.erdos_renyi(100, 8.0, seed=6)
@@ -336,6 +437,42 @@ def test_cuda_tensors_go_to_the_kernels(fake_card):
     assert {k: tsd.entries[k] - n0[3][k] for k in tsd.entries} == {
         "sddmm_prep": 2, "sddmm_tc": 2, "sddmm_f32": 1}
     tsd.entries.update(n0[3])
+
+
+def test_cuda_pack_and_the_pair_flag(fake_card, monkeypatch):
+    """On a card, packing launches ``bitset_pack`` on bool or uint8 rows
+    as they lie (other dtypes after one ``!= 0``); pairs on the card are
+    checked by the kernel, whose flag the wrapper reads once and turns
+    into ``ValueError``; pairs from the host were checked there, and the
+    flag is not read."""
+    import ctypes
+    on = lambda x: torch.as_tensor(x).as_subclass(_OnCard)  # noqa: E731
+    n0 = dict(tbs.launches)
+    for adj in (torch.ones((5, 40), dtype=torch.bool),
+                torch.ones((5, 40), dtype=torch.float32)):
+        tbs.pack_bitsets(on(adj))
+    assert [c[0] for c in fake_card] == ["bitset_pack"] * 2
+    assert fake_card[0][1][1:5] == (5, 40, 40, 2)       # R, N, ld, W
+    raise_flag = {"on": True}
+
+    class FlagLib:
+        def bitset_edges(self, *args):
+            fake_card.append(("bitset_edges", args))
+            if raise_flag["on"]:
+                ctypes.c_int.from_address(args[7]).value = 1
+            return 0
+
+    monkeypatch.setattr(tbs, "_lib", lambda: FlagLib())
+    words = on(torch.zeros((6, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match="outside"):
+        tbs.bitset_intersect_edges(words, on(torch.tensor([[0, 5]])))
+    # host pairs: checked with numpy, the flag never read
+    out = tbs.bitset_intersect_edges(words, np.array([[0, 5], [1, 2]]))
+    assert tuple(out.shape) == (2,)
+    assert fake_card[-1][1][3] == 6                     # N, the table rows
+    assert fake_card[-1][1][8] == (tbs.edges_entry(words) == "vec")
+    assert tbs.launches["bitset_pack"] == n0["bitset_pack"] + 2
+    assert tbs.launches["bitset_edges"] == n0["bitset_edges"] + 2
 
 
 def test_cuda_sddmm_reads_one_tensor_once_and_copies_what_tma_cannot_read(
