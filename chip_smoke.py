@@ -144,6 +144,23 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    kernel launch.  Every count equals the family compiled with
    ``morph=False``; the time to answer the family from the store is
    printed beside that compile and count.
+5c. ``batcher_path``  the paper's serving loop, ``PatternQueryBatcher(g,
+   max_batch=8, morph=<a fresh disk CountStore in a temporary directory
+   under build/>)`` on the R-MAT graph with phase 3's APCT: a seeded
+   stream of 18 requests in three steps (each 4-vertex motif counted
+   alone, twice; chain(4) and cycle(4) together, twice; chain(4)'s
+   anchored vectors at anchors 0 and 1; its 10 hottest vertices, twice),
+   with launch counts set to 0 before the stream and read after it (a
+   join kernel must launch); then 6 requests on ``rmat(13, 24.0, seed=0,
+   num_labels=2)`` through a batcher of its own (the MINI supports of
+   two labelled patterns, four times, and their counts, twice: a
+   plan-cache hit on the domains plan).  Every answer is held
+   integer-equal to the same pattern set compiled outside the batcher
+   (no store, no cache, an engine of its own) and read by
+   ``CompiledPlan.count``, ``local_counts``, ``mini_support`` and
+   ``top_vertices(plan_vertex_counts(...))``; the stats must show no
+   fallback and no error.  Reports seconds per step and per request,
+   the stats and the launches per kernel.
 6. ``mine_path``  ``repro_torch.launch.mine.main`` as a user runs it, on
    ``--graph rmat --n 8192 --deg 24`` (phase 3's graph), stdout captured:
    ``motif --k 4`` equal line for line to ``--no-compiler``; ``chain --k 5
@@ -152,7 +169,13 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    --local-counts`` against ``mine_pseudo_cliques`` (Σ per_vertex = Σ n_p
    · totals); ``existence --k 5`` with and without ``--local-counts``;
    ``fsm --labels 6 --k 3`` compiled equal to ``--no-compiler`` over at
-   least two levels.  Then ``triangle_count_blocksparse(use_kernel=True)``
+   least two levels; ``motif --k 4 --trace FILE`` equal line for line to
+   the untraced run (and timed beside a second untraced run, both hits in
+   the plan cache), and its trace read back: root spans and node
+   coverage, the ten spans with the largest self time (kind, cut size,
+   route), every join span's route equal to its plan's ``join_log``
+   record, and ``obs.drift``'s report per node class × cut size ×
+   route.  Then ``triangle_count_blocksparse(use_kernel=True)``
    = T with one call of K6's tile list over every output tile (one launch
    of each of its three entries, tensor-core route, no per-tile sync), and
    ``hom_oriented`` against ``hom_count`` (a clique orbit) and against
@@ -215,6 +238,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -256,7 +280,7 @@ from repro_torch.launch import serve                        # noqa: E402
 from repro_torch.models import transformer                  # noqa: E402
 from repro_torch.models.params import leaves                # noqa: E402
 from repro_torch.serve.batching import (                    # noqa: E402
-    ContinuousBatcher, Request)
+    ContinuousBatcher, PatternQueryBatcher, PatternRequest, Request)
 from repro_torch.serve.engine import (                      # noqa: E402
     make_decode_step, make_prefill_step)
 
@@ -2051,6 +2075,170 @@ def phase_morph_path(main: dict) -> dict:
                         "family_from_store": store_s}}
 
 
+# -- phase 5c -----------------------------------------------------------------------
+
+BATCHER_LABELLED = "rmat(13, 24.0, seed=0, num_labels=2)"
+# the labelled patterns of the reference's batcher support test
+# (tests/test_labelled.py)
+LABELLED = (Pattern(3, [(0, 1), (1, 2)], (0, 1, 0)),
+            Pattern(4, [(0, 1), (1, 2), (0, 2), (2, 3)], (0, 1, 0, 1)))
+
+
+def batcher_stream(seed: int = 0) -> tuple:
+    """The mixed request stream on the user's graph, in three waves of at
+    most 8 (one step each at ``max_batch=8``), each wave shuffled from
+    ``seed``: every 4-vertex motif counted alone, twice (the second
+    time from the batcher's plan memo); chain(4) and cycle(4) counted
+    together, twice; chain(4)'s anchored vectors at anchors 0 and 1 (one
+    local plan); chain(4)'s 10 hottest vertices, twice (the same plan).
+    Then the labelled graph's stream: the supports of ``LABELLED``
+    (domains plan) four times and their counts twice (a plan-cache hit
+    on the domains plan)."""
+    rng = np.random.default_rng(seed)
+    motifs = list(motif_patterns(4))
+    pair = (chain(4), cycle(4))
+    waves = [[dict(patterns=(m,)) for m in motifs]
+             + [dict(patterns=pair), dict(patterns=(chain(4),), local=True,
+                                          anchor=0)],
+             [dict(patterns=(m,)) for m in motifs]
+             + [dict(patterns=(chain(4),), local=True, anchor=1),
+                dict(patterns=(chain(4),), top_k=10)],
+             [dict(patterns=pair), dict(patterns=(chain(4),), top_k=10)]]
+    main = [spec for wave in waves for spec in
+            (wave[i] for i in rng.permutation(len(wave)))]
+    labelled = [dict(patterns=LABELLED, support=True)] * 4 + \
+        [dict(patterns=LABELLED)] * 2
+    labelled = [labelled[i] for i in rng.permutation(len(labelled))]
+    uid = iter(range(10 ** 6))
+    return ([PatternRequest(uid=next(uid), **spec) for spec in main],
+            [PatternRequest(uid=next(uid), **spec) for spec in labelled])
+
+
+def serve_stream(batcher, requests) -> list:
+    """Submit ``requests``, then step until the queue is empty, each step
+    timed to the card's end."""
+    for req in requests:
+        batcher.submit(req)
+    step_s = []
+    while batcher.queue:
+        t0 = time.perf_counter()
+        batcher.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    return step_s
+
+
+def check_served(batcher, g, apct) -> list:
+    """Every finished request against the same pattern set compiled
+    outside the batcher (``cache=False``, no morph store, an engine of
+    its own) and read directly: ``count``, ``local_counts``,
+    ``mini_support`` and ``top_vertices(plan_vertex_counts(...))``, each
+    integer-equal.  Returns one answer per request kind and pattern (the
+    first three pairs of a ``top_k`` answer)."""
+    engine = CountingEngine(g)
+    plans, answers = {}, {}
+    for req in batcher.finished:
+        if req.error:
+            raise AssertionError(f"request {req.uid} was not served")
+        local = req.local or req.top_k is not None
+        key = (tuple(pattern_key(p) for p in req.patterns), req.support,
+               local)
+        if key not in plans:
+            plans[key] = compiler.compile(req.patterns, g, apct=apct,
+                                          cache=False, counter=engine,
+                                          domains=req.support, local=local)
+        cp = plans[key]
+        for p in req.patterns:
+            if req.support:
+                got, want = req.supports[p], cp.mini_support(p)
+            elif req.top_k is not None:
+                got = req.hotspots[p]
+                want = api.top_vertices(api.plan_vertex_counts(cp, p),
+                                        req.top_k)
+            elif req.local:
+                vec, ref = req.local_counts[p], \
+                    cp.local_counts(p, req.anchor)
+                got = vec.sum().item()
+                want = ref.sum().item()
+                if not torch.equal(vec, ref):
+                    raise AssertionError(f"request {req.uid} {p}: anchored "
+                                         f"vector differs")
+            else:
+                got, want = req.counts[p], cp.count(p)
+            if got != want:
+                raise AssertionError(f"request {req.uid} {pattern_key(p)}: "
+                                     f"batcher {got!r} != direct {want!r}")
+            kind = ("support" if req.support else "top_k" if req.top_k
+                    else f"local@{req.anchor}" if req.local else "count")
+            answers[f"{kind} {pattern_key(p)}"] = \
+                got[:3] if kind == "top_k" else got
+    return answers
+
+
+def phase_batcher_path(main: dict) -> dict:
+    """The paper's serving loop, ``PatternQueryBatcher``, on the user's
+    graph with phase 3's APCT and a fresh disk ``CountStore`` in a
+    temporary directory: ``batcher_stream``'s requests at ``max_batch=8``.
+    Launch counts start at 0 before the stream and are read after it.
+    Then the labelled graph's supports and counts through a batcher of
+    its own.  Every answer is held to a direct compile and read; the
+    stats must show no fallback and no error."""
+    g, apct = main["rmat"]["g"], main["rmat"]["apct"]
+    requests, labelled = batcher_stream()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        store = cmorph.CountStore(d)
+        b = PatternQueryBatcher(g, apct=apct, max_batch=8, morph=store)
+        reset_launch_counts()                # counts start at 0 here ...
+        t0 = time.perf_counter()
+        step_s = serve_stream(b, requests)
+        stream_s = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+        # ... and are read here
+        store_entries = len(store)
+    if not any(launches.get(k) for k in JOIN_KERNELS + ("pairjoin_keep",)):
+        raise AssertionError(f"the stream launched no join kernel: "
+                             f"{launches}")
+    t0 = time.perf_counter()
+    gl = rmat(13, 24.0, seed=0, num_labels=2)
+    lab_graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    apct_l = APCT(gl)
+    lab_apct_s = time.perf_counter() - t0
+    bl = PatternQueryBatcher(gl, apct=apct_l, max_batch=8)
+    t0 = time.perf_counter()
+    lab_step_s = serve_stream(bl, labelled)
+    lab_s = time.perf_counter() - t0
+    stats = {"main": dict(b.stats), "labelled": dict(bl.stats)}
+    for side in stats.values():
+        bad = {k: v for k, v in side.items()
+               if k.startswith(("fallbacks", "errors")) and v}
+        if bad:
+            raise AssertionError(f"batcher fell back or failed: {bad}")
+    t0 = time.perf_counter()
+    answers = {**check_served(b, g, apct), **check_served(bl, gl, apct_l)}
+    check_s = time.perf_counter() - t0
+    n_main, n_lab = len(requests), len(labelled)
+    emit("batcher_path", graph=MAIN_GRAPH, labelled_graph=BATCHER_LABELLED,
+         requests=n_main + n_lab, requests_main=n_main,
+         requests_labelled=n_lab, max_batch=8, stats=stats,
+         launches_main_stream=launches, morph_store_entries=store_entries,
+         from_cache=[r.from_cache for r in b.finished + bl.finished],
+         answers=answers,
+         seconds={"steps_main": [round(t, 4) for t in step_s],
+                  "stream_main": round(stream_s, 4),
+                  "per_request_main": round(stream_s / n_main, 4),
+                  "labelled_graph": round(lab_graph_s, 3),
+                  "labelled_apct_sampling": round(lab_apct_s, 3),
+                  "steps_labelled": [round(t, 4) for t in lab_step_s],
+                  "stream_labelled": round(lab_s, 4),
+                  "per_request_labelled": round(lab_s / n_lab, 4),
+                  "direct_checks": round(check_s, 3)})
+    del b, bl, gl, apct_l
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 # -- phase 6 ------------------------------------------------------------------------
 
 MINE_GRAPH = ["--graph", "rmat", "--n", str(N), "--deg", "24"]
@@ -2088,9 +2276,68 @@ def _after(lines, head: str) -> list:
     return out
 
 
+@contextlib.contextmanager
+def recording_compiles(plans: list):
+    """Every ``CompiledPlan`` that ``compiler.compile`` returns while the
+    context is open, in ``plans``."""
+    compile_ = compiler.compile
+
+    def record(*args, **kwargs):
+        cp = compile_(*args, **kwargs)
+        plans.append(cp)
+        return cp
+
+    compiler.compile = record
+    try:
+        yield plans
+    finally:
+        compiler.compile = compile_
+
+
+def trace_report(path: str, plans: list) -> dict:
+    """The first per-node split of a mining run on the card, read from
+    the trace file ``mine --trace`` wrote: root spans and node coverage,
+    the ten spans with the largest self time, every join span's route
+    held to its plan's ``join_log`` record, and the drift report
+    (``obs.drift.aggregate`` of ``pairs_from_trace``), whose groups sum
+    the measured self time per node class × cut size × route."""
+    with open(path) as fh:
+        trace = json.load(fh)
+    spans = [s for root in trace["spans"] for s in obs.drift._walk(root)]
+    records = {rec["node"]: rec for cp in plans for rec in cp.join_log}
+    joins = 0
+    for s in spans:
+        if s["kind"] in ("CutJoin", "LocalCount"):
+            want = records[s["name"]]["route"]
+            if s["attrs"].get("route") != want:
+                raise AssertionError(f"trace {s['name']}: route "
+                                     f"{s['attrs'].get('route')} != "
+                                     f"join_log {want}")
+            joins += 1
+    if not joins:
+        raise AssertionError("the traced run recorded no join span")
+    nodes = sorted((s for s in spans if s["kind"] != "execute"),
+                   key=lambda s: -s["self_us"])
+    report = obs.drift.aggregate(obs.drift.pairs_from_trace(trace))
+    return {"backend": trace["meta"]["backend"],
+            "root_spans": len(trace["spans"]),
+            "node_coverage": trace["coverage"], "spans": len(spans),
+            "root_seconds": sum(r["dur_us"] for r in trace["spans"]) / 1e6,
+            "join_spans_equal_join_log": joins,
+            "top_self_time": [
+                {"name": s["name"], "kind": s["kind"],
+                 "self_ms": s["self_us"] / 1e3,
+                 "cut_size": s["attrs"].get("cut_size"),
+                 "route": s["attrs"].get("route")} for s in nodes[:10]],
+            "drift": report}
+
+
 def check_mine_runs(info: dict) -> dict:
     """Every ``--app`` of the mining CLI on the user's graph, each held to
-    an identity or to a second route.  Returns the runs and checks."""
+    an identity or to a second route, and ``motif --k 4`` twice more, the
+    second time with ``--trace`` (both hit the plan cache the first run
+    filled): the same lines, and the trace read by ``trace_report``.
+    Returns the runs and checks."""
     runs, checks = {}, {}
     runs["motif"] = run_mine(["--app", "motif", "--k", "4"])
     runs["motif_legacy"] = run_mine(["--app", "motif", "--k", "4",
@@ -2098,6 +2345,23 @@ def check_mine_runs(info: dict) -> dict:
     if runs["motif"]["lines"] != runs["motif_legacy"]["lines"]:
         raise AssertionError("motif: compiled and --no-compiler differ")
     checks["motif_equals_no_compiler"] = len(runs["motif"]["lines"])
+    # the same run again, untraced: like the traced run after it, a hit
+    # in the process plan cache, so the two differ by the tracing alone
+    runs["motif_cached"] = run_mine(["--app", "motif", "--k", "4"])
+    if runs["motif_cached"]["lines"] != runs["motif"]["lines"]:
+        raise AssertionError("motif: a second run differs from the first")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        path = os.path.join(d, "motif.json")
+        with recording_compiles([]) as plans:
+            run = runs["motif_traced"] = run_mine(
+                ["--app", "motif", "--k", "4", "--trace", path])
+        head = f"trace: {path} ({len(motif_patterns(4))} root spans, "
+        if run["lines"][:-1] != runs["motif"]["lines"] or \
+                not run["lines"][-1].startswith(head):
+            raise AssertionError(f"motif --trace: {run['lines']} vs "
+                                 f"{runs['motif']['lines']}")
+        checks["motif_trace"] = trace_report(path, plans)
 
     run = runs["chain"] = run_mine(["--app", "chain", "--k", "5",
                                     "--local-counts"])
@@ -3262,6 +3526,7 @@ def main():
     local_path = phase_local_path(main_path)
     graph_ops = phase_graph_ops(main_path)
     phase_morph_path(main_path)
+    phase_batcher_path(main_path)
     mine_path = phase_mine_path(main_path)
     serve_path = phase_serve_path()
     phase_kernels(main_path, local_path, graph_ops, mine_path, serve_path)

@@ -5,6 +5,9 @@
               and ``exact_block`` precertification (see
               ``analysis.verify``).  ``morph_check`` validates a
               committed morph identity on the pattern-lattice endpoints.
+``lint``    — AST-level repo-invariant lint with a CLI
+              (``python -m repro_torch.analysis.lint``); imported lazily —
+              the serving path never pays for it.
 """
 from repro_torch.analysis.verify import (Diagnostic, GraphInfo,
                                          PlanVerifyError, VerifyResult,

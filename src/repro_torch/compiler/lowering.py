@@ -52,13 +52,25 @@ store first (route ``morph-derive``: no contraction, no kernel; the node
 keys land in ``CompiledPlan.morph_reads``), and every count read
 harvests the plan's exact scalars back into it.
 
-Not ported yet (each raises ``NotImplementedError`` and names its
-ROADMAP.md queue item): the execution mesh and the span tracer.
-The reference's span-tracer hooks wait for the port of ``obs.trace``;
-every ``obs.counter`` is kept.
+Attach an ``obs.Tracer`` (``compiled_plan.tracer = tracer``) to record
+one span per node evaluation under one "execute" root per public read,
+as the reference does; untraced (the default) a node costs one ``is
+None`` check.  Each span's ``route`` is the route its node took, and for
+a join it equals the node's ``join_log`` record's: ``kernel``,
+``kernel-keep``, ``dense-product`` and the non-join routes
+(``morph-derive``, ``einsum``, ``einsum-free``, ``pallas-triangle``,
+``enumeration``, ``host``) carry the reference's names; the reference's
+f64 dense routes are renamed — its ``xla-dense`` is the port's
+``dense-f64`` and its ``xla-keep`` is ``dense-f64-keep`` — and the
+card-only f64 instances ``kernel-f64`` / ``kernel-keep-f64`` have no
+counterpart there.
+
+Not ported yet (raises ``NotImplementedError`` and names its ROADMAP.md
+queue item): the execution mesh.  Every ``obs.counter`` is kept.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Dict, Optional
 
 import numpy as np
@@ -71,13 +83,12 @@ from repro_torch.graph.storage import Graph
 from repro_torch.compiler.ir import (Contract, CutJoin, Intersect, LocalCount,
                                      MobiusCombine, Plan, ShrinkageCorrect,
                                      domain_keys, free_skeleton,
-                                     is_local_output, local_key)
+                                     is_local_output, local_key,
+                                     pattern_key)
 
 _NOT_PORTED = {
     "mesh": "mesh= (sharded tier) is not ported yet — ROADMAP.md queue 1, "
             "item 11, \"Sharded tier\"",
-    "trace": "tracing (the span tracer) is not ported yet — ROADMAP.md "
-             "queue 1, item 9, \"obs/trace.py\"",
 }
 
 
@@ -139,8 +150,31 @@ class CompiledPlan:
         # kept axes, route, granted chunk, and whether the guard was
         # precertified or scanned
         self.join_log: list = []
+        # attach an ``obs.Tracer`` here to record per-node span trees on
+        # every public read; None (the default) costs one is-None check
+        # per node eval — nothing else
+        self.tracer = None
         self.stats = obs.StatsView(
             "plan", keys=("node_evals", "node_hits", "exists_early_exits"))
+
+    # -- tracing hooks -----------------------------------------------------------
+    def _root(self, op: str, key: str):
+        """Root "execute" span for one public read (no-op untraced).
+        Node spans opened by the ``value`` recursion nest beneath it, so
+        a trace's root coverage measures how much of the end-to-end read
+        the per-node accounting explains."""
+        tr = self.tracer
+        if tr is None:
+            return nullcontext()
+        tr.meta.setdefault("backend", self.device.type)
+        return tr.span(f"{op}:{key}", kind="execute", op=op)
+
+    def _annotate(self, **attrs):
+        """Attach attributes to the innermost open span (no-op untraced
+        or outside any span — eval helpers are also called directly)."""
+        tr = self.tracer
+        if tr is not None:
+            tr.annotate(**attrs)
 
     # -- morph store hooks -------------------------------------------------------
     def _store_hom(self, node_key: str):
@@ -163,7 +197,9 @@ class CompiledPlan:
     # -- public API --------------------------------------------------------------
     def count(self, p: Pattern) -> float:
         """Edge-induced embedding count of one compiled pattern."""
-        val = float(self.value(self.plan.output_for(p)))
+        key = self.plan.output_for(p)
+        with self._root("count", key):
+            val = float(self.value(key))
         self._harvest()
         return val
 
@@ -171,9 +207,10 @@ class CompiledPlan:
         """All compiled count outputs: canonical pattern key -> count
         (partial-embedding outputs are tensors — read them through
         ``local_counts``)."""
-        out = {pk: float(self.value(nk))
-               for pk, nk in self.plan.outputs.items()
-               if not is_local_output(pk)}
+        with self._root("counts", "*"):
+            out = {pk: float(self.value(nk))
+                   for pk, nk in self.plan.outputs.items()
+                   if not is_local_output(pk)}
         self._harvest()
         return out
 
@@ -207,7 +244,8 @@ class CompiledPlan:
         # a copy, not the memo: plans are memoised across serving steps,
         # so handing out the node value itself would let one caller's
         # in-place edit corrupt every later answer
-        return self.value(nk).clone()
+        with self._root("local_counts", nk):
+            return self.value(nk).clone()
 
     def exists(self, p: Pattern) -> bool:
         """Existence with early exit: on a local plan, factor tensors
@@ -218,16 +256,18 @@ class CompiledPlan:
         the scalar count — decides."""
         nk = self.plan.outputs.get(local_key(p))
         node = self.plan.nodes.get(nk) if nk is not None else None
-        if isinstance(node, LocalCount):
-            for terms, ax in zip(node.factors, node.factor_axes()):
-                if not bool((self._combine(terms, len(ax)).abs()
-                             > 0.5).any()):
-                    self.stats["exists_early_exits"] += 1
-                    return False
-            return bool(self.value(nk).max() > 0.5)
-        if nk is not None:
-            return bool(self.value(nk).max() > 0.5)
-        return self.count(p) > 0.5
+        with self._root("exists", nk or pattern_key(p)):
+            if isinstance(node, LocalCount):
+                for terms, ax in zip(node.factors, node.factor_axes()):
+                    if not bool((self._combine(terms, len(ax)).abs()
+                                 > 0.5).any()):
+                        self.stats["exists_early_exits"] += 1
+                        self._annotate(early_exit=True)
+                        return False
+                return bool(self.value(nk).max() > 0.5)
+            if nk is not None:
+                return bool(self.value(nk).max() > 0.5)
+            return self.count(p) > 0.5
 
     def executable(self, p: Pattern):
         """Zero-arg closure for one pattern (plan handle for callers that
@@ -242,11 +282,12 @@ class CompiledPlan:
         each graph vertex.  Raises ``KeyError`` when the plan has no
         domain nodes for ``p``."""
         out = {}
-        for key in domain_keys(p):
-            if key not in self.plan.nodes:
-                raise KeyError(f"plan has no domain node {key!r} "
-                               f"(compiled without domains=True?)")
-            out[int(key.rsplit(":", 1)[1])] = self.value(key).clone()
+        with self._root("domains", pattern_key(p)):
+            for key in domain_keys(p):
+                if key not in self.plan.nodes:
+                    raise KeyError(f"plan has no domain node {key!r} "
+                                   f"(compiled without domains=True?)")
+                out[int(key.rsplit(":", 1)[1])] = self.value(key).clone()
         return out
 
     def mini_support(self, p: Pattern) -> int:
@@ -262,7 +303,23 @@ class CompiledPlan:
             return self._values[key]
         node = self.plan.nodes[key]
         self.stats["node_evals"] += 1
-        val = self._eval(node)
+        tr = self.tracer
+        if tr is None:                   # the default: no span machinery
+            val = self._eval(node)
+        else:
+            # one span per node eval, nested by the recursion itself
+            # (refs evaluated inside ``_eval`` open child spans; memo
+            # hits open none — the trace tree is exactly the work done).
+            # ``predicted`` pairs the APCT cost the model charged at
+            # selection time for the drift report; the fence closes the
+            # span only after the card has really finished.
+            attrs = {"predicted":
+                     self.plan.meta.get("node_costs", {}).get(key)}
+            cut = getattr(node, "cut_size", None)
+            if cut is not None:
+                attrs["cut_size"] = cut
+            with tr.span(key, kind=type(node).__name__, **attrs):
+                val = obs.fence(self._eval(node))
         self._values[key] = val
         return val
 
@@ -271,26 +328,33 @@ class CompiledPlan:
             if not node.free:
                 held = self._store_hom(node.key)
                 if held is not None:
+                    self._annotate(route="morph-derive")
                     return float(held)
             if node.free:
                 # decode the marker-encoded pattern: strips cut-rank
                 # markers, restores real vertex labels (label-masked
                 # contraction on labelled patterns)
+                self._annotate(route="einsum-free")
                 skel = free_skeleton(node.pattern)
                 return self.counter.hom_free_tensor(skel, node.free,
                                                     order=node.order)
+            self._annotate(route="einsum")
             return self.counter.hom(node.pattern, order=node.order or None)
         if isinstance(node, Intersect):
             held = self._store_hom(node.key)
             if held is not None:
+                self._annotate(route="morph-derive")
                 return float(held)
             if self.use_pallas and node.k == 3:
                 from repro_torch.kernels import ops
+                self._annotate(route="pallas-triangle")
                 adj = torch.from_numpy(self.graph.dense_adjacency(
                     np.float32, pad=False)).to(self.device)
                 return 6.0 * ops.triangle_count(adj)
+            self._annotate(route="enumeration")
             return self.counter.hom(clique(node.k))
         if isinstance(node, MobiusCombine):
+            self._annotate(route="host")
             acc = 0.0
             for coeff, ref in node.terms:
                 acc += coeff * self.value(ref)
@@ -300,6 +364,7 @@ class CompiledPlan:
         if isinstance(node, LocalCount):
             return self._eval_local(node)
         if isinstance(node, ShrinkageCorrect):
+            self._annotate(route="host")
             acc = self.value(node.base)
             for mult, ref in node.corrections:
                 acc -= mult * self.value(ref)
@@ -369,17 +434,25 @@ class CompiledPlan:
         Precertified nodes trust the static certificate — no factor
         scan and no device→host transfer (``maxes`` None); everything
         else reduces each factor's max magnitude on the device and moves
-        them together."""
+        them together, under a traced ``guard-scan`` span, so the cost
+        the certificate removes stays visible in traces."""
         from repro_torch.kernels import ops
         static = self._precertified().get(node.key)
         if static is not None:
             block = ops.runtime_block(static)
             obs.counter("kernel.exact_block", outcome="precertified")
+            self._annotate(exact_block=block, precertified=True)
             return block, "precertified", None
-        maxes = torch.stack([self._factor_max(terms, len(ax), M)
-                             for terms, M, ax in zip(node.factors, Ms, axes)]
-                            ).tolist()
-        return ops.cutjoin_exact_block(Ms, maxes=maxes), "scanned", maxes
+        tr = self.tracer
+        ctx = (tr.span(f"guard:{node.key}", kind="guard-scan")
+               if tr is not None else nullcontext())
+        with ctx:
+            maxes = torch.stack([self._factor_max(terms, len(ax), M)
+                                 for terms, M, ax in zip(node.factors, Ms,
+                                                         axes)]).tolist()
+            block = ops.cutjoin_exact_block(Ms, maxes=maxes)
+        self._annotate(exact_block=block)
+        return block, "scanned", maxes
 
     @staticmethod
     def _f64_admits(Ms, maxes, cells: int) -> bool:
@@ -421,12 +494,14 @@ class CompiledPlan:
                "factor_shapes": [list(M.shape) for M in Ms],
                "route": "dense-f64", "block": None, "guard": None}
         self.join_log.append(rec)
+        self._annotate(factor_shapes=rec["factor_shapes"])
         if self.cutjoin_kernel and node.cut_size <= 3:
             from repro_torch.kernels import ops
             block, how, maxes = self._guard_block(node, Ms, axes)
             rec.update(block=block, guard=how)
             if block is not None:            # f32 chunks provably exact
                 rec["route"] = "kernel"
+                self._annotate(route="kernel")
                 if node.cut_size <= 2:
                     return ops.cutjoin_reduce(Ms,
                                               distinct=node.cut_size >= 2,
@@ -436,6 +511,7 @@ class CompiledPlan:
             if node.cut_size == 1 and \
                     self._f64_admits(Ms, maxes, Ms[0].shape[0]):
                 rec["route"] = "kernel-f64"
+                self._annotate(route="kernel-f64")
                 obs.counter("cutjoin.kernel_f64", cut=1)
                 return ops.cutjoin_reduce_f64(Ms)
             # factor magnitudes exceed what chunked f32 can represent
@@ -444,6 +520,7 @@ class CompiledPlan:
         Ms = self._dense_expand(Ms, axes, node.cut_size)
         if node.cut_size >= 2:               # injectivity of the cut tuple
             Ms.append(self._mask(node.cut_size))
+        self._annotate(route="dense-f64")
         return _join_reduce(torch.stack(Ms)).item()
 
     def _eval_local(self, node: LocalCount) -> torch.Tensor:
@@ -463,7 +540,9 @@ class CompiledPlan:
                "factor_shapes": [list(M.shape) for M in Ms],
                "route": "dense-product", "block": None, "guard": None}
         self.join_log.append(rec)
+        self._annotate(factor_shapes=rec["factor_shapes"])
         if node.cut_size == 1 or len(node.keep) == node.cut_size:
+            self._annotate(route="dense-product")
             dense = self._dense_expand(Ms, axes, node.cut_size)
             out = dense[0].clone(memory_format=torch.contiguous_format)
             for M in dense[1:]:
@@ -482,6 +561,7 @@ class CompiledPlan:
             rec.update(block=block, guard=how)
             if block is not None:            # f32 chunks provably exact
                 rec["route"] = "kernel-keep"
+                self._annotate(route="kernel-keep")
                 if node.cut_size == 2:
                     out = ops.cutjoin_reduce_keep(Ms, keep=axis,
                                                   block=block)
@@ -492,12 +572,14 @@ class CompiledPlan:
             elif node.cut_size == 2 and \
                     self._f64_admits(Ms, maxes, Ms[0].shape[1 - axis]):
                 rec["route"] = "kernel-keep-f64"
+                self._annotate(route="kernel-keep-f64")
                 obs.counter("cutjoin.kernel_f64", cut=2, keep=True)
                 out = ops.cutjoin_reduce_keep_f64(Ms, keep=axis)
             else:
                 obs.counter("cutjoin.kernel_fallbacks", cut=node.cut_size,
                             keep=True)
         if out is None:
+            self._annotate(route="dense-f64-keep")
             stack = torch.stack(self._dense_expand(Ms, axes,
                                                    node.cut_size))
             if node.cut_size == 2:

@@ -112,10 +112,14 @@ def pack_bitsets_plain(adj_bool) -> torch.Tensor:
 
 
 def pack_bitsets(adj_bool) -> torch.Tensor:
-    """(R, N) adjacency -> (R, ⌈N/32⌉) int32 words on its device, bit j of
-    word w = [column 32·w + j != 0] (the reference's layout, bit for bit).
-    On the card a bool or uint8 matrix is read as it is (other dtypes go
-    through one ``!= 0`` first) by ``bitset_pack``."""
+    """(R, N) 0/1 (or bool) adjacency -> (R, ⌈N/32⌉) int32 words on its
+    device, bit j of word w = [column 32·w + j != 0]: on 0/1 input the
+    reference's layout, bit for bit.  Other input packs each entry's
+    ``!= 0`` (a uint8 2, a 0.5 or a 256.0 sets its bit), where the
+    reference multiplies its uint8 cast by 2^j (a 2 carries into the next
+    bit; 0.5 and 256.0 cast to 0).  On the card a bool or uint8 matrix is
+    read as it is (other dtypes go through one ``!= 0`` first) by
+    ``bitset_pack``."""
     adj = _matrix(adj_bool)
     if not adj.is_cuda:
         return pack_bitsets_plain(adj)

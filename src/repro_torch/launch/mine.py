@@ -19,8 +19,10 @@ cache); ``--no-compiler`` keeps the legacy per-pattern engine path, and
 ``chain`` prints the hottest vertices by per-vertex embedding
 participation, ``pc`` mines pseudo-clique hotspots through anchored
 local-count vectors, and ``existence`` takes the factor-level early
-exit.  ``--mesh N > 1`` and ``--trace`` are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP.md queue items.
+exit.  ``--trace FILE`` attaches one ``obs.Tracer`` to every compiled
+plan the run builds (``motif`` and ``chain``) and writes the span tree
+there.  ``--mesh N > 1`` is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP.md queue item.
 """
 from __future__ import annotations
 
@@ -89,8 +91,10 @@ def main(argv=None):
                          "compiled plan (diagnostics + exact_block "
                          "precertification summary)")
     ap.add_argument("--trace", default=None, metavar="FILE",
-                    help="per-node execution spans (not ported yet: "
-                    "raises)")
+                    help="record per-node execution spans on compiled "
+                    "plans and write the trace to FILE (JSON; a "
+                    "*.chrome.json suffix writes chrome://tracing "
+                    "format instead)")
     ap.add_argument("--metrics", action="store_true",
                     help="print the process metrics registry "
                     "(counters/gauges/histograms) after the run")
@@ -101,9 +105,8 @@ def main(argv=None):
 
     if args.mesh is not None and args.mesh > 1:
         raise not_ported("mesh")
-    if args.trace:
-        raise not_ported("trace")
     device = args.device
+    tracer = obs.Tracer() if args.trace else None
 
     def verify_report(cp):
         """Re-verify a compiled plan and print the findings — what an
@@ -144,6 +147,7 @@ def main(argv=None):
             table = eng.counter.motif_table(args.k, cuts=cuts)
         else:
             cp = compiler.compile(pats, g, cache=plan_cache, device=device)
+            cp.tracer = tracer
             t_compile = time.perf_counter() - t0
             e = {p: cp.count(p) for p in pats}
             table = solve_overlay(args.k, e)
@@ -167,6 +171,7 @@ def main(argv=None):
         else:
             cp = compiler.compile(p, g, cache=plan_cache,
                                   local=args.local_counts, device=device)
+            cp.tracer = tracer
             verify_report(cp)
             c = cp.count(p)
             if args.local_counts:
@@ -214,6 +219,18 @@ def main(argv=None):
             print(f"    support {s}: n={p.n} edges={sorted(p.edges)} "
                   f"labels={p.labels}")
     print(f"done in {time.perf_counter() - t0:.2f}s")
+    if tracer is not None:
+        if tracer.roots:
+            tracer.save(args.trace)
+            cov = tracer.coverage()
+            print(f"trace: {args.trace} ({len(tracer.roots)} root spans"
+                  + (f", node coverage {cov:.1%}" if cov is not None
+                     else "") + ")")
+        else:
+            print(f"trace: no compiled-plan execution to record "
+                  f"(--app {args.app}"
+                  + (" --no-compiler" if args.no_compiler else "")
+                  + " runs off the traced path)")
     if args.metrics:
         print("metrics:")
         print(obs.dump(indent=2))

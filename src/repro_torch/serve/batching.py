@@ -12,8 +12,19 @@ The reference's ``jax.jit(..., donate_argnums=(1,))`` decode becomes, on
 a CUDA device, the decode step captured once in a CUDA graph
 (``GraphedDecode``) and replayed every step; on the CPU it is the eager
 call.  Both update the batch cache in place, and the splice writes the
-slot's rows in place.  The graph-mining half, ``PatternQueryBatcher`` and
-``PatternRequest``, is not ported yet (ROADMAP queue 1, item 10).
+slot's rows in place.
+
+``PatternQueryBatcher`` is the graph-mining counterpart: pattern-count
+requests against one graph are drained in batches, grouped by canonical
+pattern set, and served through ``repro_torch.compiler`` — the first
+query of a pattern set pays compilation (candidate search + costing),
+every later query hits the plan cache and goes straight to the lowered
+executable.  Its names, fields, groups, fallbacks and ``stats`` are the
+reference's; two things differ.  A ``KernelError`` (a CUDA kernel that
+would not build or launch) propagates out of ``step()`` where the
+reference would serve the group by the direct path, since that fallback
+would hide the failure.  And ``mesh=`` raises until the sharded tier is
+ported (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -24,7 +35,9 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.build import KernelError
 from repro_torch.models.params import leaves
 from repro_torch.models.transformer import Model, cache_specs, init_cache
 from repro_torch.serve.engine import greedy_sample, make_decode_step
@@ -171,6 +184,237 @@ class ContinuousBatcher:
     def run_to_completion(self, max_steps: int = 10_000):
         steps = 0
         while (self.active or self.queue) and steps < max_steps:
+            self.step()
+            steps += 1
+        return steps
+
+
+# -- graph-mining query serving ---------------------------------------------------
+
+@dataclass
+class PatternRequest:
+    """One mining query: count every pattern of ``patterns`` in the
+    batcher's graph (edge-induced), or — with ``support=True`` — their
+    FSM MINI supports (labelled patterns, served off the same compiled
+    plan via its domain nodes), or — with ``local=True`` — their
+    partial-embedding local counts (the anchored (N,) completion-count
+    vector when ``anchor`` names a pattern vertex, else the full local
+    tensor over the plan's cutting set; patterns without a cutting set
+    fill ``local_counts[p] = None`` for unanchored queries).  With
+    ``top_k=K`` the request instead fills ``hotspots[p]`` with the K
+    hottest vertices by per-vertex embedding participation as (value,
+    vertex) pairs — served off the same partial-embedding plan, without
+    ever handing the host a full (N,) vector.  Local counts are f64
+    tensors on the batcher's device."""
+    uid: int
+    patterns: tuple
+    support: bool = False               # MINI support instead of counts
+    local: bool = False                 # partial-embedding tensors
+    anchor: int | None = None           # pattern vertex pin (local=True)
+    top_k: int | None = None            # hottest-vertex reader
+    counts: dict = field(default_factory=dict)
+    supports: dict = field(default_factory=dict)
+    local_counts: dict = field(default_factory=dict)
+    hotspots: dict = field(default_factory=dict)
+    from_cache: bool = False
+    done: bool = False
+    error: bool = False                 # served neither compiled nor direct
+
+
+class PatternQueryBatcher:
+    """Compile-once-execute-many serving loop for pattern counts.
+
+    Queued requests are drained up to ``max_batch`` per step and grouped
+    by (canonical pattern-set signature, support flag, local flag); each
+    group compiles (or cache-hits) one joint plan and executes it for
+    every request in the group.  Labelled patterns ride the same path —
+    decomposition joins included — ``support=True`` requests are served
+    off the plan's MINI-domain nodes, and ``local=True`` requests off
+    its partial-embedding ``LocalCount`` outputs (anchored vectors pin
+    ``req.anchor``; different anchors share one plan — every orbit's
+    vector is compiled).  ``top_k=K`` requests return only the K
+    hottest vertices by embedding participation as (value, vertex)
+    pairs, reduced off the same anchored orbit vectors.  A shared
+    ``CountingEngine`` on ``device`` (None: the CUDA device, raising
+    without one) keeps the hom memo warm across plans, so even distinct
+    pattern sets reuse overlapping quotient contractions; every compile
+    takes its device from that engine.
+    """
+
+    def __init__(self, graph, *, cache=None, apct=None, max_batch: int = 8,
+                 verify_plans: bool = True, mesh=None, morph=False,
+                 device=None):
+        from repro_torch.compiler import PlanCache
+        from repro_torch.compiler.lowering import not_ported
+        from repro_torch.core.counting import CountingEngine
+        if mesh is not None:
+            raise not_ported("mesh")
+        self.graph = graph
+        self.cache = cache if cache is not None else PlanCache()
+        self.apct = apct
+        self.max_batch = max_batch
+        # morphing count algebra (compiler.morph): False off, True the
+        # process store, or a CountStore instance — every compile this
+        # batcher issues feeds and reads it, so clustered query traffic
+        # (motif families) serves algebraically after a few warm plans
+        self.morph = morph
+        # statically verify every plan this batcher compiles (and, via
+        # the cache's own verify pass, every plan it loads from disk) —
+        # a malformed plan becomes a compile-phase fallback, never a
+        # wrong count served to a request
+        self.verify_plans = verify_plans
+        self.counter = CountingEngine(graph, device=device)
+        self.device = self.counter.device
+        self.queue: collections.deque = collections.deque()
+        self.finished: list = []
+        self._plans: dict = {}          # pattern-set signature -> CompiledPlan
+        # dict-shaped view backed by the metrics registry ("batcher.*"):
+        # fallbacks/errors carry per-phase splits — "compile" means the
+        # group never got a plan (compilation failed), "execute" means a
+        # lowered plan refused at run time (e.g. PlanTooWide) — the
+        # plain totals remain for every pre-existing consumer
+        self.stats = obs.StatsView(
+            "batcher", keys=("steps", "compiles", "cache_hits",
+                             "fallbacks", "fallbacks_compile",
+                             "fallbacks_execute", "errors",
+                             "errors_compile", "errors_execute"))
+
+    def submit(self, req: PatternRequest):
+        self.queue.append(req)
+
+    def _plan_for(self, sig, patterns: tuple, domains: bool, local: bool):
+        """CompiledPlan for one group, memoised per (signature, domains,
+        local) so repeat steps reuse the lowered plan (and its
+        node-value memo) instead of re-lowering on every plan-cache hit.
+        None when compilation fails — callers serve the group via the
+        direct path — except for a ``KernelError``, which propagates.
+        ``domains`` compiles MINI-domain nodes for support queries;
+        ``local`` compiles partial-embedding outputs."""
+        cp = self._plans.get((sig, domains, local))
+        if cp is not None:
+            self.stats["cache_hits"] += 1
+            return cp
+        from repro_torch import compiler
+        key = compiler.plan_key(patterns, self.graph)
+        if key not in self.cache and self.apct is None:
+            from repro_torch.core.apct import APCT
+            self.apct = APCT(self.graph)       # one profile, all compiles
+        try:
+            cp = compiler.compile(patterns, self.graph, apct=self.apct,
+                                  counter=self.counter, cache=self.cache,
+                                  domains=domains, local=local,
+                                  verify=self.verify_plans,
+                                  morph=self.morph)
+        except KernelError:
+            raise
+        except Exception:
+            return None
+        self.stats["cache_hits" if cp.from_cache else "compiles"] += 1
+        self._plans[(sig, domains, local)] = cp
+        return cp
+
+    def _local_direct(self, p, anchor):
+        """Direct-path partial-embedding fallback over the shared
+        engine; None for an unanchored query on a cut-less pattern."""
+        from repro_torch.api import local_counts as api_local
+        try:
+            return api_local(p, self.graph, anchor=anchor,
+                             counter=self.counter,
+                             use_compiler=False).counts
+        except ValueError:
+            return None
+
+    def _hotspots(self, p, cp, k: int) -> list:
+        """Top-k (value, vertex) pairs of per-vertex embedding
+        participation, read off the compiled plan's anchored orbit
+        vectors through the shared reduction."""
+        from repro_torch.api import plan_vertex_counts, top_vertices
+        return top_vertices(plan_vertex_counts(cp, p), k)
+
+    def _serve(self, req: PatternRequest, cp):
+        """Fill one request: compiled plan first, legacy direct second;
+        a request is always finished, never silently dropped, unless a
+        ``KernelError`` propagates.  Fallbacks and errors are counted
+        under the phase that failed: ``compile`` when no plan exists for
+        the group, ``execute`` when the lowered plan raised —
+        distinguishing "the compiler can't plan this" from "the plan
+        refused this graph" (e.g. PlanTooWide)."""
+        from repro_torch.core.fsm import mini_support
+        phase = "compile" if cp is None else "execute"
+        try:
+            if cp is None:
+                raise RuntimeError("no compiled plan")
+            if req.support:
+                req.supports = {p: cp.mini_support(p)
+                                for p in req.patterns}
+            elif req.top_k is not None:
+                req.hotspots = {p: self._hotspots(p, cp, req.top_k)
+                                for p in req.patterns}
+            elif req.local:
+                req.local_counts = {
+                    p: (cp.local_counts(p, req.anchor)
+                        if cp.has_local(p, req.anchor) else None)
+                    for p in req.patterns}
+            else:
+                req.counts = {p: cp.count(p) for p in req.patterns}
+            req.from_cache = cp.from_cache
+        except KernelError:
+            raise
+        except Exception:
+            try:                        # e.g. PlanTooWide at execution
+                if req.support:
+                    req.supports = {p: mini_support(self.counter, p)
+                                    for p in req.patterns}
+                elif req.top_k is not None:
+                    from repro_torch.api import vertex_counts
+                    req.hotspots = {
+                        p: vertex_counts(p, self.graph,
+                                         counter=self.counter,
+                                         use_compiler=False,
+                                         top_k=req.top_k)
+                        for p in req.patterns}
+                elif req.local:
+                    req.local_counts = {
+                        p: self._local_direct(p, req.anchor)
+                        for p in req.patterns}
+                else:
+                    req.counts = {p: self.counter.edge_induced(p)
+                                  for p in req.patterns}
+                req.from_cache = False
+                self.stats["fallbacks"] += 1
+                self.stats[f"fallbacks_{phase}"] += 1
+            except KernelError:
+                raise
+            except Exception:
+                req.error = True
+                self.stats["errors"] += 1
+                self.stats[f"errors_{phase}"] += 1
+        req.done = True
+        self.finished.append(req)
+
+    def step(self) -> bool:
+        from repro_torch.compiler.cache import patterns_signature
+        if not self.queue:
+            return False
+        batch = [self.queue.popleft()
+                 for _ in range(min(self.max_batch, len(self.queue)))]
+        groups: dict = {}
+        for req in batch:
+            # hottest-vertex requests ride the partial-embedding plan
+            # (anchored orbit vectors), so they group with local=True
+            groups.setdefault(
+                (patterns_signature(req.patterns), req.support,
+                 req.local or req.top_k is not None), []).append(req)
+        for (sig, support, local), reqs in groups.items():
+            cp = self._plan_for(sig, reqs[0].patterns, support, local)
+            for req in reqs:
+                self._serve(req, cp)
+        self.stats["steps"] += 1
+        return True
+
+    def run_to_completion(self, max_steps: int = 10_000) -> int:
+        steps = 0
+        while self.queue and steps < max_steps:
             self.step()
             steps += 1
         return steps

@@ -35,6 +35,7 @@ def _imported_roots(path: Path):
 def test_port_has_the_expected_modules():
     names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     for want in ("device.py", "interop.py", "obs/metrics.py",
+                 "obs/trace.py", "obs/drift.py", "analysis/lint.py",
                  "graph/storage.py", "graph/generators.py",
                  "core/pattern.py", "core/quotient.py",
                  "core/decomposition.py", "core/motifs.py",

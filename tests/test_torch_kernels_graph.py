@@ -255,6 +255,23 @@ def test_pack_bitsets_plain_equal_bit_for_bit(reference, n):
     assert torch.equal(tbs.pack_bitsets(bytes_), got)
 
 
+@pytest.mark.parametrize("row, ref_word, port_word", [
+    (np.array([2, 1] + [0] * 30, np.uint8), 4, 3),
+    (np.array([0.0] * 5 + [0.5] + [0.0] * 26), 0, 32),
+    (np.array([0.0] * 2 + [256.0] + [0.0] * 29), 0, 4),
+], ids=["uint8-2-carries", "float-half", "float-256"])
+def test_pack_bitsets_non_binary_rows(reference, row, ref_word, port_word):
+    """Input other than 0/1, which no path of either package passes: the
+    reference multiplies its uint8 cast by 2^j (a 2 carries into the next
+    bit, 0.5 and 256.0 cast to 0), the port sets the bit of every entry
+    ``!= 0``.  Both are pinned, on the CPU path."""
+    adj = row[None, :]
+    assert reference.bitset.pack_bitsets(adj).tolist() == [[ref_word]]
+    got = tbs.pack_bitsets_plain(torch.from_numpy(adj))
+    assert got.tolist() == [[port_word]]
+    assert torch.equal(tbs.pack_bitsets(torch.from_numpy(adj)), got)
+
+
 @pytest.mark.parametrize("pairs", [
     np.array([[0, 8]]), np.array([[-1, 2]]), np.array([[3, 1], [2, -5]]),
     torch.tensor([[0, 8]]), torch.tensor([[4, 4], [-1, 0]]),
