@@ -180,6 +180,36 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    of each of its three entries, tensor-core route, no per-tile sync), and
    ``hom_oriented`` against ``hom_count`` (a clique orbit) and against
    the distinct-endpoint count (an independent orbit).
+6b. ``mesh_path``  the sharded tier on the one card: the main path's
+   pattern set on both graphs of phase 3 (and the coverage graph's
+   cycles), then the local path's anchored reads (and its keep3 coverage
+   case), at ``data_mesh(4, device="cuda")`` and ``data_mesh(3, ...)``
+   (3 does not divide n = 8192: padding and trim), each graph on one
+   mesh-bound engine.  Every slot is the same H100, so the times measure
+   slicing and the slots' f64 sums, not scaling.  Checks: every count and
+   vector ``==`` phase 3's and phase 4's, no dense adjacency built by a
+   mesh engine, every join the guard granted on ``kernel-sharded`` /
+   ``kernel-sharded-keep``, every refused |cut| = 1 join or |cut| = 2
+   keep join that ``exact_f64`` admits on ``kernel-f64-sharded[-keep]``
+   (the f64 instances of K1 and K3 on each slice) and every other one on
+   ``dense-f64-sharded`` / ``dense-f64-sharded-keep``;
+   ``CountingEngine(mesh=).hom_free_tensor`` equal to one device's; ``PatternQueryBatcher(mesh=)`` fanning four
+   requests over the slots with phase 3's counts; ``mine --mesh 4`` line
+   for line equal to phase 6's ``motif --k 4`` after its ``mesh:`` line.
+   Launch counts are set to 0 before and read after; K1, K2, K3, K4,
+   K4-keep and the f64 instances of K1 and K3 must each launch.  The
+   contraction's gathers over the same span are printed
+   (``contract.finish_gathers``, ``contract.trim_gathers``,
+   ``contract.slice_gathers``: a free tensor copied whole, which only a
+   tri join's factor without cut axis 0, a route that needs it whole, or
+   a caller of ``hom_free_tensor`` asks for).  Then, outside the count,
+   the last slot call of each tile entry point per kernel, route, entry
+   and instance (a non-zero global offset) runs again and is held to its
+   plain version at difference 0, ``MeshExecutor.join_batch`` is held to serial K2 joins,
+   and compile + first ``counts()`` on R-MAT are timed at 1, 3 and 4
+   slots, split by node kind.
+6c. ``examples``  every ``examples_torch/*.py`` on the card as its user
+   starts it, three subprocesses at a time; each must exit 0.
 7. ``serve_path``  the LM serving path at full width: qwen3-4b unreduced
    (36 layers, d_model 2560, 4 022 468 096 parameters in bf16, random
    weights drawn on the card from a seed) behind
@@ -199,8 +229,11 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    config, 12 requests, 144 tokens).  Reports seconds per admission,
    median decode step (graphed), tokens per second and peak device
    memory.
+Before phase 8 a ``wall_seconds`` line gives each phase's host-clock
+seconds (the kernel builds inside ``kernel_cases``).
 8. ``kernels``    per kernel entry (K1 and K3 in f32 and f64, K3 on both
-   entries): launches over its path (phase 3 for the scalar
+   entries): launches over its path and, beside them, over phase 6b's
+   (``launches_mesh_path``) (phase 3 for the scalar
    joins, phase 4 for the keep forms and the triangle kernel, phase 5 for
    SDDMM and the bitset kernels (``bitset_edges`` and ``bitset_pack``,
    each with its row), on each graph apart; phase 7 for K9; the tri
@@ -267,6 +300,9 @@ from repro_torch.core.motifs import motif_patterns          # noqa: E402
 from repro_torch.core.pattern import (Pattern, chain,       # noqa: E402
                                       cycle, pseudo_clique,
                                       tailed_triangle)
+from repro_torch.distributed.cutjoin import MeshExecutor    # noqa: E402
+from repro_torch.distributed.contract import Sliced        # noqa: E402
+from repro_torch.distributed.meshes import data_mesh        # noqa: E402
 from repro_torch.graph.generators import erdos_renyi, rmat  # noqa: E402
 from repro_torch.configs.registry import get_config        # noqa: E402
 from repro_torch.kernels import bitset as kbs               # noqa: E402
@@ -1545,6 +1581,7 @@ def phase_main_path() -> dict:
         graphs[-1]["intersect3"] = {k: cp.value(k) for k in tri}
     # what the graph-op and mining-driver phases read of the user's graph:
     # Intersect k=3 holds hom(K3) = 6 T
+    graphs[1]["cycle_counts"] = runs[2]["counts"]
     main = graphs[0]
     rmat_info = {"g": main["g"], "apct": main["apct"],
                  "counts": main["counts"],
@@ -1761,6 +1798,7 @@ def drive_local(info: dict, patterns) -> dict:
                     "reads": round(reads_s, 3),
                     "dense_route_check": round(dense_s, 3),
                     "compile_domains_and_reads": round(domains_s, 3)}}
+    report["_anchored"] = got["anchored"]     # for the mesh path
     if any(r["route"] == "kernel-keep-f64" for r in refusals):
         report["_plan"] = cp         # for time_refused_keep_joins, after
     del cp, cpd, got                 # the phase has read its launch counts
@@ -1782,7 +1820,7 @@ def drive_keep3_coverage() -> dict:
     g = erdos_renyi(512, 8.0, seed=0)
     patterns = [chain(6), cycle(6), HOUSE]
     before = launch_counts()
-    checked, tri_joins = 0, []
+    checked, tri_joins, vectors = 0, [], {}
     with recording_tri_joins(tri_joins):
         cp = compiler.compile(patterns, g, cache=False, local=True)
     dense = lowering.lower(cp.plan, g, counter=cp.counter,
@@ -1797,6 +1835,7 @@ def drive_keep3_coverage() -> dict:
                     and torch.equal(vec, dense.local_counts(p, orbit[0]))):
                 raise AssertionError(f"{compiler.pattern_key(p)} anchor "
                                      f"{orbit[0]}: kernel route differs")
+            vectors[patterns.index(p), orbit[0]] = vec
             checked += 1
     joins = [j for j in local_joins(cp) if j["cut"] == 3]
     launches = {k: v - before[k] for k, v in launch_counts().items()}
@@ -1817,7 +1856,8 @@ def drive_keep3_coverage() -> dict:
                                                "block", "guard")}
                             for j in joins],
             "tri_joins": tri_joins, "keep3_launches_by_entry": entries,
-            "local_cuts": cp.plan.meta["local_cuts"], "launches": launches}
+            "local_cuts": cp.plan.meta["local_cuts"], "launches": launches,
+            "_anchored": vectors}
 
 
 def phase_local_path(main: dict) -> dict:
@@ -1846,13 +1886,17 @@ def phase_local_path(main: dict) -> dict:
         del cp
     torch.cuda.empty_cache()
     by_role["coverage-keep3"] = coverage["launches"]
+    # the single-device vectors the mesh path is held to
+    anchored = {r["role"]: r.pop("_anchored") for r in reports}
+    anchored["coverage-keep3"] = coverage.pop("_anchored")
     emit("local_path", patterns=len(patterns), launches=launches,
          graphs=reports, keep3_coverage=coverage)
     joins = [j for r in reports for j in r["keep_joins"]] + \
         [dict(j, cut=3) for j in coverage["keep3_joins"]]
-    main["graphs"].clear()
-    torch.cuda.empty_cache()
-    return {"launches": launches, "by_role": by_role, "joins": joins}
+    refused = {r["role"]: r["anchored_refused_plan_too_wide"]
+               for r in reports}
+    return {"launches": launches, "by_role": by_role, "joins": joins,
+            "patterns": patterns, "anchored": anchored, "refused": refused}
 
 
 # -- phase 5 ------------------------------------------------------------------------
@@ -2490,7 +2534,422 @@ def phase_mine_path(main: dict) -> dict:
     launches = launch_counts()               # ... and are read here
     emit("mine_path", graph=MAIN_GRAPH, launches=launches,
          checks=mined["checks"], runs=mined["runs"], **engine)
-    return {"launches": launches, "by_role": {"main": launches}}
+    return {"launches": launches, "by_role": {"main": launches},
+            "motif_lines": mined["runs"]["motif"]["lines"]}
+
+
+# -- phase 6b -----------------------------------------------------------------------
+
+MESH_SLOTS = (4, 3)          # 3 does not divide n = 8192: padding and trim
+MESH_KERNELS = ("vecjoin", "pairjoin", "pairjoin_keep", "trijoin",
+                "trijoin_keep")
+# the f64 instances of K1 and K3 (K3 on either entry), for the joins the
+# f32 guard refuses on the R-MAT graph
+MESH_F64_ENTRIES = (("cutjoin_vec_f64",),
+                    ("cutjoin_pair_keep_rows_f64", "cutjoin_pair_keep_f64"))
+MESH_GATHERS = ("contract.finish_gathers", "contract.trim_gathers",
+                "contract.slice_gathers")
+_TILE_ENTRIES = ("prod_reduce_tiles", "prod_reduce_keep_tiles",
+                 "tri_reduce_tiles", "tri_reduce_keep_tiles")
+
+
+@contextlib.contextmanager
+def recording_tile_calls(calls: dict):
+    """The last call of each tile entry point per kernel, route and entry
+    that the sharded tier makes while the context is open (the last slot:
+    a non-zero global offset), with its operands — for the slice checks
+    after the path's counts are read."""
+    saved = {name: getattr(mr, name) for name in _TILE_ENTRIES}
+
+    def key_of(name, factors, args, kw):
+        f64 = ":f64" if kw.get("f64") else ""
+        if name == "prod_reduce_tiles":
+            return ("vecjoin" if factors[0].ndim == 1 else "pairjoin") + f64
+        if name == "prod_reduce_keep_tiles":
+            return (f"pairjoin_keep:keep={kw['keep']}:"
+                    f"{mr.keep_entry(factors[0], kw['keep'])}" + f64)
+        axes = args[0]
+        if name == "tri_reduce_tiles":
+            return f"trijoin:{mr.tri_route(axes)}"
+        return (f"trijoin_keep:keep={kw['keep']}:" + mr.tri_keep_entry(
+            factors, axes, kw["keep"], mr._tri_sizes(kw["n"])))
+
+    def record(name):
+        def call(factors, *args, **kw):
+            calls[key_of(name, factors, args, kw)] = (name, list(factors),
+                                                      args, dict(kw))
+            return saved[name](factors, *args, **kw)
+        return call
+
+    for name in _TILE_ENTRIES:
+        setattr(mr, name, record(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(mr, name, fn)
+
+
+def check_slice_calls(calls: dict) -> list:
+    """Each recorded slot call once more on the card, held against its
+    plain version on the same slice and offsets at difference 0 (the path
+    and triangle routes against the route's own plain version)."""
+    cases = []
+    for key, (name, fs, args, kw) in sorted(calls.items()):
+        label = f"mesh slice {key} offsets {kw.get('offsets')}"
+        plain_kw = {k: v for k, v in kw.items() if k != "f64"}
+        if name == "prod_reduce_tiles" and kw.get("f64"):
+            check_case("cutjoin_vec_f64", label,
+                       lambda: mr.prod_reduce(fs, **kw),
+                       lambda: mr.prod_reduce_f64_plain(fs), cases)
+        elif name == "prod_reduce_tiles":
+            kernel = "vecjoin" if fs[0].ndim == 1 else "pairjoin"
+            check_case(kernel, label,
+                       lambda: mr.prod_reduce(fs, **kw),
+                       lambda: mr.prod_reduce_plain(fs, **plain_kw), cases)
+        elif kw.get("f64"):
+            entry = ("cutjoin_pair_keep_rows_f64"
+                     if mr.keep_entry(fs[0], kw["keep"]) == "rows"
+                     else "cutjoin_pair_keep_f64")
+            check_case(entry, label,
+                       lambda: mr.prod_reduce_keep(fs, **kw),
+                       lambda: mr.prod_reduce_keep_f64_plain(
+                           fs, keep=kw["keep"], offsets=kw["offsets"]),
+                       cases)
+        elif name == "prod_reduce_keep_tiles":
+            check_case("pairjoin_keep", label,
+                       lambda: mr.prod_reduce_keep(fs, **kw),
+                       lambda: mr.prod_reduce_keep_plain(fs, **plain_kw),
+                       cases)
+        elif name == "tri_reduce_tiles":
+            check_tri_case(label, fs, args[0], kw["n"], cases,
+                           distinct=kw["distinct"], offsets=kw["offsets"],
+                           block=kw["block"], n3_plain=False)
+        else:
+            check_tri_case(label, fs, args[0], kw["n"], cases,
+                           distinct=kw["distinct"], offsets=kw["offsets"],
+                           keep=kw["keep"], block=kw["block"])
+        cases[-1]["sizes"] = [list(F.shape) for F in fs]
+    return cases
+
+
+def mesh_join_routes(cp, slots: int) -> dict:
+    """Every join of a plan run under a mesh: a join the guard granted took
+    its sharded kernel route; a refused |cut| = 1 join or |cut| = 2 keep
+    join that ``exact_f64`` admits took the f64 instance on each slice
+    (``kernel-f64-sharded[-keep]``), as it takes K1's / K3's f64 instance
+    on one device; every other one the sharded dense f64 route.  Returns
+    the tally of routes."""
+    tally = {}
+    for j in cp.join_log:
+        keep = j["keep"] is not None and len(j["keep"]) < j["cut"]
+        if j["keep"] is not None and not keep:
+            want = "dense-product"
+        elif j["block"] is not None:
+            want = "kernel-sharded-keep" if keep else "kernel-sharded"
+        else:
+            want = "dense-f64-sharded-keep" if keep else "dense-f64-sharded"
+            if j["guard"] == "scanned" and j["cut"] == (2 if keep else 1):
+                Ms, _ = cp._join_factors(cp.plan.nodes[j["node"]])
+                maxes = [abs_max(M) for M in Ms]
+                n = cp.graph.n
+                # the reduced axis: n cells
+                if Ms[0].is_cuda and mr.exact_f64(maxes, n):
+                    want = ("kernel-f64-sharded-keep" if keep
+                            else "kernel-f64-sharded")
+        if j["route"] != want:
+            raise AssertionError(f"{slots} slots, {j['node']}: route "
+                                 f"{j['route']}, want {want}")
+        tally[want] = tally.get(want, 0) + 1
+    return tally
+
+
+def abs_max(M) -> float:
+    """max |M| of a join factor: a tensor, or the contraction's slot
+    blocks (``Sliced``)."""
+    if isinstance(M, Sliced):
+        return M.abs_max(M.parts[0].device).item()
+    return M.abs().max().item()
+
+
+def route_tally(tracer) -> dict:
+    """Routes of the nodes a traced read evaluated, counted."""
+    tally = {}
+    for span in tracer.walk():
+        r = span.attrs.get("route")
+        if r:
+            tally[r] = tally.get(r, 0) + 1
+    return tally
+
+
+def mesh_graph_run(info: dict, patterns, mesh, cycles=None) -> dict:
+    """The main path's pattern set (and the coverage graph's cycles) on one
+    graph under ``mesh``, with one mesh-bound engine: every count equal to
+    phase 3's, the engine without a dense adjacency; the timed compile and
+    first ``counts()`` split by node kind."""
+    g, apct = info["g"], info["apct"]
+    engine = CountingEngine(g, mesh=mesh)
+    t0 = time.perf_counter()
+    cp = compiler.compile(patterns, g, cache=False, apct=apct,
+                          counter=engine, mesh=mesh)
+    compile_s = time.perf_counter() - t0
+    node_s = time_nodes(cp)
+    cp.tracer = obs.Tracer()
+    t0 = time.perf_counter()
+    counts = cp.counts()
+    torch.cuda.synchronize()
+    counts_s = time.perf_counter() - t0
+    if counts != info["counts"]:
+        raise AssertionError(f"{info['label']}, {len(mesh.devices)} slots: "
+                             f"{counts} != one device {info['counts']}")
+    if engine._A_dense is not None:
+        raise AssertionError("the mesh-bound engine built a dense adjacency")
+    out = {"graph": info["label"], "role": info["role"],
+           "join_routes": mesh_join_routes(cp, len(mesh.devices)),
+           "node_routes": route_tally(cp.tracer),
+           "seconds": {"compile": round(compile_s, 3),
+                       "first_counts": round(counts_s, 3),
+                       "first_counts_by_node": {
+                           k: round(v, 4) for k, v in node_s.items()}}}
+    if cycles is not None:
+        cc = compiler.compile(list(CYCLES), g, cache=False, apct=apct,
+                              counter=engine, mesh=mesh)
+        got = cc.counts()
+        if got != cycles:
+            raise AssertionError(f"cycles under {len(mesh.devices)} slots: "
+                                 f"{got} != one device {cycles}")
+        out["cycles_join_routes"] = mesh_join_routes(cc, len(mesh.devices))
+    out["engine"] = engine
+    return out
+
+
+def mesh_local_run(info: dict, patterns, mesh, engine, single: dict,
+                   refused: list) -> dict:
+    """The local path's anchored reads under ``mesh``, on the graph's
+    mesh-bound engine: every vector equal to the local path's; a read the
+    local path found too wide (``PlanTooWide``) must be too wide here."""
+    g = info["g"]
+    cp = compiler.compile(patterns, g, cache=False, apct=info["apct"],
+                          counter=engine, local=True, mesh=mesh)
+    checked = 0
+    for i, p in enumerate(patterns):
+        vecs = anchored_or_refused(cp, p)
+        if vecs is None:
+            if compiler.pattern_key(p) not in refused:
+                raise AssertionError(f"{compiler.pattern_key(p)}: refused "
+                                     f"under a mesh only")
+            continue
+        for rep, vec in vecs.items():
+            if not torch.equal(vec, single[i, rep]):
+                raise AssertionError(f"{compiler.pattern_key(p)} anchor "
+                                     f"{rep}: {len(mesh.devices)} slots "
+                                     f"differ from one device")
+            checked += 1
+    return {"anchored_vectors_equal": checked,
+            "join_routes": mesh_join_routes(cp, len(mesh.devices))}
+
+
+def mesh_keep3_run(mesh, single: dict) -> dict:
+    """The keep3 coverage case under ``mesh``: K4-keep on row slices."""
+    g = erdos_renyi(512, 8.0, seed=0)
+    patterns = [chain(6), cycle(6), HOUSE]
+    cp = compiler.compile(patterns, g, cache=False, local=True, mesh=mesh)
+    for (i, rep), want in single.items():
+        if not torch.equal(cp.local_counts(patterns[i], rep), want):
+            raise AssertionError(f"{COVERAGE_KEEP3_GRAPH} {i}@{rep}: "
+                                 f"{len(mesh.devices)} slots differ")
+    return {"anchored_vectors_equal": len(single),
+            "join_routes": mesh_join_routes(cp, len(mesh.devices))}
+
+
+def mesh_batcher(info: dict, mesh) -> dict:
+    """``PatternQueryBatcher(mesh=)`` on the user's graph: a group of four
+    requests fanned over the slots, every count equal to phase 3's."""
+    g = info["g"]
+    pats = (cycle(4), motif_patterns(4)[0])
+    b = PatternQueryBatcher(g, max_batch=8, apct=info["apct"], mesh=mesh)
+    for uid in range(4):
+        b.submit(PatternRequest(uid=uid, patterns=pats))
+    before = obs.get("mesh.map_requests", devices=len(mesh.devices))
+    b.run_to_completion()
+    fanned = obs.get("mesh.map_requests", devices=len(mesh.devices)) - before
+    for req in b.finished:
+        for p, v in req.counts.items():
+            if req.error or v != info["counts"][compiler.pattern_key(p)]:
+                raise AssertionError(f"meshed batcher {req.uid}: {p} {v}")
+    if fanned != 4:
+        raise AssertionError(f"meshed batcher fanned {fanned} requests")
+    return {"requests": len(b.finished), "fanned": fanned,
+            "stats": dict(b.stats.items())}
+
+
+def time_mesh_counts(info: dict, patterns, slots: int) -> dict:
+    """compile + first ``counts()`` on the user's graph at ``slots`` slots
+    of the card (1: no mesh), on a fresh engine, split by node kind."""
+    g = info["g"]
+    mesh = None if slots == 1 else data_mesh(slots, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cp = compiler.compile(patterns, g, cache=False, apct=info["apct"],
+                          mesh=mesh)
+    compile_s = time.perf_counter() - t0
+    node_s = time_nodes(cp)
+    t0 = time.perf_counter()
+    if cp.counts() != info["counts"]:
+        raise AssertionError(f"timed run at {slots} slots differs")
+    torch.cuda.synchronize()
+    counts_s = time.perf_counter() - t0
+    return {"slots": slots, "compile_s": round(compile_s, 3),
+            "first_counts_s": round(counts_s, 3),
+            "first_counts_by_node": {k: round(v, 4)
+                                     for k, v in node_s.items()}}
+
+
+def phase_mesh_path(main: dict, local: dict, mined: dict) -> dict:
+    """The sharded tier on one card: every slot of ``data_mesh(slots,
+    device="cuda")`` is the one H100, so this measures the cost of slicing
+    and summing, not a speed-up."""
+    patterns = local["patterns"]
+    graphs = {info["role"]: info for info in main["graphs"]}
+    calls: dict = {}
+    reports = []
+    gathers = {name: obs.get(name) for name in MESH_GATHERS}
+    reset_launch_counts()                    # counts start at 0 here ...
+    with recording_tile_calls(calls):
+        for slots in MESH_SLOTS:
+            mesh = data_mesh(slots, device=DEV)
+            runs = []
+            for role in ("main", "coverage"):
+                info = graphs[role]
+                run = mesh_graph_run(info, patterns, mesh,
+                                     info.get("cycle_counts"))
+                engine = run.pop("engine")
+                run["local"] = mesh_local_run(
+                    info, patterns, mesh, engine, local["anchored"][role],
+                    local["refused"][role])
+                if role == "main":
+                    run["hom_free_tensor"] = check_engine_free_tensor(
+                        info, engine)
+                runs.append(run)
+                del engine
+            keep3 = mesh_keep3_run(mesh,
+                                   local["anchored"]["coverage-keep3"])
+            reports.append({"slots": slots, "graphs": runs,
+                            "keep3_coverage": keep3,
+                            "batcher": mesh_batcher(graphs["main"], mesh)})
+            torch.cuda.empty_cache()
+        mine_run = run_mine(["--app", "motif", "--k", "4", "--mesh", "4"])
+    launches = launch_counts()               # ... and are read here
+    gathers = {name: obs.get(name) - v for name, v in gathers.items()}
+    for kernel in MESH_KERNELS:
+        if launches[kernel] < 1:
+            raise AssertionError(f"the mesh path launched no {kernel}")
+    for entries in MESH_F64_ENTRIES:
+        if sum(launches[e] for e in entries) < 1:
+            raise AssertionError(f"the mesh path launched none of {entries}")
+    want_lines = ["mesh: 4 device(s) on axis 'data'"] + mined["motif_lines"]
+    if mine_run["lines"] != want_lines:
+        raise AssertionError("mine --mesh 4 differs from mine: "
+                             f"{mine_run['lines']}")
+    slice_cases = check_slice_calls(calls)
+    calls.clear()
+    batch = check_join_batch()
+    timings = [time_mesh_counts(graphs["main"], patterns, slots)
+               for slots in (1,) + MESH_SLOTS]
+    card = torch.cuda.get_device_name(0)
+    emit("mesh_path", graph=MAIN_GRAPH,
+         slots_share_one_card=(f"every slot of data_mesh(N, device="
+                               f"'cuda') is the one {card}: the times "
+                               f"measure slicing and the f64 sums, not "
+                               f"scaling"),
+         launches=launches, gathers=gathers, runs=reports,
+         slice_cases=slice_cases,
+         join_batch=batch, mine_mesh_4={"seconds": mine_run["seconds"],
+                                        "lines_equal_mine": True},
+         seconds_compile_and_counts=timings)
+    main["graphs"].clear()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "by_role": {"mesh": launches}}
+
+
+def check_engine_free_tensor(info: dict, engine) -> dict:
+    """``CountingEngine(mesh=).hom_free_tensor`` against a one-device
+    engine's on the user's graph, and no dense adjacency on the mesh
+    engine."""
+    p, free = chain(3), (0, 2)
+    got = engine.hom_free_tensor(p, free)
+    want = CountingEngine(info["g"]).hom_free_tensor(p, free)
+    if not torch.equal(got, want) or engine._A_dense is not None:
+        raise AssertionError("sliced hom_free_tensor differs from one "
+                             "device, or the mesh engine built A")
+    return {"pattern": "chain(3)", "free": list(free),
+            "shape": list(got.shape), "equal": True,
+            "mesh_engine_dense_adjacency": None}
+
+
+def check_join_batch() -> dict:
+    """``MeshExecutor.join_batch`` against serial guarded K2 joins."""
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    stacks = dev_factor(gen, (6, 2, 1024, 1024), 5)
+    block = mr.exact_block(list(stacks[0]))
+    serial = [mr.prod_reduce(list(s), block=block) for s in stacks]
+    out = {}
+    for slots in (1,) + MESH_SLOTS:
+        got = MeshExecutor(data_mesh(slots, device=DEV)).join_batch(stacks)
+        if got.tolist() != serial:
+            raise AssertionError(f"join_batch at {slots} slots differs from "
+                                 f"serial joins")
+        out[str(slots)] = "equal"
+    return {"requests": 6, "shape": [2, 1024, 1024], "slots": out}
+
+
+# -- phase 6c -----------------------------------------------------------------------
+
+EXAMPLES_DIR = os.path.join(ROOT, "examples_torch")
+EXAMPLES_AT_ONCE = 3
+
+
+def phase_examples() -> dict:
+    """Every ``examples_torch/*.py`` on the card as its user starts it, a
+    subprocess each (a few at a time), exit 0 required."""
+    names = sorted(f for f in os.listdir(EXAMPLES_DIR) if f.endswith(".py"))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="examples_", dir=os.path.join(ROOT,
+                                                                  "build"))
+    pending, running, results = list(names), {}, {}
+    t_all = time.perf_counter()
+    while pending or running:
+        while pending and len(running) < EXAMPLES_AT_ONCE:
+            name = pending.pop(0)
+            argv = [sys.executable, os.path.join(EXAMPLES_DIR, name)]
+            if name == "tracing.py":
+                argv += ["--out", out_dir]
+            log = open(os.path.join(out_dir, name + ".log"), "w")
+            running[name] = (subprocess.Popen(
+                argv, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT),
+                log, time.perf_counter())
+        time.sleep(0.5)
+        for name in [n for n, (proc, _, _) in running.items()
+                     if proc.poll() is not None]:
+            proc, log, t0 = running.pop(name)
+            log.close()
+            with open(log.name) as f:
+                text = f.read().splitlines()
+            results[name] = {"exit": proc.returncode,
+                             "seconds": round(time.perf_counter() - t0, 3),
+                             "last_line": text[-1] if text else ""}
+            if proc.returncode != 0:
+                for proc_, log_, _ in running.values():
+                    proc_.kill()
+                    proc_.wait()
+                    log_.close()
+                raise AssertionError(f"examples_torch/{name} exited "
+                                     f"{proc.returncode}:\n"
+                                     + "\n".join(text[-30:]))
+    shutil.rmtree(out_dir)
+    emit("examples", device=torch.cuda.get_device_name(0), at_once=EXAMPLES_AT_ONCE,
+         seconds=round(time.perf_counter() - t_all, 3), runs=results)
+    return results
 
 
 # -- phase 7 ------------------------------------------------------------------------
@@ -2858,7 +3317,7 @@ def tri_rows(entry, b, b_keep, rng, eye, local):
 
 
 def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
-                  served: dict):
+                  served: dict, mesh: dict):
     """Every kernel at the shapes its path gave it (two factors each, as
     the joins carry; chunk = what the guard granted there, 128 where no
     graph reached the tier).  ``bound_ms`` is for the function that is
@@ -2901,6 +3360,7 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces,
                     "launches": path["launches"][kernel], **by_graph,
+                    "launches_mesh_path": mesh["launches"].get(kernel, 0),
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -3520,16 +3980,33 @@ def flash_row(served: dict) -> dict:
 
 
 def main():
-    smi = phase_device()
-    phase_kernel_cases()
-    main_path = phase_main_path()
-    local_path = phase_local_path(main_path)
-    graph_ops = phase_graph_ops(main_path)
-    phase_morph_path(main_path)
-    phase_batcher_path(main_path)
-    mine_path = phase_mine_path(main_path)
-    serve_path = phase_serve_path()
-    phase_kernels(main_path, local_path, graph_ops, mine_path, serve_path)
+    t0 = time.perf_counter()
+    wall: dict = {}
+
+    def timed(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        wall[phase.__name__[len("phase_"):]] = round(
+            time.perf_counter() - t, 3)
+        return out
+
+    smi = timed(phase_device)
+    timed(phase_kernel_cases)
+    main_path = timed(phase_main_path)
+    local_path = timed(phase_local_path, main_path)
+    graph_ops = timed(phase_graph_ops, main_path)
+    timed(phase_morph_path, main_path)
+    timed(phase_batcher_path, main_path)
+    mine_path = timed(phase_mine_path, main_path)
+    mesh_path = timed(phase_mesh_path, main_path, local_path, mine_path)
+    timed(phase_examples)
+    serve_path = timed(phase_serve_path)
+    # host-clock seconds per phase so far, the kernel builds inside
+    # kernel_cases; the kernels phase follows
+    emit("wall_seconds", phases=wall,
+         total_before_kernels=round(time.perf_counter() - t0, 3))
+    phase_kernels(main_path, local_path, graph_ops, mine_path, serve_path,
+                  mesh_path)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,8 +36,10 @@ can't catch — violations that pass every test but rot the codebase:
                         whatever mesh happens to be ambient, and
                         logical-axis ``constrain`` calls inside the
                         region silently no-op or resolve against the
-                        wrong mesh.  The port has no ``shard_map``
-                        call yet; the rule waits for its sharded tier.
+                        wrong mesh.  The port's sharded tier runs its
+                        slots in one process and calls no
+                        ``shard_map``, so the rule finds nothing there;
+                        it stays for code that does.
 
 Suppress any rule on one line with a ``lint: allow=<rule>`` comment on
 that line.  CLI::
@@ -58,8 +60,8 @@ RULES = ("no-time-time", "kernel-guard", "ir-dict-complete",
          "no-mutable-default", "mesh-guard")
 
 # the public kernel wrappers whose exactness depends on the block bound
-# (single-device tier, its f64 instances, and the reference's
-# mesh-sharded analogues, which the port's sharded tier will keep)
+# (single-device tier, its f64 instances, and the mesh-sharded
+# analogues of ``distributed.cutjoin``)
 _KERNEL_WRAPPERS = {"cutjoin_reduce", "cutjoin_reduce_keep",
                     "cutjoin_reduce3", "cutjoin_reduce3_keep",
                     "cutjoin_reduce_f64", "cutjoin_reduce_keep_f64",

@@ -29,8 +29,9 @@ time instead of silently falling back on every query.
 
 ``morph_check`` validates a committed morph identity
 (``compiler.morph.MorphCandidate``) on the pattern-lattice endpoints,
-graph-free.  ``shard_check`` of the reference package belongs to the mesh
-tier and arrives with it.
+graph-free.  ``shard_check`` flags plan / mesh pairings that waste the
+mesh (``shard-small-graph``, ``shard-indivisible``,
+``shard-budget-overflow``, Contract nodes included).
 
 Diagnostics carry stable ``code`` strings (one per failure class) so
 tests and callers can assert *which* invariant broke, not just that one
@@ -45,6 +46,7 @@ from typing import Dict, List, Optional, Tuple
 from repro_torch.compiler.ir import (Contract, CutJoin, Intersect, LocalCount,
                                MobiusCombine, Plan, ShrinkageCorrect,
                                is_local_output)
+from repro_torch.core import homomorphism as _H
 from repro_torch.core.pattern import LABEL_STRIDE, free_skeleton
 from repro_torch.kernels.matreduce import EXACT_LIMIT
 from repro_torch.kernels import matreduce as _mr
@@ -615,6 +617,102 @@ def precertify(plan: Plan, info: GraphInfo, *, max_block: int = 1024,
         if block is not None:
             out[key] = int(block)
     return out
+
+
+def shard_check(plan: Plan, info: GraphInfo, num_shards: int, *,
+                budget: Optional[int] = None) -> VerifyResult:
+    """Shard-legality of one plan on a ``num_shards``-way data mesh —
+    advisory diagnostics layered over ``verify`` (run that first for
+    structure/shapes):
+
+    ``shard-small-graph``      n < shards: the executor falls back to
+                               single-device wholesale
+                               (``lowering._mesh_shards``) — a mesh that
+                               size buys nothing on this graph.
+    ``shard-indivisible``      cut axis 0 does not divide evenly: legal
+                               (the last slot holds fewer rows and the
+                               sharded contraction zero-pads to the
+                               slot multiple, which is value-
+                               preserving), but the last shard streams
+                               padding — noted so sizing
+                               is a conscious choice.
+    ``shard-budget-overflow``  a join's *per-shard* resident factor
+                               elements (axis-0 carriers at n/shards
+                               rows, the rest replicated) still exceed
+                               4x budget — sharding did not buy the
+                               memory headroom the budget models.  The
+                               same code covers Contract nodes on the
+                               collective-einsum route
+                               (``distributed/contract``): per-shard
+                               residency there is the adjacency row
+                               block plus the widest summed
+                               *replicated* intermediate plus the
+                               free-output row slice.
+
+    All warnings: none makes a sharded execution incorrect — per-shard
+    blocks stay certified (see ``precertify``) and padding preserves
+    values — they flag mesh/graph pairings that waste the mesh."""
+    assert num_shards >= 1, num_shards
+    res = VerifyResult()
+    if num_shards <= 1:
+        return res
+    n = info.n
+    if n < num_shards:
+        res.diagnostics.append(_warn(
+            "shard-small-graph", "*",
+            f"graph has {n} vertices but the mesh {num_shards} shards — "
+            f"execution falls back to single-device"))
+        return res
+    if n % num_shards:
+        res.diagnostics.append(_warn(
+            "shard-indivisible", "*",
+            f"n = {n} does not divide over {num_shards} shards — the "
+            f"padding path runs (correct, but the last shard streams "
+            f"{(-n) % num_shards} zero rows)"))
+    if budget is None:
+        b = plan.meta.get("budget")
+        budget = int(b) if isinstance(b, (int, float)) else None
+    if budget is not None:
+        cap = 4 * budget
+        rows = -(-n // num_shards)
+        for key, node in _guarded_nodes(plan):
+            elems = sum(
+                rows * n ** (len(ax) - 1) if 0 in ax else n ** len(ax)
+                for ax in node.factor_axes())
+            if elems > cap:
+                res.diagnostics.append(_warn(
+                    "shard-budget-overflow", key,
+                    f"per-shard factor residency {elems:.3e} elements "
+                    f"still over 4x budget ({cap:.3e}) at "
+                    f"{num_shards} shards"))
+        # Contract nodes on the collective-einsum route: each shard
+        # holds its adjacency row block, every elimination step's
+        # intermediate comes back *replicated* from the psum (only the
+        # free-output step stays sharded), so the widest replicated
+        # intermediate dominates per-shard residency alongside the row
+        # block and the output row slice.
+        for key, node in plan.nodes.items():
+            if not isinstance(node, Contract):
+                continue
+            free = tuple(node.free)
+            q = free_skeleton(node.pattern) if free else node.pattern
+            order = tuple(node.order) if node.order else \
+                _H.greedy_plan(q, free)
+            try:
+                widths = _H.elimination_widths(q, order, free=free)
+            except Exception:
+                continue              # malformed order — verify() flags it
+            inter = max((n ** w for _, w in widths), default=1)
+            out_slice = rows * n ** (len(free) - 1) if free else 1
+            elems = rows * n + inter + out_slice
+            if elems > cap:
+                res.diagnostics.append(_warn(
+                    "shard-budget-overflow", key,
+                    f"per-shard contraction residency {elems:.3e} "
+                    f"elements (row block + widest replicated "
+                    f"intermediate) still over 4x budget ({cap:.3e}) "
+                    f"at {num_shards} shards"))
+    return res
 
 
 def refusal_flags(plan: Plan, info: GraphInfo) -> List[Diagnostic]:

@@ -51,8 +51,9 @@ from repro_torch.compiler import morph as _morph
 from repro_torch.compiler.cache import (PlanCache, config_compatible,
                                         graph_signature, plan_key)
 from repro_torch.compiler.ir import Plan, local_key, pattern_key
-from repro_torch.compiler.lowering import CompiledPlan, lower, not_ported
+from repro_torch.compiler.lowering import CompiledPlan, lower
 from repro_torch.compiler.morph import CountStore, default_store
+from repro_torch.distributed import meshes as _meshes
 
 __all__ = ["compile", "Plan", "PlanCache", "CompiledPlan", "CountStore",
            "pattern_key", "plan_key", "local_key", "default_cache",
@@ -216,13 +217,20 @@ def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
     plans are never written to the plan cache (their selection is
     store-biased), and ``morph=False`` (the default) changes nothing.
 
-    ``mesh=`` is a feature of the reference package that is not ported
-    yet: it raises ``NotImplementedError`` naming its ROADMAP.md queue
-    item.  ``plan.meta`` still records ``mesh_devices: 1``, so a plan
-    serialised by either package loads in the other.
+    ``mesh`` (a ``distributed.meshes.DataMesh``, e.g. ``data_mesh(4,
+    device="cuda")``) binds the plan to the sharded tier end to end:
+    Contract nodes of the default engine run sliced over the mesh's slots
+    (``distributed/contract.py`` — the n x n adjacency never exists
+    whole), guarded CutJoin/LocalCount nodes split their cut grid over cut
+    axis 0 (``distributed/cutjoin.py``), all bit-for-bit identical to one
+    device, and selection prices contractions and joins per slot with a
+    collective surcharge (``costing``, ``devices=``).  Without ``device``
+    or ``counter`` the plan lives on the mesh's first slot.  The mesh does
+    not enter the cache key, but its slot count (``plan.meta
+    ["mesh_devices"]``) is part of the compatibility check on a hit
+    (``cache.config_compatible``): a plan selected for one slot count is
+    not served to another.
     """
-    if mesh is not None:
-        raise not_ported("mesh")
     if isinstance(patterns, Pattern):
         patterns = (patterns,)
     patterns = tuple(patterns)
@@ -232,6 +240,8 @@ def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
     if counter is not None:
         budget = counter.budget              # cost exactly what will execute
         device = counter.device
+    elif device is None and mesh is not None:
+        device = mesh.home
     device = _device.resolve(device)
     use_cache = cache is not False
     if cache is None:
@@ -240,7 +250,7 @@ def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
     if morph is not False and morph is not None:
         morph_store = (morph if isinstance(morph, _morph.CountStore)
                        else _morph.default_store())
-    mesh_devices = 1
+    mesh_devices = _meshes.num_shards(mesh)
     key = plan_key(patterns, graph)
     if use_cache:
         plan = cache.get(key)
@@ -259,7 +269,8 @@ def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
                 return lower(plan, graph, counter=counter,
                              use_pallas=use_pallas, from_cache=True,
                              budget=budget, cutjoin_kernel=cutjoin_kernel,
-                             count_store=morph_store, device=device)
+                             mesh=mesh, count_store=morph_store,
+                             device=device)
             # config matches but the stored plan lacks a requested
             # flavour: recompile with the UNION of requested and stored
             # flags, so the overwrite supersets the entry instead of
@@ -300,7 +311,7 @@ def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
             return lower(plan, graph, counter=counter,
                          use_pallas=use_pallas, from_cache=False,
                          budget=budget, cutjoin_kernel=cutjoin_kernel,
-                         count_store=morph_store, device=device)
+                         mesh=mesh, count_store=morph_store, device=device)
         for d in derived:
             if d.missing:
                 obs.counter("morph.missing_compiles")
@@ -365,5 +376,5 @@ def compile(patterns: Union[Pattern, Iterable[Pattern]], graph: Graph, *,
         cache.put(key, plan)
     return lower(plan, graph, counter=counter, use_pallas=use_pallas,
                  from_cache=False, budget=budget,
-                 cutjoin_kernel=cutjoin_kernel, count_store=morph_store,
-                 device=device)
+                 cutjoin_kernel=cutjoin_kernel, mesh=mesh,
+                 count_store=morph_store, device=device)

@@ -65,8 +65,30 @@ f64 dense routes are renamed — its ``xla-dense`` is the port's
 card-only f64 instances ``kernel-f64`` / ``kernel-keep-f64`` have no
 counterpart there.
 
-Not ported yet (raises ``NotImplementedError`` and names its ROADMAP.md
-queue item): the execution mesh.  Every ``obs.counter`` is kept.
+With a mesh (``mesh=``, a ``distributed.meshes.DataMesh`` of more than
+one slot) the plan runs on the sharded tier, as in the reference: the
+default engine's ``Contract`` nodes run sliced over the mesh's slots
+(route ``einsum-sharded``) and hand their free tensors on as the slots
+made them (``distributed.contract.Sliced``: the join reads each slot's
+block in place; a route that needs a tensor whole gathers it, counted in
+``contract.slice_gathers``), guarded ``CutJoin`` / ``LocalCount`` joins
+split their cut grid over cut axis 0 (``kernel-sharded``,
+``kernel-sharded-keep``: the tile entry points on each slot's slice).  A
+join the guard refuses takes, on the card and where ``exact_f64`` admits
+it, the f64 instance of its kernel on each slice (``kernel-f64-sharded``
+for |cut| = 1, ``kernel-f64-sharded-keep`` for a |cut| = 2 keep join);
+otherwise, and always on the CPU, the sharded dense f64 route
+(``dense-f64-sharded``, ``dense-f64-sharded-keep``).  So on the CPU
+routes and plans are the reference's.  Each sharded route's span carries
+``mesh_axes=["data"]`` and ``num_shards``.  A graph
+with fewer vertices than slots, or a join wider than |cut| = 3, falls back
+to one device (``cutjoin.shard_fallbacks_{compile,execute}``, reasons
+``small-n`` and ``wide-cut``).  The reference's ``xla-sharded`` is the
+port's ``dense-f64-sharded`` and its ``xla-sharded-keep`` is
+``dense-f64-sharded-keep``; on the card ``kernel-f64-sharded`` and
+``kernel-f64-sharded-keep`` stand where the reference takes those two
+(it has no f64 kernel instance); the other sharded labels are its own.
+Every ``obs.counter`` is kept.
 """
 from __future__ import annotations
 
@@ -79,6 +101,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core.counting import CountingEngine
 from repro_torch.core.pattern import Pattern, clique
+from repro_torch.distributed.contract import Sliced, gather
 from repro_torch.graph.storage import Graph
 from repro_torch.compiler.ir import (Contract, CutJoin, Intersect, LocalCount,
                                      MobiusCombine, Plan, ShrinkageCorrect,
@@ -86,14 +109,9 @@ from repro_torch.compiler.ir import (Contract, CutJoin, Intersect, LocalCount,
                                      is_local_output, local_key,
                                      pattern_key)
 
-_NOT_PORTED = {
-    "mesh": "mesh= (sharded tier) is not ported yet — ROADMAP.md queue 1, "
-            "item 11, \"Sharded tier\"",
-}
-
-
-def not_ported(what: str):
-    return NotImplementedError(_NOT_PORTED[what])
+def _dims(M) -> tuple:
+    """A factor's shape: a ``Sliced`` one's extent (n on every axis)."""
+    return M.extent if isinstance(M, Sliced) else tuple(M.shape)
 
 
 def _join_reduce(stack):
@@ -125,17 +143,21 @@ class CompiledPlan:
                  use_pallas: bool = False, from_cache: bool = False,
                  budget: int = 1 << 27, cutjoin_kernel: bool = True,
                  mesh=None, count_store=None, device=None):
-        if mesh is not None:
-            raise not_ported("mesh")
         self.plan = plan
         self.graph = graph
-        # a caller-supplied counter keeps its own device binding
+        # a default engine inherits the mesh so Contract nodes run their
+        # contractions sliced too (a caller-supplied counter keeps its own
+        # device and mesh binding — pass mesh= to CountingEngine to shard
+        # it)
         self.counter = counter or CountingEngine(graph, budget=budget,
-                                                 device=device)
+                                                 device=device, mesh=mesh)
         self.device = self.counter.device
         self.use_pallas = use_pallas
         self.cutjoin_kernel = cutjoin_kernel
         self.from_cache = from_cache
+        # execution mesh of the sharded join tier (distributed.cutjoin);
+        # None keeps every join single-device
+        self.mesh = mesh
         # morph count store (compiler.morph.CountStore): scalar hom reads
         # consult it before contracting (route "morph-derive")
         self.count_store = count_store
@@ -145,6 +167,8 @@ class CompiledPlan:
         self._masks: Dict[int, torch.Tensor] = {}
         self._factors: Dict[tuple, torch.Tensor] = {}
         self._factor_maxes: Dict[tuple, float] = {}
+        # id(Sliced vector) -> (it, its gathered tensor); see _tensor
+        self._gathered: Dict[int, tuple] = {}
         self._precert: Optional[Dict[str, int]] = None
         # one record per evaluated CutJoin / LocalCount node: cut size,
         # kept axes, route, granted chunk, and whether the guard was
@@ -259,8 +283,9 @@ class CompiledPlan:
         with self._root("exists", nk or pattern_key(p)):
             if isinstance(node, LocalCount):
                 for terms, ax in zip(node.factors, node.factor_axes()):
-                    if not bool((self._combine(terms, len(ax)).abs()
-                                 > 0.5).any()):
+                    M = self._combine(terms, len(ax))
+                    if not any(bool((P.abs() > 0.5).any()) for P in (
+                            M.parts if isinstance(M, Sliced) else (M,))):
                         self.stats["exists_early_exits"] += 1
                         self._annotate(early_exit=True)
                         return False
@@ -330,15 +355,25 @@ class CompiledPlan:
                 if held is not None:
                     self._annotate(route="morph-derive")
                     return float(held)
+            shards = self.counter.contract_shards()
             if node.free:
                 # decode the marker-encoded pattern: strips cut-rank
                 # markers, restores real vertex labels (label-masked
                 # contraction on labelled patterns)
-                self._annotate(route="einsum-free")
+                if shards > 1:
+                    self._annotate(route="einsum-sharded",
+                                   adjacency="sharded", mesh_axes=["data"],
+                                   num_shards=shards)
+                else:
+                    self._annotate(route="einsum-free")
                 skel = free_skeleton(node.pattern)
-                return self.counter.hom_free_tensor(skel, node.free,
-                                                    order=node.order)
-            self._annotate(route="einsum")
+                return self.counter.hom_free_value(skel, node.free,
+                                                   order=node.order)
+            if shards > 1:
+                self._annotate(route="einsum-sharded", adjacency="sharded",
+                               mesh_axes=["data"], num_shards=shards)
+            else:
+                self._annotate(route="einsum")
             return self.counter.hom(node.pattern, order=node.order or None)
         if isinstance(node, Intersect):
             held = self._store_hom(node.key)
@@ -357,7 +392,7 @@ class CompiledPlan:
             self._annotate(route="host")
             acc = 0.0
             for coeff, ref in node.terms:
-                acc += coeff * self.value(ref)
+                acc += coeff * self._tensor(self.value(ref))
             return acc / node.divisor
         if isinstance(node, CutJoin):
             return self._eval_cutjoin(node)
@@ -371,25 +406,56 @@ class CompiledPlan:
             return acc / node.divisor
         raise TypeError(type(node))
 
-    def _combine(self, terms, ndim: int) -> torch.Tensor:
+    def _combine(self, terms, ndim: int):
         """One Möbius factor tensor Σ coeff · tensor(ref), f64, on the
         device — treat the result as READ-ONLY.  Genuine combinations
         memoise by term tuple (CutJoin and LocalCount nodes over the same
         cut, and ``exists`` early-exit probes, share them); a single
         identity term returns the node value itself — duplicating every
         Contract tensor into a second (n,)*ndim tensor would roughly
-        double a long-lived plan's steady-state memory."""
+        double a long-lived plan's steady-state memory.  Under a mesh the
+        terms are the contraction's row blocks (``Sliced``) and so is
+        their combination, made slot by slot where the blocks lie."""
         if len(terms) == 1 and terms[0][0] == 1.0:
             return self.value(terms[0][1])
         key = (terms, ndim)
         M = self._factors.get(key)
         if M is None:
-            M = torch.zeros((self.graph.n,) * ndim, dtype=torch.float64,
-                            device=self.device)
-            for coeff, ref in terms:
-                M = M + coeff * self.value(ref)
+            vals = [self.value(ref) for _, ref in terms]
+            first = vals[0]
+            if isinstance(first, Sliced) and all(
+                    isinstance(v, Sliced) and len(v.parts) == len(first.parts)
+                    and v.rows == first.rows for v in vals):
+                parts = []
+                for s, P0 in enumerate(first.parts):
+                    P = torch.zeros_like(P0)
+                    for (coeff, _), v in zip(terms, vals):
+                        P = P + coeff * v.parts[s]
+                    parts.append(P)
+                M = Sliced(tuple(parts), first.rows, first.n)
+            else:
+                M = torch.zeros((self.graph.n,) * ndim, dtype=torch.float64,
+                                device=self.device)
+                for (coeff, _), v in zip(terms, vals):
+                    M = M + coeff * self._tensor(v)
             self._factors[key] = M
         return M
+
+    def _tensor(self, value):
+        """A node value as one tensor: a ``Sliced`` one gathered onto the
+        plan's device (``contract.slice_gathers`` counts it).  A gathered
+        vector is kept for the plan's next reads (n f64 each; corrections
+        and Möbius sums read the same vectors again), a gathered matrix or
+        cube is not."""
+        if not isinstance(value, Sliced):
+            return value
+        if value.ndim > 1:
+            return gather(value, self.device)
+        held = self._gathered.get(id(value))
+        if held is None or held[0] is not value:
+            held = self._gathered[id(value)] = (value,
+                                                gather(value, self.device))
+        return held[1]
 
     def _factor_max(self, terms, ndim: int, M) -> torch.Tensor:
         """max|M| for the factor combined from ``terms``, as a 0-d device
@@ -400,8 +466,11 @@ class CompiledPlan:
         key = (terms, ndim)
         v = self._factor_maxes.get(key)
         if v is None:
-            v = (M.abs().max() if M.numel()
-                 else torch.zeros((), dtype=M.dtype, device=M.device))
+            if isinstance(M, Sliced):
+                v = M.abs_max(self.device)
+            else:
+                v = (M.abs().max() if M.numel()
+                     else torch.zeros((), dtype=M.dtype, device=M.device))
             self._factor_maxes[key] = v
         return v
 
@@ -488,17 +557,65 @@ class CompiledPlan:
             out.append(M.reshape(shape).expand((n,) * k))
         return out
 
+    def _shard_fallback(self, reason: str):
+        """Count one sharded-tier fallback, split by phase: a fresh
+        compile's plan evals and a cache-hit serve's re-lower each
+        re-evaluate the same nodes, so phase-keyed counters keep the two
+        populations apart in ``obs`` snapshots."""
+        phase = "execute" if self.from_cache else "compile"
+        obs.counter(f"cutjoin.shard_fallbacks_{phase}", reason=reason)
+        self._annotate(shard_fallback=reason)
+
+    def _mesh_shards(self) -> int:
+        """Usable shard count for this plan's joins: 1 without a mesh (or
+        a trivial one); a graph smaller than the mesh falls back to one
+        device — fewer rows than slots would leave slots idle."""
+        if self.mesh is None:
+            return 1
+        from repro_torch.distributed import meshes
+        d = meshes.num_shards(self.mesh)
+        if d <= 1:
+            return 1
+        if self.graph.n < d:
+            self._shard_fallback("small-n")
+            return 1
+        return d
+
+    def _sharded(self, rec, route: str, shards: int):
+        rec["route"] = route
+        self._annotate(route=route, mesh_axes=["data"], num_shards=shards)
+
     def _eval_cutjoin(self, node: CutJoin) -> float:
         Ms, axes = self._join_factors(node)
         rec = {"node": node.key, "cut": node.cut_size, "keep": None,
-               "factor_shapes": [list(M.shape) for M in Ms],
+               "factor_shapes": [list(_dims(M)) for M in Ms],
                "route": "dense-f64", "block": None, "guard": None}
         self.join_log.append(rec)
         self._annotate(factor_shapes=rec["factor_shapes"])
+        shards = self._mesh_shards()
         if self.cutjoin_kernel and node.cut_size <= 3:
             from repro_torch.kernels import ops
             block, how, maxes = self._guard_block(node, Ms, axes)
             rec.update(block=block, guard=how)
+            f64 = block is None and node.cut_size == 1 and \
+                self._f64_admits(Ms, maxes, _dims(Ms[0])[0])
+            if shards > 1 and (block is not None or f64):
+                # the tile entry points on each slot's slice: f32 chunks
+                # under the guard, else K1's f64 instance
+                from repro_torch.distributed import cutjoin as dcj
+                if f64:
+                    self._sharded(rec, "kernel-f64-sharded", shards)
+                    obs.counter("cutjoin.kernel_f64", cut=1)
+                    return dcj.sharded_cutjoin(Ms, mesh=self.mesh,
+                                               distinct=False, f64=True)
+                self._sharded(rec, "kernel-sharded", shards)
+                if node.cut_size <= 2:
+                    return dcj.sharded_cutjoin(
+                        Ms, mesh=self.mesh, distinct=node.cut_size >= 2,
+                        block=block)
+                return dcj.sharded_cutjoin3(Ms, axes, n=self.graph.n,
+                                            mesh=self.mesh, block=block)
+            Ms = [self._tensor(M) for M in Ms]
             if block is not None:            # f32 chunks provably exact
                 rec["route"] = "kernel"
                 self._annotate(route="kernel")
@@ -508,8 +625,7 @@ class CompiledPlan:
                                               block=block)
                 return ops.cutjoin_reduce3(Ms, axes, n=self.graph.n,
                                            block=block)
-            if node.cut_size == 1 and \
-                    self._f64_admits(Ms, maxes, Ms[0].shape[0]):
+            if f64:
                 rec["route"] = "kernel-f64"
                 self._annotate(route="kernel-f64")
                 obs.counter("cutjoin.kernel_f64", cut=1)
@@ -517,9 +633,19 @@ class CompiledPlan:
             # factor magnitudes exceed what chunked f32 can represent
             # exactly: fall through to the f64 dense join
             obs.counter("cutjoin.kernel_fallbacks", cut=node.cut_size)
+        Ms = [self._tensor(M) for M in Ms]
         Ms = self._dense_expand(Ms, axes, node.cut_size)
         if node.cut_size >= 2:               # injectivity of the cut tuple
             Ms.append(self._mask(node.cut_size))
+        if shards > 1 and node.cut_size <= 3:
+            # no bound admits the factors, or cutjoin_kernel=False, under
+            # a mesh: the f64 dense join still shards (no chunking, no
+            # guard)
+            from repro_torch.distributed import cutjoin as dcj
+            self._sharded(rec, "dense-f64-sharded", shards)
+            return dcj.sharded_dense_join(Ms, node.cut_size, mesh=self.mesh)
+        if shards > 1:
+            self._shard_fallback("wide-cut")
         self._annotate(route="dense-f64")
         return _join_reduce(torch.stack(Ms)).item()
 
@@ -537,29 +663,55 @@ class CompiledPlan:
         Ms, axes = self._join_factors(node)
         rec = {"node": node.key, "cut": node.cut_size,
                "keep": list(node.keep),
-               "factor_shapes": [list(M.shape) for M in Ms],
+               "factor_shapes": [list(_dims(M)) for M in Ms],
                "route": "dense-product", "block": None, "guard": None}
         self.join_log.append(rec)
         self._annotate(factor_shapes=rec["factor_shapes"])
         if node.cut_size == 1 or len(node.keep) == node.cut_size:
             self._annotate(route="dense-product")
-            dense = self._dense_expand(Ms, axes, node.cut_size)
+            dense = self._dense_expand([self._tensor(M) for M in Ms], axes,
+                                       node.cut_size)
             out = dense[0].clone(memory_format=torch.contiguous_format)
             for M in dense[1:]:
                 out *= M
             if node.corrections:
-                out -= self._combine(node.corrections, len(node.keep))
+                out -= self._tensor(self._combine(node.corrections,
+                                                  len(node.keep)))
             self._zero_collisions(out)       # injectivity of the cut tuple
             return out
         # keep-axis reduce: |cut| in {2, 3}, one surviving axis
         axis = node.keep[0]
         out = None
         rec["route"] = "dense-f64-keep"
+        shards = self._mesh_shards()
         if self.cutjoin_kernel:
             from repro_torch.kernels import ops
             block, how, maxes = self._guard_block(node, Ms, axes)
             rec.update(block=block, guard=how)
-            if block is not None:            # f32 chunks provably exact
+            f64 = block is None and node.cut_size == 2 and \
+                self._f64_admits(Ms, maxes, _dims(Ms[0])[1 - axis])
+            if shards > 1 and (block is not None or f64):
+                # the keep tile entry points on each slot's slice: f32
+                # chunks under the guard, else K3's f64 instance
+                from repro_torch.distributed import cutjoin as dcj
+                if f64:
+                    self._sharded(rec, "kernel-f64-sharded-keep", shards)
+                    obs.counter("cutjoin.kernel_f64", cut=2, keep=True)
+                    out = dcj.sharded_cutjoin_keep(Ms, keep=axis,
+                                                   mesh=self.mesh, f64=True)
+                elif node.cut_size == 2:
+                    self._sharded(rec, "kernel-sharded-keep", shards)
+                    out = dcj.sharded_cutjoin_keep(Ms, keep=axis,
+                                                   mesh=self.mesh,
+                                                   block=block)
+                else:
+                    self._sharded(rec, "kernel-sharded-keep", shards)
+                    out = dcj.sharded_cutjoin3_keep(Ms, axes, keep=axis,
+                                                    n=self.graph.n,
+                                                    mesh=self.mesh,
+                                                    block=block)
+            elif block is not None:          # f32 chunks provably exact
+                Ms = [self._tensor(M) for M in Ms]
                 rec["route"] = "kernel-keep"
                 self._annotate(route="kernel-keep")
                 if node.cut_size == 2:
@@ -569,8 +721,8 @@ class CompiledPlan:
                     out = ops.cutjoin_reduce3_keep(Ms, axes, keep=axis,
                                                    n=self.graph.n,
                                                    block=block)
-            elif node.cut_size == 2 and \
-                    self._f64_admits(Ms, maxes, Ms[0].shape[1 - axis]):
+            elif f64:
+                Ms = [self._tensor(M) for M in Ms]
                 rec["route"] = "kernel-keep-f64"
                 self._annotate(route="kernel-keep-f64")
                 obs.counter("cutjoin.kernel_f64", cut=2, keep=True)
@@ -579,6 +731,18 @@ class CompiledPlan:
                 obs.counter("cutjoin.kernel_fallbacks", cut=node.cut_size,
                             keep=True)
         if out is None:
+            Ms = [self._tensor(M) for M in Ms]
+        if out is None and shards > 1:
+            # no bound admits the factors, or cutjoin_kernel=False, under
+            # a mesh: the f64 dense keep join still shards (no chunking,
+            # no guard)
+            from repro_torch.distributed import cutjoin as dcj
+            dense = self._dense_expand(Ms, axes, node.cut_size)
+            dense.append(self._mask(node.cut_size))
+            self._sharded(rec, "dense-f64-sharded-keep", shards)
+            out = dcj.sharded_dense_join_keep(dense, node.cut_size,
+                                              keep=axis, mesh=self.mesh)
+        if out is None:
             self._annotate(route="dense-f64-keep")
             stack = torch.stack(self._dense_expand(Ms, axes,
                                                    node.cut_size))
@@ -586,8 +750,9 @@ class CompiledPlan:
                 out = _join_keep(stack, axis)
             else:
                 out = _join_keep3(stack, self._mask(3), axis)
+        out = out.to(self.device)      # a mesh's result lies on its slot 0
         if node.corrections:
-            out = out - self._combine(node.corrections, 1)
+            out = out - self._tensor(self._combine(node.corrections, 1))
         return out
 
     @staticmethod

@@ -33,22 +33,38 @@ def _quotient_order(q: Pattern, cut_blocks: frozenset | None):
 
 
 class CountingEngine:
-    """Tensorised counting over one input graph, on one device."""
+    """Tensorised counting over one input graph, on one device — or, with
+    ``mesh=``, with its contractions sliced over the mesh's slots."""
 
     def __init__(self, graph: Graph, budget: int = 1 << 27,
                  device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (sharded contractions) is not ported yet — "
-                "ROADMAP.md queue 1, \"Sharded tier\"")
         self.graph = graph
         self.budget = budget
+        # a mesh names its devices: without ``device`` the engine lives on
+        # the mesh's first slot
+        if device is None and mesh is not None:
+            device = mesh.home
         self.device = _device.resolve(device)
         self.dtype = _device.COUNT_DTYPE
+        # sharded-contraction binding: a 1-D ("data",) mesh routes hom /
+        # hom_free_tensor through ``distributed.contract`` (adjacency row
+        # blocks, sliced einsums — bit-for-bit with the single-device
+        # path).  None, a trivial mesh, or a graph smaller than the mesh
+        # keeps every contraction single-device.
+        self.mesh = None
+        if mesh is not None:
+            from repro_torch.distributed import meshes as _meshes
+            d = _meshes.num_shards(mesh)
+            if d > 1 and graph.n >= d:
+                self.mesh = mesh
         # dense adjacency / label indicators build lazily: plans whose
-        # contractions are all clique-enumerated never pay for them
+        # contractions are all clique-enumerated never pay for them, and
+        # the sharded route never builds them (its row blocks are built
+        # only when a mesh routes to them)
         self._A_dense = None
         self._labels_dense = None
+        self._A_blocks = None
+        self._label_blocks = None
         self.hom_memo: dict = {}
         self.hom_free_memo: dict = {}
         self.domain_memo: dict = {}
@@ -75,10 +91,39 @@ class CountingEngine:
             ).to(self.device)
         return self._labels_dense
 
+    # -- sharded-contraction route --------------------------------------------
     def contract_shards(self) -> int:
-        """Shard count of the contraction route: always 1 until the
-        sharded tier is ported."""
-        return 1
+        """Shard count of the contraction route (1 = single-device) —
+        lowering annotates Contract evals with it."""
+        if self.mesh is None:
+            return 1
+        from repro_torch.distributed import meshes as _meshes
+        return _meshes.num_shards(self.mesh)
+
+    def _blocks(self):
+        if self._A_blocks is None:
+            from repro_torch.distributed import contract as C
+            self._A_blocks = C.adjacency_blocks(self.graph, self.mesh)
+        return self._A_blocks
+
+    def _unary_blocks(self, p: Pattern):
+        """Sharded analogue of ``_unary_for``: label indicators split over
+        the vertex axis, the same alphabet-binding semantics."""
+        if p.labels is None or self.graph.labels is None:
+            return None
+        from repro_torch.distributed import contract as C
+        if self._label_blocks is None:
+            self._label_blocks = C.label_blocks(self.graph, self.mesh)
+        return {v: C.unary_slices(self._label_blocks, l, self.graph.n)
+                for v, l in enumerate(p.labels)}
+
+    def _sharded_hom(self, p: Pattern, order, free=(), sliced=False):
+        from repro_torch.distributed import contract as C
+        val = C.sharded_hom(p, self._blocks(), mesh=self.mesh,
+                            n=self.graph.n, order=order, free=free,
+                            unary=self._unary_blocks(p),
+                            budget=self.budget, sliced=sliced)
+        return val if isinstance(val, C.Sliced) else val.to(self.device)
 
     # -- memo peeks (costing reads these to zero-cost materialised work) -------
     def has_hom(self, p: Pattern) -> bool:
@@ -120,6 +165,8 @@ class CountingEngine:
             # ordered enumeration.  hom(K_k) = k! * #cliques.
             from repro_torch.core.cliques import clique_count
             val = float(math.factorial(c.n) * clique_count(self.graph, c.n))
+        elif self.mesh is not None:
+            val = self._sharded_hom(c, order).item()
         else:
             val = H.hom_count(c, self.A, order=order,
                               unary=self._unary_for(c),
@@ -135,15 +182,35 @@ class CountingEngine:
         where it lies).  The compiler's ``Contract`` primitive for
         decomposition joins (per-subpattern extension counts as a
         function of the cut tuple).  Memoised by (pattern, free) in
-        caller-canonical form; treat the result as read-only."""
+        caller-canonical form; treat the result as read-only.
+
+        Under a mesh the contraction runs sliced over its slots
+        (``distributed.contract``) and the memo holds its row blocks;
+        this gathers them into one tensor on the engine's device — the
+        same values, bit for bit.  ``hom_free_value`` hands the blocks
+        over as they are."""
+        val = self.hom_free_value(p, free, order)
+        if self.mesh is None:
+            return val
+        from repro_torch.distributed import contract as C
+        return C.gather(val, self.device)
+
+    def hom_free_value(self, p: Pattern, free: tuple, order=None):
+        """``hom_free_tensor``'s memoised value: the tensor, or under a
+        mesh the slots' row blocks (a ``distributed.contract.Sliced``,
+        split over ``free[0]`` as the sharded join tier splits cut axis
+        0), where the slots made them."""
         key = (p, tuple(free))
         if key in self.hom_free_memo:
             self.stats["hom_hits"] += 1
             return self.hom_free_memo[key]
         self.stats["hom_evals"] += 1
-        val = H.hom_count(p, self.A, order=tuple(order) if order else None,
-                          free=tuple(free), unary=self._unary_for(p),
-                          budget=self.budget)
+        order = tuple(order) if order else None
+        if self.mesh is not None:
+            val = self._sharded_hom(p, order, tuple(free), sliced=True)
+        else:
+            val = H.hom_count(p, self.A, order=order, free=tuple(free),
+                              unary=self._unary_for(p), budget=self.budget)
         self.hom_free_memo[key] = val
         return val
 

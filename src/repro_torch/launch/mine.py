@@ -21,8 +21,10 @@ participation, ``pc`` mines pseudo-clique hotspots through anchored
 local-count vectors, and ``existence`` takes the factor-level early
 exit.  ``--trace FILE`` attaches one ``obs.Tracer`` to every compiled
 plan the run builds (``motif`` and ``chain``) and writes the span tree
-there.  ``--mesh N > 1`` is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP.md queue item.
+there.  ``--mesh N`` (N > 1) compiles the ``motif`` and ``chain`` plans
+against ``data_mesh(N, device=<the run's device>)``: N slots on the one
+device, with contractions and joins split over them and counts equal to
+the run without a mesh.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import math
 import time
 
 from repro_torch import api, compiler, obs
-from repro_torch.compiler.lowering import not_ported
+from repro_torch import device as _device
 from repro_torch.core.cliques import pseudo_clique_count
 from repro_torch.core.counting import CountingEngine, solve_overlay
 from repro_torch.core.engine import MiningEngine
@@ -99,13 +101,19 @@ def main(argv=None):
                     help="print the process metrics registry "
                     "(counters/gauges/histograms) after the run")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="shard compiled-plan execution over N devices "
-                    "(not ported yet: N > 1 raises)")
+                    help="shard compiled-plan execution over N slots of "
+                    "the run's device (1-D data mesh): Contract nodes run "
+                    "sliced over the adjacency's row blocks, CutJoin/"
+                    "LocalCount routes split their cut grid — results "
+                    "stay bit-for-bit equal to one slot")
     args = ap.parse_args(argv)
 
-    if args.mesh is not None and args.mesh > 1:
-        raise not_ported("mesh")
     device = args.device
+    mesh = None
+    if args.mesh is not None and args.mesh > 1:
+        from repro_torch.distributed import meshes
+        mesh = meshes.data_mesh(args.mesh, device=_device.resolve(device))
+        print(f"mesh: {args.mesh} device(s) on axis 'data'")
     tracer = obs.Tracer() if args.trace else None
 
     def verify_report(cp):
@@ -146,7 +154,8 @@ def main(argv=None):
             cuts = {p: eng.choose_cut(p) for p in pats}
             table = eng.counter.motif_table(args.k, cuts=cuts)
         else:
-            cp = compiler.compile(pats, g, cache=plan_cache, device=device)
+            cp = compiler.compile(pats, g, cache=plan_cache, mesh=mesh,
+                                  device=device)
             cp.tracer = tracer
             t_compile = time.perf_counter() - t0
             e = {p: cp.count(p) for p in pats}
@@ -170,7 +179,8 @@ def main(argv=None):
                                         use_compiler=False, top_k=args.top_k)
         else:
             cp = compiler.compile(p, g, cache=plan_cache,
-                                  local=args.local_counts, device=device)
+                                  local=args.local_counts, mesh=mesh,
+                                  device=device)
             cp.tracer = tracer
             verify_report(cp)
             c = cp.count(p)

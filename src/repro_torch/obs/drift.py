@@ -6,9 +6,10 @@ records each node's measured self time.  This module pairs the two and
 aggregates per (node class × cut size × route) into a calibration
 report.  Routes are free-form span attributes, so the port's routes
 (``kernel``, ``kernel-f64``, ``kernel-keep-f64``, ``dense-f64``,
-``dense-f64-keep``, ...) group into their own rows, apart from the
-reference package's (``xla-dense``, ``xla-keep``, the sharded routes)
-when traces of both are read together:
+``dense-f64-keep``, ``kernel-f64-sharded``, ``kernel-f64-sharded-keep``,
+``dense-f64-sharded``, ``dense-f64-sharded-keep``, ...) group into their own rows, apart from the reference package's
+(``xla-dense``, ``xla-keep``, ``xla-sharded``, ``xla-sharded-keep``)
+when traces of both are read together; no label is mapped here:
 
 * **rank correlation** (Spearman) — the quantity DwarvesGraph actually
   relies on: the model only has to *order* candidates correctly, so a

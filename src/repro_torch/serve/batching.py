@@ -23,8 +23,9 @@ executable.  Its names, fields, groups, fallbacks and ``stats`` are the
 reference's; two things differ.  A ``KernelError`` (a CUDA kernel that
 would not build or launch) propagates out of ``step()`` where the
 reference would serve the group by the direct path, since that fallback
-would hide the failure.  And ``mesh=`` raises until the sharded tier is
-ported (ROADMAP queue 1, item 11).
+would hide the failure.  With ``mesh=`` its plans compile against the
+mesh and a group's requests fan out over the mesh's slots
+(``distributed.cutjoin.MeshExecutor``), as in the reference.
 """
 from __future__ import annotations
 
@@ -238,17 +239,15 @@ class PatternQueryBatcher:
     ``CountingEngine`` on ``device`` (None: the CUDA device, raising
     without one) keeps the hom memo warm across plans, so even distinct
     pattern sets reuse overlapping quotient contractions; every compile
-    takes its device from that engine.
+    takes its device from that engine (with ``mesh=`` and no ``device``,
+    the mesh's first slot).
     """
 
     def __init__(self, graph, *, cache=None, apct=None, max_batch: int = 8,
                  verify_plans: bool = True, mesh=None, morph=False,
                  device=None):
         from repro_torch.compiler import PlanCache
-        from repro_torch.compiler.lowering import not_ported
         from repro_torch.core.counting import CountingEngine
-        if mesh is not None:
-            raise not_ported("mesh")
         self.graph = graph
         self.cache = cache if cache is not None else PlanCache()
         self.apct = apct
@@ -258,6 +257,17 @@ class PatternQueryBatcher:
         # batcher issues feeds and reads it, so clustered query traffic
         # (motif families) serves algebraically after a few warm plans
         self.morph = morph
+        # layer-1 mesh execution: plans compile against the mesh (their
+        # CutJoin/LocalCount routes shard over it) and each step's
+        # requests fan out round-robin over the mesh's slots.  None keeps
+        # the single-device serving loop unchanged.
+        self.mesh = mesh
+        self._executor = None
+        if mesh is not None:
+            from repro_torch.distributed.cutjoin import MeshExecutor
+            self._executor = MeshExecutor(mesh)
+            if device is None:
+                device = mesh.home
         # statically verify every plan this batcher compiles (and, via
         # the cache's own verify pass, every plan it loads from disk) —
         # a malformed plan becomes a compile-phase fallback, never a
@@ -304,7 +314,7 @@ class PatternQueryBatcher:
                                   counter=self.counter, cache=self.cache,
                                   domains=domains, local=local,
                                   verify=self.verify_plans,
-                                  morph=self.morph)
+                                  mesh=self.mesh, morph=self.morph)
         except KernelError:
             raise
         except Exception:
@@ -407,8 +417,11 @@ class PatternQueryBatcher:
                  req.local or req.top_k is not None), []).append(req)
         for (sig, support, local), reqs in groups.items():
             cp = self._plan_for(sig, reqs[0].patterns, support, local)
-            for req in reqs:
-                self._serve(req, cp)
+            if self._executor is not None and len(reqs) > 1:
+                self._executor.map(lambda req: self._serve(req, cp), reqs)
+            else:
+                for req in reqs:
+                    self._serve(req, cp)
         self.stats["steps"] += 1
         return True
 

@@ -13,7 +13,8 @@ inputs of the reference's ten batcher tests
 ``test_morph.py``), each with its own assertions kept on the port's side,
 plus ``top_k`` streams.  Where the port differs on purpose it is tested
 alone: a ``KernelError`` propagates out of ``step()`` from the compile and
-the serve phase, ``device=None`` means the card, and ``mesh=`` raises.
+the serve phase, ``device=None`` means the card, and ``mesh=`` (a
+``DataMesh`` of CPU slots) fans a group out over the slots.
 Both sides share one APCT per graph.  Tolerance is **0**: exact
 equality.
 """
@@ -363,7 +364,24 @@ def test_device_none_means_the_card(graphs):
 
 
 def test_mesh_raises_and_names_its_item(graphs):
+    """Since the sharded tier is ported, ``mesh=`` no longer raises: a
+    meshed batcher compiles against the mesh, fans a group of requests
+    over its slots (``mesh.map_requests``) and serves the counts of a
+    batcher without one."""
+    from repro_torch import obs as tobs
+    from repro_torch.distributed import meshes
     _, tg = graphs["er24"]
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 11"):
-        PatternQueryBatcher(tg, mesh=object(), device="cpu")
+    pats = (Pattern(4, [(0, 1), (1, 2), (2, 3), (3, 0)]), chain(4))
+    served = []
+    for mesh in (None, meshes.data_mesh(3, device="cpu")):
+        b = PatternQueryBatcher(tg, mesh=mesh, device="cpu",
+                                apct=shared_apct("port", tg, TAPCT))
+        for uid in range(4):
+            b.submit(PatternRequest(uid=uid, patterns=pats))
+        before = tobs.get("mesh.map_requests", devices=3)
+        b.run_to_completion()
+        moved = tobs.get("mesh.map_requests", devices=3) - before
+        assert moved == (0 if mesh is None else 4)
+        assert not any(r.error for r in b.finished)
+        served.append([r.counts for r in b.finished])
+    assert served[0] == served[1]

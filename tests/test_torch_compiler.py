@@ -255,23 +255,24 @@ def test_lower_verify_rejects_a_corrupted_plan(both):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": object()}, {"morph": True},
+    {"mesh": 2}, {"morph": True},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_features_raise_and_name_their_roadmap_item(both, kwargs):
-    """``mesh=`` raises, naming its ROADMAP.md queue item; ``morph=`` is
-    ported (the count store): through the process store it counts as the
-    reference does."""
+    """Both features are ported now and count as the reference does:
+    ``mesh=`` (two CPU slots; ``plan.meta`` records them) and ``morph=``
+    (through the process store)."""
     r = both(("er60", "house"))
+    if "mesh" in kwargs:
+        from repro_torch.distributed import meshes
+        kwargs = {"mesh": meshes.data_mesh(kwargs["mesh"], device="cpu")}
+    cp = tcompiler.compile(r["pats"], r["tg"], cache=False, device="cpu",
+                           apct=shared_apct("port", r["tg"], TAPCT),
+                           **kwargs)
+    assert [cp.count(p) for p in r["pats"]] == r["rcounts"]
     if "morph" in kwargs:
-        cp = tcompiler.compile(r["pats"], r["tg"], cache=False, device="cpu",
-                               apct=shared_apct("port", r["tg"], TAPCT),
-                               **kwargs)
         assert cp.count_store is tcompiler.default_store()
-        assert [cp.count(p) for p in r["pats"]] == r["rcounts"]
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
-        tcompiler.compile(r["pats"], r["tg"], cache=False, device="cpu",
-                          **kwargs)
+    else:
+        assert cp.plan.meta["mesh_devices"] == 2
 
 
 def test_plan_meta_keeps_the_shared_fields(both):

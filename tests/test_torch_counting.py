@@ -248,8 +248,13 @@ def test_engine_keeps_tensors_on_its_device_and_refuses_a_mesh():
     assert eng.labels is None
     leng = CountingEngine(LGRAPH, device="cpu")
     assert tuple(leng.labels.shape) == (2, LGRAPH.n)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CountingEngine(GRAPHS[0], device="cpu", mesh=object())
+    # a mesh is no longer refused: the engine binds it (on its first
+    # slot's device) and counts without building the dense adjacency
+    from repro_torch.distributed import meshes
+    meng = CountingEngine(GRAPHS[0], mesh=meshes.data_mesh(2, device="cpu"))
+    assert meng.device.type == "cpu" and meng.contract_shards() == 2
+    assert meng.hom(chain(4)) == eng.hom(chain(4))
+    assert meng._A_dense is None
 
 
 def test_motif_patterns_agree_with_reference(reference):

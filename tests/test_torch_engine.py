@@ -402,9 +402,12 @@ def test_mine_cli_metrics_and_unported_flags(shared_apcts):
     out = "\n".join(_lines(tmine.main, APPS["pc"] + BASE +
                            ["--device", "cpu", "--metrics"]))
     json.loads(out.split("metrics:\n", 1)[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, "
-                                                  "item 11"):
-        tmine.main(APPS["pc"] + BASE + ["--device", "cpu", "--mesh", "2"])
+    # --mesh is ported: a two-slot CPU mesh prints its line, then the
+    # lines of the run without it
+    plain = _lines(tmine.main, APPS["motif"] + BASE + ["--device", "cpu"])
+    meshed = _lines(tmine.main, APPS["motif"] + BASE +
+                    ["--device", "cpu", "--mesh", "2"])
+    assert meshed == ["mesh: 2 device(s) on axis 'data'"] + plain
     # --trace is ported; pc runs no compiled plan, so there is nothing to
     # record, and the reference's line says so
     traced = _lines(tmine.main, APPS["pc"] + BASE +

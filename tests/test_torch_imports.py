@@ -1,5 +1,6 @@
 """The port stands alone: no import of ``jax`` or of the reference package
-``repro`` anywhere in ``src/repro_torch`` or ``chip_smoke.py``, the device
+``repro`` anywhere in ``src/repro_torch`` (``repro_torch.distributed``
+included), ``examples_torch/`` or ``chip_smoke.py``, the device
 policy raises rather than picking the CPU, and the smoke script fails
 where there is no card.  Nothing numeric is compared here (the files
 beside this one compare with tolerance 0: exact equality of integers
@@ -18,7 +19,11 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = {"jax", "jaxlib", "repro"}
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = ("quickstart", "existence_and_listing", "fsm_mining",
+            "local_counts", "morphing", "serve_batched", "tracing",
+            "verify_plans", "mesh_mining")
+PORT_FILES = sorted(PORT.rglob("*.py")) + \
+    sorted((ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path: Path):
@@ -60,8 +65,13 @@ def test_port_has_the_expected_modules():
                  "models/__init__.py", "models/params.py",
                  "models/layers.py", "models/transformer.py",
                  "kernels/flashattn.py", "serve/__init__.py",
-                 "serve/engine.py", "serve/batching.py", "launch/serve.py"):
+                 "serve/engine.py", "serve/batching.py", "launch/serve.py",
+                 "distributed/__init__.py", "distributed/meshes.py",
+                 "distributed/cutjoin.py", "distributed/contract.py",
+                 "core/distributed.py"):
         assert want in names, want
+    for example in EXAMPLES:
+        assert (ROOT / "examples_torch" / f"{example}.py").is_file(), example
     for source in ("cutjoin.cu", "matreduce.cu", "bitset.cu", "flashattn.cu"):
         assert (PORT / "kernels" / "csrc" / source).is_file(), source
 
@@ -87,7 +97,9 @@ def test_importing_the_compiler_pulls_in_neither_jax_nor_repro():
         "repro_torch.analysis, repro_torch.interop, repro_torch.api, "
         "repro_torch.launch.mine, repro_torch.core.symmetry, "
         "repro_torch.core.blocksparse, repro_torch.launch.serve, "
-        "repro_torch.serve.batching, repro_torch.configs.registry\n"
+        "repro_torch.serve.batching, repro_torch.configs.registry, "
+        "repro_torch.distributed.cutjoin, repro_torch.distributed.contract, "
+        "repro_torch.core.distributed\n"
         "from repro_torch.configs.registry import ALL_IDS, get_config\n"
         "[get_config(a) for a in ALL_IDS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
