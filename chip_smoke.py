@@ -62,7 +62,27 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    2e-5 (f32) and 3e-2 (bf16) relative and absolute, and in bf16 against the
    f32 plain version within one rounding to bf16, a check that
    scaled_dot_product_attention (bf16 P) must fail at the serving shape; the
-   largest differences are printed beside them.
+   largest differences are printed beside them.  Each case launches K9
+   again with the row statistic K9-bwd reads, lse: the output must be the
+   same bits and lse within 2^-19 · max(1, |lse|) of the plain forward's.
+   K9-bwd
+   (``csrc/flashattn_bwd.cu``, built with the rest) in f32 and bf16, D = 64
+   and 128, causal and full, lengths that are no multiple of its 64-row
+   tiles, B·H = 65600, q, k, v and dO read by strides (dO also broadcast
+   over the heads, and D-strided, which is copied), and the two training
+   shapes, (8, 1024, 10, 64) f32 and (1, 4096, 32, 128) bf16 causal,
+   on the kernel's own forward output and lse, which are held to the plain
+   forward's first; the gradients against the plain backward run from the
+   plain forward's o and lse (nothing the kernels wrote), per gradient
+   max|Δ| <= 1e-4 · max|plain| in f32 and the reference's 3e-2 +
+   3e-2·|plain| in bf16; and against the plain version in f32 on the
+   kernel's inputs, o and lse, 1e-4 · max|plain f32| plus in bf16 one
+   rounding, 2^-8·|plain f32|; each f32 bound plus a floor of 4 times the plain f32
+   version's own largest error against it in f64 (a gradient that is 0 in
+   exact arithmetic, as dQ and dK at S = 1, leaves only rounding noise).  The plain backward is held to ``torch.autograd.grad``
+   of the plain forward on the card, and a loss through
+   ``flash_attention`` on tensors that require grad must launch K9 and
+   K9-bwd once each (``FlashAttention``) with the direct call's gradients.
 3. ``main_path``  ``compile(patterns, graph)`` on ``rmat(13, 24.0, seed=0)``
    (8192 vertices, about 10^5 edges, skewed degrees: the user's graph),
    then the same call on a *coverage graph*, ``erdos_renyi(8192, 24.0,
@@ -229,14 +249,38 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    config, 12 requests, 144 tokens).  Reports seconds per admission,
    median decode step (graphed), tokens per second and peak device
    memory.
+7b. ``train_path``  the training path, after serving's parameters and
+   caches are released; launch counts set to 0 before it.  (1) The CLI as
+   users start it: ``repro_torch.launch.train.main(["--arch",
+   "repro-100m", "--steps", "30", "--batch", "8", "--seq", "1024",
+   "--ckpt-dir", <build/train_*>, "--ckpt-every", "10"])`` — the full
+   config, f32, flash block 512, so K9 f32 runs at D = 64 — every loss
+   finite and the last 0.2 or more below the first; then ``--steps 35`` in
+   the same directory, which must print ``resumed from step 30``, with the
+   restored state equal bit for bit to the step-30 files.  (2) One step
+   at that shape with the counts set to 0 before it: exactly 20 K9
+   launches (10 layers, forward and remat's recompute) and 10 K9-bwd.
+   (3) qwen3-4b at its published widths and full depth (4 022 468 096
+   bf16 parameters drawn on the card from a seed), ``OptConfig()`` (f32
+   moments), three steps at batch 1 x 4096: finite losses, 72 K9 and 36
+   K9-bwd launches per step, seconds per step (median of steps 2 and 3),
+   tokens per second and peak device memory.  (4) One step of reduced
+   qwen3-4b (f32, head dim 64, S = 64 past its flash block of 32) from one
+   state on the card and on the CPU: loss, ce, lr, grad_norm, gradients
+   and updated leaves within ``tests/test_torch_train.py``'s tolerances.
+   (5) The gradients of reduced qwen3-4b at the big steps' attention —
+   bf16, head dim 128, 2 x 256 tokens — on the card against the CPU in f32
+   on the same weights widened: per leaf 3e-2 · max|f32| plus 4 times the
+   CPU's own bf16 step's error against the f32 one.
 Before phase 8 a ``wall_seconds`` line gives each phase's host-clock
-seconds (the kernel builds inside ``kernel_cases``).
+seconds (the kernel builds inside ``kernel_cases``); after it
+``wall_seconds_kernels`` gives phase 8's and the whole run's.
 8. ``kernels``    per kernel entry (K1 and K3 in f32 and f64, K3 on both
    entries): launches over its path and, beside them, over phase 6b's
    (``launches_mesh_path``) (phase 3 for the scalar
    joins, phase 4 for the keep forms and the triangle kernel, phase 5 for
    SDDMM and the bitset kernels (``bitset_edges`` and ``bitset_pack``,
-   each with its row), on each graph apart; phase 7 for K9; the tri
+   each with its row), on each graph apart; phase 7 for K9, 7b for K9-bwd; the tri
    join in one row per route: path and triangle at n = 8192, dense at n =
    512, with ptxas's register and spill counts for the path and triangle
    kernels; the keep form on its one route, dense, at n = 512, one row per
@@ -252,7 +296,10 @@ seconds (the kernel builds inside ``kernel_cases``).
    yardstick for it, at the shapes its path gave the kernel (K9: the path's
    own q, k, v of layer 0 of a 4096-token prefill; its bound takes P·V as
    two bf16 tensor-core passes, and its row carries ptxas's register and
-   spill counts from this run's build; so do K1's and K3's line entries).
+   spill counts from this run's build; so do K1's and K3's line entries;
+   K9-bwd: two rows on phase 7b's own inputs, qwen3-4b's bf16 shape and
+   repro-100m's f32 one, bound five products at the inputs' rate, yardstick
+   the backward of scaled_dot_product_attention).
    A call that ends in ``.item()`` is timed against a yardstick that ends
    in ``.item()`` too; K1 also through its device-tensor entry against
    bare ``torch.dot``, and its launch alone by CUDA events.
@@ -264,6 +311,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -313,6 +361,12 @@ from repro_torch.kernels import ops                         # noqa: E402
 from repro_torch.kernels import sddmm as ksd                # noqa: E402
 from repro_torch.launch import mine                         # noqa: E402
 from repro_torch.launch import serve                        # noqa: E402
+from repro_torch.launch import train as train_launch        # noqa: E402
+from repro_torch.configs.base import reduced_config         # noqa: E402
+from repro_torch.train import optimizer as train_opt        # noqa: E402
+from repro_torch.train import train_step                    # noqa: E402
+from repro_torch.train import tree as train_tree            # noqa: E402
+from repro_torch.train.data import TokenPipeline            # noqa: E402
 from repro_torch.models import transformer                  # noqa: E402
 from repro_torch.models.params import leaves                # noqa: E402
 from repro_torch.serve.batching import (                    # noqa: E402
@@ -356,6 +410,24 @@ SFU_EXP2_PER_CLOCK_PER_SM = 16
 # an ulp: 2^-8 relative) plus the f32 tolerance
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 FLASH_ONE_ROUNDING = 2.0 ** -8
+# K9-bwd against its plain version, per gradient: in f32 max|got - plain|
+# <= 1e-4 · max|plain| (f32 sums in another order: over a row of S
+# products, and dS formed from P and dP); in bf16 the reference's 3e-2 +
+# 3e-2·|plain|, and against the plain version in f32 on the widened inputs
+# within one rounding to bf16 plus the f32 tolerance, 2^-8·|plain f32| +
+# 1e-4 · max|plain f32|.  Beside each f32 bound, a floor of 4 times the
+# plain f32 version's own largest error against the plain version in f64
+# on the same inputs: where a gradient is 0 in exact arithmetic (S = 1:
+# dS = dP - D cancels) max|plain| is rounding noise, and the relative
+# bound says nothing
+FLASH_BWD_TOL = 1e-4
+FLASH_BWD_FLOOR = 4
+# K9's row statistic lse = m + log(max(l, 1e-20)), which K9-bwd reads,
+# against the plain forward's: |Δ| <= 2^-19 · max(1, |lse|), a few ulps of
+# |lse| (the row's f32 sum in another order; the bf16 kernel keeps m in
+# the log2 domain and writes m·ln 2 + log l)
+FLASH_LSE_TOL = 2.0 ** -19
+FLASHATTN_BWD_SOURCE = "src/repro_torch/kernels/csrc/flashattn_bwd.cu"
 HOUSE = Pattern(5, [(0, 1), (1, 2), (2, 3), (3, 0), (0, 4), (1, 4)])
 # counts are exact: no TF32 in the plain versions' and yardsticks' products
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -739,12 +811,16 @@ def phase_kernel_cases():
     sddmm_float = sddmm_cases(gen, cases)
     bitset_cases(gen, cases)
     flash = flash_cases(gen)
+    flash_bwd = flash_bwd_cases(gen)
     emit("kernel_cases", build_s=round(build_s, 3),
          nvcc_s={k: round(v, 3) for k, v in kbuild.build_seconds.items()},
          n_cases=len(cases), max_abs_err=max(c["max_abs_err"] for c in cases),
          cases=cases, matreduce_random_f32=float_cases,
          sddmm_random=sddmm_float, flashattn_cases=flash,
-         flashattn_max_abs_err=max(c["max_abs_err"] for c in flash))
+         flashattn_max_abs_err=max(c["max_abs_err"] for c in flash),
+         flashattn_bwd_cases=flash_bwd,
+         flashattn_bwd_worst_err_over_tolerance=max(
+             c["worst_err_over_tolerance"] for c in flash_bwd))
     torch.cuda.empty_cache()
 
 
@@ -1263,8 +1339,9 @@ def flash_check(name: str, q, k, v, causal: bool, cases: list,
     torch.cuda.synchronize()
     assert kfa.launches["flashattn"] == before + 1, \
         f"{name}: wrapper did not launch flashattn"
-    want = kfa.flash_attention_plain(q, k, v, causal=causal,
-                                     block=block).float()
+    want, lse_ref = kfa.flash_attention_plain(q, k, v, causal=causal,
+                                              block=block, return_lse=True)
+    want = want.float()
     tol = FLASH_TOL[q.dtype]
     err = (got.float() - want).abs()
     over = int((err > tol + tol * want.abs()).sum().item())
@@ -1272,6 +1349,13 @@ def flash_check(name: str, q, k, v, causal: bool, cases: list,
             "max_abs_err": err.max().item(),
             "tolerance": f"{tol} + {tol}*|plain|",
             "cells_over_tolerance": over}
+    # the same launch with the row statistic: the output unchanged, lse
+    # held to the plain forward's
+    with_lse, lse, _ = kfa._forward(q, k, v, causal, 1.0 / q.shape[3] ** 0.5,
+                                    with_lse=True)
+    case["output_with_lse_equal"] = torch.equal(with_lse, got)
+    over += lse_check(lse, lse_ref, case) + (not case["output_with_lse_equal"])
+    del with_lse, lse, lse_ref
     if q.dtype == torch.bfloat16:
         exact = kfa.flash_attention_plain(q.float(), k.float(), v.float(),
                                           causal=causal, block=block)
@@ -1345,6 +1429,192 @@ def flash_cases(gen) -> list:
     # B * H = 65600, above the 65535 that CUDA allows on grid axis y
     q, k, v = (rnd((2050, 16, 32, 64), torch.float32) for _ in range(3))
     flash_check("f32 B*H=65600 (2050,16,32,64) causal", q, k, v, True, cases)
+    return cases
+
+
+def lse_check(lse, lse_ref, case: dict) -> int:
+    """K9's row statistic against the plain forward's (``FLASH_LSE_TOL``);
+    the largest error and the cells over the bound go into ``case``."""
+    err = (lse - lse_ref).abs()
+    over = int((err > FLASH_LSE_TOL * lse_ref.abs().clamp(min=1)).sum().item())
+    case.update(lse_max_abs_err=err.max().item(),
+                lse_max_abs=lse_ref.abs().max().item(),
+                lse_tolerance="2^-19 * max(1, |plain lse|)",
+                lse_cells_over_tolerance=over)
+    return over
+
+
+def flash_bwd_check(name: str, q, k, v, do, causal: bool, cases: list):
+    """K9-bwd on the kernel's own forward output and row statistic (one K9
+    launch with lse), held three ways.  The forward: o within K9's
+    tolerance of the plain forward's and lse within ``FLASH_LSE_TOL``.
+    The whole chain: the gradients against the plain backward run from
+    the plain forward's o and lse, an oracle that reads nothing the
+    kernels wrote, per gradient within ``FLASH_BWD_TOL`` · max|plain| in
+    f32 and the reference's 3e-2 in bf16.  The backward alone: against the
+    plain version in f32 on the same (widened) inputs as the kernel, the
+    kernel's o and lse, within ``FLASH_BWD_TOL`` · max|plain| in f32 and
+    one rounding to bf16 (``FLASH_BWD_TOL`` beside it) in bf16.  Each f32
+    bound has the floor ``FLASH_BWD_FLOOR`` times the plain f32 version's
+    own error against the plain version in f64."""
+    D = q.shape[3]
+    o_ref, lse_ref = kfa.flash_attention_plain(q, k, v, causal=causal,
+                                               return_lse=True)
+    o, lse, _ = kfa._forward(q, k, v, causal, 1.0 / D ** 0.5, with_lse=True)
+    before = kfa.launches["flashattn_bwd"]
+    got = kfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert kfa.launches["flashattn_bwd"] == before + 1, \
+        f"{name}: wrapper did not launch flashattn_bwd"
+    want = kfa.flash_attention_bwd_plain(q, k, v, o_ref, do, lse_ref,
+                                         causal=causal)
+    wide = [x.float() for x in (q, k, v, o, do)]
+    exact = kfa.flash_attention_bwd_plain(*wide, lse, causal=causal)
+    f64 = kfa.flash_attention_bwd_plain(*(x.double() for x in wide), lse,
+                                        causal=causal)
+    floors = [FLASH_BWD_FLOOR * (e - w).abs().max().item()
+              for e, w in zip(exact, f64)]
+    del f64, wide
+    case = {"kernel": "flashattn_bwd", "case": name,
+            "shape": list(q.shape), "dtype": str(q.dtype).split(".")[1],
+            "causal": causal, "grads": {}}
+    tol = FLASH_TOL[q.dtype]
+    o_err = (o.float() - o_ref.float()).abs()
+    case["o_max_abs_err"] = o_err.max().item()
+    forward_over = lse_check(lse, lse_ref, case) + int(
+        (o_err > tol + tol * o_ref.float().abs()).sum().item())
+    del o_err, o_ref, lse_ref
+    worst = 0.0
+    for label, g, w, floor in zip(("dq", "dk", "dv"), got, want, floors):
+        w = w.float()
+        err = (g.float() - w).abs()
+        scale = w.abs().max().item()
+        row = {"max_abs_err": err.max().item(), "max_abs_plain": scale,
+               "floor": floor}
+        if q.dtype == torch.float32:
+            worst = max(worst, row["max_abs_err"]
+                        / (FLASH_BWD_TOL * scale + floor))
+        else:
+            row["cells_over_3e-2"] = int(
+                (err > tol + tol * w.abs()).sum().item())
+            worst = max(worst, (err / (tol + tol * w.abs())).max().item())
+        case["grads"][label] = row
+        del err
+    rounding = FLASH_ONE_ROUNDING if q.dtype == torch.bfloat16 else 0.0
+    for label, g, w, floor in zip(("dq", "dk", "dv"), got, exact, floors):
+        bound = rounding * w.abs() + FLASH_BWD_TOL * w.abs().max() + floor
+        err = (g.float() - w).abs()
+        row = case["grads"][label]
+        row.update(max_abs_err_same_inputs=err.max().item(),
+                   cells_over_same_inputs=int((err > bound).sum().item()))
+        worst = max(worst, (err / bound).max().item())
+        del bound, err
+    del exact
+    case["tolerance"] = (
+        ("plain forward's o and lse: "
+         + (f"{FLASH_BWD_TOL} * max|plain| + floor" if q.dtype ==
+            torch.float32 else "3e-2 + 3e-2*|plain|")
+         + "; the kernel's o and lse, plain in f32: "
+         + ("2^-8*|plain f32| + " if rounding else "")
+         + f"{FLASH_BWD_TOL} * max|plain f32| + floor (floor: "
+         f"{FLASH_BWD_FLOOR} x max|plain f32 - plain f64|)"))
+    case["worst_err_over_tolerance"] = worst
+    cases.append(case)
+    if worst > 1.0 or forward_over or \
+            not all(torch.isfinite(g).all() for g in got):
+        raise AssertionError(f"{name}: K9-bwd over tolerance: {case}")
+    return case
+
+
+def flash_bwd_cases(gen) -> list:
+    """K9-bwd: f32 and bf16, D = 64 and 128, causal and full; lengths that
+    are no multiple of its 64-row tiles; B·H = 65600; q, k, v read by
+    strides; dO with other strides (a (B, H, S, D) storage and a view
+    broadcast over the heads read in place, a D-strided view copied
+    first); the two training
+    shapes, repro-100m's (8, 1024, 10, 64) f32 and qwen3-4b's (1, 4096, 32,
+    128) bf16, causal.  Then the plain backward against
+    ``torch.autograd.grad`` of the plain forward on the card, and a loss
+    through ``flash_attention`` on tensors that require grad: one K9 and
+    one K9-bwd launch through ``FlashAttention``, gradients equal to the
+    plain backward's."""
+    cases: list = []
+
+    def rnd(shape, dt):
+        return torch.randn(shape, generator=gen, device=DEV).to(dt)
+
+    for dt in (torch.float32, torch.bfloat16):
+        for D in kfa.HEAD_DIMS:
+            for causal in (True, False):
+                q, k, v, do = (rnd((2, 512, 4, D), dt) for _ in range(4))
+                flash_bwd_check(f"{dt} (2,512,4,{D}) causal={causal}", q, k,
+                                v, do, causal, cases)
+        for S, D, causal in [(77, 64, True), (1000, 128, True),
+                             (300, 64, False), (1, 128, True)]:
+            q, k, v, do = (rnd((2, S, 3, D), dt) for _ in range(4))
+            flash_bwd_check(f"{dt} ragged S={S} D={D} causal={causal}", q, k,
+                            v, do, causal, cases)
+        q, k, v = (rnd((2, 4, 300, 128), dt).transpose(1, 2)
+                   for _ in range(3))
+        do = rnd((2, 4, 300, 128), dt).transpose(1, 2)
+        flash_bwd_check(f"{dt} (B,H,S,D) storage q, k, v, dO (2,300,4,128)",
+                        q, k, v, do, True, cases)
+        q, k, v = (rnd((1, 257, 6, 160), dt)[:, :, 1:5, 16:80]
+                   for _ in range(3))
+        do = rnd((1, 257, 1, 64), dt).expand(1, 257, 4, 64)
+        flash_bwd_check(f"{dt} sliced q, k, v, broadcast dO (1,257,4,64)", q,
+                        k, v, do, False, cases)
+        q, k, v = (rnd((1, 200, 3, 64), dt) for _ in range(3))
+        do = rnd((1, 200, 3, 128), dt)[..., ::2]
+        flash_bwd_check(f"{dt} dO with D stride 2 (1,200,3,64)", q, k, v, do,
+                        True, cases)
+    q, k, v, do = (rnd((2050, 16, 32, 64), torch.float32) for _ in range(4))
+    flash_bwd_check("f32 B*H=65600 (2050,16,32,64) causal", q, k, v, do, True,
+                    cases)
+    q, k, v, do = (rnd((8, 1024, 10, 64), torch.float32) for _ in range(4))
+    flash_bwd_check("f32 repro-100m training shape (8,1024,10,64) causal", q,
+                    k, v, do, True, cases)
+    q, k, v, do = (rnd((1, 4096, 32, 128), torch.bfloat16) for _ in range(4))
+    flash_bwd_check("bf16 qwen3-4b training shape (1,4096,32,128) causal", q,
+                    k, v, do, True, cases)
+    del q, k, v, do
+
+    # the plain backward against autograd of the plain forward, on the card
+    for causal in (True, False):
+        q, k, v, do = (rnd((2, 256, 3, 64), torch.float32) for _ in range(4))
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        out, lse = kfa.flash_attention_plain(q, k, v, causal=causal,
+                                             return_lse=True)
+        want = torch.autograd.grad(out, (q, k, v), do)
+        got = kfa.flash_attention_bwd_plain(q.detach(), k.detach(),
+                                            v.detach(), out.detach(), do,
+                                            lse.detach(), causal=causal)
+        errs = [((g - w).abs().max() / w.abs().max()).item()
+                for g, w in zip(got, want)]
+        cases.append({"kernel": "flashattn_bwd_plain",
+                      "case": f"plain backward vs autograd causal={causal}",
+                      "rel_err": errs, "worst_err_over_tolerance":
+                          max(errs) / FLASH_BWD_TOL})
+        assert max(errs) <= FLASH_BWD_TOL, cases[-1]
+
+    # a loss through the wrapper: FlashAttention's forward and backward
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do = (rnd((2, 512, 4, 128), dt) for _ in range(4))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = dict(kfa.launches)
+        out = kfa.flash_attention(*leaves, causal=True)
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        assert kfa.launches["flashattn"] == before["flashattn"] + 1
+        assert kfa.launches["flashattn_bwd"] == before["flashattn_bwd"] + 1
+        o, lse, _ = kfa._forward(q, k, v, True, 128 ** -0.5, with_lse=True)
+        want = kfa.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+        same = all(torch.equal(g, w) for g, w in zip(grads, want))
+        cases.append({"kernel": "flashattn_bwd",
+                      "case": f"{dt} autograd through FlashAttention",
+                      "grads_equal_direct_call": same,
+                      "worst_err_over_tolerance": 0.0 if same else 2.0})
+        assert same, cases[-1]
     return cases
 
 
@@ -3203,6 +3473,324 @@ def phase_serve_path() -> dict:
     return {**out, "captured": captured}
 
 
+# -- phase 7b -----------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_BIG = "repro-100m", "qwen3-4b"
+TRAIN_CLI = ["--arch", TRAIN_ARCH, "--batch", "8", "--seq", "1024",
+             "--ckpt-every", "10"]
+TRAIN_STEPS, TRAIN_RESUME_STEPS = 30, 35
+TRAIN_BIG_STEPS, TRAIN_BIG_SEQ = 3, 4096
+# the card-vs-CPU step: the CPU tests' optimizer settings and tolerances
+# (tests/test_torch_train.py)
+TRAIN_CMP_OPT = dict(lr=1e-2, warmup_steps=2, total_steps=50)
+TRAIN_SCALAR_TOL, TRAIN_GRAD_TOL, TRAIN_PARAM_TOL = 1e-5, 1e-4, 1e-4
+
+
+@contextlib.contextmanager
+def capturing_bwd(store: dict, shape):
+    """Keep the inputs of the first K9-bwd call at ``shape`` (the call goes
+    on to the kernel as it is)."""
+    real = kfa.flash_attention_bwd
+
+    def call(q, k, v, o, do, lse, **kw):
+        if not store and tuple(q.shape) == tuple(shape):
+            store.update(q=q.clone(), k=k.clone(), v=v.clone(), o=o.clone(),
+                         do=do.clone(), lse=lse.clone(), causal=kw["causal"])
+        return real(q, k, v, o, do, lse, **kw)
+
+    kfa.flash_attention_bwd = call
+    try:
+        yield store
+    finally:
+        kfa.flash_attention_bwd = real
+
+
+def run_train_cli(argv) -> tuple:
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        losses = train_launch.main(argv)
+    return losses, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def train_cli_runs(ckpt_dir: str) -> dict:
+    """repro-100m through ``launch.train.main`` as users start it: 30
+    steps with checkpoints every 10, then again to step 35 in the same
+    directory, which must resume from step 30 with the parameters of the
+    step-30 files bit for bit."""
+    before = launch_counts()
+    losses, lines, seconds = run_train_cli(
+        TRAIN_CLI + ["--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt_dir])
+    assert len(losses) == TRAIN_STEPS and np.isfinite(losses).all(), losses
+    assert losses[-1] <= losses[0] - 0.2, (losses[0], losses[-1])
+    assert lines[0].startswith(f"arch={TRAIN_ARCH} params="), lines
+    assert lines[-1].startswith("final loss "), lines
+    assert sorted(os.listdir(ckpt_dir)) == ["step_10", "step_20", "step_30"]
+    files = os.path.join(ckpt_dir, f"step_{TRAIN_STEPS}")
+    manifest = json.load(open(os.path.join(files, "manifest.json")))
+    restored: dict = {}
+    real = train_launch.ckpt.restore_latest
+
+    def recording(directory, like, shardings=None):
+        state, step = real(directory, like, shardings)
+        if state is not None:
+            restored["step"] = step
+            restored["leaves"] = [x.detach().cpu().clone()
+                                  for x in train_tree.leaves(state)]
+        return state, step
+
+    train_launch.ckpt.restore_latest = recording
+    try:
+        resumed, lines2, seconds2 = run_train_cli(
+            TRAIN_CLI + ["--steps", str(TRAIN_RESUME_STEPS), "--ckpt-dir",
+                         ckpt_dir])
+    finally:
+        train_launch.ckpt.restore_latest = real
+    assert lines2[0] == f"resumed from step {TRAIN_STEPS}", lines2[:2]
+    assert restored["step"] == TRAIN_STEPS
+    assert len(resumed) == TRAIN_RESUME_STEPS - TRAIN_STEPS
+    assert len(restored["leaves"]) == manifest["num_leaves"]
+    for i, leaf in enumerate(restored["leaves"]):
+        arr = np.load(os.path.join(files, f"arr_{i}.npy"))
+        assert np.array_equal(leaf.numpy(), arr), f"leaf {i} differs"
+    return {"arch": TRAIN_ARCH, "argv": TRAIN_CLI,
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "losses": losses, "seconds": seconds, "lines": lines,
+            "resume": {"lines": lines2, "seconds": seconds2,
+                       "losses": resumed, "leaves_equal_to_files":
+                           manifest["num_leaves"]},
+            "launches": {k: v - before[k] for k, v in launch_counts().items()
+                         if v != before[k]}}
+
+
+def one_step_launches(captured: dict) -> dict:
+    """One repro-100m step at the CLI's shape with the counts set to 0
+    before it: K9 twice per layer (the forward and remat's recompute) and
+    K9-bwd once.  Keeps the first K9-bwd call's inputs for phase
+    ``kernels``."""
+    cfg = get_config(TRAIN_ARCH)
+    opt_cfg = train_opt.OptConfig()
+    state = train_step.init_state(cfg, opt_cfg, 1, device=DEV)
+    batch = TokenPipeline(cfg.vocab_size, 1024, 8, seed=1).batch_at(0)
+    step = train_step.make_train_step(cfg, opt_cfg)
+    reset_launch_counts()
+    with capturing_bwd(captured, (8, 1024, cfg.num_heads, cfg.head_dim)):
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    assert cfg.remat
+    assert launches["flashattn"] == 2 * cfg.num_layers == 20, launches
+    assert launches["flashattn_bwd"] == cfg.num_layers == 10, launches
+    assert {k for k, n in launches.items() if n} == \
+        {"flashattn", "flashattn_bwd"}, launches
+    return {"launches": launches, "loss": float(metrics["loss"])}
+
+
+def big_model_steps(captured: dict) -> dict:
+    """qwen3-4b at its published widths and full depth: weights drawn on
+    the card from a seed, f32 moments (``OptConfig()``), three steps of
+    ``make_train_step`` at batch 1 x 4096 tokens, launches per step."""
+    cfg = get_config(TRAIN_BIG)
+    opt_cfg = train_opt.OptConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_step.init_state(cfg, opt_cfg, 0, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = train_tree.leaves(state["params"])
+    n_params = sum(p.numel() for p in params)
+    assert n_params == cfg.param_count() == 4_022_468_096, n_params
+    assert {p.dtype for p in params} == {torch.bfloat16}
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in train_tree.leaves(state))
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_BIG_SEQ, 1, seed=0)
+    step = train_step.make_train_step(cfg, opt_cfg)
+    steps = []
+    for i in range(TRAIN_BIG_STEPS):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with capturing_bwd(captured, (1, TRAIN_BIG_SEQ, cfg.num_heads,
+                                      cfg.head_dim)):
+            state, metrics = step(state, pipe.batch_at(i))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = launch_counts()
+        assert launches["flashattn"] == 2 * cfg.num_layers == 72, launches
+        assert launches["flashattn_bwd"] == cfg.num_layers == 36, launches
+        steps.append({"loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "lr": float(metrics["lr"]), "seconds": seconds,
+                      "launches": {k: n for k, n in launches.items() if n}})
+        assert np.isfinite(steps[-1]["loss"]), steps
+        assert np.isfinite(steps[-1]["grad_norm"]), steps
+    median = float(np.median([x["seconds"] for x in steps[1:]]))
+    out = {"arch": TRAIN_BIG, "params": n_params, "num_layers":
+           cfg.num_layers, "d_model": cfg.d_model, "batch": 1,
+           "seq": TRAIN_BIG_SEQ, "state_dtype": opt_cfg.state_dtype,
+           "init_s": init_s, "state_bytes": state_bytes, "steps": steps,
+           "seconds_per_step_median_2_3": median,
+           "tokens_per_s": TRAIN_BIG_SEQ / median,
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    del state, params, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def card_vs_cpu_step() -> dict:
+    """One train step of reduced qwen3-4b (f32, head dim 64 so that K9
+    takes it, S = 64 past its flash block of 32) from one state on the
+    card and on the CPU: loss, ce, lr, grad_norm, every gradient and every
+    updated leaf within the CPU tests' tolerances (parameters within
+    ``tests/test_torch_train.py``'s ``param_bound``: 1e-4 relative to
+    max(|p|, lr) plus the gradient tolerance carried through Adam's first
+    step, lr·δ·eps/(max(|g·s| − δ, 0) + eps)², capped at the sign
+    allowance 2·lr + wd·lr·|p|)."""
+    cfg = reduced_config(get_config(TRAIN_BIG), head_dim=64)
+    opt_cfg = train_opt.OptConfig(**TRAIN_CMP_OPT)
+    cpu = train_step.init_state(cfg, opt_cfg, 0, device="cpu")
+    card = train_tree.map(lambda x: x.detach().to(DEV).requires_grad_(
+        x.requires_grad), cpu)
+    batch = TokenPipeline(cfg.vocab_size, 64, 4, seed=1).batch_at(0)
+    before = launch_counts()
+    _, _, g_card = train_step.make_grad_fn(cfg)(card["params"], batch)
+    _, _, g_cpu = train_step.make_grad_fn(cfg)(cpu["params"], batch)
+    card, m_card = train_step.make_train_step(cfg, opt_cfg)(card, batch)
+    cpu, m_cpu = train_step.make_train_step(cfg, opt_cfg)(cpu, batch)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in launch_counts().items()
+                if v != before[k]}
+    assert launches.get("flashattn", 0) > 0 and \
+        launches.get("flashattn_bwd", 0) > 0, launches
+    scalars = {k: [float(m_card[k]), float(m_cpu[k])]
+               for k in ("loss", "ce", "lr", "grad_norm")}
+    for k, (a, b) in scalars.items():
+        assert abs(a - b) <= TRAIN_SCALAR_TOL * abs(b), (k, a, b)
+    worst = {"grads": 0.0, "params": 0.0, "m": 0.0, "v": 0.0}
+    lr, wd = float(m_cpu["lr"]), opt_cfg.weight_decay
+    scale = min(1.0, opt_cfg.clip_norm / float(m_cpu["grad_norm"]))
+    for gk, gcpu in zip(train_tree.leaves(g_card),
+                        train_tree.leaves(g_cpu)):
+        bound = TRAIN_GRAD_TOL * gcpu.abs().max().item()
+        worst["grads"] = max(worst["grads"],
+                             (gk.cpu() - gcpu).abs().max().item() / bound)
+    for pk, pc, gcpu in zip(train_tree.leaves(card["params"]),
+                            train_tree.leaves(cpu["params"]),
+                            train_tree.leaves(g_cpu)):
+        pc = pc.detach()
+        delta = scale * TRAIN_GRAD_TOL * gcpu.abs().max()
+        moved = lr * delta * opt_cfg.eps / (
+            (gcpu.abs() * scale - delta).clamp(min=0) + opt_cfg.eps) ** 2
+        bound = TRAIN_PARAM_TOL * pc.abs().clamp(min=lr) + torch.minimum(
+            moved, 2 * lr + wd * lr * pc.abs())
+        worst["params"] = max(worst["params"], ((pk.detach().cpu() - pc).abs()
+                                                / bound).max().item())
+    for name in ("m", "v"):
+        for a, b in zip(train_tree.leaves(card["opt"][name]),
+                        train_tree.leaves(cpu["opt"][name])):
+            bound = TRAIN_GRAD_TOL * b.abs().max().item()
+            worst[name] = max(worst[name],
+                              (a.cpu() - b).abs().max().item() / bound)
+    assert max(worst.values()) <= 1.0, worst
+    return {"config": f"reduced_config({TRAIN_BIG}, head_dim=64), f32, "
+                      f"batch 4 x 64 tokens, flash_block {cfg.flash_block}",
+            "metrics_card_cpu": scalars,
+            "worst_err_over_tolerance": worst, "launches": launches}
+
+
+def card_vs_cpu_bf16_step() -> dict:
+    """The gradients of the attention the qwen3-4b steps run — bf16, head
+    dim 128, K9 with lse and K9-bwd on the bf16 entries — against the CPU:
+    reduced qwen3-4b with head dim 128, bf16 parameters and compute, one
+    batch of 2 x 256 tokens past its flash block of 32 (two of K9's
+    128-row KV tiles).  ``make_grad_fn`` on the card, and on the CPU in
+    f32 on the same weights widened.  bf16 rounds every layer's
+    activations, so a whole step does not stay within one rounding of the
+    f32 one: per gradient leaf (and for loss, ce and grad_norm) the bound
+    is the reference's bf16 tolerance, 3e-2 · max|f32|, plus a floor of
+    ``FLASH_BWD_FLOOR`` times the largest error of the same step in bf16
+    on the CPU (plain attention) against the f32 one."""
+    cfg = reduced_config(get_config(TRAIN_BIG), head_dim=128,
+                         param_dtype="bfloat16", compute_dtype="bfloat16")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    opt_cfg = train_opt.OptConfig(**TRAIN_CMP_OPT)
+    cpu = train_step.init_state(cfg, opt_cfg, 0, device="cpu")["params"]
+    assert {p.dtype for p in train_tree.leaves(cpu)} == {torch.bfloat16}
+    card = train_tree.map(lambda x: x.detach().to(DEV).requires_grad_(), cpu)
+    wide = train_tree.map(lambda x: x.detach().float().requires_grad_(), cpu)
+    batch = TokenPipeline(cfg.vocab_size, 256, 2, seed=1).batch_at(0)
+    shape = (2, 256, cfg.num_heads, cfg.head_dim)
+    before = launch_counts()
+    with capturing_bwd({}, shape) as seen:
+        loss, ce, g_card = train_step.make_grad_fn(cfg)(card, batch)
+        torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in launch_counts().items()
+                if v != before[k]}
+    assert seen and seen["q"].dtype == torch.bfloat16, "no bf16 K9-bwd call"
+    assert launches == {"flashattn": (1 + cfg.remat) * cfg.num_layers,
+                        "flashattn_bwd": cfg.num_layers}, launches
+    runs = {"card": (loss, ce, g_card),
+            "cpu_bf16": train_step.make_grad_fn(cfg)(cpu, batch),
+            "cpu_f32": train_step.make_grad_fn(cfg32)(wide, batch)}
+    scalars = {name: {"loss": float(l), "ce": float(c),
+                      "grad_norm": float(train_opt.global_norm(g))}
+               for name, (l, c, g) in runs.items()}
+    tol = FLASH_TOL[torch.bfloat16]
+    worst = {}
+    for key, want in scalars["cpu_f32"].items():
+        floor = FLASH_BWD_FLOOR * abs(scalars["cpu_bf16"][key] - want)
+        worst[key] = abs(scalars["card"][key] - want) / (tol * abs(want)
+                                                          + floor)
+    worst["grads"], leaves = 0.0, []
+    for gk, gb, gw in zip(*(train_tree.leaves(runs[n][2])
+                            for n in ("card", "cpu_bf16", "cpu_f32"))):
+        err = (gk.float().cpu() - gw).abs().max().item()
+        floor = FLASH_BWD_FLOOR * (gb.float() - gw).abs().max().item()
+        bound = tol * gw.abs().max().item() + floor
+        leaves.append({"shape": list(gw.shape), "max_abs_err": err,
+                       "max_abs_f32": gw.abs().max().item(),
+                       "floor": floor})
+        worst["grads"] = max(worst["grads"], err / bound)
+        assert torch.isfinite(gk).all()
+    assert max(worst.values()) <= 1.0, (worst, leaves)
+    return {"config": f"reduced_config({TRAIN_BIG}, head_dim=128), bf16, "
+                      f"batch 2 x 256 tokens, flash_block {cfg.flash_block}",
+            "against": "the same step on the CPU in f32 on the bf16 "
+                       "weights widened",
+            "tolerance": f"3e-2 * max|f32| + {FLASH_BWD_FLOOR} x "
+                         f"max|cpu bf16 - cpu f32|",
+            "scalars": scalars, "worst_err_over_tolerance": worst,
+            "leaves": leaves, "launches": launches}
+
+
+def phase_train_path() -> dict:
+    """The training path on the card: the repro-100m CLI with checkpoints
+    and a resume, one step's launches, qwen3-4b at full width for three
+    steps, and one reduced step on the card against the CPU.  Launch
+    counts are set to 0 before the phase and read after it."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated_at_start = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    captured: dict = {"small": {}, "big": {}}
+    ckpt_dir = tempfile.mkdtemp(prefix="train_", dir=os.path.join(ROOT,
+                                                                "build"))
+    try:
+        cli = train_cli_runs(ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir)
+    one = one_step_launches(captured["small"])
+    big = big_model_steps(captured["big"])
+    cmp = card_vs_cpu_step()
+    cmp_bf16 = card_vs_cpu_bf16_step()
+    out = {"allocated_bytes_at_start": allocated_at_start, "cli": cli,
+           "one_step": one, "big": big, "card_vs_cpu": cmp,
+           "card_vs_cpu_bf16": cmp_bf16}
+    emit("train_path", **out)
+    return {**out, "captured": captured}
+
+
 # -- phase 8 ------------------------------------------------------------------------
 
 def tri_rows(entry, b, b_keep, rng, eye, local):
@@ -3317,7 +3905,7 @@ def tri_rows(entry, b, b_keep, rng, eye, local):
 
 
 def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
-                  served: dict, mesh: dict):
+                  served: dict, mesh: dict, trained: dict):
     """Every kernel at the shapes its path gave it (two factors each, as
     the joins carry; chunk = what the guard granted there, 128 where no
     graph reached the tier).  ``bound_ms`` is for the function that is
@@ -3604,6 +4192,7 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
           ptxas=[c for c in bs_ptxas if "pack" in c["kernel"]],
           yardstick="none (no PyTorch call packs bits)")
     out.append(flash_row(served))
+    out.extend(flash_bwd_rows(trained))
     print(json.dumps({"kernels": out}), flush=True)
 
 
@@ -3979,6 +4568,94 @@ def flash_row(served: dict) -> dict:
                          "(B, H, S, D) views, bf16"}
 
 
+def _flash_bwd_label(mangled: str):
+    m = re.search(r"(delta_kernel|dkdv_kernel|dq_kernel)I(f|13__nv_bfloat16)"
+                  r"Li(\d+)E(?:Lb([01])E)?", mangled)
+    if not m:
+        return None
+    dtype = "f32" if m[2] == "f" else "bf16"
+    mask = "" if m[4] is None else \
+        (", causal" if m[4] == "1" else ", full")
+    return f"{m[1]}<{dtype}, {m[3]}{mask}>"
+
+
+def sdpa_bwd_ms(q, k, v, do, causal: bool, reps: int) -> float:
+    """PyTorch's scaled_dot_product_attention backward alone: the forward
+    once with its graph kept, then ``torch.autograd.grad`` of it timed."""
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = sdpa(*leaves, causal)
+    return timed_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                retain_graph=True), reps)
+
+
+def flash_bwd_rows(trained: dict) -> list:
+    """K9-bwd on the training path's own inputs (the first backward call
+    of a step: the last layer's q, k, v, o, dO and lse), at qwen3-4b's
+    (1, 4096, 32, 128) bf16 causal and repro-100m's (8, 1024, 10, 64) f32
+    causal, held as ``flash_bwd_check`` holds the cases.  Bound, for the
+    function: five products (S = QKᵀ, dP = dO·Vᵀ, dV = Pᵀ·dO, dQ = dS·K,
+    dK = dSᵀ·Q) of D·H·S(S+1) operations each per sequence (causal) at the
+    rate for the inputs' type (bf16 tensor cores 989 TFLOP/s; f32 67
+    TFLOP/s), against the bytes of q, k, v, o, dO, lse and the three
+    gradients.  Yardstick: ``torch.autograd.grad`` of PyTorch's
+    scaled_dot_product_attention(is_causal=True), its backward alone."""
+    ptxas = ptxas_counts(kbuild.build_logs.get("flashattn_bwd", ""),
+                         _flash_bwd_label)
+    rows = []
+    launches = {
+        "big": (sum(x["launches"]["flashattn_bwd"]
+                    for x in trained["big"]["steps"]),
+                "train_path: qwen3-4b, 3 steps"),
+        "small": (trained["cli"]["launches"]["flashattn_bwd"],
+                  "train_path: the repro-100m CLI, 30 + 5 steps")}
+    for part, peak, reps in (("big", PEAK_BF16_TC_OPS_PER_S, 5),
+                             ("small", PEAK_F32_OPS_PER_S, 20)):
+        c = trained["captured"][part]
+        q, k, v, o, do, lse = (c[x] for x in ("q", "k", "v", "o", "do",
+                                              "lse"))
+        B, S, H, D = q.shape
+        case = flash_bwd_check(f"training path's own inputs {list(q.shape)}",
+                               q, k, v, do, True, [])
+        # flash_bwd_check recomputes o and lse with the same kernel: equal
+        o2, lse2, _ = kfa._forward(q, k, v, True, D ** -0.5, with_lse=True)
+        assert torch.equal(o2, o) and torch.equal(lse2, lse)
+        dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
+        nops = 5 * D * H * B * S * (S + 1)
+        nbytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
+        t_ops = nops / peak * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        rows.append({
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": FLASHATTN_BWD_SOURCE,
+            "replaces": "src/repro/kernels/flashattn.py:74 has no backward "
+                        "(no custom_vjp): the reference differentiates the "
+                        "XLA scan src/repro/models/layers.py:57 "
+                        "flash_attention with jax.vjp",
+            "launches": launches[part][0],
+            "launches_where": launches[part][1],
+            "max_abs_err": max(g["max_abs_err"]
+                               for g in case["grads"].values()),
+            "worst_err_over_tolerance": case["worst_err_over_tolerance"],
+            "tolerance": case["tolerance"], "check": case,
+            "ms": timed_ms(lambda: kfa.flash_attention_bwd(
+                q, k, v, o, do, lse, causal=True), reps),
+            "plain_ms": timed_ms(lambda: kfa.flash_attention_bwd_plain(
+                q, k, v, o, do, lse, causal=True), 2),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": sdpa_bwd_ms(q, k, v, do, True, reps),
+            "shape": [B, S, H, D], "dtype": dt, "causal": True,
+            "operations": nops, "bytes": nbytes,
+            "operations_bound": f"5 products at "
+                                f"{peak / 1e12:g} TFLOP/s ({dt} inputs)",
+            "f32_rate_bound_ms": nops / PEAK_F32_OPS_PER_S * 1e3,
+            "ptxas": [x for x in ptxas if f"<{dt}, {D}" in x["kernel"]],
+            "yardstick": "torch.autograd.grad of "
+                         "scaled_dot_product_attention(is_causal=True) on "
+                         f"(B, H, S, D) views, {dt}, the backward alone"})
+    return rows
+
+
 def main():
     t0 = time.perf_counter()
     wall: dict = {}
@@ -4001,12 +4678,16 @@ def main():
     mesh_path = timed(phase_mesh_path, main_path, local_path, mine_path)
     timed(phase_examples)
     serve_path = timed(phase_serve_path)
+    train_path = timed(phase_train_path)
     # host-clock seconds per phase so far, the kernel builds inside
     # kernel_cases; the kernels phase follows
     emit("wall_seconds", phases=wall,
          total_before_kernels=round(time.perf_counter() - t0, 3))
+    t = time.perf_counter()
     phase_kernels(main_path, local_path, graph_ops, mine_path, serve_path,
-                  mesh_path)
+                  mesh_path, train_path)
+    emit("wall_seconds_kernels", seconds=round(time.perf_counter() - t, 3),
+         total=round(time.perf_counter() - t0, 3))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,16 +42,16 @@ def _tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def params_from_numpy(cfg, tree, device):
+def params_from_numpy(cfg, tree, device, dtype=None):
     """The port's parameters for a reference parameter tree whose leaves
     are numpy arrays (``jax.tree.map(np.asarray, params)``): the same
     nesting — ``embed``, ``final_norm``, ``unembed`` when untied,
     ``segments`` as a list of ``{"slot<j>": {...}}`` with stacked leaves —
-    as tensors of ``cfg.param_dtype`` on ``device``.  Every leaf's shape is
-    checked against ``param_specs(cfg)``."""
+    as tensors of ``dtype`` (default ``cfg.param_dtype``) on ``device``.
+    Every leaf's shape is checked against ``param_specs(cfg)``."""
     from repro_torch.models.params import is_spec
     from repro_torch.models.transformer import _dtype, param_specs
-    dtype = _dtype(cfg.param_dtype)
+    dtype = _dtype(cfg.param_dtype) if dtype is None else dtype
 
     def walk(spec, node, path):
         if is_spec(spec):
@@ -71,3 +71,23 @@ def params_from_numpy(cfg, tree, device):
                 for i, (s, n) in enumerate(zip(spec, node))]
 
     return walk(param_specs(cfg), tree, "params")
+
+
+def state_from_numpy(cfg, opt_cfg, tree, device):
+    """The port's training state for a reference state whose leaves are
+    numpy arrays (``jax.tree.map(np.asarray, state)`` of
+    ``repro.train.train_step.init_state`` or of a step's result):
+    ``{"params", "opt": {"m", "v", "step"}}`` with the parameters in
+    ``cfg.param_dtype`` and marked ``requires_grad``, the moments in
+    ``opt_cfg.state_dtype`` and the step an int32 scalar, on ``device``."""
+    from repro_torch.models.params import leaves
+    params = params_from_numpy(cfg, tree["params"], device)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    moments = getattr(torch, opt_cfg.state_dtype)
+    opt = tree["opt"]
+    return {"params": params,
+            "opt": {"m": params_from_numpy(cfg, opt["m"], device, moments),
+                    "v": params_from_numpy(cfg, opt["v"], device, moments),
+                    "step": torch.tensor(int(np.asarray(opt["step"])),
+                                         dtype=torch.int32, device=device)}}

@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # started together
 SOURCES = {"cutjoin": ("cutjoin.cu",), "trijoin": ("trijoin.cu",),
            "matreduce": ("matreduce.cu",), "bitset": ("bitset.cu",),
-           "flashattn": ("flashattn.cu",)}
+           "flashattn": ("flashattn.cu",),
+           "flashattn_bwd": ("flashattn_bwd.cu",)}
 
 _LIBS: dict = {}
 build_seconds: dict = {}      # name -> seconds nvcc took (0.0 when reused)

@@ -13,6 +13,10 @@
 // p = exp(s - m_new) zeroed where masked (after the exp),
 // l = l·exp(m - m_new) + Σ p with the f32 p, acc = acc·exp(m - m_new) + p·v;
 // the output is acc / max(l, 1e-20), rounded once to the output's type.
+// Where the caller passes a row-statistic buffer (training: the backward
+// kernel K9-bwd, flashattn_bwd.cu, recomputes P from it), each row also
+// writes lse = m + log(max(l, 1e-20)) in natural-log units of the scaled
+// scores, f32, at (B, H, Sq); serving passes null and writes nothing more.
 //
 // Layout: q, k, v and out are (B, S, H, D) read by their batch, sequence and
 // head strides (unit stride along D); no transposed copy is made.  D = 64 and
@@ -127,7 +131,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ out, int H, int Sq,
           int Skv, Strides sq, Strides sk, Strides sv, Strides so,
-          float scale) {
+          float scale, float* __restrict__ lse) {
   constexpr int NC = D / 64;        // 64-column groups of the accumulator
   extern __shared__ float4 smem4[];
   float* qT = reinterpret_cast<float*>(smem4);   // [D][BQ], scaled
@@ -255,6 +259,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= Sq) continue;
     const float den = fmaxf(l[i], 1e-20f);
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<long long>(blockIdx.x) * Sq + row] = m[i] + logf(den);
 #pragma unroll
     for (int g = 0; g < NC; ++g)
 #pragma unroll
@@ -266,7 +272,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 template <int D, bool CAUSAL>
 int launch(const float* q, const float* k, const float* v, float* out, int B,
            int H, int Sq, int Skv, Strides sq, Strides sk, Strides sv,
-           Strides so, float scale, cudaStream_t stream) {
+           Strides so, float scale, float* lse, cudaStream_t stream) {
   auto kernel = flash_fwd<D, CAUSAL>;
   const int bytes = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -278,7 +284,7 @@ int launch(const float* q, const float* k, const float* v, float* out, int B,
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   kernel<<<grid, THREADS, bytes, stream>>>(q, k, v, out, H, Sq, Skv, sq, sk,
-                                           sv, so, scale);
+                                           sv, so, scale, lse);
   return cudaGetLastError();
 }
 
@@ -296,6 +302,7 @@ constexpr int THREADS = 384;        // producer + two consumer warpgroups
 constexpr int CONSUMERS = 256;      // threads that release a stage
 constexpr int ROW_BYTES = 128;      // one 64-column box row, swizzled
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Smem {                       // byte offsets from a 1024-aligned base
@@ -469,7 +476,7 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv,
           __nv_bfloat16* __restrict__ out, int H, int Sq, int Skv, Strides so,
-          float scale_log2) {
+          float scale_log2, float* __restrict__ lse) {
   using L = Smem<D>;
   constexpr int BOXES = D / 64;     // 64-column TMA boxes per row
   extern __shared__ uint8_t smem_raw[];
@@ -668,6 +675,10 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
       const int qrow = row + 8 * r;
       if (qrow >= Sq) continue;
+      // m is in log2 units of the scaled scores
+      if (lse != nullptr && lane % 4 == 0)
+        lse[static_cast<long long>(blockIdx.x) * Sq + qrow] =
+            m[r] * LN2 + logf(l[r]);
       __nv_bfloat16* orow = ob + qrow * so.s + col;
 #pragma unroll
       for (int g = 0; g < D / 8; ++g)
@@ -735,7 +746,7 @@ int make_map(CUtensorMap* map, const void* x, int B, int S, int H, int D,
 template <int D, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int Sq, int Skv, Strides sq, Strides sk, Strides sv,
-           Strides so, float scale, cudaStream_t stream) {
+           Strides so, float scale, float* lse, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err = make_map(&tq, q, B, Sq, H, D, sq, BQ);
   if (err == 0) err = make_map(&tk, k, B, Skv, H, D, sk, BK);
@@ -749,7 +760,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   kernel<<<grid, THREADS, bytes, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), H, Sq, Skv, so,
-      scale * LOG2E);
+      scale * LOG2E, lse);
   return cudaGetLastError();
 }
 
@@ -767,28 +778,31 @@ struct Args {
 
 // q, k, v, out: (B, S, H, D) with unit stride along D; `strides` holds the
 // (batch, sequence, head) element strides of q, k, v and out, in that order.
-// Returns cudaGetLastError() after the launch (0 when it was accepted).
+// `lse`: null, or a contiguous f32 (B, H, Sq) buffer for each row's
+// log-sum-exp.  Returns cudaGetLastError() after the launch (0 when it was
+// accepted).
 extern "C" int flashattn_f32(const void* q, const void* k, const void* v,
                              void* out, int B, int H, int Sq, int Skv, int D,
                              const long long* strides, float scale,
-                             int causal, void* stream) {
+                             int causal, void* stream, void* lse) {
   const Args a(strides);
+  auto L = static_cast<float*>(lse);
   auto s = static_cast<cudaStream_t>(stream);
   auto Q = static_cast<const float*>(q), K = static_cast<const float*>(k),
        V = static_cast<const float*>(v);
   auto O = static_cast<float*>(out);
   if (D == 64 && causal)
     return f32k::launch<64, true>(Q, K, V, O, B, H, Sq, Skv, a.sq, a.sk,
-                                  a.sv, a.so, scale, s);
+                                  a.sv, a.so, scale, L, s);
   if (D == 64)
     return f32k::launch<64, false>(Q, K, V, O, B, H, Sq, Skv, a.sq, a.sk,
-                                   a.sv, a.so, scale, s);
+                                   a.sv, a.so, scale, L, s);
   if (D == 128 && causal)
     return f32k::launch<128, true>(Q, K, V, O, B, H, Sq, Skv, a.sq, a.sk,
-                                   a.sv, a.so, scale, s);
+                                   a.sv, a.so, scale, L, s);
   if (D == 128)
     return f32k::launch<128, false>(Q, K, V, O, B, H, Sq, Skv, a.sq, a.sk,
-                                    a.sv, a.so, scale, s);
+                                    a.sv, a.so, scale, L, s);
   return cudaErrorInvalidValue;
 }
 
@@ -799,20 +813,21 @@ extern "C" int flashattn_f32(const void* q, const void* k, const void* v,
 extern "C" int flashattn_bf16(const void* q, const void* k, const void* v,
                               void* out, int B, int H, int Sq, int Skv, int D,
                               const long long* strides, float scale,
-                              int causal, void* stream) {
+                              int causal, void* stream, void* lse) {
   const Args a(strides);
+  auto L = static_cast<float*>(lse);
   auto s = static_cast<cudaStream_t>(stream);
   if (D == 64 && causal)
     return bf16k::launch<64, true>(q, k, v, out, B, H, Sq, Skv, a.sq, a.sk,
-                                   a.sv, a.so, scale, s);
+                                   a.sv, a.so, scale, L, s);
   if (D == 64)
     return bf16k::launch<64, false>(q, k, v, out, B, H, Sq, Skv, a.sq, a.sk,
-                                    a.sv, a.so, scale, s);
+                                    a.sv, a.so, scale, L, s);
   if (D == 128 && causal)
     return bf16k::launch<128, true>(q, k, v, out, B, H, Sq, Skv, a.sq, a.sk,
-                                    a.sv, a.so, scale, s);
+                                    a.sv, a.so, scale, L, s);
   if (D == 128)
     return bf16k::launch<128, false>(q, k, v, out, B, H, Sq, Skv, a.sq,
-                                     a.sk, a.sv, a.so, scale, s);
+                                     a.sk, a.sv, a.so, scale, L, s);
   return cudaErrorInvalidValue;
 }

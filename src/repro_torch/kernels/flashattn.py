@@ -27,6 +27,23 @@ order in the two, so they agree to f32 rounding, not bit for bit; the
 bf16 kernel scales S after the product and multiplies V by
 P_hi + P_lo, within 2^-17·|P| of the f32 P (far under the output's one
 rounding to bf16).
+
+**Training.**  When grad mode is on and q, k or v requires grad, a CUDA
+call goes through ``FlashAttention`` (a ``torch.autograd.Function``): its
+forward launches K9 with a row statistic, lse = m + log(max(l, 1e-20)) per
+(b, h, query row) in f32 at (B, H, Sq), and its backward launches K9-bwd,
+``flashattn_bwd_f32`` / ``flashattn_bwd_bf16`` of ``csrc/flashattn_bwd.cu``
+(``flash_attention_bwd``; ``launches["flashattn_bwd"]``).  The backward
+takes D = 64 and 128 and Sq == Skv only, and raises on anything else.  It
+computes, from q, k, v, the output o, dO and lse: S = scale·QKᵀ under the
+mask, P = exp(S − lse), Dᵢ = Σ_d dOᵢ·Oᵢ, dV = Pᵀ·dO, dP = dO·Vᵀ,
+dS = P ⊙ (dP − Dᵢ), dQ = scale·dS·K, dK = scale·dSᵀ·Q, accumulated in f32
+and rounded once to q's type.  The reference has no backward for its TPU
+kernel; its training path differentiates the XLA scan
+``models/layers.flash_attention`` with ``jax.vjp``, which is what the
+plain version ``flash_attention_bwd_plain`` is held to in the tests.  On a
+CPU tensor the training path differentiates ``flash_attention_plain`` by
+autograd.
 """
 from __future__ import annotations
 
@@ -41,11 +58,13 @@ NEG_INF = -1e30
 
 # kernel launches, counted where the kernel is launched and nowhere else
 # (plain-version calls do not count)
-launches = {"flashattn": 0}
+launches = {"flashattn": 0, "flashattn_bwd": 0}
 
 _ENTRY = {torch.float32: "flashattn_f32", torch.bfloat16: "flashattn_bf16"}
+_BWD_ENTRY = {torch.float32: "flashattn_bwd_f32",
+              torch.bfloat16: "flashattn_bwd_bf16"}
 HEAD_DIMS = (64, 128)
-_LIB = None
+_BOUND: dict = {}
 
 
 def reset_launches():
@@ -53,19 +72,32 @@ def reset_launches():
         launches[k] = 0
 
 
-def _lib():
-    """The ``flashattn`` kernel library, bound; the first call builds every
-    library of the package."""
-    global _LIB
-    if _LIB is None:
-        lib = _build.load_all(_build.SOURCES)["flashattn"]
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for entry in _ENTRY.values():
+def _bound(name: str, entries, argtypes):
+    """The kernel library ``name``, its ``entries`` bound to ``argtypes``;
+    the first call builds every library of the package."""
+    if name not in _BOUND:
+        lib = _build.load_all(_build.SOURCES)[name]
+        for entry in entries:
             fn = getattr(lib, entry)
-            fn.argtypes = [P, P, P, P, I, I, I, I, I, P, F, I, P]
-            fn.restype = I
-        _LIB = lib
-    return _LIB
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _BOUND[name] = lib
+    return _BOUND[name]
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _lib():
+    """The ``flashattn`` kernel library, bound."""
+    return _bound("flashattn", _ENTRY.values(),
+                  [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _I, _P, _P])
+
+
+def _bwd_lib():
+    """The ``flashattn_bwd`` kernel library, bound."""
+    return _bound("flashattn_bwd", _BWD_ENTRY.values(),
+                  [_P] * 10 + [_I, _I, _I, _I, _P, _F, _I, _P])
 
 
 def _shapes(q, k, v):
@@ -83,10 +115,13 @@ def _shapes(q, k, v):
 
 
 def flash_attention_plain(q, k, v, *, causal: bool, block=None,
-                          q_positions=None, kv_positions=None, scale=None):
+                          q_positions=None, kv_positions=None, scale=None,
+                          return_lse: bool = False):
     """Plain PyTorch version: the reference's scan over KV blocks of
     ``block`` rows (all of Skv when None), transcribed.  q (B, Sq, H, Dq),
-    k (B, Skv, H, Dq), v (B, Skv, H, Dv) -> (B, Sq, H, Dv) in q's type."""
+    k (B, Skv, H, Dq), v (B, Skv, H, Dv) -> (B, Sq, H, Dv) in q's type;
+    with ``return_lse`` also the row statistic the kernel writes for its
+    backward, m + log(max(l, 1e-20)), f32 (B, H, Sq)."""
     B, Sq, H, Dq, Skv, Dv = _shapes(q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(Dq)
     dev = q.device
@@ -117,8 +152,41 @@ def flash_attention_plain(q, k, v, *, causal: bool, block=None,
         acc = acc * alpha[..., None] + torch.einsum("bqht,bthd->bqhd", p,
                                                     vblk)
         m = m_new
-    out = acc / torch.clamp(l, min=1e-20)[..., None]
-    return out.to(q.dtype)
+    den = torch.clamp(l, min=1e-20)
+    out = (acc / den[..., None]).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(den)).permute(0, 2, 1).contiguous()
+    return out
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool,
+                              scale=None):
+    """Plain PyTorch version of K9-bwd: the gradients (dq, dk, dv) of
+    ``flash_attention`` at q, k, v for the output gradient ``do``, from the
+    forward's output ``o`` and row statistic ``lse`` (B, H, Sq), whole (no
+    blocks), in f32 (f64 inputs stay f64), each rounded once to its
+    input's type."""
+    B, Sq, H, D, Skv, Dv = _shapes(q, k, v)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(acc) * scale
+    kf, vf = k.to(acc), v.to(acc)
+    dof = do.to(acc)
+    s = torch.einsum("bqhd,bthd->bhqt", qf, kf)
+    p = torch.exp(s - lse.to(acc)[..., None])
+    del s
+    if causal:
+        dev = q.device
+        seen = torch.arange(Sq, device=dev)[:, None] >= \
+            torch.arange(Skv, device=dev)[None, :]
+        p = torch.where(seen, p, 0.0)
+    delta = (dof * o.to(acc)).sum(-1).permute(0, 2, 1)       # (B, H, Sq)
+    dv = torch.einsum("bhqt,bqhd->bthd", p, dof)
+    ds = p * (torch.einsum("bqhd,bthd->bhqt", dof, vf) - delta[..., None])
+    del p
+    dq = torch.einsum("bhqt,bthd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqt,bqhd->bthd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_kernel_operands(q, k, v, q_positions, kv_positions):
@@ -157,7 +225,8 @@ def _kernel_reads(x) -> bool:
 def flash_attention(q, k, v, *, causal: bool, block=None, q_positions=None,
                     kv_positions=None, scale=None) -> torch.Tensor:
     """Attention over (B, S, H, D) tensors (see the module docstring): the
-    K9 kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    K9 kernel on a CUDA tensor, through ``FlashAttention`` when a gradient
+    is wanted; the plain version on a CPU tensor."""
     q, k, v = (torch.as_tensor(x) for x in (q, k, v))
     B, Sq, H, D, Skv, Dv = _shapes(q, k, v)
     if not (q.is_cuda or k.is_cuda or v.is_cuda):
@@ -168,9 +237,24 @@ def flash_attention(q, k, v, *, causal: bool, block=None, q_positions=None,
     if Skv == 0:
         raise ValueError("flash attention needs at least one key")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if Sq != Skv:
+            raise ValueError(f"the flash attention backward kernel takes "
+                             f"Sq == Skv: {Sq}, {Skv}")
+        return FlashAttention.apply(q, k, v, bool(causal), float(scale))
+    return _forward(q, k, v, causal, scale, with_lse=False)[0]
+
+
+def _forward(q, k, v, causal: bool, scale: float, *, with_lse: bool):
+    """One launch of K9: (out, lse or None, (q, k, v) as the kernel read
+    them — copies where it could not read the view in place)."""
+    B, Sq, H, D, Skv, _ = _shapes(q, k, v)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32,
+                      device=q.device) if with_lse else None
     if B * Sq * H == 0:
-        return out
+        return out, lse, (q, k, v)
     # the kernel reads rows by their (batch, sequence, head) strides and
     # needs unit stride along D; the bf16 kernel's TMA copies also need a
     # 16-byte aligned start and strides of 16-byte multiples
@@ -184,8 +268,88 @@ def flash_attention(q, k, v, *, causal: bool, block=None, q_positions=None,
         err = getattr(_lib(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
             Sq, Skv, D, ctypes.addressof(strides), float(scale),
-            int(bool(causal)), stream)
+            int(bool(causal)), stream,
+            None if lse is None else lse.data_ptr())
     if err != 0:
         raise _build.KernelError(f"{entry} launch failed: CUDA error {err}")
     launches["flashattn"] += 1
-    return out
+    return out, lse, (q, k, v)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K9 with K9-bwd as its gradient, on CUDA tensors: the forward saves
+    q, k, v (as the kernel read them), the output and lse; the backward is
+    ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out, lse, read = _forward(q, k, v, causal, scale, with_lse=True)
+        ctx.save_for_backward(*read, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def _check_bwd_operands(q, k, v, o, do, lse):
+    B, Sq, H, D, Skv, Dv = _shapes(q, k, v)
+    if not q.is_cuda or len({x.device for x in (q, k, v, o, do, lse)}) > 1:
+        raise ValueError("flash attention backward operands lie on "
+                         "different devices")
+    if q.dtype not in _BWD_ENTRY or any(x.dtype != q.dtype
+                                        for x in (k, v, o, do)):
+        raise ValueError(f"the flash attention backward kernel takes f32 or "
+                         f"bf16 q, k, v, o, dO of one type: "
+                         f"{[x.dtype for x in (q, k, v, o, do)]}")
+    if D not in HEAD_DIMS or Dv != D:
+        raise ValueError(f"the flash attention backward kernel takes head "
+                         f"dims {HEAD_DIMS} with Dq == Dv: {D}, {Dv}")
+    if Sq != Skv:
+        raise ValueError(f"the flash attention backward kernel takes "
+                         f"Sq == Skv: {Sq}, {Skv}")
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Sq) or \
+            not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous f32 (B, H, Sq) = "
+                         f"{(B, H, Sq)}: {lse.dtype} {tuple(lse.shape)}")
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool, scale=None):
+    """(dq, dk, dv) for the output gradient ``do`` (see the module
+    docstring): K9-bwd on CUDA tensors, three launches counted as one in
+    ``launches["flashattn_bwd"]``; the plain version on CPU tensors.  Every
+    operand is read by its strides (unit stride along D; a view without it
+    is copied first)."""
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                         scale=scale)
+    _check_bwd_operands(q, k, v, o, do, lse)
+    B, S, H, D = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    q, k, v, o, do = (x if x.stride(3) == 1 else x.clone(
+        memory_format=torch.contiguous_format) for x in (q, k, v, o, do))
+    dq, dk, dv = (torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    if B * S * H == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(
+        s for x in (q, k, v, o, do, dq, dk, dv) for s in x.stride()[:3]))
+    entry = _BWD_ENTRY[q.dtype]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(_bwd_lib(), entry)(
+            *(x.data_ptr() for x in (q, k, v, o, do, lse, delta, dq, dk, dv)),
+            B, H, S, D, ctypes.addressof(strides), float(scale),
+            int(bool(causal)), stream)
+    if err != 0:
+        raise _build.KernelError(f"{entry} launch failed: CUDA error {err}")
+    launches["flashattn_bwd"] += 1
+    return dq, dk, dv

@@ -11,7 +11,11 @@ shardings with ``distributed.meshes.constrain``, a no-op without a mesh;
 the port has no mesh, so those calls are dropped.
 
 Sequences longer than ``flash_block`` take ``flash_attention``, which on
-a CUDA tensor is the hand-written kernel K9 (``kernels.flashattn``).
+a CUDA tensor is the hand-written kernel K9 (``kernels.flashattn``); in
+training (``mode="train"``, the same routing as prefill: dense up to
+``flash_block``, flash beyond it) q, k and v require grad, so the kernel
+runs as ``FlashAttention``, whose backward is the kernel K9-bwd.  On a CPU
+tensor autograd differentiates the plain version.
 Cross-attention (VLM) is not ported: ``cross_attention`` and
 ``cross_attn_specs`` raise ``NotImplementedError``.
 """

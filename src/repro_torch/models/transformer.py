@@ -11,8 +11,17 @@ family (qwen3-4b, deepseek-7b, command-r-35b, granite-20b, repro-100m)
 and musicgen-large's backbone (embedding inputs).
 Mamba ('M') and cross-attention ('X') slots, MoE feed-forwards and MLA
 attention raise ``NotImplementedError`` in ``Model``'s constructor,
-before any work.  Rematerialisation (``cfg.remat``) is a training
-concern and has no effect here.
+before any work.
+
+``mode="train"`` takes each layer's parameters as views of one
+``torch.unbind`` of the stacked leaves (so autograd stacks the layers'
+gradients once, not one full-size zero tensor per layer), and with
+``cfg.remat`` runs each layer under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``: only the
+layer's input is kept, and the backward runs the layer again — the
+counterpart of the reference's ``jax.checkpoint(body,
+policy=nothing_saveable)`` around its scan body.  Prefill and decode
+ignore ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
@@ -187,10 +197,36 @@ def _layer(tree, i):
     return tree[i]
 
 
+def _unbind(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree: views from one ``torch.unbind``
+    per leaf."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _train_slot(cfg, slot: Slot, p, x, positions):
+    return _apply_slot(cfg, slot, p, x, positions=positions, mode="train",
+                       cache=None)[0]
+
+
 def _run_segment(cfg, seg: Segment, seg_params, x, *, positions, mode,
                  caches):
     """The reference's scan over the segment's stacked layers, as a loop.
     Decode caches are written in place; prefill caches are stacked."""
+    if mode == "train":
+        layers = {f"slot{j}": _unbind(seg_params[f"slot{j}"], seg.n)
+                  for j in range(len(seg.slots))}
+        for i in range(seg.n):
+            for j, slot in enumerate(seg.slots):
+                p = layers[f"slot{j}"][i]
+                if cfg.remat:
+                    x = checkpoint(_train_slot, cfg, slot, p, x, positions,
+                                   use_reentrant=False)
+                else:
+                    x = _train_slot(cfg, slot, p, x, positions)
+        return x, {}
     new = {f"slot{j}": [] for j in range(len(seg.slots))}
     for i in range(seg.n):
         for j, slot in enumerate(seg.slots):

@@ -7,13 +7,20 @@ patterns, computed here through the ``reference`` fixture with the
 reference's ``CountingEngine`` (printed with the examples' own format).
 ``examples/`` itself is not run: it needs the reference's shim.  The
 other three examples are in ``test_torch_examples_mining.py``.
+``train_lm`` runs at its CPU default (reduced width, 30 steps) with its
+checkpoints in the test's temporary directory, then again to resume.
 """
+import contextlib
+import io
+import os
 import re
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
+
+from repro_torch.launch import train as tlaunch
 
 from test_torch_reference import reference  # noqa: F401
 
@@ -82,3 +89,28 @@ def test_tracing_example_writes_its_traces(tmp_path):
     assert any(ln.startswith("count = ") for ln in lines)
     assert (tmp_path / "k5me_trace.json").is_file()
     assert (tmp_path / "k5me_trace.chrome.json").is_file()
+
+
+def test_train_lm_trains_and_resumes(tmp_path):
+    """``train_lm`` at its CPU default: 30 steps of reduced repro-100m with
+    checkpoints under ``TMPDIR``, the loss falling; the directory it names
+    resumes from step 30."""
+    env = dict(os.environ, TMPDIR=str(tmp_path))
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples_torch" / "train_lm.py"),
+         "--device", "cpu"], cwd=str(ROOT), capture_output=True, text=True,
+        timeout=600, env=env)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    assert lines[0] == "arch=repro-100m params=0.1M tokens/step=1024"
+    m = re.match(r"loss: (\S+) -> (\S+) over 30 steps$", lines[-2])
+    assert m and float(m[2]) < float(m[1]), lines[-2:]
+    ckpt = re.match(r"checkpoints in (\S+) ", lines[-1])[1]
+    assert sorted(os.listdir(ckpt)) == ["step_10", "step_20", "step_30"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        losses = tlaunch.main(["--arch", "repro-100m", "--reduced",
+                               "--steps", "32", "--batch", "8", "--seq",
+                               "128", "--ckpt-dir", ckpt, "--device", "cpu"])
+    assert buf.getvalue().splitlines()[0] == "resumed from step 30"
+    assert len(losses) == 2

@@ -21,7 +21,7 @@ PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 EXAMPLES = ("quickstart", "existence_and_listing", "fsm_mining",
             "local_counts", "morphing", "serve_batched", "tracing",
-            "verify_plans", "mesh_mining")
+            "verify_plans", "mesh_mining", "train_lm")
 PORT_FILES = sorted(PORT.rglob("*.py")) + \
     sorted((ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -68,11 +68,16 @@ def test_port_has_the_expected_modules():
                  "serve/engine.py", "serve/batching.py", "launch/serve.py",
                  "distributed/__init__.py", "distributed/meshes.py",
                  "distributed/cutjoin.py", "distributed/contract.py",
-                 "core/distributed.py"):
+                 "core/distributed.py", "train/__init__.py", "train/tree.py",
+                 "train/data.py", "train/optimizer.py",
+                 "train/train_step.py", "train/checkpoint.py",
+                 "train/fault_tolerance.py", "train/compression.py",
+                 "launch/train.py"):
         assert want in names, want
     for example in EXAMPLES:
         assert (ROOT / "examples_torch" / f"{example}.py").is_file(), example
-    for source in ("cutjoin.cu", "matreduce.cu", "bitset.cu", "flashattn.cu"):
+    for source in ("cutjoin.cu", "matreduce.cu", "bitset.cu", "flashattn.cu",
+                   "flashattn_bwd.cu"):
         assert (PORT / "kernels" / "csrc" / source).is_file(), source
 
 
@@ -99,7 +104,9 @@ def test_importing_the_compiler_pulls_in_neither_jax_nor_repro():
         "repro_torch.core.blocksparse, repro_torch.launch.serve, "
         "repro_torch.serve.batching, repro_torch.configs.registry, "
         "repro_torch.distributed.cutjoin, repro_torch.distributed.contract, "
-        "repro_torch.core.distributed\n"
+        "repro_torch.core.distributed, repro_torch.launch.train, "
+        "repro_torch.train.checkpoint, repro_torch.train.compression, "
+        "repro_torch.train.fault_tolerance\n"
         "from repro_torch.configs.registry import ALL_IDS, get_config\n"
         "[get_config(a) for a in ALL_IDS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -143,7 +150,8 @@ def test_kernel_modules_import_without_a_compiler_and_build_nothing():
         "repro_torch.kernels.bitset as t, repro_torch.kernels.ops, "
         "repro_torch.kernels.flashattn as f, repro_torch.models.layers\n"
         "assert m._LIB is None and s._LIB is None and t._LIB is None\n"
-        "assert f._LIB is None and f.launches == {'flashattn': 0}\n"
+        "assert not f._BOUND\n"
+        "assert f.launches == {'flashattn': 0, 'flashattn_bwd': 0}\n"
         "assert not b._LIBS\n"
         "assert m.launches == {'vecjoin': 0, 'pairjoin': 0, 'trijoin': 0, "
         "'pairjoin_keep': 0, 'trijoin_keep': 0, 'matreduce': 0, "

@@ -11,6 +11,13 @@ numpy from a seed, the shape and dtype sweep of ``tests/test_kernels.py``.
 Tolerances are the reference's own: 2e-5 (f32) and 3e-2 (bf16), relative
 and absolute — the f32 sums run in another order.  Then the wrapper's
 refusals and its launch count, with stand-ins for the card.
+
+The backward (K9-bwd): the reference has none for its kernel, so the
+port's plain backward ``flash_attention_bwd_plain`` is held to what the
+reference's training path differentiates, ``jax.vjp`` of its XLA scan,
+and to autograd of the port's plain forward, within 1e-5 of max|want| per
+gradient (f32 sums in another order); then its launches on a fake card,
+through ``FlashAttention`` too.
 """
 import ctypes
 
@@ -151,17 +158,24 @@ def fake_card(monkeypatch):
     class FakeLib:
         def __getattr__(self, entry):
             def launch(*args):
-                strides = (ctypes.c_longlong * 12).from_address(args[9])
+                # the forward's strides are its 10th argument (12 of
+                # them), the backward's its 15th (24)
+                n, at = (24, 14) if entry.startswith("flashattn_bwd") \
+                    else (12, 9)
+                strides = (ctypes.c_longlong * n).from_address(args[at])
                 calls.append((entry, args, list(strides)))
                 return 0
             return launch
 
     monkeypatch.setattr(tfa, "_lib", lambda: FakeLib())
+    monkeypatch.setattr(tfa, "_bwd_lib", lambda: FakeLib())
     monkeypatch.setattr(torch.cuda, "device", lambda d: _NoContext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: type("S", (), {"cuda_stream": 0})())
     monkeypatch.setattr(tfa, "flash_attention_plain",
                         lambda *a, **kw: pytest.fail("plain"))
+    monkeypatch.setattr(tfa, "flash_attention_bwd_plain",
+                        lambda *a, **kw: pytest.fail("plain backward"))
     before = dict(tfa.launches)
     yield calls
     tfa.launches.update(before)
@@ -217,6 +231,178 @@ def test_cpu_tensors_launch_nothing():
     tops.flash_attention(q, q, q, bq=32, bk=32)
     tlayers.causal_attention(q, q, q, flash_block=16)
     assert tfa.launches["flashattn"] == n0
+
+
+# -- K9-bwd: the backward (plain version on the CPU, launches on a fake card) ------------
+
+BWD_TOL = 1e-5                    # relative to max|want|, per gradient
+
+
+def _bwd_inputs(seed, shape):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32) for _ in range(4)]
+
+
+def _rel(got, want):
+    want = np.asarray(want, np.float32)
+    return float(np.abs(_np(got) - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block", [16, 32, 64])
+def test_bwd_plain_matches_reference_vjp(block, causal):
+    """What the reference's training path differentiates: ``jax.vjp`` of
+    its XLA scan ``models/layers.flash_attention`` at the scan's block
+    size, against the port's plain backward from the plain forward's
+    output and lse — within ``BWD_TOL`` of max|want| per gradient."""
+    import jax
+    q, k, v, do = _bwd_inputs(block + causal, (2, 64, 3, 64))
+    _, vjp = jax.vjp(lambda a, b, c: rlayers.flash_attention(
+        a, b, c, causal=causal, block=block), *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = tfa.flash_attention_plain(tq, tk, tv, causal=causal,
+                                       block=block, return_lse=True)
+    assert lse.shape == (2, 3, 64) and lse.is_contiguous()
+    got = tfa.flash_attention_bwd_plain(tq, tk, tv, o, tdo, lse,
+                                        causal=causal)
+    for g, w in zip(got, want):
+        assert g.shape == tq.shape and g.dtype == torch.float32
+        assert _rel(g, w) <= BWD_TOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_plain_matches_autograd_of_the_plain_forward(causal):
+    q, k, v, do = (torch.from_numpy(x) for x in _bwd_inputs(
+        7 + causal, (1, 77, 2, 64)))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out, lse = tfa.flash_attention_plain(*leaves, causal=causal, block=7,
+                                         return_lse=True)
+    want = torch.autograd.grad(out, leaves, do)
+    got = tfa.flash_attention_bwd_plain(q, k, v, out.detach(), do,
+                                        lse.detach(), causal=causal)
+    for g, w in zip(got, want):
+        assert _rel(g, w.numpy()) <= BWD_TOL
+    # on the CPU the wrapper is the plain version
+    via = tfa.flash_attention_bwd(q, k, v, out.detach(), do, lse.detach(),
+                                  causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(via, got))
+
+
+def test_lse_is_the_row_logsumexp_of_the_scaled_scores():
+    q, k, v, _ = (torch.from_numpy(x) for x in _bwd_inputs(3, (2, 50, 3, 64)))
+    _, lse = tfa.flash_attention_plain(q, k, v, causal=True, block=10,
+                                       return_lse=True)
+    s = torch.einsum("bqhd,bthd->bhqt", q, k) / 8.0
+    s = s.masked_fill(~torch.ones(50, 50, dtype=torch.bool).tril(), -1e30)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-6,
+                               atol=1e-5)
+
+
+def test_bwd_plain_rounds_once_to_the_input_type():
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _bwd_inputs(4, (1, 40, 2, 64)))
+    o, lse = tfa.flash_attention_plain(q, k, v, causal=True,
+                                       return_lse=True)
+    got = tfa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=True)
+    exact = tfa.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                          o.float(), do.float(), lse,
+                                          causal=True)
+    for g, w in zip(got, exact):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, w.to(torch.bfloat16))
+
+
+def test_training_on_the_card_takes_both_kernels(fake_card):
+    """A loss through ``flash_attention`` on (fake) card tensors that
+    require grad: the forward launches K9 with a row-statistic buffer, the
+    backward launches K9-bwd once (three kernels in one call) on the saved
+    q, k, v, output and lse and on dO copied to unit D stride (autograd's
+    dO of a sum is broadcast), and q, k and v get gradients.  Without grad
+    mode the forward passes no buffer and nothing is saved."""
+    n0, b0 = tfa.launches["flashattn"], tfa.launches["flashattn_bwd"]
+    q, k, v = (on_card(torch.zeros((2, 40, 3, 64))).requires_grad_()
+               for _ in range(3))
+    out = tfa.flash_attention(q, k, v, causal=True)
+    assert out.grad_fn is not None and \
+        type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.sum().backward()
+    assert [c[0] for c in fake_card] == ["flashattn_f32", "flashattn_bwd_f32"]
+    (_, fwd, _), (_, bwd, strides) = fake_card
+    assert fwd[13] is not None                            # lse buffer
+    assert bwd[10:14] == (2, 3, 40, 64)                   # B, H, S, D
+    assert bwd[0] == q.data_ptr() and bwd[5] == fwd[13]   # q, lse
+    assert bwd[16] == 1                                   # causal
+    assert bwd[15] == pytest.approx(1 / 8)                # scale
+    assert strides[12:15] == [40 * 3 * 64, 3 * 64, 64]    # dO, copied
+    assert all(x.grad is not None and x.grad.shape == x.shape
+               for x in (q, k, v))
+    assert tfa.launches["flashattn"] == n0 + 1
+    assert tfa.launches["flashattn_bwd"] == b0 + 1
+    with torch.no_grad():
+        out = tfa.flash_attention(q, k, v, causal=False)
+    assert out.grad_fn is None and fake_card[-1][1][13] is None
+
+
+def test_bwd_reads_strided_operands_in_place(fake_card):
+    """K9-bwd reads every operand by its (batch, sequence, head) strides:
+    a (B, H, S, D) storage and a dO broadcast over the heads go in as they
+    are; a view without unit D stride is copied."""
+    base = torch.zeros((2, 3, 40, 64), dtype=torch.bfloat16)
+    q = on_card(base.transpose(1, 2))
+    lse = on_card(torch.zeros((2, 3, 40)))
+    do = on_card(torch.zeros((2, 40, 1, 64), dtype=torch.bfloat16)
+                 .expand(2, 40, 3, 64))
+    dq, dk, dv = tfa.flash_attention_bwd(q, q, q, q, do, lse, causal=False)
+    (entry, args, strides), = fake_card
+    assert entry == "flashattn_bwd_bf16" and args[16] == 0
+    assert args[0] == base.data_ptr() and args[4] == do.data_ptr()
+    assert strides[:3] == [3 * 40 * 64, 64, 40 * 64]
+    assert strides[12:15] == [40 * 64, 64, 0]
+    assert strides[15:] == [40 * 3 * 64, 3 * 64, 64] * 3     # dq, dk, dv
+    assert dq.shape == dk.shape == dv.shape == (2, 40, 3, 64)
+    fake_card.clear()
+    tfa.flash_attention_bwd(q, q, q, q, on_card(torch.zeros(
+        (2, 40, 3, 128), dtype=torch.bfloat16))[..., ::2], lse, causal=True)
+    (_, args, strides), = fake_card
+    assert strides[12:15] == [40 * 3 * 64, 3 * 64, 64]
+
+
+@pytest.mark.parametrize("what,change", [
+    ("Sq == Skv", dict(k=(1, 30, 2, 64), v=(1, 30, 2, 64))),
+    ("head dims", dict(q=(1, 40, 2, 32), k=(1, 40, 2, 32), v=(1, 40, 2, 32),
+                       o=(1, 40, 2, 32), do=(1, 40, 2, 32))),
+    ("one type", dict(dtype_do=torch.bfloat16)),
+    ("f32 or bf16", dict(dtype=torch.float16)),
+    ("lse must be", dict(lse=(1, 40, 2))),
+    ("q's shape", dict(do=(1, 40, 3, 64)))])
+def test_bwd_refuses_what_it_does_not_take(fake_card, what, change):
+    shapes = dict(q=(1, 40, 2, 64), k=(1, 40, 2, 64), v=(1, 40, 2, 64),
+                  o=(1, 40, 2, 64), do=(1, 40, 2, 64), lse=(1, 2, 40))
+    shapes.update({n: x for n, x in change.items() if n in shapes})
+    dtype = change.get("dtype", torch.float32)
+    ts = {n: on_card(torch.zeros(x, dtype=torch.float32 if n == "lse" else
+                                 change.get(f"dtype_{n}", dtype)))
+          for n, x in shapes.items()}
+    with pytest.raises(ValueError, match=what):
+        tfa.flash_attention_bwd(ts["q"], ts["k"], ts["v"], ts["o"],
+                                ts["do"], ts["lse"], causal=True)
+    assert not fake_card
+
+
+def test_training_refuses_unequal_lengths_before_any_launch(fake_card):
+    q = on_card(torch.zeros((1, 40, 2, 64))).requires_grad_()
+    kv = on_card(torch.zeros((1, 50, 2, 64))).requires_grad_()
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        tfa.flash_attention(q, kv, kv, causal=False)
+    assert not fake_card
+
+
+def test_bwd_on_the_cpu_launches_nothing():
+    b0 = tfa.launches["flashattn_bwd"]
+    q = torch.zeros((1, 64, 1, 16), requires_grad=True)
+    tlayers.causal_attention(q, q, q, flash_block=16).sum().backward()
+    assert q.grad is not None and tfa.launches["flashattn_bwd"] == b0
 
 
 # -- the bf16 kernel's P·V: P = P_hi + P_lo, two bf16 tensor-core passes ----------------
