@@ -67,10 +67,13 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    same bits and lse within 2^-19 · max(1, |lse|) of the plain forward's.
    K9-bwd
    (``csrc/flashattn_bwd.cu``, built with the rest) in f32 and bf16, D = 64
-   and 128, causal and full, lengths that are no multiple of its 64-row
-   tiles, B·H = 65600, q, k, v and dO read by strides (dO also broadcast
-   over the heads, and D-strided, which is copied), and the two training
-   shapes, (8, 1024, 10, 64) f32 and (1, 4096, 32, 128) bf16 causal,
+   and 128, causal and full, lengths that are no multiple of its 64- and
+   128-row tiles (S = 129 among them), B·H = 65600 in f32 and a bf16 grid
+   of more CTAs than 4 per SM, q, k, v and dO read by strides (dO also
+   broadcast over the heads, read in place in f32 and copied for TMA in
+   bf16, and D-strided, which is copied), and the two training shapes,
+   (8, 1024, 10, 64) f32 and (1, 4096, 32, 128) bf16 causal, each launched
+   twice (the gradients must be the same bits),
    on the kernel's own forward output and lse, which are held to the plain
    forward's first; the gradients against the plain backward run from the
    plain forward's o and lse (nothing the kernels wrote), per gradient
@@ -264,7 +267,12 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    bf16 parameters drawn on the card from a seed), ``OptConfig()`` (f32
    moments), three steps at batch 1 x 4096: finite losses, 72 K9 and 36
    K9-bwd launches per step, seconds per step (median of steps 2 and 3),
-   tokens per second and peak device memory.  (4) One step of reduced
+   tokens per second and peak device memory; then a fourth step runs
+   under ``torch.profiler`` with CUDA activity (the tracer doubles the
+   step's host-clock time, so it stays out of the median), and its device
+   time by kernel name (the top 10), K9-bwd's share of it, and that device
+   time over the unprofiled median step are printed on a line of their own
+   (``train_step_profile``).  (4) One step of reduced
    qwen3-4b (f32, head dim 64, S = 64 past its flash block of 32) from one
    state on the card and on the CPU: loss, ce, lr, grad_norm, gradients
    and updated leaves within ``tests/test_torch_train.py``'s tolerances.
@@ -298,7 +306,10 @@ seconds (the kernel builds inside ``kernel_cases``); after it
    two bf16 tensor-core passes, and its row carries ptxas's register and
    spill counts from this run's build; so do K1's and K3's line entries;
    K9-bwd: two rows on phase 7b's own inputs, qwen3-4b's bf16 shape and
-   repro-100m's f32 one, bound five products at the inputs' rate, yardstick
+   repro-100m's f32 one, each launched twice with equal bits, bound five
+   products at the inputs' rate, beside it the design's own passes at its
+   rate (bf16: ten tensor-core passes; f32: seven products in three TF32
+   passes), ptxas's registers and spills for each of its kernels, yardstick
    the backward of scaled_dot_product_attention).
    A call that ends in ``.item()`` is timed against a yardstick that ends
    in ``.item()`` too; K1 also through its device-tensor entry against
@@ -399,6 +410,9 @@ PEAK_F64_TC_OPS_PER_S = 67e12
 # the bf16 tensor-core peak (NVIDIA data sheet, dense), for K9's bound:
 # its S = QKᵀ multiplies bf16 inputs, and P·V the two bf16 terms of P
 PEAK_BF16_TC_OPS_PER_S = 989e12
+# the TF32 tensor-core peak (NVIDIA data sheet, dense), for K9-bwd f32's
+# split-TF32 products
+PEAK_TF32_TC_OPS_PER_S = 495e12
 # exp2 results per clock per SM on the special-function units, compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput table); times the SM count and the card's maximum SM clock as
@@ -1444,7 +1458,8 @@ def lse_check(lse, lse_ref, case: dict) -> int:
     return over
 
 
-def flash_bwd_check(name: str, q, k, v, do, causal: bool, cases: list):
+def flash_bwd_check(name: str, q, k, v, do, causal: bool, cases: list,
+                    twice: bool = False):
     """K9-bwd on the kernel's own forward output and row statistic (one K9
     launch with lse), held three ways.  The forward: o within K9's
     tolerance of the plain forward's and lse within ``FLASH_LSE_TOL``.
@@ -1456,7 +1471,9 @@ def flash_bwd_check(name: str, q, k, v, do, causal: bool, cases: list):
     kernel's o and lse, within ``FLASH_BWD_TOL`` · max|plain| in f32 and
     one rounding to bf16 (``FLASH_BWD_TOL`` beside it) in bf16.  Each f32
     bound has the floor ``FLASH_BWD_FLOOR`` times the plain f32 version's
-    own error against the plain version in f64."""
+    own error against the plain version in f64.  With ``twice`` the
+    backward is launched a second time on the same inputs, and its three
+    gradients must be the same bits (no atomics)."""
     D = q.shape[3]
     o_ref, lse_ref = kfa.flash_attention_plain(q, k, v, causal=causal,
                                                return_lse=True)
@@ -1466,6 +1483,12 @@ def flash_bwd_check(name: str, q, k, v, do, causal: bool, cases: list):
     torch.cuda.synchronize()
     assert kfa.launches["flashattn_bwd"] == before + 1, \
         f"{name}: wrapper did not launch flashattn_bwd"
+    same_bits = None
+    if twice:
+        again = kfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+        same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        assert same_bits, f"{name}: two launches gave different gradients"
     want = kfa.flash_attention_bwd_plain(q, k, v, o_ref, do, lse_ref,
                                          causal=causal)
     wide = [x.float() for x in (q, k, v, o, do)]
@@ -1478,6 +1501,8 @@ def flash_bwd_check(name: str, q, k, v, do, causal: bool, cases: list):
     case = {"kernel": "flashattn_bwd", "case": name,
             "shape": list(q.shape), "dtype": str(q.dtype).split(".")[1],
             "causal": causal, "grads": {}}
+    if twice:
+        case["two_launches_same_bits"] = same_bits
     tol = FLASH_TOL[q.dtype]
     o_err = (o.float() - o_ref.float()).abs()
     case["o_max_abs_err"] = o_err.max().item()
@@ -1528,12 +1553,14 @@ def flash_bwd_check(name: str, q, k, v, do, causal: bool, cases: list):
 
 def flash_bwd_cases(gen) -> list:
     """K9-bwd: f32 and bf16, D = 64 and 128, causal and full; lengths that
-    are no multiple of its 64-row tiles; B·H = 65600; q, k, v read by
-    strides; dO with other strides (a (B, H, S, D) storage and a view
-    broadcast over the heads read in place, a D-strided view copied
-    first); the two training
-    shapes, repro-100m's (8, 1024, 10, 64) f32 and qwen3-4b's (1, 4096, 32,
-    128) bf16, causal.  Then the plain backward against
+    are no multiple of its 64- and 128-row tiles (S = 129: one row past a
+    128-row tile); B·H = 65600 (f32) and a bf16 grid of 640 x 3 CTAs, more
+    than 4 per SM; q, k, v read by strides; dO with other strides (a (B,
+    H, S, D) storage read in place, a view broadcast over the heads read in
+    place in f32 and copied in bf16, where TMA cannot read it, a D-strided
+    view copied first); the two training shapes, repro-100m's (8, 1024, 10,
+    64) f32 and qwen3-4b's (1, 4096, 32, 128) bf16, causal, each launched
+    twice (equal bits).  Then the plain backward against
     ``torch.autograd.grad`` of the plain forward on the card, and a loss
     through ``flash_attention`` on tensors that require grad: one K9 and
     one K9-bwd launch through ``FlashAttention``, gradients equal to the
@@ -1550,7 +1577,8 @@ def flash_bwd_cases(gen) -> list:
                 flash_bwd_check(f"{dt} (2,512,4,{D}) causal={causal}", q, k,
                                 v, do, causal, cases)
         for S, D, causal in [(77, 64, True), (1000, 128, True),
-                             (300, 64, False), (1, 128, True)]:
+                             (300, 64, False), (1, 128, True),
+                             (129, 128, True), (129, 64, False)]:
             q, k, v, do = (rnd((2, S, 3, D), dt) for _ in range(4))
             flash_bwd_check(f"{dt} ragged S={S} D={D} causal={causal}", q, k,
                             v, do, causal, cases)
@@ -1571,12 +1599,16 @@ def flash_bwd_cases(gen) -> list:
     q, k, v, do = (rnd((2050, 16, 32, 64), torch.float32) for _ in range(4))
     flash_bwd_check("f32 B*H=65600 (2050,16,32,64) causal", q, k, v, do, True,
                     cases)
+    # 640 x 3 CTAs of each bf16 kernel (128-row tiles), 14.5 per SM
+    q, k, v, do = (rnd((40, 384, 16, 64), torch.bfloat16) for _ in range(4))
+    flash_bwd_check("bf16 B*H=640 (40,384,16,64) causal", q, k, v, do, True,
+                    cases)
     q, k, v, do = (rnd((8, 1024, 10, 64), torch.float32) for _ in range(4))
     flash_bwd_check("f32 repro-100m training shape (8,1024,10,64) causal", q,
-                    k, v, do, True, cases)
+                    k, v, do, True, cases, twice=True)
     q, k, v, do = (rnd((1, 4096, 32, 128), torch.bfloat16) for _ in range(4))
     flash_bwd_check("bf16 qwen3-4b training shape (1,4096,32,128) causal", q,
-                    k, v, do, True, cases)
+                    k, v, do, True, cases, twice=True)
     del q, k, v, do
 
     # the plain backward against autograd of the plain forward, on the card
@@ -3586,10 +3618,43 @@ def one_step_launches(captured: dict) -> dict:
     return {"launches": launches, "loss": float(metrics["loss"])}
 
 
+K9_BWD_KERNELS = re.compile(r"\b(stats_kernel|dkdv_kernel|dq_kernel)\b")
+
+
+def device_time_split(prof, seconds: float, step: int) -> dict:
+    """Device time by kernel name of one traced step (CUDA activity of
+    ``torch.profiler``, kernels only): the top 10, K9-bwd's share (its
+    three kernels, ``K9_BWD_KERNELS``) and the device time over the traced
+    step's own host-clock seconds (which the tracer lengthens).  A trace
+    without device time fails."""
+    by_name: dict = {}
+    launches: dict = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + \
+            evt.device_time_total / 1e3
+        launches[evt.name] = launches.get(evt.name, 0) + 1
+    total = sum(by_name.values())
+    assert total > 0, "the profiler saw no device time"
+    bwd = sum(ms for name, ms in by_name.items()
+              if K9_BWD_KERNELS.search(name))
+    top = sorted(by_name.items(), key=lambda x: -x[1])[:10]
+    return {"step": step, "seconds_traced": seconds, "device_ms": total,
+            "device_ms_over_traced_step": total / 1e3 / seconds,
+            "k9_bwd_ms": bwd, "k9_bwd_share": bwd / total,
+            "kernels": len(by_name),
+            "top10": [{"name": name[:160], "ms": ms,
+                       "launches": launches[name], "share": ms / total}
+                      for name, ms in top]}
+
+
 def big_model_steps(captured: dict) -> dict:
     """qwen3-4b at its published widths and full depth: weights drawn on
     the card from a seed, f32 moments (``OptConfig()``), three steps of
-    ``make_train_step`` at batch 1 x 4096 tokens, launches per step."""
+    ``make_train_step`` at batch 1 x 4096 tokens, launches per step, then
+    a fourth under ``torch.profiler`` for the device time by kernel
+    (``device_time_split``)."""
     cfg = get_config(TRAIN_BIG)
     opt_cfg = train_opt.OptConfig()
     torch.cuda.reset_peak_memory_stats()
@@ -3606,18 +3671,27 @@ def big_model_steps(captured: dict) -> dict:
     pipe = TokenPipeline(cfg.vocab_size, TRAIN_BIG_SEQ, 1, seed=0)
     step = train_step.make_train_step(cfg, opt_cfg)
     steps = []
-    for i in range(TRAIN_BIG_STEPS):
+    profile = None
+    for i in range(TRAIN_BIG_STEPS + 1):
         reset_launch_counts()
+        traced = i == TRAIN_BIG_STEPS
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) if traced else \
+            contextlib.nullcontext()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        with capturing_bwd(captured, (1, TRAIN_BIG_SEQ, cfg.num_heads,
-                                      cfg.head_dim)):
+        with prof, capturing_bwd(captured, (1, TRAIN_BIG_SEQ, cfg.num_heads,
+                                            cfg.head_dim)):
             state, metrics = step(state, pipe.batch_at(i))
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
         seconds = time.perf_counter() - t
         launches = launch_counts()
         assert launches["flashattn"] == 2 * cfg.num_layers == 72, launches
         assert launches["flashattn_bwd"] == cfg.num_layers == 36, launches
+        if traced:
+            profile = device_time_split(prof, seconds, i + 1)
+            continue
         steps.append({"loss": float(metrics["loss"]),
                       "grad_norm": float(metrics["grad_norm"]),
                       "lr": float(metrics["lr"]), "seconds": seconds,
@@ -3631,7 +3705,11 @@ def big_model_steps(captured: dict) -> dict:
            "init_s": init_s, "state_bytes": state_bytes, "steps": steps,
            "seconds_per_step_median_2_3": median,
            "tokens_per_s": TRAIN_BIG_SEQ / median,
-           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "profile": profile}
+    profile["device_ms_over_median_step"] = \
+        profile["device_ms"] / 1e3 / median
+    emit("train_step_profile", **profile)
     del state, params, step
     torch.cuda.empty_cache()
     return out
@@ -4569,14 +4647,18 @@ def flash_row(served: dict) -> dict:
 
 
 def _flash_bwd_label(mangled: str):
-    m = re.search(r"(delta_kernel|dkdv_kernel|dq_kernel)I(f|13__nv_bfloat16)"
-                  r"Li(\d+)E(?:Lb([01])E)?", mangled)
+    """stats_kernel<f32|bf16, D>, and dkdv_kernel / dq_kernel <f32|bf16, D,
+    causal|full> by their namespace (bf16k: wgmma; f32k: split TF32)."""
+    m = re.search(r"(bf16k|f32k)\d+stats_kernelILi(\d+)E", mangled)
+    if m:
+        return f"stats_kernel<{'bf16' if m[1] == 'bf16k' else 'f32'}, {m[2]}>"
+    m = re.search(r"(bf16k|f32k)\d+(dkdv_kernel|dq_kernel)ILi(\d+)ELb([01])E",
+                  mangled)
     if not m:
         return None
-    dtype = "f32" if m[2] == "f" else "bf16"
-    mask = "" if m[4] is None else \
-        (", causal" if m[4] == "1" else ", full")
-    return f"{m[1]}<{dtype}, {m[3]}{mask}>"
+    dtype = "bf16" if m[1] == "bf16k" else "f32"
+    return (f"{m[2]}<{dtype}, {m[3]}, "
+            f"{'causal' if m[4] == '1' else 'full'}>")
 
 
 def sdpa_bwd_ms(q, k, v, do, causal: bool, reps: int) -> float:
@@ -4592,12 +4674,16 @@ def flash_bwd_rows(trained: dict) -> list:
     """K9-bwd on the training path's own inputs (the first backward call
     of a step: the last layer's q, k, v, o, dO and lse), at qwen3-4b's
     (1, 4096, 32, 128) bf16 causal and repro-100m's (8, 1024, 10, 64) f32
-    causal, held as ``flash_bwd_check`` holds the cases.  Bound, for the
+    causal, held as ``flash_bwd_check`` holds the cases, and launched
+    twice (the gradients must be the same bits).  Bound, for the
     function: five products (S = QKᵀ, dP = dO·Vᵀ, dV = Pᵀ·dO, dQ = dS·K,
     dK = dSᵀ·Q) of D·H·S(S+1) operations each per sequence (causal) at the
     rate for the inputs' type (bf16 tensor cores 989 TFLOP/s; f32 67
     TFLOP/s), against the bytes of q, k, v, o, dO, lse and the three
-    gradients.  Yardstick: ``torch.autograd.grad`` of PyTorch's
+    gradients.  Beside it, the design's own passes at its rate (bf16: ten
+    at 989 TFLOP/s; f32: 21 TF32 passes at 495 TFLOP/s) and ptxas's
+    registers and spills for each of the entry's kernels.  Yardstick:
+    ``torch.autograd.grad`` of PyTorch's
     scaled_dot_product_attention(is_causal=True), its backward alone."""
     ptxas = ptxas_counts(kbuild.build_logs.get("flashattn_bwd", ""),
                          _flash_bwd_label)
@@ -4615,7 +4701,7 @@ def flash_bwd_rows(trained: dict) -> list:
                                               "lse"))
         B, S, H, D = q.shape
         case = flash_bwd_check(f"training path's own inputs {list(q.shape)}",
-                               q, k, v, do, True, [])
+                               q, k, v, do, True, [], twice=True)
         # flash_bwd_check recomputes o and lse with the same kernel: equal
         o2, lse2, _ = kfa._forward(q, k, v, True, D ** -0.5, with_lse=True)
         assert torch.equal(o2, o) and torch.equal(lse2, lse)
@@ -4624,6 +4710,11 @@ def flash_bwd_rows(trained: dict) -> list:
         nbytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
         t_ops = nops / peak * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        # the design's own work: bf16, ten tensor-core passes of one product
+        # each (S and dP twice, dV, dK and dQ in two terms); f32, seven
+        # products in three TF32 passes each
+        passes, rate = ((10, PEAK_BF16_TC_OPS_PER_S) if dt == "bf16"
+                        else (21, PEAK_TF32_TC_OPS_PER_S))
         rows.append({
             "name": "flash_attention_bwd", "route": "cuda",
             "source": FLASHATTN_BWD_SOURCE,
@@ -4649,6 +4740,11 @@ def flash_bwd_rows(trained: dict) -> list:
             "operations_bound": f"5 products at "
                                 f"{peak / 1e12:g} TFLOP/s ({dt} inputs)",
             "f32_rate_bound_ms": nops / PEAK_F32_OPS_PER_S * 1e3,
+            "design_passes": passes,
+            "design_passes_bound_ms": passes * (nops / 5) / rate * 1e3,
+            "design": ("wgmma + TMA, P and dS as bf16 hi + lo" if dt ==
+                       "bf16" else "split-TF32 mma.sync m16n8k8, 3 terms"),
+            "same_bits_two_launches": case["two_launches_same_bits"],
             "ptxas": [x for x in ptxas if f"<{dt}, {D}" in x["kernel"]],
             "yardstick": "torch.autograd.grad of "
                          "scaled_dot_product_attention(is_causal=True) on "

@@ -38,12 +38,19 @@ takes D = 64 and 128 and Sq == Skv only, and raises on anything else.  It
 computes, from q, k, v, the output o, dO and lse: S = scale·QKᵀ under the
 mask, P = exp(S − lse), Dᵢ = Σ_d dOᵢ·Oᵢ, dV = Pᵀ·dO, dP = dO·Vᵀ,
 dS = P ⊙ (dP − Dᵢ), dQ = scale·dS·K, dK = scale·dSᵀ·Q, accumulated in f32
-and rounded once to q's type.  The reference has no backward for its TPU
-kernel; its training path differentiates the XLA scan
-``models/layers.flash_attention`` with ``jax.vjp``, which is what the
-plain version ``flash_attention_bwd_plain`` is held to in the tests.  On a
-CPU tensor the training path differentiates ``flash_attention_plain`` by
-autograd.
+and rounded once to q's type.  Three launches, no atomics (the same bits
+on every run): the row statistics, then dK and dV per KV tile, then dQ per
+Q tile, each recomputing S and dP.  The bf16 kernels run every product on
+the Hopper tensor cores (``wgmma``; operands staged by TMA, so q, k, v, o
+and dO views TMA cannot read are copied first) with P and dS split into
+two bf16 terms, which keeps them to f32 grade; the f32 kernels run them as
+three TF32 ``mma.sync`` products of split operands (a_hi·b_hi + a_hi·b_lo
++ a_lo·b_hi), which keeps f32 grade without rounding the inputs.  The
+reference has no backward for its TPU kernel; its training path
+differentiates the XLA scan ``models/layers.flash_attention`` with
+``jax.vjp``, which is what the plain version ``flash_attention_bwd_plain``
+is held to in the tests.  On a CPU tensor the training path differentiates
+``flash_attention_plain`` by autograd.
 """
 from __future__ import annotations
 
@@ -64,6 +71,9 @@ _ENTRY = {torch.float32: "flashattn_f32", torch.bfloat16: "flashattn_bf16"}
 _BWD_ENTRY = {torch.float32: "flashattn_bwd_f32",
               torch.bfloat16: "flashattn_bwd_bf16"}
 HEAD_DIMS = (64, 128)
+# K9-bwd's row statistics: two f32 planes of (B·H, S rounded up to this)
+# (``PAD`` in csrc/flashattn_bwd.cu)
+BWD_STAT_ROWS = 128
 _BOUND: dict = {}
 
 
@@ -325,28 +335,31 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool, scale=None):
     """(dq, dk, dv) for the output gradient ``do`` (see the module
     docstring): K9-bwd on CUDA tensors, three launches counted as one in
     ``launches["flashattn_bwd"]``; the plain version on CPU tensors.  Every
-    operand is read by its strides (unit stride along D; a view without it
-    is copied first)."""
+    operand is read by its strides where the kernel can (``_kernel_reads``:
+    unit stride along D, and in bf16 what TMA reads); other views are
+    copied first."""
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
                                          scale=scale)
     _check_bwd_operands(q, k, v, o, do, lse)
     B, S, H, D = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    q, k, v, o, do = (x if x.stride(3) == 1 else x.clone(
+    q, k, v, o, do = (x if _kernel_reads(x) else x.clone(
         memory_format=torch.contiguous_format) for x in (q, k, v, o, do))
     dq, dk, dv = (torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
                   for _ in range(3))
     if B * S * H == 0:
         return dq, dk, dv
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    rows = -(-S // BWD_STAT_ROWS) * BWD_STAT_ROWS
+    stats = torch.empty((2, B * H, rows), dtype=torch.float32,
+                        device=q.device)
     strides = (ctypes.c_longlong * 24)(*(
         s for x in (q, k, v, o, do, dq, dk, dv) for s in x.stride()[:3]))
     entry = _BWD_ENTRY[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_bwd_lib(), entry)(
-            *(x.data_ptr() for x in (q, k, v, o, do, lse, delta, dq, dk, dv)),
+            *(x.data_ptr() for x in (q, k, v, o, do, lse, stats, dq, dk, dv)),
             B, H, S, D, ctypes.addressof(strides), float(scale),
             int(bool(causal)), stream)
     if err != 0:

@@ -345,9 +345,12 @@ def test_training_on_the_card_takes_both_kernels(fake_card):
 
 
 def test_bwd_reads_strided_operands_in_place(fake_card):
-    """K9-bwd reads every operand by its (batch, sequence, head) strides:
-    a (B, H, S, D) storage and a dO broadcast over the heads go in as they
-    are; a view without unit D stride is copied."""
+    """K9-bwd reads its operands by their (batch, sequence, head) strides
+    where it can: a (B, H, S, D) storage goes in as it is in bf16 (TMA reads
+    it: 16-byte aligned start and strides) and in f32; a dO broadcast over
+    the heads (head stride 0) goes in as it is in f32 and is copied in bf16,
+    where the kernel reads it by TMA; a view without unit D stride is
+    copied in both."""
     base = torch.zeros((2, 3, 40, 64), dtype=torch.bfloat16)
     q = on_card(base.transpose(1, 2))
     lse = on_card(torch.zeros((2, 3, 40)))
@@ -356,9 +359,9 @@ def test_bwd_reads_strided_operands_in_place(fake_card):
     dq, dk, dv = tfa.flash_attention_bwd(q, q, q, q, do, lse, causal=False)
     (entry, args, strides), = fake_card
     assert entry == "flashattn_bwd_bf16" and args[16] == 0
-    assert args[0] == base.data_ptr() and args[4] == do.data_ptr()
+    assert args[0] == base.data_ptr() and args[4] != do.data_ptr()
     assert strides[:3] == [3 * 40 * 64, 64, 40 * 64]
-    assert strides[12:15] == [40 * 64, 64, 0]
+    assert strides[12:15] == [40 * 3 * 64, 3 * 64, 64]       # dO, copied
     assert strides[15:] == [40 * 3 * 64, 3 * 64, 64] * 3     # dq, dk, dv
     assert dq.shape == dk.shape == dv.shape == (2, 40, 3, 64)
     fake_card.clear()
@@ -366,6 +369,57 @@ def test_bwd_reads_strided_operands_in_place(fake_card):
         (2, 40, 3, 128), dtype=torch.bfloat16))[..., ::2], lse, causal=True)
     (_, args, strides), = fake_card
     assert strides[12:15] == [40 * 3 * 64, 3 * 64, 64]
+    fake_card.clear()
+    base32 = torch.zeros((2, 3, 40, 64))
+    q32 = on_card(base32.transpose(1, 2))
+    do32 = on_card(torch.zeros((2, 40, 1, 64)).expand(2, 40, 3, 64))
+    tfa.flash_attention_bwd(q32, q32, q32, q32, do32, lse, causal=True)
+    (entry, args, strides), = fake_card
+    assert entry == "flashattn_bwd_f32"
+    assert args[0] == base32.data_ptr() and args[4] == do32.data_ptr()
+    assert strides[12:15] == [40 * 64, 64, 0]
+
+
+@pytest.mark.parametrize("operand", range(5))
+def test_bwd_copies_a_bf16_operand_off_a_16_byte_boundary(fake_card,
+                                                          operand):
+    """q, k, v, o or dO starting 8 bytes past a 16-byte boundary: TMA
+    cannot read it, so that operand alone is copied (to a contiguous
+    tensor); the others go in where they lie."""
+    lse = on_card(torch.zeros((1, 3, 40)))
+    aligned = [torch.zeros((1, 40, 3, 64), dtype=torch.bfloat16)
+               for _ in range(5)]
+    ops = [on_card(x) for x in aligned]
+    odd = torch.zeros((1, 40, 3, 128), dtype=torch.bfloat16)[..., 4:68]
+    assert odd.data_ptr() % 16 == 8
+    ops[operand] = on_card(odd)
+    tfa.flash_attention_bwd(*ops, lse, causal=True)
+    (entry, args, strides), = fake_card
+    assert entry == "flashattn_bwd_bf16"
+    for i, x in enumerate(ops):
+        assert (args[i] == x.data_ptr()) == (i != operand)
+    assert strides[3 * operand:3 * operand + 3] == [40 * 3 * 64, 3 * 64, 64]
+    assert args[6] != args[5]                              # stats scratch
+
+
+def test_bwd_stats_scratch_holds_two_padded_planes(fake_card, monkeypatch):
+    """The scratch handed to the kernel holds its two f32 planes of
+    (B·H, S rounded up to 128): lse·log2 e and Dᵢ."""
+    made = []
+    real = torch.empty
+
+    def empty(*shape, **kw):
+        out = real(*shape, **kw)
+        made.append((tuple(out.shape), out.dtype, out.data_ptr()))
+        return out
+
+    monkeypatch.setattr(torch, "empty", empty)
+    q = on_card(torch.zeros((2, 129, 3, 64)))
+    lse = on_card(torch.zeros((2, 3, 129)))
+    tfa.flash_attention_bwd(q, q, q, q, q, lse, causal=True)
+    (_, args, _), = fake_card
+    stats = [m for m in made if m[2] == args[6]]
+    assert stats == [((2, 6, 256), torch.float32, args[6])]
 
 
 @pytest.mark.parametrize("what,change", [
