@@ -10,6 +10,9 @@ The initialisers are the reference's (normal with std 1/√fan_in or
 ``scale``, zeros, ones, mamba2's ``a_log`` and ``dt_bias``), drawn from a
 ``torch.Generator``; the numbers differ from ``jax.random``'s, so tests
 carry the reference's weights across (``interop.params_from_numpy``).
+A "normal" leaf of more than ``SLICED_DRAW_ELEMENTS`` (2^30) elements is
+drawn in f32 slice by slice along its leading axis into a tensor of the
+target dtype; a leaf at or under 2^30 elements is drawn whole.
 """
 from __future__ import annotations
 
@@ -51,6 +54,14 @@ def leaves(tree) -> list:
     return [tree]
 
 
+# A "normal" leaf of more elements than this is drawn in slices straight
+# into a tensor of its dtype (``_normal_into``): drawn whole, dbrx-132b's
+# stacked expert leaves at 8 layers (8.46 G elements each) would take
+# 34 GB of f32 per draw and as much again scaled.  Leaves at or under it
+# are drawn whole, as they always were, so their bits under a seed stay.
+SLICED_DRAW_ELEMENTS = 2 ** 30
+
+
 def _init_leaf(spec: P, gen: torch.Generator, dtype, device):
     shape = tuple(spec.shape)
     if spec.init == "zeros":
@@ -68,9 +79,31 @@ def _init_leaf(spec: P, gen: torch.Generator, dtype, device):
     if spec.init == "normal":
         fan_in = spec.shape[0] if len(spec.shape) >= 2 else spec.shape[-1]
         std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
+        if math.prod(shape) > SLICED_DRAW_ELEMENTS:
+            out = torch.empty(shape, dtype=dtype, device=device)
+            _normal_into(out, std, gen)
+            return out
         x = torch.randn(shape, generator=gen, device=device)
         return (x * std).to(dtype)
     raise ValueError(spec.init)
+
+
+def _normal_into(out, std: float, gen: torch.Generator):
+    """Fill ``out`` with N(0, std²) drawn in f32, in runs of whole
+    leading-axis slices of at most ``SLICED_DRAW_ELEMENTS`` elements
+    (a slice larger than that alone is filled the same way, one axis
+    down), so the f32 transient is one run's, not the leaf's."""
+    if out.numel() <= SLICED_DRAW_ELEMENTS:
+        out.copy_(torch.randn(out.shape, generator=gen,
+                              device=out.device).mul_(std))
+        return
+    rows = SLICED_DRAW_ELEMENTS // math.prod(out.shape[1:])
+    if rows == 0:                   # one slice is too large: go down an axis
+        for i in range(out.shape[0]):
+            _normal_into(out[i], std, gen)
+        return
+    for i in range(0, out.shape[0], rows):
+        _normal_into(out[i:i + rows], std, gen)
 
 
 def init_tree(specs, gen: torch.Generator, dtype, device):

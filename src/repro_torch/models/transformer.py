@@ -8,18 +8,20 @@ here it is a loop over that axis.
 
 Ported: self-attention slots ('A') with an MLP, which covers the dense
 family (qwen3-4b, deepseek-7b, command-r-35b, granite-20b, repro-100m)
-and musicgen-large's backbone (embedding inputs).
-Mamba ('M') and cross-attention ('X') slots, MoE feed-forwards and MLA
-attention raise ``NotImplementedError`` in ``Model``'s constructor,
-before any work.
+and musicgen-large's backbone (embedding inputs), and with an MoE
+feed-forward (``models.moe``: dbrx-132b), whose load-balance aux is
+summed over the layers as the reference's scan carry sums it.
+Mamba ('M') and cross-attention ('X') slots and MLA attention raise
+``NotImplementedError`` in ``Model``'s constructor, before any work.
 
 ``mode="train"`` takes each layer's parameters as views of one
 ``torch.unbind`` of the stacked leaves (so autograd stacks the layers'
 gradients once, not one full-size zero tensor per layer), and with
 ``cfg.remat`` runs each layer under
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``: only the
-layer's input is kept, and the backward runs the layer again — the
-counterpart of the reference's ``jax.checkpoint(body,
+layer's input is kept, and the backward runs the layer again (an MoE
+layer routes again, to the same experts: routing is a function of the
+layer's input alone) — the counterpart of the reference's ``jax.checkpoint(body,
 policy=nothing_saveable)`` around its scan body.  Prefill and decode
 ignore ``cfg.remat``.
 """
@@ -34,12 +36,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.params import P, init_tree, stacked
 
 _NOT_PORTED = {
     "M": "Mamba (SSM) mixers are not ported yet (ROADMAP queue 1, item 13)",
     "X": "VLM cross-attention is not ported yet (ROADMAP queue 1, item 13)",
-    "moe": "MoE feed-forwards are not ported yet (ROADMAP queue 1, item 13)",
     "mla": "MLA attention is not ported yet (ROADMAP queue 1, item 13)",
 }
 
@@ -111,6 +113,9 @@ def _slot_specs(cfg, slot: Slot):
     if slot.ffn == "mlp":
         s["norm2"] = P((d,), ("embed",), "ones")
         s["ffn"] = L.mlp_specs(cfg, slot.ff)
+    elif slot.ffn == "moe":
+        s["norm2"] = P((d,), ("embed",), "ones")
+        s["ffn"] = moe_mod.moe_specs(cfg)
     return s
 
 
@@ -180,14 +185,21 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device=None):
 # ---------------------------------------------------------------------------
 
 def _apply_slot(cfg, slot: Slot, p, x, *, positions, mode, cache):
+    """(x, new cache, aux): aux is the MoE layer's load-balance metric,
+    None for a slot without MoE."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    aux = None
     y, nc = L.attention(p["mixer"], h, cfg, positions=positions, mode=mode,
                         cache=cache)
     x = x + y
     if slot.ffn != "none":
         h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + L.mlp_apply(p["ffn"], h2)
-    return x, nc
+        if slot.ffn == "moe":
+            f, aux = moe_mod.moe_apply(p["ffn"], h2, cfg)
+        else:
+            f = L.mlp_apply(p["ffn"], h2)
+        x = x + f
+    return x, nc, aux
 
 
 def _layer(tree, i):
@@ -207,14 +219,24 @@ def _unbind(tree, n: int) -> list:
 
 
 def _train_slot(cfg, slot: Slot, p, x, positions):
-    return _apply_slot(cfg, slot, p, x, positions=positions, mode="train",
-                       cache=None)[0]
+    x, _, aux = _apply_slot(cfg, slot, p, x, positions=positions,
+                            mode="train", cache=None)
+    return x, aux
+
+
+def _plus(total, aux):
+    """The running aux sum; None stands for 0 (no MoE layer yet), so a
+    model without MoE adds nothing per layer."""
+    return aux if total is None else (total if aux is None else total + aux)
 
 
 def _run_segment(cfg, seg: Segment, seg_params, x, *, positions, mode,
                  caches):
     """The reference's scan over the segment's stacked layers, as a loop.
-    Decode caches are written in place; prefill caches are stacked."""
+    Decode caches are written in place; prefill caches are stacked.
+    Returns (x, caches, aux): aux summed over the layers in order, as the
+    reference's scan carry sums it (None where no layer has MoE)."""
+    aux_sum = None
     if mode == "train":
         layers = {f"slot{j}": _unbind(seg_params[f"slot{j}"], seg.n)
                   for j in range(len(seg.slots))}
@@ -222,24 +244,27 @@ def _run_segment(cfg, seg: Segment, seg_params, x, *, positions, mode,
             for j, slot in enumerate(seg.slots):
                 p = layers[f"slot{j}"][i]
                 if cfg.remat:
-                    x = checkpoint(_train_slot, cfg, slot, p, x, positions,
-                                   use_reentrant=False)
+                    x, aux = checkpoint(_train_slot, cfg, slot, p, x,
+                                        positions, use_reentrant=False)
                 else:
-                    x = _train_slot(cfg, slot, p, x, positions)
-        return x, {}
+                    x, aux = _train_slot(cfg, slot, p, x, positions)
+                aux_sum = _plus(aux_sum, aux)
+        return x, {}, aux_sum
     new = {f"slot{j}": [] for j in range(len(seg.slots))}
     for i in range(seg.n):
         for j, slot in enumerate(seg.slots):
             name = f"slot{j}"
             c = _layer(caches[name], i) if caches is not None else None
-            x, nc = _apply_slot(cfg, slot, _layer(seg_params[name], i), x,
-                                positions=positions, mode=mode, cache=c)
+            x, nc, aux = _apply_slot(cfg, slot, _layer(seg_params[name], i),
+                                     x, positions=positions, mode=mode,
+                                     cache=c)
+            aux_sum = _plus(aux_sum, aux)
             new[name].append(nc)
     if mode == "decode":
-        return x, caches
+        return x, caches, aux_sum
     return x, {name: {k: torch.stack([c[k] for c in per_layer])
                       for k in (per_layer[0] if per_layer else {})}
-               for name, per_layer in new.items()}
+               for name, per_layer in new.items()}, aux_sum
 
 
 def forward(cfg: ModelConfig, params, inputs, *, mode: str,
@@ -249,7 +274,8 @@ def forward(cfg: ModelConfig, params, inputs, *, mode: str,
     mode='train'/'prefill': inputs (B,S) ids or (B,S,d) embeddings.
     mode='decode': inputs (B,1)/(B,1,d), positions (B,), caches required
     (written in place and returned).
-    Returns (logits, new_caches, aux); aux is 0 (no MoE).
+    Returns (logits, new_caches, aux); aux is the MoE layers' summed
+    load-balance metric (0 without MoE).
     """
     if image_embeds is not None:
         raise NotImplementedError(_NOT_PORTED["X"])
@@ -268,19 +294,22 @@ def forward(cfg: ModelConfig, params, inputs, *, mode: str,
 
     segs = build_segments(cfg)
     new_caches = []
+    aux_total = None
     for i, seg in enumerate(segs):
         c = caches[i] if caches is not None else None
-        x, nc = _run_segment(cfg, seg, params["segments"][i], x,
-                             positions=positions, mode=mode, caches=c)
+        x, nc, aux = _run_segment(cfg, seg, params["segments"][i], x,
+                                  positions=positions, mode=mode, caches=c)
         new_caches.append(nc)
+        aux_total = _plus(aux_total, aux)
 
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", x, embed.to(f))
     else:
         logits = torch.einsum("bsd,dv->bsv", x, params["unembed"].to(f))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits, (new_caches if mode != "train" else None), aux
+    if aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, (new_caches if mode != "train" else None), aux_total
 
 
 # ---------------------------------------------------------------------------

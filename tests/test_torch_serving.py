@@ -34,6 +34,10 @@ from repro_torch.serve.batching import Request as TRequest
 
 RCFG = r_reduced(r_get("qwen3-4b"), num_layers=2, remat=False)
 TCFG = t_reduced(t_get("qwen3-4b"), num_layers=2, remat=False)
+# the MoE model: reduced dbrx-132b (4 experts, top-2, capacity factor 5,
+# which drops nothing at these prompts)
+MOE_CFGS = (r_reduced(r_get("dbrx-132b"), num_layers=2, remat=False),
+            t_reduced(t_get("dbrx-132b"), num_layers=2, remat=False))
 TOL = 1e-4
 
 
@@ -42,6 +46,13 @@ def weights():
     params = RModel(RCFG).init(jax.random.PRNGKey(0))
     return params, interop.params_from_numpy(
         TCFG, jax.tree.map(np.asarray, params), "cpu")
+
+
+@pytest.fixture(scope="module")
+def moe_weights():
+    params = RModel(MOE_CFGS[0]).init(jax.random.PRNGKey(0))
+    return params, interop.params_from_numpy(
+        MOE_CFGS[1], jax.tree.map(np.asarray, params), "cpu")
 
 
 class _Recorded:
@@ -65,14 +76,15 @@ class _Recorded:
         batcher.model, batcher.decode = prefill_call, decode_call
 
 
-def _serve(weights, prompts, *, slots, capacity, max_new, eos=None):
+def _serve(weights, prompts, *, slots, capacity, max_new, eos=None,
+           cfgs=(RCFG, TCFG)):
     """Serve ``prompts`` with both packages; returns both batchers and
     their recorded logits."""
     out = []
     for Batcher, Request, params, kw in (
             (RBatcher, RRequest, weights[0], {}),
             (TBatcher, TRequest, weights[1], {"device": "cpu"})):
-        cfg = RCFG if Batcher is RBatcher else TCFG
+        cfg = cfgs[0] if Batcher is RBatcher else cfgs[1]
         b = Batcher(cfg, params, slots=slots, capacity=capacity, **kw)
         rec = _Recorded(b)
         for i, p in enumerate(prompts):
@@ -107,6 +119,19 @@ def test_batcher_matches_reference_with_flash_prefills(weights):
     ref, port = _serve(weights, prompts, slots=2, capacity=128, max_new=6)
     _same_run(ref, port)
     assert len(port[0].finished) == 5
+    assert all(len(r.generated) == 6 for r in port[0].finished)
+
+
+def test_batcher_serves_moe_like_the_reference(moe_weights):
+    """Reduced dbrx-132b behind both batchers: every prefill's and
+    decode step's logits, then the tokens.  Three slots decode together,
+    each example routed on its own (an idle slot's stale token routes too,
+    as in the reference, and moves no other slot's output)."""
+    prompts = _prompts(7, [5, 64, 12, 96, 20, 3, 31])
+    ref, port = _serve(moe_weights, prompts, slots=3, capacity=128,
+                       max_new=6, cfgs=MOE_CFGS)
+    _same_run(ref, port)
+    assert len(port[0].finished) == 7
     assert all(len(r.generated) == 6 for r in port[0].finished)
 
 
@@ -180,27 +205,44 @@ def test_decode_step_is_eager_on_the_cpu_and_graphed_on_cuda(weights):
 _TIMING = re.compile(r", [0-9.]+s \([0-9.]+ tok/s\)$")
 
 
-def test_serve_cli_matches_reference_line_for_line(monkeypatch, capsys):
-    """``repro_torch.launch.serve.main([... "--device", "cpu"])`` prints
-    the reference's lines (timing dropped), with the reference's weights
-    for ``--seed`` carried across."""
-    argv = ["--arch", "qwen3-4b", "--reduced", "--requests", "6",
+def _cli_lines(monkeypatch, capsys, arch):
+    """Both serving CLIs at ``--arch arch``, the reference's weights for
+    ``--seed`` carried into the port's: (reference lines, port lines,
+    the port's batcher)."""
+    argv = ["--arch", arch, "--reduced", "--requests", "6",
             "--max-new", "5", "--seed", "2"]
     rserve.main(argv)
     want = capsys.readouterr().out.splitlines()
 
     class CarriedModel(TModel):
         def init(self, seed=0, device=None):
-            params = RModel(r_reduced(r_get("qwen3-4b"))).init(
+            params = RModel(r_reduced(r_get(arch))).init(
                 jax.random.PRNGKey(seed))
             return interop.params_from_numpy(
                 self.cfg, jax.tree.map(np.asarray, params), device)
 
     monkeypatch.setattr(tserve, "Model", CarriedModel)
     b = tserve.main(argv + ["--device", "cpu"])
-    got = capsys.readouterr().out.splitlines()
+    return want, capsys.readouterr().out.splitlines(), b
+
+
+def test_serve_cli_matches_reference_line_for_line(monkeypatch, capsys):
+    """``repro_torch.launch.serve.main([... "--device", "cpu"])`` prints
+    the reference's lines (timing dropped), with the reference's weights
+    for ``--seed`` carried across."""
+    want, got, b = _cli_lines(monkeypatch, capsys, "qwen3-4b")
     assert len(got) == len(want) == 4
     assert [_TIMING.sub("", x) for x in got] == \
         [_TIMING.sub("", x) for x in want]
     assert got[0].startswith("served 6/6 requests, 30 tokens in ")
     assert b.device.type == "cpu"
+
+
+def test_serve_cli_serves_dbrx_like_the_reference(monkeypatch, capsys):
+    """The same at ``--arch dbrx-132b`` (reduced: the MoE model)."""
+    want, got, b = _cli_lines(monkeypatch, capsys, "dbrx-132b")
+    assert len(got) == len(want) == 4
+    assert [_TIMING.sub("", x) for x in got] == \
+        [_TIMING.sub("", x) for x in want]
+    assert got[0].startswith("served 6/6 requests, 30 tokens in ")
+    assert b.cfg.moe is not None and b.device.type == "cpu"
