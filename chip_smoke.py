@@ -306,6 +306,49 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    bf16, head dim 128, 2 x 256 tokens — on the card against the CPU in f32
    on the same weights widened: per leaf 3e-2 · max|f32| plus 4 times the
    CPU's own bf16 step's error against the f32 one.
+7c. ``ssm_serve_path``  the Mamba2 serving path, after serving's
+   parameters are released: mamba2-1.3b at its published widths and full
+   depth (48 'M' layers, d_model 2048, 64 heads of 64, state 128,
+   1 343 740 928 bf16 parameters drawn on the card from a seed) behind
+   ``ContinuousBatcher(slots=4, capacity=4224)``, prompts of 4096, 3000
+   (no multiple of the 256-token SSD chunk: the padding runs at full
+   width), 1024, 512 and 12 tokens × 16 new tokens.  Checks: all five
+   finish with 16 tokens; no kernel launches (no attention; the SSD scan
+   has no TPU kernel); graphed against eager decode steps on four more
+   requests, the cache copied before the first run and put back before
+   the second (a Mamba step advances its state), tokens equal and the two
+   new states compared; decode against the forward for the 3000- and
+   512-token requests (``SERVE_LOGIT_TOL``, argmax equal); then
+   ``launch.serve.main(["--arch", "mamba2-1.3b"])`` at its own flags.
+   Reports seconds per admission, the median decode step graphed and
+   eager beside its bytes (weights, and every slot's state read and
+   written) at 3.35 TB/s, tokens per second and peak device memory.
+7d. ``vlm_serve_path``  the VLM serving path: llama-3.2-vision-11b at its
+   published widths and full depth (32 self-attention and 8 gated
+   cross-attention layers, 9 775 157 264 bf16 parameters), its gates
+   drawn non-zero (``open_gates``: the reference's zeros would let a
+   broken cross-attention pass), one seeded (1, 1600, 4096) bf16 image per
+   request.  ``serve.engine``'s prefill step on prompts of 2048 and 512
+   tokens (K9 exactly 32 times on the first, never on the second, counts
+   read per prefill), spliced into a two-slot cache, then 16 decode steps
+   through ``GraphedDecode`` around ``make_decode_step``, each also run
+   eagerly on the same cache state (tokens equal, no launch); decode
+   against the forward for both prompts given their images on the dense
+   route (``check_decode(dense_route=True)``; no qk-norm, so the K9
+   prefill is printed as ``served_route``), and K9 on the path's own
+   layer-0 q, k, v against an f64 oracle (``flash_path_check``).  Reports
+   prefill seconds, the median decode step graphed and eager beside the
+   parameters' bytes at 3.35 TB/s (5.84 ms) and the step's own bytes, and
+   peak device memory.
+7e. ``hybrid_card_vs_cpu``  reduced jamba-1.5-large-398b ('M', 'A' and MoE
+   slots) and reduced llama-3.2-vision-11b ('A' and 'X' slots, gates
+   opened), head dim 64, f32: a 64-token prefill (K9 on the card), every
+   cache leaf and one decode step (``serve_card_vs_cpu``), and one
+   training step (``card_vs_cpu_step``, image embeddings in the VLM's
+   batch), card against CPU, each bound 1e-4 of the CPU's largest entry
+   plus 4 times the CPU's own shift when its weights move one ulp.  jamba
+   runs on the card only reduced: one period of its layer pattern is 8
+   layers, 90.49 GB in bf16 at its published widths.
 Before phase 8 a ``wall_seconds`` line gives each phase's host-clock
 seconds (the kernel builds inside ``kernel_cases``); after it
 ``wall_seconds_kernels`` gives phase 8's and the whole run's.
@@ -314,7 +357,8 @@ seconds (the kernel builds inside ``kernel_cases``); after it
    (``launches_mesh_path``) (phase 3 for the scalar
    joins, phase 4 for the keep forms and the triangle kernel, phase 5 for
    SDDMM and the bitset kernels (``bitset_edges`` and ``bitset_pack``,
-   each with its row), on each graph apart; phase 7 for K9, 7b for K9-bwd; the tri
+   each with its row), on each graph apart; phase 7 for K9 (beside it
+   7a's and 7d's), 7b for K9-bwd; the tri
    join in one row per route: path and triangle at n = 8192, dense at n =
    512, with ptxas's register and spill counts for the path and triangle
    kernels; the keep form on its one route, dense, at n = 512, one row per
@@ -409,7 +453,8 @@ from repro_torch.models import moe as moe_mod               # noqa: E402
 from repro_torch.models import transformer                  # noqa: E402
 from repro_torch.models.params import leaves                # noqa: E402
 from repro_torch.serve.batching import (                    # noqa: E402
-    ContinuousBatcher, PatternQueryBatcher, PatternRequest, Request)
+    ContinuousBatcher, GraphedDecode, PatternQueryBatcher, PatternRequest,
+    Request)
 from repro_torch.serve.engine import (                      # noqa: E402
     make_decode_step, make_prefill_step)
 
@@ -3405,8 +3450,27 @@ def routed_apart(log: list, forward: list, at: slice) -> list:
     return out
 
 
+def splice(cfg, cache, slot: int, prompt_caches, T: int):
+    """Write a T-token prefill's caches (batch 1) into row ``slot`` of
+    ``cache``, as ``ContinuousBatcher`` splices an admission: a leaf with
+    a ``kv_seq`` axis (attention K and V) takes the prompt's T positions
+    and zeros after them; any other (a Mamba slot's conv rows and state,
+    a cross-attention slot's image K and V) is copied whole."""
+    _, axes = transformer.cache_specs(cfg, 1, T)
+    for one, dst, ax in zip(leaves(prompt_caches), leaves(cache),
+                            leaves(axes)):
+        row, one = dst.select(1, slot), one.select(1, 0)
+        if "kv_seq" in ax:
+            sa = ax.index("kv_seq") - 1
+            row.narrow(sa, T, row.shape[sa] - T).zero_()
+            row = row.narrow(sa, 0, T)
+        row.copy_(one)
+    return cache
+
+
 def check_decode(cfg, params, prompt, uid, first=None,
-                 control: bool = False, dense_route: bool = False) -> dict:
+                 control: bool = False, dense_route: bool = False,
+                 image_embeds=None, hold: bool = True) -> dict:
     """prefill(x[:T]) then one decode step at position T, against the full
     forward (mode="train") of the T + 1 tokens, x being the prompt and the
     token the prefill samples (which must be ``first``, the batcher's,
@@ -3430,7 +3494,10 @@ def check_decode(cfg, params, prompt, uid, first=None,
     held where no prompt token flipped, the decode step's where neither
     the prompt nor the decoded token did (``held``): a flip at a tie
     moves the output by a whole expert's share, which is the reference's
-    semantics as much as the port's."""
+    semantics as much as the port's.  ``image_embeds`` (1, T_img, d) go to
+    the prefills and the forward (a VLM's cross-attention slots; the
+    decode step reads them from the cache).  With ``hold=False`` the
+    logits are reported and not held (``held`` says so)."""
     T = len(prompt)
     x = torch.tensor([list(prompt)], dtype=torch.long, device=DEV)
     routed = {"prefill": [], "decode": [], "forward": []}
@@ -3438,12 +3505,13 @@ def check_decode(cfg, params, prompt, uid, first=None,
     if dense_route and T > cfg.flash_block:
         routed["served_prefill"] = []
         with recording_routes(routed["served_prefill"]):
-            served = make_prefill_step(cfg)(params, x)
+            served = make_prefill_step(cfg)(params, x, image_embeds)
         prefill_cfg = dataclasses.replace(cfg, flash_block=2 * T)
     else:
         prefill_cfg = cfg
     with recording_routes(routed["prefill"]):
-        last, caches = make_prefill_step(prefill_cfg)(params, x)
+        last, caches = make_prefill_step(prefill_cfg)(params, x,
+                                                      image_embeds)
     sampled = int((last if served is None else served[0]).argmax(-1)[0])
     assert first is None or sampled == first, \
         f"request {uid}: prefill samples {sampled}, the batcher {first}"
@@ -3451,9 +3519,8 @@ def check_decode(cfg, params, prompt, uid, first=None,
     decode = make_decode_step(cfg)
 
     def decode_from(prompt_caches, position, log=None):
-        grown = transformer.init_cache(cfg, 1, T + 1, device=DEV)
-        for one, dst in zip(leaves(prompt_caches), leaves(grown)):
-            dst[:, :, :T] = one
+        grown = splice(cfg, transformer.init_cache(cfg, 1, T + 1, device=DEV),
+                       0, prompt_caches, T)
         with recording_routes([] if log is None else log):
             return decode(params, grown, x[:, T:T + 1],
                           torch.tensor([position], device=DEV))[0]
@@ -3463,13 +3530,14 @@ def check_decode(cfg, params, prompt, uid, first=None,
     del caches
     dense = dataclasses.replace(cfg, flash_block=2 * (T + 1))
     with recording_routes(routed["forward"]):
-        full, _, _ = transformer.forward(dense, params, x, mode="train")
+        full, _, _ = transformer.forward(dense, params, x, mode="train",
+                                         image_embeds=image_embeds)
     full = full[0].float()
     err_prefill = (last[0].float() - full[T - 1]).abs().max().item()
     err_decode = (dec[0].float() - full[T]).abs().max().item()
     out = {"uid": uid, "prompt": T,
-           "prefill_route": "flash (K9)" if T > prefill_cfg.flash_block
-           else "dense",
+           "prefill_route": "no attention" if "A" not in cfg.layer_pattern
+           else "flash (K9)" if T > prefill_cfg.flash_block else "dense",
            "max_abs_err_prefill": err_prefill,
            "max_abs_err_decode": err_decode,
            "max_abs_logit": full[T - 1:].abs().max().item(),
@@ -3489,7 +3557,9 @@ def check_decode(cfg, params, prompt, uid, first=None,
                 int(dec_served[0].argmax()) == int(full[T].argmax())]}
         assert torch.isfinite(dec_served).all()
         del served, dec_served
-    held = {"prefill": True, "decode": True}
+    held = {"prefill": hold, "decode": hold}
+    if not hold:
+        out["held"] = held
     if cfg.moe is not None:
         # MoE: every run must keep every (token, choice) pair
         out["dropped_pairs_per_layer"] = {
@@ -3541,6 +3611,40 @@ SERVE_PAIRED_PROMPTS = (256, 512, 768, 1000)
 SERVE_PAIRED_NEW = 8
 
 
+def paired_step(eager, graphed, params, cache, toks, pos, i: int,
+                stateful: bool) -> tuple:
+    """One decode step run eagerly and by the captured graph on the same
+    cache state, eager first when ``i`` is even: (the graph's logits, a
+    row of both times, the two argmaxes' equality and the largest logit
+    difference).  With ``stateful`` (Mamba slots advance their state)
+    the cache is copied before the first run and put back before the
+    second, and the two new states are compared."""
+    order = ("eager", "graph") if i % 2 == 0 else ("graph", "eager")
+    logits, ms = {}, {}
+    before = [c.clone() for c in leaves(cache)] if stateful else None
+    first_state = None
+    for n, which in enumerate(order):
+        if stateful and n:
+            first_state = [c.clone() for c in leaves(cache)]
+            for c, was in zip(leaves(cache), before):
+                c.copy_(was)
+        step = eager if which == "eager" else graphed
+        t = time.perf_counter()
+        out = step(params, cache, toks, pos)[0]
+        torch.cuda.synchronize()
+        ms[which] = (time.perf_counter() - t) * 1e3
+        logits[which] = out.clone()
+    row = {"ms": ms, "tokens_equal": torch.equal(
+        logits["eager"].argmax(-1), logits["graph"].argmax(-1)),
+        "max_abs_logit_diff": (logits["eager"].float()
+                               - logits["graph"].float()).abs().max().item()}
+    if stateful:
+        row["max_abs_state_diff"] = max(
+            (a.float() - c.float()).abs().max().item()
+            for a, c in zip(first_state, leaves(cache)))
+    return logits["graph"], row
+
+
 def compare_graphed_decode(cfg, params, b, rng) -> dict:
     """Graphed against eager decode steps on the same batch and cache
     state: four more requests through the same batcher (so the same
@@ -3548,28 +3652,20 @@ def compare_graphed_decode(cfg, params, b, rng) -> dict:
     the graph in turns — eager first on even steps, graph first on odd
     ones.  Both write the same cache rows (the token and position are the
     same), the graph's logits drive the batch, and the tokens the two
-    sample must be equal.  Returns both step medians and the largest
+    sample must be equal.  A model with Mamba slots advances its state
+    at every step, so there the cache is copied before the first run and
+    put back before the second, and the two runs' new states are compared
+    (``max_abs_state_diff``).  Returns both step medians and the largest
     logit difference."""
     eager, graphed = make_decode_step(cfg), b.decode
+    stateful = "M" in cfg.layer_pattern
     rows = []
 
     def paired(params_, cache, toks, pos):
-        order = ("eager", "graph") if len(rows) % 2 == 0 \
-            else ("graph", "eager")
-        logits, ms = {}, {}
-        for which in order:
-            step = eager if which == "eager" else graphed
-            t = time.perf_counter()
-            out = step(params_, cache, toks, pos)[0]
-            torch.cuda.synchronize()
-            ms[which] = (time.perf_counter() - t) * 1e3
-            logits[which] = out.clone()
-        rows.append({"ms": ms, "tokens_equal": torch.equal(
-            logits["eager"].argmax(-1), logits["graph"].argmax(-1)),
-            "max_abs_logit_diff": (logits["eager"].float()
-                                   - logits["graph"].float()
-                                   ).abs().max().item()})
-        return logits["graph"], cache
+        logits, row = paired_step(eager, graphed, params_, cache, toks, pos,
+                                  len(rows), stateful)
+        rows.append(row)
+        return logits, cache
 
     b.decode = paired
     for i, T in enumerate(SERVE_PAIRED_PROMPTS):
@@ -3586,8 +3682,41 @@ def compare_graphed_decode(cfg, params, b, rng) -> dict:
                [r["ms"]["graph"] for r in rows])),
            "tokens_equal": all(r["tokens_equal"] for r in rows),
            "max_abs_logit_diff": max(r["max_abs_logit_diff"] for r in rows)}
+    if stateful:
+        out["max_abs_state_diff"] = max(r["max_abs_state_diff"]
+                                        for r in rows)
     assert rows and out["tokens_equal"], rows
     return out
+
+
+def timing_batcher(b) -> tuple:
+    """Wrap ``b``'s prefill model and decode step so that each call's
+    host seconds, ending in a synchronize, are appended to the two lists
+    returned (admissions as {"prompt", "seconds"}); ``restore(b)`` puts
+    the calls back."""
+    admissions, decode_steps = [], []
+    prefill_call, decode_call = b.model, b.decode
+
+    def timed_prefill(params_, prompt, **kw):
+        t = time.perf_counter()
+        out = prefill_call(params_, prompt, **kw)
+        torch.cuda.synchronize()
+        admissions.append({"prompt": int(prompt.shape[1]),
+                           "seconds": time.perf_counter() - t})
+        return out
+
+    def timed_decode(*args):
+        t = time.perf_counter()
+        out = decode_call(*args)
+        torch.cuda.synchronize()
+        decode_steps.append(time.perf_counter() - t)
+        return out
+
+    def restore(batcher):
+        batcher.model, batcher.decode = prefill_call, decode_call
+
+    b.model, b.decode = timed_prefill, timed_decode
+    return admissions, decode_steps, restore
 
 
 def phase_serve_path() -> dict:
@@ -3620,25 +3749,7 @@ def phase_serve_path() -> dict:
             max_new_tokens=SERVE_NEW, eos_id=-1))
     # host time of every admission (prefill) and decode step, each ending
     # in a synchronize (the batcher reads every sampled token back anyway)
-    admissions, decode_steps = [], []
-    prefill_call, decode_call = b.model, b.decode
-
-    def timed_prefill(params_, prompt, **kw):
-        t = time.perf_counter()
-        out = prefill_call(params_, prompt, **kw)
-        torch.cuda.synchronize()
-        admissions.append({"prompt": int(prompt.shape[1]),
-                           "seconds": time.perf_counter() - t})
-        return out
-
-    def timed_decode(*args):
-        t = time.perf_counter()
-        out = decode_call(*args)
-        torch.cuda.synchronize()
-        decode_steps.append(time.perf_counter() - t)
-        return out
-
-    b.model, b.decode = timed_prefill, timed_decode
+    admissions, decode_steps, restore = timing_batcher(b)
     # keep q, k, v of layer 0 of the first 4096-token prefill for phase
     # ``kernels`` (the call goes on to the kernel as it is)
     captured: dict = {}
@@ -3669,7 +3780,7 @@ def phase_serve_path() -> dict:
     assert launches["flashattn"] == want_k9 == 180, launches
     assert {k for k, n in launches.items() if n} == {"flashattn"}, launches
     assert captured, "no 4096-token prefill reached K9"
-    b.model, b.decode = prefill_call, decode_call
+    restore(b)
     paired = compare_graphed_decode(cfg, params, b,
                                     np.random.default_rng(1))
     by_uid = {r.uid: r for r in b.finished}
@@ -3782,25 +3893,7 @@ def phase_moe_serve_path() -> dict:
         b.submit(Request(uid=i, prompt=rng.integers(
             0, cfg.vocab_size, T).astype(np.int32),
             max_new_tokens=SERVE_NEW, eos_id=-1))
-    admissions, decode_steps = [], []
-    prefill_call, decode_call = b.model, b.decode
-
-    def timed_prefill(params_, prompt, **kw):
-        t = time.perf_counter()
-        out = prefill_call(params_, prompt, **kw)
-        torch.cuda.synchronize()
-        admissions.append({"prompt": int(prompt.shape[1]),
-                           "seconds": time.perf_counter() - t})
-        return out
-
-    def timed_decode(*args):
-        t = time.perf_counter()
-        out = decode_call(*args)
-        torch.cuda.synchronize()
-        decode_steps.append(time.perf_counter() - t)
-        return out
-
-    b.model, b.decode = timed_prefill, timed_decode
+    admissions, decode_steps, restore = timing_batcher(b)
     captured: dict = {}
     launch_k9 = kfa.flash_attention
 
@@ -3834,7 +3927,7 @@ def phase_moe_serve_path() -> dict:
         "no 4096-token K9 call"
     drops = drops_by_admission(routed, [a["prompt"] for a in admissions],
                                cfg)
-    b.model, b.decode = prefill_call, decode_call
+    restore(b)
     paired = compare_graphed_decode(cfg, params, b,
                                     np.random.default_rng(1))
     # decode against the forward on a capacity that drops nothing (C = S,
@@ -3914,6 +4007,329 @@ def phase_moe_serve_path() -> dict:
                         for d in drops])
     torch.cuda.empty_cache()
     return out
+
+
+# -- phases 7c, 7d -----------------------------------------------------------------
+
+SSM_ARCH = "mamba2-1.3b"
+SSM_PARAMS = 1_343_740_928
+# 3000 is no multiple of the 256-token SSD chunk: its prefill pads
+SSM_PROMPTS = (4096, 3000, 1024, 512, 12)
+SSM_CLI = ["--arch", SSM_ARCH]
+VLM_ARCH = "llama-3.2-vision-11b"
+VLM_PARAMS = 9_775_157_264
+VLM_PROMPTS = (2048, 512)
+VLM_DECODE_STEPS = 16
+
+
+def draw_params(cfg, want: int) -> tuple:
+    """Random bf16 parameters of ``cfg`` drawn on the card from seed 0,
+    gates of cross-attention slots opened (``open_gates``): (params, their
+    count, bytes, seconds to draw)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.Model(cfg).init(0, device=DEV)
+    open_gates(params, 1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tensors = leaves(params)
+    n_params = sum(t.numel() for t in tensors)
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    assert n_params == cfg.param_count() == want, n_params
+    assert {t.dtype for t in tensors} == {torch.bfloat16}
+    return params, n_params, n_bytes, init_s
+
+
+def open_gates(params, seed: int):
+    """Every cross-attention slot's ``gate_attn`` and ``gate_ffn`` drawn
+    from ``seed``, uniform in ±[0.5, 1.5], in place.  The reference draws
+    them as zeros, and tanh(0) = 0: at init an X slot adds nothing, and
+    a check would pass with cross-attention broken."""
+    gates = [slot[k] for seg in params["segments"] for slot in seg.values()
+             for k in ("gate_attn", "gate_ffn") if k in slot]
+    if not gates:
+        return params
+    gen = torch.Generator(device=gates[0].device).manual_seed(seed)
+    with torch.no_grad():
+        for g in gates:
+            mag = torch.empty(g.shape, device=g.device).uniform_(
+                0.5, 1.5, generator=gen)
+            sign = torch.randint(0, 2, g.shape, generator=gen,
+                                 device=g.device) * 2 - 1
+            g.copy_(mag * sign)
+    return params
+
+
+def decode_checks_bf16_and_f32(cfg, params, requests, dense_route=False):
+    """Decode against the forward (``check_decode``) for each (prompt,
+    uid, first token, image or None) of ``requests``: in bf16 as served,
+    reported and not held, then on the same weights widened to f32,
+    held.  At these random weights (std 1/sqrt(layers): the stacked
+    layer axis is the initialiser's fan_in) the bf16 models are
+    ill-conditioned — mamba2-1.3b's forward of 513 tokens lies 2.5 from
+    its 512-token prefill at logits up to 3.9 — so a bf16 rounding in
+    another place moves the logits by more than a fault would; f32 puts
+    that noise some 2^15 times lower.  ``params`` is widened in place,
+    leaf by leaf (each bf16 leaf freed as its f32 copy is made, so the
+    two trees are never whole at once); returns {"bf16": [...], "f32":
+    [...]}."""
+    bf16 = [check_decode(cfg, params, prompt, uid, first=first,
+                         image_embeds=img, dense_route=dense_route,
+                         hold=False)
+            for prompt, uid, first, img in requests]
+
+    def widen(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                widen(v)
+            elif isinstance(v, list):
+                for x in v:
+                    widen(x)
+            else:
+                tree[k] = v.float()
+                del v
+    widen(params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    f32 = [check_decode(cfg32, params, prompt, uid,
+                        image_embeds=None if img is None else img.float(),
+                        dense_route=dense_route)
+           for prompt, uid, _, img in requests]
+    return {"bf16": bf16, "f32": f32}
+
+
+def phase_ssm_serve_path() -> dict:
+    """The Mamba2 serving path at published widths and full depth:
+    mamba2-1.3b (48 'M' layers, d_model 2048, 64 heads of 64, state 128,
+    no attention and no feed-forward), bf16 random weights drawn on the
+    card from a seed, behind ``ContinuousBatcher`` with 4 slots, prompts
+    of 4096, 3000 (padded to whole 256-token chunks), 1024, 512 and 12
+    tokens, 16 new tokens each.  No kernel may launch (the model has no
+    attention; the SSD scan has no TPU kernel).  Then graphed against
+    eager decode steps (the state put back between the two), decode
+    against the forward for the 3000- and 512-token requests, and the
+    serving CLI at ``--arch mamba2-1.3b`` (its reduced config)."""
+    cfg = get_config(SSM_ARCH)
+    assert cfg.num_layers == 48 and cfg.layer_pattern == "M"
+    params, n_params, n_bytes, init_s = draw_params(cfg, SSM_PARAMS)
+    # one decode step reads every weight (the tied embedding table whole,
+    # for the logits) and reads and writes every slot's conv rows and
+    # state in every layer
+    s = cfg.ssm
+    state_bytes = SERVE_SLOTS * cfg.num_layers * 2 * (
+        (s.d_conv - 1) * (cfg.d_inner + 2 * s.n_groups * s.d_state)
+        + cfg.ssm_heads * s.head_dim * s.d_state)
+    step_bytes = n_bytes + 2 * state_bytes
+    emit("ssm_serve_params", arch=SSM_ARCH, num_layers=cfg.num_layers,
+         d_model=cfg.d_model, params=n_params, bytes=n_bytes,
+         init_s=round(init_s, 3))
+
+    rng = np.random.default_rng(0)
+    b = ContinuousBatcher(cfg, params, slots=SERVE_SLOTS,
+                          capacity=SERVE_CAPACITY)
+    for i, T in enumerate(SSM_PROMPTS):
+        b.submit(Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab_size, T).astype(np.int32),
+            max_new_tokens=SERVE_NEW, eos_id=-1))
+    admissions, decode_steps, restore = timing_batcher(b)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        steps = b.run_to_completion()
+    finally:
+        restore(b)
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = sum(len(r.generated) for r in b.finished)
+    assert sorted(r.uid for r in b.finished) == list(range(len(SSM_PROMPTS)))
+    for r in b.finished:
+        assert len(r.generated) == SERVE_NEW and r.done, (r.uid, r.generated)
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
+    assert not any(launches.values()), launches
+    paired = compare_graphed_decode(cfg, params, b, np.random.default_rng(1))
+    by_uid = {r.uid: r for r in b.finished}
+    checks = decode_checks_bf16_and_f32(
+        cfg, params, [(by_uid[u].prompt, u, by_uid[u].generated[0], None)
+                      for u in (1, 3)])
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli = serve.main(SSM_CLI)
+    cli_s = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    m = _SERVED.match(lines[0])
+    assert m and m.group(1, 2, 3) == ("12", "12", "144"), lines
+    assert len(lines) == 4 and all(x.startswith("  req ") for x in lines[1:])
+    assert cli.device.type == DEV.type and cli.cfg.family == "ssm"
+    graphed_ms = float(np.median(decode_steps)) * 1e3
+    bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+    out = {"arch": SSM_ARCH, "num_layers": cfg.num_layers, "params": n_params,
+           "slots": SERVE_SLOTS, "capacity": SERVE_CAPACITY,
+           "prompts": list(SSM_PROMPTS), "max_new_tokens": SERVE_NEW,
+           "init_s": init_s, "steps": steps, "tokens": tokens,
+           "seconds": run_s, "tokens_per_s": tokens / run_s,
+           "admissions": admissions, "decode_steps": len(decode_steps),
+           "decode_step_ms_median": graphed_ms,
+           "decode_step_ms_median_eager": paired["eager_step_ms_median"],
+           "decode_step_ms_max": max(decode_steps) * 1e3,
+           "decode_step_ms_first": decode_steps[0] * 1e3,
+           "decode_step_bytes": step_bytes,
+           "decode_step_state_bytes_read_and_written": 2 * state_bytes,
+           "decode_step_bound_ms": bound_ms,
+           "decode_step_over_bound": graphed_ms / bound_ms,
+           "graphed_vs_eager": paired, "launches": launches,
+           "peak_device_bytes": peak, "decode_vs_forward": checks,
+           "cli": {"argv": SSM_CLI, "seconds": cli_s, "lines": lines}}
+    emit("ssm_serve_path", **out)
+    del b, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_vlm_serve_path() -> dict:
+    """The VLM serving path at published widths and full depth:
+    llama-3.2-vision-11b (32 self-attention and 8 gated cross-attention
+    layers, d_model 4096, 32 heads, 8 KV heads), bf16 random weights drawn
+    on the card from a seed with the gates opened (``open_gates``), one
+    seeded (1, 1600, 4096) bf16 image per request (the vision encoder is a
+    stub in the reference too).  ``serve.engine``'s prefill step on
+    prompts of 2048 and 512 tokens — the first runs K9 in each of the 32
+    attention layers, the second none — spliced into a two-slot cache,
+    then 16 decode steps through ``GraphedDecode`` around
+    ``make_decode_step``, each run eagerly too on the same cache state
+    (tokens equal); then decode against the forward for both prompts,
+    given their images."""
+    cfg = get_config(VLM_ARCH)
+    n_attn = cfg.layer_pattern.count("A") * (
+        cfg.num_layers // len(cfg.layer_pattern))
+    assert n_attn == 32 and cfg.num_layers - n_attn == 8
+    params, n_params, n_bytes, init_s = draw_params(cfg, VLM_PARAMS)
+    gates = [float(seg[k].float().abs().min()) for seg in
+             (params["segments"][0]["slot4"],) for k in ("gate_attn",
+                                                         "gate_ffn")]
+    assert min(gates) >= 0.5, gates
+    emit("vlm_serve_params", arch=VLM_ARCH, num_layers=cfg.num_layers,
+         d_model=cfg.d_model, params=n_params, bytes=n_bytes,
+         init_s=round(init_s, 3))
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    images = [torch.randn((1, cfg.num_image_tokens, cfg.d_model),
+                          generator=gen, device=DEV).to(torch.bfloat16)
+              for _ in VLM_PROMPTS]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, T).astype(np.int32)
+               for T in VLM_PROMPTS]
+    capacity = max(VLM_PROMPTS) + VLM_DECODE_STEPS + 1
+    cache = transformer.init_cache(cfg, len(VLM_PROMPTS), capacity,
+                                   device=DEV)
+    prefill = make_prefill_step(cfg)
+    admissions, firsts = [], []
+    # keep q, k, v of layer 0 of the 2048-token prefill for
+    # ``flash_path_check`` (the call goes on to the kernel as it is)
+    captured: dict = {}
+    launch_k9 = kfa.flash_attention
+
+    def capturing(q, k, v, **kw):
+        if not captured:
+            captured.update(q=q.clone(), k=k.clone(), v=v.clone())
+        return launch_k9(q, k, v, **kw)
+
+    for i, (prompt, img) in enumerate(zip(prompts, images)):
+        x = torch.as_tensor(prompt[None, :], device=DEV)
+        reset_launch_counts()
+        kfa.flash_attention = capturing
+        t = time.perf_counter()
+        try:
+            last, caches = prefill(params, x, img)
+            torch.cuda.synchronize()
+        finally:
+            kfa.flash_attention = launch_k9
+        seconds = time.perf_counter() - t
+        admissions.append({"prompt": len(prompt), "seconds": seconds,
+                           "launches": {k: n for k, n in
+                                        launch_counts().items() if n}})
+        firsts.append(int(last.argmax(-1)[0]))
+        splice(cfg, cache, i, caches, len(prompt))
+        del caches, last
+    assert admissions[0]["launches"] == {"flashattn": n_attn}, admissions
+    assert admissions[1]["launches"] == {}, admissions
+    # the cache a decode step reads: every attention position of the
+    # capacity, and the image K and V
+    cache_bytes = sum(c.numel() * c.element_size() for c in leaves(cache))
+    step_bytes = n_bytes - params["embed"].numel() * 2 + cache_bytes
+    eager = make_decode_step(cfg)
+    graphed = GraphedDecode(eager)
+    toks = torch.tensor([[f] for f in firsts], device=DEV)
+    pos = torch.tensor(VLM_PROMPTS, device=DEV)
+    rows, generated = [], [[f] for f in firsts]
+    reset_launch_counts()
+    for i in range(VLM_DECODE_STEPS):
+        logits, row = paired_step(eager, graphed, params, cache, toks, pos,
+                                  i, stateful=False)
+        rows.append(row)
+        nxt = logits.argmax(-1)
+        for row, t_ in zip(generated, nxt.tolist()):
+            row.append(t_)
+        toks, pos = nxt[:, None], pos + 1
+    decode_launches = {k: n for k, n in launch_counts().items() if n}
+    assert not decode_launches, decode_launches
+    assert all(r["tokens_equal"] for r in rows), rows
+    assert all(0 <= t_ < cfg.vocab_size for g in generated for t_ in g)
+    peak = torch.cuda.max_memory_allocated()
+    del cache, graphed
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the prefill held to the forward runs by the forward's dense route
+    # (no qk-norm: at these random weights the scores reach the hundreds,
+    # and bf16 sums in another order move the softmax); the K9 prefill
+    # is printed as ``served_route`` and K9 held on the path's own q, k,
+    # v by ``flash_path_check``
+    assert captured and captured["q"].shape[1] == VLM_PROMPTS[0], \
+        "no 2048-token K9 call"
+    flash = flash_path_check("bf16 llama-3.2-vision-11b serving path's "
+                             "layer-0 q, k, v", captured["q"],
+                             captured["k"], captured["v"],
+                             block=cfg.flash_block)
+    del captured
+    checks = decode_checks_bf16_and_f32(
+        cfg, params, [(prompt, i, firsts[i], img)
+                      for i, (prompt, img) in enumerate(zip(prompts, images))],
+        dense_route=True)
+    graphed_ms = float(np.median([r["ms"]["graph"] for r in rows]))
+    param_bound_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    out = {"arch": VLM_ARCH, "num_layers": cfg.num_layers,
+           "attention_layers": n_attn, "params": n_params,
+           "param_bytes": n_bytes, "init_s": init_s,
+           "image_tokens": cfg.num_image_tokens,
+           "prompts": list(VLM_PROMPTS), "admissions": admissions,
+           "k9_launches_per_prefill": [a["launches"].get("flashattn", 0)
+                                       for a in admissions],
+           "decode_steps": len(rows),
+           "decode_step_ms_median": graphed_ms,
+           "decode_step_ms_median_eager": float(np.median(
+               [r["ms"]["eager"] for r in rows])),
+           "decode_step_ms_first_graphed": rows[0]["ms"]["graph"],
+           "param_bytes_at_peak_rate_ms": param_bound_ms,
+           "decode_step_bytes": step_bytes,
+           "decode_step_bound_ms": step_bytes / PEAK_BYTES_PER_S * 1e3,
+           "decode_step_over_param_bound": graphed_ms / param_bound_ms,
+           "graphed_vs_eager_max_abs_logit_diff": max(
+               r["max_abs_logit_diff"] for r in rows),
+           "tokens": generated, "peak_device_bytes": peak,
+           "decode_vs_forward": checks, "flash_check": flash}
+    emit("vlm_serve_path", **out)
+    del params, images
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {"flashattn": admissions[0]["launches"].get(
+        "flashattn", 0) + admissions[1]["launches"].get("flashattn", 0)},
+        **out}
 
 
 # -- phase 7b -----------------------------------------------------------------------
@@ -4166,8 +4582,19 @@ def cpu_floors(cfg, opt_cfg, cpu, batch, g_cpu, new_cpu, m_cpu) -> dict:
 # (two f32 runs, each about one shift from exact); the card's K9-bwd f32
 # forms its products from split-TF32 terms, which keep about 22 bits of
 # each operand where f32 keeps 24, so here it is 4 times
-TRAIN_ILL_CONDITIONED = ("dbrx-132b",)
+TRAIN_ILL_CONDITIONED = ("dbrx-132b", "jamba-1.5-large-398b",
+                         "llama-3.2-vision-11b")
 TRAIN_FLOOR_TIMES = 4
+# configs whose moments are held to the gradient bound carried through
+# Adam's first step, m = (1 - b1)·u and v = (1 - b2)·u² (u the clipped
+# gradient, its clip scale within the gradient norm's bound), as the
+# parameters are: v is quadratic in the gradient, so a bound of 1e-4 of
+# its largest entry plus its own one-ulp floor asks v for a relative
+# accuracy twice the gradient's where the gradient is largest (reduced
+# jamba's card step: gradients 0.79 of their bound, v 1.30 of that one;
+# the earlier configs keep their bounds)
+TRAIN_MOMENTS_FROM_GRADS = HYBRID_ARCHS = ("jamba-1.5-large-398b",
+                                           "llama-3.2-vision-11b")
 
 
 def card_vs_cpu_step(arch: str = TRAIN_BIG) -> dict:
@@ -4179,14 +4606,20 @@ def card_vs_cpu_step(arch: str = TRAIN_BIG) -> dict:
     max(|p|, lr) plus the gradient tolerance carried through Adam's first
     step, lr·δ·eps/(max(|g·s| − δ, 0) + eps)², capped at the sign
     allowance 2·lr + wd·lr·|p|).  For ``TRAIN_ILL_CONDITIONED`` configs
-    each bound adds the floor of ``cpu_floors``, from the CPU alone."""
+    each bound adds the floor of ``cpu_floors``, from the CPU alone.  A
+    VLM's gates are opened (``open_gates``) and its batch carries seeded
+    image embeddings."""
     cfg = reduced_config(get_config(arch), head_dim=64)
     opt_cfg = train_opt.OptConfig(**TRAIN_CMP_OPT)
     cpu = train_step.init_state(cfg, opt_cfg, 0, device="cpu")
+    open_gates(cpu["params"], 1)
     card = train_tree.map(lambda x: x.detach().to(
         DEV, copy=True).requires_grad_(x.requires_grad), cpu)
     shifted = ulp_shifted(cpu) if arch in TRAIN_ILL_CONDITIONED else None
     batch = TokenPipeline(cfg.vocab_size, 64, 4, seed=1).batch_at(0)
+    if cfg.num_image_tokens:
+        batch["image_embeds"] = np.random.default_rng(2).normal(
+            size=(4, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
     before = launch_counts()
     _, _, g_card = train_step.make_grad_fn(cfg)(card["params"], batch)
     _, _, g_cpu = train_step.make_grad_fn(cfg)(cpu["params"], batch)
@@ -4214,6 +4647,9 @@ def card_vs_cpu_step(arch: str = TRAIN_BIG) -> dict:
             (float("inf") if a != b else 0.0)
     lr, wd = float(m_cpu["lr"]), opt_cfg.weight_decay
     scale = min(1.0, opt_cfg.clip_norm / float(m_cpu["grad_norm"]))
+    gnorm = float(m_cpu["grad_norm"])
+    rel_scale = (TRAIN_SCALAR_TOL * gnorm + floor["metrics"].get(
+        "grad_norm", 0.0)) / gnorm if scale < 1.0 else 0.0
     for gk, gcpu, fl in zip(train_tree.leaves(g_card),
                             train_tree.leaves(g_cpu), floor["grads"]):
         bound = TRAIN_GRAD_TOL * gcpu.abs().max().item() + fl
@@ -4231,8 +4667,22 @@ def card_vs_cpu_step(arch: str = TRAIN_BIG) -> dict:
         worst["params"] = max(worst["params"], ((pk.detach().cpu() - pc).abs()
                                                 / bound).max().item())
     for name in ("m", "v"):
-        for a, b, fl in zip(train_tree.leaves(card["opt"][name]),
-                            train_tree.leaves(cpu["opt"][name]), floor[name]):
+        for a, b, fl, gcpu, gfl in zip(
+                train_tree.leaves(card["opt"][name]),
+                train_tree.leaves(cpu["opt"][name]), floor[name],
+                train_tree.leaves(g_cpu), floor["grads"]):
+            if arch in TRAIN_MOMENTS_FROM_GRADS:
+                # the gradient bound carried through the first step's
+                # m = (1 - b1)·u and v = (1 - b2)·u², u = scale·g: u moves
+                # by scale·Δg and by g·Δscale, the clip scale moving with
+                # the gradient norm (within its own bound)
+                delta = scale * (TRAIN_GRAD_TOL * gcpu.abs().max() + gfl
+                                 + gcpu.abs() * rel_scale)
+                bound = (1 - opt_cfg.b1) * delta if name == "m" else \
+                    (1 - opt_cfg.b2) * (2 * scale * gcpu.abs() + delta) * delta
+                worst[name] = max(worst[name], ((a.cpu() - b).abs()
+                                                / bound).max().item())
+                continue
             bound = TRAIN_GRAD_TOL * b.abs().max().item() + fl
             worst[name] = max(worst[name],
                               (a.cpu() - b).abs().max().item() / bound)
@@ -4341,6 +4791,90 @@ def phase_train_path() -> dict:
            "card_vs_cpu_moe": cmp_moe, "card_vs_cpu_bf16": cmp_bf16}
     emit("train_path", **out)
     return {**out, "captured": captured}
+
+
+# -- phase 7e -----------------------------------------------------------------------
+
+HYBRID_TOL = 1e-4
+HYBRID_PROMPT = 64
+
+
+def serve_card_vs_cpu(arch: str) -> dict:
+    """Reduced ``arch`` (f32, head dim 64 so that K9 takes its attention
+    layers, flash block 32) from one set of weights on the card and on
+    the CPU: a 64-token prefill (K9 on the card) with seeded image
+    embeddings for a VLM, then one decode step at position 64 from each
+    side's own caches.  The last prefill logits, every prefill cache leaf
+    and the decode logits within ``HYBRID_TOL`` of the CPU's largest
+    entry plus ``TRAIN_FLOOR_TIMES`` times how far the CPU's own run
+    moves when every weight moves one ulp (``ulp_shifted``)."""
+    cfg = reduced_config(get_config(arch), head_dim=64)
+    cpu = open_gates(transformer.Model(cfg).init(0, device="cpu"), 1)
+    shifted = ulp_shifted({"params": cpu, "opt": {}})["params"]
+    card = train_tree.map(lambda x: x.to(DEV, copy=True), cpu)
+    rng = np.random.default_rng(3)
+    T = HYBRID_PROMPT
+    x = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, T + 1)))
+    img = (torch.from_numpy(rng.normal(size=(2, cfg.num_image_tokens,
+                                             cfg.d_model)).astype(np.float32))
+           if cfg.num_image_tokens else None)
+
+    def run(params, dev):
+        last, caches = make_prefill_step(cfg)(
+            params, x[:, :T].to(dev), None if img is None else img.to(dev))
+        grown = transformer.init_cache(cfg, 2, T + 1, device=dev)
+        for i in range(2):
+            splice(cfg, grown, i, [{s: {k: v[:, i:i + 1] for k, v in c.items()}
+                                    for s, c in seg.items()}
+                                   for seg in caches], T)
+        logits, _ = make_decode_step(cfg)(params, grown, x[:, T:].to(dev),
+                                          torch.full((2,), T, device=dev))
+        return [last.cpu(), *[c.cpu() for c in leaves(caches)], logits.cpu()]
+
+    before = launch_counts()
+    got = run(card, DEV)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in launch_counts().items()
+                if v != before[k]}
+    n_attn = cfg.layer_pattern.count("A")
+    assert launches == {"flashattn": n_attn}, launches
+    want, moved = run(cpu, "cpu"), run(shifted, "cpu")
+    worst, names = 0.0, ["prefill_last_logits"] + [
+        f"cache_{i}" for i in range(len(want) - 2)] + ["decode_logits"]
+    report = {}
+    for name, g, w, m in zip(names, got, want, moved):
+        floor = TRAIN_FLOOR_TIMES * (m - w).abs().max().item()
+        bound = HYBRID_TOL * w.abs().max().item() + floor
+        err = (g - w).abs().max().item()
+        assert torch.isfinite(g).all()
+        report[name] = {"max_abs_err": err, "bound": bound, "floor": floor}
+        worst = max(worst, err / bound)
+    assert worst <= 1.0, report
+    return {"config": f"reduced_config({arch}, head_dim=64), f32, prompt "
+                      f"{T} tokens x 2, flash_block {cfg.flash_block}",
+            "launches": launches, "worst_err_over_tolerance": worst,
+            "prefill_and_decode": {k: report[k] for k in (
+                "prefill_last_logits", "decode_logits")},
+            "cache_leaves_worst_err_over_tolerance": max(
+                v["max_abs_err"] / v["bound"] for k, v in report.items()
+                if k.startswith("cache_"))}
+
+
+def phase_hybrid_card_vs_cpu() -> dict:
+    """Reduced jamba-1.5-large-398b ('M', 'A' and MoE slots) and reduced
+    llama-3.2-vision-11b ('A' and gated 'X' slots), each at head dim 64,
+    card against CPU: prefill logits, caches and a decode step
+    (``serve_card_vs_cpu``), and one training step's loss, gradients,
+    updated parameters and moments (``card_vs_cpu_step``, with the floor
+    of ``cpu_floors``).  jamba is served on the card only reduced: one
+    period of its layer pattern is 8 layers, 90.49 GB in bf16 at its
+    published widths, more than the card holds."""
+    out = {}
+    for arch in HYBRID_ARCHS:
+        out[arch] = {"serve": serve_card_vs_cpu(arch),
+                     "train": card_vs_cpu_step(arch)}
+    emit("hybrid_card_vs_cpu", **out)
+    return out
 
 
 # -- phase 8 ------------------------------------------------------------------------
@@ -5085,6 +5619,7 @@ def flash_row(served: dict) -> dict:
             "replaces": "src/repro/kernels/flashattn.py:74",
             "launches": served["launches"]["flashattn"],
             "launches_moe_serve_path": served["moe_launches"]["flashattn"],
+            "launches_vlm_serve_path": served["vlm_launches"]["flashattn"],
             "max_abs_err": case["max_abs_err"],
             "tolerance": case["tolerance"],
             "check": case,
@@ -5250,14 +5785,18 @@ def main():
     timed(phase_examples)
     serve_path = timed(phase_serve_path)
     moe_serve_path = timed(phase_moe_serve_path)
+    timed(phase_ssm_serve_path)
+    vlm_serve_path = timed(phase_vlm_serve_path)
     train_path = timed(phase_train_path)
+    timed(phase_hybrid_card_vs_cpu)
     # host-clock seconds per phase so far, the kernel builds inside
     # kernel_cases; the kernels phase follows
     emit("wall_seconds", phases=wall,
          total_before_kernels=round(time.perf_counter() - t0, 3))
     t = time.perf_counter()
     phase_kernels(main_path, local_path, graph_ops, mine_path,
-                  {**serve_path, "moe_launches": moe_serve_path["launches"]},
+                  {**serve_path, "moe_launches": moe_serve_path["launches"],
+                   "vlm_launches": vlm_serve_path["launches"]},
                   mesh_path, train_path)
     emit("wall_seconds_kernels", seconds=round(time.perf_counter() - t, 3),
          total=round(time.perf_counter() - t0, 3))

@@ -4,7 +4,7 @@ Every assigned architecture is a frozen ``ModelConfig``; the configs are
 pure data, copied from the reference package so that the port stands
 alone.  The reference's ``input_specs`` (allocation-free
 ``jax.ShapeDtypeStruct`` stand-ins for the multi-pod dry-run) is not
-ported: it waits with ``launch/dryrun.py`` (ROADMAP queue 1, item 13).
+ported: it waits with ``launch/dryrun.py`` (ROADMAP queue 1, item 13e).
 """
 from __future__ import annotations
 

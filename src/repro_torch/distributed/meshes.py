@@ -18,7 +18,7 @@ the reference's API: no route of the port reads the active mesh yet (the
 lint's ``mesh-guard`` rule looks for ``sharding_ctx`` by name).  The
 logical-axis rules of the reference's ``meshes`` module
 (``DEFAULT_RULES``, ``spec_for``, ``constrain``, ``tree_shardings``) serve
-the LM scaffold and wait for it (ROADMAP.md queue 1, item 13).
+the LM scaffold and wait for it (ROADMAP.md queue 1, item 13f).
 """
 from __future__ import annotations
 

@@ -16,8 +16,8 @@ training (``mode="train"``, the same routing as prefill: dense up to
 ``flash_block``, flash beyond it) q, k and v require grad, so the kernel
 runs as ``FlashAttention``, whose backward is the kernel K9-bwd.  On a CPU
 tensor autograd differentiates the plain version.
-Cross-attention (VLM) is not ported: ``cross_attention`` and
-``cross_attn_specs`` raise ``NotImplementedError``.
+Cross-attention (VLM) is a dense f32 softmax over the image tokens, with
+no mask, computed outside any kernel as the reference computes it.
 """
 from __future__ import annotations
 
@@ -30,8 +30,6 @@ from repro_torch.kernels import flashattn as _fa
 from repro_torch.models.params import P
 
 NEG_INF = -1e30
-_NOT_PORTED_VLM = ("VLM cross-attention is not ported yet (ROADMAP queue 1, "
-                   "item 13)")
 
 
 def rms_norm(x, scale, eps: float = 1e-5):
@@ -218,11 +216,34 @@ def attention(p, x, cfg, *, positions, mode: str, cache=None):
 
 
 def cross_attn_specs(cfg):
-    raise NotImplementedError(_NOT_PORTED_VLM)
+    s = attn_specs(cfg)
+    s.pop("q_norm", None), s.pop("k_norm", None)
+    return s
 
 
 def cross_attention(p, x, image_embeds, cfg, *, mode: str, cache=None):
-    raise NotImplementedError(_NOT_PORTED_VLM)
+    """Gated cross-attention over image patch embeddings (VLM).  KV is
+    position-free: prefill projects ``image_embeds`` (B, T, d) into the
+    (B, T, KV, hd) ``xk`` / ``xv`` cache, decode reads it unchanged (and
+    returns the cache's own tensors).  The gates are the caller's
+    (``transformer._apply_slot``)."""
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B, S, _ = x.shape
+    q = _split_heads(x @ p["wq"], H, hd)
+    if mode == "decode":
+        k, v = cache["xk"], cache["xv"]
+        new_cache = cache
+    else:
+        img = image_embeds.to(x.dtype)
+        k = _split_heads(img @ p["wk"], KV, hd)
+        v = _split_heads(img @ p["wv"], KV, hd)
+        new_cache = {"xk": k, "xv": v} if mode == "prefill" else {}
+    kh, vh = expand_kv(k, H), expand_kv(v, H)
+    s = torch.einsum("bqhd,bthd->bqht", q.float(), kh.float()) / math.sqrt(hd)
+    o = torch.einsum("bqht,bthd->bqhd", torch.softmax(s, dim=-1),
+                     vh.float()).to(x.dtype)
+    y = o.reshape(B, S, H * hd) @ p["wo"]
+    return y, new_cache
 
 
 # ---------------------------------------------------------------------------

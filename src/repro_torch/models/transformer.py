@@ -1,4 +1,4 @@
-"""Composable decoder: layer segments, a loop over periods, KV caches.
+"""Composable decoder: layer segments, a loop over periods, caches.
 
 The layer stack is a list of *segments*; each segment is a period of
 heterogeneous *slots* (mixer + ffn) repeated ``n`` times, with every
@@ -6,13 +6,20 @@ parameter and cache stacked along a leading ``(n, ...)`` layer axis, as in
 the reference package.  The reference runs a segment with ``lax.scan``;
 here it is a loop over that axis.
 
-Ported: self-attention slots ('A') with an MLP, which covers the dense
-family (qwen3-4b, deepseek-7b, command-r-35b, granite-20b, repro-100m)
-and musicgen-large's backbone (embedding inputs), and with an MoE
-feed-forward (``models.moe``: dbrx-132b), whose load-balance aux is
-summed over the layers as the reference's scan carry sums it.
-Mamba ('M') and cross-attention ('X') slots and MLA attention raise
+Ported mixers: self-attention ('A'), which covers the dense family
+(qwen3-4b, deepseek-7b, command-r-35b, granite-20b, repro-100m) and
+musicgen-large's backbone (embedding inputs); Mamba2 ('M', ``models.ssm``:
+mamba2-1.3b, and jamba-1.5-large-398b with 'A' and MoE); and gated
+cross-attention over image embeddings ('X': llama-3.2-vision-11b), whose
+mixer and feed-forward outputs are scaled by ``tanh`` of the slot's scalar
+gates.  The feed-forward is an MLP or an MoE (``models.moe``: dbrx-132b),
+whose load-balance aux is summed as the reference's scan carry sums it
+(see ``_run_segment``).  MLA attention (deepseek-v3-671b) raises
 ``NotImplementedError`` in ``Model``'s constructor, before any work.
+
+Caches, per slot kind: 'A' keeps the flattened (B, S, KV·hd) K and V; 'M'
+the last ``d_conv - 1`` conv inputs and the (B, H, P, N) state; 'X' the
+projected image K and V, (B, T, KV, hd).  Decode writes them in place.
 
 ``mode="train"`` takes each layer's parameters as views of one
 ``torch.unbind`` of the stacked leaves (so autograd stacks the layers'
@@ -37,13 +44,10 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import P, init_tree, stacked
 
-_NOT_PORTED = {
-    "M": "Mamba (SSM) mixers are not ported yet (ROADMAP queue 1, item 13)",
-    "X": "VLM cross-attention is not ported yet (ROADMAP queue 1, item 13)",
-    "mla": "MLA attention is not ported yet (ROADMAP queue 1, item 13)",
-}
+_MLA_NOT_PORTED = "MLA attention is not ported yet (ROADMAP queue 1, item 13b)"
 
 
 class Slot(NamedTuple):
@@ -92,24 +96,32 @@ def build_segments(cfg: ModelConfig) -> list[Segment]:
 
 def check_ported(cfg: ModelConfig):
     """Raise ``NotImplementedError`` for any part of ``cfg`` that the port
-    does not run yet, naming its ROADMAP item."""
+    does not run yet (MLA attention), naming its ROADMAP item."""
     if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['mla']}")
-    for seg in build_segments(cfg):
-        for slot in seg.slots:
-            for what in (slot.kind, slot.ffn):
-                if what in _NOT_PORTED:
-                    raise NotImplementedError(
-                        f"{cfg.name}: {_NOT_PORTED[what]}")
+        raise NotImplementedError(f"{cfg.name}: {_MLA_NOT_PORTED}")
 
 
 # ---------------------------------------------------------------------------
 # Param specs
 # ---------------------------------------------------------------------------
 
+def _mixer_specs(cfg, slot: Slot):
+    if slot.kind == "A":
+        return L.attn_specs(cfg)
+    if slot.kind == "M":
+        return ssm_mod.ssm_specs(cfg)
+    if slot.kind == "X":
+        return L.cross_attn_specs(cfg)
+    raise ValueError(slot.kind)
+
+
 def _slot_specs(cfg, slot: Slot):
     d = cfg.d_model
-    s = {"norm1": P((d,), ("embed",), "ones"), "mixer": L.attn_specs(cfg)}
+    s = {"norm1": P((d,), ("embed",), "ones"),
+         "mixer": _mixer_specs(cfg, slot)}
+    if slot.kind == "X":
+        s["gate_attn"] = P((), (), "zeros")
+        s["gate_ffn"] = P((), (), "zeros")
     if slot.ffn == "mlp":
         s["norm2"] = P((d,), ("embed",), "ones")
         s["ffn"] = L.mlp_specs(cfg, slot.ff)
@@ -144,12 +156,25 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _slot_cache_spec(cfg, B: int, S: int):
+def _slot_cache_spec(cfg, slot: Slot, B: int, S: int):
     f = _dtype(cfg.compute_dtype)
-    kv, hd = cfg.num_kv_heads, cfg.head_dim
-    # flattened (kv*hd) layout, as the reference's
-    return {"k": ((B, S, kv * hd), ("batch", "kv_seq", "kv"), f),
-            "v": ((B, S, kv * hd), ("batch", "kv_seq", "kv"), f)}
+    if slot.kind == "A":
+        kv, hd = cfg.num_kv_heads, cfg.head_dim
+        # flattened (kv*hd) layout, as the reference's
+        return {"k": ((B, S, kv * hd), ("batch", "kv_seq", "kv"), f),
+                "v": ((B, S, kv * hd), ("batch", "kv_seq", "kv"), f)}
+    if slot.kind == "M":
+        s = cfg.ssm
+        conv_dim = cfg.d_inner + 2 * s.n_groups * s.d_state
+        return {"conv": ((B, s.d_conv - 1, conv_dim), ("batch", None, "mlp"), f),
+                "ssm": ((B, cfg.ssm_heads, s.head_dim, s.d_state),
+                        ("batch", "heads", None, "state"), f)}
+    if slot.kind == "X":
+        kv, hd = cfg.num_kv_heads, cfg.head_dim
+        T = cfg.num_image_tokens
+        return {"xk": ((B, T, kv, hd), ("batch", "img", "kv", "head_dim"), f),
+                "xv": ((B, T, kv, hd), ("batch", "img", "kv", "head_dim"), f)}
+    raise ValueError(slot.kind)
 
 
 def cache_specs(cfg: ModelConfig, B: int, S: int):
@@ -160,7 +185,7 @@ def cache_specs(cfg: ModelConfig, B: int, S: int):
     for seg in build_segments(cfg):
         sh, ax = {}, {}
         for j, slot in enumerate(seg.slots):
-            spec = _slot_cache_spec(cfg, B, S)
+            spec = _slot_cache_spec(cfg, slot, B, S)
             sh[f"slot{j}"] = {k: ((seg.n,) + s, d)
                               for k, (s, a, d) in spec.items()}
             ax[f"slot{j}"] = {k: ("layers",) + a
@@ -184,13 +209,22 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device=None):
 # Forward
 # ---------------------------------------------------------------------------
 
-def _apply_slot(cfg, slot: Slot, p, x, *, positions, mode, cache):
+def _apply_slot(cfg, slot: Slot, p, x, *, positions, mode, cache,
+                image_embeds):
     """(x, new cache, aux): aux is the MoE layer's load-balance metric,
     None for a slot without MoE."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     aux = None
-    y, nc = L.attention(p["mixer"], h, cfg, positions=positions, mode=mode,
-                        cache=cache)
+    if slot.kind == "A":
+        y, nc = L.attention(p["mixer"], h, cfg, positions=positions,
+                            mode=mode, cache=cache)
+    elif slot.kind == "M":
+        y, nc = ssm_mod.mamba_mixer(p["mixer"], h, cfg, mode=mode,
+                                    cache=cache)
+    else:
+        y, nc = L.cross_attention(p["mixer"], h, image_embeds, cfg,
+                                  mode=mode, cache=cache)
+        y = y * torch.tanh(p["gate_attn"]).to(y.dtype)
     x = x + y
     if slot.ffn != "none":
         h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -198,6 +232,8 @@ def _apply_slot(cfg, slot: Slot, p, x, *, positions, mode, cache):
             f, aux = moe_mod.moe_apply(p["ffn"], h2, cfg)
         else:
             f = L.mlp_apply(p["ffn"], h2)
+        if slot.kind == "X":
+            f = f * torch.tanh(p["gate_ffn"]).to(f.dtype)
         x = x + f
     return x, nc, aux
 
@@ -218,9 +254,10 @@ def _unbind(tree, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
-def _train_slot(cfg, slot: Slot, p, x, positions):
+def _train_slot(cfg, slot: Slot, p, x, positions, image_embeds):
     x, _, aux = _apply_slot(cfg, slot, p, x, positions=positions,
-                            mode="train", cache=None)
+                            mode="train", cache=None,
+                            image_embeds=image_embeds)
     return x, aux
 
 
@@ -231,11 +268,16 @@ def _plus(total, aux):
 
 
 def _run_segment(cfg, seg: Segment, seg_params, x, *, positions, mode,
-                 caches):
+                 caches, image_embeds):
     """The reference's scan over the segment's stacked layers, as a loop.
     Decode caches are written in place; prefill caches are stacked.
-    Returns (x, caches, aux): aux summed over the layers in order, as the
-    reference's scan carry sums it (None where no layer has MoE)."""
+    Returns (x, caches, aux): aux summed over the periods in order, as the
+    reference's scan carry sums it — each period adds the aux of its
+    *last* slot only (None where that slot has no MoE), since the
+    reference's loop over a period's slots overwrites ``aux`` before the
+    carry adds it.  In a one-slot period (dbrx-132b) that is every MoE
+    layer; jamba-1.5-large-398b's period of eight adds slot 7's and drops
+    slots 1, 3 and 5's (ROADMAP queue 3)."""
     aux_sum = None
     if mode == "train":
         layers = {f"slot{j}": _unbind(seg_params[f"slot{j}"], seg.n)
@@ -245,10 +287,12 @@ def _run_segment(cfg, seg: Segment, seg_params, x, *, positions, mode,
                 p = layers[f"slot{j}"][i]
                 if cfg.remat:
                     x, aux = checkpoint(_train_slot, cfg, slot, p, x,
-                                        positions, use_reentrant=False)
+                                        positions, image_embeds,
+                                        use_reentrant=False)
                 else:
-                    x, aux = _train_slot(cfg, slot, p, x, positions)
-                aux_sum = _plus(aux_sum, aux)
+                    x, aux = _train_slot(cfg, slot, p, x, positions,
+                                         image_embeds)
+            aux_sum = _plus(aux_sum, aux)       # the period's last slot's
         return x, {}, aux_sum
     new = {f"slot{j}": [] for j in range(len(seg.slots))}
     for i in range(seg.n):
@@ -257,9 +301,9 @@ def _run_segment(cfg, seg: Segment, seg_params, x, *, positions, mode,
             c = _layer(caches[name], i) if caches is not None else None
             x, nc, aux = _apply_slot(cfg, slot, _layer(seg_params[name], i),
                                      x, positions=positions, mode=mode,
-                                     cache=c)
-            aux_sum = _plus(aux_sum, aux)
+                                     cache=c, image_embeds=image_embeds)
             new[name].append(nc)
+        aux_sum = _plus(aux_sum, aux)           # the period's last slot's
     if mode == "decode":
         return x, caches, aux_sum
     return x, {name: {k: torch.stack([c[k] for c in per_layer])
@@ -274,11 +318,11 @@ def forward(cfg: ModelConfig, params, inputs, *, mode: str,
     mode='train'/'prefill': inputs (B,S) ids or (B,S,d) embeddings.
     mode='decode': inputs (B,1)/(B,1,d), positions (B,), caches required
     (written in place and returned).
+    ``image_embeds`` (B, T, d), cast to the compute dtype, feeds every
+    cross-attention slot in train and prefill.
     Returns (logits, new_caches, aux); aux is the MoE layers' summed
     load-balance metric (0 without MoE).
     """
-    if image_embeds is not None:
-        raise NotImplementedError(_NOT_PORTED["X"])
     f = _dtype(cfg.compute_dtype)
     embed = params["embed"]
     inputs = torch.as_tensor(inputs, device=embed.device)
@@ -291,6 +335,8 @@ def forward(cfg: ModelConfig, params, inputs, *, mode: str,
     if positions is None:
         positions = torch.arange(S, device=x.device)
     positions = torch.as_tensor(positions, device=x.device)
+    if image_embeds is not None:
+        image_embeds = torch.as_tensor(image_embeds, device=x.device).to(f)
 
     segs = build_segments(cfg)
     new_caches = []
@@ -298,7 +344,8 @@ def forward(cfg: ModelConfig, params, inputs, *, mode: str,
     for i, seg in enumerate(segs):
         c = caches[i] if caches is not None else None
         x, nc, aux = _run_segment(cfg, seg, params["segments"][i], x,
-                                  positions=positions, mode=mode, caches=c)
+                                  positions=positions, mode=mode, caches=c,
+                                  image_embeds=image_embeds)
         new_caches.append(nc)
         aux_total = _plus(aux_total, aux)
 

@@ -12,7 +12,12 @@ The reference's ``jax.jit(..., donate_argnums=(1,))`` decode becomes, on
 a CUDA device, the decode step captured once in a CUDA graph
 (``GraphedDecode``) and replayed every step; on the CPU it is the eager
 call.  Both update the batch cache in place, and the splice writes the
-slot's rows in place.
+slot's rows in place: a cache leaf with a ``kv_seq`` axis (attention K
+and V) is zero-padded to capacity, any other (a Mamba slot's conv rows
+and state) is copied whole.  Like the reference's, the batcher passes no
+``image_embeds``, so it does not serve a model with cross-attention
+slots: its constructor refuses one (the reference fails at the first
+admission); ``serve.engine``'s steps take ``image_embeds``.
 
 ``PatternQueryBatcher`` is the graph-mining counterpart: pattern-count
 requests against one graph are drained in batches, grouped by canonical
@@ -106,6 +111,11 @@ class ContinuousBatcher:
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  capacity: int = 128, device=None):
         assert cfg.input_mode == "tokens", "batching driver uses token ids"
+        if "X" in cfg.layer_pattern:
+            raise ValueError(
+                f"{cfg.name} has cross-attention layers, which need "
+                "image_embeds, and ContinuousBatcher passes none; serve it "
+                "with serve.engine's make_prefill_step / make_decode_step")
         self.device = _device.resolve(device)
         self.cfg = cfg
         self.params = params

@@ -12,7 +12,7 @@ The reference package's ``repro.train.fault_tolerance``:
 
 ``elastic_reshard`` (re-slicing a checkpoint onto a new mesh by the
 logical sharding rules) raises ``NotImplementedError``: the LM side of the
-mesh is not ported yet (ROADMAP queue 1, item 13).
+mesh is not ported yet (ROADMAP queue 1, item 13f).
 """
 from __future__ import annotations
 
@@ -53,7 +53,7 @@ def elastic_reshard(directory, step, like_state, axes_tree, new_mesh,
                     rules=None):
     raise NotImplementedError(
         "elastic_reshard needs the logical-axis sharding rules of the LM "
-        "side of the mesh, not ported yet (ROADMAP queue 1, item 13)")
+        "side of the mesh, not ported yet (ROADMAP queue 1, item 13f)")
 
 
 class StepWatchdog:

@@ -15,7 +15,7 @@ the returned state holds the same tensors.
 
 ``abstract_state`` and ``state_axes`` (allocation-free lowering and the
 logical-axis rules) wait for ``dryrun`` and the mesh rules (ROADMAP queue
-1, item 13).
+1, item 13e).
 """
 from __future__ import annotations
 

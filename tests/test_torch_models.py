@@ -36,10 +36,13 @@ from repro_torch.serve import engine as tengine
 TOL = 1e-4
 KEY = jax.random.PRNGKey(0)
 PORTED = ("qwen3-4b", "deepseek-7b", "command-r-35b", "granite-20b",
-          "musicgen-large", "repro-100m", "dbrx-132b")
-NOT_PORTED = {"mamba2-1.3b": "Mamba", "jamba-1.5-large-398b": "Mamba",
-              "deepseek-v3-671b": "MLA",
-              "llama-3.2-vision-11b": "cross-attention"}
+          "musicgen-large", "repro-100m", "dbrx-132b", "mamba2-1.3b",
+          "jamba-1.5-large-398b", "llama-3.2-vision-11b")
+NOT_PORTED = {"deepseek-v3-671b": "MLA"}
+# families whose mixers ('M', 'X') were ported after the constructor
+# refused them; the models themselves are held in test_torch_ssm.py and
+# test_torch_vlm.py
+SSM_AND_VLM = ("mamba2-1.3b", "jamba-1.5-large-398b", "llama-3.2-vision-11b")
 
 
 def _np(x):
@@ -135,6 +138,31 @@ def test_registry_ids_and_shapes_equal():
 def test_unported_families_raise_in_the_constructor(arch):
     with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
         ttf.Model(tbase.reduced_config(treg.get_config(arch)))
+    with pytest.raises(NotImplementedError, match="item 13b"):
+        ttf.Model(tbase.reduced_config(treg.get_config(arch)))
+
+
+@pytest.mark.parametrize("arch", SSM_AND_VLM)
+def test_ssm_and_vlm_families_construct(arch):
+    """The Mamba ('M') and cross-attention ('X') slots construct: the
+    reduced config's specs, cache specs and zero caches have the
+    reference's leaves, shapes and axes."""
+    rcfg, tcfg = _pair(arch)
+    model = ttf.Model(tcfg)
+    assert tparams.axes_tree(model.specs) == \
+        rparams.axes_tree(rtf.param_specs(rcfg))
+    r_shapes, r_axes = rtf.cache_specs(rcfg, 2, 7)
+    t_shapes, t_axes = ttf.cache_specs(tcfg, 2, 7)
+    assert [shape for shape, _ in tparams.leaves(
+        [{s: list(leaf.values()) for s, leaf in seg.items()}
+         for seg in t_shapes])] == \
+        [tuple(x.shape) for x in jax.tree.leaves(r_shapes)]
+    assert t_axes == r_axes
+    caches = ttf.init_cache(tcfg, 2, 7, device="cpu")
+    assert all(float(c.abs().sum()) == 0 for c in tparams.leaves(caches))
+    kinds = {slot.kind for seg in ttf.build_segments(tcfg)
+             for slot in seg.slots}
+    assert kinds & {"M", "X"}
 
 
 def test_init_draws_every_leaf_on_the_device_asked_for(monkeypatch):
@@ -257,12 +285,28 @@ def test_cache_update_in_place_equals_the_masked_update():
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
-def test_cross_attention_is_not_ported():
-    cfg = tbase.reduced_config(treg.get_config("llama-3.2-vision-11b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        tlayers.cross_attn_specs(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        tlayers.cross_attention({}, None, None, cfg, mode="train")
+def test_cross_attention_is_ported():
+    """``cross_attn_specs`` and ``cross_attention`` run (they raised
+    before the port of the 'X' slots): specs as the reference's, and a
+    prefill whose image K and V the layer's decode reads back (the layer
+    is held against the reference in ``test_torch_vlm.py``)."""
+    rcfg, cfg = _pair("llama-3.2-vision-11b")
+    specs = tlayers.cross_attn_specs(cfg)
+    assert tparams.axes_tree(specs) == rparams.axes_tree(
+        rlayers.cross_attn_specs(rcfg))
+    rng = np.random.default_rng(0)
+    p = {k: torch.from_numpy(rng.normal(size=v.shape).astype(np.float32))
+         for k, v in specs.items()}
+    x = torch.from_numpy(rng.normal(size=(1, 3, cfg.d_model)).astype(
+        np.float32))
+    img = torch.from_numpy(rng.normal(
+        size=(1, cfg.num_image_tokens, cfg.d_model)).astype(np.float32))
+    y, cache = tlayers.cross_attention(p, x, img, cfg, mode="prefill")
+    assert y.shape == x.shape and sorted(cache) == ["xk", "xv"]
+    y1, again = tlayers.cross_attention(p, x[:, -1:], None, cfg,
+                                        mode="decode", cache=cache)
+    assert again is cache
+    torch.testing.assert_close(y1, y[:, -1:], rtol=TOL, atol=TOL)
 
 
 # -- the decoder -----------------------------------------------------------------------
