@@ -18,9 +18,13 @@
 // writes lse = m + log(max(l, 1e-20)) in natural-log units of the scaled
 // scores, f32, at (B, H, Sq); serving passes null and writes nothing more.
 //
-// Layout: q, k, v and out are (B, S, H, D) read by their batch, sequence and
-// head strides (unit stride along D); no transposed copy is made.  D = 64 and
-// D = 128 are template instances.  Two designs, one per entry point:
+// Layout: q and k are (B, S, H, Dq), v and out (B, S, H, Dv), read by their
+// batch, sequence and head strides (unit stride along the head dim); no
+// transposed copy is made.  The (Dq, Dv) pairs are template instances:
+// (64, 64), (128, 128) and (192, 128), the last for deepseek-v3's latent
+// attention (models/mla.py: 128 + 64 rope columns in q and k, 128 in v),
+// which the reference runs through the same XLA scan, written for Dq != Dv.
+// Two designs, one per entry point:
 //
 // flashattn_bf16 (Hopper: wgmma + TMA).  One CTA of 384 threads per
 // (batch·head, 128-row query tile); the grid runs the heaviest query tiles
@@ -29,13 +33,17 @@
 // after `setmaxnreg` hands its registers to the consumers, one thread loads
 // Q once and K, V per tile with TMA (`cp.async.bulk.tensor`, a 4-D map over
 // (D, H, S, B) with the operand's strides, 64-column boxes with 128-byte
-// swizzle) into three stages of shared memory (Q 32 KB, K and V 3 x 32 KB
-// each at D = 128: 224 KB), with one `mbarrier` per stage and operand for
-// arrival and one per stage for release by both consumers.  Warpgroups 1
+// swizzle) into stages of shared memory, with one `mbarrier` per stage and
+// operand for arrival and one per stage for release by both consumers.  At
+// (128, 128) three stages: Q 32 KB, K and V 3 x 32 KB each, 224 KB.  At
+// (192, 128) three would need Q 48 KB + K 3 x 48 KB + V 3 x 32 KB = 288 KB,
+// over the 227 KB a block may use, so that instance keeps two: 208 KB, and
+// the producer runs one tile ahead instead of two.  Warpgroups 1
 // and 2 own 64 query rows each, with their rows' m, l and output
 // accumulator in registers:
 //   - S = QKᵀ is `wgmma m64n128k16 .f32.bf16.bf16` from shared memory (Q as
-//     A, K as a K-major B): exact products of the bf16 inputs, accumulated
+//     A, K as a K-major B), Dq / 16 k-steps over Dq / 64 TMA boxes (12 over
+//     3 at Dq = 192): exact products of the bf16 inputs, accumulated
 //     in f32.  The scale (times log2 e, for exp2) multiplies S in f32 after
 //     the product, where the reference scales q before it: they differ by
 //     f32 roundings only.
@@ -47,7 +55,7 @@
 //   - P·V keeps P to f32 grade on the bf16 tensor cores: P is split in
 //     registers into P_hi = bf16(P) and P_lo = bf16(P - P_hi), which sum to
 //     P within 2^-17·|P| (round to nearest: half an ulp of the residual),
-//     and `wgmma m64nDk16` with A from registers (the f32 accumulator
+//     and `wgmma m64nDvk16` with A from registers (the f32 accumulator
 //     layout of S is the bf16 A-fragment layout of P: no shared-memory
 //     round trip) and V as an N-major B (transpose bit) adds P_hi·V, then
 //     P_lo·V, into one f32 accumulator.  Products of bf16 values are exact
@@ -68,13 +76,21 @@
 // the one before, and the two consumer warpgroups interleave as the
 // scheduler finds them ready.  Left: the warpgroups are not ordered against
 // each other (ping-pong), and on the diagonal tile the lower 64 rows
-// compute 64 columns that are all masked for them.
+// compute 64 columns that are all masked for them.  At deepseek-v3's
+// prefill, (1, 4096, 128, 192 / 128): the function is 2·(Dq + Dv)·H·T =
+// 687.3 GFLOP (T = S(S+1)/2 pairs a head); the design's one pass for S and
+// two for P·V are (2·Dq + 4·Dv)·H·T = 962.3 GFLOP, 0.973 ms at 989 TFLOP/s;
+// the exps take 0.257 ms and the bytes (0.67 GB) 0.20 ms.  The output
+// accumulator and P·V run at Dv, so a consumer holds as many registers as
+// at (128, 128).
 //
 // flashattn_f32 (f32 q, k, v: the bf16 tensor cores would round them).  One
 // block of 256 threads per (batch·head, 64-row query tile), 64-row KV tiles;
 // Q (scaled before the product, as the reference), K (both transposed), V
-// and P are f32 tiles in 113 KB of dynamic shared memory; each thread holds
-// a 4 x 4 block of S and a 4 x D/16 block of the accumulator; both products
+// and P are f32 tiles in Dq·64 + Dq·64 + 64·Dv + 64·68 floats of dynamic
+// shared memory (113 KB at (128, 128), so two blocks share an SM; 145 KB at
+// (192, 128), so one block is resident per SM); each thread holds a 4 x 4
+// block of S and a 4 x Dv/16 block of the accumulator; both products
 // are register-blocked f32 FMAs (16-byte shared loads feeding 16 or 32 FMAs)
 // at the f32 rate outside the tensor cores, 67 TFLOP/s; row reductions are
 // shuffles across the 16 threads of a row.
@@ -101,9 +117,9 @@ constexpr int BK = 64;              // KV rows per tile
 constexpr int THREADS = 256;        // 16 x 16: ty owns rows, tx owns columns
 constexpr int PS = BK + 4;          // P row stride, padded against conflicts
 
-template <int D>
+template <int DQ, int DV>
 constexpr int smem_floats() {
-  return D * BQ + D * BK + BK * D + BQ * PS;
+  return DQ * BQ + DQ * BK + BK * DV + BQ * PS;
 }
 
 // rows [0, R) of a (R, D) tile starting at sequence row `row0`, written to
@@ -126,18 +142,20 @@ __device__ __forceinline__ void load_transposed(float* dst, const float* src,
   }
 }
 
-template <int D, bool CAUSAL>
+// the bound asks for registers enough for two blocks an SM (128 a thread);
+// at (192, 128) the shared memory lets only one be resident
+template <int DQ, int DV, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ out, int H, int Sq,
           int Skv, Strides sq, Strides sk, Strides sv, Strides so,
           float scale, float* __restrict__ lse) {
-  constexpr int NC = D / 64;        // 64-column groups of the accumulator
+  constexpr int NC = DV / 64;       // 64-column groups of the accumulator
   extern __shared__ float4 smem4[];
-  float* qT = reinterpret_cast<float*>(smem4);   // [D][BQ], scaled
-  float* kT = qT + D * BQ;                       // [D][BK]
-  float* vs = kT + D * BK;                       // [BK][D]
-  float* ps = vs + BK * D;                       // [BQ][PS]
+  float* qT = reinterpret_cast<float*>(smem4);   // [DQ][BQ], scaled
+  float* kT = qT + DQ * BQ;                      // [DQ][BK]
+  float* vs = kT + DQ * BK;                      // [BK][DV]
+  float* ps = vs + BK * DV;                      // [BQ][PS]
 
   const int nq = (Sq + BQ - 1) / BQ;
   // B * H on grid axis x (up to 2^31 - 1), the query tiles on y
@@ -149,7 +167,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
 
-  load_transposed<D, BQ>(qT, qb, sq.s, q0, Sq, scale);
+  load_transposed<DQ, BQ>(qT, qb, sq.s, q0, Sq, scale);
 
   float m[4], l[4], acc[4][4 * NC];
 #pragma unroll
@@ -165,9 +183,9 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kt = 0; kt < n_kv; ++kt) {
     const int kv0 = kt * BK;
-    load_transposed<D, BK>(kT, kb, sk.s, kv0, Skv, 1.f);
-    for (int e = threadIdx.x; e < BK * D; e += THREADS) {
-      const int t = e / D, d = e % D;
+    load_transposed<DQ, BK>(kT, kb, sk.s, kv0, Skv, 1.f);
+    for (int e = threadIdx.x; e < BK * DV; e += THREADS) {
+      const int t = e / DV, d = e % DV;
       vs[e] = kv0 + t < Skv ? vb[(kv0 + t) * sv.s + d] : 0.f;
     }
     __syncthreads();
@@ -179,7 +197,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQ; ++d) {
       const float4 a = *reinterpret_cast<const float4*>(qT + d * BQ + ty * 4);
       const float4 c = *reinterpret_cast<const float4*>(kT + d * BK + tx * 4);
       const float av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
@@ -240,7 +258,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int g = 0; g < NC; ++g) {
           const float4 y = *reinterpret_cast<const float4*>(
-              vs + (t + u) * D + g * 64 + tx * 4);
+              vs + (t + u) * DV + g * 64 + tx * 4);
           const float yv[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
           for (int i = 0; i < 4; ++i)
@@ -269,12 +287,14 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D, bool CAUSAL>
+template <int DQ, int DV>
 int launch(const float* q, const float* k, const float* v, float* out, int B,
            int H, int Sq, int Skv, Strides sq, Strides sk, Strides sv,
-           Strides so, float scale, float* lse, cudaStream_t stream) {
-  auto kernel = flash_fwd<D, CAUSAL>;
-  const int bytes = smem_floats<D>() * (int)sizeof(float);
+           Strides so, float scale, bool causal, float* lse,
+           cudaStream_t stream) {
+  auto kernel =
+      causal ? &flash_fwd<DQ, DV, true> : &flash_fwd<DQ, DV, false>;
+  const int bytes = smem_floats<DQ, DV>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -297,19 +317,21 @@ namespace bf16k {
 
 constexpr int BQ = 128;             // query rows per CTA: 2 consumers x 64
 constexpr int BK = 128;             // KV rows per tile (wgmma_ss's N)
-constexpr int STAGES = 3;           // K/V tiles in flight
 constexpr int THREADS = 384;        // producer + two consumer warpgroups
 constexpr int CONSUMERS = 256;      // threads that release a stage
 constexpr int ROW_BYTES = 128;      // one 64-column box row, swizzled
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-template <int D>
+template <int DQ, int DV>
 struct Smem {                       // byte offsets from a 1024-aligned base
-  static constexpr int Q = BQ * D * 2;           // one Q tile
-  static constexpr int KV = BK * D * 2;          // one K or V stage
-  static constexpr int K0 = Q, V0 = Q + STAGES * KV;
-  static constexpr int BARS = V0 + STAGES * KV;  // 1 + 3 · STAGES mbarriers
+  // K/V tiles in flight: three where they fit, two at (192, 128)
+  static constexpr int STAGES = DQ + DV <= 256 ? 3 : 2;
+  static constexpr int Q = BQ * DQ * 2;          // one Q tile
+  static constexpr int K = BK * DQ * 2;          // one K stage
+  static constexpr int V = BK * DV * 2;          // one V stage
+  static constexpr int K0 = Q, V0 = Q + STAGES * K;
+  static constexpr int BARS = V0 + STAGES * V;   // 1 + 3 · STAGES mbarriers
   static constexpr int BYTES = BARS + 8 * (1 + 3 * STAGES) + 1024;
   static_assert(BYTES <= 232448, "a block's shared memory on Hopper");
 };
@@ -470,15 +492,17 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
 }
 
-template <int D, bool CAUSAL>
+template <int DQ, int DV, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv,
           __nv_bfloat16* __restrict__ out, int H, int Sq, int Skv, Strides so,
           float scale_log2, float* __restrict__ lse) {
-  using L = Smem<D>;
-  constexpr int BOXES = D / 64;     // 64-column TMA boxes per row
+  using L = Smem<DQ, DV>;
+  constexpr int STAGES = L::STAGES;
+  constexpr int QBOXES = DQ / 64;   // 64-column TMA boxes per row of Q, K
+  constexpr int VBOXES = DV / 64;   // and of V
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t q_full = base + L::BARS;
@@ -509,18 +533,18 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (threadIdx.x == 0) {
       bar_expect(q_full, L::Q);
-      for (int c = 0; c < BOXES; ++c)
+      for (int c = 0; c < QBOXES; ++c)
         tma_load(base + c * BQ * ROW_BYTES, &tq, q_full, 64 * c, h, q0, b);
       for (int kt = 0; kt < n_kv; ++kt) {
         const int s = kt % STAGES;
         bar_wait(kv_free(s), ((kt / STAGES) & 1) ^ 1);
-        bar_expect(k_full(s), L::KV);
-        for (int c = 0; c < BOXES; ++c)
-          tma_load(base + L::K0 + s * L::KV + c * BK * ROW_BYTES, &tk,
+        bar_expect(k_full(s), L::K);
+        for (int c = 0; c < QBOXES; ++c)
+          tma_load(base + L::K0 + s * L::K + c * BK * ROW_BYTES, &tk,
                    k_full(s), 64 * c, h, kt * BK, b);
-        bar_expect(v_full(s), L::KV);
-        for (int c = 0; c < BOXES; ++c)
-          tma_load(base + L::V0 + s * L::KV + c * BK * ROW_BYTES, &tv,
+        bar_expect(v_full(s), L::V);
+        for (int c = 0; c < VBOXES; ++c)
+          tma_load(base + L::V0 + s * L::V + c * BK * ROW_BYTES, &tv,
                    v_full(s), 64 * c, h, kt * BK, b);
       }
     }
@@ -534,10 +558,10 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
     const int col = 2 * (lane % 4);  // column of d[0] in each 8-column group
     const uint32_t qa = base + cw * 64 * ROW_BYTES;
 
-    float o[D / 2], s[BK / 2];
+    float o[DV / 2], s[BK / 2];
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
     // accumulator index i: row + 8 · ((i / 2) % 2), column 8 · (i / 4) +
@@ -554,20 +578,20 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
     auto pv = [&](uint32_t vs) {      // O += P_hi V + P_lo V, 16 V rows a step
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<D>(o, p_hi[kk],
+        wgmma_rs<DV>(o, p_hi[kk],
                     sw128_desc(vs + kk * 16 * ROW_BYTES, BK * ROW_BYTES));
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<D>(o, p_lo[kk],
+        wgmma_rs<DV>(o, p_lo[kk],
                     sw128_desc(vs + kk * 16 * ROW_BYTES, BK * ROW_BYTES));
     };
-    auto v_stage = [&](int kt) { return base + L::V0 + kt % STAGES * L::KV; };
+    auto v_stage = [&](int kt) { return base + L::V0 + kt % STAGES * L::V; };
 
     bar_wait(q_full, 0);
     for (int kt = 0; kt < n_kv; ++kt) {
       const int st = kt % STAGES, phase = (kt / STAGES) & 1;
       const int kv0 = kt * BK;
-      const uint32_t ks = base + L::K0 + st * L::KV;
+      const uint32_t ks = base + L::K0 + st * L::K;
 
       // S = Q Kᵀ, k-steps of 16 columns: 32 bytes inside a 128-byte box row
       bar_wait(k_full(st), phase);
@@ -575,7 +599,7 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
       reg_fence(o);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DQ / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;
         wgmma_ss(s, sw128_desc(qa + (kk / 4) * BQ * ROW_BYTES + off, 16),
                  sw128_desc(ks + (kk / 4) * BK * ROW_BYTES + off, 16), kk > 0);
@@ -643,7 +667,7 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
       frag_fence(p_lo);
       if (kt > 0) bar_arrive(kv_free((kt - 1) % STAGES));
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+      for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i / 2) % 2];
 
       // P = P_hi + P_lo in the A-fragment layout: k-step kk holds
       // accumulator columns 16 kk .. 16 kk + 15, i.e. s[8 kk .. 8 kk + 7]
@@ -681,7 +705,7 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
             m[r] * LN2 + logf(l[r]);
       __nv_bfloat16* orow = ob + qrow * so.s + col;
 #pragma unroll
-      for (int g = 0; g < D / 8; ++g)
+      for (int g = 0; g < DV / 8; ++g)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * g) =
             __floats2bfloat162_rn(o[4 * g + 2 * r] / l[r],
                                   o[4 * g + 2 * r + 1] / l[r]);
@@ -743,17 +767,19 @@ int make_map(CUtensorMap* map, const void* x, int B, int S, int H, int D,
   return res == CUDA_SUCCESS ? 0 : -static_cast<int>(res);
 }
 
-template <int D, bool CAUSAL>
+template <int DQ, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int Sq, int Skv, Strides sq, Strides sk, Strides sv,
-           Strides so, float scale, float* lse, cudaStream_t stream) {
+           Strides so, float scale, bool causal, float* lse,
+           cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int err = make_map(&tq, q, B, Sq, H, D, sq, BQ);
-  if (err == 0) err = make_map(&tk, k, B, Skv, H, D, sk, BK);
-  if (err == 0) err = make_map(&tv, v, B, Skv, H, D, sv, BK);
+  int err = make_map(&tq, q, B, Sq, H, DQ, sq, BQ);
+  if (err == 0) err = make_map(&tk, k, B, Skv, H, DQ, sk, BK);
+  if (err == 0) err = make_map(&tv, v, B, Skv, H, DV, sv, BK);
   if (err != 0) return err;
-  auto kernel = flash_fwd<D, CAUSAL>;
-  const int bytes = Smem<D>::BYTES;
+  auto kernel =
+      causal ? &flash_fwd<DQ, DV, true> : &flash_fwd<DQ, DV, false>;
+  const int bytes = Smem<DQ, DV>::BYTES;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -776,14 +802,15 @@ struct Args {
 
 }  // namespace
 
-// q, k, v, out: (B, S, H, D) with unit stride along D; `strides` holds the
-// (batch, sequence, head) element strides of q, k, v and out, in that order.
-// `lse`: null, or a contiguous f32 (B, H, Sq) buffer for each row's
-// log-sum-exp.  Returns cudaGetLastError() after the launch (0 when it was
-// accepted).
+// q, k: (B, S, H, Dq), v, out: (B, S, H, Dv), each with unit stride along
+// its head dim; `strides` holds the (batch, sequence, head) element strides
+// of q, k, v and out, in that order.  (Dq, Dv) is (64, 64), (128, 128) or
+// (192, 128).  `lse`: null, or a contiguous f32 (B, H, Sq) buffer for each
+// row's log-sum-exp.  Returns cudaGetLastError() after the launch (0 when it
+// was accepted), cudaErrorInvalidValue for another pair.
 extern "C" int flashattn_f32(const void* q, const void* k, const void* v,
-                             void* out, int B, int H, int Sq, int Skv, int D,
-                             const long long* strides, float scale,
+                             void* out, int B, int H, int Sq, int Skv, int Dq,
+                             int Dv, const long long* strides, float scale,
                              int causal, void* stream, void* lse) {
   const Args a(strides);
   auto L = static_cast<float*>(lse);
@@ -791,18 +818,13 @@ extern "C" int flashattn_f32(const void* q, const void* k, const void* v,
   auto Q = static_cast<const float*>(q), K = static_cast<const float*>(k),
        V = static_cast<const float*>(v);
   auto O = static_cast<float*>(out);
-  if (D == 64 && causal)
-    return f32k::launch<64, true>(Q, K, V, O, B, H, Sq, Skv, a.sq, a.sk,
-                                  a.sv, a.so, scale, L, s);
-  if (D == 64)
-    return f32k::launch<64, false>(Q, K, V, O, B, H, Sq, Skv, a.sq, a.sk,
-                                   a.sv, a.so, scale, L, s);
-  if (D == 128 && causal)
-    return f32k::launch<128, true>(Q, K, V, O, B, H, Sq, Skv, a.sq, a.sk,
-                                   a.sv, a.so, scale, L, s);
-  if (D == 128)
-    return f32k::launch<128, false>(Q, K, V, O, B, H, Sq, Skv, a.sq, a.sk,
-                                    a.sv, a.so, scale, L, s);
+  auto run = [&](auto launch) {
+    return launch(Q, K, V, O, B, H, Sq, Skv, a.sq, a.sk, a.sv, a.so, scale,
+                  causal != 0, L, s);
+  };
+  if (Dq == 64 && Dv == 64) return run(f32k::launch<64, 64>);
+  if (Dq == 128 && Dv == 128) return run(f32k::launch<128, 128>);
+  if (Dq == 192 && Dv == 128) return run(f32k::launch<192, 128>);
   return cudaErrorInvalidValue;
 }
 
@@ -811,23 +833,19 @@ extern "C" int flashattn_f32(const void* q, const void* k, const void* v,
 // more than one row.  A negative return is the CUresult of building
 // a tensor map, negated.
 extern "C" int flashattn_bf16(const void* q, const void* k, const void* v,
-                              void* out, int B, int H, int Sq, int Skv, int D,
-                              const long long* strides, float scale,
-                              int causal, void* stream, void* lse) {
+                              void* out, int B, int H, int Sq, int Skv,
+                              int Dq, int Dv, const long long* strides,
+                              float scale, int causal, void* stream,
+                              void* lse) {
   const Args a(strides);
   auto L = static_cast<float*>(lse);
   auto s = static_cast<cudaStream_t>(stream);
-  if (D == 64 && causal)
-    return bf16k::launch<64, true>(q, k, v, out, B, H, Sq, Skv, a.sq, a.sk,
-                                   a.sv, a.so, scale, L, s);
-  if (D == 64)
-    return bf16k::launch<64, false>(q, k, v, out, B, H, Sq, Skv, a.sq, a.sk,
-                                    a.sv, a.so, scale, L, s);
-  if (D == 128 && causal)
-    return bf16k::launch<128, true>(q, k, v, out, B, H, Sq, Skv, a.sq, a.sk,
-                                    a.sv, a.so, scale, L, s);
-  if (D == 128)
-    return bf16k::launch<128, false>(q, k, v, out, B, H, Sq, Skv, a.sq,
-                                     a.sk, a.sv, a.so, scale, L, s);
+  auto run = [&](auto launch) {
+    return launch(q, k, v, out, B, H, Sq, Skv, a.sq, a.sk, a.sv, a.so, scale,
+                  causal != 0, L, s);
+  };
+  if (Dq == 64 && Dv == 64) return run(bf16k::launch<64, 64>);
+  if (Dq == 128 && Dv == 128) return run(bf16k::launch<128, 128>);
+  if (Dq == 192 && Dv == 128) return run(bf16k::launch<192, 128>);
   return cudaErrorInvalidValue;
 }

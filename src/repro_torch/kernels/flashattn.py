@@ -1,21 +1,24 @@
 """Blocked causal flash attention: online softmax over KV tiles.
 
-``flash_attention(q, k, v, causal=, block=)`` on (B, S, H, D) tensors
-replaces the reference package's TPU kernel ``flash_attention``
-(``src/repro/kernels/flashattn.py``) and, on the serving path, the XLA
-scan ``models/layers.flash_attention`` it is held equal to.  On a CUDA
-tensor it launches ``flashattn_f32`` / ``flashattn_bf16`` of
-``csrc/flashattn.cu`` (compiled at first use, see ``kernels.build``; the
-source says what bounds it on the card), or raises: only D = 64 and
-D = 128, f32 and bf16, q, k and v of one type on one device, no position
-vectors.  The bf16 kernel runs both products on the Hopper tensor cores
-(``wgmma``) with K and V staged by TMA, and keeps P to f32 grade by
-splitting it into two bf16 terms; the f32 kernel does both as f32 FMAs.
+``flash_attention(q, k, v, causal=, block=)`` on q, k (B, S, H, Dq) and
+v (B, S, H, Dv) tensors replaces the reference package's TPU kernel
+``flash_attention`` (``src/repro/kernels/flashattn.py``) and, on the
+serving path, the XLA scan ``models/layers.flash_attention`` it is held
+equal to.  On a CUDA tensor it launches ``flashattn_f32`` /
+``flashattn_bf16`` of ``csrc/flashattn.cu`` (compiled at first use, see
+``kernels.build``; the source says what bounds it on the card), or
+raises: only the head-dim pairs ``HEAD_DIM_PAIRS`` (Dq, Dv) = (64, 64),
+(128, 128) and (192, 128) — the last deepseek-v3's latent attention,
+``models/mla.py`` — f32 and bf16, q, k and v of one type on one device,
+no position vectors.  The bf16 kernel runs both products on the Hopper
+tensor cores (``wgmma``) with K and V staged by TMA, and keeps P to f32
+grade by splitting it into two bf16 terms; the f32 kernel does both as
+f32 FMAs.
 On a CPU tensor — and only because the tensor lies on the CPU — it takes
 the plain PyTorch version ``flash_attention_plain``.
 
 **Arithmetic contract** (both versions, the reference's): q, k and v are
-widened to f32; q is scaled by ``scale`` (default 1/√D) before the
+widened to f32; q is scaled by ``scale`` (default 1/√Dq) before the
 product; masked scores are ``NEG_INF`` = -1e30; per KV block the running
 max, sum and accumulator are rescaled by exp(m_prev − m_new) and
 p = exp(s − m_new) is zeroed where masked; the output is
@@ -34,9 +37,12 @@ forward launches K9 with a row statistic, lse = m + log(max(l, 1e-20)) per
 (b, h, query row) in f32 at (B, H, Sq), and its backward launches K9-bwd,
 ``flashattn_bwd_f32`` / ``flashattn_bwd_bf16`` of ``csrc/flashattn_bwd.cu``
 (``flash_attention_bwd``; ``launches["flashattn_bwd"]``).  The backward
-takes D = 64 and 128 and Sq == Skv only, and raises on anything else.  It
-computes, from q, k, v, the output o, dO and lse: S = scale·QKᵀ under the
-mask, P = exp(S − lse), Dᵢ = Σ_d dOᵢ·Oᵢ, dV = Pᵀ·dO, dP = dO·Vᵀ,
+takes D = Dq = Dv in ``HEAD_DIMS`` (64, 128) and Sq == Skv only, and
+raises on anything else; a CUDA call that wants a gradient at (192, 128)
+raises ``NotImplementedError`` before any launch (ROADMAP queue 1, item
+13b-train: K9-bwd is not widened yet).  It computes, from q, k, v, the
+output o, dO and lse: S = scale·QKᵀ under the mask, P = exp(S − lse),
+Dᵢ = Σ_d dOᵢ·Oᵢ, dV = Pᵀ·dO, dP = dO·Vᵀ,
 dS = P ⊙ (dP − Dᵢ), dQ = scale·dS·K, dK = scale·dSᵀ·Q, accumulated in f32
 and rounded once to q's type.  Three launches, no atomics (the same bits
 on every run): the row statistics, then dK and dV per KV tile, then dQ per
@@ -70,6 +76,9 @@ launches = {"flashattn": 0, "flashattn_bwd": 0}
 _ENTRY = {torch.float32: "flashattn_f32", torch.bfloat16: "flashattn_bf16"}
 _BWD_ENTRY = {torch.float32: "flashattn_bwd_f32",
               torch.bfloat16: "flashattn_bwd_bf16"}
+# K9's (Dq, Dv) instances in csrc/flashattn.cu
+HEAD_DIM_PAIRS = ((64, 64), (128, 128), (192, 128))
+# K9-bwd's head dims (Dq == Dv)
 HEAD_DIMS = (64, 128)
 # K9-bwd's row statistics: two f32 planes of (B·H, S rounded up to this)
 # (``PAD`` in csrc/flashattn_bwd.cu)
@@ -101,7 +110,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib():
     """The ``flashattn`` kernel library, bound."""
     return _bound("flashattn", _ENTRY.values(),
-                  [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _I, _P, _P])
+                  [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _I, _P,
+                   _P])
 
 
 def _bwd_lib():
@@ -211,10 +221,10 @@ def _check_kernel_operands(q, k, v, q_positions, kv_positions):
         raise ValueError(f"the flash attention kernel takes f32 or bf16 "
                          f"q, k, v of one type: {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    D, Dv = q.shape[3], v.shape[3]
-    if D not in HEAD_DIMS or Dv != D:
+    if (q.shape[3], v.shape[3]) not in HEAD_DIM_PAIRS:
         raise ValueError(f"the flash attention kernel takes head dims "
-                         f"{HEAD_DIMS} with Dq == Dv: {D}, {Dv}")
+                         f"(Dq, Dv) in {HEAD_DIM_PAIRS}: "
+                         f"{(q.shape[3], v.shape[3])}")
 
 
 def _kernel_reads(x) -> bool:
@@ -249,6 +259,11 @@ def flash_attention(q, k, v, *, causal: bool, block=None, q_positions=None,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if Dv != D:
+            raise NotImplementedError(
+                f"a gradient through flash attention on the card at (Dq, "
+                f"Dv) = {(D, Dv)}: K9-bwd takes Dq == Dv in {HEAD_DIMS} "
+                f"only (ROADMAP queue 1, item 13b-train)")
         if Sq != Skv:
             raise ValueError(f"the flash attention backward kernel takes "
                              f"Sq == Skv: {Sq}, {Skv}")
@@ -259,8 +274,8 @@ def flash_attention(q, k, v, *, causal: bool, block=None, q_positions=None,
 def _forward(q, k, v, causal: bool, scale: float, *, with_lse: bool):
     """One launch of K9: (out, lse or None, (q, k, v) as the kernel read
     them — copies where it could not read the view in place)."""
-    B, Sq, H, D, Skv, _ = _shapes(q, k, v)
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    B, Sq, H, D, Skv, Dv = _shapes(q, k, v)
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32,
                       device=q.device) if with_lse else None
     if B * Sq * H == 0:
@@ -277,7 +292,7 @@ def _forward(q, k, v, causal: bool, scale: float, *, with_lse: bool):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_lib(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-            Sq, Skv, D, ctypes.addressof(strides), float(scale),
+            Sq, Skv, D, Dv, ctypes.addressof(strides), float(scale),
             int(bool(causal)), stream,
             None if lse is None else lse.data_ptr())
     if err != 0:

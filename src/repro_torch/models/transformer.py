@@ -8,16 +8,19 @@ here it is a loop over that axis.
 
 Ported mixers: self-attention ('A'), which covers the dense family
 (qwen3-4b, deepseek-7b, command-r-35b, granite-20b, repro-100m) and
-musicgen-large's backbone (embedding inputs); Mamba2 ('M', ``models.ssm``:
+musicgen-large's backbone (embedding inputs), or, where the config has
+``mla``, multi-head latent attention in its place (``models.mla``:
+deepseek-v3-671b, with the MoE); Mamba2 ('M', ``models.ssm``:
 mamba2-1.3b, and jamba-1.5-large-398b with 'A' and MoE); and gated
 cross-attention over image embeddings ('X': llama-3.2-vision-11b), whose
 mixer and feed-forward outputs are scaled by ``tanh`` of the slot's scalar
 gates.  The feed-forward is an MLP or an MoE (``models.moe``: dbrx-132b),
 whose load-balance aux is summed as the reference's scan carry sums it
-(see ``_run_segment``).  MLA attention (deepseek-v3-671b) raises
-``NotImplementedError`` in ``Model``'s constructor, before any work.
+(see ``_run_segment``).
 
-Caches, per slot kind: 'A' keeps the flattened (B, S, KV·hd) K and V; 'M'
+Caches, per slot kind: 'A' keeps the flattened (B, S, KV·hd) K and V (an
+MLA slot the latent ``ckv`` (B, S, kv_lora_rank) and the rotated ``kpe``
+(B, S, qk_rope_dim)); 'M'
 the last ``d_conv - 1`` conv inputs and the (B, H, P, N) state; 'X' the
 projected image K and V, (B, T, KV, hd).  Decode writes them in place.
 
@@ -43,11 +46,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import P, init_tree, stacked
-
-_MLA_NOT_PORTED = "MLA attention is not ported yet (ROADMAP queue 1, item 13b)"
 
 
 class Slot(NamedTuple):
@@ -94,20 +96,14 @@ def build_segments(cfg: ModelConfig) -> list[Segment]:
     return segs
 
 
-def check_ported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` for any part of ``cfg`` that the port
-    does not run yet (MLA attention), naming its ROADMAP item."""
-    if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: {_MLA_NOT_PORTED}")
-
-
 # ---------------------------------------------------------------------------
 # Param specs
 # ---------------------------------------------------------------------------
 
 def _mixer_specs(cfg, slot: Slot):
     if slot.kind == "A":
-        return L.attn_specs(cfg)
+        return mla_mod.mla_specs(cfg) if cfg.mla is not None \
+            else L.attn_specs(cfg)
     if slot.kind == "M":
         return ssm_mod.ssm_specs(cfg)
     if slot.kind == "X":
@@ -132,7 +128,6 @@ def _slot_specs(cfg, slot: Slot):
 
 
 def param_specs(cfg: ModelConfig):
-    check_ported(cfg)
     d = cfg.d_model
     specs = {
         "embed": P((cfg.vocab_size, d), ("vocab", "embed"), scale=0.02),
@@ -159,6 +154,12 @@ def _dtype(name: str) -> torch.dtype:
 def _slot_cache_spec(cfg, slot: Slot, B: int, S: int):
     f = _dtype(cfg.compute_dtype)
     if slot.kind == "A":
+        if cfg.mla is not None:
+            m = cfg.mla
+            return {"ckv": ((B, S, m.kv_lora_rank),
+                            ("batch", "kv_seq", "lora"), f),
+                    "kpe": ((B, S, m.qk_rope_dim),
+                            ("batch", "kv_seq", None), f)}
         kv, hd = cfg.num_kv_heads, cfg.head_dim
         # flattened (kv*hd) layout, as the reference's
         return {"k": ((B, S, kv * hd), ("batch", "kv_seq", "kv"), f),
@@ -180,7 +181,6 @@ def _slot_cache_spec(cfg, slot: Slot, B: int, S: int):
 def cache_specs(cfg: ModelConfig, B: int, S: int):
     """Returns (tree of (shape, dtype), tree of axes) for the decode
     cache, one dict per segment with stacked leaves."""
-    check_ported(cfg)
     shapes, axes = [], []
     for seg in build_segments(cfg):
         sh, ax = {}, {}
@@ -216,8 +216,9 @@ def _apply_slot(cfg, slot: Slot, p, x, *, positions, mode, cache,
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     aux = None
     if slot.kind == "A":
-        y, nc = L.attention(p["mixer"], h, cfg, positions=positions,
-                            mode=mode, cache=cache)
+        fn = mla_mod.mla_attention if cfg.mla is not None else L.attention
+        y, nc = fn(p["mixer"], h, cfg, positions=positions, mode=mode,
+                   cache=cache)
     elif slot.kind == "M":
         y, nc = ssm_mod.mamba_mixer(p["mixer"], h, cfg, mode=mode,
                                     cache=cache)
@@ -365,11 +366,9 @@ def forward(cfg: ModelConfig, params, inputs, *, mode: str,
 
 class Model:
     """A thin handle over a parameter tree: ``init`` draws one, calling
-    the model runs ``forward``.  Raises ``NotImplementedError`` in the
-    constructor for any part of the config that is not ported."""
+    the model runs ``forward``."""
 
     def __init__(self, cfg: ModelConfig):
-        check_ported(cfg)
         self.cfg = cfg
         self.specs = param_specs(cfg)
 

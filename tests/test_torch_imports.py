@@ -58,7 +58,7 @@ def test_port_has_the_expected_modules():
                  "launch/mine.py", "configs/__init__.py", "configs/base.py",
                  "configs/registry.py", "configs/qwen3_4b.py",
                  "configs/command_r_35b.py", "configs/dbrx_132b.py",
-                 "models/moe.py", "models/ssm.py",
+                 "models/moe.py", "models/ssm.py", "models/mla.py",
                  "configs/deepseek_7b.py", "configs/deepseek_v3_671b.py",
                  "configs/granite_20b.py", "configs/jamba_1_5_large_398b.py",
                  "configs/llama_3_2_vision_11b.py", "configs/mamba2_1_3b.py",

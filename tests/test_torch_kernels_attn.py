@@ -158,10 +158,10 @@ def fake_card(monkeypatch):
     class FakeLib:
         def __getattr__(self, entry):
             def launch(*args):
-                # the forward's strides are its 10th argument (12 of
+                # the forward's strides are its 11th argument (12 of
                 # them), the backward's its 15th (24)
                 n, at = (24, 14) if entry.startswith("flashattn_bwd") \
-                    else (12, 9)
+                    else (12, 10)
                 strides = (ctypes.c_longlong * n).from_address(args[at])
                 calls.append((entry, args, list(strides)))
                 return 0
@@ -190,8 +190,9 @@ def test_cuda_tensors_go_to_the_kernel(fake_card):
     qs = on_card(base.transpose(1, 2))
     tlayers.flash_attention(qs, qs, qs, causal=False, block=32)
     assert [c[0] for c in fake_card] == ["flashattn_f32", "flashattn_bf16"]
-    assert fake_card[0][1][4:9] == (2, 3, 40, 40, 128)    # B, H, Sq, Skv, D
-    assert fake_card[0][1][11] == 1 and fake_card[1][1][11] == 0  # causal
+    # B, H, Sq, Skv, Dq, Dv
+    assert fake_card[0][1][4:10] == (2, 3, 40, 40, 128, 128)
+    assert fake_card[0][1][12] == 1 and fake_card[1][1][12] == 0  # causal
     assert fake_card[1][1][0] == base.data_ptr()
     assert fake_card[1][2][:3] == [4 * 96 * 64, 64, 96 * 64]
     assert fake_card[1][2][9:] == [96 * 4 * 64, 4 * 64, 64]       # out
@@ -219,10 +220,59 @@ def test_kernel_refuses_mixed_devices_types_and_positions(fake_card):
     with pytest.raises(ValueError, match="positions"):
         tfa.flash_attention(q, q, q, causal=True,
                             q_positions=torch.arange(8))
-    with pytest.raises(ValueError, match="Dq == Dv"):
+    with pytest.raises(ValueError, match="head dims"):
         tfa.flash_attention(q, q, on_card(torch.zeros((1, 8, 2, 128))),
                             causal=True)
     assert not fake_card
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dq,Dv", tfa.HEAD_DIM_PAIRS)
+def test_head_dim_pairs_reach_the_entry(fake_card, Dq, Dv, dtype):
+    """Each of K9's (Dq, Dv) instances: the entry gets both dims, and the
+    output it is handed is (B, Sq, H, Dv), contiguous — at (192, 128) v's
+    head dim, not q's."""
+    n0 = tfa.launches["flashattn"]
+    q, k = (on_card(torch.zeros((2, 40, 3, Dq), dtype=dtype))
+            for _ in range(2))
+    v = on_card(torch.zeros((2, 50, 3, Dv), dtype=dtype)[:, :40])
+    out = tfa.flash_attention(q, k, v, causal=True)
+    (entry, args, strides), = fake_card
+    assert entry == tfa._ENTRY[dtype]
+    assert args[4:10] == (2, 3, 40, 40, Dq, Dv)
+    assert tuple(out.shape) == (2, 40, 3, Dv) and out.dtype == dtype
+    assert args[3] == out.data_ptr()
+    assert strides[6:9] == [50 * 3 * Dv, 3 * Dv, Dv]             # v in place
+    assert strides[9:] == [40 * 3 * Dv, 3 * Dv, Dv]              # out
+    assert tfa.launches["flashattn"] == n0 + 1
+
+
+@pytest.mark.parametrize("Dq,Dv", [(192, 192), (128, 64), (96, 96),
+                                   (128, 192), (64, 128)])
+def test_other_head_dim_pairs_are_refused(fake_card, Dq, Dv):
+    q = on_card(torch.zeros((1, 8, 2, Dq)))
+    v = on_card(torch.zeros((1, 8, 2, Dv)))
+    with pytest.raises(ValueError, match=r"head dims \(Dq, Dv\) in"):
+        tfa.flash_attention(q, q, v, causal=True)
+    assert not fake_card
+
+
+@pytest.mark.parametrize("wants", ["q", "k", "v"])
+def test_gradient_at_192_128_raises_before_any_launch(fake_card, wants):
+    """K9-bwd takes Dq == Dv only: a call on the card that wants a
+    gradient at (192, 128) raises, naming ROADMAP item 13b-train, before
+    K9 launches (no plain version); without grad mode it launches."""
+    n0 = tfa.launches["flashattn"]
+    ops = {"q": on_card(torch.zeros((1, 40, 2, 192))),
+           "k": on_card(torch.zeros((1, 40, 2, 192))),
+           "v": on_card(torch.zeros((1, 40, 2, 128)))}
+    ops[wants].requires_grad_()
+    with pytest.raises(NotImplementedError, match="item 13b-train"):
+        tfa.flash_attention(ops["q"], ops["k"], ops["v"], causal=True)
+    assert not fake_card and tfa.launches["flashattn"] == n0
+    with torch.no_grad():
+        tfa.flash_attention(ops["q"], ops["k"], ops["v"], causal=True)
+    assert [c[0] for c in fake_card] == ["flashattn_f32"]
 
 
 def test_cpu_tensors_launch_nothing():
@@ -329,9 +379,9 @@ def test_training_on_the_card_takes_both_kernels(fake_card):
     out.sum().backward()
     assert [c[0] for c in fake_card] == ["flashattn_f32", "flashattn_bwd_f32"]
     (_, fwd, _), (_, bwd, strides) = fake_card
-    assert fwd[13] is not None                            # lse buffer
+    assert fwd[14] is not None                            # lse buffer
     assert bwd[10:14] == (2, 3, 40, 64)                   # B, H, S, D
-    assert bwd[0] == q.data_ptr() and bwd[5] == fwd[13]   # q, lse
+    assert bwd[0] == q.data_ptr() and bwd[5] == fwd[14]   # q, lse
     assert bwd[16] == 1                                   # causal
     assert bwd[15] == pytest.approx(1 / 8)                # scale
     assert strides[12:15] == [40 * 3 * 64, 3 * 64, 64]    # dO, copied
@@ -341,7 +391,7 @@ def test_training_on_the_card_takes_both_kernels(fake_card):
     assert tfa.launches["flashattn_bwd"] == b0 + 1
     with torch.no_grad():
         out = tfa.flash_attention(q, k, v, causal=False)
-    assert out.grad_fn is None and fake_card[-1][1][13] is None
+    assert out.grad_fn is None and fake_card[-1][1][14] is None
 
 
 def test_bwd_reads_strided_operands_in_place(fake_card):

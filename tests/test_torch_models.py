@@ -37,8 +37,7 @@ TOL = 1e-4
 KEY = jax.random.PRNGKey(0)
 PORTED = ("qwen3-4b", "deepseek-7b", "command-r-35b", "granite-20b",
           "musicgen-large", "repro-100m", "dbrx-132b", "mamba2-1.3b",
-          "jamba-1.5-large-398b", "llama-3.2-vision-11b")
-NOT_PORTED = {"deepseek-v3-671b": "MLA"}
+          "jamba-1.5-large-398b", "llama-3.2-vision-11b", "deepseek-v3-671b")
 # families whose mixers ('M', 'X') were ported after the constructor
 # refused them; the models themselves are held in test_torch_ssm.py and
 # test_torch_vlm.py
@@ -115,15 +114,12 @@ def test_config_segments_and_counts_equal(arch):
     assert {n: tbase.cell_is_applicable(tcfg, s)
             for n, s in tbase.SHAPES.items()} == \
         {n: rbase.cell_is_applicable(rcfg, s) for n, s in rbase.SHAPES.items()}
-    if arch in PORTED:
-        specs = ttf.param_specs(tcfg)
-        assert tparams.count_params(specs) == \
-            rparams.count_params(rtf.param_specs(rcfg)) == tcfg.param_count()
-        assert tparams.axes_tree(specs) == \
-            rparams.axes_tree(rtf.param_specs(rcfg))
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            ttf.param_specs(tcfg)
+    assert arch in PORTED
+    specs = ttf.param_specs(tcfg)
+    assert tparams.count_params(specs) == \
+        rparams.count_params(rtf.param_specs(rcfg)) == tcfg.param_count()
+    assert tparams.axes_tree(specs) == \
+        rparams.axes_tree(rtf.param_specs(rcfg))
 
 
 def test_registry_ids_and_shapes_equal():
@@ -134,12 +130,34 @@ def test_registry_ids_and_shapes_equal():
         treg.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_unported_families_raise_in_the_constructor(arch):
-    with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
-        ttf.Model(tbase.reduced_config(treg.get_config(arch)))
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        ttf.Model(tbase.reduced_config(treg.get_config(arch)))
+def test_mla_family_constructs():
+    """deepseek-v3-671b constructs at its published config (it raised
+    before MLA was ported), and the reduced config's MLA specs, cache
+    specs and zero caches have the reference's leaves, shapes and axes:
+    ``ckv`` (B, S, kv_lora_rank) and ``kpe`` (B, S, qk_rope_dim) per 'A'
+    slot, on the ``kv_seq`` axis the batcher splices by."""
+    arch = "deepseek-v3-671b"
+    full = ttf.Model(treg.get_config(arch))
+    assert tparams.count_params(full.specs) == 671_026_404_352
+    assert list(full.specs["segments"][0]["slot0"]["mixer"]) == [
+        "wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm", "wkv_b", "wo"]
+    rcfg, tcfg = _pair(arch)
+    model = ttf.Model(tcfg)
+    assert tparams.axes_tree(model.specs) == \
+        rparams.axes_tree(rtf.param_specs(rcfg))
+    r_shapes, r_axes = rtf.cache_specs(rcfg, 2, 7)
+    t_shapes, t_axes = ttf.cache_specs(tcfg, 2, 7)
+    assert [shape for shape, _ in tparams.leaves(
+        [{s: list(leaf.values()) for s, leaf in seg.items()}
+         for seg in t_shapes])] == \
+        [tuple(x.shape) for x in jax.tree.leaves(r_shapes)]
+    assert t_axes == r_axes
+    assert all(sorted(slot) == ["ckv", "kpe"] and
+               slot["ckv"] == ("layers", "batch", "kv_seq", "lora") and
+               slot["kpe"] == ("layers", "batch", "kv_seq", None)
+               for seg in t_axes for slot in seg.values())
+    caches = ttf.init_cache(tcfg, 2, 7, device="cpu")
+    assert all(float(c.abs().sum()) == 0 for c in tparams.leaves(caches))
 
 
 @pytest.mark.parametrize("arch", SSM_AND_VLM)
@@ -314,7 +332,9 @@ def test_cross_attention_is_ported():
 @pytest.mark.parametrize("arch,S", [("qwen3-4b", 64), ("qwen3-4b", 23),
                                     ("granite-20b", 64),
                                     ("musicgen-large", 64),
-                                    ("dbrx-132b", 64), ("dbrx-132b", 23)])
+                                    ("dbrx-132b", 64), ("dbrx-132b", 23),
+                                    ("deepseek-v3-671b", 64),
+                                    ("deepseek-v3-671b", 23)])
 def test_forward_train_matches_reference(arch, S):
     """Logits within ``TOL``; aux (the MoE layers' load-balance metric
     summed over layers, 0 without MoE) within 1e-6."""
@@ -335,7 +355,11 @@ def test_forward_train_matches_reference(arch, S):
 _SERVE_CASES = [pytest.param("qwen3-4b", 64, id="64"),
                 pytest.param("qwen3-4b", 23, id="23"),
                 pytest.param("dbrx-132b", 64, id="dbrx-132b-64"),
-                pytest.param("dbrx-132b", 23, id="dbrx-132b-23")]
+                pytest.param("dbrx-132b", 23, id="dbrx-132b-23"),
+                pytest.param("deepseek-v3-671b", 64,
+                             id="deepseek-v3-671b-64"),
+                pytest.param("deepseek-v3-671b", 23,
+                             id="deepseek-v3-671b-23")]
 
 
 @pytest.mark.parametrize("arch,S", _SERVE_CASES)
@@ -383,9 +407,9 @@ def test_decode_matches_full_forward(arch, T):
     prefill(x[:T]) + decode(x[T]) logits == forward(x[:T+1])[:, T]; with
     T = 64 the prefill takes the flash path and the full forward (65
     positions, no multiple of the flash block) is given a flash block
-    above 65, so that it takes the dense one.  Reduced dbrx's capacity
-    factor (5) drops no pair at T, T + 1 or at decode, so routing is the
-    same on both sides."""
+    above 65, so that it takes the dense one.  Reduced dbrx's and
+    deepseek-v3's capacity factor (5) drops no pair at T, T + 1 or at
+    decode, so routing is the same on both sides."""
     _, tcfg, _, tp = _weights(arch, remat=False)
     x = torch.from_numpy(_inputs(tcfg, 200 + T, (2, T + 1)))
     dense = ttf.Model(dataclasses.replace(tcfg, flash_block=128))
