@@ -69,8 +69,6 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    largest differences are printed beside them.  Each case launches K9
    again with the row statistic K9-bwd reads, lse: the output must be the
    same bits and lse within 2^-19 · max(1, |lse|) of the plain forward's.
-   A call at (192, 128) that wants a gradient must raise, naming ROADMAP
-   item 13b-train, before any launch (K9-bwd takes Dq == Dv only).
    K9-bwd
    (``csrc/flashattn_bwd.cu``, built with the rest) in f32 and bf16, D = 64
    and 128, causal and full, lengths that are no multiple of its 64- and
@@ -79,9 +77,13 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    broadcast over the heads, read in place in f32 and copied for TMA in
    bf16, and D-strided, which is copied), and the two training shapes,
    (8, 1024, 10, 64) f32 and (1, 4096, 32, 128) bf16 causal, each launched
-   twice (the gradients must be the same bits),
+   twice (the gradients must be the same bits); the same at deepseek-v3's
+   (Dq, Dv) = (192, 128) in both types (causal and full, S = 1, 77 and
+   129, (B, H, S, D) storage, sliced views, a dO TMA cannot read, copied)
+   and its training shape (1, 4096, 128, 192 / 128) bf16, launched twice,
    on the kernel's own forward output and lse, which are held to the plain
-   forward's first; the gradients against the plain backward run from the
+   forward's first (lse with a floor of 4 times the plain f32 version's
+   own lse error against an f64 logsumexp); the gradients against the plain backward run from the
    plain forward's o and lse (nothing the kernels wrote), per gradient
    max|Δ| <= 1e-4 · max|plain| in f32 and the reference's 3e-2 +
    3e-2·|plain| in bf16; and against the plain version in f32 on the
@@ -308,6 +310,13 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    the same for reduced dbrx-132b (the MoE step), each bound plus a floor
    of 4 times how far the CPU's own step moves when its weights move one
    ulp (``TRAIN_FLOOR_TIMES``).
+   (3b) deepseek-v3-671b at its published widths cut to its 3 dense-prefix
+   layers (MLA with 128 heads of 128 + 64 / 128 and the dense MLP of ff
+   18432: 3 603 815 424 bf16 parameters drawn on the card from a seed, f32
+   moments, about 43.2 GB of state; one MoE layer more would be 181 GB),
+   three steps at batch 1 x 4096: finite loss and grad norm, 6 K9 launches
+   (each at (4096, 128 heads, 192 / 128)) and 3 K9-bwd per step, seconds
+   per step (median of steps 2 and 3), tokens per second, peak memory.
    (5) The gradients of reduced qwen3-4b at the big steps' attention —
    bf16, head dim 128, 2 x 256 tokens — on the card against the CPU in f32
    on the same weights widened: per leaf 3e-2 · max|f32| plus 4 times the
@@ -355,9 +364,10 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    plus 4 times the CPU's own shift when its weights move one ulp.  jamba
    runs on the card only reduced: one period of its layer pattern is 8
    layers, 90.49 GB in bf16 at its published widths.  Reduced
-   deepseek-v3-671b with its published MLA head dims (K9 f32 at (192,
-   128)) is served the same way; its training step waits for K9-bwd at
-   (192, 128) (ROADMAP item 13b-train).
+   deepseek-v3-671b with its published MLA head dims is served and
+   trained the same way (K9 and K9-bwd f32 at (192, 128), a dense and an
+   MoE layer); at published widths its MoE layers train on the card only
+   reduced.
 7f. ``mla_serve_path``  the MLA serving path, after the VLM's parameters
    are released: deepseek-v3-671b at its published widths (MLA: q_lora
    1536, kv_lora 512, 128 heads, q and k 128 + 64 rope columns, v 128;
@@ -405,12 +415,17 @@ seconds (the kernel builds inside ``kernel_cases``); after it
    own q, k, v of layer 0 of a 4096-token prefill; its bound takes P·V as
    two bf16 tensor-core passes, and its row carries ptxas's register and
    spill counts from this run's build; so do K1's and K3's line entries;
-   K9-bwd: two rows on phase 7b's own inputs, qwen3-4b's bf16 shape and
-   repro-100m's f32 one, each launched twice with equal bits, bound five
-   products at the inputs' rate, beside it the design's own passes at its
-   rate (bf16: ten tensor-core passes; f32: seven products in three TF32
+   K9-bwd: rows on phase 7b's own inputs, qwen3-4b's bf16 shape,
+   deepseek-v3's bf16 (1, 4096, 128, 192 / 128) and repro-100m's f32
+   one, and on phase 7e's reduced deepseek-v3 f32 step at (192, 128)
+   (timed also at (1, 4096, 16, 192 / 128)), each launched twice with
+   equal bits, bound five products ((3·Dq + 2·Dv)·H·S(S+1) operations)
+   at the inputs' rate, beside it the design's own passes at its rate
+   (bf16: ten tensor-core passes; f32: seven products in three TF32
    passes), ptxas's registers and spills for each of its kernels, yardstick
-   the backward of scaled_dot_product_attention).
+   the backward of scaled_dot_product_attention, its backend printed; the
+   f32 rows' mean relative bias per gradient against the plain version in
+   f64 within 1e-5).
    A call that ends in ``.item()`` is timed against a yardstick that ends
    in ``.item()`` too; K1 also through its device-tensor entry against
    bare ``torch.dot``, and its launch alone by CUDA events.
@@ -542,10 +557,18 @@ MLA_HEAD_DIMS = (192, 128)
 # bound says nothing
 FLASH_BWD_TOL = 1e-4
 FLASH_BWD_FLOOR = 4
+# K9-bwd f32 on a training path's own inputs: per gradient, the mean
+# relative bias Σ(got − f64)·f64 / Σ f64² against the plain version in f64
+# on the same inputs.  A bias moves a model's gradient norm by as much, and
+# the card-vs-CPU steps hold that norm to 1e-5 relative
+# (``TRAIN_SCALAR_TOL``); per cell, ``FLASH_BWD_TOL`` of max|plain| hides it
+FLASH_BWD_BIAS_TOL = 1e-5
 # K9's row statistic lse = m + log(max(l, 1e-20)), which K9-bwd reads,
 # against the plain forward's: |Δ| <= 2^-19 · max(1, |lse|), a few ulps of
 # |lse| (the row's f32 sum in another order; the bf16 kernel keeps m in
-# the log2 domain and writes m·ln 2 + log l)
+# the log2 domain and writes m·ln 2 + log l); in K9-bwd's checks plus
+# ``FLASH_BWD_FLOOR`` times the plain f32 version's own error against an
+# f64 logsumexp
 FLASH_LSE_TOL = 2.0 ** -19
 FLASHATTN_BWD_SOURCE = "src/repro_torch/kernels/csrc/flashattn_bwd.cu"
 HOUSE = Pattern(5, [(0, 1), (1, 2), (2, 3), (3, 0), (0, 4), (1, 4)])
@@ -931,7 +954,6 @@ def phase_kernel_cases():
     sddmm_float = sddmm_cases(gen, cases)
     bitset_cases(gen, cases)
     flash = flash_cases(gen)
-    grad_refusal = flash_grad_refusal(gen)
     flash_bwd = flash_bwd_cases(gen)
     emit("kernel_cases", build_s=round(build_s, 3),
          nvcc_s={k: round(v, 3) for k, v in kbuild.build_seconds.items()},
@@ -939,7 +961,6 @@ def phase_kernel_cases():
          cases=cases, matreduce_random_f32=float_cases,
          sddmm_random=sddmm_float, flashattn_cases=flash,
          flashattn_max_abs_err=max(c["max_abs_err"] for c in flash),
-         flashattn_grad_refusal_192_128=grad_refusal,
          flashattn_bwd_cases=flash_bwd,
          flashattn_bwd_worst_err_over_tolerance=max(
              c["worst_err_over_tolerance"] for c in flash_bwd))
@@ -1555,7 +1576,7 @@ def flash_cases(gen) -> list:
         return torch.randn(shape, generator=gen, device=DEV).to(dt)
 
     for dt in (torch.float32, torch.bfloat16):
-        for D in kfa.HEAD_DIMS:
+        for D in (64, 128):
             for causal in (True, False):
                 q, k, v = (rnd((2, 512, 4, D), dt) for _ in range(3))
                 flash_check(f"{dt} (2,512,4,{D}) causal={causal}", q, k, v,
@@ -1627,30 +1648,6 @@ def flash_cases(gen) -> list:
     return cases
 
 
-def flash_grad_refusal(gen) -> dict:
-    """A gradient through K9 at (192, 128) on the card: K9-bwd takes Dq ==
-    Dv only, so the call must raise ``NotImplementedError`` naming ROADMAP
-    item 13b-train, before any launch (no plain version either)."""
-    Dq, Dv = MLA_HEAD_DIMS
-    q, k = (torch.randn((1, 256, 2, Dq), generator=gen, device=DEV)
-            for _ in range(2))
-    v = torch.randn((1, 256, 2, Dv), generator=gen, device=DEV)
-    q.requires_grad_()
-    before = launch_counts()
-    try:
-        kfa.flash_attention(q, k, v, causal=True)
-    except NotImplementedError as err:
-        message = str(err)
-    else:
-        raise AssertionError("a gradient through K9 at (192, 128) did not "
-                             "raise")
-    torch.cuda.synchronize()
-    assert "item 13b-train" in message, message
-    assert launch_counts() == before, "a refused call launched"
-    return {"shape": [1, 256, 2, Dq, Dv], "raised": message,
-            "launches": 0}
-
-
 def causal_attention_f64(q, k, v, heads_at_once: int = 12):
     """softmax(QKᵀ/√Dq)·V, causal, in f64 on the widened inputs, a group
     of heads at a time: the oracle of ``flash_path_check``."""
@@ -1702,16 +1699,53 @@ def flash_path_check(name: str, q, k, v, block: int) -> dict:
     return case
 
 
-def lse_check(lse, lse_ref, case: dict) -> int:
-    """K9's row statistic against the plain forward's (``FLASH_LSE_TOL``);
-    the largest error and the cells over the bound go into ``case``."""
+def lse_check(lse, lse_ref, case: dict, floor: float = 0.0) -> int:
+    """K9's row statistic against the plain forward's (``FLASH_LSE_TOL``,
+    plus ``floor``); the largest error and the cells over the bound go
+    into ``case``."""
     err = (lse - lse_ref).abs()
-    over = int((err > FLASH_LSE_TOL * lse_ref.abs().clamp(min=1)).sum().item())
+    over = int((err > FLASH_LSE_TOL * lse_ref.abs().clamp(min=1)
+                + floor).sum().item())
     case.update(lse_max_abs_err=err.max().item(),
                 lse_max_abs=lse_ref.abs().max().item(),
-                lse_tolerance="2^-19 * max(1, |plain lse|)",
+                lse_tolerance="2^-19 * max(1, |plain lse|)"
+                + (f" + {floor!r}" if floor else ""),
                 lse_cells_over_tolerance=over)
     return over
+
+
+PLAIN_HEADS = 32
+
+
+def lse_f64(q, k, *, causal: bool):
+    """The row statistic lse in f64 on the widened q and k, (B, H, S):
+    logsumexp of the scaled scores, masked above the diagonal when
+    causal (Sq == Skv)."""
+    s = torch.einsum("bqhd,bthd->bhqt", q.double(), k.double()) \
+        / q.shape[3] ** 0.5
+    if causal:
+        S = q.shape[1]
+        s = s.masked_fill(~torch.ones((S, S), dtype=torch.bool,
+                                      device=q.device).tril(), -torch.inf)
+    return torch.logsumexp(s, dim=-1)
+
+
+def plain_by_heads(fn, *xs, lse=None, **kw):
+    """``fn`` (a plain forward or backward) on groups of ``PLAIN_HEADS``
+    heads of (B, S, H, D) operands (and of lse, (B, H, S)), the results
+    joined: each head's answer is its own, and at deepseek-v3's 128 heads
+    and 4096 tokens one (B, H, S, S) tensor of f32 scores is 8.6 GB."""
+    parts = []
+    for h in range(0, xs[0].shape[2], PLAIN_HEADS):
+        hs = slice(h, h + PLAIN_HEADS)
+        extra = () if lse is None else (lse[:, hs],)
+        parts.append(fn(*(x[:, :, hs] for x in xs), *extra, **kw))
+
+    def join(ts):
+        return torch.cat(ts, dim=2 if ts[0].ndim == 4 else 1)
+    if isinstance(parts[0], torch.Tensor):
+        return join(parts)
+    return tuple(join(p) for p in zip(*parts))
 
 
 def flash_bwd_check(name: str, q, k, v, do, causal: bool, cases: list,
@@ -1727,12 +1761,19 @@ def flash_bwd_check(name: str, q, k, v, do, causal: bool, cases: list,
     kernel's o and lse, within ``FLASH_BWD_TOL`` · max|plain| in f32 and
     one rounding to bf16 (``FLASH_BWD_TOL`` beside it) in bf16.  Each f32
     bound has the floor ``FLASH_BWD_FLOOR`` times the plain f32 version's
-    own error against the plain version in f64.  With ``twice`` the
-    backward is launched a second time on the same inputs, and its three
-    gradients must be the same bits (no atomics)."""
+    own error against the plain version in f64, and lse's bound that times
+    the plain forward's lse error against an f64 logsumexp (``lse_f64``:
+    at a training path's random-weight scores, lse in the thousands, f32
+    sums of the scores miss 2^-19 · |lse| in the plain version as in the
+    kernel).  With ``twice`` the backward is launched a second time on the
+    same inputs, and its three gradients must be the same bits (no
+    atomics).  The plain versions run on groups of heads
+    (``plain_by_heads``)."""
     D = q.shape[3]
-    o_ref, lse_ref = kfa.flash_attention_plain(q, k, v, causal=causal,
-                                               return_lse=True)
+    o_ref, lse_ref = plain_by_heads(kfa.flash_attention_plain, q, k, v,
+                                    causal=causal, return_lse=True)
+    lse_floor = FLASH_BWD_FLOOR * (lse_ref - plain_by_heads(
+        lse_f64, q, k, causal=causal)).abs().max().item()
     o, lse, _ = kfa._forward(q, k, v, causal, 1.0 / D ** 0.5, with_lse=True)
     before = kfa.launches["flashattn_bwd"]
     got = kfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
@@ -1745,24 +1786,26 @@ def flash_bwd_check(name: str, q, k, v, do, causal: bool, cases: list,
         same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
         del again
         assert same_bits, f"{name}: two launches gave different gradients"
-    want = kfa.flash_attention_bwd_plain(q, k, v, o_ref, do, lse_ref,
-                                         causal=causal)
+    bwd = kfa.flash_attention_bwd_plain
+    want = plain_by_heads(bwd, q, k, v, o_ref, do, lse=lse_ref,
+                          causal=causal)
     wide = [x.float() for x in (q, k, v, o, do)]
-    exact = kfa.flash_attention_bwd_plain(*wide, lse, causal=causal)
-    f64 = kfa.flash_attention_bwd_plain(*(x.double() for x in wide), lse,
-                                        causal=causal)
+    exact = plain_by_heads(bwd, *wide, lse=lse, causal=causal)
+    f64 = plain_by_heads(bwd, *(x.double() for x in wide), lse=lse,
+                         causal=causal)
     floors = [FLASH_BWD_FLOOR * (e - w).abs().max().item()
               for e, w in zip(exact, f64)]
     del f64, wide
     case = {"kernel": "flashattn_bwd", "case": name,
-            "shape": list(q.shape), "dtype": str(q.dtype).split(".")[1],
-            "causal": causal, "grads": {}}
+            "shape": list(q.shape), "head_dims": [D, v.shape[3]],
+            "dtype": str(q.dtype).split(".")[1], "causal": causal,
+            "grads": {}}
     if twice:
         case["two_launches_same_bits"] = same_bits
     tol = FLASH_TOL[q.dtype]
     o_err = (o.float() - o_ref.float()).abs()
     case["o_max_abs_err"] = o_err.max().item()
-    forward_over = lse_check(lse, lse_ref, case) + int(
+    forward_over = lse_check(lse, lse_ref, case, lse_floor) + int(
         (o_err > tol + tol * o_ref.float().abs()).sum().item())
     del o_err, o_ref, lse_ref
     worst = 0.0
@@ -1816,18 +1859,22 @@ def flash_bwd_cases(gen) -> list:
     place in f32 and copied in bf16, where TMA cannot read it, a D-strided
     view copied first); the two training shapes, repro-100m's (8, 1024, 10,
     64) f32 and qwen3-4b's (1, 4096, 32, 128) bf16, causal, each launched
-    twice (equal bits).  Then the plain backward against
+    twice (equal bits).  At deepseek-v3's (Dq, Dv) = (192, 128), both
+    types: causal and full, S = 1 (dQ and dK are 0 in exact arithmetic),
+    77 and 129, a (B, H, S, D) storage, sliced views with dO broadcast
+    over the heads, and its training shape (1, 4096, 128, 192 / 128) bf16
+    causal, launched twice.  Then the plain backward against
     ``torch.autograd.grad`` of the plain forward on the card, and a loss
-    through ``flash_attention`` on tensors that require grad: one K9 and
-    one K9-bwd launch through ``FlashAttention``, gradients equal to the
-    plain backward's."""
+    through ``flash_attention`` on tensors that require grad at (128, 128)
+    and (192, 128): one K9 and one K9-bwd launch through
+    ``FlashAttention``, gradients equal to the direct call's."""
     cases: list = []
 
     def rnd(shape, dt):
         return torch.randn(shape, generator=gen, device=DEV).to(dt)
 
     for dt in (torch.float32, torch.bfloat16):
-        for D in kfa.HEAD_DIMS:
+        for D in (64, 128):
             for causal in (True, False):
                 q, k, v, do = (rnd((2, 512, 4, D), dt) for _ in range(4))
                 flash_bwd_check(f"{dt} (2,512,4,{D}) causal={causal}", q, k,
@@ -1865,6 +1912,37 @@ def flash_bwd_cases(gen) -> list:
     q, k, v, do = (rnd((1, 4096, 32, 128), torch.bfloat16) for _ in range(4))
     flash_bwd_check("bf16 qwen3-4b training shape (1,4096,32,128) causal", q,
                     k, v, do, True, cases, twice=True)
+    # deepseek-v3's latent attention: q, k at Dq = 192, v, o, dO at Dv = 128
+    Dq, Dv = MLA_HEAD_DIMS
+
+    def mla(shape, dt):
+        *lead, H = shape
+        return (rnd((*lead, H, Dq), dt), rnd((*lead, H, Dq), dt),
+                rnd((*lead, H, Dv), dt), rnd((*lead, H, Dv), dt))
+
+    for dt in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            flash_bwd_check(f"{dt} (2,512,4,{Dq}/{Dv}) causal={causal}",
+                            *mla((2, 512, 4), dt), causal, cases)
+        for S, causal in [(1, True), (77, True), (77, False), (129, True),
+                          (129, False)]:
+            flash_bwd_check(f"{dt} ragged S={S} {Dq}/{Dv} causal={causal}",
+                            *mla((2, S, 3), dt), causal, cases)
+        q, k = (rnd((2, 4, 300, Dq), dt).transpose(1, 2) for _ in range(2))
+        v, do = (rnd((2, 4, 300, Dv), dt).transpose(1, 2) for _ in range(2))
+        flash_bwd_check(f"{dt} (B,H,S,D) storage q, k, v, dO "
+                        f"(2,300,4,{Dq}/{Dv})", q, k, v, do, True, cases)
+        # head and column slices of wider tensors, and dO broadcast over
+        # the heads: read in place in f32, copied for TMA in bf16
+        q, k = (rnd((1, 257, 6, 256), dt)[:, :, 1:5, 32:224]
+                for _ in range(2))
+        v = rnd((1, 257, 6, 160), dt)[:, :, 1:5, 16:144]
+        do = rnd((1, 257, 1, Dv), dt).expand(1, 257, 4, Dv)
+        flash_bwd_check(f"{dt} sliced q, k, v, broadcast dO "
+                        f"(1,257,4,{Dq}/{Dv})", q, k, v, do, False, cases)
+    q, k, v, do = mla((1, 4096, 128), torch.bfloat16)
+    flash_bwd_check(f"bf16 deepseek-v3 training shape (1,4096,128,{Dq}/{Dv}) "
+                    "causal", q, k, v, do, True, cases, twice=True)
     del q, k, v, do
 
     # the plain backward against autograd of the plain forward, on the card
@@ -1887,22 +1965,27 @@ def flash_bwd_cases(gen) -> list:
 
     # a loss through the wrapper: FlashAttention's forward and backward
     for dt in (torch.float32, torch.bfloat16):
-        q, k, v, do = (rnd((2, 512, 4, 128), dt) for _ in range(4))
-        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        before = dict(kfa.launches)
-        out = kfa.flash_attention(*leaves, causal=True)
-        grads = torch.autograd.grad(out, leaves, do)
-        torch.cuda.synchronize()
-        assert kfa.launches["flashattn"] == before["flashattn"] + 1
-        assert kfa.launches["flashattn_bwd"] == before["flashattn_bwd"] + 1
-        o, lse, _ = kfa._forward(q, k, v, True, 128 ** -0.5, with_lse=True)
-        want = kfa.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
-        same = all(torch.equal(g, w) for g, w in zip(grads, want))
-        cases.append({"kernel": "flashattn_bwd",
-                      "case": f"{dt} autograd through FlashAttention",
-                      "grads_equal_direct_call": same,
-                      "worst_err_over_tolerance": 0.0 if same else 2.0})
-        assert same, cases[-1]
+        for Dq, Dv in ((128, 128), MLA_HEAD_DIMS):
+            q, k = (rnd((2, 512, 4, Dq), dt) for _ in range(2))
+            v, do = (rnd((2, 512, 4, Dv), dt) for _ in range(2))
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            before = dict(kfa.launches)
+            out = kfa.flash_attention(*leaves, causal=True)
+            grads = torch.autograd.grad(out, leaves, do)
+            torch.cuda.synchronize()
+            assert kfa.launches["flashattn"] == before["flashattn"] + 1
+            assert kfa.launches["flashattn_bwd"] == \
+                before["flashattn_bwd"] + 1
+            o, lse, _ = kfa._forward(q, k, v, True, Dq ** -0.5,
+                                     with_lse=True)
+            want = kfa.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+            same = all(torch.equal(g, w) for g, w in zip(grads, want))
+            cases.append({"kernel": "flashattn_bwd",
+                          "case": f"{dt} ({Dq}, {Dv}) autograd through "
+                                  f"FlashAttention",
+                          "grads_equal_direct_call": same,
+                          "worst_err_over_tolerance": 0.0 if same else 2.0})
+            assert same, cases[-1]
     return cases
 
 
@@ -3464,7 +3547,7 @@ def check_join_batch() -> dict:
 # -- phase 6c -----------------------------------------------------------------------
 
 EXAMPLES_DIR = os.path.join(ROOT, "examples_torch")
-EXAMPLES_AT_ONCE = 3
+EXAMPLES_AT_ONCE = 5
 
 
 def phase_examples() -> dict:
@@ -4792,13 +4875,21 @@ def device_time_split(prof, seconds: float, step: int) -> dict:
                       for name, ms in top]}
 
 
-def big_model_steps(captured: dict) -> dict:
-    """qwen3-4b at its published widths and full depth: weights drawn on
-    the card from a seed, f32 moments (``OptConfig()``), three steps of
-    ``make_train_step`` at batch 1 x 4096 tokens, launches per step, then
-    a fourth under ``torch.profiler`` for the device time by kernel
-    (``device_time_split``)."""
-    cfg = get_config(TRAIN_BIG)
+# deepseek-v3-671b trains on the card at its published widths cut to its 3
+# dense-prefix layers: 3.6 G parameters, about 43.2 GB of bf16 parameters
+# and gradients and f32 moments; a fourth layer, the first MoE one, would
+# make it 15.1 G parameters and about 181 GB
+MLA_TRAIN_LAYERS, MLA_TRAIN_PARAMS = 3, 3_603_815_424
+
+
+def big_model_steps(captured: dict, cfg, want_params: int,
+                    profile: bool = True) -> dict:
+    """``cfg`` at its published widths: weights drawn on the card from a
+    seed, f32 moments (``OptConfig()``), three steps of
+    ``make_train_step`` at batch 1 x 4096 tokens, launches per step (K9
+    twice per layer with remat, K9-bwd once) and each K9 call's (Sq, H,
+    Dq, Dv); with ``profile`` a fourth step under ``torch.profiler`` for
+    the device time by kernel (``device_time_split``)."""
     opt_cfg = train_opt.OptConfig()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4807,52 +4898,72 @@ def big_model_steps(captured: dict) -> dict:
     init_s = time.perf_counter() - t0
     params = train_tree.leaves(state["params"])
     n_params = sum(p.numel() for p in params)
-    assert n_params == cfg.param_count() == 4_022_468_096, n_params
+    assert n_params == cfg.param_count() == want_params, n_params
     assert {p.dtype for p in params} == {torch.bfloat16}
     state_bytes = sum(x.numel() * x.element_size()
                       for x in train_tree.leaves(state))
     pipe = TokenPipeline(cfg.vocab_size, TRAIN_BIG_SEQ, 1, seed=0)
     step = train_step.make_train_step(cfg, opt_cfg)
+    head_dims = (cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim, cfg.mla.v_dim) \
+        if cfg.mla else (cfg.head_dim, cfg.head_dim)
+    calls: list = []
+    launch_k9 = kfa.flash_attention
+
+    def recording(q, k, v, **kw):
+        calls.append((q.shape[1], q.shape[2], q.shape[3], v.shape[3]))
+        return launch_k9(q, k, v, **kw)
+
     steps = []
-    profile = None
-    for i in range(TRAIN_BIG_STEPS + 1):
-        reset_launch_counts()
-        traced = i == TRAIN_BIG_STEPS
-        prof = torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) if traced else \
-            contextlib.nullcontext()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with prof, capturing_bwd(captured, (1, TRAIN_BIG_SEQ, cfg.num_heads,
-                                            cfg.head_dim)):
-            state, metrics = step(state, pipe.batch_at(i))
+    traced_profile = None
+    kfa.flash_attention = recording
+    try:
+        for i in range(TRAIN_BIG_STEPS + profile):
+            reset_launch_counts()
+            calls.clear()
+            traced = i == TRAIN_BIG_STEPS
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) if traced else \
+                contextlib.nullcontext()
             torch.cuda.synchronize()
-        seconds = time.perf_counter() - t
-        launches = launch_counts()
-        assert launches["flashattn"] == 2 * cfg.num_layers == 72, launches
-        assert launches["flashattn_bwd"] == cfg.num_layers == 36, launches
-        if traced:
-            profile = device_time_split(prof, seconds, i + 1)
-            continue
-        steps.append({"loss": float(metrics["loss"]),
-                      "grad_norm": float(metrics["grad_norm"]),
-                      "lr": float(metrics["lr"]), "seconds": seconds,
-                      "launches": {k: n for k, n in launches.items() if n}})
-        assert np.isfinite(steps[-1]["loss"]), steps
-        assert np.isfinite(steps[-1]["grad_norm"]), steps
+            t = time.perf_counter()
+            with prof, capturing_bwd(captured, (1, TRAIN_BIG_SEQ,
+                                                cfg.num_heads, head_dims[0])):
+                state, metrics = step(state, pipe.batch_at(i))
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            launches = launch_counts()
+            assert launches["flashattn"] == 2 * cfg.num_layers, launches
+            assert launches["flashattn_bwd"] == cfg.num_layers, launches
+            assert calls == [(TRAIN_BIG_SEQ, cfg.num_heads, *head_dims)] \
+                * (2 * cfg.num_layers), calls
+            if traced:
+                traced_profile = device_time_split(prof, seconds, i + 1)
+                continue
+            steps.append({"loss": float(metrics["loss"]),
+                          "grad_norm": float(metrics["grad_norm"]),
+                          "lr": float(metrics["lr"]), "seconds": seconds,
+                          "launches": {k: n for k, n in launches.items()
+                                       if n}})
+            assert np.isfinite(steps[-1]["loss"]), steps
+            assert np.isfinite(steps[-1]["grad_norm"]), steps
+    finally:
+        kfa.flash_attention = launch_k9
     median = float(np.median([x["seconds"] for x in steps[1:]]))
-    out = {"arch": TRAIN_BIG, "params": n_params, "num_layers":
-           cfg.num_layers, "d_model": cfg.d_model, "batch": 1,
-           "seq": TRAIN_BIG_SEQ, "state_dtype": opt_cfg.state_dtype,
-           "init_s": init_s, "state_bytes": state_bytes, "steps": steps,
+    out = {"arch": cfg.name, "params": n_params, "num_layers":
+           cfg.num_layers, "published_layers": get_config(
+               cfg.name).num_layers, "d_model": cfg.d_model,
+           "head_dims": list(head_dims), "batch": 1, "seq": TRAIN_BIG_SEQ,
+           "state_dtype": opt_cfg.state_dtype, "init_s": init_s,
+           "state_bytes": state_bytes, "steps": steps,
            "seconds_per_step_median_2_3": median,
            "tokens_per_s": TRAIN_BIG_SEQ / median,
-           "peak_device_bytes": torch.cuda.max_memory_allocated(),
-           "profile": profile}
-    profile["device_ms_over_median_step"] = \
-        profile["device_ms"] / 1e3 / median
-    emit("train_step_profile", **profile)
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    if profile:
+        traced_profile["device_ms_over_median_step"] = \
+            traced_profile["device_ms"] / 1e3 / median
+        emit("train_step_profile", **traced_profile)
+        out["profile"] = traced_profile
     del state, params, step
     torch.cuda.empty_cache()
     return out
@@ -4894,12 +5005,14 @@ def cpu_floors(cfg, opt_cfg, cpu, batch, g_cpu, new_cpu, m_cpu) -> dict:
 # the reduced configs whose f32 step is held with a floor from the CPU's
 # one-ulp shift (tests/test_torch_train.py ILL_CONDITIONED: dbrx-132b has
 # no qk-norm, and a one-ulp shift of its weights moves its gradients by up
-# to 1.9e-4 of a leaf's largest entry).  The tests take twice the shift
+# to 1.9e-4 of a leaf's largest entry; reduced deepseek-v3's, no qk-norm
+# either, by up to 6.5e-5, and the port's CPU step lies 1.38e-4 from the
+# reference's there, over 1e-4 alone).  The tests take twice the shift
 # (two f32 runs, each about one shift from exact); the card's K9-bwd f32
 # forms its products from split-TF32 terms, which keep about 22 bits of
 # each operand where f32 keeps 24, so here it is 4 times
 TRAIN_ILL_CONDITIONED = ("dbrx-132b", "jamba-1.5-large-398b",
-                         "llama-3.2-vision-11b")
+                         "llama-3.2-vision-11b", MLA_ARCH)
 TRAIN_FLOOR_TIMES = 4
 # configs whose moments are held to the gradient bound carried through
 # Adam's first step, m = (1 - b1)·u and v = (1 - b2)·u² (u the clipped
@@ -4909,14 +5022,14 @@ TRAIN_FLOOR_TIMES = 4
 # accuracy twice the gradient's where the gradient is largest (reduced
 # jamba's card step: gradients 0.79 of their bound, v 1.30 of that one;
 # the earlier configs keep their bounds)
-TRAIN_MOMENTS_FROM_GRADS = HYBRID_ARCHS = ("jamba-1.5-large-398b",
-                                           "llama-3.2-vision-11b")
+HYBRID_ARCHS = ("jamba-1.5-large-398b", "llama-3.2-vision-11b")
+TRAIN_MOMENTS_FROM_GRADS = HYBRID_ARCHS + (MLA_ARCH,)
 
 
-def card_vs_cpu_step(arch: str = TRAIN_BIG) -> dict:
+def card_vs_cpu_step(arch: str = TRAIN_BIG, **overrides) -> dict:
     """One train step of reduced ``arch`` (f32, head dim 64 so that K9
-    takes it, S = 64 past its flash block of 32) from one state on the
-    card and on the CPU: loss, ce, lr, grad_norm, every gradient and every
+    takes it, S = 64 past its flash block of 32; ``overrides`` on top)
+    from one state on the card and on the CPU: loss, ce, lr, grad_norm, every gradient and every
     updated leaf within the CPU tests' tolerances (parameters within
     ``tests/test_torch_train.py``'s ``param_bound``: 1e-4 relative to
     max(|p|, lr) plus the gradient tolerance carried through Adam's first
@@ -4925,7 +5038,7 @@ def card_vs_cpu_step(arch: str = TRAIN_BIG) -> dict:
     each bound adds the floor of ``cpu_floors``, from the CPU alone.  A
     VLM's gates are opened (``open_gates``) and its batch carries seeded
     image embeddings."""
-    cfg = reduced_config(get_config(arch), head_dim=64)
+    cfg = reduced_config(get_config(arch), head_dim=64, **overrides)
     opt_cfg = train_opt.OptConfig(**TRAIN_CMP_OPT)
     cpu = train_step.init_state(cfg, opt_cfg, 0, device="cpu")
     open_gates(cpu["params"], 1)
@@ -5003,8 +5116,10 @@ def card_vs_cpu_step(arch: str = TRAIN_BIG) -> dict:
             worst[name] = max(worst[name],
                               (a.cpu() - b).abs().max().item() / bound)
     assert max(worst.values()) <= 1.0, worst
-    out = {"config": f"reduced_config({arch}, head_dim=64), f32, "
-                     f"batch 4 x 64 tokens, flash_block {cfg.flash_block}",
+    out = {"config": f"reduced_config({arch}, head_dim=64"
+                     + "".join(f", {k}={v}" for k, v in overrides.items())
+                     + f"), f32, batch 4 x 64 tokens, flash_block "
+                       f"{cfg.flash_block}",
            "metrics_card_cpu": scalars,
            "worst_err_over_tolerance": worst, "launches": launches}
     if shifted is not None:
@@ -5084,13 +5199,14 @@ def card_vs_cpu_bf16_step() -> dict:
 def phase_train_path() -> dict:
     """The training path on the card: the repro-100m CLI with checkpoints
     and a resume, one step's launches, qwen3-4b at full width for three
-    steps, and one reduced step on the card against the CPU.  Launch
-    counts are set to 0 before the phase and read after it."""
+    steps, deepseek-v3-671b at its published widths on its 3 dense-prefix
+    layers for three, and reduced steps on the card against the CPU.
+    Launch counts are set to 0 before the phase and read after it."""
     gc.collect()
     torch.cuda.empty_cache()
     allocated_at_start = torch.cuda.memory_allocated()
     reset_launch_counts()
-    captured: dict = {"small": {}, "big": {}}
+    captured: dict = {"small": {}, "big": {}, "mla": {}}
     ckpt_dir = tempfile.mkdtemp(prefix="train_", dir=os.path.join(ROOT,
                                                                 "build"))
     try:
@@ -5098,12 +5214,17 @@ def phase_train_path() -> dict:
     finally:
         shutil.rmtree(ckpt_dir)
     one = one_step_launches(captured["small"])
-    big = big_model_steps(captured["big"])
+    big = big_model_steps(captured["big"], get_config(TRAIN_BIG),
+                          4_022_468_096)
+    assert big["num_layers"] == 36
+    mla = big_model_steps(captured["mla"], dataclasses.replace(
+        get_config(MLA_ARCH), num_layers=MLA_TRAIN_LAYERS),
+        MLA_TRAIN_PARAMS, profile=False)
     cmp = card_vs_cpu_step()
     cmp_moe = card_vs_cpu_step(MOE_ARCH)
     cmp_bf16 = card_vs_cpu_bf16_step()
     out = {"allocated_bytes_at_start": allocated_at_start, "cli": cli,
-           "one_step": one, "big": big, "card_vs_cpu": cmp,
+           "one_step": one, "big": big, "mla": mla, "card_vs_cpu": cmp,
            "card_vs_cpu_moe": cmp_moe, "card_vs_cpu_bf16": cmp_bf16}
     emit("train_path", **out)
     return {**out, "captured": captured}
@@ -5190,18 +5311,24 @@ def phase_hybrid_card_vs_cpu() -> dict:
     of ``cpu_floors``).  jamba is served on the card only reduced: one
     period of its layer pattern is 8 layers, 90.49 GB in bf16 at its
     published widths, more than the card holds.  Then reduced
-    deepseek-v3-671b with its published MLA head dims (``HYBRID_MLA``:
-    K9 does not take the reduced config's 16 + 8 / 16), serving only
-    (its training on the card waits for K9-bwd at (192, 128), ROADMAP
-    item 13b-train): prefill (K9 f32 at (192, 128) in both layers),
-    caches and a decode step."""
+    deepseek-v3-671b (a dense and an MoE layer) with its published MLA
+    head dims (``HYBRID_MLA``: K9 does not take the reduced config's
+    16 + 8 / 16), the same way: prefill, caches, a decode step and a
+    training step (K9 and K9-bwd f32 at (192, 128) in both layers), whose
+    first K9-bwd call's inputs are kept for phase ``kernels``."""
     out = {}
     for arch in HYBRID_ARCHS:
         out[arch] = {"serve": serve_card_vs_cpu(arch),
                      "train": card_vs_cpu_step(arch)}
-    out[MLA_ARCH] = {"serve": serve_card_vs_cpu(MLA_ARCH, mla=HYBRID_MLA)}
+    cfg = reduced_config(get_config(MLA_ARCH), head_dim=64, mla=HYBRID_MLA)
+    captured: dict = {}
+    with capturing_bwd(captured, (4, 64, cfg.num_heads, MLA_HEAD_DIMS[0])):
+        train = card_vs_cpu_step(MLA_ARCH, mla=HYBRID_MLA)
+    assert captured and captured["q"].dtype == torch.float32, captured.keys()
+    out[MLA_ARCH] = {"serve": serve_card_vs_cpu(MLA_ARCH, mla=HYBRID_MLA),
+                     "train": train}
     emit("hybrid_card_vs_cpu", **out)
-    return out
+    return {**out, "captured": captured}
 
 
 # -- phase 8 ------------------------------------------------------------------------
@@ -5318,7 +5445,7 @@ def tri_rows(entry, b, b_keep, rng, eye, local):
 
 
 def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
-                  served: dict, mesh: dict, trained: dict):
+                  served: dict, mesh: dict, trained: dict, hybrid: dict):
     """Every kernel at the shapes its path gave it (two factors each, as
     the joins carry; chunk = what the guard granted there, 128 where no
     graph reached the tier).  ``bound_ms`` is for the function that is
@@ -5605,7 +5732,7 @@ def phase_kernels(main: dict, local: dict, graph_ops: dict, mined: dict,
           ptxas=[c for c in bs_ptxas if "pack" in c["kernel"]],
           yardstick="none (no PyTorch call packs bits)")
     out.extend(flash_rows(served))
-    out.extend(flash_bwd_rows(trained))
+    out.extend(flash_bwd_rows(trained, hybrid))
     print(json.dumps({"kernels": out}), flush=True)
 
 
@@ -5940,7 +6067,8 @@ def flash_oracle_check(q, k, v) -> dict:
     with the floor of the plain f32 version's own error
     (``flash_path_check``), and against the plain version on the same
     inputs within the reference's tolerance, every cell.  lse feeds only
-    K9-bwd, which does not take Dq != Dv (ROADMAP item 13b-train)."""
+    K9-bwd, whose (192, 128) instances are held on their own cases and on
+    the training path's inputs."""
     case = flash_path_check("bf16 serving path's layer-0 q, k, v", q, k, v,
                             block=1024)
     got = kfa.flash_attention(q, k, v, causal=True).float()
@@ -6038,109 +6166,193 @@ def flash_row(captured: dict, launches: int, where: str,
 
 
 def _flash_bwd_label(mangled: str):
-    """stats_kernel<f32|bf16, D>, and dkdv_kernel / dq_kernel <f32|bf16, D,
-    causal|full> by their namespace (bf16k: wgmma; f32k: split TF32)."""
+    """stats_kernel<f32|bf16, Dv>, and dkdv_kernel / dq_kernel <f32|bf16,
+    Dq, Dv, causal|full> by their namespace (bf16k: wgmma; f32k: split
+    TF32)."""
     m = re.search(r"(bf16k|f32k)\d+stats_kernelILi(\d+)E", mangled)
     if m:
         return f"stats_kernel<{'bf16' if m[1] == 'bf16k' else 'f32'}, {m[2]}>"
-    m = re.search(r"(bf16k|f32k)\d+(dkdv_kernel|dq_kernel)ILi(\d+)ELb([01])E",
-                  mangled)
+    m = re.search(r"(bf16k|f32k)\d+(dkdv_kernel|dq_kernel)ILi(\d+)ELi(\d+)E"
+                  r"Lb([01])E", mangled)
     if not m:
         return None
     dtype = "bf16" if m[1] == "bf16k" else "f32"
-    return (f"{m[2]}<{dtype}, {m[3]}, "
-            f"{'causal' if m[4] == '1' else 'full'}>")
+    return (f"{m[2]}<{dtype}, {m[3]}, {m[4]}, "
+            f"{'causal' if m[5] == '1' else 'full'}>")
 
 
-def sdpa_bwd_ms(q, k, v, do, causal: bool, reps: int) -> float:
-    """PyTorch's scaled_dot_product_attention backward alone: the forward
-    once with its graph kept, then ``torch.autograd.grad`` of it timed."""
-    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    out = sdpa(*leaves, causal)
-    return timed_ms(lambda: torch.autograd.grad(out, leaves, do,
-                                                retain_graph=True), reps)
+def sdpa_bwd_call(q, k, v, do, causal: bool) -> tuple:
+    """PyTorch's scaled_dot_product_attention backward alone as a call with
+    no arguments (the forward once with its graph kept, then
+    ``torch.autograd.grad`` of it), and which backend it takes: the
+    default dispatch at Dq == Dv; at Dq != Dv the first fused backend of
+    ``SDPA_FUSED`` whose backward takes V as it is, else the first that
+    takes V zero-padded to Dq (dO padded alike: zero columns add nothing
+    to dQ and dK), else the math backend."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    Dq, Dv = q.shape[3], v.shape[3]
+    tries = [(None, False)] if Dq == Dv else \
+        [(b, False) for b in SDPA_FUSED] + [(b, True) for b in SDPA_FUSED] \
+        + [("MATH", False)]
+    for backend, pad in tries:
+        leaves = [x.detach().clone().requires_grad_() for x in (
+            q, k, torch.nn.functional.pad(v, (0, Dq - Dv)) if pad else v)]
+        dout = torch.nn.functional.pad(do, (0, Dq - Dv)) if pad else do
+        try:
+            with warnings.catch_warnings(), (
+                    sdpa_kernel(getattr(SDPBackend, backend)) if backend
+                    else contextlib.nullcontext()):
+                warnings.simplefilter("ignore")
+                out = sdpa(*leaves, causal)
+                torch.autograd.grad(out, leaves, dout, retain_graph=True)
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        name = backend or "default dispatch"
+        return ((lambda: torch.autograd.grad(out, leaves, dout,
+                                             retain_graph=True)),
+                name + (f", V and dO zero-padded to Dq = {Dq}" if pad
+                        else ""))
+    raise AssertionError("no SDPA backend takes these inputs")
 
 
-def flash_bwd_rows(trained: dict) -> list:
-    """K9-bwd on the training path's own inputs (the first backward call
-    of a step: the last layer's q, k, v, o, dO and lse), at qwen3-4b's
-    (1, 4096, 32, 128) bf16 causal and repro-100m's (8, 1024, 10, 64) f32
-    causal, held as ``flash_bwd_check`` holds the cases, and launched
-    twice (the gradients must be the same bits).  Bound, for the
-    function: five products (S = QKᵀ, dP = dO·Vᵀ, dV = Pᵀ·dO, dQ = dS·K,
-    dK = dSᵀ·Q) of D·H·S(S+1) operations each per sequence (causal) at the
-    rate for the inputs' type (bf16 tensor cores 989 TFLOP/s; f32 67
-    TFLOP/s), against the bytes of q, k, v, o, dO, lse and the three
-    gradients.  Beside it, the design's own passes at its rate (bf16: ten
-    at 989 TFLOP/s; f32: 21 TF32 passes at 495 TFLOP/s) and ptxas's
-    registers and spills for each of the entry's kernels.  Yardstick:
-    ``torch.autograd.grad`` of PyTorch's
-    scaled_dot_product_attention(is_causal=True), its backward alone."""
+# K9-bwd f32 at (192, 128) is timed also at this shape, causal: the
+# reduced step's (4, 64, 4) is all launch overhead
+MLA_F32_BWD_TIMED = (1, 4096, 16)
+
+
+def flash_bwd_row(c: dict, launches: int, where: str, reps: int,
+                  ptxas: list, also: tuple = None) -> dict:
+    """K9-bwd on a path's own inputs ``c`` (q, k, v, o, dO, lse: the first
+    backward call of a step, causal), held as ``flash_bwd_check`` holds
+    the cases and launched twice (the gradients must be the same bits).
+    Bound, for the function: five products (S = QKᵀ, dQ = dS·K and
+    dK = dSᵀ·Q over Dq; dP = dO·Vᵀ and dV = Pᵀ·dO over Dv), (3·Dq +
+    2·Dv)·H·S(S+1) operations per sequence, at the rate for the inputs'
+    type (bf16 tensor cores 989 TFLOP/s; f32 67 TFLOP/s), against the
+    bytes of q, k, v, o, dO, lse and the three gradients.  Beside it, the
+    design's own passes at its rate (bf16: S and dP twice, dV, dK and dQ in
+    two terms each, at 989 TFLOP/s; f32: the seven products in three TF32
+    passes each, at 495 TFLOP/s) and ptxas's registers and spills for each
+    of the entry's kernels.  Yardstick: ``torch.autograd.grad`` of
+    PyTorch's scaled_dot_product_attention(is_causal=True), its backward
+    alone (``sdpa_bwd_call``).  In f32, each gradient's mean relative bias
+    against the plain version in f64 is held to ``FLASH_BWD_BIAS_TOL``.
+    ``also``: a (B, S, H) at which the call and its yardstick are timed
+    besides, on seeded random inputs."""
+    q, k, v, o, do, lse = (c[x] for x in ("q", "k", "v", "o", "do", "lse"))
+    B, S, H, Dq = q.shape
+    Dv = v.shape[3]
+    case = flash_bwd_check(f"training path's own inputs {list(q.shape)} "
+                           f"/ {Dv}", q, k, v, do, True, [], twice=True)
+    # flash_bwd_check recomputes o and lse with the same kernel: equal
+    o2, lse2, _ = kfa._forward(q, k, v, True, Dq ** -0.5, with_lse=True)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+    bf16 = q.dtype == torch.bfloat16
+    dt = "bf16" if bf16 else "f32"
+    peak = PEAK_BF16_TC_OPS_PER_S if bf16 else PEAK_F32_OPS_PER_S
+    pairs = B * H * S * (S + 1)
+    nops = (3 * Dq + 2 * Dv) * pairs
+    nbytes = B * S * H * (4 * Dq + 4 * Dv) * q.element_size() + \
+        lse.numel() * 4
+    t_ops = nops / peak * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    # the design's own work: bf16, S and dP twice and dV, dK, dQ in two
+    # terms; f32, S and dP twice and dV, dK, dQ once, three TF32 passes each
+    design_ops, rate = ((2 * (3 * Dq + 2 * Dv) * pairs,
+                         PEAK_BF16_TC_OPS_PER_S) if bf16 else
+                        (3 * (4 * Dq + 3 * Dv) * pairs,
+                         PEAK_TF32_TC_OPS_PER_S))
+    if not bf16:
+        got = kfa.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+        f64 = plain_by_heads(kfa.flash_attention_bwd_plain,
+                             *(x.double() for x in (q, k, v, o, do)),
+                             lse=lse, causal=True)
+        case["mean_relative_bias"] = {
+            name: (((g.double() - w) * w).sum() / (w * w).sum()).item()
+            for name, g, w in zip(("dq", "dk", "dv"), got, f64)}
+        case["mean_relative_bias_tolerance"] = FLASH_BWD_BIAS_TOL
+        del got, f64
+        assert max(map(abs, case["mean_relative_bias"].values())) <= \
+            FLASH_BWD_BIAS_TOL, case["mean_relative_bias"]
+    library, backend = sdpa_bwd_call(q, k, v, do, True)
+    row = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": FLASHATTN_BWD_SOURCE,
+        "replaces": "src/repro/kernels/flashattn.py:74 has no backward "
+                    "(no custom_vjp): the reference differentiates the "
+                    "XLA scan src/repro/models/layers.py:57 "
+                    "flash_attention with jax.vjp",
+        "launches": launches, "launches_where": where,
+        "max_abs_err": max(g["max_abs_err"] for g in case["grads"].values()),
+        "worst_err_over_tolerance": case["worst_err_over_tolerance"],
+        "tolerance": case["tolerance"], "check": case,
+        "ms": timed_ms(lambda: kfa.flash_attention_bwd(
+            q, k, v, o, do, lse, causal=True), reps),
+        "plain_ms": timed_ms(lambda: kfa.flash_attention_bwd_plain(
+            q, k, v, o, do, lse, causal=True), 2),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": timed_ms(library, reps), "library_backend": backend,
+        "shape": [B, S, H, Dq], "head_dims": [Dq, Dv], "dtype": dt,
+        "causal": True, "operations": nops, "bytes": nbytes,
+        "operations_bound": f"5 products at {peak / 1e12:g} TFLOP/s "
+                            f"({dt} inputs)",
+        "f32_rate_bound_ms": nops / PEAK_F32_OPS_PER_S * 1e3,
+        "design_operations": design_ops,
+        "design_passes_bound_ms": design_ops / rate * 1e3,
+        "design": ("wgmma + TMA, P and dS as bf16 hi + lo" if bf16 else
+                   "split-TF32 mma.sync m16n8k8, 3 terms"),
+        "same_bits_two_launches": case["two_launches_same_bits"],
+        "ptxas": [x for x in ptxas
+                  if x["kernel"].startswith(f"stats_kernel<{dt}, {Dv}>")
+                  or f"<{dt}, {Dq}, {Dv}," in x["kernel"]],
+        "yardstick": "torch.autograd.grad of "
+                     "scaled_dot_product_attention(is_causal=True) on "
+                     f"(B, H, S, D) views, {dt}, the backward alone, "
+                     f"{backend}"}
+    del library
+    if also:
+        gen = torch.Generator(device=DEV).manual_seed(5)
+        x = [torch.randn((*also, d), generator=gen, device=DEV,
+                         dtype=q.dtype) for d in (Dq, Dq, Dv, Dv)]
+        xo, xlse, _ = kfa._forward(*x[:3], True, Dq ** -0.5, with_lse=True)
+        lib, lib_backend = sdpa_bwd_call(*x, True)
+        row["also_timed"] = {
+            "shape": list(also) + [Dq], "head_dims": [Dq, Dv],
+            "ms": timed_ms(lambda: kfa.flash_attention_bwd(
+                *x[:3], xo, x[3], xlse, causal=True), reps),
+            "library_ms": timed_ms(lib, reps),
+            "library_backend": lib_backend}
+        del x, xo, xlse, lib
+    return row
+
+
+def flash_bwd_rows(trained: dict, hybrid: dict) -> list:
+    """K9-bwd on the training paths' own inputs (``flash_bwd_row``):
+    qwen3-4b's (1, 4096, 32, 128) and deepseek-v3's (1, 4096, 128, 192 /
+    128) in bf16, repro-100m's (8, 1024, 10, 64) in f32, and reduced
+    deepseek-v3's (4, 64, 4, 192 / 128) in f32 from phase 7e, also timed
+    at ``MLA_F32_BWD_TIMED``."""
     ptxas = ptxas_counts(kbuild.build_logs.get("flashattn_bwd", ""),
                          _flash_bwd_label)
-    rows = []
-    launches = {
-        "big": (sum(x["launches"]["flashattn_bwd"]
-                    for x in trained["big"]["steps"]),
-                "train_path: qwen3-4b, 3 steps"),
-        "small": (trained["cli"]["launches"]["flashattn_bwd"],
-                  "train_path: the repro-100m CLI, 30 + 5 steps")}
-    for part, peak, reps in (("big", PEAK_BF16_TC_OPS_PER_S, 5),
-                             ("small", PEAK_F32_OPS_PER_S, 20)):
-        c = trained["captured"][part]
-        q, k, v, o, do, lse = (c[x] for x in ("q", "k", "v", "o", "do",
-                                              "lse"))
-        B, S, H, D = q.shape
-        case = flash_bwd_check(f"training path's own inputs {list(q.shape)}",
-                               q, k, v, do, True, [], twice=True)
-        # flash_bwd_check recomputes o and lse with the same kernel: equal
-        o2, lse2, _ = kfa._forward(q, k, v, True, D ** -0.5, with_lse=True)
-        assert torch.equal(o2, o) and torch.equal(lse2, lse)
-        dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
-        nops = 5 * D * H * B * S * (S + 1)
-        nbytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
-        t_ops = nops / peak * 1e3
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        # the design's own work: bf16, ten tensor-core passes of one product
-        # each (S and dP twice, dV, dK and dQ in two terms); f32, seven
-        # products in three TF32 passes each
-        passes, rate = ((10, PEAK_BF16_TC_OPS_PER_S) if dt == "bf16"
-                        else (21, PEAK_TF32_TC_OPS_PER_S))
-        rows.append({
-            "name": "flash_attention_bwd", "route": "cuda",
-            "source": FLASHATTN_BWD_SOURCE,
-            "replaces": "src/repro/kernels/flashattn.py:74 has no backward "
-                        "(no custom_vjp): the reference differentiates the "
-                        "XLA scan src/repro/models/layers.py:57 "
-                        "flash_attention with jax.vjp",
-            "launches": launches[part][0],
-            "launches_where": launches[part][1],
-            "max_abs_err": max(g["max_abs_err"]
-                               for g in case["grads"].values()),
-            "worst_err_over_tolerance": case["worst_err_over_tolerance"],
-            "tolerance": case["tolerance"], "check": case,
-            "ms": timed_ms(lambda: kfa.flash_attention_bwd(
-                q, k, v, o, do, lse, causal=True), reps),
-            "plain_ms": timed_ms(lambda: kfa.flash_attention_bwd_plain(
-                q, k, v, o, do, lse, causal=True), 2),
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": sdpa_bwd_ms(q, k, v, do, True, reps),
-            "shape": [B, S, H, D], "dtype": dt, "causal": True,
-            "operations": nops, "bytes": nbytes,
-            "operations_bound": f"5 products at "
-                                f"{peak / 1e12:g} TFLOP/s ({dt} inputs)",
-            "f32_rate_bound_ms": nops / PEAK_F32_OPS_PER_S * 1e3,
-            "design_passes": passes,
-            "design_passes_bound_ms": passes * (nops / 5) / rate * 1e3,
-            "design": ("wgmma + TMA, P and dS as bf16 hi + lo" if dt ==
-                       "bf16" else "split-TF32 mma.sync m16n8k8, 3 terms"),
-            "same_bits_two_launches": case["two_launches_same_bits"],
-            "ptxas": [x for x in ptxas if f"<{dt}, {D}" in x["kernel"]],
-            "yardstick": "torch.autograd.grad of "
-                         "scaled_dot_product_attention(is_causal=True) on "
-                         f"(B, H, S, D) views, {dt}, the backward alone"})
-    return rows
+    steps = lambda part: sum(x["launches"]["flashattn_bwd"]  # noqa: E731
+                             for x in trained[part]["steps"])
+    c = trained["captured"]
+    return [
+        flash_bwd_row(c["big"], steps("big"),
+                      "train_path: qwen3-4b, 3 steps", 5, ptxas),
+        flash_bwd_row(c["mla"], steps("mla"),
+                      "train_path: deepseek-v3-671b, 3 dense layers, "
+                      "3 steps", 5, ptxas),
+        flash_bwd_row(c["small"], trained["cli"]["launches"]["flashattn_bwd"],
+                      "train_path: the repro-100m CLI, 30 + 5 steps", 20,
+                      ptxas),
+        flash_bwd_row(hybrid["captured"],
+                      hybrid[MLA_ARCH]["train"]["launches"]["flashattn_bwd"],
+                      "hybrid_card_vs_cpu: reduced deepseek-v3-671b, one "
+                      "grad and one train step", 20, ptxas,
+                      also=MLA_F32_BWD_TIMED)]
 
 
 def main():
@@ -6170,7 +6382,7 @@ def main():
     vlm_serve_path = timed(phase_vlm_serve_path)
     mla_serve_path = timed(phase_mla_serve_path)
     train_path = timed(phase_train_path)
-    timed(phase_hybrid_card_vs_cpu)
+    hybrid = timed(phase_hybrid_card_vs_cpu)
     # host-clock seconds per phase so far, the kernel builds inside
     # kernel_cases; the kernels phase follows
     emit("wall_seconds", phases=wall,
@@ -6181,7 +6393,7 @@ def main():
                    "vlm_launches": vlm_serve_path["launches"],
                    "mla_launches": mla_serve_path["launches"],
                    "mla_captured": mla_serve_path["captured"]},
-                  mesh_path, train_path)
+                  mesh_path, train_path, hybrid)
     emit("wall_seconds_kernels", seconds=round(time.perf_counter() - t, 3),
          total=round(time.perf_counter() - t0, 3))
     print(smi, flush=True)

@@ -12,10 +12,14 @@
 //   dQ = scale · dS K;  dK = scale · dSᵀ Q
 //
 // Causal masking is top-left aligned (query i sees keys j <= i); Sq == Skv.
-// q, k, v, o, dO and the three outputs are (B, S, H, D), read and written by
-// their (batch, sequence, head) strides with unit stride along D.  D = 64
-// and 128 are template instances.  Every sum is in f32 and each output is
-// rounded once, at the store.
+// q, dq, k and dk are (B, S, H, Dq); v, o, dO and dv are (B, S, H, Dv);
+// all are read and written by their (batch, sequence, head) strides with
+// unit stride along the head dim.  The (Dq, Dv) pairs are template
+// instances: (64, 64), (128, 128) and (192, 128), the last for
+// deepseek-v3's latent attention (models/mla.py: 128 + 64 rope columns in
+// q and k, 128 in v), which the reference differentiates through the same
+// XLA scan.  S = QKᵀ, dQ and dK run over Dq; dP = dO·Vᵀ, dV and Dᵢ over
+// Dv.  Every sum is in f32 and each output is rounded once, at the store.
 //
 // Three launches per call, no atomics, so every run gives the same bits:
 //   1. `stats_kernel`: the row statistics both other kernels read, f32 in
@@ -58,23 +62,34 @@
 //     that cross the diagonal or S;
 //   - splits P and dS into bf16 hi + lo terms (hi = bf16(x),
 //     lo = bf16(x − hi): within 2^-17·|x|) and issues each register-A
-//     product twice into one f32 accumulator, `wgmma m64nDk16` with the
+//     product twice into one f32 accumulator, `wgmma m64nNk16` (N = Dv for
+//     dV, Dq for dK and dQ) with the
 //     streamed tile as an N-major B (transpose bit): the f32 accumulator
 //     layout of S is the bf16 A-fragment layout, so nothing goes through
 //     shared memory (dkdv: dV += Pᵀ dO, dK += dSᵀ Q; dq: dQ += dS K).
 //     Without the split, P and dS would be rounded to bf16 inside the sums,
 //     a second rounding beside the output's;
 //   - waits for its products and frees the stage.
-// Registers: dK and dV are 64 x D f32 per consumer warpgroup, D registers a
-// thread (128 at D = 128), beside the 32 + 32 of S and dP, which become the
-// P and dS fragments (the same number of registers: hi + lo of two values
-// is 64 bits); S and dP are set to 0 before each tile, so they are not
-// live across the register-A products.  Consumers run at 240 registers.
-// What bounds it: the function is five products of D·H·S(S+1) operations
-// each (causal), 343.7 GFLOP at qwen3-4b's (1, 4096, 32, 128): 0.35 ms on
+// Registers: dK (64 x Dq) and dV (64 x Dv) are f32 per consumer
+// warpgroup, (Dq + Dv) / 2 registers a thread (128 at (128, 128), 160 at
+// (192, 128)), beside the 32 + 32 of S and dP, which become the P and dS
+// fragments (the same number of registers: hi + lo of two values is 64
+// bits); S and dP are set to 0 before each tile, so they are not live
+// across the register-A products.  Consumers run at 240 registers; at
+// (192, 128) dkdv's accumulators and fragments take 224 of them and ptxas
+// spills a few words of the rest (PERF.md §6).  32-row Q tiles there would
+// halve S and dP and spill nothing, but ran slower on the card: the
+// spills stay.  dK is `wgmma m64n192k16` at Dq = 192; Q and K tiles are
+// three 64-column TMA boxes, V, O and dO tiles two.  Shared memory at
+// (192, 128): K 48 KB and V 32 KB resident, three stages of Q (72 KB) and
+// dO (48 KB) and their statistics, 207 416 bytes in all.
+// What bounds it: the function is five products, (3·Dq + 2·Dv)·H·S(S+1)
+// operations (causal), 343.7 GFLOP at qwen3-4b's (1, 4096, 32, 128) and
+// 1 787.2 at deepseek-v3's (1, 4096, 128, 192 / 128): 0.35 and 1.81 ms on
 // the bf16 tensor cores.  This design runs ten bf16 passes (S, dP twice,
-// dV, dK, dQ in two terms each): 0.69 ms at the peak rate.  No FMA loop
-// over D or a tile is left; TMA runs up to three tiles ahead of the math.
+// dV, dK, dQ in two terms each): 0.69 and 3.61 ms at the peak rate.  No
+// FMA loop over D or a tile is left; TMA runs up to three tiles ahead of
+// the math.
 // Left: a warpgroup's products run one after another (S and dP, then the
 // register-A products, then the next tile), with no elementwise work of
 // one tile hidden behind the products of another; the two consumer
@@ -91,10 +106,16 @@
 // tiles in shared memory padded to D + 4 floats a row (the fragment loads
 // of a warp land on 32 distinct banks), streamed tiles double-buffered by
 // `cp.async` (4-byte copies: operands are read at any 4-byte alignment,
-// by strides).  The accumulator of S is the A fragment of the product
-// that follows it with the k index permuted (physical column 2t, 2t + 1
-// taken as logical t, t + 4); the B fragment reads its rows in the same
-// order.  What bounds it: at repro-100m's (8, 1024, 10, 64) causal the
+// by strides).  S and dP take each k-step's three products, and dV, dK
+// and dQ each tile's, in a fresh accumulator added in f32 (`xyt`, `az`:
+// the tensor cores' own f32 sums round toward zero).  The accumulator of S is the A fragment of the
+// product that follows it with the k index permuted (physical column 2t,
+// 2t + 1 taken as logical t, t + 4); the B fragment reads its rows in the
+// same order.  At (192, 128) the resident tiles (64 x (196 + 132) floats)
+// and two buffers of 64-row streamed ones would need 252 928 bytes of
+// shared memory, over the 232 448 a block may use, and a warp's dK grows
+// by half: that instance streams 32-row tiles (two buffers, 168 448
+// bytes), which also halves S and dP.  What bounds it: at repro-100m's (8, 1024, 10, 64) causal the
 // function is 26.87 GFLOP, 0.40 ms at 67 TFLOP/s f32 outside the tensor
 // cores; this design runs seven products in three TF32 passes each, 112.8
 // GFLOP, 0.23 ms at 495 TFLOP/s TF32, and issues one or two shared loads
@@ -138,15 +159,17 @@ constexpr int THREADS = 384;        // producer + two consumer warpgroups
 constexpr int CONSUMERS = 256;      // threads that release a stage
 constexpr int ROW_BYTES = 128;      // one 64-column box row, swizzled
 
-template <int D>
+template <int DQ, int DV>
 struct Smem {                       // byte offsets from a 1024-aligned base
-  static constexpr int RES = BM * D * 2;         // one resident operand
-  static constexpr int TILE = BN * D * 2;        // one streamed operand
+  static constexpr int RES_X = BM * DQ * 2;      // resident K / Q
+  static constexpr int RES_Y = BM * DV * 2;      // resident V / dO
+  static constexpr int TILE_U = BN * DQ * 2;     // one streamed Q / K
+  static constexpr int TILE_W = BN * DV * 2;     // one streamed dO / V
   static constexpr int STAT = 2 * BN * 4;        // lse·log2 e and D, dkdv
-  static constexpr int X = 0, Y = RES;           // resident: K, V / Q, dO
-  static constexpr int U = 2 * RES;              // streamed: Q / K
-  static constexpr int W = U + STAGES * TILE;    // streamed: dO / V
-  static constexpr int ST = W + STAGES * TILE;
+  static constexpr int X = 0, Y = RES_X;
+  static constexpr int U = RES_X + RES_Y;        // streamed: Q / K
+  static constexpr int W = U + STAGES * TILE_U;  // streamed: dO / V
+  static constexpr int ST = W + STAGES * TILE_W;
   static constexpr int BARS = ST + STAGES * STAT;  // 1 + 2 · STAGES
   static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;
   static_assert(BYTES <= 232448, "a block's shared memory on Hopper");
@@ -261,6 +284,14 @@ __device__ __forceinline__ void frag_fence(uint32_t (&a)[N][4]) {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
   "%58, %59, %60, %61, %62, %63}"
+#define REGS96                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "   \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "   \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
 
 // d (64 x 64, f32) = [d +] A B: A (64 x 16) and B (16 x 64, K-major) from
 // shared memory; `accumulate` = 0 overwrites d
@@ -302,6 +333,18 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
         ACC8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " REGS96
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
+        ACC8(56), ACC8(64), ACC8(72), ACC8(80), ACC8(88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
@@ -317,10 +360,11 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
 }
 
-// the 64 x 64 score tiles of a consumer warpgroup: s = X Uᵀ, dp = Y Wᵀ over
-// D, X and Y its 64 resident rows (A), U and W a streamed stage (K-major B);
-// issued as two groups, s first: wg_wait<1> waits for s alone
-template <int D>
+// the 64 x 64 score tiles of a consumer warpgroup: s = X Uᵀ over DQ,
+// dp = Y Wᵀ over DV, X and Y its 64 resident rows (A), U and W a streamed
+// stage (K-major B); issued as two groups, s first: wg_wait<1> waits for s
+// alone
+template <int DQ, int DV>
 __device__ __forceinline__ void score_products(float (&s)[32],
                                                float (&dp)[32], uint32_t xa,
                                                uint32_t ya, uint32_t u,
@@ -331,14 +375,14 @@ __device__ __forceinline__ void score_products(float (&s)[32],
   reg_fence(dp);
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DQ / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
     wgmma_ss(s, sw128_desc(xa + (kk / 4) * BM * ROW_BYTES + off, 16),
              sw128_desc(u + (kk / 4) * BN * ROW_BYTES + off, 16), kk > 0);
   }
   wg_commit();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DV / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
     wgmma_ss(dp, sw128_desc(ya + (kk / 4) * BM * ROW_BYTES + off, 16),
              sw128_desc(w + (kk / 4) * BN * ROW_BYTES + off, 16), kk > 0);
@@ -346,20 +390,20 @@ __device__ __forceinline__ void score_products(float (&s)[32],
   wg_commit();
 }
 
-// acc (64 x D) += A·Z with A = hi + lo in registers (64 x 64, k-steps of 16
-// columns) and Z a streamed stage (64 rows x D, N-major B)
-template <int D>
-__device__ __forceinline__ void split_product(float (&acc)[D / 2],
+// acc (64 x N) += A·Z with A = hi + lo in registers (64 x 64, k-steps of
+// 16 columns) and Z a streamed stage (64 rows x N, N-major B)
+template <int N>
+__device__ __forceinline__ void split_product(float (&acc)[N / 2],
                                               const uint32_t (&hi)[4][4],
                                               const uint32_t (&lo)[4][4],
                                               uint32_t z) {
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_rs<D>(acc, hi[kk],
+    wgmma_rs<N>(acc, hi[kk],
                 sw128_desc(z + kk * 16 * ROW_BYTES, BN * ROW_BYTES));
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_rs<D>(acc, lo[kk],
+    wgmma_rs<N>(acc, lo[kk],
                 sw128_desc(z + kk * 16 * ROW_BYTES, BN * ROW_BYTES));
 }
 
@@ -376,11 +420,11 @@ __device__ __forceinline__ void split_tile(const float (&x)[32],
                  lo[kk][j]);
 }
 
-// the rows `row` and `row + 8` of a 64 x D accumulator times `mul`, rounded
+// the rows `row` and `row + 8` of a 64 x N accumulator times `mul`, rounded
 // once to bf16, where they lie below S
-template <int D>
+template <int N>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, Strides st,
-                                           const float (&acc)[D / 2],
+                                           const float (&acc)[N / 2],
                                            int row, int col, int S,
                                            float mul) {
 #pragma unroll
@@ -389,7 +433,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, Strides st,
     if (at >= S) continue;
     __nv_bfloat16* p = dst + at * st.s + col;
 #pragma unroll
-    for (int g = 0; g < D / 8; ++g)
+    for (int g = 0; g < N / 8; ++g)
       *reinterpret_cast<__nv_bfloat162*>(p + 8 * g) = __floats2bfloat162_rn(
           acc[4 * g + 2 * r] * mul, acc[4 * g + 2 * r + 1] * mul);
   }
@@ -398,17 +442,17 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, Strides st,
 // The row statistics of 64 rows of one (batch, head), up to Sp:
 // lse·log2 e (+inf past S) and Dᵢ = Σ_d dOᵢ·Oᵢ (0 past S: TMA reads zeros),
 // Dᵢ as the diagonal of O dOᵀ by the product dkdv forms V dOᵀ with
-// (wgmma_ss, O as A, dO as a K-major B, the same k-steps): where Oᵢ = Vⱼ,
-// as at S = 1, dPᵀ[j][i] − Dᵢ is exactly 0 (and dP[i][j] in dq, the same
-// products with A and B exchanged), as it is in exact arithmetic.
-template <int D>
+// (wgmma_ss, O as A, dO as a K-major B, the same k-steps over DV): where
+// Oᵢ = Vⱼ, as at S = 1, dPᵀ[j][i] − Dᵢ is exactly 0 (and dP[i][j] in dq,
+// the same products with A and B exchanged), as it is in exact arithmetic.
+template <int DV>
 __global__ void __launch_bounds__(128)
 stats_kernel(const __grid_constant__ CUtensorMap to,
              const __grid_constant__ CUtensorMap tdo,
              const float* __restrict__ lse, float* __restrict__ stats, int H,
              int S) {
-  constexpr int BOXES = D / 64;
-  constexpr int TILE = BN * D * 2;
+  constexpr int BOXES = DV / 64;
+  constexpr int TILE = BN * DV * 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t bar = base + 2 * TILE;
@@ -442,7 +486,7 @@ stats_kernel(const __grid_constant__ CUtensorMap to,
   reg_fence(d);
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DV / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
     wgmma_ss(d, sw128_desc(base + (kk / 4) * BN * ROW_BYTES + off, 16),
              sw128_desc(base + TILE + (kk / 4) * BN * ROW_BYTES + off, 16),
@@ -474,14 +518,14 @@ struct Maps {                       // resident X, Y; streamed U, W
 
 // dK and dV for 128 KV rows of one (batch, head); the KV tile with the
 // most Q tiles after it first.  X, Y = K, V (resident); U, W = Q, dO.
-template <int D, bool CAUSAL>
+template <int DQ, int DV, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 dkdv_kernel(const __grid_constant__ Maps maps,
             const float* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
             __nv_bfloat16* __restrict__ dv, int H, int S, Strides sdk,
             Strides sdv, float scale, float scale_log2) {
-  using L = Smem<D>;
-  constexpr int BOXES = D / 64;     // 64-column TMA boxes per row
+  using L = Smem<DQ, DV>;
+  constexpr int XBOXES = DQ / 64, YBOXES = DV / 64;  // 64-column TMA boxes
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint8_t* gbase = smem_raw + (base - smem_addr(smem_raw));
@@ -511,23 +555,23 @@ dkdv_kernel(const __grid_constant__ Maps maps,
     if (threadIdx.x == 0) {
       const float* lrow = stats + static_cast<long long>(bh) * Sp;
       const float* drow = lrow + static_cast<long long>(gridDim.x) * Sp;
-      bar_expect(res_full, 2 * L::RES);
-      for (int c = 0; c < BOXES; ++c) {
+      bar_expect(res_full, L::RES_X + L::RES_Y);
+      for (int c = 0; c < XBOXES; ++c)
         tma_load(base + L::X + c * BM * ROW_BYTES, &maps.x, res_full, 64 * c,
                  h, kv0, b);
+      for (int c = 0; c < YBOXES; ++c)
         tma_load(base + L::Y + c * BM * ROW_BYTES, &maps.y, res_full, 64 * c,
                  h, kv0, b);
-      }
       for (int it = 0; it < nq - qt0; ++it) {
         const int s = it % STAGES, q0 = (qt0 + it) * BN;
         bar_wait(free_(s), ((it / STAGES) & 1) ^ 1);
-        bar_expect(full(s), 2 * L::TILE + L::STAT);
-        for (int c = 0; c < BOXES; ++c) {
-          tma_load(base + L::U + s * L::TILE + c * BN * ROW_BYTES, &maps.u,
+        bar_expect(full(s), L::TILE_U + L::TILE_W + L::STAT);
+        for (int c = 0; c < XBOXES; ++c)
+          tma_load(base + L::U + s * L::TILE_U + c * BN * ROW_BYTES, &maps.u,
                    full(s), 64 * c, h, q0, b);
-          tma_load(base + L::W + s * L::TILE + c * BN * ROW_BYTES, &maps.w,
+        for (int c = 0; c < YBOXES; ++c)
+          tma_load(base + L::W + s * L::TILE_W + c * BN * ROW_BYTES, &maps.w,
                    full(s), 64 * c, h, q0, b);
-        }
         bulk_load(base + L::ST + s * L::STAT, lrow + q0, BN * 4, full(s));
         bulk_load(base + L::ST + s * L::STAT + BN * 4, drow + q0, BN * 4,
                   full(s));
@@ -542,21 +586,24 @@ dkdv_kernel(const __grid_constant__ Maps maps,
     const uint32_t xa = base + L::X + cw * 64 * ROW_BYTES;
     const uint32_t ya = base + L::Y + cw * 64 * ROW_BYTES;
 
-    float dka[D / 2], dva[D / 2], s[BN / 2], dp[BN / 2];
+    float dka[DQ / 2], dva[DV / 2], s[BN / 2], dp[BN / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    for (int i = 0; i < DQ / 2; ++i) dka[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) dva[i] = 0.f;
     uint32_t p_hi[4][4], p_lo[4][4], d_hi[4][4], d_lo[4][4];
 
     bar_wait(res_full, 0);
     for (int it = 0; it < nq - qt0; ++it) {
       const int st = it % STAGES, q0 = (qt0 + it) * BN;
-      const uint32_t u = base + L::U + st * L::TILE;
-      const uint32_t w = base + L::W + st * L::TILE;
+      const uint32_t u = base + L::U + st * L::TILE_U;
+      const uint32_t w = base + L::W + st * L::TILE_W;
       const float* lse2 =
           reinterpret_cast<const float*>(gbase + L::ST + st * L::STAT);
       const float* dl = lse2 + BN;
       bar_wait(full(st), (it / STAGES) & 1);
-      score_products<D>(s, dp, xa, ya, u, w);       // Sᵀ = K Qᵀ, dPᵀ = V dOᵀ
+      // Sᵀ = K Qᵀ, dPᵀ = V dOᵀ
+      score_products<DQ, DV>(s, dp, xa, ya, u, w);
 
       // Pᵀ[j][i] and dSᵀ[j][i]: rows j are KV rows, columns i Q rows; Q
       // rows past S read lse·log2 e = +inf, so P is 0 there.  Pᵀ while
@@ -581,8 +628,8 @@ dkdv_kernel(const __grid_constant__ Maps maps,
       reg_fence(dka);
       reg_fence(dva);
       wg_fence();
-      split_product<D>(dva, p_hi, p_lo, w);         // dV += Pᵀ dO
-      split_product<D>(dka, d_hi, d_lo, u);         // dK += dSᵀ Q
+      split_product<DV>(dva, p_hi, p_lo, w);        // dV += Pᵀ dO
+      split_product<DQ>(dka, d_hi, d_lo, u);        // dK += dSᵀ Q
       wg_commit();
       wg_wait<0>();
       reg_fence(dka);
@@ -593,20 +640,20 @@ dkdv_kernel(const __grid_constant__ Maps maps,
       frag_fence(d_lo);
       bar_arrive(free_(st));
     }
-    store_rows<D>(dk + b * sdk.b + h * sdk.h, sdk, dka, row, col, S, scale);
-    store_rows<D>(dv + b * sdv.b + h * sdv.h, sdv, dva, row, col, S, 1.f);
+    store_rows<DQ>(dk + b * sdk.b + h * sdk.h, sdk, dka, row, col, S, scale);
+    store_rows<DV>(dv + b * sdv.b + h * sdv.h, sdv, dva, row, col, S, 1.f);
   }
 }
 
 // dQ for 128 Q rows of one (batch, head); the heaviest Q tiles first.
 // X, Y = Q, dO (resident); U, W = K, V.
-template <int D, bool CAUSAL>
+template <int DQ, int DV, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ stats,
           __nv_bfloat16* __restrict__ dq, int H, int S, Strides sdq,
           float scale, float scale_log2) {
-  using L = Smem<D>;
-  constexpr int BOXES = D / 64;
+  using L = Smem<DQ, DV>;
+  constexpr int XBOXES = DQ / 64, YBOXES = DV / 64;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t res_full = base + L::BARS;
@@ -634,23 +681,23 @@ dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ stats,
   if (group == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (threadIdx.x == 0) {
-      bar_expect(res_full, 2 * L::RES);
-      for (int c = 0; c < BOXES; ++c) {
+      bar_expect(res_full, L::RES_X + L::RES_Y);
+      for (int c = 0; c < XBOXES; ++c)
         tma_load(base + L::X + c * BM * ROW_BYTES, &maps.x, res_full, 64 * c,
                  h, q0, b);
+      for (int c = 0; c < YBOXES; ++c)
         tma_load(base + L::Y + c * BM * ROW_BYTES, &maps.y, res_full, 64 * c,
                  h, q0, b);
-      }
       for (int kt = 0; kt < n_kv; ++kt) {
         const int s = kt % STAGES;
         bar_wait(free_(s), ((kt / STAGES) & 1) ^ 1);
-        bar_expect(full(s), 2 * L::TILE);
-        for (int c = 0; c < BOXES; ++c) {
-          tma_load(base + L::U + s * L::TILE + c * BN * ROW_BYTES, &maps.u,
+        bar_expect(full(s), L::TILE_U + L::TILE_W);
+        for (int c = 0; c < XBOXES; ++c)
+          tma_load(base + L::U + s * L::TILE_U + c * BN * ROW_BYTES, &maps.u,
                    full(s), 64 * c, h, kt * BN, b);
-          tma_load(base + L::W + s * L::TILE + c * BN * ROW_BYTES, &maps.w,
+        for (int c = 0; c < YBOXES; ++c)
+          tma_load(base + L::W + s * L::TILE_W + c * BN * ROW_BYTES, &maps.w,
                    full(s), 64 * c, h, kt * BN, b);
-        }
       }
     }
   } else {
@@ -667,18 +714,19 @@ dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ stats,
     const float lse2[2] = {lrow[row], lrow[row + 8]};
     const float dl[2] = {drow[row], drow[row + 8]};
 
-    float dqa[D / 2], s[BN / 2], dp[BN / 2];
+    float dqa[DQ / 2], s[BN / 2], dp[BN / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+    for (int i = 0; i < DQ / 2; ++i) dqa[i] = 0.f;
     uint32_t d_hi[4][4], d_lo[4][4];
 
     bar_wait(res_full, 0);
     for (int kt = 0; kt < n_kv; ++kt) {
       const int st = kt % STAGES, kv0 = kt * BN;
-      const uint32_t u = base + L::U + st * L::TILE;
-      const uint32_t w = base + L::W + st * L::TILE;
+      const uint32_t u = base + L::U + st * L::TILE_U;
+      const uint32_t w = base + L::W + st * L::TILE_W;
       bar_wait(full(st), (kt / STAGES) & 1);
-      score_products<D>(s, dp, xa, ya, u, w);       // S = Q Kᵀ, dP = dO Vᵀ
+      // S = Q Kᵀ, dP = dO Vᵀ
+      score_products<DQ, DV>(s, dp, xa, ya, u, w);
 
       // KV rows past S were read as zeros: masked like the causal cells.
       // P while dP is still in flight.
@@ -701,7 +749,7 @@ dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ stats,
 
       reg_fence(dqa);
       wg_fence();
-      split_product<D>(dqa, d_hi, d_lo, u);         // dQ += dS K
+      split_product<DQ>(dqa, d_hi, d_lo, u);        // dQ += dS K
       wg_commit();
       wg_wait<0>();
       reg_fence(dqa);
@@ -709,7 +757,7 @@ dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ stats,
       frag_fence(d_lo);
       bar_arrive(free_(st));
     }
-    store_rows<D>(dq + b * sdq.b + h * sdq.h, sdq, dqa, row, col, S, scale);
+    store_rows<DQ>(dq + b * sdq.b + h * sdq.h, sdq, dqa, row, col, S, scale);
   }
 }
 
@@ -768,35 +816,35 @@ int make_map(CUtensorMap* map, const void* x, int B, int S, int H, int D,
 }
 
 
-template <int D, bool CAUSAL>
+template <int DQ, int DV, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* stats, void* dq,
            void* dk, void* dv, int B, int H, int S, const Args& a,
            float scale, cudaStream_t stream) {
   Maps kv, qd;                      // dkdv: K, V, Q, dO; dq: Q, dO, K, V
   CUtensorMap to;
-  int err = make_map(&to, o, B, S, H, D, a.o, BN);
-  if (err == 0) err = make_map(&kv.x, k, B, S, H, D, a.k, BM);
-  if (err == 0) err = make_map(&kv.y, v, B, S, H, D, a.v, BM);
-  if (err == 0) err = make_map(&kv.u, q, B, S, H, D, a.q, BN);
-  if (err == 0) err = make_map(&kv.w, dout, B, S, H, D, a.d, BN);
-  if (err == 0) err = make_map(&qd.x, q, B, S, H, D, a.q, BM);
-  if (err == 0) err = make_map(&qd.y, dout, B, S, H, D, a.d, BM);
-  if (err == 0) err = make_map(&qd.u, k, B, S, H, D, a.k, BN);
-  if (err == 0) err = make_map(&qd.w, v, B, S, H, D, a.v, BN);
+  int err = make_map(&to, o, B, S, H, DV, a.o, BN);
+  if (err == 0) err = make_map(&kv.x, k, B, S, H, DQ, a.k, BM);
+  if (err == 0) err = make_map(&kv.y, v, B, S, H, DV, a.v, BM);
+  if (err == 0) err = make_map(&kv.u, q, B, S, H, DQ, a.q, BN);
+  if (err == 0) err = make_map(&kv.w, dout, B, S, H, DV, a.d, BN);
+  if (err == 0) err = make_map(&qd.x, q, B, S, H, DQ, a.q, BM);
+  if (err == 0) err = make_map(&qd.y, dout, B, S, H, DV, a.d, BM);
+  if (err == 0) err = make_map(&qd.u, k, B, S, H, DQ, a.k, BN);
+  if (err == 0) err = make_map(&qd.w, v, B, S, H, DV, a.v, BN);
   if (err != 0) return err;
-  const int stat_bytes = 2 * BN * D * 2 + 8 + 1024;
-  err = cudaFuncSetAttribute(stats_kernel<D>,
+  const int stat_bytes = 2 * BN * DV * 2 + 8 + 1024;
+  err = cudaFuncSetAttribute(stats_kernel<DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              stat_bytes);
   if (err != cudaSuccess) return err;
-  stats_kernel<D><<<dim3(B * H, padded(S) / BN), 128, stat_bytes, stream>>>(
-      to, kv.w, lse, stats, H, S);
+  stats_kernel<DV><<<dim3(B * H, padded(S) / BN), 128, stat_bytes,
+                     stream>>>(to, kv.w, lse, stats, H, S);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int bytes = Smem<D>::BYTES;
   const dim3 grid(B * H, (S + BM - 1) / BM);
-  auto kv_kernel = dkdv_kernel<D, CAUSAL>;
+  const int bytes = Smem<DQ, DV>::BYTES;
+  auto kv_kernel = dkdv_kernel<DQ, DV, CAUSAL>;
   err = cudaFuncSetAttribute(
       kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -806,7 +854,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       scale * LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto q_kernel = dq_kernel<D, CAUSAL>;
+  auto q_kernel = dq_kernel<DQ, DV, CAUSAL>;
   err = cudaFuncSetAttribute(
       q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -824,17 +872,24 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 namespace f32k {
 
 constexpr int BM = 64;              // resident rows per CTA: 4 warps x 16
-constexpr int BN = 64;              // streamed rows per tile
 constexpr int THREADS = 128;
 
-template <int D>
+// a shared tile's row stride in floats: the fragment loads of a warp land
+// on 32 distinct banks
+__host__ __device__ constexpr int ld(int D) { return D + 4; }
+
+template <int DQ, int DV>
 struct Smem {                       // offsets in floats
-  static constexpr int LD = D + 4;               // a tile's row stride
-  static constexpr int TILE = 64 * LD;
-  static constexpr int X = 0, Y = TILE;          // resident: K, V / Q, dO
-  static constexpr int U = 2 * TILE;             // streamed, two buffers:
-  static constexpr int W = 4 * TILE;             //   Q, dO / K, V
-  static constexpr int ST = 6 * TILE;            // lse·log2 e and D (dkdv)
+  // rows of a streamed tile: 64, or 32 at (192, 128), where two buffers of
+  // 64 rows beside the resident tiles would need 252 928 bytes
+  static constexpr int BN = DQ == DV ? 64 : 32;
+  static constexpr int TILE_U = BN * ld(DQ);     // one streamed Q / K
+  static constexpr int TILE_W = BN * ld(DV);     // one streamed dO / V
+  static constexpr int X = 0;                    // resident: K / Q
+  static constexpr int Y = BM * ld(DQ);          //   V / dO
+  static constexpr int U = Y + BM * ld(DV);      // streamed, two buffers:
+  static constexpr int W = U + 2 * TILE_U;       //   Q, dO / K, V
+  static constexpr int ST = W + 2 * TILE_W;      // lse·log2 e and D (dkdv)
   static constexpr int BYTES = (ST + 2 * 2 * BN) * 4;
   static_assert(BYTES <= 232448, "a block's shared memory on Hopper");
 };
@@ -863,17 +918,16 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// rows [row0, row0 + 64) of a (S, D) slice into a shared tile of row
-// stride D + 4 at `dst`; zeros past S
-template <int D>
+// rows [row0, row0 + ROWS) of a (S, D) slice into a shared tile of row
+// stride ld(D) at `dst`; zeros past S
+template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(uint32_t dst, const float* src,
                                           long long stride_s, int row0,
                                           int S) {
-  for (int e = threadIdx.x; e < 64 * D; e += THREADS) {
+  for (int e = threadIdx.x; e < ROWS * D; e += THREADS) {
     const int r = e / D, d = e % D, row = row0 + r;
     const bool in = row < S;
-    cp4(dst + 4 * (r * Smem<D>::LD + d), in ? src + row * stride_s + d : src,
-        in);
+    cp4(dst + 4 * (r * ld(D) + d), in ? src + row * stride_s + d : src, in);
   }
 }
 
@@ -920,11 +974,17 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
 // acc (16 x 8 NT) = X Yᵀ over D: X the warp's 16 rows, Y 8 NT rows, both
 // (rows, D) in shared memory.  acc[nt][e] is row g + 8 (e / 2), column
 // 8 nt + 2 t + e % 2 (the mma.sync accumulator layout).  SWAP: the order of
-// the cross terms (mma3).
+// the cross terms (mma3).  Each k-step's three products go to a fresh
+// accumulator, added to acc by an f32 add: the tensor cores round their f32
+// sums toward zero, so D / 8 k-steps summed in one accumulator bias a
+// large score low by several ulps, and P = exp(S − lse), lse from K9's
+// correctly rounded sums, low with it (at reduced deepseek-v3's scores,
+// |S| up to 170, every gradient came out low, over the card-vs-CPU step's
+// grad-norm bound).
 template <int D, int NT, bool SWAP>
 __device__ __forceinline__ void xyt(float (&acc)[NT][4], const float* X,
                                     const float* Y, int g, int t) {
-  constexpr int LD = Smem<D>::LD;
+  constexpr int LD = ld(D);
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -939,31 +999,44 @@ __device__ __forceinline__ void xyt(float (&acc)[NT][4], const float* X,
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const float* y = Y + (8 * nt + g) * LD + k0;
-      mma3<SWAP>(acc[nt], ah, al, y[t], y[t + 4]);
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      mma3<SWAP>(part, ah, al, y[t], y[t + 4]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] += part[e];
     }
   }
 }
 
-// out (16 x D) += A Z: A (16 x 64) an accumulator (xyt's layout), Z a
-// 64-row tile (rows, D).  The accumulator is the A fragment with the k
+// out (16 x D) += A Z: A (16 x BN) an accumulator (xyt's layout), Z a
+// BN-row tile (rows, D).  The accumulator is the A fragment with the k
 // index permuted: the thread's columns 2t and 2t + 1 of each 8 stand for
-// k = t and t + 4, so B reads Z's rows 2t and 2t + 1 for them.
-template <int D>
+// k = t and t + 4, so B reads Z's rows 2t and 2t + 1 for them.  Each
+// 8-column block of out takes the tile's products in a fresh accumulator,
+// added by an f32 add: summed on the tensor cores over every tile of a
+// sequence, dV and dK came out low (round toward zero, as in xyt).
+template <int D, int BN>
 __device__ __forceinline__ void az(float (&out)[D / 8][4],
                                    const float (&a)[BN / 8][4],
                                    const float* Z, int g, int t) {
-  constexpr int LD = Smem<D>::LD;
+  constexpr int LD = ld(D);
+  uint32_t ah[BN / 8][4], al[BN / 8][4];
 #pragma unroll                      // a[ks] must stay in registers
   for (int ks = 0; ks < BN / 8; ++ks) {
-    uint32_t ah[4], al[4];
-    split_tf32(a[ks][0], ah[0], al[0]);
-    split_tf32(a[ks][2], ah[1], al[1]);
-    split_tf32(a[ks][1], ah[2], al[2]);
-    split_tf32(a[ks][3], ah[3], al[3]);
-    const float* z = Z + (8 * ks + 2 * t) * LD + g;
+    split_tf32(a[ks][0], ah[ks][0], al[ks][0]);
+    split_tf32(a[ks][2], ah[ks][1], al[ks][1]);
+    split_tf32(a[ks][1], ah[ks][2], al[ks][2]);
+    split_tf32(a[ks][3], ah[ks][3], al[ks][3]);
+  }
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      mma3<false>(out[dn], ah, al, z[8 * dn], z[LD + 8 * dn]);
+  for (int dn = 0; dn < D / 8; ++dn) {
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < BN / 8; ++ks) {
+      const float* z = Z + (8 * ks + 2 * t) * LD + g;
+      mma3<false>(part, ah[ks], al[ks], z[8 * dn], z[LD + 8 * dn]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[dn][e] += part[e];
   }
 }
 
@@ -988,15 +1061,15 @@ __device__ __forceinline__ void store_rows(float* dst, Strides st,
 
 // The row statistics of 64 rows of one (batch, head), up to Sp:
 // lse·log2 e (+inf past S) and Dᵢ = Σ_d dOᵢ·Oᵢ (0 past S), Dᵢ as the
-// diagonal of O dOᵀ in the arithmetic dkdv forms V dOᵀ with (xyt, O as X,
-// the same term order): where Oᵢ = Vⱼ, as at S = 1, dP − D is exactly 0.
-template <int D>
+// diagonal of O dOᵀ in the arithmetic dkdv forms V dOᵀ with (xyt over DV,
+// O as X, the same term order): where Oᵢ = Vⱼ, as at S = 1, dP − D is
+// exactly 0.
+template <int DV>
 __global__ void __launch_bounds__(THREADS)
 stats_kernel(const float* __restrict__ o, const float* __restrict__ dout,
              const float* __restrict__ lse, float* __restrict__ stats, int H,
              int S, Strides so, Strides sd) {
-  using L = Smem<D>;
-  constexpr int LD = L::LD;
+  constexpr int LD = ld(DV), Y = 64 * LD;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const uint32_t sbase = smem_addr(sm);
@@ -1005,8 +1078,8 @@ stats_kernel(const float* __restrict__ o, const float* __restrict__ dout,
   const int Sp = padded(S);
   float* lrow = stats + static_cast<long long>(bh) * Sp;
   float* drow = lrow + static_cast<long long>(gridDim.x) * Sp;
-  load_tile<D>(sbase + 4 * L::X, o + b * so.b + h * so.h, so.s, r0, S);
-  load_tile<D>(sbase + 4 * L::Y, dout + b * sd.b + h * sd.h, sd.s, r0, S);
+  load_tile<DV, 64>(sbase, o + b * so.b + h * so.h, so.s, r0, S);
+  load_tile<DV, 64>(sbase + 4 * Y, dout + b * sd.b + h * sd.h, sd.s, r0, S);
   cp_commit();
   if (threadIdx.x < 64) {
     const int i = r0 + threadIdx.x;
@@ -1018,8 +1091,7 @@ stats_kernel(const float* __restrict__ o, const float* __restrict__ dout,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   float acc[2][4];                  // the warp's 16 O rows x its 16 dO rows
-  xyt<D, 2, false>(acc, sm + L::X + 16 * warp * LD,
-                   sm + L::Y + 16 * warp * LD, g, t);
+  xyt<DV, 2, false>(acc, sm + 16 * warp * LD, sm + Y + 16 * warp * LD, g, t);
   if (t == g / 2) {                 // the diagonal: acc[nt][e] is column
     const int row = r0 + 16 * warp + g;   // 8 nt + 2 t + e % 2
     drow[row] = g % 2 ? acc[0][1] : acc[0][0];
@@ -1029,15 +1101,15 @@ stats_kernel(const float* __restrict__ o, const float* __restrict__ dout,
 
 // dK and dV for 64 KV rows of one (batch, head); the KV tile with the most
 // Q tiles after it first
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(THREADS, D == 64 ? 2 : 1)
+template <int DQ, int DV, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, DQ == 64 ? 2 : 1)
 dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ stats, float* __restrict__ dk,
             float* __restrict__ dv, int H, int S, Args a, float scale,
             float scale_log2) {
-  using L = Smem<D>;
-  constexpr int LD = L::LD;
+  using L = Smem<DQ, DV>;
+  constexpr int BN = L::BN;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const uint32_t sbase = smem_addr(sm);
@@ -1052,14 +1124,16 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* lrow = stats + static_cast<long long>(bh) * Sp;
   const float* drow = lrow + static_cast<long long>(gridDim.x) * Sp;
 
-  load_tile<D>(sbase + 4 * L::X, k + b * a.k.b + h * a.k.h, a.k.s, kv0, S);
-  load_tile<D>(sbase + 4 * L::Y, v + b * a.v.b + h * a.v.h, a.v.s, kv0, S);
+  load_tile<DQ, BM>(sbase + 4 * L::X, k + b * a.k.b + h * a.k.h, a.k.s, kv0,
+                    S);
+  load_tile<DV, BM>(sbase + 4 * L::Y, v + b * a.v.b + h * a.v.h, a.v.s, kv0,
+                    S);
   auto load_stage = [&](int it) {
     const int buf = it % 2, q0 = (qt0 + it) * BN;
-    load_tile<D>(sbase + 4 * (L::U + buf * L::TILE), qb, a.q.s, q0, S);
-    load_tile<D>(sbase + 4 * (L::W + buf * L::TILE), db, a.d.s, q0, S);
-    if (threadIdx.x < 32) {           // 16 x 16 bytes of each statistic
-      const int plane = threadIdx.x / 16, part = threadIdx.x % 16;
+    load_tile<DQ, BN>(sbase + 4 * (L::U + buf * L::TILE_U), qb, a.q.s, q0, S);
+    load_tile<DV, BN>(sbase + 4 * (L::W + buf * L::TILE_W), db, a.d.s, q0, S);
+    if (threadIdx.x < BN / 2) {       // BN / 4 x 16 bytes of each statistic
+      const int plane = threadIdx.x / (BN / 4), part = threadIdx.x % (BN / 4);
       cp16(sbase + 4 * (L::ST + buf * 2 * BN + plane * BN + 4 * part),
            (plane ? drow : lrow) + q0 + 4 * part);
     }
@@ -1067,14 +1141,18 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   load_stage(0);
   cp_commit();
 
-  float dka[D / 8][4], dva[D / 8][4];
+  float dka[DQ / 8][4], dva[DV / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
+  for (int dn = 0; dn < DQ / 8; ++dn)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[dn][e] = dva[dn][e] = 0.f;
-  const float* xs = sm + L::X + 16 * warp * LD;   // this warp's K rows
-  const float* ys = sm + L::Y + 16 * warp * LD;   // and V rows
-  const int row = kv0 + 16 * warp + g;            // and row + 8
+    for (int e = 0; e < 4; ++e) dka[dn][e] = 0.f;
+#pragma unroll
+  for (int dn = 0; dn < DV / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dva[dn][e] = 0.f;
+  const float* xs = sm + L::X + 16 * warp * ld(DQ);  // this warp's K rows
+  const float* ys = sm + L::Y + 16 * warp * ld(DV);  // and V rows
+  const int row = kv0 + 16 * warp + g;               // and row + 8
   const int n = nq - qt0;
   for (int it = 0; it < n; ++it) {
     if (it + 1 < n) {
@@ -1086,13 +1164,13 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
     const int buf = it % 2, q0 = (qt0 + it) * BN;
-    const float* us = sm + L::U + buf * L::TILE;  // Q
-    const float* ws = sm + L::W + buf * L::TILE;  // dO
+    const float* us = sm + L::U + buf * L::TILE_U;  // Q
+    const float* ws = sm + L::W + buf * L::TILE_W;  // dO
     const float* lse2 = sm + L::ST + buf * 2 * BN;
     const float* dl = lse2 + BN;
     float s[BN / 8][4], dp[BN / 8][4];
-    xyt<D, BN / 8, false>(s, xs, us, g, t);       // Sᵀ = K Qᵀ
-    xyt<D, BN / 8, false>(dp, ys, ws, g, t);      // dPᵀ = V dOᵀ
+    xyt<DQ, BN / 8, false>(s, xs, us, g, t);      // Sᵀ = K Qᵀ
+    xyt<DV, BN / 8, false>(dp, ys, ws, g, t);     // dPᵀ = V dOᵀ
     // rows are KV rows j, columns Q rows i; Q rows past S read +inf
     const bool edge = CAUSAL && q0 < kv0 + BM;
 #pragma unroll
@@ -1105,23 +1183,23 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         dp[nt][e] = p * (dp[nt][e] - dl[c]);
         s[nt][e] = p;
       }
-    az<D>(dva, s, ws, g, t);                      // dV += Pᵀ dO
-    az<D>(dka, dp, us, g, t);                     // dK += dSᵀ Q
+    az<DV, BN>(dva, s, ws, g, t);                 // dV += Pᵀ dO
+    az<DQ, BN>(dka, dp, us, g, t);                // dK += dSᵀ Q
     __syncthreads();
   }
-  store_rows<D>(dk + b * a.dk.b + h * a.dk.h, a.dk, dka, row, t, S, scale);
-  store_rows<D>(dv + b * a.dv.b + h * a.dv.h, a.dv, dva, row, t, S, 1.f);
+  store_rows<DQ>(dk + b * a.dk.b + h * a.dk.h, a.dk, dka, row, t, S, scale);
+  store_rows<DV>(dv + b * a.dv.b + h * a.dv.h, a.dv, dva, row, t, S, 1.f);
 }
 
 // dQ for 64 Q rows of one (batch, head); the heaviest Q tiles first
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(THREADS, D == 64 ? 2 : 1)
+template <int DQ, int DV, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, DQ == 64 ? 2 : 1)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ stats, float* __restrict__ dq, int H,
           int S, Args a, float scale, float scale_log2) {
-  using L = Smem<D>;
-  constexpr int LD = L::LD;
+  using L = Smem<DQ, DV>;
+  constexpr int BN = L::BN;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const uint32_t sbase = smem_addr(sm);
@@ -1136,12 +1214,16 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * a.k.b + h * a.k.h;
   const float* vb = v + b * a.v.b + h * a.v.h;
 
-  load_tile<D>(sbase + 4 * L::X, q + b * a.q.b + h * a.q.h, a.q.s, q0, S);
-  load_tile<D>(sbase + 4 * L::Y, dout + b * a.d.b + h * a.d.h, a.d.s, q0, S);
+  load_tile<DQ, BM>(sbase + 4 * L::X, q + b * a.q.b + h * a.q.h, a.q.s, q0,
+                    S);
+  load_tile<DV, BM>(sbase + 4 * L::Y, dout + b * a.d.b + h * a.d.h, a.d.s,
+                    q0, S);
   auto load_stage = [&](int kt) {
     const int buf = kt % 2;
-    load_tile<D>(sbase + 4 * (L::U + buf * L::TILE), kb, a.k.s, kt * BN, S);
-    load_tile<D>(sbase + 4 * (L::W + buf * L::TILE), vb, a.v.s, kt * BN, S);
+    load_tile<DQ, BN>(sbase + 4 * (L::U + buf * L::TILE_U), kb, a.k.s,
+                      kt * BN, S);
+    load_tile<DV, BN>(sbase + 4 * (L::W + buf * L::TILE_W), vb, a.v.s,
+                      kt * BN, S);
   };
   load_stage(0);
   cp_commit();
@@ -1152,13 +1234,13 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* drow = lrow + static_cast<long long>(gridDim.x) * Sp;
   const float lse2[2] = {lrow[row], lrow[row + 8]};
   const float dl[2] = {drow[row], drow[row + 8]};
-  float dqa[D / 8][4];
+  float dqa[DQ / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
+  for (int dn = 0; dn < DQ / 8; ++dn)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dqa[dn][e] = 0.f;
-  const float* xs = sm + L::X + 16 * warp * LD;   // this warp's Q rows
-  const float* ys = sm + L::Y + 16 * warp * LD;   // and dO rows
+  const float* xs = sm + L::X + 16 * warp * ld(DQ);  // this warp's Q rows
+  const float* ys = sm + L::Y + 16 * warp * ld(DV);  // and dO rows
   for (int kt = 0; kt < n_kv; ++kt) {
     if (kt + 1 < n_kv) {
       load_stage(kt + 1);
@@ -1169,13 +1251,13 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
     const int buf = kt % 2, kv0 = kt * BN;
-    const float* us = sm + L::U + buf * L::TILE;  // K
-    const float* ws = sm + L::W + buf * L::TILE;  // V
+    const float* us = sm + L::U + buf * L::TILE_U;  // K
+    const float* ws = sm + L::W + buf * L::TILE_W;  // V
     float s[BN / 8][4], dp[BN / 8][4];
-    xyt<D, BN / 8, false>(s, xs, us, g, t);       // S = Q Kᵀ
+    xyt<DQ, BN / 8, false>(s, xs, us, g, t);      // S = Q Kᵀ
     // dO Vᵀ with V as B: the cross terms in the order of dkdv's V dOᵀ, so
     // that dP[i][j] is the same bits as dPᵀ[j][i] and as Dᵢ where Oᵢ = Vⱼ
-    xyt<D, BN / 8, true>(dp, ys, ws, g, t);       // dP = dO Vᵀ
+    xyt<DV, BN / 8, true>(dp, ys, ws, g, t);      // dP = dO Vᵀ
     // KV rows past S were read as zeros: masked like the causal cells
     const bool edge = kv0 + BN > S || (CAUSAL && kv0 + BN - 1 > q0);
 #pragma unroll
@@ -1187,29 +1269,29 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (edge && (c >= S || (CAUSAL && c > row + 8 * r))) p = 0.f;
         dp[nt][e] = p * (dp[nt][e] - dl[r]);
       }
-    az<D>(dqa, dp, us, g, t);                     // dQ += dS K
+    az<DQ, BN>(dqa, dp, us, g, t);                // dQ += dS K
     __syncthreads();
   }
-  store_rows<D>(dq + b * a.dq.b + h * a.dq.h, a.dq, dqa, row, t, S, scale);
+  store_rows<DQ>(dq + b * a.dq.b + h * a.dq.h, a.dq, dqa, row, t, S, scale);
 }
 
-template <int D, bool CAUSAL>
+template <int DQ, int DV, bool CAUSAL>
 int launch(const float* q, const float* k, const float* v, const float* o,
            const float* dout, const float* lse, float* stats, float* dq,
            float* dk, float* dv, int B, int H, int S, const Args& a,
            float scale, cudaStream_t stream) {
-  const int stat_bytes = 2 * Smem<D>::TILE * 4;
+  const int stat_bytes = 2 * 64 * ld(DV) * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      stats_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      stats_kernel<DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       stat_bytes);
   if (err != cudaSuccess) return err;
-  stats_kernel<D><<<dim3(B * H, padded(S) / 64), THREADS, stat_bytes,
-                    stream>>>(o, dout, lse, stats, H, S, a.o, a.d);
+  stats_kernel<DV><<<dim3(B * H, padded(S) / 64), THREADS, stat_bytes,
+                     stream>>>(o, dout, lse, stats, H, S, a.o, a.d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int bytes = Smem<D>::BYTES;
+  const int bytes = Smem<DQ, DV>::BYTES;
   const dim3 grid(B * H, (S + BM - 1) / BM);
-  auto kv_kernel = dkdv_kernel<D, CAUSAL>;
+  auto kv_kernel = dkdv_kernel<DQ, DV, CAUSAL>;
   err = cudaFuncSetAttribute(
       kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -1217,7 +1299,7 @@ int launch(const float* q, const float* k, const float* v, const float* o,
                                               H, S, a, scale, scale * LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto q_kernel = dq_kernel<D, CAUSAL>;
+  auto q_kernel = dq_kernel<DQ, DV, CAUSAL>;
   err = cudaFuncSetAttribute(
       q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -1230,18 +1312,19 @@ int launch(const float* q, const float* k, const float* v, const float* o,
 
 }  // namespace
 
-// q, k, v, o (K9's output), dout, dq, dk, dv: (B, S, H, D) with unit stride
-// along D; `strides` holds the (batch, sequence, head) element strides of
-// q, k, v, o, dout, dq, dk and dv, in that order.  lse: K9's row statistic,
-// contiguous f32 (B, H, S); stats: f32 scratch of 2 · B · H · Sp floats,
-// Sp = S rounded up to a multiple of 128.  Three launches on `stream`;
-// returns cudaGetLastError() after the last (0 when every one was
-// accepted).
+// q, k, v, o (K9's output), dout, dq, dk, dv: (B, S, H, Dq) for q, k, dq
+// and dk, (B, S, H, Dv) for v, o, dout and dv, with unit stride along the
+// head dim; (Dq, Dv) is (64, 64), (128, 128) or (192, 128).  `strides`
+// holds the (batch, sequence, head) element strides of q, k, v, o, dout,
+// dq, dk and dv, in that order.  lse: K9's row statistic, contiguous f32
+// (B, H, S); stats: f32 scratch of 2 · B · H · Sp floats, Sp = S rounded
+// up to a multiple of 128.  Three launches on `stream`; returns
+// cudaGetLastError() after the last (0 when every one was accepted).
 extern "C" int flashattn_bwd_f32(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout,
                                  const void* lse, void* stats, void* dq,
                                  void* dk, void* dv, int B, int H, int S,
-                                 int D, const long long* strides,
+                                 int Dq, int Dv, const long long* strides,
                                  float scale, int causal, void* stream) {
   const Args a(strides);
   auto s = static_cast<cudaStream_t>(stream);
@@ -1251,18 +1334,17 @@ extern "C" int flashattn_bwd_f32(const void* q, const void* k, const void* v,
   auto L = static_cast<const float*>(lse);
   auto st = static_cast<float*>(stats), dQ = static_cast<float*>(dq),
        dK = static_cast<float*>(dk), dV = static_cast<float*>(dv);
-  if (D == 64 && causal)
-    return f32k::launch<64, true>(Q, K, V, O, dO, L, st, dQ, dK, dV, B, H, S,
-                                  a, scale, s);
-  if (D == 64)
-    return f32k::launch<64, false>(Q, K, V, O, dO, L, st, dQ, dK, dV, B, H,
-                                   S, a, scale, s);
-  if (D == 128 && causal)
-    return f32k::launch<128, true>(Q, K, V, O, dO, L, st, dQ, dK, dV, B, H,
-                                   S, a, scale, s);
-  if (D == 128)
-    return f32k::launch<128, false>(Q, K, V, O, dO, L, st, dQ, dK, dV, B, H,
-                                    S, a, scale, s);
+  auto run = [&](auto causal_launch, auto full_launch) {
+    return (causal ? causal_launch : full_launch)(Q, K, V, O, dO, L, st, dQ,
+                                                  dK, dV, B, H, S, a, scale,
+                                                  s);
+  };
+  if (Dq == 64 && Dv == 64)
+    return run(f32k::launch<64, 64, true>, f32k::launch<64, 64, false>);
+  if (Dq == 128 && Dv == 128)
+    return run(f32k::launch<128, 128, true>, f32k::launch<128, 128, false>);
+  if (Dq == 192 && Dv == 128)
+    return run(f32k::launch<192, 128, true>, f32k::launch<192, 128, false>);
   return cudaErrorInvalidValue;
 }
 
@@ -1275,24 +1357,23 @@ extern "C" int flashattn_bwd_bf16(const void* q, const void* k,
                                   const void* v, const void* o,
                                   const void* dout, const void* lse,
                                   void* stats, void* dq, void* dk, void* dv,
-                                  int B, int H, int S, int D,
+                                  int B, int H, int S, int Dq, int Dv,
                                   const long long* strides, float scale,
                                   int causal, void* stream) {
   const Args a(strides);
   auto s = static_cast<cudaStream_t>(stream);
   auto L = static_cast<const float*>(lse);
   auto st = static_cast<float*>(stats);
-  if (D == 64 && causal)
-    return bf16k::launch<64, true>(q, k, v, o, dout, L, st, dq, dk, dv, B, H,
-                                   S, a, scale, s);
-  if (D == 64)
-    return bf16k::launch<64, false>(q, k, v, o, dout, L, st, dq, dk, dv, B,
-                                    H, S, a, scale, s);
-  if (D == 128 && causal)
-    return bf16k::launch<128, true>(q, k, v, o, dout, L, st, dq, dk, dv, B,
-                                    H, S, a, scale, s);
-  if (D == 128)
-    return bf16k::launch<128, false>(q, k, v, o, dout, L, st, dq, dk, dv, B,
-                                     H, S, a, scale, s);
+  auto run = [&](auto causal_launch, auto full_launch) {
+    return (causal ? causal_launch : full_launch)(q, k, v, o, dout, L, st, dq,
+                                                  dk, dv, B, H, S, a, scale,
+                                                  s);
+  };
+  if (Dq == 64 && Dv == 64)
+    return run(bf16k::launch<64, 64, true>, bf16k::launch<64, 64, false>);
+  if (Dq == 128 && Dv == 128)
+    return run(bf16k::launch<128, 128, true>, bf16k::launch<128, 128, false>);
+  if (Dq == 192 && Dv == 128)
+    return run(bf16k::launch<192, 128, true>, bf16k::launch<192, 128, false>);
   return cudaErrorInvalidValue;
 }

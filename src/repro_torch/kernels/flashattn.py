@@ -37,14 +37,12 @@ forward launches K9 with a row statistic, lse = m + log(max(l, 1e-20)) per
 (b, h, query row) in f32 at (B, H, Sq), and its backward launches K9-bwd,
 ``flashattn_bwd_f32`` / ``flashattn_bwd_bf16`` of ``csrc/flashattn_bwd.cu``
 (``flash_attention_bwd``; ``launches["flashattn_bwd"]``).  The backward
-takes D = Dq = Dv in ``HEAD_DIMS`` (64, 128) and Sq == Skv only, and
-raises on anything else; a CUDA call that wants a gradient at (192, 128)
-raises ``NotImplementedError`` before any launch (ROADMAP queue 1, item
-13b-train: K9-bwd is not widened yet).  It computes, from q, k, v, the
-output o, dO and lse: S = scale·QKᵀ under the mask, P = exp(S − lse),
-Dᵢ = Σ_d dOᵢ·Oᵢ, dV = Pᵀ·dO, dP = dO·Vᵀ,
+takes K9's pairs ``HEAD_DIM_PAIRS`` and Sq == Skv only, and raises
+``ValueError`` on anything else before any launch.  It computes, from q,
+k, v, the output o, dO and lse: S = scale·QKᵀ under the mask,
+P = exp(S − lse), Dᵢ = Σ_d dOᵢ·Oᵢ, dV = Pᵀ·dO, dP = dO·Vᵀ,
 dS = P ⊙ (dP − Dᵢ), dQ = scale·dS·K, dK = scale·dSᵀ·Q, accumulated in f32
-and rounded once to q's type.  Three launches, no atomics (the same bits
+and rounded once to q's type; dq and dk take q's head dim Dq, dv v's Dv.  Three launches, no atomics (the same bits
 on every run): the row statistics, then dK and dV per KV tile, then dQ per
 Q tile, each recomputing S and dP.  The bf16 kernels run every product on
 the Hopper tensor cores (``wgmma``; operands staged by TMA, so q, k, v, o
@@ -76,10 +74,9 @@ launches = {"flashattn": 0, "flashattn_bwd": 0}
 _ENTRY = {torch.float32: "flashattn_f32", torch.bfloat16: "flashattn_bf16"}
 _BWD_ENTRY = {torch.float32: "flashattn_bwd_f32",
               torch.bfloat16: "flashattn_bwd_bf16"}
-# K9's (Dq, Dv) instances in csrc/flashattn.cu
+# K9's and K9-bwd's (Dq, Dv) instances in csrc/flashattn.cu and
+# csrc/flashattn_bwd.cu
 HEAD_DIM_PAIRS = ((64, 64), (128, 128), (192, 128))
-# K9-bwd's head dims (Dq == Dv)
-HEAD_DIMS = (64, 128)
 # K9-bwd's row statistics: two f32 planes of (B·H, S rounded up to this)
 # (``PAD`` in csrc/flashattn_bwd.cu)
 BWD_STAT_ROWS = 128
@@ -117,7 +114,7 @@ def _lib():
 def _bwd_lib():
     """The ``flashattn_bwd`` kernel library, bound."""
     return _bound("flashattn_bwd", _BWD_ENTRY.values(),
-                  [_P] * 10 + [_I, _I, _I, _I, _P, _F, _I, _P])
+                  [_P] * 10 + [_I, _I, _I, _I, _I, _P, _F, _I, _P])
 
 
 def _shapes(q, k, v):
@@ -259,11 +256,6 @@ def flash_attention(q, k, v, *, causal: bool, block=None, q_positions=None,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if Dv != D:
-            raise NotImplementedError(
-                f"a gradient through flash attention on the card at (Dq, "
-                f"Dv) = {(D, Dv)}: K9-bwd takes Dq == Dv in {HEAD_DIMS} "
-                f"only (ROADMAP queue 1, item 13b-train)")
         if Sq != Skv:
             raise ValueError(f"the flash attention backward kernel takes "
                              f"Sq == Skv: {Sq}, {Skv}")
@@ -331,15 +323,16 @@ def _check_bwd_operands(q, k, v, o, do, lse):
         raise ValueError(f"the flash attention backward kernel takes f32 or "
                          f"bf16 q, k, v, o, dO of one type: "
                          f"{[x.dtype for x in (q, k, v, o, do)]}")
-    if D not in HEAD_DIMS or Dv != D:
+    if (D, Dv) not in HEAD_DIM_PAIRS:
         raise ValueError(f"the flash attention backward kernel takes head "
-                         f"dims {HEAD_DIMS} with Dq == Dv: {D}, {Dv}")
+                         f"dims (Dq, Dv) in {HEAD_DIM_PAIRS}: {(D, Dv)}")
     if Sq != Skv:
         raise ValueError(f"the flash attention backward kernel takes "
                          f"Sq == Skv: {Sq}, {Skv}")
-    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
+    if tuple(o.shape) != tuple(v.shape) or tuple(do.shape) != tuple(v.shape):
         raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must "
-                         f"have q's shape {tuple(q.shape)}")
+                         f"have q's shape with v's head dim, "
+                         f"{tuple(v.shape)}")
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Sq) or \
             not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous f32 (B, H, Sq) = "
@@ -358,11 +351,12 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool, scale=None):
                                          scale=scale)
     _check_bwd_operands(q, k, v, o, do, lse)
     B, S, H, D = q.shape
+    Dv = v.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     q, k, v, o, do = (x if _kernel_reads(x) else x.clone(
         memory_format=torch.contiguous_format) for x in (q, k, v, o, do))
-    dq, dk, dv = (torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-                  for _ in range(3))
+    dq, dk, dv = (torch.empty((B, S, H, d), dtype=q.dtype, device=q.device)
+                  for d in (D, D, Dv))
     if B * S * H == 0:
         return dq, dk, dv
     rows = -(-S // BWD_STAT_ROWS) * BWD_STAT_ROWS
@@ -375,7 +369,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool, scale=None):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_bwd_lib(), entry)(
             *(x.data_ptr() for x in (q, k, v, o, do, lse, stats, dq, dk, dv)),
-            B, H, S, D, ctypes.addressof(strides), float(scale),
+            B, H, S, D, Dv, ctypes.addressof(strides), float(scale),
             int(bool(causal)), stream)
     if err != 0:
         raise _build.KernelError(f"{entry} launch failed: CUDA error {err}")

@@ -84,9 +84,15 @@ def build_segments(cfg: ModelConfig) -> list[Segment]:
         assert len(set(slots)) == 1, "dense prefix must be homogeneous"
         segs.append(Segment((slots[0],), cfg.dense_prefix))
         start = cfg.dense_prefix
+    rest = cfg.num_layers - start
+    if rest == 0:
+        # a config cut to its dense prefix (deepseek-v3-671b's 3 dense
+        # layers, trained on the card at published widths): no second
+        # segment.  The reference's build_segments indexes past the
+        # pattern here and raises IndexError.
+        return segs
     period = math.lcm(len(cfg.layer_pattern),
                       cfg.moe.every_k_layers if cfg.moe else 1)
-    rest = cfg.num_layers - start
     assert rest % period == 0, (cfg.name, rest, period)
     slots = tuple(slot_for(start + j) for j in range(period))
     # verify periodicity

@@ -159,8 +159,8 @@ def fake_card(monkeypatch):
         def __getattr__(self, entry):
             def launch(*args):
                 # the forward's strides are its 11th argument (12 of
-                # them), the backward's its 15th (24)
-                n, at = (24, 14) if entry.startswith("flashattn_bwd") \
+                # them), the backward's its 16th (24)
+                n, at = (24, 15) if entry.startswith("flashattn_bwd") \
                     else (12, 10)
                 strides = (ctypes.c_longlong * n).from_address(args[at])
                 calls.append((entry, args, list(strides)))
@@ -257,24 +257,6 @@ def test_other_head_dim_pairs_are_refused(fake_card, Dq, Dv):
     assert not fake_card
 
 
-@pytest.mark.parametrize("wants", ["q", "k", "v"])
-def test_gradient_at_192_128_raises_before_any_launch(fake_card, wants):
-    """K9-bwd takes Dq == Dv only: a call on the card that wants a
-    gradient at (192, 128) raises, naming ROADMAP item 13b-train, before
-    K9 launches (no plain version); without grad mode it launches."""
-    n0 = tfa.launches["flashattn"]
-    ops = {"q": on_card(torch.zeros((1, 40, 2, 192))),
-           "k": on_card(torch.zeros((1, 40, 2, 192))),
-           "v": on_card(torch.zeros((1, 40, 2, 128)))}
-    ops[wants].requires_grad_()
-    with pytest.raises(NotImplementedError, match="item 13b-train"):
-        tfa.flash_attention(ops["q"], ops["k"], ops["v"], causal=True)
-    assert not fake_card and tfa.launches["flashattn"] == n0
-    with torch.no_grad():
-        tfa.flash_attention(ops["q"], ops["k"], ops["v"], causal=True)
-    assert [c[0] for c in fake_card] == ["flashattn_f32"]
-
-
 def test_cpu_tensors_launch_nothing():
     n0 = tfa.launches["flashattn"]
     q = torch.zeros((1, 64, 1, 16))
@@ -298,15 +280,25 @@ def _rel(got, want):
     return float(np.abs(_np(got) - want).max() / np.abs(want).max())
 
 
+# (Dq, Dv): the kernel's pairs and reduced MLA's 16 + 8 / 16
+BWD_PAIRS = [(64, 64), (192, 128), (24, 16)]
+
+
+@pytest.mark.parametrize("Dq,Dv", BWD_PAIRS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("block", [16, 32, 64])
-def test_bwd_plain_matches_reference_vjp(block, causal):
+def test_bwd_plain_matches_reference_vjp(block, causal, Dq, Dv):
     """What the reference's training path differentiates: ``jax.vjp`` of
     its XLA scan ``models/layers.flash_attention`` at the scan's block
     size, against the port's plain backward from the plain forward's
-    output and lse — within ``BWD_TOL`` of max|want| per gradient."""
+    output and lse — within ``BWD_TOL`` of max|want| per gradient, each
+    gradient at its input's shape (dq and dk at Dq, dv at Dv)."""
     import jax
-    q, k, v, do = _bwd_inputs(block + causal, (2, 64, 3, 64))
+    rng = np.random.default_rng(block + causal + Dq + Dv)
+    q, k = (rng.normal(size=(2, 64, 3, Dq)).astype(np.float32)
+            for _ in range(2))
+    v, do = (rng.normal(size=(2, 64, 3, Dv)).astype(np.float32)
+             for _ in range(2))
     _, vjp = jax.vjp(lambda a, b, c: rlayers.flash_attention(
         a, b, c, causal=causal, block=block), *map(jnp.asarray, (q, k, v)))
     want = vjp(jnp.asarray(do))
@@ -316,8 +308,8 @@ def test_bwd_plain_matches_reference_vjp(block, causal):
     assert lse.shape == (2, 3, 64) and lse.is_contiguous()
     got = tfa.flash_attention_bwd_plain(tq, tk, tv, o, tdo, lse,
                                         causal=causal)
-    for g, w in zip(got, want):
-        assert g.shape == tq.shape and g.dtype == torch.float32
+    for g, w, x in zip(got, want, (tq, tk, tv)):
+        assert g.shape == x.shape == w.shape and g.dtype == torch.float32
         assert _rel(g, w) <= BWD_TOL
 
 
@@ -380,10 +372,10 @@ def test_training_on_the_card_takes_both_kernels(fake_card):
     assert [c[0] for c in fake_card] == ["flashattn_f32", "flashattn_bwd_f32"]
     (_, fwd, _), (_, bwd, strides) = fake_card
     assert fwd[14] is not None                            # lse buffer
-    assert bwd[10:14] == (2, 3, 40, 64)                   # B, H, S, D
+    assert bwd[10:15] == (2, 3, 40, 64, 64)               # B, H, S, Dq, Dv
     assert bwd[0] == q.data_ptr() and bwd[5] == fwd[14]   # q, lse
-    assert bwd[16] == 1                                   # causal
-    assert bwd[15] == pytest.approx(1 / 8)                # scale
+    assert bwd[17] == 1                                   # causal
+    assert bwd[16] == pytest.approx(1 / 8)                # scale
     assert strides[12:15] == [40 * 3 * 64, 3 * 64, 64]    # dO, copied
     assert all(x.grad is not None and x.grad.shape == x.shape
                for x in (q, k, v))
@@ -408,7 +400,7 @@ def test_bwd_reads_strided_operands_in_place(fake_card):
                  .expand(2, 40, 3, 64))
     dq, dk, dv = tfa.flash_attention_bwd(q, q, q, q, do, lse, causal=False)
     (entry, args, strides), = fake_card
-    assert entry == "flashattn_bwd_bf16" and args[16] == 0
+    assert entry == "flashattn_bwd_bf16" and args[17] == 0
     assert args[0] == base.data_ptr() and args[4] != do.data_ptr()
     assert strides[:3] == [3 * 40 * 64, 64, 40 * 64]
     assert strides[12:15] == [40 * 3 * 64, 3 * 64, 64]       # dO, copied
@@ -491,6 +483,66 @@ def test_bwd_refuses_what_it_does_not_take(fake_card, what, change):
     with pytest.raises(ValueError, match=what):
         tfa.flash_attention_bwd(ts["q"], ts["k"], ts["v"], ts["o"],
                                 ts["do"], ts["lse"], causal=True)
+    assert not fake_card
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gradient_at_192_128_reaches_the_bwd_entry(fake_card, dtype):
+    """A loss through ``flash_attention`` at deepseek-v3's (Dq, Dv) =
+    (192, 128) on (fake) card tensors: K9, then K9-bwd's entry for the
+    type with both head dims among its arguments, dv handed to it at Dv,
+    and each gradient at its input's shape — no plain version."""
+    n0, b0 = tfa.launches["flashattn"], tfa.launches["flashattn_bwd"]
+    q, k = (on_card(torch.zeros((2, 40, 3, 192), dtype=dtype))
+            .requires_grad_() for _ in range(2))
+    v = on_card(torch.zeros((2, 40, 3, 128), dtype=dtype)).requires_grad_()
+    tfa.flash_attention(q, k, v, causal=True).float().sum().backward()
+    assert [c[0] for c in fake_card] == [tfa._ENTRY[dtype],
+                                         tfa._BWD_ENTRY[dtype]]
+    (_, fwd, _), (_, bwd, strides) = fake_card
+    assert bwd[10:15] == (2, 3, 40, 192, 128)             # B, H, S, Dq, Dv
+    assert bwd[5] == fwd[14]                              # lse
+    assert bwd[16] == pytest.approx(192 ** -0.5)          # scale
+    assert strides[15:] == [40 * 3 * 192, 3 * 192, 192] * 2 + \
+        [40 * 3 * 128, 3 * 128, 128]                      # dq, dk, dv
+    assert [tuple(x.grad.shape) for x in (q, k, v)] == \
+        [(2, 40, 3, 192)] * 2 + [(2, 40, 3, 128)]
+    assert tfa.launches["flashattn"] == n0 + 1
+    assert tfa.launches["flashattn_bwd"] == b0 + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dq,Dv", tfa.HEAD_DIM_PAIRS)
+def test_bwd_head_dim_pairs_reach_the_entry(fake_card, Dq, Dv, dtype):
+    """Each of K9-bwd's (Dq, Dv) instances: the entry gets both dims;
+    dq and dk are (B, S, H, Dq), dv (B, S, H, Dv), contiguous; o and dO
+    are read at v's head dim."""
+    q, k = (on_card(torch.zeros((1, 40, 2, Dq), dtype=dtype))
+            for _ in range(2))
+    v, o, do = (on_card(torch.zeros((1, 40, 2, Dv), dtype=dtype))
+                for _ in range(3))
+    lse = on_card(torch.zeros((1, 2, 40)))
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, do, lse, causal=False)
+    (entry, args, strides), = fake_card
+    assert entry == tfa._BWD_ENTRY[dtype]
+    assert args[10:15] == (1, 2, 40, Dq, Dv) and args[17] == 0
+    assert [tuple(x.shape) for x in (dq, dk, dv)] == \
+        [(1, 40, 2, Dq)] * 2 + [(1, 40, 2, Dv)]
+    assert all(x.dtype == dtype for x in (dq, dk, dv))
+    assert list(args[7:10]) == [x.data_ptr() for x in (dq, dk, dv)]
+    assert strides[9:15] == [40 * 2 * Dv, 2 * Dv, Dv] * 2       # o, dO
+    assert strides[15:] == [40 * 2 * Dq, 2 * Dq, Dq] * 2 + \
+        [40 * 2 * Dv, 2 * Dv, Dv]
+
+
+@pytest.mark.parametrize("Dq,Dv", [(192, 192), (128, 64), (96, 96),
+                                   (128, 192), (64, 128)])
+def test_bwd_refuses_other_head_dim_pairs(fake_card, Dq, Dv):
+    q = on_card(torch.zeros((1, 8, 2, Dq)))
+    v = on_card(torch.zeros((1, 8, 2, Dv)))
+    lse = on_card(torch.zeros((1, 2, 8)))
+    with pytest.raises(ValueError, match=r"head dims \(Dq, Dv\) in"):
+        tfa.flash_attention_bwd(q, q, v, v, v, lse, causal=True)
     assert not fake_card
 
 

@@ -17,9 +17,11 @@ a design that cannot meet them shows here first:
   ``cvt.rna.tf32.f32``), each product a_hi·b_hi + a_hi·b_lo + a_lo·b_hi in
   f32.  Bound: 1e-4·max|w| + 4 x the same floor.
 
-Each at D = 64 and 128, causal and full, S = 77 and 300.  Then what each
-split is for: without the split of dS the bf16 emulation breaks its bound,
-and one TF32 pass without the split breaks the f32 bound, in every case.
+Each at (Dq, Dv) = (64, 64), (128, 128) and deepseek-v3's (192, 128),
+causal and full, S = 77 and 300.  Then what each split is for: without the
+split of dS the bf16 emulation breaks its bound, and one TF32 pass without
+the split breaks the f32 bound, in every case.  The kernels' tiles (64 or
+32 streamed rows) change the order of the f32 sums only.
 """
 import numpy as np
 import pytest
@@ -31,17 +33,20 @@ ONE_ROUNDING = 2.0 ** -8          # one rounding to bf16, relative
 BWD_TOL = 1e-4                    # relative to max|plain f32|
 FLOOR = 4                         # times max|plain f32 - plain f64|
 LOG2E = 1.4426950408889634
-CASES = [(D, causal, S) for D in (64, 128) for causal in (True, False)
-         for S in (77, 300)]
-IDS = [f"D{D}-{'causal' if c else 'full'}-S{S}" for D, c, S in CASES]
+CASES = [(D, causal, S) for D in ((64, 64), (128, 128), (192, 128))
+         for causal in (True, False) for S in (77, 300)]
+IDS = [f"D{D[0]}{'' if D[0] == D[1] else f'-{D[1]}'}-"
+       f"{'causal' if c else 'full'}-S{S}" for D, c, S in CASES]
 
 
 def _inputs(D, causal, S, dtype):
-    """q, k, v, dO from numpy (seeded by the case), rounded to ``dtype``;
-    o and lse from the plain forward, as K9 hands them to K9-bwd."""
-    rng = np.random.default_rng(D + 7 * S + causal)
-    q, k, v, do = (torch.from_numpy(rng.normal(size=(1, S, 2, D)).astype(
-        np.float32)).to(dtype) for _ in range(4))
+    """q, k, v, dO from numpy (seeded by the case), rounded to ``dtype``,
+    q and k at D = (Dq, Dv)'s Dq, v and dO at its Dv; o and lse from the
+    plain forward, as K9 hands them to K9-bwd."""
+    Dq, Dv = D
+    rng = np.random.default_rng(Dq + (Dv != Dq) * Dv + 7 * S + causal)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(1, S, 2, d)).astype(
+        np.float32)).to(dtype) for d in (Dq, Dq, Dv, Dv))
     o, lse = tfa.flash_attention_plain(q, k, v, causal=causal,
                                        return_lse=True)
     return q, k, v, o, do, lse

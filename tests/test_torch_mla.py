@@ -17,7 +17,10 @@ tokens take the dense branch of ``causal_attention``, 64 the flash branch
   reference's own test;
 * the decode step's latent attention in bf16: ``BF16_ACC_TOL`` = 1e-5 of
   the largest output against the reference's ``preferred_element_type``
-  products (see ``test_decode_accumulates_in_f32``).
+  products (see ``test_decode_accumulates_in_f32``);
+* the model cut to its dense prefix, which the reference cannot build,
+  against the reference's dense twin: logits ``TOL``, gradients ``TOL`` of
+  each leaf's largest entry.
 """
 import dataclasses
 
@@ -277,6 +280,48 @@ def test_model_forward_prefill_and_decode_match_reference(which, S):
         tp, t_grown, torch.from_numpy(x[:, S:]), torch.from_numpy(dpos))
     _close(t_logits, r_logits)
     for g, w in zip(tparams.leaves(t_new), jax.tree.leaves(r_new)):
+        _close_to_max(g, w)
+
+
+@pytest.mark.parametrize("which", sorted(CONFIGS))
+def test_dense_prefix_alone_matches_its_dense_twin(which):
+    """deepseek-v3 cut to its dense prefix (``num_layers =
+    dense_prefix``, as ``chip_smoke.py`` trains it at published widths)
+    is one segment of MLA layers with the prefix's dense MLP in the port.
+    The reference's ``build_segments`` raises on it (its empty MoE segment
+    indexes past the pattern), so it is held to the reference's dense twin
+    — the same layers as a config without MoE whose ``d_ff`` is the
+    prefix's — on one set of weights: parameter count, train logits, aux
+    0, and the gradients of the loss."""
+    from repro.train import train_step as rts
+    from repro_torch.train import train_step as tts
+    from repro_torch.train import tree as ttree
+    rcut, tcfg = _pair(which, remat=False)
+    rcut, tcfg = (dataclasses.replace(c, num_layers=c.dense_prefix)
+                  for c in (rcut, tcfg))
+    with pytest.raises(IndexError):
+        rtf.build_segments(rcut)
+    rcfg = dataclasses.replace(rcut, moe=None, dense_prefix=0,
+                               d_ff=rcut.dense_prefix_ff)
+    assert rcfg.param_count() == tcfg.param_count()
+    assert [s.slots for s in ttf.build_segments(tcfg)] == \
+        [s.slots for s in rtf.build_segments(rcfg)]
+    rp = rtf.Model(rcfg).init(KEY)
+    tp = interop.params_from_numpy(tcfg, jax.tree.map(np.asarray, rp), "cpu")
+    assert sum(x.numel() for x in tparams.leaves(tp)) == tcfg.param_count()
+    x = _ids(rcfg, 5, (2, 64))
+    want, _, want_aux = rtf.Model(rcfg)(rp, jnp.asarray(x), mode="train")
+    got, _, aux = ttf.Model(tcfg)(tp, torch.from_numpy(x), mode="train")
+    _close(got, want)
+    assert float(aux) == float(want_aux) == 0.0
+    batch = {"inputs": x, "labels": _ids(rcfg, 6, (2, 64))}
+    _, want_g = jax.value_and_grad(rts.make_loss_fn(rcfg, rtf.Model(rcfg)),
+                                   has_aux=True)(rp, jax.tree.map(
+                                       jnp.asarray, batch))
+    params = ttree.map(lambda t: t.detach().requires_grad_(), tp)
+    _, _, got_g = tts.make_grad_fn(tcfg)(params, batch)
+    for g, w in zip(ttree.leaves(got_g), jax.tree.leaves(want_g)):
+        assert tuple(g.shape) == w.shape
         _close_to_max(g, w)
 
 

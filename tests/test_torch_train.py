@@ -23,7 +23,8 @@ Tolerances (f32 sums in another order over two layers):
     u/(|u| + eps) within δ of u), capped at the sign allowance;
   * moments m and v: 1e-4 · max|m_ref|, 1e-4 · max|v_ref|.
 
-Reduced dbrx-132b (the MoE step, ``ILL_CONDITIONED``) is held to the same
+Reduced dbrx-132b (the MoE step) and reduced deepseek-v3-671b (MLA,
+a dense and an MoE layer) — ``ILL_CONDITIONED`` — are held to the same
 tolerances plus a floor taken from the reference alone: twice how far
 the reference's own step moves when every weight is moved by at most one
 f32 ulp (``_ulp_shifted``).  Its attention has no qk-norm, and at the reduced
@@ -31,7 +32,10 @@ config's weights (std 1/sqrt(2)) its scores span about 30, so a one-ulp
 shift of the weights moves the reference's gradients by up to 1.9e-4 of
 a leaf's largest entry (qwen3-4b's: 1.4e-6); a second f32 summation
 order — the port's — lands within that, and the fixed 1e-4 alone would
-ask for more than f32 resolves there.  Each bound adds the floor of its
+ask for more than f32 resolves there.  deepseek-v3 has no qk-norm
+either: its port step lies up to 1.38e-4 of a leaf's largest entry from
+the reference's (a (256, 64) leaf: 7.17e-4 against 1e-4 · max = 5.21e-4),
+where one ulp moves the reference by 6.5e-5 of it (floor 6.81e-4).  Each bound adds the floor of its
 own quantity (a gradient leaf's, a metric's, a moment's largest shift;
 for parameters the gradient floor carried through ``param_bound``).
 
@@ -82,8 +86,8 @@ SCALAR_TOL = 1e-5
 GRAD_TOL = 1e-4
 PARAM_TOL = 1e-4
 MOMENT_TOL = 1e-4
-ARCHS = ("qwen3-4b", "repro-100m", "dbrx-132b")
-ILL_CONDITIONED = ("dbrx-132b",)
+ARCHS = ("qwen3-4b", "repro-100m", "dbrx-132b", "deepseek-v3-671b")
+ILL_CONDITIONED = ("dbrx-132b", "deepseek-v3-671b")
 FLOOR_TIMES = 2
 OPT = dict(lr=1e-2, warmup_steps=2, total_steps=50)
 SEQ, BATCH = 64, 4
