@@ -388,6 +388,26 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    at its own reduced flags.  Reports ``init_s``, seconds per admission,
    median decode step graphed and eager beside the bytes one step reads
    (weights and latent caches) at 3.35 TB/s, peak device memory.
+7g. ``dryrun_path``  the dry run (``repro_torch.launch.dryrun``) beside
+   what the card did, after ``hybrid_card_vs_cpu``; over every dry-run
+   call ``torch.cuda.memory_allocated()`` and its peak must stay where
+   they were after a ``gc.collect()`` (the dry run traces on meta
+   tensors and allocates nothing).  (1) Every (arch, shape) cell built
+   on both production meshes (16 x 16 and 2 x 16 x 16, device-free), no
+   trace: 32 cells and 8 ``long_500k`` skips a mesh, each cell's
+   per-device argument bytes printed.  (2) On a (1, 1) host
+   mesh, traced at the shapes the card ran: qwen3-4b and deepseek-v3's 3
+   dense layers trained at 1 x 4096, one microbatch, f32 moments — the
+   argument bytes must equal the state and batch bytes ``train_path``
+   allocated — and qwen3-4b decoding ``serve_path``'s 4 slots x 4224
+   positions — the argument bytes must equal the parameters, the cache
+   and the step's token and position arrays the batcher allocated.
+   Reported beside them: the predicted peak against ``train_path``'s
+   measured peak (and their ratio), and the counted FLOPs over the median
+   step's seconds as TFLOP/s beside the card's 989, with the card's name
+   and power limit.  (3) qwen3-4b ``train_4k``, deepseek-v3-671b
+   ``decode_32k`` and mamba2-1.3b ``long_500k`` traced on the 16 x 16
+   mesh: per-device bytes, the dominant term and the trace's seconds.
 Before phase 8 a ``wall_seconds`` line gives each phase's host-clock
 seconds (the kernel builds inside ``kernel_cases``); after it
 ``wall_seconds_kernels`` gives phase 8's and the whole run's.
@@ -478,9 +498,10 @@ from repro_torch.core.pattern import (Pattern, chain,       # noqa: E402
                                       tailed_triangle)
 from repro_torch.distributed.cutjoin import MeshExecutor    # noqa: E402
 from repro_torch.distributed.contract import Sliced        # noqa: E402
-from repro_torch.distributed.meshes import data_mesh        # noqa: E402
+from repro_torch.distributed.meshes import (               # noqa: E402
+    data_mesh, sharding_ctx)
 from repro_torch.graph.generators import erdos_renyi, rmat  # noqa: E402
-from repro_torch.configs.registry import get_config        # noqa: E402
+from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.kernels import bitset as kbs               # noqa: E402
 from repro_torch.kernels import build as kbuild             # noqa: E402
 from repro_torch.kernels import flashattn as kfa            # noqa: E402
@@ -490,7 +511,11 @@ from repro_torch.kernels import sddmm as ksd                # noqa: E402
 from repro_torch.launch import mine                         # noqa: E402
 from repro_torch.launch import serve                        # noqa: E402
 from repro_torch.launch import train as train_launch        # noqa: E402
-from repro_torch.configs.base import MLAConfig, reduced_config  # noqa: E402
+from repro_torch.launch import dryrun                       # noqa: E402
+from repro_torch.launch.mesh import (                       # noqa: E402
+    make_host_mesh, make_production_mesh)
+from repro_torch.configs.base import (                      # noqa: E402
+    SHAPES, MLAConfig, cell_is_applicable, reduced_config)
 from repro_torch.train import optimizer as train_opt        # noqa: E402
 from repro_torch.train import train_step                    # noqa: E402
 from repro_torch.train import tree as train_tree            # noqa: E402
@@ -3955,6 +3980,10 @@ def phase_serve_path() -> dict:
     rng = np.random.default_rng(0)
     b = ContinuousBatcher(cfg, params, slots=SERVE_SLOTS,
                           capacity=SERVE_CAPACITY)
+    cache_bytes = sum(t.numel() * t.element_size() for t in leaves(b.cache))
+    # each decode step hands the card its (slots, 1) tokens and (slots,)
+    # positions as the batcher keeps them
+    decode_input_bytes = b.last_token[:, None].nbytes + b.positions.nbytes
     for i, T in enumerate(SERVE_PROMPTS):
         b.submit(Request(uid=i, prompt=rng.integers(
             0, cfg.vocab_size, T).astype(np.int32),
@@ -4013,7 +4042,10 @@ def phase_serve_path() -> dict:
     assert len(lines) == 4 and all(x.startswith("  req ") for x in lines[1:])
     assert cli.device.type == "cuda"
     out = {"arch": SERVE_ARCH, "slots": SERVE_SLOTS,
-           "capacity": SERVE_CAPACITY, "prompts": list(SERVE_PROMPTS),
+           "capacity": SERVE_CAPACITY, "param_bytes": n_bytes,
+           "cache_bytes": cache_bytes,
+           "decode_input_bytes": decode_input_bytes,
+           "prompts": list(SERVE_PROMPTS),
            "max_new_tokens": SERVE_NEW, "steps": steps, "tokens": tokens,
            "seconds": run_s, "tokens_per_s": tokens / run_s,
            "admissions": admissions,
@@ -4101,6 +4133,10 @@ def phase_moe_serve_path() -> dict:
     rng = np.random.default_rng(0)
     b = ContinuousBatcher(cfg, params, slots=SERVE_SLOTS,
                           capacity=SERVE_CAPACITY)
+    cache_bytes = sum(t.numel() * t.element_size() for t in leaves(b.cache))
+    # each decode step hands the card its (slots, 1) tokens and (slots,)
+    # positions as the batcher keeps them
+    decode_input_bytes = b.last_token[:, None].nbytes + b.positions.nbytes
     for i, T in enumerate(SERVE_PROMPTS):
         b.submit(Request(uid=i, prompt=rng.integers(
             0, cfg.vocab_size, T).astype(np.int32),
@@ -4589,6 +4625,10 @@ def phase_mla_serve_path() -> dict:
     rng = np.random.default_rng(0)
     b = ContinuousBatcher(cfg, params, slots=SERVE_SLOTS,
                           capacity=SERVE_CAPACITY)
+    cache_bytes = sum(t.numel() * t.element_size() for t in leaves(b.cache))
+    # each decode step hands the card its (slots, 1) tokens and (slots,)
+    # positions as the batcher keeps them
+    decode_input_bytes = b.last_token[:, None].nbytes + b.positions.nbytes
     for i, T in enumerate(SERVE_PROMPTS):
         b.submit(Request(uid=i, prompt=rng.integers(
             0, cfg.vocab_size, T).astype(np.int32),
@@ -4903,6 +4943,9 @@ def big_model_steps(captured: dict, cfg, want_params: int,
     state_bytes = sum(x.numel() * x.element_size()
                       for x in train_tree.leaves(state))
     pipe = TokenPipeline(cfg.vocab_size, TRAIN_BIG_SEQ, 1, seed=0)
+    # what a step's batch takes on the card: the step copies each array
+    # as it is (int32) to the card
+    batch_bytes = sum(v.nbytes for v in pipe.batch_at(0).values())
     step = train_step.make_train_step(cfg, opt_cfg)
     head_dims = (cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim, cfg.mla.v_dim) \
         if cfg.mla else (cfg.head_dim, cfg.head_dim)
@@ -4955,7 +4998,8 @@ def big_model_steps(captured: dict, cfg, want_params: int,
                cfg.name).num_layers, "d_model": cfg.d_model,
            "head_dims": list(head_dims), "batch": 1, "seq": TRAIN_BIG_SEQ,
            "state_dtype": opt_cfg.state_dtype, "init_s": init_s,
-           "state_bytes": state_bytes, "steps": steps,
+           "state_bytes": state_bytes, "batch_bytes": batch_bytes,
+           "steps": steps,
            "seconds_per_step_median_2_3": median,
            "tokens_per_s": TRAIN_BIG_SEQ / median,
            "peak_device_bytes": torch.cuda.max_memory_allocated()}
@@ -5329,6 +5373,134 @@ def phase_hybrid_card_vs_cpu() -> dict:
                      "train": train}
     emit("hybrid_card_vs_cpu", **out)
     return {**out, "captured": captured}
+
+
+# -- phase 7g -----------------------------------------------------------------------
+
+DRYRUN_PRODUCTION = (("qwen3-4b", "train_4k"), ("deepseek-v3-671b",
+                                                "decode_32k"),
+                     ("mamba2-1.3b", "long_500k"))
+DRYRUN_CELLS, DRYRUN_SKIPS = 32, 8          # applicable cells a mesh, skips
+
+
+def allocation_free(label: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, held to allocate nothing on the card: the
+    peak of allocated bytes over the call and the bytes after it equal
+    those before it.  Garbage left by earlier phases is collected first,
+    so that no CUDA tensor of theirs is freed during the call."""
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(*args, **kwargs)
+    peak, after = torch.cuda.max_memory_allocated(), \
+        torch.cuda.memory_allocated()
+    assert peak == after == before, (label, before, peak, after)
+    return out
+
+
+def abstract_cells(mesh_kind: str) -> dict:
+    """Every (arch, shape) cell built on a production mesh, no trace: each
+    applicable cell's per-device argument bytes, and the skips."""
+    mesh = make_production_mesh(multi_pod=mesh_kind == "multi")
+    built, skips = {}, []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for name, shape in SHAPES.items():
+            if not cell_is_applicable(cfg, shape):
+                skips.append(f"{arch}|{name}")
+                continue
+            rules = dryrun.rules_for(cfg, shape)
+            with sharding_ctx(mesh, rules):
+                _, args, in_sh, _, _ = dryrun.build_cell(cfg, shape, mesh,
+                                                         rules)
+            built[f"{arch}|{name}"] = dryrun.tree_bytes(args, in_sh)
+    assert len(built) == DRYRUN_CELLS and len(skips) == DRYRUN_SKIPS, \
+        (mesh_kind, len(built), skips)
+    return {"argument_bytes": built, "skipped": skips}
+
+
+def card_cell(cfg, shape, microbatches=None) -> dict:
+    """``cfg`` at ``shape`` traced on a (1, 1) host mesh: per-device is
+    the whole cell."""
+    mesh = make_host_mesh((1, 1), ("data", "model"))
+    return dryrun.analyze_cell(cfg, shape, mesh, dryrun.rules_for(cfg, shape),
+                               microbatches)
+
+
+def beside_train(label: str, cfg, ran: dict) -> dict:
+    """The dry run of one of ``train_path``'s big runs at its shape, held
+    to the bytes the card allocated for its state and batch."""
+    shape = dataclasses.replace(SHAPES["train_4k"], batch=ran["batch"],
+                                seq=ran["seq"])
+    rec = allocation_free(label, card_cell, cfg, shape, 1)
+    mem = rec["memory"]
+    allocated = ran["state_bytes"] + ran["batch_bytes"]
+    assert mem["argument_bytes"] == allocated, (label, mem, allocated)
+    assert mem["alias_bytes"] == ran["state_bytes"], (label, mem)
+    seconds = ran["seconds_per_step_median_2_3"]
+    return {"arch": cfg.name, "num_layers": cfg.num_layers,
+            "batch": ran["batch"], "seq": ran["seq"], "microbatches": 1,
+            "state_dtype": ran["state_dtype"], "memory": mem,
+            "card_state_and_batch_bytes": allocated,
+            "peak_est_bytes": mem["peak_est_bytes"],
+            "peak_device_bytes": ran["peak_device_bytes"],
+            "peak_est_over_device": mem["peak_est_bytes"]
+            / ran["peak_device_bytes"],
+            "flops": rec["flops_per_device"],
+            "seconds_per_step_median_2_3": seconds,
+            "achieved_tflops": rec["flops_per_device"] / seconds / 1e12,
+            "peak_tflops": dryrun.PEAK_FLOPS / 1e12,
+            "hbm_bytes": rec["hbm_bytes_per_device"],
+            "dominant": rec["dominant"], "trace_s": rec["lower_s"]}
+
+
+def phase_dryrun_path(train: dict, served: dict, smi: str) -> dict:
+    """The dry run beside the card's own runs (see the module docstring,
+    7g)."""
+    t0 = time.perf_counter()
+    built = {mk: allocation_free(f"build {mk}", abstract_cells, mk)
+             for mk in ("single", "multi")}
+    build_s = time.perf_counter() - t0
+
+    trained = {
+        "qwen3-4b": beside_train("qwen3-4b train", get_config(TRAIN_BIG),
+                                 train["big"]),
+        MLA_ARCH: beside_train(f"{MLA_ARCH} train", dataclasses.replace(
+            get_config(MLA_ARCH), num_layers=MLA_TRAIN_LAYERS), train["mla"])}
+    shape = dataclasses.replace(SHAPES["decode_32k"], batch=SERVE_SLOTS,
+                                seq=SERVE_CAPACITY)
+    rec = allocation_free("qwen3-4b decode", card_cell,
+                          get_config(SERVE_ARCH), shape)
+    mem = rec["memory"]
+    allocated = served["param_bytes"] + served["cache_bytes"] \
+        + served["decode_input_bytes"]
+    assert mem["argument_bytes"] == allocated, (mem, allocated)
+    assert mem["alias_bytes"] == served["cache_bytes"], mem
+    decoded = {"arch": SERVE_ARCH, "slots": SERVE_SLOTS,
+               "capacity": SERVE_CAPACITY, "memory": mem,
+               "card_param_cache_and_input_bytes": allocated,
+               "serve_path_peak_device_bytes": served["peak_device_bytes"],
+               "flops": rec["flops_per_device"],
+               "hbm_bytes": rec["hbm_bytes_per_device"],
+               "t_memory_ms": rec["t_memory"] * 1e3,
+               "decode_step_ms_median_graphed":
+               served["decode_step_ms_median"],
+               "dominant": rec["dominant"], "trace_s": rec["lower_s"]}
+
+    production = []
+    for arch, name in DRYRUN_PRODUCTION:
+        r = allocation_free(f"{arch} {name}", dryrun.run_cell, arch, name,
+                            "single", save=False)
+        production.append({k: r[k] for k in (
+            "arch", "shape", "mesh", "chips", "memory", "flops_per_device",
+            "hbm_bytes_per_device", "t_compute", "t_memory", "dominant",
+            "useful_flops_ratio", "lower_s")})
+    out = {"card": smi, "build_s": build_s, "abstract_cells": built,
+           "card_cells": {"train": trained, "decode": decoded},
+           "production_single": production,
+           "seconds": time.perf_counter() - t0}
+    emit("dryrun_path", **out)
+    return out
 
 
 # -- phase 8 ------------------------------------------------------------------------
@@ -6383,6 +6555,7 @@ def main():
     mla_serve_path = timed(phase_mla_serve_path)
     train_path = timed(phase_train_path)
     hybrid = timed(phase_hybrid_card_vs_cpu)
+    timed(phase_dryrun_path, train_path, serve_path, smi)
     # host-clock seconds per phase so far, the kernel builds inside
     # kernel_cases; the kernels phase follows
     emit("wall_seconds", phases=wall,

@@ -2,15 +2,18 @@
 
 Every assigned architecture is a frozen ``ModelConfig``; the configs are
 pure data, copied from the reference package so that the port stands
-alone.  The reference's ``input_specs`` (allocation-free
-``jax.ShapeDtypeStruct`` stand-ins for the multi-pod dry-run) is not
-ported: it waits with ``launch/dryrun.py`` (ROADMAP queue 1, item 13e).
+alone.  ``input_specs`` gives every input of an (arch, shape) cell as a
+tensor on ``torch.device("meta")`` (shape and dtype, no storage), where
+the reference gives ``jax.ShapeDtypeStruct`` stand-ins; the dry run
+(``launch/dryrun.py``) traces its cells on them.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional
+
+import torch
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +207,31 @@ def cell_is_applicable(cfg: ModelConfig, shape: ShapeSpec) -> bool:
     if shape.name == "long_500k":
         return cfg.family in SUBQUADRATIC_FAMILIES
     return True
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """Meta-tensor stand-ins for every input of this (arch, shape) cell:
+    the reference's keys, shapes and dtypes, no storage made."""
+    f = getattr(torch, cfg.compute_dtype)
+    i32 = torch.int32
+    B, S = shape.batch, shape.seq
+
+    def meta(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    tokens = {"train": S, "prefill": S, "decode": 1}
+    if shape.kind not in tokens:
+        raise ValueError(shape.kind)
+    T = tokens[shape.kind]
+    d = {"inputs": meta((B, T, cfg.d_model), f)
+         if cfg.input_mode == "embeddings" else meta((B, T), i32)}
+    if shape.kind == "train":
+        d["labels"] = meta((B, S), i32)
+    if shape.kind == "decode":
+        d["positions"] = meta((B,), i32)
+    if cfg.family == "vlm":
+        d["image_embeds"] = meta((B, cfg.num_image_tokens, cfg.d_model), f)
+    return d
 
 
 def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:

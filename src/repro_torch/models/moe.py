@@ -19,8 +19,8 @@ lower expert index, as ``jax.lax.top_k`` orders them (``top_k``).
 The reference's expert-parallel path (``moe_apply_ep``: ``shard_map``
 with two ``all_to_all``\\s over a ``"model"`` mesh axis) is not ported.
 The reference takes it only under an active mesh with a ``"model"`` axis;
-the port's one mesh is the 1-D ``("data",)`` ``DataMesh`` of the mining
-tier, so ``moe_apply`` always takes the einsum path.  The EP path comes
+the port runs on no mesh with that axis (the mining tier's is 1-D, the dry
+run's device-free): ``moe_apply`` always takes the einsum path.  EP comes
 with the LM side of the mesh (ROADMAP queue 1, item 13f).  The
 reference's ``constrain`` calls pin shardings and are no-ops without a
 mesh; they are dropped.

@@ -1,10 +1,12 @@
 """Parameter spec trees: shapes + logical axes + initializers.
 
 A layer is described by a dict of ``P`` specs; ``init_tree`` materialises
-parameters as tensors, ``axes_tree`` extracts the logical-axes tree.  A
+parameters as tensors, ``axes_tree`` extracts the logical-axes tree,
+``abstract_tree`` gives tensors on ``torch.device("meta")`` (shape and
+dtype, no storage: the counterpart of the reference's
+``jax.ShapeDtypeStruct`` stand-ins, for the allocation-free dry run).  A
 tree is nested dicts and lists with ``P`` leaves, as in the reference
-package.  The reference's ``abstract_tree`` (``jax.ShapeDtypeStruct``
-stand-ins for allocation-free lowering) has no counterpart here.
+package.
 
 The initialisers are the reference's (normal with std 1/√fan_in or
 ``scale``, zeros, ones, mamba2's ``a_log`` and ``dt_bias``), drawn from a
@@ -114,6 +116,12 @@ def init_tree(specs, gen: torch.Generator, dtype, device):
 
 def axes_tree(specs):
     return tree_map(lambda s: s.axes, specs)
+
+
+def abstract_tree(specs, dtype):
+    """A meta tensor of ``dtype`` for every spec: no storage is made."""
+    return tree_map(lambda s: torch.empty(tuple(s.shape), dtype=dtype,
+                                          device="meta"), specs)
 
 
 def stacked(specs, n: int):

@@ -49,7 +49,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.params import P, init_tree, stacked
+from repro_torch.models.params import (P, abstract_tree, axes_tree,
+                                       init_tree, stacked)
 
 
 class Slot(NamedTuple):
@@ -384,6 +385,13 @@ class Model:
         dev = _device.resolve(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         return init_tree(self.specs, gen, _dtype(self.cfg.param_dtype), dev)
+
+    def abstract_params(self):
+        """The parameter tree as meta tensors (no storage anywhere)."""
+        return abstract_tree(self.specs, _dtype(self.cfg.param_dtype))
+
+    def param_axes(self):
+        return axes_tree(self.specs)
 
     def __call__(self, params, inputs, **kw):
         return forward(self.cfg, params, inputs, **kw)

@@ -21,7 +21,7 @@ voids; ``restore`` reads them back as bf16 bits where the like-state leaf
 is bf16.  The reference's own ``restore`` cannot read them
 (``astype(bfloat16)`` on a ``V2`` array raises "No cast function
 available"; ROADMAP queue 3).  The reference's ``restore_resharded`` and
-``restore(shardings=)`` wait for the mesh rules (ROADMAP queue 1, item 13f).
+``restore(shardings=)`` wait for resharding (ROADMAP queue 1, item 13f).
 """
 from __future__ import annotations
 
@@ -119,7 +119,7 @@ def restore(directory, step: int, like_state, shardings=None):
     ``requires_grad``."""
     if shardings is not None:
         raise NotImplementedError(
-            "restore onto shardings waits for the mesh rules of the LM side "
+            "restore onto shardings waits for resharding on the LM side "
             "(ROADMAP queue 1, item 13f)")
     d = pathlib.Path(directory) / f"step_{step}"
     meta = json.loads((d / "manifest.json").read_text())

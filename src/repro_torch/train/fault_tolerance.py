@@ -11,8 +11,8 @@ The reference package's ``repro.train.fault_tolerance``:
     events.
 
 ``elastic_reshard`` (re-slicing a checkpoint onto a new mesh by the
-logical sharding rules) raises ``NotImplementedError``: the LM side of the
-mesh is not ported yet (ROADMAP queue 1, item 13f).
+logical sharding rules) raises ``NotImplementedError``: resharding on the
+LM side of the mesh is not ported yet (ROADMAP queue 1, item 13f).
 """
 from __future__ import annotations
 
@@ -52,8 +52,8 @@ def resume_or_init(directory, init_fn, like_state=None, shardings=None):
 def elastic_reshard(directory, step, like_state, axes_tree, new_mesh,
                     rules=None):
     raise NotImplementedError(
-        "elastic_reshard needs the logical-axis sharding rules of the LM "
-        "side of the mesh, not ported yet (ROADMAP queue 1, item 13f)")
+        "elastic_reshard needs resharding on the LM side of the mesh, "
+        "not ported yet (ROADMAP queue 1, item 13f)")
 
 
 class StepWatchdog:

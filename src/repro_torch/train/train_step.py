@@ -13,9 +13,9 @@ in place and divided by the microbatch count; the loss is the mean ce.
 The optimizer then updates the state in place (``train.optimizer``), and
 the returned state holds the same tensors.
 
-``abstract_state`` and ``state_axes`` (allocation-free lowering and the
-logical-axis rules) wait for ``dryrun`` and the mesh rules (ROADMAP queue
-1, item 13e).
+``abstract_state`` is ``init_state``'s tree as meta tensors (shape and
+dtype, no storage) and ``state_axes`` its logical-axes tree, for the dry
+run (``launch/dryrun.py``) and the mesh rules (``distributed.meshes``).
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.params import abstract_tree
 from repro_torch.models.transformer import Model
 from repro_torch.train import optimizer as opt
 from repro_torch.train import tree
@@ -45,6 +46,15 @@ def make_loss_fn(cfg: ModelConfig, model: Model, aux_weight: float = 0.01):
     return loss_fn
 
 
+def _grads(loss, flat: list) -> list:
+    """d loss / d p for every leaf; zeros for a leaf the loss does not use
+    (musicgen-large's token embedding, its inputs being embeddings), as
+    ``jax.grad`` gives them."""
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(flat, grads)]
+
+
 def make_grad_fn(cfg: ModelConfig, microbatches: int = 1):
     """``(params, batch) -> (loss, ce, grads)``: the gradient half of the
     train step, grads a tree of the parameters' structure."""
@@ -56,7 +66,7 @@ def make_grad_fn(cfg: ModelConfig, microbatches: int = 1):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         if microbatches == 1:
             loss, ce = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, flat)
+            grads = _grads(loss, flat)
             return loss.detach(), ce.detach(), tree.unflatten(structure,
                                                               grads)
         gsum = [torch.zeros(p.shape, device=dev,
@@ -67,7 +77,7 @@ def make_grad_fn(cfg: ModelConfig, microbatches: int = 1):
         for i in range(microbatches):
             mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
             loss, ce = loss_fn(params, mb)
-            for acc, g in zip(gsum, torch.autograd.grad(loss, flat)):
+            for acc, g in zip(gsum, _grads(loss, flat)):
                 acc.add_(g)
             ce_sum = ce_sum + ce.detach()
         for acc in gsum:
@@ -101,3 +111,25 @@ def init_state(cfg: ModelConfig, opt_cfg, seed: int = 0, device=None):
     for p in tree.leaves(params):
         p.requires_grad_(True)
     return {"params": params, "opt": opt.init(opt_cfg, params)}
+
+
+def abstract_state(cfg: ModelConfig, opt_cfg):
+    """``init_state``'s tree on ``torch.device("meta")``: parameters marked
+    ``requires_grad`` as there, m and v in ``opt_cfg.state_dtype``, step
+    an int32 scalar."""
+    model = Model(cfg)
+    params = model.abstract_params()
+    for p in tree.leaves(params):
+        p.requires_grad_(True)
+    dt = getattr(torch, opt_cfg.state_dtype)
+    return {"params": params,
+            "opt": {"m": abstract_tree(model.specs, dt),
+                    "v": abstract_tree(model.specs, dt),
+                    "step": torch.empty((), dtype=torch.int32,
+                                        device="meta")}}
+
+
+def state_axes(cfg: ModelConfig):
+    """Logical-axes tree matching abstract_state/init_state."""
+    axes = Model(cfg).param_axes()
+    return {"params": axes, "opt": {"m": axes, "v": axes, "step": ()}}

@@ -73,7 +73,7 @@ def test_port_has_the_expected_modules():
                  "train/data.py", "train/optimizer.py",
                  "train/train_step.py", "train/checkpoint.py",
                  "train/fault_tolerance.py", "train/compression.py",
-                 "launch/train.py"):
+                 "launch/train.py", "launch/dryrun.py", "launch/mesh.py"):
         assert want in names, want
     for example in EXAMPLES:
         assert (ROOT / "examples_torch" / f"{example}.py").is_file(), example
@@ -107,7 +107,8 @@ def test_importing_the_compiler_pulls_in_neither_jax_nor_repro():
         "repro_torch.distributed.cutjoin, repro_torch.distributed.contract, "
         "repro_torch.core.distributed, repro_torch.launch.train, "
         "repro_torch.train.checkpoint, repro_torch.train.compression, "
-        "repro_torch.train.fault_tolerance\n"
+        "repro_torch.train.fault_tolerance, repro_torch.launch.dryrun, "
+        "repro_torch.launch.mesh\n"
         "from repro_torch.configs.registry import ALL_IDS, get_config\n"
         "[get_config(a) for a in ALL_IDS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -250,6 +250,34 @@ def test_gradients_match_reference(arch, microbatches):
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
+def test_embedding_inputs_leave_the_token_table_a_zero_gradient(
+        microbatches):
+    """Reduced musicgen-large on (B, S, d) embedding inputs never reads
+    its token table: ``jax.grad`` gives it zeros, and so must the port
+    (``torch.autograd.grad`` alone refuses a leaf the loss does not use);
+    the other leaves within ``GRAD_TOL``."""
+    rcfg, tcfg = _pair("musicgen-large")
+    params = rts.Model(rcfg).init(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    batch = {"inputs": rng.standard_normal(
+                 (BATCH, SEQ, rcfg.d_model)).astype(np.float32),
+             "labels": rng.integers(0, rcfg.vocab_size,
+                                    (BATCH, SEQ)).astype(np.int32)}
+    want = _ref_grads(rcfg, params, batch, microbatches)
+    port = interop.params_from_numpy(tcfg, jax.tree.map(np.asarray, params),
+                                     "cpu")
+    for p in tree.leaves(port):
+        p.requires_grad_(True)
+    _, _, got = tts.make_grad_fn(tcfg, microbatches)(port, batch)
+    assert not np.any(want["embed"])
+    assert got["embed"].shape == want["embed"].shape
+    assert not torch.any(got["embed"])
+    for w, g in _leaf_pairs(want, got):
+        np.testing.assert_allclose(_np(g), w, rtol=0,
+                                   atol=GRAD_TOL * np.abs(w).max())
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_matches_reference(arch, microbatches):
     """One step of both packages from one state: metrics, the updated
