@@ -20,8 +20,8 @@ writes its bf16 bits under that descriptor.  Such a file loads as 2-byte
 voids; ``restore`` reads them back as bf16 bits where the like-state leaf
 is bf16.  The reference's own ``restore`` cannot read them
 (``astype(bfloat16)`` on a ``V2`` array raises "No cast function
-available"; ROADMAP queue 3).  The reference's ``restore_resharded`` and
-``restore(shardings=)`` wait for resharding (ROADMAP queue 1, item 13f).
+available"; ROADMAP queue 3).  The reference's ``restore(shardings=)``
+waits for resharding (ROADMAP queue 1, item 13f).
 """
 from __future__ import annotations
 

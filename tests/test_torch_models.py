@@ -4,8 +4,9 @@ serving steps) vs the reference package.
 Configs are pure data: every registry id must give the same config, the
 same segments and the same parameter counts in both packages.  The
 forward passes run the reference's weights carried across with
-``interop.params_from_numpy``, on the same token ids made with numpy from
-a seed, for reduced configs in f32.  S = 64 takes the flash path
+``interop.params_from_numpy``, on the same token ids (frame embeddings
+for musicgen-large) made with numpy from a seed, for reduced configs in
+f32.  S = 64 takes the flash path
 (``flash_block`` is 32 in ``reduced_config``), S = 23 the dense one.
 Tolerance 1e-4, relative and absolute: f32 sums in another order over two
 layers (the largest difference seen is below 1e-6).
@@ -61,8 +62,10 @@ def _close_cache(cfg, got, want):
     softmax carries two f32 summation orders apart by about 5e-6 of a
     layer's largest activation (the MoE layer alone: 2e-7), so its caches
     are held within ``TOL`` of their largest entry (the logits stay
-    elementwise)."""
-    if cfg.qk_norm:
+    elementwise); so are deepseek-v3-671b's (MoE, no qk-norm).  The dense
+    configs without qk-norm (deepseek-7b, granite-20b, command-r-35b,
+    musicgen-large) meet ``TOL`` elementwise and are held so."""
+    if cfg.qk_norm or cfg.moe is None:
         return _close(got, want)
     want = _np(want)
     np.testing.assert_allclose(_np(got), want, rtol=TOL,
@@ -329,16 +332,36 @@ def test_cross_attention_is_ported():
 
 # -- the decoder -----------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch,S", [("qwen3-4b", 64), ("qwen3-4b", 23),
-                                    ("granite-20b", 64),
-                                    ("musicgen-large", 64),
-                                    ("dbrx-132b", 64), ("dbrx-132b", 23),
-                                    ("deepseek-v3-671b", 64),
-                                    ("deepseek-v3-671b", 23)])
-def test_forward_train_matches_reference(arch, S):
+# full multi-head attention (KV = H), as deepseek-7b's and musicgen-large's
+# published configs have: ``reduced_config`` cuts KV to 2 of 4 heads, so
+# these cases put it back, and attention takes ``expand_kv``'s early
+# return and decode ``groups = 1``
+KV_IS_H = {"num_kv_heads": 4}
+
+
+def _case(arch, S, kv_is_h=False):
+    """A (arch, S, overrides) case, its id "<arch>-<S>" or
+    "<arch>-kv-is-h-<S>"."""
+    return pytest.param(arch, S, KV_IS_H if kv_is_h else {},
+                        id=f"{arch}-kv-is-h-{S}" if kv_is_h else f"{arch}-{S}")
+
+
+_FORWARD_CASES = [_case(a, S) for a, S in (
+    ("qwen3-4b", 64), ("qwen3-4b", 23), ("granite-20b", 64),
+    ("musicgen-large", 64), ("dbrx-132b", 64), ("dbrx-132b", 23),
+    ("deepseek-v3-671b", 64), ("deepseek-v3-671b", 23),
+    ("deepseek-7b", 64), ("deepseek-7b", 23), ("command-r-35b", 64),
+    ("command-r-35b", 23), ("granite-20b", 23), ("musicgen-large", 23))] + [
+    _case("deepseek-7b", 64, kv_is_h=True),
+    _case("musicgen-large", 64, kv_is_h=True)]
+
+
+@pytest.mark.parametrize("arch,S,over", _FORWARD_CASES)
+def test_forward_train_matches_reference(arch, S, over):
     """Logits within ``TOL``; aux (the MoE layers' load-balance metric
     summed over layers, 0 without MoE) within 1e-6."""
-    rcfg, tcfg, rp, tp = _weights(arch, remat=False)
+    rcfg, tcfg, rp, tp = _weights(arch, remat=False, **over)
+    assert (tcfg.num_kv_heads == tcfg.num_heads) == bool(over)
     x = _inputs(rcfg, S, (2, S))
     want, _, want_aux = rtf.Model(rcfg)(rp, jnp.asarray(x), mode="train")
     got, caches, aux = ttf.Model(tcfg)(tp, torch.from_numpy(x), mode="train")
@@ -351,20 +374,28 @@ def test_forward_train_matches_reference(arch, S):
     _close(got, want)
 
 
-# qwen3-4b's cases keep their ids from before dbrx-132b was ported
-_SERVE_CASES = [pytest.param("qwen3-4b", 64, id="64"),
-                pytest.param("qwen3-4b", 23, id="23"),
-                pytest.param("dbrx-132b", 64, id="dbrx-132b-64"),
-                pytest.param("dbrx-132b", 23, id="dbrx-132b-23"),
-                pytest.param("deepseek-v3-671b", 64,
+# qwen3-4b's cases keep their ids from before dbrx-132b was ported.  The
+# dense configs: deepseek-7b (KV = H in its published config), granite-20b
+# (one KV head: multi-query decode at groups = H; GELU MLP; tied head),
+# command-r-35b (tied head, RoPE theta 4e6) and musicgen-large (frame
+# embeddings in, through prefill and decode)
+_SERVE_CASES = [pytest.param("qwen3-4b", 64, {}, id="64"),
+                pytest.param("qwen3-4b", 23, {}, id="23"),
+                pytest.param("dbrx-132b", 64, {}, id="dbrx-132b-64"),
+                pytest.param("dbrx-132b", 23, {}, id="dbrx-132b-23"),
+                pytest.param("deepseek-v3-671b", 64, {},
                              id="deepseek-v3-671b-64"),
-                pytest.param("deepseek-v3-671b", 23,
-                             id="deepseek-v3-671b-23")]
+                pytest.param("deepseek-v3-671b", 23, {},
+                             id="deepseek-v3-671b-23")] + [
+    _case(a, S) for a in ("deepseek-7b", "granite-20b", "command-r-35b",
+                          "musicgen-large") for S in (64, 23)] + [
+    _case("deepseek-7b", 64, kv_is_h=True),
+    _case("musicgen-large", 64, kv_is_h=True)]
 
 
-@pytest.mark.parametrize("arch,S", _SERVE_CASES)
-def test_prefill_matches_reference(arch, S):
-    rcfg, tcfg, rp, tp = _weights(arch, remat=False)
+@pytest.mark.parametrize("arch,S,over", _SERVE_CASES)
+def test_prefill_matches_reference(arch, S, over):
+    rcfg, tcfg, rp, tp = _weights(arch, remat=False, **over)
     x = _inputs(rcfg, S, (2, S))
     r_last, r_caches = rengine.make_prefill_step(rcfg)(rp, jnp.asarray(x))
     t_last, t_caches = tengine.make_prefill_step(tcfg)(tp, torch.from_numpy(x))
@@ -376,17 +407,21 @@ def test_prefill_matches_reference(arch, S):
         _close_cache(tcfg, got, want)
 
 
-@pytest.mark.parametrize("arch,T", _SERVE_CASES)
-def test_decode_matches_reference(arch, T):
+@pytest.mark.parametrize("arch,T,over", _SERVE_CASES)
+def test_decode_matches_reference(arch, T, over):
     """prefill(x[:T]) with every sequence axis grown by one, then one
-    decode step at position T: logits and caches as the reference's."""
-    rcfg, tcfg, rp, tp = _weights(arch, remat=False)
+    decode step at position T: logits and caches as the reference's.  An
+    embeddings model (musicgen-large) decodes a (2, 1, d) frame."""
+    rcfg, tcfg, rp, tp = _weights(arch, remat=False, **over)
     x = _inputs(rcfg, 100 + T, (2, T + 1))
     _, r_caches, _ = rtf.Model(rcfg)(rp, jnp.asarray(x[:, :T]),
                                      mode="prefill")
+    # every leaf is (layers, B, T, ...): grow axis 2 alone (with KV = H at
+    # T = 64 the last axis, KV * head_dim, is 64 as well)
+    assert all(c.shape[2] == T for c in jax.tree.leaves(r_caches))
     r_caches = jax.tree.map(
-        lambda c: jnp.pad(c, [(0, 1) if d == T else (0, 0) for d in c.shape]),
-        r_caches)
+        lambda c: jnp.pad(c, [(0, 1) if i == 2 else (0, 0)
+                              for i in range(c.ndim)]), r_caches)
     t_caches = [{s: {k: torch.from_numpy(np.array(v)) for k, v in leaves.items()}
                  for s, leaves in seg.items()}
                 for seg in jax.tree.map(np.asarray, r_caches)]
@@ -401,8 +436,8 @@ def test_decode_matches_reference(arch, T):
         _close(got, want)
 
 
-@pytest.mark.parametrize("arch,T", _SERVE_CASES)
-def test_decode_matches_full_forward(arch, T):
+@pytest.mark.parametrize("arch,T,over", _SERVE_CASES)
+def test_decode_matches_full_forward(arch, T, over):
     """The port alone, as ``tests/test_models.py`` holds the reference:
     prefill(x[:T]) + decode(x[T]) logits == forward(x[:T+1])[:, T]; with
     T = 64 the prefill takes the flash path and the full forward (65
@@ -410,7 +445,7 @@ def test_decode_matches_full_forward(arch, T):
     above 65, so that it takes the dense one.  Reduced dbrx's and
     deepseek-v3's capacity factor (5) drops no pair at T, T + 1 or at
     decode, so routing is the same on both sides."""
-    _, tcfg, _, tp = _weights(arch, remat=False)
+    _, tcfg, _, tp = _weights(arch, remat=False, **over)
     x = torch.from_numpy(_inputs(tcfg, 200 + T, (2, T + 1)))
     dense = ttf.Model(dataclasses.replace(tcfg, flash_block=128))
     full, _, _ = dense(tp, x, mode="train")

@@ -7,7 +7,9 @@ weights (the reference's, carried across with
 decode step are compared first (tolerance 1e-4, relative and absolute:
 f32 sums in another order), then the generated tokens (exactly).  Prompts
 of 64 and 96 tokens take the flash path of the prefill (``flash_block``
-is 32), the others the dense one.
+is 32), the others the dense one.  The serving CLIs are compared line for
+line at qwen3-4b, dbrx-132b, deepseek-7b, granite-20b and command-r-35b;
+musicgen-large takes frame embeddings, which both batchers refuse.
 """
 import re
 
@@ -246,3 +248,34 @@ def test_serve_cli_serves_dbrx_like_the_reference(monkeypatch, capsys):
         [_TIMING.sub("", x) for x in want]
     assert got[0].startswith("served 6/6 requests, 30 tokens in ")
     assert b.cfg.moe is not None and b.device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "granite-20b",
+                                  "command-r-35b"])
+def test_serve_cli_serves_dense_configs_like_the_reference(monkeypatch,
+                                                           capsys, arch):
+    """The same at the dense configs' ``--arch`` (reduced): deepseek-7b,
+    granite-20b (one KV head, GELU MLP, tied head) and command-r-35b
+    (tied head, RoPE theta 4e6)."""
+    want, got, b = _cli_lines(monkeypatch, capsys, arch)
+    assert len(got) == len(want) == 4
+    assert [_TIMING.sub("", x) for x in got] == \
+        [_TIMING.sub("", x) for x in want]
+    assert got[0].startswith("served 6/6 requests, 30 tokens in ")
+    assert b.cfg.name == arch and b.device.type == "cpu"
+
+
+def test_batcher_refuses_embedding_inputs_like_the_reference():
+    """Both packages' ``ContinuousBatcher`` take token ids only, so both
+    refuse musicgen-large (frame embeddings in), with the reference's
+    assertion; such a model is served through ``serve.engine``'s steps."""
+    rcfg = r_reduced(r_get("musicgen-large"), num_layers=2, remat=False)
+    tcfg = t_reduced(t_get("musicgen-large"), num_layers=2, remat=False)
+    assert rcfg.input_mode == tcfg.input_mode == "embeddings"
+    params = RModel(rcfg).init(jax.random.PRNGKey(0))
+    with pytest.raises(AssertionError, match="token ids"):
+        RBatcher(rcfg, params, slots=2, capacity=16)
+    with pytest.raises(AssertionError, match="token ids"):
+        TBatcher(tcfg, interop.params_from_numpy(
+            tcfg, jax.tree.map(np.asarray, params), "cpu"), slots=2,
+            capacity=16, device="cpu")
