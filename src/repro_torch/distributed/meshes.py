@@ -1,5 +1,8 @@
-"""The execution mesh of the graph-mining tier: a 1-D ``("data",)`` mesh
-of device slots in one process.
+"""Meshes of device slots in one process, and the logical-axis rules.
+
+A ``DataMesh`` is an ordered grid of device slots with named axes: the
+graph-mining tier's execution mesh is its 1-D ``("data",)`` form, the LM
+side's ``("data", "model")`` (or ``("pod", "data", "model")``) grids.
 
 The reference package shards over a ``jax.sharding.Mesh`` and runs each
 request of a batch under ``jax.default_device(slot)``; its tests force
@@ -15,7 +18,8 @@ view of it.
 
 ``num_chips``, ``sharding_ctx`` and ``active_mesh`` exist for parity with
 the reference's API: no route of the mining tier reads the active mesh
-(the lint's ``mesh-guard`` rule looks for ``sharding_ctx`` by name).
+(the lint's ``mesh-guard`` rule looks for ``sharding_ctx`` by name); the
+LM side's expert-parallel MoE does (``models.moe``).
 
 The LM side keeps the reference's logical-axis rules: parameters,
 caches and inputs carry *logical* axis names ("embed", "heads", "batch",
@@ -25,10 +29,15 @@ merged with a cell's own, as ``sharding_ctx(mesh, rules)`` merges them).
 dim, a mesh-axis name, a tuple of names, or ``None`` (the content of
 jax's ``PartitionSpec``), and ``shard_shape`` the per-device shape it
 implies.  The resolver works on any mesh with a ``shape`` dict; the dry
-run's meshes are device-free (``AbstractMesh``, made by
-``launch.mesh``).  ``constrain`` (a sharding constraint on a live tensor),
-resharding restores and the expert-parallel MoE wait for ROADMAP queue
-1, item 13f.
+run's meshes are device-free (``AbstractMesh``), a live one is a
+``DataMesh`` (both made by ``launch.mesh.make_host_mesh``).
+``constrain(x, *axes)`` resolves x's spec under the active mesh as the
+reference's does (its rank checked) and returns x: one process holds the
+whole tensor, so the pin only records the layout the reference asks for.
+``place`` lays a whole tensor out on a live mesh as a ``ShardedTensor``,
+one shard per slot (slots that share a device get views of one tensor);
+``train.checkpoint.restore(shardings=)`` and
+``train.fault_tolerance.elastic_reshard`` restore onto it.
 """
 from __future__ import annotations
 
@@ -47,16 +56,31 @@ AXIS = "data"
 
 @dataclass(frozen=True)
 class DataMesh:
-    """An ordered tuple of device slots on the axis ``"data"``."""
+    """An ordered grid of device slots: ``devices`` in row-major order
+    over ``axis_sizes`` (the order of the reference's ``mesh.devices``
+    flattened), named by ``axis_names``.  The default is the 1-D
+    ``("data",)`` mesh over all the slots."""
     devices: tuple
+    axis_names: tuple = (AXIS,)
+    axis_sizes: Optional[tuple] = None
 
     def __post_init__(self):
         if not self.devices:
             raise ValueError("a mesh needs at least one slot")
+        if self.axis_sizes is None:
+            object.__setattr__(self, "axis_sizes", (len(self.devices),))
+        if len(self.axis_sizes) != len(self.axis_names) or \
+                math.prod(self.axis_sizes) != len(self.devices):
+            raise ValueError(f"{len(self.devices)} slots over axes "
+                             f"{self.axis_names} of sizes {self.axis_sizes}")
 
     @property
     def shape(self) -> dict:
-        return {AXIS: len(self.devices)}
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
 
     @property
     def home(self) -> torch.device:
@@ -70,6 +94,14 @@ def _normalised(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def slot_mesh(shape: tuple, axes: tuple, device) -> DataMesh:
+    """A ``DataMesh`` of ``shape`` over ``axes`` whose slots all lie on
+    ``device`` (the card, or the CPU), as the reference's tests force host
+    devices."""
+    dev = _normalised(_device.resolve(device))
+    return DataMesh((dev,) * math.prod(shape), tuple(axes), tuple(shape))
 
 
 def data_mesh(num_devices: Optional[int] = None, *, device=None) -> DataMesh:
@@ -203,6 +235,24 @@ def active_mesh():
     return _CTX.mesh
 
 
+def active_ctx() -> tuple:
+    """This thread's (mesh, rules), for ``under_ctx`` to set again."""
+    return _CTX.mesh, _CTX.rules
+
+
+@contextlib.contextmanager
+def under_ctx(ctx: tuple):
+    """Run the block under a (mesh, rules) pair from ``active_ctx``: a
+    layer recomputed in the backward (remat) runs under the mesh its
+    forward ran under, wherever the backward is called."""
+    prev = (_CTX.mesh, _CTX.rules)
+    _CTX.mesh, _CTX.rules = ctx
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules = prev
+
+
 def current_rules() -> dict:
     return dict(_CTX.rules or DEFAULT_RULES)
 
@@ -245,9 +295,7 @@ def shard_shape(shape: tuple, spec: tuple, mesh) -> tuple:
     each dim divided by the sizes of the mesh axes it is split over."""
     out = []
     for dim, entry in zip(shape, spec):
-        names = () if entry is None else \
-            (entry,) if isinstance(entry, str) else entry
-        parts = math.prod(mesh.shape[ax] for ax in names)
+        parts = math.prod(mesh.shape[ax] for ax in entry_axes(entry))
         assert dim % parts == 0, (shape, spec)
         out.append(dim // parts)
     return tuple(out)
@@ -267,6 +315,17 @@ def sharding_for(axes: tuple, shape: tuple, mesh=None,
     if mesh is None:
         return None
     return NamedSharding(mesh, spec_for(axes, shape, mesh, rules))
+
+
+def constrain(x, *axes):
+    """The reference's ``with_sharding_constraint`` by logical axis names:
+    under an active mesh, x's spec is resolved by ``sharding_for`` (which
+    checks that ``axes`` name every dim); x is returned as it is, whole.
+    Nothing is done without a mesh."""
+    if _CTX.mesh is None:
+        return x
+    sharding_for(tuple(axes), tuple(x.shape))
+    return x
 
 
 def _is_axes(t) -> bool:
@@ -295,6 +354,91 @@ def tree_shardings(axes_tree, shapes_tree, mesh=None, rules=None):
         raise TypeError(f"not an axes tree: {type(a).__name__}")
 
     return walk(axes_tree, shapes_tree)
+
+
+def entry_axes(entry) -> tuple:
+    """The mesh axes one entry of a resolved spec names."""
+    return () if entry is None else (entry,) if isinstance(entry, str) \
+        else tuple(entry)
+
+
+def shard_slices(shape: tuple, spec: tuple, mesh, slot: int) -> tuple:
+    """The slices of a leaf of ``shape`` that slot ``slot`` holds under
+    ``spec``: a dim split over mesh axes (a, b, ...) is cut into
+    size(a)·size(b)·... blocks, the block index taken with a as its major
+    digit, as jax lays out a ``PartitionSpec`` entry that names a tuple."""
+    coord = dict(zip(mesh.axis_names, _unravel(slot, mesh.axis_sizes)))
+    per = shard_shape(shape, spec, mesh)
+    out = []
+    for entry, n in zip(spec, per):
+        block = 0
+        for ax in entry_axes(entry):
+            block = block * mesh.shape[ax] + coord[ax]
+        out.append(slice(block * n, (block + 1) * n))
+    return tuple(out)
+
+
+def _unravel(index: int, sizes: tuple) -> tuple:
+    coord = []
+    for n in reversed(sizes):
+        coord.append(index % n)
+        index //= n
+    return tuple(reversed(coord))
+
+
+@dataclass(frozen=True)
+class ShardedTensor:
+    """A leaf laid out on a live ``DataMesh``: ``shards[s]`` is slot s's
+    block (``shard_slices``) on slot s's device.  Slots that share a
+    device hold views of one tensor there; a slot alone on its device
+    holds a copy of its block alone."""
+    sharding: NamedSharding
+    shape: tuple
+    shards: tuple
+
+    @property
+    def mesh(self):
+        return self.sharding.mesh
+
+    @property
+    def spec(self) -> tuple:
+        return self.sharding.spec
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    def gather(self) -> torch.Tensor:
+        """The whole leaf on slot 0's device, each block read from its
+        slot's shard."""
+        mesh = self.mesh
+        out = torch.empty(self.shape, dtype=self.dtype, device=mesh.home)
+        for slot, shard in enumerate(self.shards):
+            out[shard_slices(self.shape, self.spec, mesh, slot)] = \
+                shard.to(mesh.home)
+        return out
+
+
+def place(x: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:
+    """``x`` laid out by ``sharding`` on its live mesh: on each device
+    that holds several slots, x is copied there once and those slots take
+    views of it; a slot alone on its device gets a copy of its block."""
+    mesh = sharding.mesh
+    if not isinstance(mesh, DataMesh):
+        raise TypeError(f"place needs a live DataMesh, not "
+                        f"{type(mesh).__name__}")
+    shape = tuple(x.shape)
+    slots_on: dict = {}
+    for slot, dev in enumerate(mesh.devices):
+        slots_on.setdefault(dev, []).append(slot)
+    shards: list = [None] * mesh.size
+    for dev, slots in slots_on.items():
+        whole = x.to(dev) if len(slots) > 1 else x
+        for slot in slots:
+            block = whole[shard_slices(shape, sharding.spec, mesh, slot)]
+            shards[slot] = block if len(slots) > 1 else \
+                block.to(dev, copy=True).contiguous()
+    return ShardedTensor(sharding, shape, tuple(shards))
 
 
 def slot_context(device: torch.device):

@@ -321,7 +321,7 @@ constexpr int THREADS = 384;        // producer + two consumer warpgroups
 constexpr int CONSUMERS = 256;      // threads that release a stage
 constexpr int ROW_BYTES = 128;      // one 64-column box row, swizzled
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
+constexpr double LN2_F64 = 0.6931471805599453;
 
 template <int DQ, int DV>
 struct Smem {                       // byte offsets from a 1024-aligned base
@@ -699,10 +699,14 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
       const int qrow = row + 8 * r;
       if (qrow >= Sq) continue;
-      // m is in log2 units of the scaled scores
+      // m is in log2 units of the scaled scores; lse is taken in f64 and
+      // rounded once: at deepseek-v3's scores, in the thousands, m times
+      // the f32 ln 2 and the f32 sum would move it by up to 3e-4, and
+      // K9-bwd's P = exp(S − lse) by that factor
       if (lse != nullptr && lane % 4 == 0)
         lse[static_cast<long long>(blockIdx.x) * Sq + qrow] =
-            m[r] * LN2 + logf(l[r]);
+            static_cast<float>(m[r] * LN2_F64 + log(static_cast<double>(
+                                                    l[r])));
       __nv_bfloat16* orow = ob + qrow * so.s + col;
 #pragma unroll
       for (int g = 0; g < DV / 8; ++g)

@@ -25,9 +25,9 @@
 //   1. `stats_kernel`: the row statistics both other kernels read, f32 in
 //      two planes of (B·H, Sp), Sp = S rounded up to a multiple of 128:
 //      lse·log2(e) (+inf past S, so P is 0 on the rows a tile reads past
-//      the end) and Dᵢ = Σ_d dOᵢ·Oᵢ (0 past S).  Dᵢ is the diagonal of
-//      O dOᵀ taken on the tensor cores by the very product dkdv forms
-//      V dOᵀ with (dq's dO Vᵀ has the same products in the same order), so
+//      the end; the bf16 entry multiplies in f64 and rounds once) and
+//      Dᵢ = Σ_d dOᵢ·Oᵢ (0 past S).  Dᵢ is the diagonal of O dOᵀ taken on
+//      the tensor cores by the very product dkdv forms V dOᵀ with (dq's dO Vᵀ has the same products in the same order), so
 //      that dP − D is exactly 0 where Oᵢ = Vⱼ, as in exact arithmetic: at
 //      S = 1, where the true dQ and dK are 0, a D summed in another order
 //      leaves them at the noise of two different f32 sums, over the
@@ -59,30 +59,41 @@
 //     forward's S = QKᵀ): exact products of bf16 inputs, summed in f32;
 //   - forms P = exp2(S·scale·log2 e − lse·log2 e) while dP is still in
 //     flight, then dS = P (dP − Dᵢ), in registers, masked on the tiles
-//     that cross the diagonal or S;
+//     that cross the diagonal or S.  S is summed as K9 sums it (one
+//     accumulator over its k-steps) and scaled by K9's f32 scale·log2 e,
+//     so P is the softmax K9's lse was taken of: the tensor cores round
+//     their f32 sums toward zero, and at deepseek-v3's scores, in the
+//     thousands, a more exact S here would miss that lse by about 2e-4;
 //   - splits P and dS into bf16 hi + lo terms (hi = bf16(x),
 //     lo = bf16(x − hi): within 2^-17·|x|) and issues each register-A
-//     product twice into one f32 accumulator, `wgmma m64nNk16` (N = Dv for
-//     dV, Dq for dK and dQ) with the
-//     streamed tile as an N-major B (transpose bit): the f32 accumulator
-//     layout of S is the bf16 A-fragment layout, so nothing goes through
-//     shared memory (dkdv: dV += Pᵀ dO, dK += dSᵀ Q; dq: dQ += dS K).
-//     Without the split, P and dS would be rounded to bf16 inside the sums,
-//     a second rounding beside the output's;
-//   - waits for its products and frees the stage.
+//     product twice, `wgmma m64n64k16` with the streamed tile as an
+//     N-major B (transpose bit), one 64-column box of the product at a
+//     time: the f32 accumulator layout of S is the bf16 A-fragment
+//     layout, so nothing goes through shared memory (dkdv: dV += Pᵀ dO,
+//     dK += dSᵀ Q; dq: dQ += dS K).  Without the split, P and dS would be
+//     rounded to bf16 inside the sums, a second rounding beside the
+//     output's;
+//   - sums each box's eight k-steps (four of hi, four of lo) in a fresh
+//     f32 accumulator and adds it to the running dV, dK or dQ in f32
+//     (`split_product`).  The tensor cores round their f32 sums toward
+//     zero: one running accumulator that took every tile's k-steps (64
+//     tiles x 8 at S = 4096) came out low by a common factor, 1e-5 to
+//     2e-5 of qwen3-4b's gradients at (128, 128), as the f32 entry's did
+//     before its fresh accumulators;
+//   - waits for each box's products, and frees the stage.
 // Registers: dK (64 x Dq) and dV (64 x Dv) are f32 per consumer
 // warpgroup, (Dq + Dv) / 2 registers a thread (128 at (128, 128), 160 at
 // (192, 128)), beside the 32 + 32 of S and dP, which become the P and dS
 // fragments (the same number of registers: hi + lo of two values is 64
-// bits); S and dP are set to 0 before each tile, so they are not live
-// across the register-A products.  Consumers run at 240 registers; at
-// (192, 128) dkdv's accumulators and fragments take 224 of them and ptxas
-// spills a few words of the rest (PERF.md §6).  32-row Q tiles there would
-// halve S and dP and spill nothing, but ran slower on the card: the
-// spills stay.  dK is `wgmma m64n192k16` at Dq = 192; Q and K tiles are
-// three 64-column TMA boxes, V, O and dO tiles two.  Shared memory at
-// (192, 128): K 48 KB and V 32 KB resident, three stages of Q (72 KB) and
-// dO (48 KB) and their statistics, 207 416 bytes in all.
+// bits), and the box's fresh accumulator, 32; S and dP are set to 0
+// before each tile, so they are not live across the register-A products,
+// and P's fragments are dead once dV's boxes have landed.  Consumers run
+// at 240 registers; at (192, 128) dkdv's accumulators and fragments take
+// up to 256 of them and ptxas spills some of the rest (PERF.md §6).  Q
+// and K tiles are three 64-column TMA boxes, V, O and dO tiles two.
+// Shared memory at (192, 128): K 48 KB and V 32 KB resident, three
+// stages of Q (72 KB) and dO (48 KB) and their statistics, 207 416 bytes
+// in all.
 // What bounds it: the function is five products, (3·Dq + 2·Dv)·H·S(S+1)
 // operations (causal), 343.7 GFLOP at qwen3-4b's (1, 4096, 32, 128) and
 // 1 787.2 at deepseek-v3's (1, 4096, 128, 192 / 128): 0.35 and 1.81 ms on
@@ -91,10 +102,10 @@
 // FMA loop over D or a tile is left; TMA runs up to three tiles ahead of
 // the math.
 // Left: a warpgroup's products run one after another (S and dP, then the
-// register-A products, then the next tile), with no elementwise work of
-// one tile hidden behind the products of another; the two consumer
-// warpgroups interleave as the scheduler finds them ready; the diagonal
-// tiles compute masked cells.
+// register-A products box by box, then the next tile), with no elementwise
+// work of one tile hidden behind the products of another; the two
+// consumer warpgroups interleave as the scheduler finds them ready; the
+// diagonal tiles compute masked cells.
 //
 // flashattn_bwd_f32 (the inputs must not be rounded): the same two kernels
 // on the TF32 tensor cores at f32 grade.  Each operand x is split into
@@ -129,6 +140,7 @@ namespace {
 
 constexpr int PAD = 128;            // the statistics' rows: S rounded up to it
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr double LOG2E_F64 = 1.4426950408889634;
 
 struct Strides {                    // element strides of (B, S, H); D is unit
   long long b, s, h;
@@ -278,20 +290,6 @@ __device__ __forceinline__ void frag_fence(uint32_t (&a)[N][4]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
   "%30, %31}"
-#define REGS64                                                               \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
-  "%58, %59, %60, %61, %62, %63}"
-#define REGS96                                                               \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
-  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "   \
-  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "   \
-  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
 
 // d (64 x 64, f32) = [d +] A B: A (64 x 16) and B (16 x 64, K-major) from
 // shared memory; `accumulate` = 0 overwrites d
@@ -305,44 +303,15 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d (64 x N, f32) += A B: A (64 x 16 bf16) from registers in the wgmma
-// fragment layout, B (16 x N) from shared memory N-major (transposed)
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t b);
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
+// d (64 x 64, f32) += A B: A (64 x 16 bf16) from registers in the wgmma
+// fragment layout, B (16 x 64) from shared memory N-major (transposed)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
-        ACC8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " REGS96
-      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
-        ACC8(56), ACC8(64), ACC8(72), ACC8(80), ACC8(88)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -391,20 +360,44 @@ __device__ __forceinline__ void score_products(float (&s)[32],
 }
 
 // acc (64 x N) += A·Z with A = hi + lo in registers (64 x 64, k-steps of
-// 16 columns) and Z a streamed stage (64 rows x N, N-major B)
+// 16 columns) and Z a streamed stage (64 rows x N, N-major B).  The tensor
+// cores round their f32 sums toward zero, so a running accumulator that
+// took every tile's k-steps came out low by a common factor (1e-5 to 2e-5
+// at (128, 128)): each 64-column box of Z takes the tile's eight k-steps
+// (hi, then lo) in a fresh 32-register accumulator, `wgmma m64n64k16`,
+// added to acc's 32 registers of that box in f32, rounded to nearest.
+// The boxes run one after another (a fresh accumulator for the whole
+// m64n192 product would not fit beside dK and dV); the fragments are
+// fenced until the last box's products have landed.
 template <int N>
 __device__ __forceinline__ void split_product(float (&acc)[N / 2],
-                                              const uint32_t (&hi)[4][4],
-                                              const uint32_t (&lo)[4][4],
+                                              uint32_t (&hi)[4][4],
+                                              uint32_t (&lo)[4][4],
                                               uint32_t z) {
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_rs<N>(acc, hi[kk],
-                sw128_desc(z + kk * 16 * ROW_BYTES, BN * ROW_BYTES));
+  for (int c = 0; c < N / 64; ++c) {
+    const uint32_t box = z + c * BN * ROW_BYTES;
+    float part[32];
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_rs<N>(acc, lo[kk],
-                sw128_desc(z + kk * 16 * ROW_BYTES, BN * ROW_BYTES));
+    for (int i = 0; i < 32; ++i) part[i] = 0.f;
+    reg_fence(part);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs(part, hi[kk],
+               sw128_desc(box + kk * 16 * ROW_BYTES, BN * ROW_BYTES));
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs(part, lo[kk],
+               sw128_desc(box + kk * 16 * ROW_BYTES, BN * ROW_BYTES));
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(part);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[32 * c + i] += part[i];
+  }
+  frag_fence(hi);
+  frag_fence(lo);
 }
 
 // x = x_hi + x_lo in the A-fragment layout: k-step kk holds accumulator
@@ -440,11 +433,14 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, Strides st,
 }
 
 // The row statistics of 64 rows of one (batch, head), up to Sp:
-// lse·log2 e (+inf past S) and Dᵢ = Σ_d dOᵢ·Oᵢ (0 past S: TMA reads zeros),
-// Dᵢ as the diagonal of O dOᵀ by the product dkdv forms V dOᵀ with
+// lse·log2 e (+inf past S) and Dᵢ = Σ_d dOᵢ·Oᵢ (0 past S: TMA reads
+// zeros), Dᵢ as the diagonal of O dOᵀ by the product dkdv forms V dOᵀ with
 // (wgmma_ss, O as A, dO as a K-major B, the same k-steps over DV): where
 // Oᵢ = Vⱼ, as at S = 1, dPᵀ[j][i] − Dᵢ is exactly 0 (and dP[i][j] in dq,
 // the same products with A and B exchanged), as it is in exact arithmetic.
+// lse·log2 e is taken in f64 and rounded once: lse near 4300 (deepseek-v3)
+// times the f32 log2 e, itself 1.3e-8 low, would put every row's P high by
+// a common 6e-5.
 template <int DV>
 __global__ void __launch_bounds__(128)
 stats_kernel(const __grid_constant__ CUtensorMap to,
@@ -476,7 +472,8 @@ stats_kernel(const __grid_constant__ CUtensorMap to,
   }
   if (threadIdx.x < BN) {
     const int i = r0 + threadIdx.x;
-    lrow[i] = i < S ? lse[static_cast<long long>(bh) * S + i] * LOG2E
+    lrow[i] = i < S ? static_cast<float>(
+                          lse[static_cast<long long>(bh) * S + i] * LOG2E_F64)
                     : __int_as_float(0x7f800000);
   }
   bar_wait(bar, 0);
@@ -625,19 +622,8 @@ dkdv_kernel(const __grid_constant__ Maps maps,
       split_tile(s, p_hi, p_lo);
       split_tile(dp, d_hi, d_lo);
 
-      reg_fence(dka);
-      reg_fence(dva);
-      wg_fence();
       split_product<DV>(dva, p_hi, p_lo, w);        // dV += Pᵀ dO
       split_product<DQ>(dka, d_hi, d_lo, u);        // dK += dSᵀ Q
-      wg_commit();
-      wg_wait<0>();
-      reg_fence(dka);
-      reg_fence(dva);
-      frag_fence(p_hi);
-      frag_fence(p_lo);
-      frag_fence(d_hi);
-      frag_fence(d_lo);
       bar_arrive(free_(st));
     }
     store_rows<DQ>(dk + b * sdk.b + h * sdk.h, sdk, dka, row, col, S, scale);
@@ -747,14 +733,7 @@ dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ stats,
         dp[i] = s[i] * (dp[i] - dl[(i / 2) % 2]);
       split_tile(dp, d_hi, d_lo);
 
-      reg_fence(dqa);
-      wg_fence();
       split_product<DQ>(dqa, d_hi, d_lo, u);        // dQ += dS K
-      wg_commit();
-      wg_wait<0>();
-      reg_fence(dqa);
-      frag_fence(d_hi);
-      frag_fence(d_lo);
       bar_arrive(free_(st));
     }
     store_rows<DQ>(dq + b * sdq.b + h * sdq.h, sdq, dqa, row, col, S, scale);

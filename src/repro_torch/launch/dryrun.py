@@ -39,7 +39,7 @@ What each field of the record holds:
   ``PEAK_FLOPS`` dense bf16, ``HBM_BW``.
 * ``collective_traffic_per_device``, ``num_collectives``,
   ``t_collective`` — ``None``: no program is partitioned, so no
-  collective is measured (ROADMAP queue 1, items 13f and 13h);
+  collective is measured (ROADMAP queue 1, item 13h);
   ``dominant`` is taken over the terms that are not ``None``.
 * ``lower_s`` — the meta trace's seconds; ``compile_s`` ``None``.
 

@@ -6,9 +6,10 @@ trees in this module.  Softmax/norm math runs in f32; matmuls run in the
 config compute dtype.
 
 Attention uses a per-head (B, S, H, D) layout with KV heads explicitly
-expanded to H, as in the reference package.  The reference pins logical
-shardings with ``distributed.meshes.constrain``, a no-op without a mesh;
-the port has no mesh, so those calls are dropped.
+expanded to H, as in the reference package.  Logical shardings are
+pinned with ``distributed.meshes.constrain`` where the reference pins
+them: under an active mesh the spec is resolved (and the rank checked);
+the tensor is returned as it is, whole, since one process holds it.
 
 Sequences longer than ``flash_block`` take ``flash_attention``, which on
 a CUDA tensor is the hand-written kernel K9 (``kernels.flashattn``); in
@@ -26,6 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.meshes import constrain
 from repro_torch.kernels import flashattn as _fa
 from repro_torch.models.params import P
 
@@ -59,7 +61,8 @@ def expand_kv(k, H: int):
     KV = k.shape[2]
     if KV == H:
         return k
-    return torch.repeat_interleave(k, H // KV, dim=2)
+    k = torch.repeat_interleave(k, H // KV, dim=2)
+    return constrain(k, "batch", None, "heads", None)
 
 
 # ---------------------------------------------------------------------------
@@ -195,24 +198,28 @@ def attention(p, x, cfg, *, positions, mode: str, cache=None):
     rope_pos = positions[:, None] if mode == "decode" else positions
     q = apply_rope(q, rope_pos, cfg.rope_theta)
     k = apply_rope(k, rope_pos, cfg.rope_theta)
+    q = constrain(q, "batch", "seq", "heads", None)
 
     if mode in ("train", "prefill"):
         o = causal_attention(q, expand_kv(k, H), expand_kv(v, H),
                              flash_block=cfg.flash_block)
         o = o.reshape(B, S, H * hd)
         if mode == "prefill":
-            new_cache = {"k": k.reshape(B, S, KV * hd),
-                         "v": v.reshape(B, S, KV * hd)}
+            new_cache = {n: constrain(t.reshape(B, S, KV * hd),
+                                      "batch", "kv_seq", "kv")
+                         for n, t in (("k", k), ("v", v))}
         else:
             new_cache = {}
     else:
         ck = cache_update(cache["k"], k.reshape(B, 1, KV * hd), positions)
         cv = cache_update(cache["v"], v.reshape(B, 1, KV * hd), positions)
+        ck = constrain(ck, "batch", "kv_seq", "kv")
+        cv = constrain(cv, "batch", "kv_seq", "kv")
         o = decode_attention_gqa(q, ck, cv, positions, groups=H // KV)
         o = o.reshape(B, 1, H * hd)
         new_cache = {"k": ck, "v": cv}
     y = o @ p["wo"]
-    return y, new_cache
+    return constrain(y, "batch", "seq", None), new_cache
 
 
 def cross_attn_specs(cfg):
@@ -230,6 +237,7 @@ def cross_attention(p, x, image_embeds, cfg, *, mode: str, cache=None):
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     B, S, _ = x.shape
     q = _split_heads(x @ p["wq"], H, hd)
+    q = constrain(q, "batch", "seq", "heads", None)
     if mode == "decode":
         k, v = cache["xk"], cache["xv"]
         new_cache = cache
@@ -243,7 +251,7 @@ def cross_attention(p, x, image_embeds, cfg, *, mode: str, cache=None):
     o = torch.einsum("bqht,bthd->bqhd", torch.softmax(s, dim=-1),
                      vh.float()).to(x.dtype)
     y = o.reshape(B, S, H * hd) @ p["wo"]
-    return y, new_cache
+    return constrain(y, "batch", "seq", None), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -267,4 +275,5 @@ def mlp_apply(p, x):
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(x @ p["wi"], approximate="tanh")
-    return h @ p["wo"]
+    h = constrain(h, "batch", "seq", "mlp")
+    return constrain(h @ p["wo"], "batch", "seq", None)

@@ -11,8 +11,9 @@ written in place by ``layers.cache_update``; the step reads nothing back
 to the host, so ``GraphedDecode`` captures it.  The reference's decode
 runs no Pallas kernel: its products stay ``torch.einsum``.
 
-The reference's ``constrain`` calls pin shardings and are no-ops without
-a mesh; they are dropped.
+Logical shardings are pinned with ``distributed.meshes.constrain`` where
+the reference pins them (resolved under an active mesh, the tensor
+returned whole).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import math
 
 import torch
 
+from repro_torch.distributed.meshes import constrain
 from repro_torch.models.layers import (NEG_INF, apply_rope, cache_update,
                                        causal_attention, rms_norm)
 from repro_torch.models.params import P
@@ -70,6 +72,7 @@ def mla_attention(p, x, cfg, *, positions, mode: str, cache=None):
 
     q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) @ p["wq_b"]
     q = q.reshape(B, S, H, nope + rope_d)
+    q = constrain(q, "batch", "seq", "heads", None)
     q_nope, q_pe = q[..., :nope], q[..., nope:]
     q_pe = apply_rope(q_pe, rope_pos, cfg.rope_theta)
 
@@ -85,8 +88,10 @@ def mla_attention(p, x, cfg, *, positions, mode: str, cache=None):
     if mode in ("train", "prefill"):
         k_nope = torch.einsum("bsr,rhn->bshn", ckv, w_k)
         v = torch.einsum("bsr,rhv->bshv", ckv, w_v)
+        v = constrain(v, "batch", "seq", "heads", None)
         k = torch.cat([k_nope, kpe[:, :, None, :].expand(B, S, H, rope_d)],
                       dim=-1)
+        k = constrain(k, "batch", "seq", "heads", None)
         qc = torch.cat([q_nope, q_pe], dim=-1)
         o = causal_attention(qc, k, v, flash_block=cfg.flash_block,
                              scale=scale)
@@ -95,10 +100,12 @@ def mla_attention(p, x, cfg, *, positions, mode: str, cache=None):
     else:
         cc = cache_update(cache["ckv"], ckv, positions)          # (B,Sc,r)
         ck = cache_update(cache["kpe"], kpe, positions)          # (B,Sc,rope)
+        cc = constrain(cc, "batch", "kv_seq", "lora")
+        ck = constrain(ck, "batch", "kv_seq", None)
         q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope, w_k)
         o_lat = latent_attention(q_abs, q_pe, cc, ck, positions, scale)
         o = torch.einsum("bqhr,rhv->bqhv", o_lat.to(x.dtype), w_v)
         o = o.reshape(B, 1, H * vd)
         new_cache = {"ckv": cc, "kpe": ck}
     y = o @ p["wo"]
-    return y, new_cache
+    return constrain(y, "batch", "seq", None), new_cache

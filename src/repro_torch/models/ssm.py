@@ -16,15 +16,17 @@ over them, which autograd differentiates.  ``_causal_conv`` is the reference's s
 products in x's dtype, not ``F.conv1d``, whose bf16 accumulation differs.
 A decode step writes the ``conv`` and ``ssm`` caches it is given in place
 and has no host sync and no shape that depends on data, so it can be
-captured in a CUDA graph (``serve.batching.GraphedDecode``).  The
-reference's ``constrain`` calls pin shardings and are no-ops without a
-mesh; they are dropped.
+captured in a CUDA graph (``serve.batching.GraphedDecode``).  Logical
+shardings are pinned with ``distributed.meshes.constrain`` where the
+reference pins them (resolved under an active mesh, the tensor returned
+whole).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.meshes import constrain
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import P
 
@@ -145,6 +147,7 @@ def mamba_mixer(p, x, cfg, *, mode: str, cache=None):
 
     z = x @ p["wz"]                                              # (B,S,di)
     xbc_raw = x @ p["wxbc"]                                      # (B,S,di+2g)
+    xbc_raw = constrain(xbc_raw, "batch", "seq", "mlp")
     dt_raw = x @ p["wdt"]                                        # (B,S,H)
     A = -torch.exp(p["a_log"].to(_F32))
 
@@ -188,4 +191,4 @@ def mamba_mixer(p, x, cfg, *, mode: str, cache=None):
         new_cache = cache
 
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out"], new_cache
+    return constrain(y @ p["out"], "batch", "seq", None), new_cache

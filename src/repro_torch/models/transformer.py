@@ -31,7 +31,9 @@ gradients once, not one full-size zero tensor per layer), and with
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``: only the
 layer's input is kept, and the backward runs the layer again (an MoE
 layer routes again, to the same experts: routing is a function of the
-layer's input alone) — the counterpart of the reference's ``jax.checkpoint(body,
+layer's input alone; the layer runs again under the mesh and rules its
+forward ran under, so an MoE layer takes the same path) — the
+counterpart of the reference's ``jax.checkpoint(body,
 policy=nothing_saveable)`` around its scan body.  Prefill and decode
 ignore ``cfg.remat``.
 """
@@ -45,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.meshes import active_ctx, constrain, under_ctx
 from repro_torch.models import layers as L
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -262,6 +265,12 @@ def _unbind(tree, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
+def _remat_slot(ctx, cfg, slot, p, x, positions, image_embeds):
+    """``_train_slot`` under the (mesh, rules) of the forward's call."""
+    with under_ctx(ctx):
+        return _train_slot(cfg, slot, p, x, positions, image_embeds)
+
+
 def _train_slot(cfg, slot: Slot, p, x, positions, image_embeds):
     x, _, aux = _apply_slot(cfg, slot, p, x, positions=positions,
                             mode="train", cache=None,
@@ -294,8 +303,8 @@ def _run_segment(cfg, seg: Segment, seg_params, x, *, positions, mode,
             for j, slot in enumerate(seg.slots):
                 p = layers[f"slot{j}"][i]
                 if cfg.remat:
-                    x, aux = checkpoint(_train_slot, cfg, slot, p, x,
-                                        positions, image_embeds,
+                    x, aux = checkpoint(_remat_slot, active_ctx(), cfg,
+                                        slot, p, x, positions, image_embeds,
                                         use_reentrant=False)
                 else:
                     x, aux = _train_slot(cfg, slot, p, x, positions,
@@ -340,6 +349,7 @@ def forward(cfg: ModelConfig, params, inputs, *, mode: str,
         # jnp.take clamps out-of-range ids; torch would raise
         x = embed[inputs.long().clamp(0, embed.shape[0] - 1)].to(f)
     S = x.shape[1]
+    x = constrain(x, "batch", "seq", None)
     if positions is None:
         positions = torch.arange(S, device=x.device)
     positions = torch.as_tensor(positions, device=x.device)
@@ -362,6 +372,7 @@ def forward(cfg: ModelConfig, params, inputs, *, mode: str,
         logits = torch.einsum("bsd,vd->bsv", x, embed.to(f))
     else:
         logits = torch.einsum("bsd,dv->bsv", x, params["unembed"].to(f))
+    logits = constrain(logits, "batch", "seq", "vocab")
     if aux_total is None:
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, (new_caches if mode != "train" else None), aux_total

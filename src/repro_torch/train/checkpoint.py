@@ -20,8 +20,14 @@ writes its bf16 bits under that descriptor.  Such a file loads as 2-byte
 voids; ``restore`` reads them back as bf16 bits where the like-state leaf
 is bf16.  The reference's own ``restore`` cannot read them
 (``astype(bfloat16)`` on a ``V2`` array raises "No cast function
-available"; ROADMAP queue 3).  The reference's ``restore(shardings=)``
-waits for resharding (ROADMAP queue 1, item 13f).
+available"; ROADMAP queue 3).
+
+``restore(shardings=)`` places each leaf on a live slot mesh by a tree of
+``distributed.meshes.NamedSharding``s (``meshes.place``: a
+``ShardedTensor``, whose slots on one device hold views of one tensor),
+in the file's dtype, as the reference's ``device_put(arr, sharding)``
+keeps it; bf16 bits read back as bf16.  ``fault_tolerance``'s
+``elastic_reshard`` restores so onto a new mesh.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import meshes
 from repro_torch.train import tree
 
 _BF16_DESCR = "<V2"
@@ -102,37 +109,51 @@ def latest_step(directory) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _tensor(arr: np.ndarray, like: torch.Tensor, i: int) -> torch.Tensor:
+def _file_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A leaf in the file's own dtype: 2-byte voids are bf16 bits."""
     if arr.dtype.kind == "V":
-        if arr.dtype.itemsize != 2 or like.dtype != torch.bfloat16:
-            raise TypeError(f"leaf {i}: {arr.dtype} bits restore into a "
-                            f"bf16 leaf only, not {like.dtype}")
-        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(arr))
-    return t.to(device=like.device, dtype=like.dtype)
+        if arr.dtype.itemsize != 2:
+            raise TypeError(f"{arr.dtype}: only bf16 bits (<V2) are read")
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def _tensor(arr: np.ndarray, like: torch.Tensor, i: int) -> torch.Tensor:
+    if arr.dtype.kind == "V" and like.dtype != torch.bfloat16:
+        raise TypeError(f"leaf {i}: {arr.dtype} bits restore into a "
+                        f"bf16 leaf only, not {like.dtype}")
+    return _file_tensor(arr).to(device=like.device, dtype=like.dtype)
 
 
 def restore(directory, step: int, like_state, shardings=None):
-    """Restore into the structure of ``like_state`` (shapes checked), each
-    leaf in its like leaf's dtype, on its device, with its
-    ``requires_grad``."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore onto shardings waits for resharding on the LM side "
-            "(ROADMAP queue 1, item 13f)")
+    """Restore into the structure of ``like_state`` (shapes checked).
+    Without ``shardings`` each leaf takes its like leaf's dtype, device
+    and ``requires_grad``.  With ``shardings`` (a tree of
+    ``meshes.NamedSharding``s of the state's structure) each leaf keeps
+    the file's dtype and is placed on its sharding's live mesh as a
+    ``meshes.ShardedTensor``."""
     d = pathlib.Path(directory) / f"step_{step}"
     meta = json.loads((d / "manifest.json").read_text())
     leaves, structure = tree.flatten(like_state)
     if meta["num_leaves"] != len(leaves):
         raise ValueError(f"{d}: {meta['num_leaves']} leaves, the like "
                          f"state has {len(leaves)}")
+    placed = None
+    if shardings is not None:
+        placed, _ = tree.flatten(shardings)
+        if len(placed) != len(leaves):
+            raise ValueError(f"{len(placed)} shardings for {len(leaves)} "
+                             f"leaves")
     out = []
     for i, ref in enumerate(leaves):
         arr = np.load(d / f"arr_{i}.npy")
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"{d}: leaf {i} has shape {arr.shape}, the "
                              f"like state {tuple(ref.shape)}")
+        if placed is not None:
+            out.append(meshes.place(_file_tensor(arr), placed[i]))
+            continue
         t = _tensor(arr, ref, i)
         out.append(t.requires_grad_(ref.requires_grad))
     return tree.unflatten(structure, out)

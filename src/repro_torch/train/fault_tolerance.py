@@ -1,18 +1,19 @@
-"""Fault tolerance: preemption handling, restart, straggler watchdog.
+"""Fault tolerance: preemption handling, restart, elastic resharding,
+straggler watchdog.
 
 The reference package's ``repro.train.fault_tolerance``:
 
   * ``PreemptionGuard`` — converts SIGTERM/SIGINT into a "save now" flag
     checked once per step; the last completed step is always recoverable.
   * ``resume_or_init`` — restart-from-latest on boot (idempotent relaunch:
-    the scheduler can just re-exec the same command on a fresh node set).
+    the scheduler can just re-exec the same command on a fresh node set);
+    with ``shardings`` the state is placed on a live slot mesh.
+  * ``elastic_reshard`` — re-slice a checkpoint onto a new mesh (grow or
+    shrink the data axis between runs); parameter shardings are recomputed
+    from the same logical rules, so only the placement changes.
   * ``StepWatchdog`` — per-step wall-time tracker; steps slower than
     ``threshold_x`` times the trailing median are recorded as straggler
     events.
-
-``elastic_reshard`` (re-slicing a checkpoint onto a new mesh by the
-logical sharding rules) raises ``NotImplementedError``: resharding on the
-LM side of the mesh is not ported yet (ROADMAP queue 1, item 13f).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import statistics
 import time
 from typing import Optional
 
+from repro_torch.distributed.meshes import tree_shardings
 from repro_torch.train import checkpoint as ckpt
 
 
@@ -51,9 +53,11 @@ def resume_or_init(directory, init_fn, like_state=None, shardings=None):
 
 def elastic_reshard(directory, step, like_state, axes_tree, new_mesh,
                     rules=None):
-    raise NotImplementedError(
-        "elastic_reshard needs resharding on the LM side of the mesh, "
-        "not ported yet (ROADMAP queue 1, item 13f)")
+    """Load a checkpoint and place it onto ``new_mesh`` (a live
+    ``DataMesh``) by the same logical sharding rules: each leaf a
+    ``meshes.ShardedTensor`` in the file's dtype."""
+    sh = tree_shardings(axes_tree, like_state, new_mesh, rules)
+    return ckpt.restore(directory, step, like_state, sh)
 
 
 class StepWatchdog:

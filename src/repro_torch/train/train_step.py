@@ -23,6 +23,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.meshes import constrain
 from repro_torch.models.params import abstract_tree
 from repro_torch.models.transformer import Model
 from repro_torch.train import optimizer as opt
@@ -55,6 +56,14 @@ def _grads(loss, flat: list) -> list:
             for p, g in zip(flat, grads)]
 
 
+def _split_micro(x, microbatches: int):
+    """(B, ...) -> (microbatches, B / microbatches, ...): microbatch i is
+    rows i·B/n .. (i + 1)·B/n, its rows pinned to "batch"."""
+    x = x.reshape((microbatches, x.shape[0] // microbatches)
+                  + tuple(x.shape[1:]))
+    return constrain(x, None, "batch", *([None] * (x.ndim - 2)))
+
+
 def make_grad_fn(cfg: ModelConfig, microbatches: int = 1):
     """``(params, batch) -> (loss, ce, grads)``: the gradient half of the
     train step, grads a tree of the parameters' structure."""
@@ -73,9 +82,9 @@ def make_grad_fn(cfg: ModelConfig, microbatches: int = 1):
                             dtype=torch.float32 if p.dtype == torch.float32
                             else torch.bfloat16) for p in flat]
         ce_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        rows = next(iter(batch.values())).shape[0] // microbatches
+        mbs = {k: _split_micro(v, microbatches) for k, v in batch.items()}
         for i in range(microbatches):
-            mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+            mb = {k: v[i] for k, v in mbs.items()}
             loss, ce = loss_fn(params, mb)
             for acc, g in zip(gsum, _grads(loss, flat)):
                 acc.add_(g)

@@ -401,8 +401,11 @@ def test_meta_flops_equal_a_cpu_run(arch, shape):
         cpu = _on_cpu(args, min(cfg.vocab_size, sh.seq),
                       torch.Generator().manual_seed(0))
         fn_cpu = dryrun.build_cell(cfg, sh, mesh, rules, microbatches=2)[0]
+    # the CPU run under a live slot mesh of the same shape, so that both
+    # runs take the same MoE path (expert-parallel under a "model" axis)
+    live = tmesh.make_host_mesh((1, 1), ("data", "model"), device="cpu")
     fc = FlopCounterMode(display=False)
-    with fc:
+    with fc, meshes.sharding_ctx(live, rules):
         fn_cpu(*cpu)
     assert counts["flops"] == fc.get_total_flops() > 0
 

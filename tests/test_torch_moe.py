@@ -15,8 +15,14 @@ Inputs are made with numpy from a seed and handed to both packages.
     ``num_shared=1``; in bf16 at the reference's bf16 tolerance.
   * The reference's expert-parallel path (``moe_apply_ep``, shard_map +
     all_to_all) on ``tests/test_moe_ep.py``'s two setups, in a subprocess
-    with 8 forced host devices, against the port's einsum path on the
-    same weights: logits within that test's 2e-3.
+    with 8 forced host devices: against the port's einsum path on the
+    same weights, logits within that test's 2e-3; against the port's own
+    expert-parallel path under a (2, 4) CPU slot mesh ("ep" takes the
+    "ff" variant, "full_mesh_ep" full-mesh EP; reduced dbrx-132b is f32),
+    logits within ``TOL``, aux within ``AUX_TOL`` and the gradients of
+    mean(logits²) within ``TOL`` of each leaf's largest.
+  * ``moe_apply``'s choice of path against the reference's rule over
+    meshes and token counts, on meta tensors (> 65 536 tokens included).
 """
 import dataclasses
 import os
@@ -32,6 +38,7 @@ import torch
 
 from repro.configs import base as rbase
 from repro.configs import registry as rreg
+from repro.distributed import meshes as rmeshes
 from repro.models import moe as rmoe
 from repro.models import params as rparams
 from repro.models import transformer as rtf
@@ -39,8 +46,11 @@ from repro.models import transformer as rtf
 from repro_torch import interop
 from repro_torch.configs import base as tbase
 from repro_torch.configs import registry as treg
+from repro_torch.distributed import meshes as tmeshes
+from repro_torch.launch import mesh as tmesh
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttf
+from repro_torch.train import tree as ttree
 
 TOL = 1e-4
 AUX_TOL = 1e-6
@@ -261,11 +271,33 @@ def test_layer_gradients_match_reference():
                                atol=TOL * np.abs(g).max())
 
 
-def test_the_port_has_no_expert_parallel_path():
-    """The reference's EP path needs a "model" mesh axis; the port routes
-    every call to the einsum path, and says where EP comes."""
-    assert not hasattr(tmoe, "moe_apply_ep")
-    assert "13f" in tmoe.__doc__
+def test_moe_apply_takes_expert_parallelism_under_a_model_axis(
+        monkeypatch):
+    """Under a (2, 4) ``("data", "model")`` CPU slot mesh the layer runs
+    ``moe_apply_ep``; with no mesh, the einsum path; the module says so."""
+    _, cfg = _cfgs()
+    taken = []
+    real = tmoe.moe_apply_ep
+    monkeypatch.setattr(tmoe, "moe_apply_ep",
+                        lambda *a: taken.append(1) or real(*a))
+    rng = np.random.default_rng(0)
+    e, d = cfg.moe, cfg.d_model
+    p = {"router": rng.normal(size=(d, e.num_experts)),
+         "wi": rng.normal(size=(e.num_experts, d, e.d_expert)) * 0.1,
+         "wg": rng.normal(size=(e.num_experts, d, e.d_expert)) * 0.1,
+         "wo": rng.normal(size=(e.num_experts, e.d_expert, d)) * 0.1}
+    p = {k: torch.from_numpy(v.astype(np.float32)) for k, v in p.items()}
+    x = torch.from_numpy(rng.normal(size=(4, 16, d)).astype(np.float32))
+    want, aux_want = tmoe.moe_apply(p, x, cfg)
+    assert not taken
+    mesh = tmesh.make_host_mesh((2, 4), ("data", "model"), device="cpu")
+    with tmeshes.sharding_ctx(mesh):
+        got, aux = tmoe.moe_apply(p, x, cfg)
+    assert taken == [1]
+    # capacity factor 5: no pair drops on either path
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL, atol=TOL)
+    assert abs(float(aux) - float(aux_want)) <= AUX_TOL
+    assert "13f" not in tmoe.__doc__ and "moe_apply_ep" in tmoe.__doc__
 
 
 # -- the reference's expert-parallel path ------------------------------------------
@@ -281,7 +313,7 @@ _EP_SETUPS = {
 
 _EP_REFERENCE = """
     import dataclasses, sys
-    import jax, numpy as np
+    import jax, jax.numpy as jnp, numpy as np
     from repro.configs.base import reduced_config
     from repro.configs.registry import get_config
     from repro.models.transformer import Model
@@ -312,11 +344,22 @@ _EP_REFERENCE = """
             got, _, aux = jax.jit(lambda p, t: model(p, t, mode="train"))(
                 params, x)
         assert taken, name + ": the EP path was not taken"
+
+        def loss(p):
+            with sharding_ctx(mesh, setup["rules"]):
+                logits, _, _ = model(p, x, mode="train")
+            return jnp.mean(logits.astype(jnp.float32) ** 2)
+
+        taken.clear()
+        grads = jax.jit(jax.grad(loss))(params)
+        assert taken, name + ": the EP path was not differentiated"
         out[name + "/logits"] = np.asarray(got, np.float32)
         out[name + "/aux"] = np.asarray(aux, np.float32)
         out[name + "/x"] = np.asarray(x)
         for i, leaf in enumerate(jax.tree.leaves(params)):
             out[f"{name}/leaf{i}"] = np.asarray(leaf)
+        for i, leaf in enumerate(jax.tree.leaves(grads)):
+            out[f"{name}/grad{i}"] = np.asarray(leaf)
     np.savez(sys.argv[1], **out)
     print("OK")
 """
@@ -350,3 +393,103 @@ def test_einsum_path_matches_the_reference_expert_parallel_path(
     np.testing.assert_allclose(_np(got), reference_ep[f"{name}/logits"],
                                rtol=EP_TOL, atol=EP_TOL)
     assert abs(float(aux) - float(reference_ep[f"{name}/aux"])) <= EP_TOL
+
+
+def _reference_params(reference_ep, name, tcfg, rcfg):
+    specs = rtf.param_specs(rcfg)
+    treedef = jax.tree.structure(specs, is_leaf=rparams.is_spec)
+    n = treedef.num_leaves
+    tree = jax.tree.unflatten(
+        treedef, [reference_ep[f"{name}/leaf{i}"] for i in range(n)])
+    return interop.params_from_numpy(tcfg, tree, "cpu"), n
+
+
+@pytest.mark.parametrize("name,variant", [("ep", "ff"),
+                                          ("full_mesh_ep", "full")])
+def test_expert_parallel_path_matches_the_reference(reference_ep, name,
+                                                    variant, monkeypatch):
+    """The port's ``moe_apply_ep`` under a (2, 4) CPU slot mesh against
+    the reference's shard_map path under its 8-device mesh: logits, aux
+    and the gradients of mean(logits²), in f32 at ``TOL``."""
+    rcfg, tcfg = _cfgs(**_EP_SETUPS[name]["moe"])
+    params, n = _reference_params(reference_ep, name, tcfg, rcfg)
+    flat, _ = ttree.flatten(params)
+    for leaf in flat:
+        leaf.requires_grad_(True)
+    x = torch.from_numpy(reference_ep[f"{name}/x"])
+    mesh = tmesh.make_host_mesh((2, 4), ("data", "model"), device="cpu")
+    specs = []
+    real = tmoe.moe_apply_ep
+
+    def recording(p, xx, cfg, m):
+        specs.append(tmoe._ep_specs(m, cfg, xx.shape[1], xx.shape[0]))
+        return real(p, xx, cfg, m)
+
+    monkeypatch.setattr(tmoe, "moe_apply_ep", recording)
+    with tmeshes.sharding_ctx(mesh, _EP_SETUPS[name]["rules"]):
+        logits, _, aux = ttf.Model(tcfg)(params, x, mode="train")
+    assert specs and all(
+        (sp[2] == ("data", "model")) == (variant == "full") and
+        (sp[3] == "ff") == (variant == "ff") for sp in specs), specs
+    np.testing.assert_allclose(_np(logits), reference_ep[f"{name}/logits"],
+                               rtol=TOL, atol=TOL)
+    assert abs(float(aux.detach()) - float(reference_ep[f"{name}/aux"])) \
+        <= AUX_TOL
+    grads = torch.autograd.grad(torch.mean(logits.float() ** 2), flat)
+    assert len(grads) == n
+    for i, g in enumerate(grads):
+        want = reference_ep[f"{name}/grad{i}"]
+        np.testing.assert_allclose(_np(g), want, rtol=TOL,
+                                   atol=TOL * np.abs(want).max(),
+                                   err_msg=f"grad leaf {i}")
+
+
+# (mesh shape, axes or None for no mesh, experts, batch, sequence)
+_RULE_CASES = [
+    ((2, 4), ("data", "model"), 4, 4, 16),         # "ff"
+    ((2, 4), ("data", "model"), 4, 2, 40_000),     # > 65 536 tokens: einsum
+    ((2, 4), ("data", "model"), 8, 2, 40_000),     # full-mesh at any count
+    ((2, 3), ("data", "model"), 4, 4, 16),         # 3 does not divide 4
+    ((4,), ("data",), 4, 4, 16),                   # no "model" axis
+    (None, None, 4, 4, 16),                        # no mesh
+    ((1, 1), ("data", "model"), 4, 4, 16),
+    ((16, 16), ("data", "model"), 16, 8, 8192),    # 65 536 tokens: "ff"
+    ((16, 16), ("data", "model"), 16, 8, 8200),    # 65 600: einsum
+    ((16, 16), ("data", "model"), 256, 256, 4096),  # deepseek-v3 train_4k
+    ((2, 16, 16), ("pod", "data", "model"), 256, 32, 64),
+]
+
+
+@pytest.mark.parametrize("shape,axes,E,B,S", _RULE_CASES)
+def test_moe_apply_chooses_its_path_by_the_reference_rule(
+        shape, axes, E, B, S, monkeypatch):
+    """Both packages' ``moe_apply`` under the same mesh (the port's device
+    free ``AbstractMesh``; the reference's rule reads only its shape),
+    with each path stubbed in the reference and recorded in the port,
+    which runs it on meta tensors."""
+    _, cfg = _cfgs(num_experts=E, top_k=2)
+    mesh = None if shape is None else tmesh.make_host_mesh(shape, axes)
+    chose = {}
+    monkeypatch.setattr(rmoe, "moe_apply_ep",
+                        lambda *a: chose.setdefault("ref", "ep"))
+    monkeypatch.setattr(rmoe, "_moe_apply_einsum",
+                        lambda *a: chose.setdefault("ref", "einsum"))
+    x = torch.empty((B, S, cfg.d_model), device="meta")
+    with (rmeshes.sharding_ctx(mesh) if mesh is not None
+          else rmeshes.sharding_ctx(None)):
+        rmoe.moe_apply(None, x, cfg)
+    real_ep, real_einsum = tmoe.moe_apply_ep, tmoe._moe_apply_einsum
+    monkeypatch.setattr(tmoe, "moe_apply_ep", lambda *a: chose.setdefault(
+        "port", "ep") and real_ep(*a))
+    monkeypatch.setattr(tmoe, "_moe_apply_einsum", lambda *a: chose.setdefault(
+        "port", "einsum") and real_einsum(*a))
+    e, d = cfg.moe, cfg.d_model
+    p = {"router": torch.empty((d, E), device="meta"),
+         "wi": torch.empty((E, d, e.d_expert), device="meta"),
+         "wg": torch.empty((E, d, e.d_expert), device="meta"),
+         "wo": torch.empty((E, e.d_expert, d), device="meta")}
+    with tmeshes.sharding_ctx(mesh):
+        y, aux = tmoe.moe_apply(p, x, cfg)
+    assert tuple(y.shape) == (B, S, d) and aux.shape == ()
+    assert chose["port"] == chose["ref"], chose
+    assert tmoe.takes_ep(cfg, mesh, B * S) == (chose["port"] == "ep")

@@ -787,14 +787,33 @@ def test_async_checkpointer_raises_the_writers_error(tmp_path):
         w.wait()
 
 
-def test_restore_onto_shardings_and_elastic_reshard_name_their_item(
+def test_restore_onto_shardings_and_elastic_reshard_place_shards(
         tmp_path):
-    state = {"x": torch.zeros(2)}
+    """A reduced qwen3-4b state saved, then ``elastic_reshard`` onto a
+    (2, 2) CPU slot mesh and ``restore(shardings=)`` onto a (1, 4) one:
+    each leaf a ``ShardedTensor`` whose slots hold their blocks of the
+    saved leaf, views of one tensor."""
+    from repro_torch.distributed import meshes
+    from repro_torch.launch import mesh as tmesh
+    cfg = tbase.reduced_config(treg.get_config("qwen3-4b"))
+    state = tts.init_state(cfg, topt.OptConfig(), 0, device="cpu")
     tckpt.save(tmp_path, 1, state)
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        tckpt.restore(tmp_path, 1, state, shardings={"x": None})
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        tft.elastic_reshard(tmp_path, 1, state, {"x": ()}, None)
+    want = tree.leaves(state)
+    grid = tmesh.make_host_mesh((2, 2), ("data", "model"), device="cpu")
+    line = tmesh.make_host_mesh((1, 4), ("data", "model"), device="cpu")
+    got = [tft.elastic_reshard(tmp_path, 1, state, tts.state_axes(cfg),
+                               grid),
+           tckpt.restore(tmp_path, 1, state, shardings=meshes.tree_shardings(
+               tts.state_axes(cfg), state, line))]
+    for placed, mesh in zip(got, (grid, line)):
+        for leaf, w in zip(tree.leaves(placed), want):
+            assert isinstance(leaf, meshes.ShardedTensor)
+            base = leaf.shards[0].untyped_storage().data_ptr()
+            for slot, shard in enumerate(leaf.shards):
+                assert shard.untyped_storage().data_ptr() == base
+                assert torch.equal(shard, w.detach()[meshes.shard_slices(
+                    tuple(w.shape), leaf.spec, mesh, slot)])
+            assert torch.equal(leaf.gather(), w.detach())
 
 
 def test_tree_order_and_description_are_jax_s():
