@@ -407,9 +407,17 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    Reported beside them: the predicted peak against ``train_path``'s
    measured peak (and their ratio), and the counted FLOPs over the median
    step's seconds as TFLOP/s beside the card's 989, with the card's name
-   and power limit.  (3) qwen3-4b ``train_4k``, deepseek-v3-671b
-   ``decode_32k`` and mamba2-1.3b ``long_500k`` traced on the 16 x 16
-   mesh: per-device bytes, the dominant term and the trace's seconds.
+   and power limit; each of these one-device cells must price no
+   collective and count per device what it counts in all.  (3) qwen3-4b
+   ``train_4k``, deepseek-v3-671b ``decode_32k`` and mamba2-1.3b
+   ``long_500k`` traced on the 16 x 16 mesh: per-device bytes, the
+   collective term (link bytes per device, their count, ``t_collective``),
+   the dominant of the three terms, the ops that fell back to gathers and
+   the trace's seconds.  (4) The layout search
+   (``distributed.autoshard.circulant_autoshard``) on qwen3-4b
+   ``decode_32k``, 4 evaluations in one round, cached in a temporary
+   directory: its history and best record on a line of its own; its wall
+   seconds, the time this phase adds for it, must stay under 60.
 7h. ``dense_serve_path``  after ``mla_serve_path``, once per dense config
    at its published widths and full depth, bf16 weights drawn on the
    card from a seed with ``param_count()`` asserted: deepseek-7b (30
@@ -522,6 +530,7 @@ import io
 import json
 import math
 import os
+import pathlib
 import re
 import shutil
 import subprocess
@@ -558,6 +567,7 @@ from repro_torch.core.pattern import (Pattern, chain,       # noqa: E402
                                       tailed_triangle)
 from repro_torch.distributed.cutjoin import MeshExecutor    # noqa: E402
 from repro_torch.distributed.contract import Sliced        # noqa: E402
+from repro_torch.distributed import autoshard               # noqa: E402
 from repro_torch.distributed.meshes import (               # noqa: E402
     ShardedTensor, data_mesh, shard_slices, sharding_ctx)
 from repro_torch.graph.generators import erdos_renyi, rmat  # noqa: E402
@@ -5795,6 +5805,8 @@ DRYRUN_PRODUCTION = (("qwen3-4b", "train_4k"), ("deepseek-v3-671b",
                                                 "decode_32k"),
                      ("mamba2-1.3b", "long_500k"))
 DRYRUN_CELLS, DRYRUN_SKIPS = 32, 8          # applicable cells a mesh, skips
+AUTOSHARD_CELL = ("qwen3-4b", "decode_32k", "single")
+AUTOSHARD_EVALS, AUTOSHARD_MAX_S = 4, 60.0
 
 
 def allocation_free(label: str, fn, *args, **kwargs):
@@ -5835,10 +5847,14 @@ def abstract_cells(mesh_kind: str) -> dict:
 
 def card_cell(cfg, shape, microbatches=None) -> dict:
     """``cfg`` at ``shape`` traced on a (1, 1) host mesh: per-device is
-    the whole cell."""
+    the whole cell, and nothing moves between devices."""
     mesh = make_host_mesh((1, 1), ("data", "model"))
-    return dryrun.analyze_cell(cfg, shape, mesh, dryrun.rules_for(cfg, shape),
-                               microbatches)
+    rec = dryrun.analyze_cell(cfg, shape, mesh,
+                              dryrun.rules_for(cfg, shape), microbatches)
+    assert rec["num_collectives"] == 0 and rec["t_collective"] == 0, rec
+    assert rec["flops_per_device"] == rec["flops_total"], rec
+    assert rec["hbm_bytes_per_device"] == rec["hbm_bytes_total"], rec
+    return rec
 
 
 def beside_train(label: str, cfg, ran: dict) -> dict:
@@ -5861,6 +5877,7 @@ def beside_train(label: str, cfg, ran: dict) -> dict:
             "peak_est_over_device": mem["peak_est_bytes"]
             / ran["peak_device_bytes"],
             "flops": rec["flops_per_device"],
+            "num_collectives": rec["num_collectives"],
             "seconds_per_step_median_2_3": seconds,
             "achieved_tflops": rec["flops_per_device"] / seconds / 1e12,
             "peak_tflops": dryrun.PEAK_FLOPS / 1e12,
@@ -5895,6 +5912,7 @@ def phase_dryrun_path(train: dict, served: dict, smi: str) -> dict:
                "card_param_cache_and_input_bytes": allocated,
                "serve_path_peak_device_bytes": served["peak_device_bytes"],
                "flops": rec["flops_per_device"],
+               "num_collectives": rec["num_collectives"],
                "hbm_bytes": rec["hbm_bytes_per_device"],
                "t_memory_ms": rec["t_memory"] * 1e3,
                "decode_step_ms_median_graphed":
@@ -5905,16 +5923,54 @@ def phase_dryrun_path(train: dict, served: dict, smi: str) -> dict:
     for arch, name in DRYRUN_PRODUCTION:
         r = allocation_free(f"{arch} {name}", dryrun.run_cell, arch, name,
                             "single", save=False)
+        assert r["num_collectives"] > 0 and r["t_collective"] > 0, r
         production.append({k: r[k] for k in (
             "arch", "shape", "mesh", "chips", "memory", "flops_per_device",
-            "hbm_bytes_per_device", "t_compute", "t_memory", "dominant",
+            "flops_total", "hbm_bytes_per_device", "t_compute", "t_memory",
+            "collective_traffic_per_device", "num_collectives",
+            "t_collective", "dominant", "fallback_gathers",
             "useful_flops_ratio", "lower_s")})
+    searched = allocation_free("autoshard", layout_search)
+    assert searched["seconds"] < AUTOSHARD_MAX_S, searched
     out = {"card": smi, "build_s": build_s, "abstract_cells": built,
            "card_cells": {"train": trained, "decode": decoded},
            "production_single": production,
+           "autoshard_seconds": searched["seconds"],
            "seconds": time.perf_counter() - t0}
     emit("dryrun_path", **out)
     return out
+
+
+def layout_search() -> dict:
+    """``circulant_autoshard`` on ``AUTOSHARD_CELL`` with a budget of
+    ``AUTOSHARD_EVALS`` evaluations in one round, its records cached in a
+    temporary directory: prints its history and best record."""
+    arch, shape, mesh_kind = AUTOSHARD_CELL
+    saved = autoshard.CACHE_DIR
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        autoshard.CACHE_DIR = pathlib.Path(tmp)
+        try:
+            assign, best, history = autoshard.circulant_autoshard(
+                arch, shape, mesh_kind, budget_evals=AUTOSHARD_EVALS,
+                max_rounds=1, log=lambda *a: None)
+        finally:
+            autoshard.CACHE_DIR = saved
+    seconds = time.perf_counter() - t0
+    assert len(history) == AUTOSHARD_EVALS, history
+
+    def plain(a):
+        return {k: list(v) if isinstance(v, tuple) else v
+                for k, v in a.items()}
+    emit("dryrun_autoshard", cell=list(AUTOSHARD_CELL),
+         history=[[plain(a), c] for a, c in history],
+         best_assignment=plain(assign),
+         best={k: best[k] for k in (
+             "t_compute", "t_memory", "t_collective", "dominant",
+             "num_collectives", "collective_traffic_per_device",
+             "useful_flops_ratio", "lower_s")},
+         seconds=seconds)
+    return {"seconds": seconds, "history": history}
 
 
 # -- phase 7j -----------------------------------------------------------------------

@@ -34,6 +34,12 @@ run's meshes are device-free (``AbstractMesh``), a live one is a
 ``constrain(x, *axes)`` resolves x's spec under the active mesh as the
 reference's does (its rank checked) and returns x: one process holds the
 whole tensor, so the pin only records the layout the reference asks for.
+While the dry run traces a step (``launch.dryrun.trace``), a *recorder*
+is active: ``constrain`` then reports x and its resolved spec to it (and
+the gradient's, in the backward, as ``with_sharding_constraint``'s
+transpose does), and ``pin``, ``exchange`` and ``slot_local`` tell it
+what the expert-parallel MoE's slot axis is and what its exchanges move.
+Without a recorder each of them returns its argument and does nothing.
 ``place`` lays a whole tensor out on a live mesh as a ``ShardedTensor``,
 one shard per slot (slots that share a device get views of one tensor);
 ``train.checkpoint.restore(shardings=)`` and
@@ -214,6 +220,7 @@ class _Ctx(threading.local):
     def __init__(self):
         self.mesh = None
         self.rules: Optional[dict] = None
+        self.recorder = None
 
 
 _CTX = _Ctx()
@@ -236,21 +243,35 @@ def active_mesh():
 
 
 def active_ctx() -> tuple:
-    """This thread's (mesh, rules), for ``under_ctx`` to set again."""
-    return _CTX.mesh, _CTX.rules
+    """This thread's (mesh, rules, recorder), for ``under_ctx`` to set
+    again."""
+    return _CTX.mesh, _CTX.rules, _CTX.recorder
 
 
 @contextlib.contextmanager
 def under_ctx(ctx: tuple):
-    """Run the block under a (mesh, rules) pair from ``active_ctx``: a
-    layer recomputed in the backward (remat) runs under the mesh its
-    forward ran under, wherever the backward is called."""
-    prev = (_CTX.mesh, _CTX.rules)
-    _CTX.mesh, _CTX.rules = ctx
+    """Run the block under a (mesh, rules, recorder) triple from
+    ``active_ctx``: a layer recomputed in the backward (remat) runs under
+    the mesh and recorder its forward ran under, wherever the backward is
+    called."""
+    prev = active_ctx()
+    _CTX.mesh, _CTX.rules, _CTX.recorder = ctx
     try:
         yield
     finally:
-        _CTX.mesh, _CTX.rules = prev
+        _CTX.mesh, _CTX.rules, _CTX.recorder = prev
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Make ``recorder`` this thread's recorder for the block (the dry
+    run's meter, ``launch.dryrun.trace``)."""
+    prev = _CTX.recorder
+    _CTX.recorder = recorder
+    try:
+        yield
+    finally:
+        _CTX.recorder = prev
 
 
 def current_rules() -> dict:
@@ -320,12 +341,79 @@ def sharding_for(axes: tuple, shape: tuple, mesh=None,
 def constrain(x, *axes):
     """The reference's ``with_sharding_constraint`` by logical axis names:
     under an active mesh, x's spec is resolved by ``sharding_for`` (which
-    checks that ``axes`` name every dim); x is returned as it is, whole.
-    Nothing is done without a mesh."""
+    checks that ``axes`` name every dim); x is returned as it is, whole,
+    or, under a recorder, as ``pin`` returns it.  Nothing is done without
+    a mesh."""
     if _CTX.mesh is None:
         return x
-    sharding_for(tuple(axes), tuple(x.shape))
-    return x
+    s = sharding_for(tuple(axes), tuple(x.shape))
+    return pin(x, s.spec)
+
+
+class _Pin(torch.autograd.Function):
+    """Identity whose backward reports the gradient at the same spec."""
+
+    @staticmethod
+    def forward(ctx, x, spec, rec):
+        ctx.spec, ctx.rec = spec, rec
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.rec.pin(g, ctx.spec)
+        return g, None, None
+
+
+class _Exchange(torch.autograd.Function):
+    """Identity whose backward reports the transposed exchange: the
+    gradient goes back to the input's layout."""
+
+    @staticmethod
+    def forward(ctx, x, moved, rec):
+        ctx.rec, ctx.moved = rec, moved
+        ctx.back = rec.dims_of(x)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.rec.exchange(g, ctx.back, ctx.moved, transpose=True)
+        return g, None, None
+
+
+def pin(x, spec: tuple):
+    """Under a recorder, x laid out at the resolved ``spec``: the recorder
+    prices the move from x's layout (a slice is free; a gather, or a
+    pending sum settled, is a collective) and the gradient's move back in
+    the backward.  Otherwise x itself."""
+    rec = _CTX.recorder
+    if rec is None:
+        return x
+    y = _Pin.apply(x, spec, rec)
+    rec.pin(y, spec)
+    return y
+
+
+def exchange(x, spec: tuple, moved: list):
+    """Under a recorder, x laid out at ``spec`` by the collectives
+    ``moved`` ((op, per-device result bytes, group) each), which the
+    caller computed from its shapes: the recorder records them (and their
+    transposes in the backward) and prices nothing else.  Otherwise x
+    itself.  The expert-parallel MoE's exchanges over its slot axis."""
+    rec = _CTX.recorder
+    if rec is None:
+        return x
+    y = _Exchange.apply(x, moved, rec)
+    rec.exchange(y, rec.dims(spec), moved)
+    return y
+
+
+def slot_local(index):
+    """Under a recorder, mark ``index`` as holding each slot's indices into
+    that slot's own rows, so that gathering and scattering by it along a
+    dim split over the slots moves nothing between devices."""
+    if _CTX.recorder is not None:
+        _CTX.recorder.slot_local(index)
+    return index
 
 
 def _is_axes(t) -> bool:

@@ -33,6 +33,17 @@ read as views of the stacked leaves, never copied.  The body runs on x's
 device: a live mesh whose slots lie on another device, or on more than
 one, is refused (``NotImplementedError``).  Logical shardings are pinned
 with ``distributed.meshes.constrain`` where the reference pins them.
+
+Under the dry run's recorder (``distributed.meshes``) the body tells it
+what the slot axis is: the body's inputs are pinned to the slot axis
+(``pin``, the shard_map's in_specs), the dispatch index is slot-local
+(``slot_local``; so is the einsum path's, whose pairs address their own
+example's rows, as the reference's vmap over examples keeps them), and
+each exchange sets its result's layout and reports what it moves
+(``exchange``): the dispatch and return all-to-alls over a group of g
+slots and, for ``"ff"``, the token all-gather over data and the psum,
+each at its per-device result bytes.  Without a recorder these calls
+return their argument.
 """
 from __future__ import annotations
 
@@ -160,7 +171,8 @@ def _moe_apply_einsum(p, x, cfg):
     # flat (b, e, c) slot of every pair; a kept pair owns its slot, so
     # index_add is exact in any order (dropped pairs add zeros at C - 1)
     base = torch.arange(B, device=x.device)[:, None] * (E * C)
-    slot = (base + r.idx * C + torch.clamp(r.pos, max=C - 1)).reshape(-1)
+    slot = meshes.slot_local(     # an example's pairs address its own rows
+        (base + r.idx * C + torch.clamp(r.pos, max=C - 1)).reshape(-1))
 
     vals = x[:, :, None, :].expand(B, S, k, d).reshape(B, S * k, d)
     vals = vals * r.keep[..., None].to(x.dtype)
@@ -299,12 +311,16 @@ def ep_routing(p, x, cfg, mesh) -> EPRouting:
     xb = _to_slots(x, xs, mesh, axes)                 # (*grid, Bl, Sl, d)
     grid = tuple(xb.shape[:len(axes)])
     G, T = math.prod(grid), xb.shape[-3] * xb.shape[-2]
-    idx_f = _to_slots(idx, tok_spec, mesh, axes).reshape(G, T * k)
+    on_slots = (axes, None)                           # G is the device axis
+    idx_f = meshes.pin(_to_slots(idx, tok_spec, mesh, axes).reshape(
+        G, T * k), on_slots)
     C = capacity(T, k, e.num_experts, e.capacity_factor)
     _, pos = _slots_of(idx_f, e.num_experts)
     return EPRouting(probs, idx, xs, axes, grid, tuple(xb.shape[-3:-1]),
-                     xb.reshape(G, T, d), idx_f,
-                     _to_slots(w, tok_spec, mesh, axes).reshape(G, T * k),
+                     meshes.pin(xb.reshape(G, T, d), on_slots + (None,)),
+                     idx_f,
+                     meshes.pin(_to_slots(w, tok_spec, mesh, axes).reshape(
+                         G, T * k), on_slots),
                      pos, pos < C, C)
 
 
@@ -326,7 +342,8 @@ def moe_apply_ep(p, x, cfg, mesh):
     G, T, _ = r.x.shape
     C, keep = r.C, r.keep
     base = torch.arange(G, device=x.device)[:, None] * (E * C)
-    slot = (base + r.idx_f * C + torch.clamp(r.pos, max=C - 1)).reshape(-1)
+    slot = meshes.slot_local(
+        (base + r.idx_f * C + torch.clamp(r.pos, max=C - 1)).reshape(-1))
     vals = r.x[:, :, None, :].expand(G, T, k, d).reshape(G, T * k, d)
     vals = vals * keep[..., None].to(x.dtype)
     buf = torch.zeros((G * E * C, d), dtype=x.dtype, device=x.device)
@@ -336,6 +353,11 @@ def moe_apply_ep(p, x, cfg, mesh):
     y = out.reshape(G * E * C, d).index_select(0, slot)
     y = y.reshape(G, T * k, d) * (r.w_f * keep.to(r.w_f.dtype))[..., None]
     y = y.reshape(*r.grid, *r.block, k, d).sum(dim=-2)
+    # the out_specs: slots a token spec does not split over hold the same
+    # rows (the reference's check_vma=False), read from the first
+    split = {ax for entry in r.xs for ax in meshes.entry_axes(entry)}
+    y = meshes.exchange(y, tuple(ax if ax in split else None
+                                 for ax in r.axes) + (None,) * 3, [])
     y = _from_slots(y, r.xs, r.axes, (B, S, d))
 
     if e.num_shared:
@@ -381,8 +403,13 @@ def _experts(p, buf, mesh, ep_axes, wshard):
     O = G // g                                     # groups
     El = E // g
     f = p["wi"].shape[-1]
+    slots = _slot_axes(mesh)
+    outer = tuple(ax for ax in slots if ax not in ep_axes) or None
+    per_slot = buf.numel() * buf.element_size() // G
     recv = buf.reshape(O, g, g, El, C, d).permute(0, 2, 3, 1, 4, 5)
-    recv = recv.reshape(O, g, El, g * C, d)        # (group, owner, ...)
+    recv = meshes.exchange(recv.reshape(O, g, El, g * C, d),
+                           (outer, ep_axes, None, None, None),
+                           [("all-to-all", per_slot, g)])  # (group, owner)
     wi, wg, wo = owner_weights(p, mesh, ep_axes, wshard)
     if wshard == "ff":
         # tokens gathered over the data axis (every data slot of a model
@@ -391,13 +418,19 @@ def _experts(p, buf, mesh, ep_axes, wshard):
         # psum), each slot keeping its own tokens
         O2 = O // Dn
         Cg = Dn * g * C
+        rest = tuple(ax for ax in slots if ax not in ("data", "model")) \
+            or None
         bufg = recv.reshape(O2, Dn, M, El, g * C, d).permute(
             0, 2, 3, 1, 4, 5).reshape(O2, M, El, Cg, d)
+        bufg = meshes.exchange(bufg, (rest, "model", None, None, None),
+                               [("all-gather", Dn * per_slot, Dn)])
         h = F.silu(torch.einsum("omecd,medf->omecf", bufg, wi))
         h = h * torch.einsum("omecd,medf->omecf", bufg, wg)
         h = h.reshape(O2, M, El, Cg, Dn, f // Dn)
         part = torch.einsum("omecnf,menfd->onmecd", h, wo)
-        outg = part.sum(dim=1)                     # (O2, M, El, Cg, d)
+        outg = meshes.exchange(part.sum(dim=1),    # (O2, M, El, Cg, d)
+                               (rest, "model", None, None, None),
+                               [("all-reduce", Dn * per_slot, Dn)])
         out = outg.reshape(O2, M, El, Dn, g * C, d).permute(0, 3, 1, 2, 4, 5)
         out = out.reshape(O, g, El, g * C, d)
     else:
@@ -405,7 +438,9 @@ def _experts(p, buf, mesh, ep_axes, wshard):
         h = h * torch.einsum("ojecd,jedf->ojecf", recv, wg)
         out = torch.einsum("ojecf,jefd->ojecd", h, wo)
     back = out.reshape(O, g, El, g, C, d).permute(0, 3, 1, 2, 4, 5)
-    return back.reshape(G, E, C, d)
+    return meshes.exchange(back.reshape(G, E, C, d),
+                           (slots, None, None, None),
+                           [("all-to-all", per_slot, g)])
 
 
 class RoutingReport(NamedTuple):

@@ -25,6 +25,14 @@ compiles four reduced cells on a (2, 4) host mesh and writes XLA's
   * FLOPs: the meta count of reduced steps equal to ``FlopCounterMode``'s
     count of the same steps run on CPU tensors; the dense reduced train
     cell's count equal to a closed form.
+  * Per device and collectives: each reduced cell's collectives, traffic
+    and FLOPs per device beside the reference's ``hlo_analysis.analyze``
+    of the same compiled cell (both non-zero; equality is not expected:
+    XLA picks its own collectives); on a (1, 1) mesh no collective and
+    per-device counts equal to the totals; a pure data-parallel step
+    all-reduces each gradient once; the expert-parallel exchanges equal
+    their closed form; two ``heads`` layouts price differently; the memo
+    keyed on operand layouts.
   * The meter on small functions, the mesh factories, and the CLI in a
     subprocess with CUDA hidden (CUDA never initialised).
 """
@@ -42,7 +50,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs.base import (SHAPES, cell_is_applicable,
                                       input_specs, reduced_config)
 from repro_torch.configs.registry import ARCH_IDS, get_config
-from repro_torch.distributed import meshes
+from repro_torch.distributed import collectives, meshes
 from repro_torch.launch import dryrun, mesh as tmesh
 from repro_torch.models.transformer import Model
 from repro_torch.train import tree
@@ -149,6 +157,7 @@ _REDUCED = """
     from repro.launch.dryrun import build_cell, rules_for
     from repro.configs.base import SHAPES, reduced_config
     from repro.configs.registry import get_config
+    from repro.distributed import hlo_analysis
     from repro.distributed.meshes import sharding_ctx
     from repro.launch.mesh import make_host_mesh
     mesh = make_host_mesh((2, 4), ("data", "model"))
@@ -164,11 +173,16 @@ _REDUCED = """
             c = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh,
                         donate_argnums=donate).lower(*args).compile()
         m = c.memory_analysis()
+        r = hlo_analysis.analyze(c, 8)
         out[arch + "|" + name] = {
             "argument_bytes": m.argument_size_in_bytes,
             "output_bytes": m.output_size_in_bytes,
             "alias_bytes": m.alias_size_in_bytes,
-            "temp_bytes": m.temp_size_in_bytes}
+            "temp_bytes": m.temp_size_in_bytes,
+            "collective_traffic_per_device":
+                r.collective_traffic_per_device,
+            "num_collectives": r.num_collectives,
+            "flops_per_device": r.flops_per_device}
     with open(OUT, "w") as f:
         json.dump(out, f)
 """
@@ -361,8 +375,35 @@ def test_reduced_cell_bytes_equal_xla(reference, arch, shape):
                                      + got["output_bytes"]
                                      - got["alias_bytes"])
     assert rec["chips"] == 8 and rec["compile_s"] is None
-    assert rec["t_collective"] is None and rec["dominant"] in ("compute",
-                                                               "memory")
+    assert rec["num_collectives"] > 0
+    assert rec["t_collective"] == rec["collective_traffic_per_device"] \
+        / dryrun.LINK_BW > 0
+    assert rec["dominant"] == max(
+        ("compute", "memory", "collective"), key=lambda k: rec["t_" + k])
+
+
+@pytest.mark.parametrize("arch,shape", REDUCED)
+def test_reduced_collectives_beside_the_reference(reference, arch, shape):
+    """The port's collectives, link traffic and FLOPs per device on the
+    reduced cell beside what the reference's ``hlo_analysis`` reads from
+    XLA's compiled program: both find collectives (not equal: XLA picks
+    its own), and the link bytes and FLOPs per device lie within a factor
+    of two of the reference's (``PERF.md`` §6 has the ratios, 0.72 to
+    1.27 and 0.82 to 0.97).  The line printed is ``PERF.md``'s (run with
+    ``-s``)."""
+    xla = reference[1][f"{arch}|{shape}"]
+    cfg, sh = _reduced_cell(arch, shape)
+    mesh = tmesh.make_host_mesh((2, 4), ("data", "model"))
+    rec = dryrun.analyze_cell(cfg, sh, mesh, dryrun.rules_for(cfg, sh),
+                              microbatches=2)
+    keys = ("num_collectives", "collective_traffic_per_device",
+            "flops_per_device")
+    side = {k: {"port": rec[k], "reference": xla[k]} for k in keys}
+    print(json.dumps({"cell": f"{arch}|{shape}", **side}))
+    for k in keys:
+        assert side[k]["port"] > 0 and side[k]["reference"] > 0, (k, side)
+    for k in ("collective_traffic_per_device", "flops_per_device"):
+        assert 0.5 <= side[k]["port"] / side[k]["reference"] <= 2, (k, side)
 
 
 # -- FLOPs ----------------------------------------------------------------------
@@ -433,7 +474,7 @@ def test_dense_reduced_train_flops_equal_the_closed_form():
     mesh = tmesh.make_host_mesh((2, 4), ("data", "model"))
     rec = dryrun.analyze_cell(cfg, sh, mesh, dryrun.rules_for(cfg, sh),
                               microbatches=2)
-    assert rec["flops_per_device"] * rec["chips"] == want
+    assert rec["flops_total"] == want
 
 
 # -- the meter -----------------------------------------------------------------
@@ -476,24 +517,65 @@ def test_meter_memo_counts_what_the_first_call_counted():
     assert memo["bytes"] == 3 * 8000 and memo["ops"] == 6
 
 
+class _NoMemo(dict):
+    """A memo that keeps nothing: every op is planned afresh."""
+
+    def __setitem__(self, key, value):
+        pass
+
+
+def _memo_off(monkeypatch):
+    init = dryrun._Meter.__init__
+
+    def without(self, *a, **kw):
+        init(self, *a, **kw)
+        self.memo = _NoMemo()
+
+    monkeypatch.setattr(dryrun._Meter, "__init__", without)
+
+
 @pytest.mark.parametrize("arch,shape", REDUCED)
 def test_memo_changes_no_count(monkeypatch, arch, shape):
-    """The whole reduced cell traced with the memo and without it (no
-    layout is ever kept): every count equal."""
+    """The whole reduced cell traced on its (2, 4) mesh from its input
+    shardings to its output shardings, with the memo and with a memo that
+    keeps nothing: every count equal — FLOPs and bytes per device, the
+    collectives, the fallback gathers."""
     cfg, sh = _reduced_cell(arch, shape)
     mesh = tmesh.make_host_mesh((2, 4), ("data", "model"))
 
     def counts():
         rules = dryrun.rules_for(cfg, sh)
         with meshes.sharding_ctx(mesh, rules):
-            fn, args, *_ = dryrun.build_cell(cfg, sh, mesh, rules,
-                                             microbatches=2)
-            c = dryrun.trace(fn, args, (sh.seq, cfg.flash_block))[1]
+            fn, args, in_sh, out_sh, _ = dryrun.build_cell(
+                cfg, sh, mesh, rules, microbatches=2)
+            c = dryrun.trace(fn, args, (sh.seq, cfg.flash_block), mesh,
+                             in_sh, out_sh)[1]
         return {k: v for k, v in c.items() if k != "seconds"}
 
     with_memo = counts()
-    monkeypatch.setattr(dryrun, "_layout", lambda out: None)
+    assert with_memo["num_collectives"] > 0
+    _memo_off(monkeypatch)
     assert counts() == with_memo
+
+
+def test_memo_replans_a_split_after_its_merge():
+    """A reshape's layout depends on the merges the trace remembers: a
+    split planned before a merge was remembered is planned again after
+    it, and then gives the merged dims their axes back (no gather)."""
+    mesh = tmesh.make_host_mesh((2, 4), ("data", "model"))
+
+    def f(y, x, y2):
+        y.view(4, 2)                        # split, no merge remembered
+        x.reshape(8)                        # merges (4, 2) -> 8 over data
+        return y2.view(4, 2) + x            # the split undoes that merge
+
+    args = (_meta(8), _meta(4, 2), _meta(8))
+    in_sh = tuple(meshes.NamedSharding(mesh, s) for s in
+                  (("data",), (None, "data"), ("data",)))
+    out_sh = meshes.NamedSharding(mesh, (None, "data"))
+    c = dryrun.trace(f, args, mesh=mesh, in_shardings=in_sh,
+                     out_shardings=out_sh)[1]
+    assert c["num_collectives"] == 0, c["collectives"]
 
 
 def test_meter_counts_matmul_flops_and_score_bytes():
@@ -507,6 +589,125 @@ def test_meter_counts_matmul_flops_and_score_bytes():
     _, c = dryrun.trace(f, (_meta(2, 64, 8), _meta(2, 16, 8)),
                         score_dims=(64, 64))
     assert c["score_bytes"] == 0
+
+
+# -- per device and collectives -----------------------------------------------
+
+@pytest.mark.parametrize("arch,shape", REDUCED)
+def test_one_device_moves_nothing_and_counts_everything(arch, shape):
+    cfg, sh = _reduced_cell(arch, shape)
+    mesh = tmesh.make_host_mesh((1, 1), ("data", "model"))
+    rec = dryrun.analyze_cell(cfg, sh, mesh, dryrun.rules_for(cfg, sh),
+                              microbatches=2)
+    assert rec["num_collectives"] == 0 and rec["t_collective"] == 0
+    assert rec["collective_summary"] == [] and rec["fallback_gathers"] == {}
+    assert rec["flops_per_device"] == rec["flops_total"] > 0
+    assert rec["hbm_bytes_per_device"] == rec["hbm_bytes_total"] > 0
+
+
+def test_pure_data_parallel_step_all_reduces_each_gradient_once():
+    """Reduced qwen3-4b, 16 x 128 tokens in 2 microbatches, every weight
+    whole on every device and the batch over ("data", "model"): each
+    parameter's gradient (f32, summed over both microbatches first) is
+    all-reduced over the 8 devices once.  Besides: each microbatch's loss
+    scalar, settled where the aux term is added to it, and the microbatch
+    split — row block i of the batch lies on data row i, and
+    ``_split_micro`` pins each microbatch's rows over both axes, so
+    inputs and labels are gathered over data."""
+    cfg, sh = _reduced_cell("qwen3-4b", "train_4k")
+    sh = dataclasses.replace(sh, batch=16)
+    rules = {k: () for k in meshes.DEFAULT_RULES}
+    rules["batch"] = ("data", "model")
+    mesh = tmesh.make_host_mesh((2, 4), ("data", "model"))
+    rec = dryrun.analyze_cell(cfg, sh, mesh, rules, microbatches=2)
+    want = collectives.Collectives()
+    params = abstract_state(cfg, OptConfig())["params"]
+    for p in tree.leaves(params):
+        want.add("all-reduce", p.numel() * 4, 8)
+    want.add("all-reduce", 4, 8, mult=2)
+    for t in input_specs(cfg, sh).values():
+        want.add("all-gather", t.numel() * t.element_size() // 4, 2)
+    assert rec["num_collectives"] == want.count == len(tree.leaves(params)) \
+        + 4
+    assert rec["collective_traffic_per_device"] == want.traffic
+    assert rec["collective_summary"] == want.summary()
+    assert rec["flops_per_device"] == rec["flops_total"] / 8
+
+
+def _ep_cell(mesh_shape):
+    cfg, sh = _reduced_cell("deepseek-v3-671b", "decode_32k")
+    return cfg, sh, tmesh.make_host_mesh(mesh_shape, ("data", "model"))
+
+
+@pytest.mark.parametrize("mesh_shape,variant", [((2, 4), "ff"),
+                                                ((1, 4), "full")])
+def test_ep_exchanges_equal_their_closed_form(monkeypatch, mesh_shape,
+                                              variant):
+    """Reduced deepseek-v3's decode step (E = 4 experts, top-2) takes the
+    expert-parallel path: "ff" on (2, 4), full-mesh EP on (1, 4).  Per MoE
+    layer the dispatch and the return are all-to-alls over the group g of
+    slots an expert's tokens come from, each slot sending its whole (E, C,
+    d) buffer (C = capacity(T, k, E, factor) for its T tokens); "ff" also
+    gathers each group's tokens over data and psums the partial outputs
+    over data, data times that buffer each (``chip_smoke.py``'s
+    ``ep_exchange_bytes`` counts the same buffers over every slot)."""
+    from repro_torch.models import moe as moe_mod
+    cfg, sh, mesh = _ep_cell(mesh_shape)
+    calls = []
+    real = moe_mod.moe_apply_ep
+    monkeypatch.setattr(moe_mod, "moe_apply_ep",
+                        lambda *a: calls.append(a) or real(*a))
+    rules = dryrun.rules_for(cfg, sh)
+    with meshes.sharding_ctx(mesh, rules):
+        fn, args, in_sh, out_sh, _ = dryrun.build_cell(cfg, sh, mesh, rules)
+        _, counts = dryrun.trace(fn, args, None, mesh, in_sh, out_sh)
+    e = cfg.moe
+    moe_layers = cfg.num_layers - cfg.dense_prefix
+    assert len(calls) == moe_layers
+    D, M = mesh_shape
+    g = M if variant == "ff" else D * M
+    T = (sh.batch // D) * 1                 # one position; S = 1 < M
+    C = moe_mod.capacity(T, e.top_k, e.num_experts, e.capacity_factor)
+    buf = e.num_experts * C * cfg.d_model * 4
+    got = {(c["op"], c["result_bytes"], c["group"]): c["mult"]
+           for c in counts["collectives"]}
+    assert got[("all-to-all", buf, g)] == 2 * moe_layers
+    assert sum(m for (op, _, _), m in got.items() if op == "all-to-all") \
+        == 2 * moe_layers
+    if variant == "ff":
+        assert got[("all-gather", D * buf, D)] == moe_layers
+        assert got[("all-reduce", D * buf, D)] == moe_layers
+
+
+def test_the_layout_changes_the_price():
+    """Reduced qwen3-4b's train step on (2, 4) with the heads over model
+    and with them whole: different compute and collective terms, so the
+    layout search's objective depends on the layout."""
+    cfg, sh = _reduced_cell("qwen3-4b", "train_4k")
+    mesh = tmesh.make_host_mesh((2, 4), ("data", "model"))
+    recs = [dryrun.analyze_cell(cfg, sh, mesh,
+                                dryrun.rules_for(cfg, sh, {"heads": h}),
+                                microbatches=2)
+            for h in (("model",), ())]
+    assert recs[0]["t_compute"] != recs[1]["t_compute"]
+    assert recs[0]["t_collective"] != recs[1]["t_collective"]
+    assert recs[0]["flops_total"] == recs[1]["flops_total"]
+
+
+def test_memo_keys_on_operand_layouts():
+    """One product on operands of equal shapes, once with its contraction
+    split on one side and once whole: the second is no memo hit of the
+    first (it moves nothing)."""
+    mesh = tmesh.make_host_mesh((2, 4), ("data", "model"))
+    args = (_meta(8, 16), _meta(8, 16), _meta(16, 32))
+    specs = ((None, "model"), (None, None), (None, None))
+    in_sh = tuple(meshes.NamedSharding(mesh, s) for s in specs)
+    _, c = dryrun.trace(lambda a, b, w: (a @ w, b @ w), args, mesh=mesh,
+                        in_shardings=in_sh)
+    _, one = dryrun.trace(lambda a, w: a @ w, (args[0], args[2]), mesh=mesh,
+                          in_shardings=(in_sh[0], in_sh[2]))
+    assert one["num_collectives"] == 1
+    assert c["collectives"] == one["collectives"]
 
 
 # -- meshes --------------------------------------------------------------------
@@ -581,5 +782,7 @@ def test_cli_runs_without_a_card_and_writes_its_record(tmp_path):
     assert lines[0] == dryrun.fmt_cell(rec)
     assert rec["chips"] == 256 and rec["kind"] == "decode"
     assert rec["memory"]["alias_bytes"] > 0 and rec["compile_s"] is None
-    assert rec["collective_traffic_per_device"] is None
+    assert rec["collective_traffic_per_device"] > 0
+    assert rec["num_collectives"] > 0 and rec["t_collective"] > 0
     assert rec["flops_per_device"] > 0 and rec["hbm_bytes_per_device"] > 0
+    assert rec["flops_total"] > rec["flops_per_device"]

@@ -73,7 +73,9 @@ def test_port_has_the_expected_modules():
                  "train/data.py", "train/optimizer.py",
                  "train/train_step.py", "train/checkpoint.py",
                  "train/fault_tolerance.py", "train/compression.py",
-                 "launch/train.py", "launch/dryrun.py", "launch/mesh.py"):
+                 "launch/train.py", "launch/dryrun.py", "launch/mesh.py",
+                 "distributed/collectives.py", "distributed/autoshard.py",
+                 "launch/hillclimb.py"):
         assert want in names, want
     for example in EXAMPLES:
         assert (ROOT / "examples_torch" / f"{example}.py").is_file(), example
