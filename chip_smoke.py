@@ -57,10 +57,12 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    Σ_k |l_k r_k|.  Flash attention (K9) in f32 and bf16, causal and full, D
    = 64 and 128, ragged and unequal sequence lengths, strided views, views
    that TMA cannot read in place (copied first in bf16) and the serving
-   shape (1, 4096, 32, 128) and an f32 case with B·H = 65600 (more than grid
-   axis y takes); at deepseek-v3's (Dq, Dv) = (192, 128) both types, causal
-   and full, ragged and unequal lengths, strided views and the MLA prefill
-   shape (1, 4096, 128, 192 / 128) (SDPA's backend printed; V zero-padded
+   shape (1, 4096, 32, 128) and B·H = 65600 (more than grid axis y takes)
+   in f32 and in bf16 (two query tiles a pair, 131 200 CTAs of the bf16
+   kernel's linear grid); at deepseek-v3's (Dq, Dv) = (192, 128) both
+   types, causal and full, ragged and unequal lengths, strided views and
+   the MLA prefill shape (1, 4096, 128, 192 / 128), launched twice (the
+   same bits) (SDPA's backend printed; V zero-padded
    to 192 where no fused backend takes Dv != Dq); against its plain
    version with the reference's tolerance,
    2e-5 (f32) and 3e-2 (bf16) relative and absolute, and in bf16 against the
@@ -72,7 +74,8 @@ exits non-zero on any failure.  Phases, each printing one JSON line:
    K9-bwd
    (``csrc/flashattn_bwd.cu``, built with the rest) in f32 and bf16, D = 64
    and 128, causal and full, lengths that are no multiple of its 64- and
-   128-row tiles (S = 129 among them), B·H = 65600 in f32 and a bf16 grid
+   128-row tiles (S = 129 among them), B·H = 65600 in f32 and in bf16 (S
+   = 65, all on grid axis x) and a bf16 grid
    of more CTAs than 4 per SM, q, k, v and dO read by strides (dO also
    broadcast over the heads, read in place in f32 and copied for TMA in
    bf16, and D-strided, which is copied), and the two training shapes,
@@ -674,6 +677,9 @@ FLASH_BWD_BIAS_TOL = 1e-5
 # f64 logsumexp
 FLASH_LSE_TOL = 2.0 ** -19
 FLASHATTN_BWD_SOURCE = "src/repro_torch/kernels/csrc/flashattn_bwd.cu"
+# the same work as a K9 or K9-bwd row of ``kernels`` in this many calls on
+# as many head slices of the same tensors (``same_work_ms``)
+SAME_WORK_CALLS = 4
 HOUSE = Pattern(5, [(0, 1), (1, 2), (2, 3), (3, 0), (0, 4), (1, 4)])
 # counts are exact: no TF32 in the plain versions' and yardsticks' products
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -1606,7 +1612,8 @@ def sdpa_call(q, k, v, causal: bool) -> tuple:
 
 
 def flash_check(name: str, q, k, v, causal: bool, cases: list,
-                block=None, library: bool = False) -> dict:
+                block=None, library: bool = False,
+                twice: bool = False) -> dict:
     """K9 against its plain version (KV blocks of ``block`` rows, all of
     Skv when None) on the same inputs: every cell within the reference's
     tolerance, tol + tol·|plain|.  In bf16 also against the plain version
@@ -1615,12 +1622,18 @@ def flash_check(name: str, q, k, v, causal: bool, cases: list,
     With ``library``,
     PyTorch's scaled_dot_product_attention (P rounded to bf16) is held to
     that second check too and must fail it, which shows that the check
-    tells the two functions apart."""
+    tells the two functions apart.  With ``twice`` K9 is launched a second
+    time on the same inputs, and its output must be the same bits."""
     before = kfa.launches["flashattn"]
     got = kfa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert kfa.launches["flashattn"] == before + 1, \
         f"{name}: wrapper did not launch flashattn"
+    same_bits = None
+    if twice:
+        same_bits = torch.equal(kfa.flash_attention(q, k, v, causal=causal),
+                                got)
+        assert same_bits, f"{name}: two launches gave different outputs"
     want, lse_ref = kfa.flash_attention_plain(q, k, v, causal=causal,
                                               block=block, return_lse=True)
     want = want.float()
@@ -1631,6 +1644,8 @@ def flash_check(name: str, q, k, v, causal: bool, cases: list,
             "max_abs_err": err.max().item(),
             "tolerance": f"{tol} + {tol}*|plain|",
             "cells_over_tolerance": over}
+    if twice:
+        case["two_launches_same_bits"] = same_bits
     # the same launch with the row statistic: the output unchanged, lse
     # held to the plain forward's
     with_lse, lse, _ = kfa._forward(q, k, v, causal, 1.0 / q.shape[3] ** 0.5,
@@ -1669,9 +1684,10 @@ def flash_check(name: str, q, k, v, causal: bool, cases: list,
 def flash_cases(gen) -> list:
     """K9, both types, causal and full, D = 64 and 128, ragged and unequal
     sequence lengths, strided (B, S, H, D) views, and the serving paths'
-    shapes (1, 4096, 32, 128) and (1, 4096, 48, 128) in bf16; the same at
-    deepseek-v3's (Dq, Dv) = (192, 128), and its prefill shape (1, 4096,
-    128, 192 / 128) in bf16 (the paths' own q, k, v are held in phases
+    shapes (1, 4096, 32, 128) and (1, 4096, 48, 128) in bf16, and B·H =
+    65600 in both types; the same at deepseek-v3's (Dq, Dv) = (192, 128),
+    and its prefill shape (1, 4096, 128, 192 / 128) in bf16, launched twice
+    (the same bits) (the paths' own q, k, v are held in phases
     ``kernels``, ``moe_serve_path`` and ``mla_serve_path``)."""
     cases: list = []
 
@@ -1716,9 +1732,14 @@ def flash_cases(gen) -> list:
     q, k, v = (rnd((1, 4096, 48, 128), torch.bfloat16) for _ in range(3))
     flash_check("bf16 dbrx-132b serving shape (1,4096,48,128) causal, "
                 "random", q, k, v, True, cases, block=1024, library=True)
-    # B * H = 65600, above the 65535 that CUDA allows on grid axis y
+    # B * H = 65600, above the 65535 that CUDA allows on grid axis y; in
+    # bf16 at two query tiles a pair, 131 200 CTAs on the linear grid
     q, k, v = (rnd((2050, 16, 32, 64), torch.float32) for _ in range(3))
     flash_check("f32 B*H=65600 (2050,16,32,64) causal", q, k, v, True, cases)
+    q, k, v = (rnd((2050, 129, 32, 64), torch.bfloat16) for _ in range(3))
+    flash_check("bf16 B*H=65600 (2050,129,32,64) causal", q, k, v, True,
+                cases)
+    del q, k, v
     # deepseek-v3's latent attention: (Dq, Dv) = (192, 128)
     Dq, Dv = MLA_HEAD_DIMS
     for dt in (torch.float32, torch.bfloat16):
@@ -1747,7 +1768,7 @@ def flash_cases(gen) -> list:
     v = rnd((1, 4096, 128, Dv), torch.bfloat16)
     flash_check(f"bf16 deepseek-v3 prefill shape (1,4096,128,{Dq}/{Dv}) "
                 "causal, random", q, k, v, True, cases, block=1024,
-                library=True)
+                library=True, twice=True)
     return cases
 
 
@@ -1968,7 +1989,8 @@ def flash_bwd_check(name: str, q, k, v, do, causal: bool, cases: list,
 def flash_bwd_cases(gen) -> list:
     """K9-bwd: f32 and bf16, D = 64 and 128, causal and full; lengths that
     are no multiple of its 64- and 128-row tiles (S = 129: one row past a
-    128-row tile); B·H = 65600 (f32) and a bf16 grid of 640 x 3 CTAs, more
+    128-row tile); B·H = 65600 (f32, and bf16 at S = 65) and a bf16 grid
+    of 640 x 3 CTAs, more
     than 4 per SM; q, k, v read by strides; dO with other strides (a (B,
     H, S, D) storage read in place, a view broadcast over the heads read in
     place in f32 and copied in bf16, where TMA cannot read it, a D-strided
@@ -2017,6 +2039,15 @@ def flash_bwd_cases(gen) -> list:
     q, k, v, do = (rnd((2050, 16, 32, 64), torch.float32) for _ in range(4))
     flash_bwd_check("f32 B*H=65600 (2050,16,32,64) causal", q, k, v, do, True,
                     cases)
+    # bf16 at B * H = 65600, one 128-row tile and two 64-row streamed
+    # tiles a pair: 65 600 CTAs of each of dkdv_kernel and dq_kernel, the
+    # pairs on grid axis x (at S = 129 the checks' f64 oracle and copies of
+    # the operands outgrow the card)
+    q, k, v, do = (rnd((2050, 65, 32, 64), torch.bfloat16)
+                   for _ in range(4))
+    flash_bwd_check("bf16 B*H=65600 (2050,65,32,64) causal", q, k, v, do,
+                    True, cases)
+    del q, k, v, do
     # 640 x 3 CTAs of each bf16 kernel (128-row tiles), 14.5 per SM
     q, k, v, do = (rnd((40, 384, 16, 64), torch.bfloat16) for _ in range(4))
     flash_bwd_check("bf16 B*H=640 (40,384,16,64) causal", q, k, v, do, True,
@@ -7009,6 +7040,10 @@ def flash_row(captured: dict, launches: int, where: str,
             "check": case,
             "ms": timed_ms(lambda: kfa.flash_attention(q, k, v, causal=True),
                            20),
+            "same_work_ms": same_work_ms(lambda hs: kfa.flash_attention(
+                q[:, :, hs], k[:, :, hs], v[:, :, hs], causal=True), H, 20),
+            "same_work_calls": f"{SAME_WORK_CALLS} x {H // SAME_WORK_CALLS} "
+                               "heads",
             "plain_ms": timed_ms(lambda: kfa.flash_attention_plain(
                 q, k, v, causal=True, block=1024), 3),
             "bound_ms": max(t_bytes, t_tc, t_exp),
@@ -7038,6 +7073,19 @@ def flash_row(captured: dict, launches: int, where: str,
             "ptxas": ptxas,
             "yardstick": "scaled_dot_product_attention(is_causal=True) on "
                          f"(B, H, S, D) views, bf16, {backend}"}
+
+
+def same_work_ms(call, H: int, reps: int):
+    """``call(hs)`` on ``SAME_WORK_CALLS`` head slices ``hs`` of H heads in
+    turn, timed as one (``timed_ms``): the work of one call on all H heads
+    at H / ``SAME_WORK_CALLS`` heads a call, where more of the resident
+    CTAs share a head; None where H does not split so."""
+    if H % SAME_WORK_CALLS:
+        return None
+    part = H // SAME_WORK_CALLS
+    slices = [slice(i * part, (i + 1) * part)
+              for i in range(SAME_WORK_CALLS)]
+    return timed_ms(lambda: [call(hs) for hs in slices], reps)
 
 
 def _flash_bwd_label(mangled: str):
@@ -7171,6 +7219,11 @@ def flash_bwd_row(c: dict, launches: int, where: str, reps: int,
         "tolerance": case["tolerance"], "check": case,
         "ms": timed_ms(lambda: kfa.flash_attention_bwd(
             q, k, v, o, do, lse, causal=True), reps),
+        "same_work_ms": same_work_ms(lambda hs: kfa.flash_attention_bwd(
+            q[:, :, hs], k[:, :, hs], v[:, :, hs], o[:, :, hs], do[:, :, hs],
+            lse[:, hs], causal=True), H, reps) if bf16 else None,
+        "same_work_calls": f"{SAME_WORK_CALLS} x {H // SAME_WORK_CALLS} "
+                           "heads" if bf16 else None,
         "plain_ms": timed_ms(lambda: kfa.flash_attention_bwd_plain(
             q, k, v, o, do, lse, causal=True), 2),
         "bound_ms": max(t_ops, t_bytes),

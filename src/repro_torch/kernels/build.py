@@ -4,8 +4,8 @@
 with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
 interface, one ``nvcc`` per library, all started together, and returns
 them as ``ctypes.CDLL`` objects by name.  A library file is keyed by a
-hash of its sources and the flags, so a changed source rebuilds and an
-unchanged one is reused.  ``build_logs`` keeps what ``nvcc`` printed for
+hash of its sources, the headers (``*.cuh``) of ``csrc/`` and the flags,
+so a changed source or header rebuilds and an unchanged one is reused.  ``build_logs`` keeps what ``nvcc`` printed for
 each library built in this process (``-Xptxas -v``: every kernel's
 registers, shared memory and spills).  Nothing here runs at import time: a machine
 without ``nvcc`` can import every module of the package; it only cannot
@@ -65,7 +65,7 @@ def _nvcc() -> str:
 
 def _library(name: str, sources) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in (*sorted(p.name for p in CSRC.glob("*.cuh")), *sources):
         h.update((CSRC / s).read_bytes())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 

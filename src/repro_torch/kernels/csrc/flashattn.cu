@@ -27,18 +27,41 @@
 // Two designs, one per entry point:
 //
 // flashattn_bf16 (Hopper: wgmma + TMA).  One CTA of 384 threads per
-// (batch·head, 128-row query tile); the grid runs the heaviest query tiles
-// of every head first; a loop walks 128-row KV tiles and, when causal,
-// stops at the tile holding the diagonal.  Warpgroup 0 is the producer:
-// after `setmaxnreg` hands its registers to the consumers, one thread loads
-// Q once and K, V per tile with TMA (`cp.async.bulk.tensor`, a 4-D map over
-// (D, H, S, B) with the operand's strides, 64-column boxes with 128-byte
-// swizzle) into stages of shared memory, with one `mbarrier` per stage and
-// operand for arrival and one per stage for release by both consumers.  At
-// (128, 128) three stages: Q 32 KB, K and V 3 x 32 KB each, 224 KB.  At
-// (192, 128) three would need Q 48 KB + K 3 x 48 KB + V 3 x 32 KB = 288 KB,
-// over the 227 KB a block may use, so that instance keeps two: 208 KB, and
-// the producer runs one tile ahead instead of two.  Warpgroups 1
+// (batch·head, 128-row query tile); a loop walks 128-row KV tiles and, when
+// causal, stops at the tile holding the diagonal.
+// The tile order (tile_order.cuh): the grid is linear, and the (batch,
+// head) pairs go in groups of `heads_per_group`, which `launch` picks: the
+// largest divisor of B·H whose K and V, S·(Dq + Dv) bf16 values a pair,
+// fit 16 MiB, well inside the 50 MB L2.  A group's CTAs run the heaviest
+// query tiles first, pair by pair within a tile rank, so the CTAs resident
+// at one time (one per SM) hold the query tiles of a few heads, which walk
+// the same K and V tiles while L2 holds them.  The grid before, (B·H,
+// tiles) with the pairs on x, is one group of every pair: at deepseek-v3's
+// 128 heads one wave held one tile of nearly every head, no two resident
+// CTAs shared K or V, and a CTA read its K and V up to the diagonal from
+// HBM: Σ_t (t + 1) · 128 rows · 640 B · 128 heads = 5.54 GB at (1, 4096,
+// 128, 192 / 128), against 0.34 GB read once.  With groups of 4 heads
+// (10.5 MB of K and V) the 132 resident CTAs hold a group's 128 tiles, and
+// those bytes are read about once (a reckoning: no DRAM counter was read).
+// Warpgroup 0 is the producer: after `setmaxnreg` hands its registers to
+// the consumers, one thread loads Q once and K, V per tile with TMA
+// (`cp.async.bulk.tensor`, a 4-D map over (D, H, S, B) with the operand's
+// strides, 64-column boxes with 128-byte swizzle) into stages of shared
+// memory, with one `mbarrier` per stage and operand for arrival and one
+// per stage for release by both consumers, once their P·V on it has
+// landed.  At (128, 128) three stages: Q 32 KB, K and V 3 x 32 KB each,
+// 224 KB.  At (192, 128) three would need Q 48 KB + K 3 x 48 KB + V 3 x 32
+// KB = 288 KB, over the 227 KB a block may use, so that instance keeps
+// two: 208 KB.  There one release for both let the producer load K_{t+1}
+// only when P_{t-1}·V_{t-1} had landed, half a tile before S_{t+1} needed
+// it; so with two stages a K stage has a release of its own, once both
+// consumers' S on it has landed, the producer issues K one tile ahead of
+// V, and K_{t+1} is asked for two tiles ahead, V_t one and a half.  The
+// order and the early K are each worth a seventh of the time alone, and a
+// third together: at (1, 4096, 128, 192 / 128) on an H100 80GB HBM3 at
+// 700 W the kernel without either took 2.31 ms, with the order alone
+// 1.99, with the early K alone 1.96, with both 1.53 (PERF.md §6).  With three stages, where
+// the lead was enough, releasing apart was up to 4 % slower.  Warpgroups 1
 // and 2 own 64 query rows each, with their rows' m, l and output
 // accumulator in registers:
 //   - S = QKᵀ is `wgmma m64n128k16 .f32.bf16.bf16` from shared memory (Q as
@@ -63,7 +86,7 @@
 //     output (2^-8), which is what rounding P to bf16 once costs.
 //   - Tile t issues S_t, then P_{t-1}·V_{t-1} behind it, waits for S_t
 //     only, and runs its softmax while that product is in flight; O is
-//     rescaled once the product has landed, which frees its stage.
+//     rescaled once the product has landed, which frees its V stage.
 //   - The epilogue divides by max(l, 1e-20), rounds once to bf16 and stores
 //     rows < Sq through the output strides.
 // What bounds it: at the serving path's shape (1, 4096, 32, 128) causal, the
@@ -71,18 +94,22 @@
 // three bf16 tensor-core passes of 68.7 GFLOP at 989 TFLOP/s: 0.209 ms.
 // The 268 M exps take about 0.065 ms on the special-function units, beside
 // the tensor cores; the bytes take 0.040 ms.  No FMA loop over D or over
-// the KV tile is left: both products are on `wgmma`; TMA copies run two
-// tiles ahead of the math; the softmax of one tile hides behind the P·V of
-// the one before, and the two consumer warpgroups interleave as the
-// scheduler finds them ready.  Left: the warpgroups are not ordered against
-// each other (ping-pong), and on the diagonal tile the lower 64 rows
-// compute 64 columns that are all masked for them.  At deepseek-v3's
+// the KV tile is left: both products are on `wgmma`; the softmax of one
+// tile hides behind the P·V of the one before, and the two consumer
+// warpgroups interleave as the scheduler finds them ready.  Ordering them
+// (ping-pong on named barriers, each issuing in turn) was built and
+// measured slower (1.65 against 1.54 ms at (192, 128) on the same card),
+// so it is not kept.  Left: on the diagonal tile the lower 64 rows
+// compute 64 columns that are all masked for them, and each CTA's first
+// loads and last P·V run with nothing beside them.  At deepseek-v3's
 // prefill, (1, 4096, 128, 192 / 128): the function is 2·(Dq + Dv)·H·T =
 // 687.3 GFLOP (T = S(S+1)/2 pairs a head); the design's one pass for S and
 // two for P·V are (2·Dq + 4·Dv)·H·T = 962.3 GFLOP, 0.973 ms at 989 TFLOP/s;
-// the exps take 0.257 ms and the bytes (0.67 GB) 0.20 ms.  The output
-// accumulator and P·V run at Dv, so a consumer holds as many registers as
-// at (128, 128).
+// the exps take 0.257 ms and the bytes (0.67 GB) 0.20 ms.  A 128 x 128
+// CTA-tile there does 179 FLOP of its passes per byte of K and V it loads,
+// so the tensor cores' peak needs 5.5 TB/s of K and V into the SMs, which
+// only L2 can give.  The output accumulator and P·V run at Dv, so a
+// consumer holds as many registers as at (128, 128).
 //
 // flashattn_f32 (f32 q, k, v: the bf16 tensor cores would round them).  One
 // block of 256 threads per (batch·head, 64-row query tile), 64-row KV tiles;
@@ -98,6 +125,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile_order.cuh"
 
 namespace {
 
@@ -331,8 +360,8 @@ struct Smem {                       // byte offsets from a 1024-aligned base
   static constexpr int K = BK * DQ * 2;          // one K stage
   static constexpr int V = BK * DV * 2;          // one V stage
   static constexpr int K0 = Q, V0 = Q + STAGES * K;
-  static constexpr int BARS = V0 + STAGES * V;   // 1 + 3 · STAGES mbarriers
-  static constexpr int BYTES = BARS + 8 * (1 + 3 * STAGES) + 1024;
+  static constexpr int BARS = V0 + STAGES * V;   // 1 + 4 · STAGES mbarriers
+  static constexpr int BYTES = BARS + 8 * (1 + 4 * STAGES) + 1024;
   static_assert(BYTES <= 232448, "a block's shared memory on Hopper");
 };
 
@@ -497,8 +526,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv,
-          __nv_bfloat16* __restrict__ out, int H, int Sq, int Skv, Strides so,
-          float scale_log2, float* __restrict__ lse) {
+          __nv_bfloat16* __restrict__ out, int BH, int H, int Sq, int Skv,
+          Strides so, float scale_log2, float* __restrict__ lse,
+          int per_group) {
   using L = Smem<DQ, DV>;
   constexpr int STAGES = L::STAGES;
   constexpr int QBOXES = DQ / 64;   // 64-column TMA boxes per row of Q, K
@@ -508,11 +538,19 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
   const uint32_t q_full = base + L::BARS;
   auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
   auto v_full = [&](int s) { return q_full + 8 * (1 + STAGES + s); };
-  auto kv_free = [&](int s) { return q_full + 8 * (1 + 2 * STAGES + s); };
+  // with two stages a K stage is released apart from its V (see the
+  // header); with three, one release for both once P·V has landed
+  constexpr bool APART = STAGES == 2;
+  auto k_free = [&](int s) { return q_full + 8 * (1 + 2 * STAGES + s); };
+  auto v_free = [&](int s) {
+    return APART ? q_full + 8 * (1 + 3 * STAGES + s) : k_free(s);
+  };
 
   const int nq = (Sq + BQ - 1) / BQ;
-  const int q0 = (nq - 1 - blockIdx.y) * BQ;     // heaviest tiles first,
-  const int b = blockIdx.x / H, h = blockIdx.x % H;  // of every head
+  const tile_order::TileAt at =
+      tile_order::tile_at(blockIdx.x, BH, nq, per_group);
+  const int q0 = (nq - 1 - at.rank) * BQ;        // heaviest rank first
+  const int b = at.bh / H, h = at.bh % H;
   int n_kv = (Skv + BK - 1) / BK;
   if (CAUSAL) n_kv = min(n_kv, (q0 + BQ - 1) / BK + 1);
   const int group = threadIdx.x / 128;
@@ -522,26 +560,37 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
     for (int s = 0; s < STAGES; ++s) {
       bar_init(k_full(s), 1);
       bar_init(v_full(s), 1);
-      bar_init(kv_free(s), CONSUMERS);
+      bar_init(k_free(s), CONSUMERS);
+      if (APART) bar_init(v_free(s), CONSUMERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
   if (group == 0) {
-    // producer: one thread issues every copy
+    // producer: one thread issues every copy; with K released apart, K one
+    // tile ahead of V
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (threadIdx.x == 0) {
-      bar_expect(q_full, L::Q);
-      for (int c = 0; c < QBOXES; ++c)
-        tma_load(base + c * BQ * ROW_BYTES, &tq, q_full, 64 * c, h, q0, b);
-      for (int kt = 0; kt < n_kv; ++kt) {
+      auto load_k = [&](int kt) {
         const int s = kt % STAGES;
-        bar_wait(kv_free(s), ((kt / STAGES) & 1) ^ 1);
+        bar_wait(k_free(s), ((kt / STAGES) & 1) ^ 1);
         bar_expect(k_full(s), L::K);
         for (int c = 0; c < QBOXES; ++c)
           tma_load(base + L::K0 + s * L::K + c * BK * ROW_BYTES, &tk,
                    k_full(s), 64 * c, h, kt * BK, b);
+      };
+      bar_expect(q_full, L::Q);
+      for (int c = 0; c < QBOXES; ++c)
+        tma_load(base + c * BQ * ROW_BYTES, &tq, q_full, 64 * c, h, q0, b);
+      if (APART) load_k(0);
+      for (int kt = 0; kt < n_kv; ++kt) {
+        if (!APART)
+          load_k(kt);
+        else if (kt + 1 < n_kv)
+          load_k(kt + 1);
+        const int s = kt % STAGES;
+        bar_wait(v_free(s), ((kt / STAGES) & 1) ^ 1);
         bar_expect(v_full(s), L::V);
         for (int c = 0; c < VBOXES; ++c)
           tma_load(base + L::V0 + s * L::V + c * BK * ROW_BYTES, &tv,
@@ -613,6 +662,7 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
         wg_wait<0>();
       }
       reg_fence(s);
+      if (APART) bar_arrive(k_free(st));
 
       // online softmax in the log2 domain: t = scale · log2(e) · S (the
       // row max of S times the scale is the row max of t); only a tile that
@@ -665,7 +715,7 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
       reg_fence(o);
       frag_fence(p_hi);
       frag_fence(p_lo);
-      if (kt > 0) bar_arrive(kv_free((kt - 1) % STAGES));
+      if (kt > 0) bar_arrive(v_free((kt - 1) % STAGES));
 #pragma unroll
       for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i / 2) % 2];
 
@@ -704,7 +754,7 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
       // the f32 ln 2 and the f32 sum would move it by up to 3e-4, and
       // K9-bwd's P = exp(S − lse) by that factor
       if (lse != nullptr && lane % 4 == 0)
-        lse[static_cast<long long>(blockIdx.x) * Sq + qrow] =
+        lse[static_cast<long long>(at.bh) * Sq + qrow] =
             static_cast<float>(m[r] * LN2_F64 + log(static_cast<double>(
                                                     l[r])));
       __nv_bfloat16* orow = ob + qrow * so.s + col;
@@ -776,6 +826,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int Sq, int Skv, Strides sq, Strides sk, Strides sv,
            Strides so, float scale, bool causal, float* lse,
            cudaStream_t stream) {
+  const long long ctas =
+      static_cast<long long>(B) * H * ((Sq + BQ - 1) / BQ);
+  if (ctas > 0x7fffffff) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   int err = make_map(&tq, q, B, Sq, H, DQ, sq, BQ);
   if (err == 0) err = make_map(&tk, k, B, Skv, H, DQ, sk, BK);
@@ -787,10 +840,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  kernel<<<grid, THREADS, bytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), H, Sq, Skv, so,
-      scale * LOG2E, lse);
+  kernel<<<static_cast<unsigned>(ctas), THREADS, bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), B * H, H, Sq, Skv, so,
+      scale * LOG2E, lse, tile_order::heads_per_group(B * H, Skv, DQ, DV));
   return cudaGetLastError();
 }
 
@@ -834,8 +886,8 @@ extern "C" int flashattn_f32(const void* q, const void* k, const void* v,
 
 // As flashattn_f32; besides, q, k and v must start on a 16-byte boundary
 // and their strides be multiples of 8 elements (TMA), along dimensions of
-// more than one row.  A negative return is the CUresult of building
-// a tensor map, negated.
+// more than one row, and B·H times the query tiles be at most 2^31 - 1.
+// A negative return is the CUresult of building a tensor map, negated.
 extern "C" int flashattn_bf16(const void* q, const void* k, const void* v,
                               void* out, int B, int H, int Sq, int Skv,
                               int Dq, int Dv, const long long* strides,

@@ -44,6 +44,13 @@
 // the function has five.  That is the price of identical bits: the atomic
 // dQ of FlashAttention-2/3 adds each KV tile's part in the order the CTAs
 // happen to finish.
+// Both grids are (B·H, tiles) with the (batch, head) pairs on x.  At
+// deepseek-v3's (1, 4096, 128, 192 / 128) the resident CTAs then share no
+// head: dkdv streams Q and dO from HBM from each KV tile's diagonal on, dq
+// K and V up to each Q tile's, 5.54 GB each against 0.34 GB read once (a
+// reckoning: no DRAM counter was read).  That traffic is not what holds
+// them: K9's tile order (tile_order.cuh), built into both kernels, moved
+// neither (PERF.md §6), so they keep the grid.
 //
 // flashattn_bwd_bf16 (Hopper: wgmma + TMA).  CTAs of 384 threads:
 // warpgroup 0 is the producer (after `setmaxnreg` gives its registers to
@@ -100,12 +107,18 @@
 // the bf16 tensor cores.  This design runs ten bf16 passes (S, dP twice,
 // dV, dK, dQ in two terms each): 0.69 and 3.61 ms at the peak rate.  No
 // FMA loop over D or a tile is left; TMA runs up to three tiles ahead of
-// the math.
+// the math.  What holds it near half that rate is the CTA, not bytes from
+// HBM, and within it the register-A products (PERF.md §7): each box is one
+// chain of eight dependent `wgmma`s waited for before the next, and no
+// registers are left for a second box in flight (dkdv_kernel spills).
 // Left: a warpgroup's products run one after another (S and dP, then the
 // register-A products box by box, then the next tile), with no elementwise
-// work of one tile hidden behind the products of another; the two
-// consumer warpgroups interleave as the scheduler finds them ready; the
-// diagonal tiles compute masked cells.
+// work of one tile hidden behind the products of another (no registers are
+// left to hold a second tile's scores); the two consumer warpgroups
+// interleave as the scheduler finds them ready; the diagonal tiles compute
+// masked cells.  Built, measured and not kept (PERF.md §6): the tile order,
+// taking the score products in turns on named barriers, starting dq_kernel
+// beside dkdv_kernel's last CTAs, and 128-column boxes for dK and dQ.
 //
 // flashattn_bwd_f32 (the inputs must not be rounded): the same two kernels
 // on the TF32 tensor cores at f32 grade.  Each operand x is split into

@@ -14,6 +14,7 @@ no position vectors.  The bf16 kernel runs both products on the Hopper
 tensor cores (``wgmma``) with K and V staged by TMA, and keeps P to f32
 grade by splitting it into two bf16 terms; the f32 kernel does both as
 f32 FMAs.
+Each C entry's arguments are named in ``ENTRY_ARGS``.
 On a CPU tensor — and only because the tensor lies on the CPU — it takes
 the plain PyTorch version ``flash_attention_plain``.
 
@@ -88,33 +89,51 @@ def reset_launches():
         launches[k] = 0
 
 
-def _bound(name: str, entries, argtypes):
-    """The kernel library ``name``, its ``entries`` bound to ``argtypes``;
-    the first call builds every library of the package."""
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FWD_ARGS = (("q", _P), ("k", _P), ("v", _P), ("out", _P), ("B", _I),
+             ("H", _I), ("Sq", _I), ("Skv", _I), ("Dq", _I), ("Dv", _I),
+             ("strides", _P), ("scale", _F), ("causal", _I), ("stream", _P),
+             ("lse", _P))
+_BWD_ARGS = (("q", _P), ("k", _P), ("v", _P), ("o", _P), ("dout", _P),
+             ("lse", _P), ("stats", _P), ("dq", _P), ("dk", _P), ("dv", _P),
+             ("B", _I), ("H", _I), ("S", _I), ("Dq", _I), ("Dv", _I),
+             ("strides", _P), ("scale", _F), ("causal", _I), ("stream", _P))
+# each C entry's arguments in order, by name and ctypes type: ``_bound``
+# binds the types, ``_launch`` orders a call's arguments by the names
+ENTRY_ARGS = {"flashattn_f32": _FWD_ARGS, "flashattn_bf16": _FWD_ARGS,
+              "flashattn_bwd_f32": _BWD_ARGS, "flashattn_bwd_bf16": _BWD_ARGS}
+
+
+def _bound(name: str, entries):
+    """The kernel library ``name``, its ``entries`` bound to their
+    ``ENTRY_ARGS`` types; the first call builds every library of the
+    package."""
     if name not in _BOUND:
         lib = _build.load_all(_build.SOURCES)[name]
         for entry in entries:
             fn = getattr(lib, entry)
-            fn.argtypes = argtypes
+            fn.argtypes = [t for _, t in ENTRY_ARGS[entry]]
             fn.restype = ctypes.c_int
         _BOUND[name] = lib
     return _BOUND[name]
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
 def _lib():
     """The ``flashattn`` kernel library, bound."""
-    return _bound("flashattn", _ENTRY.values(),
-                  [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _I, _P,
-                   _P])
+    return _bound("flashattn", _ENTRY.values())
 
 
 def _bwd_lib():
     """The ``flashattn_bwd`` kernel library, bound."""
-    return _bound("flashattn_bwd", _BWD_ENTRY.values(),
-                  [_P] * 10 + [_I, _I, _I, _I, _I, _P, _F, _I, _P])
+    return _bound("flashattn_bwd", _BWD_ENTRY.values())
+
+
+def _launch(lib, entry: str, **args):
+    """``entry`` of ``lib`` on the arguments named in ``ENTRY_ARGS``;
+    raises ``KernelError`` on a non-zero return."""
+    err = getattr(lib, entry)(*(args[name] for name, _ in ENTRY_ARGS[entry]))
+    if err != 0:
+        raise _build.KernelError(f"{entry} launch failed: CUDA error {err}")
 
 
 def _shapes(q, k, v):
@@ -281,14 +300,12 @@ def _forward(q, k, v, causal: bool, scale: float, *, with_lse: bool):
         s for x in (q, k, v, out) for s in x.stride()[:3]))
     entry = _ENTRY[q.dtype]
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_lib(), entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-            Sq, Skv, D, Dv, ctypes.addressof(strides), float(scale),
-            int(bool(causal)), stream,
-            None if lse is None else lse.data_ptr())
-    if err != 0:
-        raise _build.KernelError(f"{entry} launch failed: CUDA error {err}")
+        _launch(_lib(), entry, q=q.data_ptr(), k=k.data_ptr(),
+                v=v.data_ptr(), out=out.data_ptr(), B=B, H=H, Sq=Sq,
+                Skv=Skv, Dq=D, Dv=Dv, strides=ctypes.addressof(strides),
+                scale=float(scale), causal=int(bool(causal)),
+                stream=torch.cuda.current_stream().cuda_stream,
+                lse=None if lse is None else lse.data_ptr())
     launches["flashattn"] += 1
     return out, lse, (q, k, v)
 
@@ -366,12 +383,12 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool, scale=None):
         s for x in (q, k, v, o, do, dq, dk, dv) for s in x.stride()[:3]))
     entry = _BWD_ENTRY[q.dtype]
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_bwd_lib(), entry)(
-            *(x.data_ptr() for x in (q, k, v, o, do, lse, stats, dq, dk, dv)),
-            B, H, S, D, Dv, ctypes.addressof(strides), float(scale),
-            int(bool(causal)), stream)
-    if err != 0:
-        raise _build.KernelError(f"{entry} launch failed: CUDA error {err}")
+        _launch(_bwd_lib(), entry, **{
+            name: x.data_ptr() for name, x in zip(
+                ("q", "k", "v", "o", "dout", "lse", "stats", "dq", "dk",
+                 "dv"), (q, k, v, o, do, lse, stats, dq, dk, dv))},
+            B=B, H=H, S=S, Dq=D, Dv=Dv, strides=ctypes.addressof(strides),
+            scale=float(scale), causal=int(bool(causal)),
+            stream=torch.cuda.current_stream().cuda_stream)
     launches["flashattn_bwd"] += 1
     return dq, dk, dv

@@ -1,6 +1,6 @@
 """The port stands alone: no import of ``jax`` or of the reference package
 ``repro`` anywhere in ``src/repro_torch`` (``repro_torch.distributed``
-included), ``examples_torch/`` or ``chip_smoke.py``, the device
+included), ``examples_torch/``, ``tools/`` or ``chip_smoke.py``, the device
 policy raises rather than picking the CPU, and the smoke script fails
 where there is no card.  Nothing numeric is compared here (the files
 beside this one compare with tolerance 0: exact equality of integers
@@ -23,7 +23,8 @@ EXAMPLES = ("quickstart", "existence_and_listing", "fsm_mining",
             "local_counts", "morphing", "serve_batched", "tracing",
             "verify_plans", "mesh_mining", "train_lm")
 PORT_FILES = sorted(PORT.rglob("*.py")) + \
-    sorted((ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "examples_torch").glob("*.py")) + \
+    sorted((ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path: Path):

@@ -150,6 +150,11 @@ def on_card(x):
     return torch.as_tensor(x).as_subclass(_OnCard)
 
 
+# the dims among K9's and K9-bwd's arguments, by name (``ENTRY_ARGS``)
+DIMS = ("B", "H", "Sq", "Skv", "Dq", "Dv")
+BWD_DIMS = ("B", "H", "S", "Dq", "Dv")
+
+
 @pytest.fixture
 def fake_card(monkeypatch):
     """Stand-ins for the card: the library records its launches."""
@@ -158,12 +163,16 @@ def fake_card(monkeypatch):
     class FakeLib:
         def __getattr__(self, entry):
             def launch(*args):
-                # the forward's strides are its 11th argument (12 of
-                # them), the backward's its 16th (24)
-                n, at = (24, 15) if entry.startswith("flashattn_bwd") \
-                    else (12, 10)
-                strides = (ctypes.c_longlong * n).from_address(args[at])
-                calls.append((entry, args, list(strides)))
+                # the arguments by their names in the entry's table; the
+                # strides (12 for the forward, 24 for the backward) read
+                # back from the address handed over
+                names = [name for name, _ in tfa.ENTRY_ARGS[entry]]
+                assert len(args) == len(names), (entry, args)
+                named = dict(zip(names, args))
+                n = 24 if entry.startswith("flashattn_bwd") else 12
+                strides = (ctypes.c_longlong * n).from_address(
+                    named["strides"])
+                calls.append((entry, named, list(strides)))
                 return 0
             return launch
 
@@ -190,10 +199,10 @@ def test_cuda_tensors_go_to_the_kernel(fake_card):
     qs = on_card(base.transpose(1, 2))
     tlayers.flash_attention(qs, qs, qs, causal=False, block=32)
     assert [c[0] for c in fake_card] == ["flashattn_f32", "flashattn_bf16"]
-    # B, H, Sq, Skv, Dq, Dv
-    assert fake_card[0][1][4:10] == (2, 3, 40, 40, 128, 128)
-    assert fake_card[0][1][12] == 1 and fake_card[1][1][12] == 0  # causal
-    assert fake_card[1][1][0] == base.data_ptr()
+    assert [fake_card[0][1][n] for n in DIMS] == [2, 3, 40, 40, 128, 128]
+    assert fake_card[0][1]["causal"] == 1 and \
+        fake_card[1][1]["causal"] == 0
+    assert fake_card[1][1]["q"] == base.data_ptr()
     assert fake_card[1][2][:3] == [4 * 96 * 64, 64, 96 * 64]
     assert fake_card[1][2][9:] == [96 * 4 * 64, 4 * 64, 64]       # out
     assert tfa.launches["flashattn"] == n0 + 2
@@ -239,9 +248,9 @@ def test_head_dim_pairs_reach_the_entry(fake_card, Dq, Dv, dtype):
     out = tfa.flash_attention(q, k, v, causal=True)
     (entry, args, strides), = fake_card
     assert entry == tfa._ENTRY[dtype]
-    assert args[4:10] == (2, 3, 40, 40, Dq, Dv)
+    assert [args[n] for n in DIMS] == [2, 3, 40, 40, Dq, Dv]
     assert tuple(out.shape) == (2, 40, 3, Dv) and out.dtype == dtype
-    assert args[3] == out.data_ptr()
+    assert args["out"] == out.data_ptr()
     assert strides[6:9] == [50 * 3 * Dv, 3 * Dv, Dv]             # v in place
     assert strides[9:] == [40 * 3 * Dv, 3 * Dv, Dv]              # out
     assert tfa.launches["flashattn"] == n0 + 1
@@ -371,11 +380,11 @@ def test_training_on_the_card_takes_both_kernels(fake_card):
     out.sum().backward()
     assert [c[0] for c in fake_card] == ["flashattn_f32", "flashattn_bwd_f32"]
     (_, fwd, _), (_, bwd, strides) = fake_card
-    assert fwd[14] is not None                            # lse buffer
-    assert bwd[10:15] == (2, 3, 40, 64, 64)               # B, H, S, Dq, Dv
-    assert bwd[0] == q.data_ptr() and bwd[5] == fwd[14]   # q, lse
-    assert bwd[17] == 1                                   # causal
-    assert bwd[16] == pytest.approx(1 / 8)                # scale
+    assert fwd["lse"] is not None                         # lse buffer
+    assert [bwd[n] for n in BWD_DIMS] == [2, 3, 40, 64, 64]
+    assert bwd["q"] == q.data_ptr() and bwd["lse"] == fwd["lse"]
+    assert bwd["causal"] == 1
+    assert bwd["scale"] == pytest.approx(1 / 8)
     assert strides[12:15] == [40 * 3 * 64, 3 * 64, 64]    # dO, copied
     assert all(x.grad is not None and x.grad.shape == x.shape
                for x in (q, k, v))
@@ -383,7 +392,7 @@ def test_training_on_the_card_takes_both_kernels(fake_card):
     assert tfa.launches["flashattn_bwd"] == b0 + 1
     with torch.no_grad():
         out = tfa.flash_attention(q, k, v, causal=False)
-    assert out.grad_fn is None and fake_card[-1][1][14] is None
+    assert out.grad_fn is None and fake_card[-1][1]["lse"] is None
 
 
 def test_bwd_reads_strided_operands_in_place(fake_card):
@@ -400,8 +409,8 @@ def test_bwd_reads_strided_operands_in_place(fake_card):
                  .expand(2, 40, 3, 64))
     dq, dk, dv = tfa.flash_attention_bwd(q, q, q, q, do, lse, causal=False)
     (entry, args, strides), = fake_card
-    assert entry == "flashattn_bwd_bf16" and args[17] == 0
-    assert args[0] == base.data_ptr() and args[4] != do.data_ptr()
+    assert entry == "flashattn_bwd_bf16" and args["causal"] == 0
+    assert args["q"] == base.data_ptr() and args["dout"] != do.data_ptr()
     assert strides[:3] == [3 * 40 * 64, 64, 40 * 64]
     assert strides[12:15] == [40 * 3 * 64, 3 * 64, 64]       # dO, copied
     assert strides[15:] == [40 * 3 * 64, 3 * 64, 64] * 3     # dq, dk, dv
@@ -418,7 +427,8 @@ def test_bwd_reads_strided_operands_in_place(fake_card):
     tfa.flash_attention_bwd(q32, q32, q32, q32, do32, lse, causal=True)
     (entry, args, strides), = fake_card
     assert entry == "flashattn_bwd_f32"
-    assert args[0] == base32.data_ptr() and args[4] == do32.data_ptr()
+    assert args["q"] == base32.data_ptr() and \
+        args["dout"] == do32.data_ptr()
     assert strides[12:15] == [40 * 64, 64, 0]
 
 
@@ -438,10 +448,10 @@ def test_bwd_copies_a_bf16_operand_off_a_16_byte_boundary(fake_card,
     tfa.flash_attention_bwd(*ops, lse, causal=True)
     (entry, args, strides), = fake_card
     assert entry == "flashattn_bwd_bf16"
-    for i, x in enumerate(ops):
-        assert (args[i] == x.data_ptr()) == (i != operand)
+    for i, (name, x) in enumerate(zip(("q", "k", "v", "o", "dout"), ops)):
+        assert (args[name] == x.data_ptr()) == (i != operand)
     assert strides[3 * operand:3 * operand + 3] == [40 * 3 * 64, 3 * 64, 64]
-    assert args[6] != args[5]                              # stats scratch
+    assert args["stats"] != args["lse"]                    # stats scratch
 
 
 def test_bwd_stats_scratch_holds_two_padded_planes(fake_card, monkeypatch):
@@ -460,8 +470,8 @@ def test_bwd_stats_scratch_holds_two_padded_planes(fake_card, monkeypatch):
     lse = on_card(torch.zeros((2, 3, 129)))
     tfa.flash_attention_bwd(q, q, q, q, q, lse, causal=True)
     (_, args, _), = fake_card
-    stats = [m for m in made if m[2] == args[6]]
-    assert stats == [((2, 6, 256), torch.float32, args[6])]
+    stats = [m for m in made if m[2] == args["stats"]]
+    assert stats == [((2, 6, 256), torch.float32, args["stats"])]
 
 
 @pytest.mark.parametrize("what,change", [
@@ -500,9 +510,9 @@ def test_gradient_at_192_128_reaches_the_bwd_entry(fake_card, dtype):
     assert [c[0] for c in fake_card] == [tfa._ENTRY[dtype],
                                          tfa._BWD_ENTRY[dtype]]
     (_, fwd, _), (_, bwd, strides) = fake_card
-    assert bwd[10:15] == (2, 3, 40, 192, 128)             # B, H, S, Dq, Dv
-    assert bwd[5] == fwd[14]                              # lse
-    assert bwd[16] == pytest.approx(192 ** -0.5)          # scale
+    assert [bwd[n] for n in BWD_DIMS] == [2, 3, 40, 192, 128]
+    assert bwd["lse"] == fwd["lse"]
+    assert bwd["scale"] == pytest.approx(192 ** -0.5)
     assert strides[15:] == [40 * 3 * 192, 3 * 192, 192] * 2 + \
         [40 * 3 * 128, 3 * 128, 128]                      # dq, dk, dv
     assert [tuple(x.grad.shape) for x in (q, k, v)] == \
@@ -525,11 +535,13 @@ def test_bwd_head_dim_pairs_reach_the_entry(fake_card, Dq, Dv, dtype):
     dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, do, lse, causal=False)
     (entry, args, strides), = fake_card
     assert entry == tfa._BWD_ENTRY[dtype]
-    assert args[10:15] == (1, 2, 40, Dq, Dv) and args[17] == 0
+    assert [args[n] for n in BWD_DIMS] == [1, 2, 40, Dq, Dv]
+    assert args["causal"] == 0
     assert [tuple(x.shape) for x in (dq, dk, dv)] == \
         [(1, 40, 2, Dq)] * 2 + [(1, 40, 2, Dv)]
     assert all(x.dtype == dtype for x in (dq, dk, dv))
-    assert list(args[7:10]) == [x.data_ptr() for x in (dq, dk, dv)]
+    assert [args[n] for n in ("dq", "dk", "dv")] == \
+        [x.data_ptr() for x in (dq, dk, dv)]
     assert strides[9:15] == [40 * 2 * Dv, 2 * Dv, Dv] * 2       # o, dO
     assert strides[15:] == [40 * 2 * Dq, 2 * Dq, Dq] * 2 + \
         [40 * 2 * Dv, 2 * Dv, Dv]
@@ -654,7 +666,7 @@ def test_bf16_views_tma_cannot_read_are_copied(fake_card, what, make):
     B, S, H, D = x.shape
     contiguous = [S * H * D, H * D, D]
     assert entry == "flashattn_bf16"
-    assert all(ptr != x.data_ptr() for ptr in args[:3])
+    assert all(args[n] != x.data_ptr() for n in ("q", "k", "v"))
     assert strides[:9] == contiguous * 3
 
 
@@ -665,5 +677,5 @@ def test_f32_views_are_read_in_place(fake_card):
     q = on_card(x)
     tfa.flash_attention(q, q, q, causal=False)
     (entry, args, strides), = fake_card
-    assert entry == "flashattn_f32" and args[0] == x.data_ptr()
+    assert entry == "flashattn_f32" and args["q"] == x.data_ptr()
     assert strides[:3] == [40 * 3 * 67, 3 * 67, 67]
