@@ -7142,6 +7142,63 @@ def sdpa_bwd_call(q, k, v, do, causal: bool) -> tuple:
 # K9-bwd f32 at (192, 128) is timed also at this shape, causal: the
 # reduced step's (4, 64, 4) is all launch overhead
 MLA_F32_BWD_TIMED = (1, 4096, 16)
+# K9-bwd bf16's tiles: dkdv_kernel's 64 resident KV rows against 64-row Q
+# tiles, dq_kernel's 128 resident Q rows against 64-row KV tiles
+BWD_BF16_TILE, BWD_BF16_Q_ROWS = 64, 128
+
+
+# run by `kernel_split` in a process of its own: argv = src dir, B, S, H,
+# Dq, Dv, calls, dtype; prints {kernel: [device ms, launches]} over the calls
+KERNEL_SPLIT_SCRIPT = r"""
+import json, re, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.kernels import flashattn as kfa
+B, S, H, Dq, Dv, calls = map(int, sys.argv[2:8])
+gen = torch.Generator(device="cuda").manual_seed(5)
+q, k, v, do = [torch.randn((B, S, H, d), generator=gen, device="cuda",
+                           dtype=getattr(torch, sys.argv[8]))
+               for d in (Dq, Dq, Dv, Dv)]
+o, lse, _ = kfa._forward(q, k, v, True, Dq ** -0.5, with_lse=True)
+call = lambda: kfa.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+call()
+torch.cuda.synchronize()
+with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+        call()
+    torch.cuda.synchronize()
+out = {}
+for evt in prof.events():
+    if evt.device_type == torch.autograd.DeviceType.CUDA:
+        m = re.search(r"::(\w+)<", evt.name)
+        ms, n = out.get(m[1] if m else evt.name[:80], (0.0, 0))
+        out[m[1] if m else evt.name[:80]] = (
+            ms + evt.device_time_total / 1e3, n + 1)
+print(json.dumps(out))
+"""
+
+
+def kernel_split(shape, head_dims, dtype, calls: int = 3) -> dict:
+    """Device ms a call, and launches a call, of each kernel K9-bwd
+    launches, by its unqualified name, causal at ``shape`` (B, S, H) and
+    ``head_dims`` on seeded random inputs: CUDA activity of
+    ``torch.profiler`` over ``calls`` calls after a warm-up, in a process
+    of its own (late in this script's process the profiler kept one
+    launch of each kernel in three calls, or none).  A trace without
+    device time fails."""
+    proc = subprocess.run(
+        [sys.executable, "-c", KERNEL_SPLIT_SCRIPT, os.path.join(ROOT, "src"),
+         *map(str, (*shape, *head_dims, calls)),
+         str(dtype).split(".")[1]], capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    split = json.loads(proc.stdout.strip().splitlines()[-1])
+    out = {name: {"ms": ms / calls, "launches_per_call": n / calls}
+           for name, (ms, n) in split.items()}
+    assert sum(r["ms"] for r in out.values()) > 0, \
+        "the profiler saw no device time"
+    return out
 
 
 def flash_bwd_row(c: dict, launches: int, where: str, reps: int,
@@ -7155,9 +7212,12 @@ def flash_bwd_row(c: dict, launches: int, where: str, reps: int,
     type (bf16 tensor cores 989 TFLOP/s; f32 67 TFLOP/s), against the
     bytes of q, k, v, o, dO, lse and the three gradients.  Beside it, the
     design's own passes at its rate (bf16: S and dP twice, dV, dK and dQ in
-    two terms each, at 989 TFLOP/s; f32: the seven products in three TF32
-    passes each, at 495 TFLOP/s) and ptxas's registers and spills for each
-    of the entry's kernels.  Yardstick: ``torch.autograd.grad`` of
+    two terms each, over the 64 x 64 tiles the kernels run, the diagonal's
+    whole, at 989 TFLOP/s; f32: the seven products in three TF32 passes
+    each, at 495 TFLOP/s), ptxas's registers and spills for each of the
+    entry's kernels, and each kernel's device ms and launches a call at
+    the row's shape, on seeded random inputs in a process of its own
+    (``kernel_split``).  Yardstick: ``torch.autograd.grad`` of
     PyTorch's scaled_dot_product_attention(is_causal=True), its backward
     alone (``sdpa_bwd_call``).  Each gradient's mean relative bias
     (``mean_relative_bias``) against the plain version in f64 with lse
@@ -7183,11 +7243,22 @@ def flash_bwd_row(c: dict, launches: int, where: str, reps: int,
     t_ops = nops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     # the design's own work: bf16, S and dP twice and dV, dK, dQ in two
-    # terms; f32, S and dP twice and dV, dK, dQ once, three TF32 passes each
-    design_ops, rate = ((2 * (3 * Dq + 2 * Dv) * pairs,
+    # terms over the tiles the kernels run, whole ones on the diagonal
+    # (dkdv_kernel, 3·Dq + 3·Dv products a cell: a 64-row KV tile's Q tiles
+    # from the diagonal on; dq_kernel, 3·Dq + Dv: a 128-row Q tile's 64-row
+    # KV tiles up to the diagonal); f32, S and dP twice and dV, dK, dQ
+    # once, three TF32 passes each
+    kv_tiles, q_tiles = -(-S // BWD_BF16_TILE), -(-S // BWD_BF16_Q_ROWS)
+    dkdv_cells = B * H * kv_tiles * (kv_tiles + 1) // 2 * BWD_BF16_TILE ** 2
+    dq_cells = B * H * q_tiles * (q_tiles + 1) * BWD_BF16_Q_ROWS * \
+        BWD_BF16_TILE
+    design_ops, rate = ((2 * ((3 * Dq + 3 * Dv) * dkdv_cells
+                              + (3 * Dq + Dv) * dq_cells),
                          PEAK_BF16_TC_OPS_PER_S) if bf16 else
                         (3 * (4 * Dq + 3 * Dv) * pairs,
                          PEAK_TF32_TC_OPS_PER_S))
+    call = lambda: kfa.flash_attention_bwd(  # noqa: E731
+        q, k, v, o, do, lse, causal=True)
     got = kfa.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
     wide = [x.double() for x in (q, k, v, o, do)]
     for key, row_lse in (("mean_relative_bias", plain_by_heads(
@@ -7206,6 +7277,7 @@ def flash_bwd_row(c: dict, launches: int, where: str, reps: int,
         assert max(map(abs, case[key].values())) <= FLASH_BWD_BIAS_TOL, \
             (key, case[key])
     library, backend = sdpa_bwd_call(q, k, v, do, True)
+    split = kernel_split((B, S, H), (Dq, Dv), q.dtype)
     row = {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": FLASHATTN_BWD_SOURCE,
@@ -7217,8 +7289,10 @@ def flash_bwd_row(c: dict, launches: int, where: str, reps: int,
         "max_abs_err": max(g["max_abs_err"] for g in case["grads"].values()),
         "worst_err_over_tolerance": case["worst_err_over_tolerance"],
         "tolerance": case["tolerance"], "check": case,
-        "ms": timed_ms(lambda: kfa.flash_attention_bwd(
-            q, k, v, o, do, lse, causal=True), reps),
+        "ms": timed_ms(call, reps),
+        "device_ms_by_kernel": split,
+        "kernel_launches_per_call": sum(
+            r["launches_per_call"] for r in split.values()),
         "same_work_ms": same_work_ms(lambda hs: kfa.flash_attention_bwd(
             q[:, :, hs], k[:, :, hs], v[:, :, hs], o[:, :, hs], do[:, :, hs],
             lse[:, hs], causal=True), H, reps) if bf16 else None,
@@ -7236,7 +7310,12 @@ def flash_bwd_row(c: dict, launches: int, where: str, reps: int,
         "f32_rate_bound_ms": nops / PEAK_F32_OPS_PER_S * 1e3,
         "design_operations": design_ops,
         "design_passes_bound_ms": design_ops / rate * 1e3,
-        "design": ("wgmma + TMA, P and dS as bf16 hi + lo" if bf16 else
+        "design": ("wgmma + TMA, P and dS as bf16 hi + lo; dkdv_kernel: "
+                   "64 resident KV rows a CTA, one consumer warpgroup per "
+                   "product group, P handed through shared memory, the "
+                   "next tile's score product before this tile's boxes; "
+                   "dq_kernel: 128 resident Q rows, 64 a consumer; both in "
+                   "K9's tile order" if bf16 else
                    "split-TF32 mma.sync m16n8k8, 3 terms"),
         "same_bits_two_launches": case["two_launches_same_bits"],
         "ptxas": [x for x in ptxas

@@ -27,11 +27,11 @@
 //      lse·log2(e) (+inf past S, so P is 0 on the rows a tile reads past
 //      the end; the bf16 entry multiplies in f64 and rounds once) and
 //      Dᵢ = Σ_d dOᵢ·Oᵢ (0 past S).  Dᵢ is the diagonal of O dOᵀ taken on
-//      the tensor cores by the very product dkdv forms V dOᵀ with (dq's dO Vᵀ has the same products in the same order), so
-//      that dP − D is exactly 0 where Oᵢ = Vⱼ, as in exact arithmetic: at
-//      S = 1, where the true dQ and dK are 0, a D summed in another order
-//      leaves them at the noise of two different f32 sums, over the
-//      bound's floor.
+//      the tensor cores by the very product dkdv forms V dOᵀ with (dq's
+//      dO Vᵀ has the same products in the same order), so that dP − D is
+//      exactly 0 where Oᵢ = Vⱼ, as in exact arithmetic: at S = 1, where the
+//      true dQ and dK are 0, a D summed in another order leaves them at the
+//      noise of two different f32 sums, over the bound's floor.
 //   2. `dkdv_kernel`: one CTA per (batch·head, KV tile), the tile with the
 //      most Q tiles after it first.  K and V stay resident; a loop walks
 //      the Q tiles that see them (from the diagonal on, when causal),
@@ -43,82 +43,74 @@
 // S and dP are computed twice (in dkdv and in dq): seven products where
 // the function has five.  That is the price of identical bits: the atomic
 // dQ of FlashAttention-2/3 adds each KV tile's part in the order the CTAs
-// happen to finish.
-// Both grids are (B·H, tiles) with the (batch, head) pairs on x.  At
-// deepseek-v3's (1, 4096, 128, 192 / 128) the resident CTAs then share no
-// head: dkdv streams Q and dO from HBM from each KV tile's diagonal on, dq
-// K and V up to each Q tile's, 5.54 GB each against 0.34 GB read once (a
-// reckoning: no DRAM counter was read).  That traffic is not what holds
-// them: K9's tile order (tile_order.cuh), built into both kernels, moved
-// neither (PERF.md §6), so they keep the grid.
+// happen to finish.  The f32 entry's grids are (B·H, tiles) with the
+// (batch, head) pairs on x; the bf16 entry's are linear, in K9's tile
+// order (tile_order.cuh: groups of heads whose streamed operands fit L2,
+// each group's heaviest tiles first), which took `dkdv_kernel` at
+// deepseek-v3's (1, 4096, 128, 192 / 128) from 4.00 to 3.56 ms once the
+// CTA no longer held it (PERF.md §6).
 //
 // flashattn_bwd_bf16 (Hopper: wgmma + TMA).  CTAs of 384 threads:
 // warpgroup 0 is the producer (after `setmaxnreg` gives its registers to
-// the consumers, one thread issues every copy), warpgroups 1 and 2 each own
-// 64 of the CTA's 128 resident rows.  The resident operands (K, V or Q, dO:
-// 128 rows) are loaded once by TMA (a 4-D map over (D, H, S, B) with the
-// operand's strides, 64-column boxes with 128-byte swizzle; zeros past S);
-// the streamed ones (Q, dO or K, V: 64 rows a tile) run through three
-// `mbarrier` stages, with the Q tile's two row statistics beside them
-// (`cp.async.bulk`, 256 bytes each) in dkdv.  Per tile, a consumer:
-//   - issues the two score products as `wgmma m64n64k16` from shared memory
-//     (the resident rows as A, the streamed tile as a K-major B, exactly the
-//     forward's S = QKᵀ): exact products of bf16 inputs, summed in f32;
-//   - forms P = exp2(S·scale·log2 e − lse·log2 e) while dP is still in
-//     flight, then dS = P (dP − Dᵢ), in registers, masked on the tiles
-//     that cross the diagonal or S.  S is summed as K9 sums it (one
-//     accumulator over its k-steps) and scaled by K9's f32 scale·log2 e,
-//     so P is the softmax K9's lse was taken of: the tensor cores round
-//     their f32 sums toward zero, and at deepseek-v3's scores, in the
-//     thousands, a more exact S here would miss that lse by about 2e-4;
-//   - splits P and dS into bf16 hi + lo terms (hi = bf16(x),
-//     lo = bf16(x − hi): within 2^-17·|x|) and issues each register-A
-//     product twice, `wgmma m64n64k16` with the streamed tile as an
-//     N-major B (transpose bit), one 64-column box of the product at a
-//     time: the f32 accumulator layout of S is the bf16 A-fragment
-//     layout, so nothing goes through shared memory (dkdv: dV += Pᵀ dO,
-//     dK += dSᵀ Q; dq: dQ += dS K).  Without the split, P and dS would be
-//     rounded to bf16 inside the sums, a second rounding beside the
-//     output's;
-//   - sums each box's eight k-steps (four of hi, four of lo) in a fresh
-//     f32 accumulator and adds it to the running dV, dK or dQ in f32
-//     (`split_product`).  The tensor cores round their f32 sums toward
-//     zero: one running accumulator that took every tile's k-steps (64
-//     tiles x 8 at S = 4096) came out low by a common factor, 1e-5 to
-//     2e-5 of qwen3-4b's gradients at (128, 128), as the f32 entry's did
-//     before its fresh accumulators;
-//   - waits for each box's products, and frees the stage.
-// Registers: dK (64 x Dq) and dV (64 x Dv) are f32 per consumer
-// warpgroup, (Dq + Dv) / 2 registers a thread (128 at (128, 128), 160 at
-// (192, 128)), beside the 32 + 32 of S and dP, which become the P and dS
-// fragments (the same number of registers: hi + lo of two values is 64
-// bits), and the box's fresh accumulator, 32; S and dP are set to 0
-// before each tile, so they are not live across the register-A products,
-// and P's fragments are dead once dV's boxes have landed.  Consumers run
-// at 240 registers; at (192, 128) dkdv's accumulators and fragments take
-// up to 256 of them and ptxas spills some of the rest (PERF.md §6).  Q
-// and K tiles are three 64-column TMA boxes, V, O and dO tiles two.
-// Shared memory at (192, 128): K 48 KB and V 32 KB resident, three
-// stages of Q (72 KB) and dO (48 KB) and their statistics, 207 416 bytes
-// in all.
+// the consumers, one thread issues every copy), warpgroups 1 and 2 the
+// consumers, at 240 registers.  The resident operands are loaded once by
+// TMA (a 4-D map over (D, H, S, B) with the operand's strides, 64-row by
+// 64-column boxes with 128-byte swizzle; zeros past S); the streamed ones
+// (64 rows a tile) run through three `mbarrier` stages, with the Q tile's
+// two row statistics beside them (`cp.async.bulk`, 256 bytes each) in
+// dkdv.  Score products are `wgmma m64n64k16` (the resident rows as A,
+// the streamed tile as a K-major B, exactly the forward's S = QKᵀ): exact
+// products of bf16 inputs, summed in f32, S in one accumulator over its
+// k-steps, as K9 sums it, and scaled by K9's f32 scale·log2 e, so P is the
+// softmax K9's lse was taken of (the tensor cores round their f32 sums
+// toward zero, and at deepseek-v3's scores, in the thousands, a more
+// exact S here would miss that lse by about 2e-4).  P and dS are split
+// into bf16 hi + lo terms (hi = bf16(x), lo = bf16(x − hi): within
+// 2^-17·|x|) and each register-A product is issued once per term,
+// `wgmma m64n64k16` with the streamed tile as an N-major B, one 64-column
+// box at a time, the f32 accumulator layout of a score tile being the
+// bf16 A-fragment layout.  Without the split P and dS would be rounded to
+// bf16 inside the sums, a second rounding beside the output's (for P in
+// dV too: tests/test_torch_kernels_attn_bwd.py).  Each box's eight
+// k-steps (four of hi, four of lo) go into a fresh f32 accumulator, its
+// first k-step overwriting it, which is added to the running dV, dK or dQ
+// in f32: one running accumulator that took every tile's k-steps came out
+// low by a common factor, 1e-5 to 2e-5 of qwen3-4b's gradients.
+//
+// `dkdv_kernel`, 64 resident KV rows a CTA, one consumer per product
+// group, so that the accumulators of one row block are split between two
+// warpgroups' registers:
+//   - warpgroup 1 takes Sᵀ, Pᵀ = exp2(Sᵀ·scale·log2 e − lse·log2 e),
+//     masked on the diagonal tile, and dV += Pᵀ dO; it hands Pᵀ in f32 to
+//     warpgroup 2 through shared memory (three 16 KB buffers, named barriers
+//     READY and EMPTY);
+//   - warpgroup 2 takes dPᵀ, dSᵀ = Pᵀ (dPᵀ − Dᵢ) and dK += dSᵀ Q.
+// Each issues tile t+1's score product before tile t's register-A boxes and
+// forms tile t+1's Pᵀ or dSᵀ while they are in flight, as K9 hides its
+// softmax behind P·V.  Registers at (192, 128): warpgroup 1 dV 64, Sᵀ 32,
+// P's fragments 32, the box 32; warpgroup 2 dK 96, dPᵀ 32, dS's fragments
+// 32, the box 32, Pᵀ read back 32: no spill (the parent design, each
+// warpgroup holding dK and dV of its own 64 of 128 rows, spilled 484 bytes
+// there).  Shared memory at (192, 128): K 24 KB and
+// V 16 KB resident, three stages of Q (72 KB) and dO (48 KB) and their
+// statistics, the exchange 48 KB, 215 608 bytes in all.
+// `dq_kernel`, 128 resident Q rows a CTA, 64 a consumer: S and dP in two
+// groups (P formed while dP is in flight), then dQ += dS K box by box.
+// Built, measured and not kept (PERF.md §6): two boxes in flight (each
+// warpgroup's longer queue of products holds the other's back: slower in
+// both kernels), four stages at (128, 128), K and V held as register
+// fragments for the score products (so shared memory's bandwidth is not
+// what holds dkdv_kernel), and in dq_kernel one consumer per product group
+// (dS's fragments handed through shared memory) and the next tile's S and
+// dP issued before the boxes.
 // What bounds it: the function is five products, (3·Dq + 2·Dv)·H·S(S+1)
 // operations (causal), 343.7 GFLOP at qwen3-4b's (1, 4096, 32, 128) and
 // 1 787.2 at deepseek-v3's (1, 4096, 128, 192 / 128): 0.35 and 1.81 ms on
 // the bf16 tensor cores.  This design runs ten bf16 passes (S, dP twice,
-// dV, dK, dQ in two terms each): 0.69 and 3.61 ms at the peak rate.  No
-// FMA loop over D or a tile is left; TMA runs up to three tiles ahead of
-// the math.  What holds it near half that rate is the CTA, not bytes from
-// HBM, and within it the register-A products (PERF.md §7): each box is one
-// chain of eight dependent `wgmma`s waited for before the next, and no
-// registers are left for a second box in flight (dkdv_kernel spills).
-// Left: a warpgroup's products run one after another (S and dP, then the
-// register-A products box by box, then the next tile), with no elementwise
-// work of one tile hidden behind the products of another (no registers are
-// left to hold a second tile's scores); the two consumer warpgroups
-// interleave as the scheduler finds them ready; the diagonal tiles compute
-// masked cells.  Built, measured and not kept (PERF.md §6): the tile order,
-// taking the score products in turns on named barriers, starting dq_kernel
-// beside dkdv_kernel's last CTAs, and 128-column boxes for dK and dQ.
+// dV, dK, dQ in two terms each): 0.69 and 3.61 ms at the peak rate, the
+// floor of this design; fewer passes would take dQ in the dkdv pass (S and
+// dP formed once), which needs a deterministic sum of dQ across KV tiles,
+// not built.
 //
 // flashattn_bwd_f32 (the inputs must not be rounded): the same two kernels
 // on the TF32 tensor cores at f32 grade.  Each operand x is split into
@@ -149,6 +141,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_order.cuh"
+
 namespace {
 
 constexpr int PAD = 128;            // the statistics' rows: S rounded up to it
@@ -177,12 +171,20 @@ __host__ __device__ constexpr int padded(int S) {
 // ---------------------------------------------------------------------------
 namespace bf16k {
 
-constexpr int BM = 128;             // resident rows per CTA: 2 consumers x 64
+constexpr int BM = 64;              // dkdv_kernel's resident rows per CTA
+constexpr int BMQ = 128;            // dq_kernel's: 64 per consumer
 constexpr int BN = 64;              // streamed rows per tile (wgmma_ss's N)
-constexpr int STAGES = 3;           // streamed tiles in flight
+constexpr int STAGES = 3;           // streamed tiles in flight (four measured
+                                    // slower at (128, 128), PERF.md §6)
 constexpr int THREADS = 384;        // producer + two consumer warpgroups
 constexpr int CONSUMERS = 256;      // threads that release a stage
 constexpr int ROW_BYTES = 128;      // one 64-column box row, swizzled
+// one tile handed from one consumer warpgroup to the other: 32 words a
+// thread, in NXCH buffers (three measured 1-2 % faster than two)
+constexpr int XCH = 128 * 32 * 4, NXCH = 3;
+// named barriers over the two consumer warpgroups (0 is __syncthreads):
+// READY + b, buffer b holds a tile; EMPTY + b, it has been read
+constexpr int READY = 1, EMPTY = READY + NXCH;
 
 template <int DQ, int DV>
 struct Smem {                       // byte offsets from a 1024-aligned base
@@ -195,7 +197,20 @@ struct Smem {                       // byte offsets from a 1024-aligned base
   static constexpr int U = RES_X + RES_Y;        // streamed: Q / K
   static constexpr int W = U + STAGES * TILE_U;  // streamed: dO / V
   static constexpr int ST = W + STAGES * TILE_W;
-  static constexpr int BARS = ST + STAGES * STAT;  // 1 + 2 · STAGES
+  static constexpr int XB = ST + STAGES * STAT;  // the exchange's buffers
+  static constexpr int BARS = XB + NXCH * XCH;   // 1 + 2 · STAGES
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(BYTES <= 232448, "a block's shared memory on Hopper");
+};
+
+// dq_kernel's: 2 x 64 resident Q and dO rows, no exchange
+template <int DQ, int DV>
+struct SmemQ {
+  static constexpr int RES_X = BMQ * DQ * 2, RES_Y = BMQ * DV * 2;
+  static constexpr int TILE_U = BN * DQ * 2, TILE_W = BN * DV * 2;
+  static constexpr int X = 0, Y = RES_X, U = RES_X + RES_Y;
+  static constexpr int W = U + STAGES * TILE_U;
+  static constexpr int BARS = W + STAGES * TILE_W;
   static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;
   static_assert(BYTES <= 232448, "a block's shared memory on Hopper");
 };
@@ -316,16 +331,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d (64 x 64, f32) += A B: A (64 x 16 bf16) from registers in the wgmma
-// fragment layout, B (16 x 64) from shared memory N-major (transposed)
+// d (64 x 64, f32) = [d +] A B: A (64 x 16 bf16) from registers in the
+// wgmma fragment layout, B (16 x 64) from shared memory N-major
+// (transposed); `accumulate` = 0 overwrites d
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t b) {
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
@@ -342,10 +360,29 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
 }
 
-// the 64 x 64 score tiles of a consumer warpgroup: s = X Uᵀ over DQ,
-// dp = Y Wᵀ over DV, X and Y its 64 resident rows (A), U and W a streamed
-// stage (K-major B); issued as two groups, s first: wg_wait<1> waits for s
-// alone
+// d (64 x 64, f32) = A Bᵀ over D columns: A dkdv_kernel's 64 resident rows,
+// B a streamed 64-row tile, both in 64-column boxes (K-major); one
+// committed group, the k-steps in order, the forward's S = QKᵀ.  The first
+// k-step overwrites d: no instruction writes an accumulator while other
+// products are in flight, which would make ptxas serialise them.
+template <int D>
+__device__ __forceinline__ void score_product(float (&d)[32], uint32_t a,
+                                              uint32_t b) {
+  reg_fence(d);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss(d, sw128_desc(a + (kk / 4) * BM * ROW_BYTES + off, 16),
+             sw128_desc(b + (kk / 4) * BN * ROW_BYTES + off, 16), kk > 0);
+  }
+  wg_commit();
+}
+
+// dq_kernel's two 64 x 64 score tiles of a consumer warpgroup: s = X Uᵀ
+// over DQ, dp = Y Wᵀ over DV, X and Y its 64 of the 128 resident rows,
+// U and W a streamed stage; two groups, s first, so that wg_wait<1> waits
+// for s alone
 template <int DQ, int DV>
 __device__ __forceinline__ void score_products(float (&s)[32],
                                                float (&dp)[32], uint32_t xa,
@@ -359,58 +396,108 @@ __device__ __forceinline__ void score_products(float (&s)[32],
 #pragma unroll
   for (int kk = 0; kk < DQ / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
-    wgmma_ss(s, sw128_desc(xa + (kk / 4) * BM * ROW_BYTES + off, 16),
+    wgmma_ss(s, sw128_desc(xa + (kk / 4) * BMQ * ROW_BYTES + off, 16),
              sw128_desc(u + (kk / 4) * BN * ROW_BYTES + off, 16), kk > 0);
   }
   wg_commit();
 #pragma unroll
   for (int kk = 0; kk < DV / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
-    wgmma_ss(dp, sw128_desc(ya + (kk / 4) * BM * ROW_BYTES + off, 16),
+    wgmma_ss(dp, sw128_desc(ya + (kk / 4) * BMQ * ROW_BYTES + off, 16),
              sw128_desc(w + (kk / 4) * BN * ROW_BYTES + off, 16), kk > 0);
   }
   wg_commit();
 }
 
-// acc (64 x N) += A·Z with A = hi + lo in registers (64 x 64, k-steps of
-// 16 columns) and Z a streamed stage (64 rows x N, N-major B).  The tensor
-// cores round their f32 sums toward zero, so a running accumulator that
-// took every tile's k-steps came out low by a common factor (1e-5 to 2e-5
-// at (128, 128)): each 64-column box of Z takes the tile's eight k-steps
-// (hi, then lo) in a fresh 32-register accumulator, `wgmma m64n64k16`,
-// added to acc's 32 registers of that box in f32, rounded to nearest.
-// The boxes run one after another (a fresh accumulator for the whole
-// m64n192 product would not fit beside dK and dV); the fragments are
-// fenced until the last box's products have landed.
+// Box c (64 columns) of A·Z, A = hi + lo in registers (64 x 64, k-steps of
+// 16 columns) and Z a streamed stage (64 rows x N, N-major B): the tile's
+// eight k-steps (hi, then lo) in the fresh accumulator f, one committed
+// group.  The tensor cores round their f32 sums toward zero, so a running
+// accumulator that took every tile's k-steps came out low by a common
+// factor (1e-5 to 2e-5 at (128, 128)); f is added to the running sum in
+// f32, rounded to nearest (`finish_boxes`).
+__device__ __forceinline__ void box_issue(float (&f)[32],
+                                          const uint32_t (&hi)[4][4],
+                                          const uint32_t (&lo)[4][4],
+                                          uint32_t z, int c) {
+  const uint32_t box = z + c * BN * ROW_BYTES;
+  reg_fence(f);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_rs(f, hi[kk], sw128_desc(box + kk * 16 * ROW_BYTES, BN * ROW_BYTES),
+             kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_rs(f, lo[kk], sw128_desc(box + kk * 16 * ROW_BYTES, BN * ROW_BYTES),
+             1);
+  wg_commit();
+}
+
+// acc (64 x N) += A·Z box by box, one box in flight: `issue_boxes` starts
+// box 0, one committed group, and `finish_boxes` waits for each box, adds
+// it to acc and starts the next in the registers it frees.  Groups retire
+// in the order they were committed, so a group committed before the boxes
+// (the next tile's score product) has landed once `wg_wait<1>` returns.
+// Two boxes in flight measured slower (PERF.md §6): one warpgroup's long
+// queue of products holds back the other's.
 template <int N>
-__device__ __forceinline__ void split_product(float (&acc)[N / 2],
-                                              uint32_t (&hi)[4][4],
-                                              uint32_t (&lo)[4][4],
-                                              uint32_t z) {
+__device__ __forceinline__ void issue_boxes(float (&f)[32],
+                                            const uint32_t (&hi)[4][4],
+                                            const uint32_t (&lo)[4][4],
+                                            uint32_t z) {
+  static_assert(N % 64 == 0 && N <= 192, "64, 128 or 192 columns");
+  box_issue(f, hi, lo, z, 0);
+}
+
+template <int N>
+__device__ __forceinline__ void finish_boxes(float (&acc)[N / 2],
+                                             float (&f)[32],
+                                             uint32_t (&hi)[4][4],
+                                             uint32_t (&lo)[4][4],
+                                             uint32_t z) {
 #pragma unroll
   for (int c = 0; c < N / 64; ++c) {
-    const uint32_t box = z + c * BN * ROW_BYTES;
-    float part[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) part[i] = 0.f;
-    reg_fence(part);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_rs(part, hi[kk],
-               sw128_desc(box + kk * 16 * ROW_BYTES, BN * ROW_BYTES));
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_rs(part, lo[kk],
-               sw128_desc(box + kk * 16 * ROW_BYTES, BN * ROW_BYTES));
-    wg_commit();
     wg_wait<0>();
-    reg_fence(part);
+    reg_fence(f);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[32 * c + i] += part[i];
+    for (int i = 0; i < 32; ++i) acc[32 * c + i] += f[i];
+    if (c + 1 < N / 64) box_issue(f, hi, lo, z, c + 1);
   }
   frag_fence(hi);
   frag_fence(lo);
+}
+
+// The exchange: a consumer thread's 32 f32 values in one buffer of XCH
+// bytes, value w at 16-byte group w / 4 of the thread, so that a warp's
+// accesses are 512 contiguous bytes.  The two warpgroups' accumulators of
+// a 64 x 64 tile have one layout, so thread t of one reads what thread t
+// of the other wrote.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(CONSUMERS) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(CONSUMERS) : "memory");
+}
+
+__device__ __forceinline__ void put_tile(float4* buf, int t,
+                                         const float (&x)[32]) {
+#pragma unroll
+  for (int g = 0; g < 8; ++g)
+    buf[g * 128 + t] =
+        make_float4(x[4 * g], x[4 * g + 1], x[4 * g + 2], x[4 * g + 3]);
+}
+
+__device__ __forceinline__ void get_tile(const float4* buf, int t,
+                                         float (&x)[32]) {
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    const float4 v = buf[g * 128 + t];
+    x[4 * g] = v.x;
+    x[4 * g + 1] = v.y;
+    x[4 * g + 2] = v.z;
+    x[4 * g + 3] = v.w;
+  }
 }
 
 // x = x_hi + x_lo in the A-fragment layout: k-step kk holds accumulator
@@ -522,33 +609,47 @@ stats_kernel(const __grid_constant__ CUtensorMap to,
   }
 }
 
+// A loop body that issues the next tile's products, or (the last tile)
+// does not: a compile-time flag, so that no product is issued in one branch
+// and waited for after it (ptxas would then serialise every product).
+template <bool B>
+struct Next {
+  static constexpr bool value = B;
+};
+
 struct Maps {                       // resident X, Y; streamed U, W
   CUtensorMap x, y, u, w;
 };
 
-// dK and dV for 128 KV rows of one (batch, head); the KV tile with the
-// most Q tiles after it first.  X, Y = K, V (resident); U, W = Q, dO.
+// dK and dV for 64 KV rows of one (batch, head).  X, Y = K, V (resident);
+// U, W = Q, dO (streamed, from the diagonal on when causal).  Warpgroup 1
+// forms Sᵀ = K Qᵀ and Pᵀ, hands Pᵀ to warpgroup 2 and takes dV += Pᵀ dO;
+// warpgroup 2 forms dPᵀ = V dOᵀ and dSᵀ, and takes dK += dSᵀ Q.
 template <int DQ, int DV, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 dkdv_kernel(const __grid_constant__ Maps maps,
             const float* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
-            __nv_bfloat16* __restrict__ dv, int H, int S, Strides sdk,
-            Strides sdv, float scale, float scale_log2) {
+            __nv_bfloat16* __restrict__ dv, int BH, int H, int S,
+            Strides sdk, Strides sdv, float scale, float scale_log2,
+            int group) {
   using L = Smem<DQ, DV>;
   constexpr int XBOXES = DQ / 64, YBOXES = DV / 64;  // 64-column TMA boxes
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint8_t* gbase = smem_raw + (base - smem_addr(smem_raw));
+  uint8_t* gbase = smem_raw + (base - smem_addr(smem_raw));
   const uint32_t res_full = base + L::BARS;
   auto full = [&](int s) { return res_full + 8 * (1 + s); };
   auto free_ = [&](int s) { return res_full + 8 * (1 + STAGES + s); };
 
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int kv0 = blockIdx.y * BM;
+  // the KV tile with the most Q tiles after it first (tile_order.cuh)
+  const int n = (S + BM - 1) / BM;
+  const tile_order::TileAt at = tile_order::tile_at(blockIdx.x, BH, n, group);
+  const int bh = at.bh, b = bh / H, h = bh % H;
+  const int kv0 = at.rank * BM;
   const int Sp = padded(S);
-  const int nq = (S + BN - 1) / BN;
   const int qt0 = CAUSAL ? kv0 / BN : 0;
-  const int group = threadIdx.x / 128;
+  const int nt = (S + BN - 1) / BN - qt0;           // the Q tiles it sees
+  const int role = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
     bar_init(res_full, 1);
@@ -560,11 +661,11 @@ dkdv_kernel(const __grid_constant__ Maps maps,
   }
   __syncthreads();
 
-  if (group == 0) {
+  if (role == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (threadIdx.x == 0) {
       const float* lrow = stats + static_cast<long long>(bh) * Sp;
-      const float* drow = lrow + static_cast<long long>(gridDim.x) * Sp;
+      const float* drow = lrow + static_cast<long long>(BH) * Sp;
       bar_expect(res_full, L::RES_X + L::RES_Y);
       for (int c = 0; c < XBOXES; ++c)
         tma_load(base + L::X + c * BM * ROW_BYTES, &maps.x, res_full, 64 * c,
@@ -572,7 +673,7 @@ dkdv_kernel(const __grid_constant__ Maps maps,
       for (int c = 0; c < YBOXES; ++c)
         tma_load(base + L::Y + c * BM * ROW_BYTES, &maps.y, res_full, 64 * c,
                  h, kv0, b);
-      for (int it = 0; it < nq - qt0; ++it) {
+      for (int it = 0; it < nt; ++it) {
         const int s = it % STAGES, q0 = (qt0 + it) * BN;
         bar_wait(free_(s), ((it / STAGES) & 1) ^ 1);
         bar_expect(full(s), L::TILE_U + L::TILE_W + L::STAT);
@@ -587,71 +688,128 @@ dkdv_kernel(const __grid_constant__ Maps maps,
                   full(s));
       }
     }
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
-    const int cw = group - 1, t = threadIdx.x % 128, lane = t % 32;
-    const int row_lo = kv0 + 64 * cw;               // this group's KV rows
-    const int row = row_lo + 16 * (t / 32) + lane / 4;  // and row + 8
-    const int col = 2 * (lane % 4);  // column of d[0] in each 8-column group
-    const uint32_t xa = base + L::X + cw * 64 * ROW_BYTES;
-    const uint32_t ya = base + L::Y + cw * 64 * ROW_BYTES;
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int row = kv0 + 16 * (t / 32) + lane / 4;     // and row + 8
+  const int col = 2 * (lane % 4);  // column of d[0] in each 8-column group
+  float4* xp = reinterpret_cast<float4*>(gbase + L::XB);
+  auto stage_u = [&](int it) { return base + L::U + it % STAGES * L::TILE_U; };
+  auto stage_w = [&](int it) { return base + L::W + it % STAGES * L::TILE_W; };
+  auto wait_full = [&](int it) {
+    bar_wait(full(it % STAGES), (it / STAGES) & 1);
+  };
+  float f[32];
+  bar_wait(res_full, 0);
+  wait_full(0);
 
-    float dka[DQ / 2], dva[DV / 2], s[BN / 2], dp[BN / 2];
-#pragma unroll
-    for (int i = 0; i < DQ / 2; ++i) dka[i] = 0.f;
+  if (role == 1) {
+    // Sᵀ, Pᵀ and dV.  Tile it+1's Sᵀ is issued before tile it's dV boxes,
+    // and its Pᵀ formed while they are in flight.
+    float dva[DV / 2], s[32];
 #pragma unroll
     for (int i = 0; i < DV / 2; ++i) dva[i] = 0.f;
-    uint32_t p_hi[4][4], p_lo[4][4], d_hi[4][4], d_lo[4][4];
-
-    bar_wait(res_full, 0);
-    for (int it = 0; it < nq - qt0; ++it) {
-      const int st = it % STAGES, q0 = (qt0 + it) * BN;
-      const uint32_t u = base + L::U + st * L::TILE_U;
-      const uint32_t w = base + L::W + st * L::TILE_W;
-      const float* lse2 =
-          reinterpret_cast<const float*>(gbase + L::ST + st * L::STAT);
-      const float* dl = lse2 + BN;
-      bar_wait(full(st), (it / STAGES) & 1);
-      // Sᵀ = K Qᵀ, dPᵀ = V dOᵀ
-      score_products<DQ, DV>(s, dp, xa, ya, u, w);
-
-      // Pᵀ[j][i] and dSᵀ[j][i]: rows j are KV rows, columns i Q rows; Q
-      // rows past S read lse·log2 e = +inf, so P is 0 there.  Pᵀ while
-      // dPᵀ is still in flight.
-      wg_wait<1>();
-      reg_fence(s);
-      const bool edge = CAUSAL && q0 < row_lo + 64;
+    uint32_t p_hi[4][4], p_lo[4][4];
+    // Pᵀ[j][i] of tile it from its Sᵀ in s: rows j KV rows, columns i Q
+    // rows; Q rows past S read lse·log2 e = +inf, so P is 0 there.  Then
+    // into exchange buffer it % NXCH for warpgroup 2.
+    auto probabilities = [&](int it) {
+      const int q0 = (qt0 + it) * BN;
+      const float* lse2 = reinterpret_cast<const float*>(
+          gbase + L::ST + it % STAGES * L::STAT);
+      const bool edge = CAUSAL && q0 < kv0 + BM;
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
+      for (int i = 0; i < 32; ++i) {
         const int c = 8 * (i / 4) + col + i % 2;
         const float p = exp2f(fmaf(s[i], scale_log2, -lse2[c]));
         s[i] = edge && q0 + c < row + 8 * ((i / 2) % 2) ? 0.f : p;
       }
-      wg_wait<0>();
-      reg_fence(dp);
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i)
-        dp[i] = s[i] * (dp[i] - dl[8 * (i / 4) + col + i % 2]);
+      if (it >= NXCH) named_sync(EMPTY + it % NXCH);
+      put_tile(xp + it % NXCH * (XCH / 16), t, s);
+      named_arrive(READY + it % NXCH);
+    };
+    auto body = [&](int it, auto next) {
       split_tile(s, p_hi, p_lo);
-      split_tile(dp, d_hi, d_lo);
-
-      split_product<DV>(dva, p_hi, p_lo, w);        // dV += Pᵀ dO
-      split_product<DQ>(dka, d_hi, d_lo, u);        // dK += dSᵀ Q
-      bar_arrive(free_(st));
-    }
-    store_rows<DQ>(dk + b * sdk.b + h * sdk.h, sdk, dka, row, col, S, scale);
+      if constexpr (decltype(next)::value) {
+        wait_full(it + 1);
+        score_product<DQ>(s, base + L::X, stage_u(it + 1));
+      }
+      const uint32_t w = stage_w(it);
+      issue_boxes<DV>(f, p_hi, p_lo, w);             // dV += Pᵀ dO
+      if constexpr (decltype(next)::value) {
+        wg_wait<1>();
+        reg_fence(s);
+        probabilities(it + 1);
+      }
+      finish_boxes<DV>(dva, f, p_hi, p_lo, w);
+      bar_arrive(free_(it % STAGES));
+    };
+    score_product<DQ>(s, base + L::X, stage_u(0));    // Sᵀ = K Qᵀ
+    wg_wait<0>();
+    reg_fence(s);
+    probabilities(0);
+    for (int it = 0; it + 1 < nt; ++it) body(it, Next<true>{});
+    body(nt - 1, Next<false>{});
     store_rows<DV>(dv + b * sdv.b + h * sdv.h, sdv, dva, row, col, S, 1.f);
+  } else {
+    // dPᵀ, dSᵀ and dK.  Tile it+1's dPᵀ is issued before tile it's dK
+    // boxes, and its dSᵀ formed while they are in flight.
+    float dka[DQ / 2], dp[32];
+#pragma unroll
+    for (int i = 0; i < DQ / 2; ++i) dka[i] = 0.f;
+    uint32_t d_hi[4][4], d_lo[4][4];
+    // dSᵀ of tile it into dp (in place), from its dPᵀ and warpgroup 1's Pᵀ
+    auto scores_grad = [&](int it) {
+      const float* dl = reinterpret_cast<const float*>(
+          gbase + L::ST + it % STAGES * L::STAT) + BN;
+      named_sync(READY + it % NXCH);
+      float p[32];
+      get_tile(xp + it % NXCH * (XCH / 16), t, p);
+      if (it + NXCH < nt) named_arrive(EMPTY + it % NXCH);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        dp[i] = p[i] * (dp[i] - dl[8 * (i / 4) + col + i % 2]);
+    };
+    auto body = [&](int it, auto next) {
+      split_tile(dp, d_hi, d_lo);
+      if constexpr (decltype(next)::value) {
+        wait_full(it + 1);
+        score_product<DV>(dp, base + L::Y, stage_w(it + 1));
+      }
+      const uint32_t u = stage_u(it);
+      issue_boxes<DQ>(f, d_hi, d_lo, u);             // dK += dSᵀ Q
+      if constexpr (decltype(next)::value) {
+        wg_wait<1>();
+        reg_fence(dp);
+        scores_grad(it + 1);
+      }
+      finish_boxes<DQ>(dka, f, d_hi, d_lo, u);
+      bar_arrive(free_(it % STAGES));
+    };
+    score_product<DV>(dp, base + L::Y, stage_w(0));   // dPᵀ = V dOᵀ
+    wg_wait<0>();
+    reg_fence(dp);
+    scores_grad(0);
+    for (int it = 0; it + 1 < nt; ++it) body(it, Next<true>{});
+    body(nt - 1, Next<false>{});
+    store_rows<DQ>(dk + b * sdk.b + h * sdk.h, sdk, dka, row, col, S,
+                   scale);
   }
 }
 
-// dQ for 128 Q rows of one (batch, head); the heaviest Q tiles first.
-// X, Y = Q, dO (resident); U, W = K, V.
+// dQ for 128 Q rows of one (batch, head), the heaviest Q tiles first.
+// X, Y = Q, dO (resident, 64 rows a consumer warpgroup); U, W = K, V
+// (streamed, up to the diagonal when causal).  Each consumer forms S = Q Kᵀ,
+// dP = dO Vᵀ, P and dS for its rows and takes dQ += dS K, two boxes in
+// flight; where the registers allow (Dq <= 128) the next tile's S and dP
+// are issued before them.
 template <int DQ, int DV, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ stats,
-          __nv_bfloat16* __restrict__ dq, int H, int S, Strides sdq,
-          float scale, float scale_log2) {
-  using L = Smem<DQ, DV>;
+          __nv_bfloat16* __restrict__ dq, int BH, int H, int S, Strides sdq,
+          float scale, float scale_log2, int group) {
+  using L = SmemQ<DQ, DV>;
   constexpr int XBOXES = DQ / 64, YBOXES = DV / 64;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
@@ -659,13 +817,14 @@ dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ stats,
   auto full = [&](int s) { return res_full + 8 * (1 + s); };
   auto free_ = [&](int s) { return res_full + 8 * (1 + STAGES + s); };
 
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int nqt = (S + BM - 1) / BM;
-  const int q0 = (nqt - 1 - blockIdx.y) * BM;
+  const int n = (S + BMQ - 1) / BMQ;
+  const tile_order::TileAt at = tile_order::tile_at(blockIdx.x, BH, n, group);
+  const int bh = at.bh, b = bh / H, h = bh % H;
+  const int q0 = (n - 1 - at.rank) * BMQ;
   const int Sp = padded(S);
   int n_kv = (S + BN - 1) / BN;
-  if (CAUSAL) n_kv = min(n_kv, (q0 + BM - 1) / BN + 1);
-  const int group = threadIdx.x / 128;
+  if (CAUSAL) n_kv = min(n_kv, (q0 + BMQ - 1) / BN + 1);
+  const int role = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
     bar_init(res_full, 1);
@@ -677,16 +836,18 @@ dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ stats,
   }
   __syncthreads();
 
-  if (group == 0) {
+  if (role == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (threadIdx.x == 0) {
       bar_expect(res_full, L::RES_X + L::RES_Y);
-      for (int c = 0; c < XBOXES; ++c)
-        tma_load(base + L::X + c * BM * ROW_BYTES, &maps.x, res_full, 64 * c,
-                 h, q0, b);
-      for (int c = 0; c < YBOXES; ++c)
-        tma_load(base + L::Y + c * BM * ROW_BYTES, &maps.y, res_full, 64 * c,
-                 h, q0, b);
+      for (int half = 0; half < 2; ++half) {       // 64-row boxes
+        for (int c = 0; c < XBOXES; ++c)
+          tma_load(base + L::X + (2 * c + half) * BN * ROW_BYTES, &maps.x,
+                   res_full, 64 * c, h, q0 + BN * half, b);
+        for (int c = 0; c < YBOXES; ++c)
+          tma_load(base + L::Y + (2 * c + half) * BN * ROW_BYTES, &maps.y,
+                   res_full, 64 * c, h, q0 + BN * half, b);
+      }
       for (int kt = 0; kt < n_kv; ++kt) {
         const int s = kt % STAGES;
         bar_wait(free_(s), ((kt / STAGES) & 1) ^ 1);
@@ -699,58 +860,54 @@ dq_kernel(const __grid_constant__ Maps maps, const float* __restrict__ stats,
                    full(s), 64 * c, h, kt * BN, b);
       }
     }
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
-    const int cw = group - 1, t = threadIdx.x % 128, lane = t % 32;
-    const int row_lo = q0 + 64 * cw;                // this group's Q rows
-    const int row = row_lo + 16 * (t / 32) + lane / 4;  // and row + 8
-    const int col = 2 * (lane % 4);
-    const uint32_t xa = base + L::X + cw * 64 * ROW_BYTES;
-    const uint32_t ya = base + L::Y + cw * 64 * ROW_BYTES;
-    // the rows' statistics (rows past S: +inf and 0, so P is 0 there)
-    const float* lrow = stats + static_cast<long long>(bh) * Sp;
-    const float* drow = lrow + static_cast<long long>(gridDim.x) * Sp;
-    const float lse2[2] = {lrow[row], lrow[row + 8]};
-    const float dl[2] = {drow[row], drow[row + 8]};
-
-    float dqa[DQ / 2], s[BN / 2], dp[BN / 2];
-#pragma unroll
-    for (int i = 0; i < DQ / 2; ++i) dqa[i] = 0.f;
-    uint32_t d_hi[4][4], d_lo[4][4];
-
-    bar_wait(res_full, 0);
-    for (int kt = 0; kt < n_kv; ++kt) {
-      const int st = kt % STAGES, kv0 = kt * BN;
-      const uint32_t u = base + L::U + st * L::TILE_U;
-      const uint32_t w = base + L::W + st * L::TILE_W;
-      bar_wait(full(st), (kt / STAGES) & 1);
-      // S = Q Kᵀ, dP = dO Vᵀ
-      score_products<DQ, DV>(s, dp, xa, ya, u, w);
-
-      // KV rows past S were read as zeros: masked like the causal cells.
-      // P while dP is still in flight.
-      wg_wait<1>();
-      reg_fence(s);
-      const bool edge =
-          kv0 + BN > S || (CAUSAL && kv0 + BN - 1 > row_lo);
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
-        const int r = (i / 2) % 2, c = kv0 + 8 * (i / 4) + col + i % 2;
-        const float p = exp2f(fmaf(s[i], scale_log2, -lse2[r]));
-        s[i] = edge && (c >= S || (CAUSAL && c > row + 8 * r)) ? 0.f : p;
-      }
-      wg_wait<0>();
-      reg_fence(dp);
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i)
-        dp[i] = s[i] * (dp[i] - dl[(i / 2) % 2]);
-      split_tile(dp, d_hi, d_lo);
-
-      split_product<DQ>(dqa, d_hi, d_lo, u);        // dQ += dS K
-      bar_arrive(free_(st));
-    }
-    store_rows<DQ>(dq + b * sdq.b + h * sdq.h, sdq, dqa, row, col, S, scale);
+    return;
   }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  const int cw = role - 1, t = threadIdx.x % 128, lane = t % 32;
+  const int row_lo = q0 + 64 * cw;                 // this warpgroup's rows
+  const int row = row_lo + 16 * (t / 32) + lane / 4;  // and row + 8
+  const int col = 2 * (lane % 4);
+  const uint32_t xa = base + L::X + cw * 64 * ROW_BYTES;
+  const uint32_t ya = base + L::Y + cw * 64 * ROW_BYTES;
+  auto stage_u = [&](int kt) { return base + L::U + kt % STAGES * L::TILE_U; };
+  auto stage_w = [&](int kt) { return base + L::W + kt % STAGES * L::TILE_W; };
+  // the rows' statistics (rows past S: +inf and 0, so P is 0 there)
+  const float* lrow = stats + static_cast<long long>(bh) * Sp;
+  const float* drow = lrow + static_cast<long long>(BH) * Sp;
+  const float lse2[2] = {lrow[row], lrow[row + 8]};
+  const float dl[2] = {drow[row], drow[row + 8]};
+
+  float dqa[DQ / 2], s[32], dp[32], f[32];
+#pragma unroll
+  for (int i = 0; i < DQ / 2; ++i) dqa[i] = 0.f;
+  uint32_t d_hi[4][4], d_lo[4][4];
+  bar_wait(res_full, 0);
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int kv0 = kt * BN;
+    bar_wait(full(kt % STAGES), (kt / STAGES) & 1);
+    score_products<DQ, DV>(s, dp, xa, ya, stage_u(kt), stage_w(kt));
+    // P while dP is still in flight; KV rows past S were read as zeros:
+    // masked like the causal cells
+    wg_wait<1>();
+    reg_fence(s);
+    const bool edge = kv0 + BN > S || (CAUSAL && kv0 + BN - 1 > row_lo);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2, c = kv0 + 8 * (i / 4) + col + i % 2;
+      const float p = exp2f(fmaf(s[i], scale_log2, -lse2[r]));
+      s[i] = edge && (c >= S || (CAUSAL && c > row + 8 * r)) ? 0.f : p;
+    }
+    wg_wait<0>();
+    reg_fence(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - dl[(i / 2) % 2]);
+    split_tile(dp, d_hi, d_lo);
+    const uint32_t u = stage_u(kt);
+    issue_boxes<DQ>(f, d_hi, d_lo, u);              // dQ += dS K
+    finish_boxes<DQ>(dqa, f, d_hi, d_lo, u);
+    bar_arrive(free_(kt % STAGES));
+  }
+  store_rows<DQ>(dq + b * sdq.b + h * sdq.h, sdq, dqa, row, col, S, scale);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -813,28 +970,30 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* stats, void* dq,
            void* dk, void* dv, int B, int H, int S, const Args& a,
            float scale, cudaStream_t stream) {
-  Maps kv, qd;                      // dkdv: K, V, Q, dO; dq: Q, dO, K, V
-  CUtensorMap to;
+  // every operand in boxes of 64 rows (BM = BN): one map each
+  static_assert(BM == BN, "resident and streamed tiles share the maps");
+  CUtensorMap to, tq, tk, tv, tdo;
   int err = make_map(&to, o, B, S, H, DV, a.o, BN);
-  if (err == 0) err = make_map(&kv.x, k, B, S, H, DQ, a.k, BM);
-  if (err == 0) err = make_map(&kv.y, v, B, S, H, DV, a.v, BM);
-  if (err == 0) err = make_map(&kv.u, q, B, S, H, DQ, a.q, BN);
-  if (err == 0) err = make_map(&kv.w, dout, B, S, H, DV, a.d, BN);
-  if (err == 0) err = make_map(&qd.x, q, B, S, H, DQ, a.q, BM);
-  if (err == 0) err = make_map(&qd.y, dout, B, S, H, DV, a.d, BM);
-  if (err == 0) err = make_map(&qd.u, k, B, S, H, DQ, a.k, BN);
-  if (err == 0) err = make_map(&qd.w, v, B, S, H, DV, a.v, BN);
+  if (err == 0) err = make_map(&tq, q, B, S, H, DQ, a.q, BN);
+  if (err == 0) err = make_map(&tk, k, B, S, H, DQ, a.k, BN);
+  if (err == 0) err = make_map(&tv, v, B, S, H, DV, a.v, BN);
+  if (err == 0) err = make_map(&tdo, dout, B, S, H, DV, a.d, BN);
   if (err != 0) return err;
+  const Maps kv{tk, tv, tq, tdo}, qd{tq, tdo, tk, tv};
   const int stat_bytes = 2 * BN * DV * 2 + 8 + 1024;
   err = cudaFuncSetAttribute(stats_kernel<DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              stat_bytes);
   if (err != cudaSuccess) return err;
   stats_kernel<DV><<<dim3(B * H, padded(S) / BN), 128, stat_bytes,
-                     stream>>>(to, kv.w, lse, stats, H, S);
+                     stream>>>(to, tdo, lse, stats, H, S);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (S + BM - 1) / BM);
+  // a linear grid in K9's tile order: groups of heads whose streamed
+  // operands fit L2, the heaviest tiles first
+  const int BH = B * H;
+  const int group = tile_order::heads_per_group(BH, S, DQ, DV);
+  const dim3 grid(BH * ((S + BM - 1) / BM));
   const int bytes = Smem<DQ, DV>::BYTES;
   auto kv_kernel = dkdv_kernel<DQ, DV, CAUSAL>;
   err = cudaFuncSetAttribute(
@@ -842,17 +1001,18 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return err;
   kv_kernel<<<grid, THREADS, bytes, stream>>>(
       kv, stats, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, S, a.dk, a.dv, scale,
-      scale * LOG2E);
+      static_cast<__nv_bfloat16*>(dv), BH, H, S, a.dk, a.dv, scale,
+      scale * LOG2E, group);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   auto q_kernel = dq_kernel<DQ, DV, CAUSAL>;
+  const int q_bytes = SmemQ<DQ, DV>::BYTES;
   err = cudaFuncSetAttribute(
-      q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, q_bytes);
   if (err != cudaSuccess) return err;
-  q_kernel<<<grid, THREADS, bytes, stream>>>(
-      qd, stats, static_cast<__nv_bfloat16*>(dq), H, S, a.dq, scale,
-      scale * LOG2E);
+  q_kernel<<<dim3(BH * ((S + BMQ - 1) / BMQ)), THREADS, q_bytes, stream>>>(
+      qd, stats, static_cast<__nv_bfloat16*>(dq), BH, H, S, a.dq, scale,
+      scale * LOG2E, group);
   return cudaGetLastError();
 }
 

@@ -19,19 +19,24 @@ A turn prints one JSON line ``{"turn": ...}``, measured in that process:
   inputs, mean ms of 10 calls by CUDA events after a warm-up (``ms``), and
   the same work as 4 calls on a quarter of the heads (``same_work_ms``);
 - ``bwd``: K9-bwd bf16 causal at ``BWD_SHAPES`` on K9's output and lse
-  for the same inputs, ms by events and device ms by kernel
-  (``stats_kernel``, ``dkdv_kernel``, ``dq_kernel``; CUDA activity of
-  ``torch.profiler``, mean of 3 calls);
+  for the same inputs, ms by events, and device ms and launches a call by
+  kernel, for whatever kernels the checkout's backward launches (CUDA
+  activity of ``torch.profiler`` over 3 calls, kernels by their
+  unqualified names);
 - ``digests``: SHA-256 of the bits of O, lse, dQ, dK and dV at each of
-  ``BITS_SHAPES``;
+  ``BITS_SHAPES``, and ``same_bits_twice``: whether a second backward at
+  each gave the same dQ, dK and dV;
 - with ``--train``: qwen3-4b and deepseek-v3 (3 dense layers) at full
   width, batch 1 x 4096, 7 steps each by the checkout's own
   ``chip_smoke.big_model_steps`` (host-clock seconds; one more qwen3-4b
   step traced for device time); the median of steps 2-7.
 
 Then one line ``{"versus": ...}``: each label's median of every time over
-its turns, and whether every turn of every label gave the same digests.
-Exits non-zero where a turn failed or the digests differ.
+its turns; ``same_bits``, whether within each label every turn gave the
+same digests and every backward the same bits twice; and
+``same_bits_across_labels``, reported only: two checkouts whose kernels
+sum in another order may differ.  Exits non-zero where a turn failed or
+``same_bits`` is false.
 """
 from __future__ import annotations
 
@@ -55,7 +60,7 @@ BITS_SHAPES = ((1, 4096, 128, 192, 128, True), (1, 4096, 32, 128, 128, True),
                (2, 1000, 3, 192, 128, True), (2, 1000, 3, 128, 128, True),
                (2, 1000, 3, 64, 64, True), (2, 1000, 3, 192, 128, False),
                (2050, 129, 32, 64, 64, True))
-BWD_KERNELS = re.compile(r"(stats_kernel|dkdv_kernel|dq_kernel)")
+KERNEL_NAME = re.compile(r"::(\w+)<")     # a templated kernel's own name
 
 
 def _worker(root: str, train: bool, build_only: bool) -> dict:
@@ -112,6 +117,7 @@ def _worker(root: str, train: bool, build_only: bool) -> dict:
         call = lambda: kfa.flash_attention_bwd(q, k, v, o, do, lse,
                                                causal=True)
         row = {"shape": [B, S, H, Dq, Dv], "ms": timed_ms(call, 5)}
+        torch.cuda.synchronize()
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
@@ -119,18 +125,25 @@ def _worker(root: str, train: bool, build_only: bool) -> dict:
             torch.cuda.synchronize()
         by: dict = {}
         for evt in prof.events():
-            m = BWD_KERNELS.search(evt.name)
-            if evt.device_type == torch.autograd.DeviceType.CUDA and m:
-                by[m[1]] = by.get(m[1], 0.0) + evt.device_time_total / 3e3
-        row["device_ms"] = by
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            m = KERNEL_NAME.search(evt.name)
+            name = m[1] if m else evt.name
+            ms, n = by.get(name, (0.0, 0))
+            by[name] = (ms + evt.device_time_total / 3e3, n + 1)
+        row["device_ms"] = {k: ms for k, (ms, _) in by.items()}
+        row["launches_per_call"] = {k: n / 3 for k, (_, n) in by.items()}
         out["bwd"].append(row)
         del q, k, v, do, o, lse
     for B, S, H, Dq, Dv, causal in BITS_SHAPES:
         q, k, v, do = inputs(7, B, S, H, Dq, Dv)
         o, lse, _ = kfa._forward(q, k, v, causal, Dq ** -0.5, with_lse=True)
         grads = kfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+        again = kfa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
         out["digests"].append([digest(x) for x in (o, lse, *grads)])
-        del q, k, v, do, o, lse, grads
+        out.setdefault("same_bits_twice", []).append(
+            all(torch.equal(a, b) for a, b in zip(grads, again)))
+        del q, k, v, do, o, lse, grads, again
     if train:
         torch.cuda.empty_cache()
         out["train"] = _train_steps(root)
@@ -209,9 +222,14 @@ def main(argv) -> int:
                 for name, ms in _times(turn):
                     per.setdefault(name, []).append(ms)
         medians[label] = {n: statistics.median(x) for n, x in per.items()}
-    same = len({json.dumps(t["digests"]) for _, t in done}) == 1
-    print(json.dumps({"versus": {"medians": medians,
-                                 "same_bits": same}}), flush=True)
+    same = all(
+        len({json.dumps(t["digests"]) for lb, t in done if lb == label}) == 1
+        for label in medians) and all(all(t["same_bits_twice"])
+                                      for _, t in done)
+    across = len({json.dumps(t["digests"]) for _, t in done}) == 1
+    print(json.dumps({"versus": {"medians": medians, "same_bits": same,
+                                 "same_bits_across_labels": across}}),
+          flush=True)
     return 0 if same else 1
 
 
