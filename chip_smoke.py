@@ -488,8 +488,11 @@ seconds (the kernel builds inside ``kernel_cases``); after it
    7i for its third, at (64, 64); 7b for K9-bwd; the tri
    join in one row per route: path and triangle at n = 8192, dense at n =
    512, with ptxas's register and spill counts for the path and triangle
-   kernels; the keep form on its one route, dense, at n = 512, one row per
-   kept axis with the entry it takes and ptxas's counts of the slab
+   kernels (the triangle row also with its kernel's device ms and the
+   yardstick's cuBLAS kernel by name and device ms, ``tri_split``, in a
+   process of its own, and its f64 mma instructions in the SASS by
+   opcode, ``tri_sass``); the keep form on its one route, dense, at n =
+   512, one row per kept axis with the entry it takes and ptxas's counts of the slab
    entry's instances; SDDMM with its route, skipped tiles, the dense
    bound at the bf16 tensor-core rate beside the f32 one, the times of
    prep and of the tensor-core kernel alone, and a second yardstick on
@@ -6261,7 +6264,8 @@ def tri_rows(entry, b, b_keep, rng, eye, local):
           source=TRIJOIN_SOURCE, peak_ops=PEAK_F64_TC_OPS_PER_S,
           join_route="triangle", factors="(0,1)+(1,2)+(0,2)",
           ptxas=[e for e in ptxas if e["kernel"].startswith("tri")],
-          yardstick="((F1' @ F2') * F3').sum(), ' = off-diagonal, f64")
+          yardstick="((F1' @ F2') * F3').sum(), ' = off-diagonal, f64",
+          **tri_split(N), **tri_sass())
     del fs4, P1, P2, P3
 
     n5 = 512
@@ -6931,7 +6935,7 @@ def _flash_label(mangled: str):
 
 def _trijoin_label(mangled: str):
     """path::path_cols<MASK>, path::path_finish<MASK> and
-    tri::tri_mma<KIN_A, KIN_B> by their template flags."""
+    tri::tri_mma<KIN_A, KIN_B, EXTRA> by their template flags."""
     m = re.search(r"(path_cols|path_finish|tri_mma)I((?:Lb[01]E)+)E",
                   mangled)
     if not m:
@@ -7177,6 +7181,88 @@ for evt in prof.events():
             ms + evt.device_time_total / 1e3, n + 1)
 print(json.dumps(out))
 """
+
+
+# run by `tri_split` in a process of its own: argv = src dir, n, calls;
+# prints {"kernel": {name: [device ms, launches]}, "library": {...}} over
+# the calls of the triangle route (the cycles' mix of three pair factors,
+# seeded integers) and of its yardstick on the same factors
+TRI_SPLIT_SCRIPT = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.kernels import matreduce as mr
+n, calls = int(sys.argv[2]), int(sys.argv[3])
+gen = torch.Generator(device="cuda").manual_seed(5)
+axes = [(0, 1), (1, 2), (0, 2)]
+fs = [torch.randint(0, 26, (n, n), generator=gen, device="cuda",
+                    dtype=torch.float64) for _ in axes]
+eye = torch.eye(n, dtype=torch.bool, device="cuda")
+P1, P2, P3 = (F.masked_fill(eye, 0) for F in fs)
+runs = {"kernel": lambda: mr.tri_reduce(fs, axes, n=n),
+        "library": lambda: ((P1 @ P2) * P3).sum().item()}
+out = {}
+for key, fn in runs.items():
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            ms, k = by.get(evt.name, (0.0, 0))
+            by[evt.name] = (ms + evt.device_time_total / 1e3, k + 1)
+    out[key] = by
+print(json.dumps(out))
+"""
+
+
+def tri_split(n: int, calls: int = 3) -> dict:
+    """The triangle route's kernels and its yardstick's (cuBLAS's f64
+    product and PyTorch's elementwise and sum kernels), device ms and
+    launches a call by full kernel name, at n on seeded integer factors:
+    CUDA activity of ``torch.profiler`` in a process of its own, as
+    ``kernel_split`` takes it.  The yardstick's product kernel, the one of
+    most device time, by its name, which names cuBLAS's tile geometry."""
+    proc = subprocess.run(
+        [sys.executable, "-c", TRI_SPLIT_SCRIPT, os.path.join(ROOT, "src"),
+         str(n), str(calls)], capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    split = json.loads(proc.stdout.strip().splitlines()[-1])
+    out = {key: {name: {"ms": ms / calls, "launches_per_call": k / calls}
+                 for name, (ms, k) in by.items()}
+           for key, by in split.items()}
+    mine = {k: v for k, v in out["kernel"].items() if "tri_mma" in k}
+    assert len(mine) == 1 and sum(v["ms"] for v in mine.values()) > 0, \
+        f"the profiler saw no triangle kernel: {out['kernel']}"
+    gemm = max(out["library"], key=lambda k: out["library"][k]["ms"])
+    return {"device_ms": next(iter(mine.values()))["ms"],
+            "device_ms_by_kernel": out["kernel"],
+            "library_kernel": gemm,
+            "library_kernel_device_ms": out["library"][gemm]["ms"],
+            "library_device_ms_by_kernel": out["library"]}
+
+
+def tri_sass() -> dict:
+    """The f64 mma instructions in the SASS of each triangle kernel by
+    opcode, and per stage of 16 of y as the design issues them (16 x 8
+    blocks of a warp's 64 x 32, each 16 / k instructions of k = the
+    opcode's), or why not."""
+    sass = kbuild.sass_opcodes("trijoin", r"DMMA(?:\.\w+)*")
+    if sass is None:
+        return {"sass_dmma": "not counted: no cuobjdump in the toolkit"}
+    out = {}
+    for mangled, ops in sass.items():
+        label = _trijoin_label(mangled)
+        if label and label.startswith("tri::"):
+            per = {op: (4 * 4 * 16 // int(op.rsplit("x", 1)[1])
+                        if re.fullmatch(r"DMMA\.\d+x\d+x\d+", op)
+                        else None) for op in ops}
+            out[label] = {"in_sass": ops, "per_stage_per_warp": per}
+    return {"sass_dmma": out}
 
 
 def kernel_split(shape, head_dims, dtype, calls: int = 3) -> dict:

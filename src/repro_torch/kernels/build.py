@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -68,6 +69,34 @@ def _library(name: str, sources) -> Path:
     for s in (*sorted(p.name for p in CSRC.glob("*.cuh")), *sources):
         h.update((CSRC / s).read_bytes())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def sass_opcodes(name: str, pattern: str) -> dict | None:
+    """The SASS instructions whose opcode matches ``pattern`` in each
+    kernel of library ``name`` (built, from ``SOURCES``), counted by
+    opcode: ``{mangled kernel: {opcode: count}}``, read with ``cuobjdump
+    -sass``.  None where the toolkit has no ``cuobjdump``."""
+    found = shutil.which("cuobjdump")
+    if found is None:
+        try:
+            found = str(Path(_nvcc()).with_name("cuobjdump"))
+        except KernelError:
+            return None
+        if not Path(found).exists():
+            return None
+    dump = subprocess.run([found, "-sass", str(_library(name, SOURCES[name]))],
+                          capture_output=True, text=True, check=True).stdout
+    out: dict = {}
+    current = None
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = out.setdefault(m[1], {})
+            continue
+        for op in re.findall(r"\b(" + pattern + r")\b", line):
+            if current is not None:
+                current[op] = current.get(op, 0) + 1
+    return out
 
 
 def load_all(specs: dict) -> dict:

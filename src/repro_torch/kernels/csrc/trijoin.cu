@@ -41,22 +41,31 @@
 // (x, z), each the product of its factors with the global diagonal zeroed
 // when the join is masked):
 //   Σ_{x,z} C′[x,z] Σ_y A′[x,y] B′[z,y].
-//   A CTA of 256 threads owns a 128 x 128 (x, z) tile; 8 warps of 64 x 32
-//   run mma.sync.aligned.m16n8k4.row.col.f64 (the f64 shape sm_90 added)
-//   over k-steps of 4: one instruction does the 16 x 8 x 4 product that
-//   takes two of the sm_80 shape m8n8k4 sharing one B fragment.  A′ and
-//   B′ tiles of 128 x 16 are staged in shared memory by
-//   cp.async in 4 stages, two neighbours per 16-byte copy where the lead
-//   factor allows it (unit stride, even other stride, 16-byte aligned
-//   base), one per 8-byte copy elsewhere; the factor with unit stride
-//   decides whether a tile is stored k-inner or row-inner (both read by
-//   the fragments without bank conflicts).  The operand's other factors
-//   (a vector on y, a second pair factor) and the diagonal are applied by
-//   each thread to the cells it copied, after its own copies have landed
-//   and before the stage is read, only on stages that need it.  The
-//   epilogue multiplies the accumulators by C′ (vectors on x and z,
-//   scalars and the (x, z) factors, read in place) and reduces the tile:
-//   the (x, z) product is never written.  One f64 partial per CTA.
+//   Persistent CTAs, one an SM, walk the 128 x 128 (x, z) tiles in the
+//   grouped raster of tri_order.cuh, one f64 partial a tile at its index.
+//   The wrapper hands A′ and B′ as one factor each that TMA reads in place
+//   (unit stride along y or along the rows, an even other stride, a
+//   16-byte base): where an operand has other factors (a vector on y, a
+//   second pair factor) or a lead factor TMA cannot read, it writes the
+//   operand's f64 product into a buffer first, as sddmm copies views TMA
+//   cannot read.  A CTA is three warpgroups.  Warpgroup 2, the producer,
+//   hands its registers to the consumers (setmaxnreg) and one of its
+//   threads fills a ring of 6 stages of 16 of y (A′ and B′ rows, 32 KB)
+//   on full / empty mbarriers with TMA loads through f64 tensor maps with
+//   a 128-byte swizzle (unit stride along y: one box of 16 k x 128 rows;
+//   along the rows: eight of 16 rows x 16 k).  Warpgroups 0 and 1, the
+//   consumers, are 8 warps of 64 x 32 cells; each waits for a stage,
+//   reads its fragments by the lane maps of tri_order.cuh (no bank
+//   conflict; every address a lane base XOR a constant plus an
+//   immediate), issues 16 mma.sync.aligned.m16n8k16.row.col.f64 (sm_90:
+//   a quarter of the instructions of m16n8k4 for the same products) and
+//   releases the stage; no barrier spans the CTA.  The diagonal zero is a
+//   compare of the lane's row less its k with one scalar a stage, in a
+//   copy of the stage taken only where a stage holds a diagonal cell, so
+//   the common stage holds no code for it.  The epilogue multiplies the
+//   accumulators by C′ (vectors on x and z, scalars and the (x, z)
+//   factors, read in place) and reduces the tile in a fixed order: the
+//   (x, z) product is never written.
 //   Why f64 tensor cores: factors are integers up to the guard's 2^24 per
 //   chunk, bf16 holds integers exactly only to 256, and f32 FMAs would need
 //   the chunked f32 -> f64 fold; f64 products and sums of these integers
@@ -68,7 +77,11 @@
 // stream the caller passes and never synchronise.  Plain C interface,
 // loaded with ctypes.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tri_order.cuh"
 
 #define MAXF 8        // factor-table capacity; the wrapper folds surplus factors
 
@@ -248,303 +261,405 @@ static int run(const Table& tb, int n_a, int n_m, int n_c, int off_a,
 // ---------------------------------------------------------------------------
 namespace tri {
 
-constexpr int BM = 128;               // CTA tile: 128 x 128 of (x, z)
-constexpr int BK = 16;                // k (y) per stage
-constexpr int STAGES = 4;
-constexpr int THREADS = 256;          // 8 warps: 2 along x, 4 along z
-constexpr int WM = 64, WN = 32;       // warp tile
-constexpr int PAD = 4;                // doubles of padding per smem row
-constexpr int GROUP = 8;              // x tiles per raster group
-constexpr int PER = BM * BK / THREADS;   // cells one thread copies per stage
+using tri_order::BK;
+using tri_order::TILE_X;
+using tri_order::WM;
+using tri_order::WN;
 
-// A stage of one operand, 128 rows x 16 k: k-inner ([row][k]) when the
-// operand's lead factor has unit stride along k, row-inner ([k][row]) when
-// along rows.  Either way a fragment load (8 rows x 4 k per half-warp
-// pair) and a copy (16 or 32 consecutive doubles) hit distinct banks.
-template <bool KIN>
-struct Lay {
-    static constexpr int size = KIN ? BM * (BK + PAD) : BK * (BM + PAD);
-    static __device__ __forceinline__ int at(int r, int k)
-    {
-        return KIN ? r * (BK + PAD) + k : k * (BM + PAD) + r;
+constexpr int TILE_Z = 128;           // z of a CTA tile: WN a warp pair
+constexpr int STAGES = 6;             // stages in the ring
+constexpr int CONSUMER_WARPS = 2 * TILE_Z / WN;      // 2 along x: 8
+constexpr int CONSUMERS = 32 * CONSUMER_WARPS;
+constexpr int PRODUCERS = 128;        // a warpgroup
+constexpr int THREADS = CONSUMERS + PRODUCERS;
+// registers a thread: the launch gives each of the 384 threads 168 (a
+// sub-partition's 16K registers over its three warps); setmaxnreg hands
+// the producers' on to the consumers, which hold 128 accumulators
+constexpr int CONSUMER_REGS = 240;
+constexpr int PRODUCER_REGS =
+    ((65536 / THREADS) / 8 * 8 * THREADS - CONSUMER_REGS * CONSUMERS)
+    / PRODUCERS / 8 * 8;
+constexpr int OP_A = TILE_X * BK, OP_B = TILE_Z * BK;  // doubles a stage
+constexpr int STAGE = OP_A + OP_B;
+constexpr int RING_BYTES = STAGES * STAGE * 8;
+constexpr int SMEM = RING_BYTES + 2 * STAGES * 8 + 2 * CONSUMER_WARPS * 8
+                     + 1024;
+static_assert(CONSUMER_WARPS % 4 == 0 && PRODUCER_REGS >= 24,
+              "whole warpgroups; setmaxnreg's least count");
+static_assert(SMEM <= 232448, "a block's shared memory on Hopper");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p)
+{
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar, int count)
+{
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint32_t bar, int bytes)
+{
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar)
+{
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+                 :: "r"(bar) : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void bar_wait(uint32_t bar, int parity)
+{
+    uint32_t done = 0;
+    while (!done) {
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
     }
-    // the cell a thread copies in its i-th slot: one at a time, or (vec)
-    // in pairs along the unit-stride axis
-    static __device__ __forceinline__ void cell(int i, bool vec, int& r,
-                                                int& k)
-    {
-        const int t = threadIdx.x;
-        if (vec) {
-            const int j = i / 2, e = i % 2;
-            if (KIN) {
-                k = 2 * (t % (BK / 2)) + e;
-                r = t / (BK / 2) + THREADS / (BK / 2) * j;
-            } else {
-                r = 2 * (t % (BM / 2)) + e;
-                k = t / (BM / 2) + THREADS / (BM / 2) * j;
-            }
-        } else if (KIN) {
-            k = t % BK;
-            r = t / BK + THREADS / BK * i;
-        } else {
-            r = t % BM;
-            k = t / BM + THREADS / BM * i;
-        }
-    }
-};
-
-__device__ __forceinline__ void cp_async8(double* dst, const double* src,
-                                          bool valid)
-{
-    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-                 :: "r"(s), "l"(src), "r"(valid ? 8 : 0) : "memory");
 }
 
-// 16 bytes, of which the first `bytes` are read and the rest zero-filled.
-__device__ __forceinline__ void cp_async16(double* dst, const double* src,
-                                           int bytes)
+// one box of a 2-D tensor map at (c0, c1), innermost first, into shared
+// memory at `dst`; completion counted on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1)
 {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(s), "l"(src), "r"(bytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4}], [%2];"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+           "r"(c0), "r"(c1) : "memory");
 }
 
-__device__ __forceinline__ void cp_commit()
+// A stage of an operand's ROWS rows by TMA: one 16 k x ROWS box k-inner,
+// 16 row x 16 k boxes row-inner (a 128-byte swizzle takes boxes of 128
+// bytes a line).
+template <bool KIN, int ROWS>
+__device__ __forceinline__ void tma_stage(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int r0, int k0)
 {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait()
-{
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// (d0; d1) += (a0; a1) · b on the f64 tensor cores: one 16 x 8 x 4
-// product per warp; d0 and a0 hold rows lr, d1 and a1 rows lr + 8.
-__device__ __forceinline__ void dmma(double (&d0)[2], double (&d1)[2],
-                                     double a0, double a1, double b)
-{
-    asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
-        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-        : "+d"(d0[0]), "+d"(d0[1]), "+d"(d1[0]), "+d"(d1[1])
-        : "d"(a0), "d"(a1), "d"(b));
-}
-
-// Copy the (rows r0.., k k0..) stage of an operand whose lead factor is
-// base (strides sr, sk); cells outside [0, nr) x [0, nk) are zero-filled.
-// With vec, two neighbours along the unit-stride axis per 16-byte copy
-// (the host grants it where every pair is 16-byte aligned).
-template <bool KIN>
-__device__ __forceinline__ void load_stage(double* s, const double* base,
-                                           long long sr, long long sk,
-                                           int r0, int nr, int k0, int nk,
-                                           bool vec)
-{
-    if (vec) {
-#pragma unroll
-        for (int i = 0; i < PER; i += 2) {
-            int r, k;
-            Lay<KIN>::cell(i, true, r, k);
-            const int gr = r0 + r, gk = k0 + k;
-            const bool first = gr < nr && gk < nk;
-            const bool second = KIN ? gk + 1 < nk : gr + 1 < nr;
-            cp_async16(s + Lay<KIN>::at(r, k),
-                       first ? base + gr * sr + gk * sk : base,
-                       first ? (second ? 16 : 8) : 0);
-        }
+    if (KIN) {
+        tma_load(dst, map, bar, k0, r0);
         return;
     }
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-        int r, k;
-        Lay<KIN>::cell(i, false, r, k);
-        const int gr = r0 + r, gk = k0 + k;
-        const bool ok = gr < nr && gk < nk;
-        cp_async8(s + Lay<KIN>::at(r, k),
-                  ok ? base + gr * sr + gk * sk : base, ok);
-    }
+    for (int b = 0; b < ROWS / 16; ++b)
+        tma_load(dst + b * 16 * BK * 8, map, bar, r0 + 16 * b, k0);
 }
 
-// The operand's other factors [f0, f1) and, with diag, the zero where the
-// global row meets the global k (goff = row offset − k offset), applied to
-// the cells this thread copied.
+__device__ __forceinline__ void lds128(double& lo, double& hi, uint32_t a)
+{
+    asm volatile("ld.shared.v2.f64 {%0, %1}, [%2];"
+                 : "=d"(lo), "=d"(hi) : "r"(a));
+}
+
+__device__ __forceinline__ double lds64(uint32_t a)
+{
+    double v;
+    asm volatile("ld.shared.f64 %0, [%1];" : "=d"(v) : "r"(a));
+    return v;
+}
+
+// Lane column t's four values of y at the lane's row r0 + d of the stage
+// at byte `stage`, whose first row r0 gives the lane's base
+// (tri_order::frag_base): two by one 16-byte load k-inner, one by an
+// 8-byte load row-inner, each at the base XOR a constant plus a constant.
 template <bool KIN>
-__device__ __forceinline__ void fix_stage(double* s, const Table& tb, int f0,
-                                          int f1, int r0, int nr, int k0,
-                                          int nk, long long goff, bool diag,
-                                          bool vec)
+__device__ __forceinline__ void load_frag(double (&v)[4], uint32_t stage,
+                                          uint32_t base, int d)
 {
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-        int r, k;
-        Lay<KIN>::cell(i, vec, r, k);
-        const int gr = r0 + r, gk = k0 + k;
-        if (gr < nr && gk < nk) {
-            double v = s[Lay<KIN>::at(r, k)] * eval(tb, f0, f1, gr, gk);
-            if (diag && gr + goff == gk) v = 0.0;
-            s[Lay<KIN>::at(r, k)] = v;
-        }
+    for (int q = 0; q < 4; q += KIN ? 2 : 1) {
+        const uint32_t at = stage + ((base ^ tri_order::frag_xor(KIN, d, q))
+                                     + tri_order::frag_add(KIN, d, q));
+        if constexpr (KIN)
+            lds128(v[q], v[q + 1], at);
+        else
+            v[q] = lds64(at);
     }
 }
 
-// Whether [a, a + na) and [b, b + nb) share a global index.
-__device__ __forceinline__ bool overlap(long long a, int na, long long b,
-                                        int nb)
+// On a stage that holds a diagonal cell of the warp's rows: zero the
+// values of lane column t at the warp's row r whose k makes r - k = d.
+__device__ __forceinline__ void zero_diag(double (&v)[4], int r, int t, int d)
 {
-    return a < b + nb && b < a + na;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+        if (r - tri_order::kappa(t, q) == d) v[q] = 0.0;
+}
+
+// d += A·Bᵀ over a stage's 16 k for one 16 x 8 block: a[h][q] holds rows
+// g + 8h, b[q] column g, both at k = kappa(t, q); mma.sync's f64 m16n8k16
+// (sm_90; a quarter of the instructions of m16n8k4 for the same products,
+// and faster here than m16n8k8 or m16n8k4 on an H100, PERF.md) lays
+// a_{2j+h} at (g + 8h, t + 4j) and b_j at (t + 4j, g).
+__device__ __forceinline__ void mma(double (&d)[4], const double (&a)[2][4],
+                                    const double (&b)[4])
+{
+    asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
+        "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a[0][0]), "d"(a[1][0]), "d"(a[0][1]), "d"(a[1][1]),
+          "d"(a[0][2]), "d"(a[1][2]), "d"(a[0][3]), "d"(a[1][3]), "d"(b[0]),
+          "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
+// One stage of y for a consumer warp: acc += A′·B′ᵀ over the stage's 16 k
+// for its 64 x 32 block, the A′ stage at byte `as`, B′ at `bs`.  DIAG: the
+// stage holds a diagonal cell of the warp's rows of A′ (where row - k is
+// da, if diag_a) or of B′ (db, diag_b), zeroed as the fragments are read;
+// the common stage holds no code for it.
+template <bool KIN_A, bool KIN_B, bool DIAG>
+__device__ __forceinline__ void stage(double (&acc)[WM / 16][WN / 8][4],
+                                      uint32_t as, uint32_t bs,
+                                      uint32_t lane_a, uint32_t lane_b, int g,
+                                      int t, bool diag_a, int da, bool diag_b,
+                                      int db)
+{
+    double b[WN / 8][4];
+#pragma unroll
+    for (int j = 0; j < WN / 8; ++j) {
+        load_frag<KIN_B>(b[j], bs, lane_b, 8 * j);
+        if (DIAG && diag_b)
+            zero_diag(b[j], tri_order::b_row(KIN_B, j, g), t, db);
+    }
+#pragma unroll
+    for (int i = 0; i < WM / 16; ++i) {
+        double a[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            load_frag<KIN_A>(a[h], as, lane_a, 16 * i + 8 * h);
+            if (DIAG && diag_a)
+                zero_diag(a[h], tri_order::a_row(KIN_A, i, h, g), t, da);
+        }
+#pragma unroll
+        for (int j = 0; j < WN / 8; ++j) mma(acc[i][j], a, b[j]);
+    }
+}
+
+// The ring's mbarriers after its stages: slot s full, slot s empty.
+__device__ __forceinline__ uint32_t full_bar(uint32_t ring, int s)
+{
+    return ring + RING_BYTES + 8 * s;
+}
+__device__ __forceinline__ uint32_t empty_bar(uint32_t ring, int s)
+{
+    return ring + RING_BYTES + 8 * (STAGES + s);
 }
 
 template <bool KIN_A, bool KIN_B>
 __global__ void __launch_bounds__(THREADS, 1)
-tri_mma(const __grid_constant__ Table tb, int nx, int ny, int nz, int ox,
-        int oy, int oz, int masked, bool vec_a, bool vec_b,
-        double* __restrict__ part)
+tri_mma(const __grid_constant__ Table tb,
+        const __grid_constant__ CUtensorMap map_a,
+        const __grid_constant__ CUtensorMap map_b, int nx, int ny, int nz,
+        int ox, int oy, int oz, int masked, double* __restrict__ part)
 {
-    extern __shared__ __align__(16) double smem[];
-    double* const sa = smem;                              // STAGES A stages
-    double* const sb = smem + STAGES * Lay<KIN_A>::size;  // STAGES B stages
-
-    // grouped raster: GROUP x tiles share their B panels in L2
-    const int tiles_x = (nx + BM - 1) / BM, tiles_z = (nz + BM - 1) / BM;
-    const int per_group = GROUP * tiles_z;
-    const int pid = blockIdx.x;
-    const int first = (pid / per_group) * GROUP;
-    const int gsize = min(tiles_x - first, GROUP);
-    const int tx = first + (pid % per_group) % gsize;
-    const int tz = (pid % per_group) / gsize;
-    const int x0 = tx * BM, z0 = tz * BM;
-
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int wm = warp / (BM / WN) * WM, wn = warp % (BM / WN) * WN;
-    const int lr = lane >> 2, lc = lane & 3;
-
-    const double* const baseA = tb.ptr[0];
-    const long long sAr = tb.sr[0], sAk = tb.sc[0];
-    const double* const baseB = tb.ptr[tb.na];
-    const long long sBr = tb.sr[tb.na], sBk = tb.sc[tb.na];
-    const bool extraA = tb.na > 1, extraB = tb.nb > 1;
-
-    double acc[WM / 8][WN / 8][2];
-#pragma unroll
-    for (int i = 0; i < WM / 8; ++i)
-#pragma unroll
-        for (int j = 0; j < WN / 8; ++j) acc[i][j][0] = acc[i][j][1] = 0.0;
-
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const uint32_t raw = smem_addr(smem_raw);
+    const uint32_t ring = (raw + 1023) & ~1023u;
+    double* const red = reinterpret_cast<double*>(
+        smem_raw + (ring - raw) + RING_BYTES + 16 * STAGES);
+    const int tiles_x = (nx + TILE_X - 1) / TILE_X;
+    const int tiles_z = (nz + TILE_Z - 1) / TILE_Z;
+    const int n_tiles = tiles_x * tiles_z;    // below 2^31 (the host checks)
     const int nk = (ny + BK - 1) / BK;
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-        if (s < nk) {
-            load_stage<KIN_A>(sa + s * Lay<KIN_A>::size, baseA, sAr, sAk, x0,
-                              nx, s * BK, ny, vec_a);
-            load_stage<KIN_B>(sb + s * Lay<KIN_B>::size, baseB, sBr, sBk, z0,
-                              nz, s * BK, ny, vec_b);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            bar_init(full_bar(ring, s), 1);
+            bar_init(empty_bar(ring, s), CONSUMER_WARPS);
         }
-        cp_commit();
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
-    for (int kc = 0; kc < nk; ++kc) {
-        cp_wait<STAGES - 2>();
-        const int st = kc % STAGES, k0 = kc * BK;
-        double* const as = sa + st * Lay<KIN_A>::size;
-        double* const bs = sb + st * Lay<KIN_B>::size;
-        const bool diagA = masked && overlap((long long)x0 + ox, BM,
-                                             (long long)k0 + oy, BK);
-        const bool diagB = masked && overlap((long long)z0 + oz, BM,
-                                             (long long)k0 + oy, BK);
-        if (extraA || diagA)
-            fix_stage<KIN_A>(as, tb, 1, tb.na, x0, nx, k0, ny,
-                             (long long)ox - oy, diagA, vec_a);
-        if (extraB || diagB)
-            fix_stage<KIN_B>(bs, tb, tb.na + 1, tb.na + tb.nb, z0, nz, k0,
-                             ny, (long long)oz - oy, diagB, vec_b);
-        __syncthreads();
-        const int nxt = kc + STAGES - 1;
-        if (nxt < nk) {
-            const int sn = nxt % STAGES;
-            load_stage<KIN_A>(sa + sn * Lay<KIN_A>::size, baseA, sAr, sAk,
-                              x0, nx, nxt * BK, ny, vec_a);
-            load_stage<KIN_B>(sb + sn * Lay<KIN_B>::size, baseB, sBr, sBk,
-                              z0, nz, nxt * BK, ny, vec_b);
+    __syncthreads();
+
+    if (warp >= CONSUMER_WARPS) {
+        // the producer: one thread issues every TMA load, the ring's stage
+        // j into slot j % STAGES once its consumers released stage
+        // j - STAGES
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;"
+                     :: "n"(PRODUCER_REGS));
+        if (threadIdx.x != CONSUMERS) return;
+        int j = 0;
+        for (int idx = blockIdx.x; idx < n_tiles; idx += gridDim.x) {
+            const tri_order::Tile tl =
+                tri_order::tile_at(idx, tiles_x, tiles_z);
+            const int x0 = tl.tx * TILE_X, z0 = tl.tz * TILE_Z;
+            for (int kc = 0; kc < nk; ++kc, ++j) {
+                const int s = j % STAGES;
+                const uint32_t sa = ring + s * STAGE * 8, full = full_bar(ring, s);
+                bar_wait(empty_bar(ring, s), ((j / STAGES) & 1) ^ 1);
+                bar_expect(full, STAGE * 8);
+                tma_stage<KIN_A, TILE_X>(sa, &map_a, full, x0, kc * BK);
+                tma_stage<KIN_B, TILE_Z>(sa + OP_A * 8, &map_b, full, z0,
+                                         kc * BK);
+            }
         }
-        cp_commit();
+        return;
+    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(CONSUMER_REGS));
+
+    // consumers: warp cw holds the 64 x 32 (x, z) block at (wm, wn)
+    const int cw = warp, g = lane >> 2, t = lane & 3;
+    const int wm = cw / (TILE_Z / WN) * WM, wn = cw % (TILE_Z / WN) * WN;
+    const uint32_t lane_a =
+        tri_order::frag_base(KIN_A, wm + tri_order::rho(KIN_A, g), t);
+    const uint32_t lane_b =
+        tri_order::frag_base(KIN_B, wn + tri_order::rho(KIN_B, g), t);
+    int it = 0, round = 0;
+    for (int idx = blockIdx.x; idx < n_tiles; idx += gridDim.x) {
+        const tri_order::Tile tl = tri_order::tile_at(idx, tiles_x, tiles_z);
+        const int x0 = tl.tx * TILE_X, z0 = tl.tz * TILE_Z;
+        double acc[WM / 16][WN / 8][4];
 #pragma unroll
-        for (int kk = 0; kk < BK; kk += 4) {
-            double a[WM / 8], b[WN / 8];
-#pragma unroll
-            for (int i = 0; i < WM / 8; ++i)
-                a[i] = as[Lay<KIN_A>::at(wm + i * 8 + lr, kk + lc)];
+        for (int i = 0; i < WM / 16; ++i)
 #pragma unroll
             for (int j = 0; j < WN / 8; ++j)
-                b[j] = bs[Lay<KIN_B>::at(wn + j * 8 + lr, kk + lc)];
 #pragma unroll
-            for (int i = 0; i < WM / 8; i += 2)
-#pragma unroll
-                for (int j = 0; j < WN / 8; ++j)
-                    dmma(acc[i][j], acc[i + 1][j], a[i], a[i + 1], b[j]);
-        }
-    }
+                for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0;
 
-    // epilogue: × C′(x, z), reduced; acc[i][j][e] is the cell
-    // (x0 + wm + 8i + lr, z0 + wn + 8j + 2 lc + e)
-    const int cf = tb.na + tb.nb;
-    double v = 0.0;
+        for (int kc = 0; kc < nk; ++kc, ++it) {
+            const int s = it % STAGES, k0 = kc * BK;
+            const uint32_t as = ring + s * STAGE * 8, bs = as + OP_A * 8;
+            // a cell of the warp's row r and the stage's k lies on the
+            // diagonal where r - k is da (A′) or db (B′)
+            const long long da = (long long)k0 + oy - ox - x0 - wm;
+            const long long db = (long long)k0 + oy - oz - z0 - wn;
+            const bool diag_a = masked && da > -BK && da < WM;
+            const bool diag_b = masked && db > -BK && db < WN;
+            bar_wait(full_bar(ring, s), (it / STAGES) & 1);
+            if (diag_a || diag_b)
+                stage<KIN_A, KIN_B, true>(acc, as, bs, lane_a, lane_b, g, t,
+                                          diag_a, (int)da, diag_b, (int)db);
+            else
+                stage<KIN_A, KIN_B, false>(acc, as, bs, lane_a, lane_b, g, t,
+                                           false, 0, false, 0);
+            __syncwarp();
+            if (lane == 0) bar_arrive(empty_bar(ring, s));
+        }
+
+        // epilogue: × C′(x, z), reduced in a fixed order
+        double v = 0.0;
 #pragma unroll
-    for (int i = 0; i < WM / 8; ++i) {
-        const int x = x0 + wm + i * 8 + lr;
-        if (x >= nx) continue;
+        for (int i = 0; i < WM / 16; ++i)
 #pragma unroll
-        for (int j = 0; j < WN / 8; ++j)
+            for (int c = 0; c < 4; ++c) {
+                const int x = x0 + wm + tri_order::acc_x(KIN_A, i, c, g);
+                if (x >= nx) continue;
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                const int z = z0 + wn + j * 8 + 2 * lc + e;
-                const bool diag =
-                    masked && (long long)x + ox == (long long)z + oz;
-                if (z < nz && !diag)
-                    v += acc[i][j][e] * eval(tb, cf, tb.nf, x, z);
+                for (int j = 0; j < WN / 8; ++j) {
+                    const int z = z0 + wn + tri_order::acc_z(KIN_B, j, c, t);
+                    const bool diag =
+                        masked && (long long)x + ox == (long long)z + oz;
+                    if (z < nz && !diag)
+                        v += acc[i][j][c] * eval(tb, 2, tb.nf, x, z);
+                }
             }
-    }
-    cp_wait<0>();
-    __syncthreads();                  // the pipeline's smem is free now
-    double* const red = smem;
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1)
-        v += __shfl_down_sync(0xffffffffu, v, d);
-    if (lane == 0) red[warp] = v;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        double total = 0.0;
+        for (int d = 16; d > 0; d >>= 1)
+            v += __shfl_down_sync(0xffffffffu, v, d);
+        double* const slot = red + (round & 1) * CONSUMER_WARPS;
+        if (lane == 0) slot[cw] = v;
+        asm volatile("bar.sync 1, %0;" :: "n"(CONSUMERS) : "memory");
+        if (cw == 0 && lane == 0) {
+            double total = 0.0;
 #pragma unroll
-        for (int w = 0; w < THREADS / 32; ++w) total += red[w];
-        part[blockIdx.x] = total;
+            for (int w = 0; w < CONSUMER_WARPS; ++w) total += slot[w];
+            part[idx] = total;
+        }
+        ++round;
     }
 }
 
-// Whether the lead factor f can be copied in 16-byte pairs along its unit
-// stride: the base 16-byte aligned and the other stride even.
-static bool pairs(const Table& tb, int f, bool kin)
+// Whether TMA reads factor f in place as the operand's (rows, k): unit
+// stride along one axis, the other stride a multiple of 16 bytes, at
+// least that axis's extent (lines that do not overlap) and in TMA's
+// range, the base 16-byte aligned.  The wrapper hands the kernel only
+// such factors (kernels/matreduce.py _tri_tma_operand).
+static bool tma_reads(const Table& tb, int f, bool kin, int rows, int nk)
 {
     const long long unit = kin ? tb.sc[f] : tb.sr[f];
     const long long other = kin ? tb.sr[f] : tb.sc[f];
-    return unit == 1 && other % 2 == 0
-           && ((unsigned long long)tb.ptr[f] & 15) == 0;
+    return unit == 1 && other % 2 == 0 && other >= (kin ? nk : rows)
+           && other < (1LL << 37) && ((unsigned long long)tb.ptr[f] & 15) == 0;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (CUDA driver API), found through the runtime, so
+// that the library needs no -lcuda
+static EncodeTiled encode_tiled()
+{
+    static EncodeTiled fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+                   ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+    }();
+    return fn;
+}
+
+// The f64 map of lead factor f as the operand's (rows, k): boxes of 16 k
+// x box_rows rows k-inner, 16 rows x 16 k row-inner, 128-byte swizzle,
+// zeros past the edges.  Returns 0 or the CUresult, negated.
+static int make_map(CUtensorMap* map, const Table& tb, int f, bool kin,
+                    int rows, int nk, int box_rows)
+{
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
+    const long long other = kin ? tb.sr[f] : tb.sc[f];
+    const cuuint64_t dims[2] = {(cuuint64_t)(kin ? nk : rows),
+                                (cuuint64_t)(kin ? rows : nk)};
+    const cuuint64_t strides[1] = {(cuuint64_t)other * 8};
+    const cuuint32_t box[2] = {kin ? (cuuint32_t)BK : 16u,
+                               kin ? (cuuint32_t)box_rows : (cuuint32_t)BK};
+    const cuuint32_t unit[2] = {1, 1};
+    const CUresult res = encode(
+        map, CU_TENSOR_MAP_DATA_TYPE_FLOAT64, 2, (void*)tb.ptr[f], dims,
+        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return res == CUDA_SUCCESS ? 0 : -(int)res;
 }
 
 template <bool KIN_A, bool KIN_B>
 static int run(const Table& tb, int nx, int ny, int nz, int ox, int oy,
                int oz, int masked, double* part, cudaStream_t st)
 {
+    if (!tma_reads(tb, 0, KIN_A, nx, ny) || !tma_reads(tb, 1, KIN_B, nz, ny))
+        return (int)cudaErrorInvalidValue;
     auto kernel = tri_mma<KIN_A, KIN_B>;
-    const int bytes =
-        STAGES * (Lay<KIN_A>::size + Lay<KIN_B>::size) * (int)sizeof(double);
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return (int)err;
-    const long long blocks =
-        (long long)((nx + BM - 1) / BM) * ((nz + BM - 1) / BM);
-    kernel<<<(unsigned)blocks, THREADS, bytes, st>>>(
-        tb, nx, ny, nz, ox, oy, oz, masked, pairs(tb, 0, KIN_A),
-        pairs(tb, tb.na, KIN_B), part);
+    int dev = 0, sms = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    CUtensorMap map_a{}, map_b{};
+    if (const int e = make_map(&map_a, tb, 0, KIN_A, nx, ny, TILE_X)) return e;
+    if (const int e = make_map(&map_b, tb, 1, KIN_B, nz, ny, TILE_Z)) return e;
+    kernel<<<tri_order::grid(tri_order::tiles(nx, nz, TILE_Z), sms), THREADS,
+             SMEM, st>>>(tb, map_a, map_b, nx, ny, nz, ox, oy, oz, masked,
+                         part);
     return (int)cudaGetLastError();
 }
 
@@ -553,7 +668,8 @@ static int run(const Table& tb, int nx, int ny, int nz, int ox, int oy,
 extern "C" {
 
 int trijoin_path_tile() { return path::T; }
-int trijoin_triangle_tile() { return tri::BM; }
+int trijoin_triangle_tile() { return tri::TILE_X; }
+int trijoin_triangle_tile_z() { return tri::TILE_Z; }
 
 // The path route.  Factors [0, na) form A on (a, m), the rest B on (m, c);
 // strides are (row, column) per factor.  out = the (n_m,) brackets, whose
@@ -572,21 +688,22 @@ int trijoin_path(const void* const* ptrs, const long long* strides, int nf,
                (double*)scratch, (double*)out, (cudaStream_t)stream);
 }
 
-// The triangle route.  Factors [0, na) form A′ on (x, y), [na, na + nb)
-// B′ on (z, y), the rest C′ on (x, z); A′ and B′ lead with a factor that
-// spans both their axes.  partials: one double per CTA.
+// The triangle route.  Factor 0 is A′ on (x, y), factor 1 B′ on (z, y),
+// each one factor that TMA reads in place (na = nb = 1: the wrapper
+// multiplies an operand's other factors in); the rest C′ on (x, z).
+// partials: one double per (x, z) tile.
 int trijoin_triangle(const void* const* ptrs, const long long* strides,
                      int nf, int na, int nb, int nx, int ny, int nz, int ox,
                      int oy, int oz, int masked, void* partials,
                      void* stream)
 {
-    if (nf < 2 || nf > MAXF || na < 1 || nb < 1 || na + nb > nf || nx < 1
-        || ny < 1 || nz < 1)
+    if (nf < 2 || nf > MAXF || na != 1 || nb != 1 || nx < 1 || ny < 1
+        || nz < 1)
         return (int)cudaErrorInvalidValue;
     const Table tb = make_table(ptrs, strides, nf, na, nb);
-    // row-inner only where the lead factor runs along rows with unit stride
+    // row-inner where the factor runs along rows with unit stride
     const bool kin_a = !(tb.sr[0] == 1 && tb.sc[0] != 1);
-    const bool kin_b = !(tb.sr[na] == 1 && tb.sc[na] != 1);
+    const bool kin_b = !(tb.sr[1] == 1 && tb.sc[1] != 1);
     auto run = kin_a
         ? (kin_b ? &tri::run<true, true> : &tri::run<true, false>)
         : (kin_b ? &tri::run<false, true> : &tri::run<false, false>);

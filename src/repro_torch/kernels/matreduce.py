@@ -241,7 +241,8 @@ def _lib(name: str = "cutjoin"):
                                         I, P, P]
         for q in ("trijoin_path", "trijoin_triangle"):
             getattr(tj, q).restype = I
-        for q in ("trijoin_path_tile", "trijoin_triangle_tile"):
+        for q in ("trijoin_path_tile", "trijoin_triangle_tile",
+                  "trijoin_triangle_tile_z"):
             getattr(tj, q).argtypes = []
             getattr(tj, q).restype = I
         mm = libs["matreduce"]
@@ -786,20 +787,52 @@ def _launch_path(factors, axes, sizes, masked: bool, off3):
     return out
 
 
+def _tri_tma_operand(entries, rows: int, k: int):
+    """One operand of the triangle route as its kernel reads it: a single
+    f64 factor that TMA reads in place — unit stride along k or along the
+    rows, the other stride even (16 bytes) and at least that axis's
+    extent, a 16-byte aligned start.  The lead factor stays where it is
+    one and the operand has no other factor; else the operand (its lead
+    factor times its others — a vector on y, a second pair factor — in
+    f64, exact for the integers the join takes) is written into a (rows,
+    k) buffer of even row stride, as ``sddmm`` copies views TMA cannot
+    read.  ``entries``: (factor, row stride, k stride) as
+    ``_triangle_groups`` gives them; returns one such entry in a list."""
+    if len(entries) == 1:
+        F, sr, sk = entries[0]
+        for unit, other, extent in ((sk, sr, k), (sr, sk, rows)):
+            if unit == 1 and other % 2 == 0 and extent <= other < 1 << 37 \
+                    and F.data_ptr() % 16 == 0:
+                return entries
+    dev = entries[0][0].device
+    buf = torch.empty((rows, k + k % 2), dtype=torch.float64,
+                      device=dev)[:, :k]
+    buf.copy_(_dense_operand(entries, (rows, k), dev))
+    return [(buf, buf.stride(0), buf.stride(1))]
+
+
+def _triangle_partials(nx: int, nz: int, tile_x: int, tile_z: int) -> int:
+    """The triangle route's partials for an (nx, nz) join: one per
+    ``tile_x`` x ``tile_z`` tile of the (x, z) plane
+    (``csrc/tri_order.cuh`` ``tiles``)."""
+    return -(-nx // tile_x) * -(-nz // tile_z)
+
+
 def _launch_triangle(factors, axes, sizes, masked: bool, off3):
     """The triangle route on the card: ``csrc/trijoin.cu``
-    ``trijoin_triangle``.  Returns the f64 partials, one per thread
-    block."""
+    ``trijoin_triangle``.  Returns the f64 partials, one per (x, z)
+    tile."""
     lib = _lib("trijoin")
     factors, axes = _f64_entries(factors, axes)
     GA, GB, GC = _triangle_groups(factors, axes)
     nx, ny, nz = sizes
-    tile = lib.trijoin_triangle_tile()
-    tiles_x, tiles_z = -(-nx // tile), -(-nz // tile)
-    if tiles_x * tiles_z >= 1 << 31:
+    GA, GB = _tri_tma_operand(GA, nx, ny), _tri_tma_operand(GB, nz, ny)
+    partials = _triangle_partials(nx, nz, lib.trijoin_triangle_tile(),
+                                  lib.trijoin_triangle_tile_z())
+    if partials >= 1 << 31:
         raise ValueError(f"sizes {sizes} exceed the launch limits")
     dev = factors[0].device
-    out = torch.empty((tiles_x * tiles_z,), dtype=torch.float64, device=dev)
+    out = torch.empty((partials,), dtype=torch.float64, device=dev)
     ptrs, strides, nf = _table((GA, GB, GC))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
